@@ -1,0 +1,289 @@
+"""The crack pipeline: on-device block cutting -> piece kernel (expand +
+MD5) -> digest membership -> hit compaction.
+
+The host compiles tables, plans, the piece schema, the block index and the
+digest set once per sweep (numpy); :func:`device_arrays` ships them to the
+device as int32 tensors.  :func:`make_superstep_body` then runs ``steps``
+fused launches per call with nothing crossing back to the host: each step
+cuts its blocks from the cumulative index, runs the piece kernel
+(``ops.fused_expand.fused_expand_md5``), tests membership
+(``ops.membership.digest_member``) and compacts hits into a capped
+``(word, rank)`` buffer.  Only the stacked counters (and, on hit-bearing
+supersteps, the hit slice) are fetched; the candidate bytes of a hit are
+re-derived on the host by :func:`decode_variant`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict
+
+import numpy as np
+import torch
+
+from ..ops.expand_matches import MatchPlan, build_match_plan
+from ..ops.fused_expand import (
+    fused_expand_md5,
+    group_descriptors,
+    scalar_units_weight,
+)
+from ..ops.membership import DigestSet, digest_member
+from ..ops.packing import PackedWords
+from ..tables.compile import CompiledTable
+
+#: The reference's four generation modes (``main.go:80-92``); this package
+#: runs "default".
+MODES = ("default", "reverse", "suball", "suball-reverse")
+ALGOS = ("md5", "sha1", "md4", "ntlm")
+
+Tree = Dict[str, Any]
+
+
+@dataclass(frozen=True)
+class AttackSpec:
+    """Static attack configuration (mode, hash, substitution window)."""
+
+    mode: str = "default"
+    algo: str = "md5"
+    min_substitute: int = 0
+    max_substitute: int = 15
+
+    def __post_init__(self) -> None:
+        if self.mode not in MODES:
+            raise ValueError(f"unknown mode {self.mode!r}; one of {MODES}")
+        if self.algo not in ALGOS:
+            raise ValueError(f"unknown algo {self.algo!r}; one of {ALGOS}")
+
+    @property
+    def effective_min(self) -> int:
+        """Default mode silently bumps ``min 0 -> 1`` (Q1, main.go:169-171);
+        every other mode emits the original word at ``min == 0``."""
+        if self.mode == "default":
+            return max(1, self.min_substitute)
+        return self.min_substitute
+
+
+def build_plan(spec: AttackSpec, ct: CompiledTable,
+               packed: PackedWords) -> MatchPlan:
+    """Host plan for default mode, with the spec's EFFECTIVE window."""
+    if spec.mode != "default":
+        raise NotImplementedError(
+            f"mode {spec.mode!r} is not ported (default mode only)"
+        )
+    return build_match_plan(
+        ct, packed, first_option_only=False,
+        min_substitute=spec.effective_min,
+        max_substitute=spec.max_substitute,
+    )
+
+
+def piece_host_tables(pieces) -> Dict[str, np.ndarray]:
+    """A ``PieceSchema``'s data tables as HOST arrays under their
+    plan-dict names (``pp_*``), as the reference names them."""
+    if pieces is None:
+        return {}
+    out = {}
+    if pieces.gl is not None:
+        out["pp_pl"] = pieces.gl
+    if pieces.gw is not None:
+        out["pp_pw"] = pieces.gw
+    if pieces.gw16 is not None:
+        out["pp_pw16"] = pieces.gw16
+    return out
+
+
+def _i32(a: np.ndarray) -> np.ndarray:
+    """int32 host copy; uint32 words keep their bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        return a.view(np.int32)
+    return a.astype(np.int32)
+
+
+def piece_tables(pieces, *, device) -> Tree:
+    """A ``PieceSchema``'s data tables as the piece kernel reads them:
+    int32 tensors ``pw`` ``[B, NGW, VM, NW]`` (u32 bits kept), ``pw16``
+    ``[B, NG16, VM]`` and ``pl`` ``[B, NGD, VM]`` (widened from u16/u8),
+    each absent when the schema has none, plus the group descriptors
+    ``desc`` ``[NG, 16]``."""
+    host = {"desc": group_descriptors(pieces)}
+    for name, key in (("pw", "gw"), ("pw16", "gw16"), ("pl", "gl")):
+        if getattr(pieces, key) is not None:
+            host[name] = getattr(pieces, key)
+    return {k: torch.as_tensor(_i32(v), device=device)
+            for k, v in host.items()}
+
+
+def device_arrays(plan, pieces, digests: DigestSet, idx: tuple, *,
+                  device) -> Tree:
+    """Everything a sweep keeps on the device, shipped once: the piece
+    tables (:func:`piece_tables`); the block index (``cum`` ``[B+1]``,
+    ``totals`` ``[B]``, ``radix``/``place``/``weight`` ``[B, P]`` int32,
+    and the block count ``total``); and the digest set (``rows``
+    ``[D, 4]``, ``bitmap``, uint32 bits as int32).  ``idx`` is
+    ``ops.blocks.superstep_index(plan, stride)``.
+
+    Works from any objects with the reference's field names, so the JAX
+    package's host arrays and this package's give the same tensors."""
+    cum, totals, total_blocks = idx
+    radix = np.asarray(plan.pat_radix, dtype=np.int64)
+    # Mixed-radix place values (slot 0 least significant): every prefix
+    # product divides a word's variant total, which the int32 index keeps
+    # below 2^30.
+    place = np.cumprod(np.concatenate(
+        [np.ones((radix.shape[0], 1), np.int64), radix[:, :-1]], axis=1
+    ), axis=1)
+    host = {
+        "cum": cum, "totals": totals, "radix": radix, "place": place,
+        "weight": scalar_units_weight(plan),
+        "rows": digests.rows, "bitmap": digests.bitmap,
+    }
+    out: Tree = {
+        k: torch.as_tensor(_i32(v), device=device) for k, v in host.items()
+    }
+    out.update(piece_tables(pieces, device=device))
+    out["total"] = int(total_blocks)
+    return out
+
+
+def cut_blocks(arrays: Tree, b0: int, num_blocks: int, rank_stride: int):
+    """One launch's blocks from the device-resident index: global
+    fixed-stride blocks ``b0 .. b0 + num_blocks``, each ``rank_stride``
+    candidate ranks of one word.  Returns int32 ``[NB]`` ``(word, count,
+    pbase, rank0)``; blocks past the sweep's end keep count 0 (their lanes
+    are masked)."""
+    cum, totals = arrays["cum"], arrays["totals"]
+    dev = cum.device
+    b = b0 + torch.arange(num_blocks, dtype=torch.int64, device=dev)
+    w = torch.searchsorted(cum, b.to(torch.int32), right=True).long() - 1
+    w = torch.clamp(w, 0, max(int(totals.shape[0]) - 1, 0))
+    valid = b < arrays["total"]
+    rank0 = torch.where(valid, (b - cum[w]) * rank_stride, 0)
+    count = torch.where(
+        valid, torch.clamp(totals[w] - rank0, 0, rank_stride), 0
+    )
+    # Mixed-radix decompose of each block's first rank, packed to the
+    # scalar tier's chosen vector: pbase = sum(digit * weight).
+    digits = (rank0[:, None] // arrays["place"][w]) % arrays["radix"][w]
+    pbase = (digits * arrays["weight"][w]).sum(dim=1)
+    return (w.to(torch.int32), count.to(torch.int32),
+            pbase.to(torch.int32), rank0.to(torch.int32))
+
+
+def superstep_buffers(hit_cap: int, *, device) -> Tree:
+    """One hit-buffer set (slot ``hit_cap`` is the trash slot).  The
+    sweep cycles two; contents never need resetting — the host reads only
+    the entries the superstep wrote."""
+    return {
+        "hit_word": torch.full((hit_cap + 1,), -1, dtype=torch.int32,
+                               device=device),
+        "hit_rank": torch.zeros((hit_cap + 1,), dtype=torch.int32,
+                                device=device),
+    }
+
+
+def make_superstep_body(
+    spec: AttackSpec, *, num_lanes: int, out_width: int, block_stride: int,
+    num_blocks: int, pieces, pair_k: "int | None" = None,
+) -> Callable[..., Tree]:
+    """The superstep executor: ``body(arrays, b0, steps, bufs) -> dict``
+    runs ``steps`` fused launches starting at global block ``b0``, with no
+    host sync inside.  Each step cuts ``num_blocks`` blocks, runs the
+    piece kernel (K=1, or the pair tier with ``pair_k`` = 2: blocks then
+    span ``2 * block_stride`` candidate ranks on ``block_stride`` lanes),
+    tests membership, and compacts hits in cursor order into ``bufs``
+    (``hit_word``/``hit_rank`` int32 ``[hit_cap + 1]``).  Returns the
+    buffers and ``counters`` int32 ``[2]`` = ``[n_emitted, n_hits]``
+    (callers keep ``steps * num_lanes * pair_k`` below 2^31).  Hits past
+    the cap are dropped into the trash slot; the host sees the overflow
+    in ``n_hits`` and re-runs the superstep with a larger buffer."""
+    rank_stride = block_stride * (pair_k or 1)
+    num_cands = num_lanes * (pair_k or 1)
+    common = dict(
+        pieces=pieces, block_stride=block_stride, out_width=out_width,
+        min_substitute=spec.effective_min,
+        max_substitute=spec.max_substitute, pair=pair_k is not None,
+    )
+
+    def body(arrays: Tree, b0: int, steps: int, bufs: Tree) -> Tree:
+        hw, hr = bufs["hit_word"], bufs["hit_rank"]
+        hit_cap = int(hw.shape[0]) - 1
+        dev = hw.device
+        lane = torch.arange(num_cands, dtype=torch.int32, device=dev)
+        blk = (lane // rank_stride).long()
+        lane_in = lane - blk.to(torch.int32) * rank_stride
+        kk = torch.arange(hit_cap, dtype=torch.int32, device=dev)
+        ne = torch.zeros((), dtype=torch.int32, device=dev)
+        nh = torch.zeros((), dtype=torch.int32, device=dev)
+        for s in range(steps):
+            word, count, pbase, rank0 = cut_blocks(
+                arrays, b0 + s * num_blocks, num_blocks, rank_stride
+            )
+            state, emit = fused_expand_md5(word, count, pbase, arrays,
+                                           **common)
+            hit = digest_member(state, arrays["rows"], arrays["bitmap"])
+            hit &= emit
+            ne += emit.sum(dtype=torch.int32)
+            csum = torch.cumsum(hit, dim=0, dtype=torch.int32)
+            nh_step = csum[-1]
+            # Compacting scatter without a host sync: the k-th hit of this
+            # step is the first lane whose running count reaches k + 1;
+            # slots past the cap (and k past this step's hits) land in the
+            # trash slot.
+            at = torch.clamp(torch.searchsorted(csum, kk + 1), max=num_cands - 1)
+            slot = nh + kk
+            dest = torch.where((kk < nh_step) & (slot < hit_cap), slot,
+                               hit_cap).long()
+            hw.scatter_(0, dest, word[blk[at]])
+            hr.scatter_(0, dest, rank0[blk[at]] + lane_in[at])
+            nh += nh_step
+        return {"counters": torch.stack([ne, nh]), "hit_word": hw,
+                "hit_rank": hr}
+
+    return body
+
+
+# ---------------------------------------------------------------------------
+# Host-side variant decode (hit reporting)
+# ---------------------------------------------------------------------------
+
+
+def decode_variant(
+    plan: MatchPlan, ct: CompiledTable, spec: AttackSpec, word_idx: int,
+    rank: int,
+) -> bytes:
+    """Reconstruct the candidate bytes of one variant on the host, exactly
+    as the device splices it.  Raises ``ValueError`` for ranks the device
+    would not emit (overlap clashes or count-window misses)."""
+    if getattr(plan, "windowed", False):
+        raise NotImplementedError("windowed plans are not ported")
+    digits = []
+    r = rank
+    for radix in (int(x) for x in plan.pat_radix[word_idx]):
+        digits.append(r % radix)
+        r //= radix
+    if r:
+        raise ValueError(f"rank {rank} out of range for word {word_idx}")
+    word = bytes(plan.tokens[word_idx, : plan.lengths[word_idx]])
+
+    def val(vrow: int) -> bytes:
+        return bytes(ct.val_bytes[vrow, : ct.val_len[vrow]])
+
+    chosen = [
+        (int(plan.match_pos[word_idx, s]), int(plan.match_len[word_idx, s]),
+         int(plan.match_val_start[word_idx, s]) + d - 1)
+        for s, d in enumerate(digits)
+        if d > 0
+    ]
+    if not (spec.effective_min <= len(chosen) <= spec.max_substitute):
+        raise ValueError("variant outside the count window")
+    out = []
+    cursor = 0
+    for pos, klen, vrow in sorted(chosen):
+        if pos < cursor:
+            raise ValueError("variant has overlapping matches")
+        out.append(word[cursor:pos])
+        out.append(val(vrow))
+        cursor = pos + klen
+    out.append(word[cursor:])
+    return b"".join(out)

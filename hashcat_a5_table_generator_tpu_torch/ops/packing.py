@@ -1,0 +1,843 @@
+"""Wordlist packing: variable-length byte strings -> padded device tensors.
+
+The reference streams the dictionary line by line through ``bufio.Scanner``
+(``main.go:72-94``) and hands each word to a goroutine. The device path
+instead packs words into fixed-shape batches ``uint8[B, width]`` +
+``int32[B]`` lengths up front; length bucketing (16/32/64...) keeps padding
+waste low across rockyou-class dictionaries.
+
+Everything here is host-side numpy, shared with the reference package's
+``ops/packing.py`` (same outputs, array for array).  The file-to-batches
+path (:func:`read_packed_buckets`) is vectorized numpy end to end: one
+line scan, one bucket assignment, one gather per bucket.
+
+The second half is the per-slot piece schema (:class:`PieceSchema`) that
+drives the piece kernel (``ops/fused_expand.py``).
+
+Faithfulness notes (Q8): the reference's scanner silently ends input on a line
+longer than 64 KiB and never checks ``scanner.Err()``. We do NOT copy that
+hole: oversized lines raise unless ``max_word_bytes`` is explicitly lifted,
+and I/O errors propagate.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+#: Go bufio.Scanner default token limit (reference main.go Q8).
+DEFAULT_MAX_WORD_BYTES = 64 * 1024
+
+#: Default length-bucket boundaries (words longer than the last bucket get a
+#: bucket of exactly their padded power-of-two width).
+DEFAULT_BUCKETS = (16, 32, 64)
+
+
+@dataclass(frozen=True)
+class PackedWords:
+    """A batch of words as device-ready padded arrays.
+
+    ``tokens[i, :lengths[i]]`` are the word's bytes; the rest is zero padding.
+    ``index[i]`` is the word's ordinal in the source wordlist — packing may
+    bucket/reorder, and every downstream hit is reported against this index so
+    results are always expressed in dictionary order.
+    """
+
+    tokens: np.ndarray  # uint8 [B, width]
+    lengths: np.ndarray  # int32 [B]
+    index: np.ndarray  # int64 [B] — position in the original wordlist
+
+    @property
+    def batch(self) -> int:
+        return int(self.tokens.shape[0])
+
+    @property
+    def width(self) -> int:
+        return int(self.tokens.shape[1])
+
+    def word(self, i: int) -> bytes:
+        return bytes(self.tokens[i, : self.lengths[i]])
+
+    def words(self) -> List[bytes]:
+        return [self.word(i) for i in range(self.batch)]
+
+
+def aligned_width(longest: int) -> int:
+    """The packing width for a longest-word length: smallest multiple of 4
+    covering it (uint32 lane alignment for the hash kernels), minimum 4.
+    Single source of truth for every packer."""
+    return max(4, -(-longest // 4) * 4)
+
+
+def pack_words(
+    words: Sequence[bytes],
+    *,
+    width: int | None = None,
+    start_index: int = 0,
+) -> PackedWords:
+    """Pack ``words`` into one padded batch of a single width.
+
+    ``width`` defaults to :func:`aligned_width` of the longest word.
+    """
+    if width is None:
+        width = aligned_width(max((len(w) for w in words), default=0))
+    tokens = np.zeros((len(words), width), dtype=np.uint8)
+    lengths = np.zeros((len(words),), dtype=np.int32)
+    for i, w in enumerate(words):
+        if len(w) > width:
+            raise ValueError(f"word {i} is {len(w)} bytes > width {width}")
+        tokens[i, : len(w)] = np.frombuffer(w, dtype=np.uint8)
+        lengths[i] = len(w)
+    index = np.arange(start_index, start_index + len(words), dtype=np.int64)
+    return PackedWords(tokens=tokens, lengths=lengths, index=index)
+
+
+def validate_buckets(buckets: Sequence[int]) -> Tuple[int, ...]:
+    """Require strictly-ascending positive bucket boundaries.
+
+    Shared by the list (`bucket_words`, first-match in caller order) and
+    file (`bucket_widths`, searchsorted) assignment paths so an unsorted
+    tuple cannot make them assign different widths.
+    An empty tuple is allowed: every word gets its own power-of-two width.
+    """
+    if list(buckets) != sorted(set(buckets)) or any(b < 1 for b in buckets):
+        raise ValueError(
+            f"buckets must be strictly ascending positive widths, got "
+            f"{tuple(buckets)}"
+        )
+    return tuple(buckets)
+
+
+def bucket_words(
+    words: Sequence[bytes],
+    *,
+    buckets: Sequence[int] = DEFAULT_BUCKETS,
+    max_word_bytes: int = DEFAULT_MAX_WORD_BYTES,
+    start_index: int = 0,
+) -> Dict[int, PackedWords]:
+    """Split ``words`` into length buckets, each packed at its bucket width.
+
+    Returns ``{width: PackedWords}``; original wordlist positions are carried
+    in each batch's ``index``. Words longer than the last bucket boundary get
+    a power-of-two width of their own; words over ``max_word_bytes`` raise
+    (the anti-Q8 guarantee).
+    """
+    validate_buckets(buckets)
+    by_width: Dict[int, List[int]] = {}
+    for i, w in enumerate(words):
+        if len(w) > max_word_bytes:
+            raise ValueError(
+                f"word {start_index + i} is {len(w)} bytes > limit "
+                f"{max_word_bytes} (Go would silently truncate here — Q8)"
+            )
+        width = next((b for b in buckets if len(w) <= b), None)
+        if width is None:
+            width = 4
+            while width < len(w):
+                width *= 2
+        by_width.setdefault(width, []).append(i)
+
+    out: Dict[int, PackedWords] = {}
+    for width, idxs in sorted(by_width.items()):
+        packed = pack_words([words[i] for i in idxs], width=width)
+        out[width] = PackedWords(
+            tokens=packed.tokens,
+            lengths=packed.lengths,
+            index=np.asarray([start_index + i for i in idxs], dtype=np.int64),
+        )
+    return out
+
+
+def read_wordlist_lines(
+    data: bytes,
+    *,
+    max_word_bytes: int = DEFAULT_MAX_WORD_BYTES,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Line structure of a wordlist buffer: (buffer, offsets, lengths),
+    ``bufio.ScanLines`` semantics: splits on ``\\n``, drops one trailing
+    ``\\r`` per line, and a final line without a newline still counts.
+    Unlike the reference, an oversized line is an error, not a silent end
+    of input (Q8)."""
+    buf = np.frombuffer(data, dtype=np.uint8)
+    if len(data) == 0:
+        empty64 = np.zeros(0, dtype=np.int64)
+        return buf, empty64, np.zeros(0, dtype=np.int32)
+    nl = np.nonzero(buf == 0x0A)[0]
+    starts = np.concatenate([[0], nl + 1])
+    ends = np.concatenate([nl, [len(data)]])
+    if starts[-1] >= len(data) and data.endswith(b"\n"):
+        starts, ends = starts[:-1], ends[:-1]
+    lengths = ends - starts
+    # Drop one trailing '\r' per line.
+    has_cr = lengths > 0
+    cr_pos = np.where(has_cr, starts + lengths - 1, 0)
+    lengths = lengths - (has_cr & (buf[cr_pos] == 0x0D))
+    if len(lengths) and int(lengths.max()) > max_word_bytes:
+        bad = int(np.argmax(lengths > max_word_bytes))
+        raise ValueError(f"line {bad} exceeds {max_word_bytes} bytes (Q8)")
+    return buf, starts.astype(np.int64), lengths.astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Per-slot piece emission: precomputed piece tables
+# ---------------------------------------------------------------------------
+#
+# The fused kernels' "unit scheme" resolved output bytes per ORIGINAL byte
+# position — O(L) per-lane selects even though only the <= S substitution
+# slots vary per lane.  The per-slot scheme
+# re-expresses a candidate as a short sequence of PIECES in output order:
+# one piece per substitution site (its literal gap from the previous site
+# folded in as a block-uniform prefix) plus one literal tail piece (with
+# the 0x80 terminator folded into its precomputed bytes).  Everything
+# block-uniform — gap bytes, skip bytes, value bytes, their lengths — is
+# packed here, on the host, into per-word VARIANT tables: a piece's
+# possible byte strings, one row per choice of its slot's digit.  Adjacent
+# pieces whose combined worst-case length fits one u32 are merged into one
+# GROUP whose variant table enumerates the combined choices, so the kernel
+# selects a whole 4-byte group word with ONE N-way select and places it
+# with ONE (lo, hi) word-pair scatter; lane-local work per group is the
+# variant index, two selects (word + length), and a prefix-sum add.
+
+
+@dataclass(frozen=True)
+class PieceGroup:
+    """Static shape of one emission group (see :class:`PieceSchema`).
+
+    ``sel_cols``: the selector column ids (into the schema's column axis)
+    whose digits index this group's variant table — low bit / least
+    significant factor first; empty for the literal tail group.
+    ``n_variants``/``n_words``: live extent inside the padded ``gw``/``gl``
+    tables.  ``off_cap``: static upper bound on the group's output byte
+    offset (sum of prior groups' data-max placed lengths over launched
+    words × reachable variants).  ``off_floor``: the matching static
+    LOWER bound.  Together they are the group's reachable byte window —
+    the hierarchical-placement lever: the kernels place a
+    group's words only inside ``[off_floor//4, off_cap//4 (+spill)]``
+    instead of scanning from word 0, and a degenerate window
+    (``off_floor == off_cap``) collapses the whole dynamic scatter to a
+    static shift-OR.  ``len_fixed``: the group's placed length when it is
+    the same for every launched word and reachable variant (None =
+    varies) — a run of fixed groups keeps the running offset static.
+    ``has_term``: the 0x80 terminator byte is folded into this group's
+    variant bytes (always the last group), so its table lengths are
+    placed-length = candidate bytes + 1.
+    ``packed16``/``tab_idx``: where the group's variant words live —
+    row ``tab_idx`` of the u16 ``gw16`` table (single-word groups whose
+    every variant fits 2 bytes; halves their table footprint) or of the
+    u32 ``gw`` table (everything else).
+    ``gl_idx``: the group's row in the sliced ``gl`` length table —
+    meaningful only for dynamic-length groups (``len_fixed is None``);
+    fixed-length groups never read a length row, so the table ships only
+    the dynamic rows (the gw/gw16 split applied to lengths).
+    """
+
+    sel_cols: Tuple[int, ...]
+    n_variants: int
+    n_words: int
+    off_cap: int
+    has_term: bool = False
+    off_floor: int = 0
+    len_fixed: Optional[int] = None
+    packed16: bool = False
+    tab_idx: int = 0
+    gl_idx: int = 0
+
+
+@dataclass(frozen=True)
+class PieceSchema:
+    """Host-precomputed per-slot emission plan for one (plan, table) pair.
+
+    Data tables (numpy; gathered per block by the wrappers):
+      ``gw`` uint32 [B, NGW, VM, NW] — wide groups' variant words
+      (little-endian packed bytes; ``None`` when every group packs to
+      u16), ``gw16`` uint16 [B, NG16, VM] — narrow single-word groups
+      whose every variant fits 2 bytes (``None`` when no group
+      qualifies; the per-group ``packed16`` gate),
+      ``gl`` uint8 [B, NGD, VM] — placed byte lengths of the
+      DYNAMIC-length groups only, in emission order (fixed-length
+      groups fold their length into the static prefix offset and never
+      read a row; ``None`` when every group is fixed — all-fixed
+      schemas ship no length table at all).
+      ``sel_bit`` uint8 [B, C] — the chosen-bit position of each selector
+      column's slot in the packed chosen vector (suball plans; match
+      plans' column c IS slot/bit c, so ``None``).
+      ``sel_slot`` int32 [B, C] — the decode slot driving each column
+      (suball plans; ``None`` = identity).
+
+    ``groups`` is the static emission order; ``closed`` marks cascade-
+    closed suball plans (variant index = 1 + joint value index instead of
+    the raw digit).  ``max_out`` bounds every lane's placed bytes
+    (including the terminator) — the static placement budget.
+
+    Pair-lane tier: ``pair_ok`` marks schemas whose
+    geometry admits K=2 candidates per hash lane — consecutive
+    combination ranks ``2r`` / ``2r+1`` share one index decompose
+    (every launched word's innermost slot has EVEN radix, so the
+    partner's digit vector is the base's with slot 0's digit + 1) and
+    differ only in the variant of ONE static emission group
+    (``pair_g0``, the group whose selector columns start with column
+    0).  ``pair_dmin``/``pair_dmax`` statically bound the partner-
+    minus-base placed-length delta of that group over launched rows ×
+    reachable pairs — the kernels widen the suffix groups' placement
+    windows by exactly this range (a 0/0 bound collapses the partner
+    to a pure patch of the innermost group's words).
+    """
+
+    kind: str  # "match" | "suball"
+    groups: Tuple[PieceGroup, ...]
+    gw: Optional[np.ndarray]
+    gl: Optional[np.ndarray]
+    gw16: Optional[np.ndarray] = None
+    sel_bit: Optional[np.ndarray] = None
+    sel_slot: Optional[np.ndarray] = None
+    closed: bool = False
+    max_out: int = 0
+    n_cols: int = 0
+    pair_ok: bool = False
+    pair_g0: int = 0
+    pair_dmin: int = 0
+    pair_dmax: int = 0
+
+    @property
+    def num_groups(self) -> int:
+        return len(self.groups)
+
+
+#: Grouping caps: a merged group's worst-case bytes must fit one u32, its
+#: variant table at most ``_MAX_GROUP_VARIANTS`` rows (memory: tables are
+#: per word), and a standalone piece at most ``_MAX_PIECE_WORDS`` u32s
+#: (beyond that the per-byte scan is the better formulation anyway).
+_MAX_GROUP_BYTES = 4
+_MAX_GROUP_VARIANTS = 4
+_MAX_PIECE_WORDS = 4
+#: Widest single-column variant table (cascade closure's joint tables
+#: reach 12 rows + skip).
+_MAX_COL_VARIANTS = 13
+
+
+def _col_val_len(col_opts, col_vstart, val_len, vmax):
+    """Per-(word, column, option) value lengths ``[B, C, vmax]`` (0 past a
+    column's own option count)."""
+    b, c = col_opts.shape
+    out = np.zeros((b, c, max(vmax, 1)), np.int32)
+    nrows = val_len.shape[0]
+    for v in range(vmax):
+        row = np.clip(col_vstart + v, 0, max(nrows - 1, 0))
+        out[:, :, v] = np.where(col_opts > v, val_len[row], 0)
+    return out
+
+
+def build_piece_schema(
+    tokens: np.ndarray,  # uint8 [B, L]
+    lengths: np.ndarray,  # int32 [B]
+    col_pos: np.ndarray,  # int32 [B, C] — span start (output order)
+    col_len: np.ndarray,  # int32 [B, C] — span length, 0 = no span
+    col_opts: np.ndarray,  # int32 [B, C] — selectable options (0 = literal)
+    col_vstart: np.ndarray,  # int32 [B, C] — value row of option 1
+    val_bytes: np.ndarray,  # uint8 [V, W]
+    val_len: np.ndarray,  # int32 [V]
+    *,
+    kind: str,
+    sel_slot: "np.ndarray | None" = None,  # int32 [B, C]
+    sel_bit: "np.ndarray | None" = None,  # int32 [B, C]
+    closed: bool = False,
+    launched: "np.ndarray | None" = None,  # bool [B] — device-launched rows
+) -> "PieceSchema | None":
+    """Build the per-slot piece tables, or None when the plan's geometry
+    cannot take the scheme (static spans unsorted/overlapping, a piece
+    past the word cap, or a variant table past the row cap).
+
+    Columns are substitution sites in OUTPUT order; each column's piece is
+    the literal gap since the previous site (block-uniform bytes) plus the
+    site's span — original bytes when skipped (variant 0), the chosen
+    option's value bytes otherwise.  A final tail column carries the
+    trailing literals plus the 0x80 terminator (for NTLM's UTF-16LE
+    expansion the terminator pseudo-byte expands to exactly the padded
+    message's ``80 00`` pair, so no kernel terminator scan remains).
+
+    ``launched`` masks the rows the device will actually launch (suball
+    plans route hazard words to the oracle): the per-group placement
+    windows ``off_floor``/``off_cap`` — and the ``len_fixed`` static-run
+    detection — are computed over launched rows × reachable variants
+    only, so an oracle-routed word's degenerate columns cannot widen the
+    hierarchical-placement windows for everyone else.
+    """
+    b, length_axis = tokens.shape
+    c_axis = col_pos.shape[1]
+    if b == 0:
+        return None
+    launched_rows = (
+        np.ones(b, bool) if launched is None else np.asarray(launched, bool)
+    )
+    if not launched_rows.any():
+        return None  # every word oracle-routed; the schema would be unused
+    lengths = lengths.astype(np.int64)
+    has_span = col_len > 0
+    # Effective span starts: spanless columns sit at the running cursor so
+    # gap arithmetic stays monotone.
+    prev_end = np.zeros(b, np.int64)
+    gap_start = np.zeros((b, c_axis), np.int64)
+    gap_len = np.zeros((b, c_axis), np.int64)
+    for c in range(c_axis):
+        pos_c = np.where(has_span[:, c], col_pos[:, c].astype(np.int64),
+                         prev_end)
+        g = pos_c - prev_end
+        if (g < 0).any():
+            return None  # overlapping or unsorted static spans
+        gap_start[:, c] = prev_end
+        gap_len[:, c] = g
+        end_c = pos_c + np.where(has_span[:, c], col_len[:, c], 0)
+        if (end_c > lengths).any():
+            return None
+        prev_end = end_c
+    tail_start = prev_end
+    tail_len = lengths - tail_start
+    if (tail_len < 0).any():
+        return None
+
+    opts_max = [int(col_opts[:, c].max(initial=0)) for c in range(c_axis)]
+    if any(o + 1 > _MAX_COL_VARIANTS for o in opts_max):
+        return None
+    vl3 = _col_val_len(col_opts, col_vstart, val_len, max(opts_max or [0]))
+
+    # --- emission columns: the output-order byte stream ------------------
+    # Literal runs (gaps between sites, and the trailing tail + 0x80
+    # terminator) are SPLIT into <=4-byte chunks, each a variant-free
+    # column — a matchless 16-byte bucket word must not veto the whole
+    # plan by demanding one 17-byte piece.  Selector columns carry only
+    # their own span (skip) / value variants.
+    ecols: List[dict] = []
+
+    def add_lit(start, run_len, *, term):
+        total = run_len + (1 if term else 0)  # +1: terminator byte
+        for k in range(0, int(total.max(initial=0)), 4):
+            ecols.append({
+                "kind": "lit", "start": start, "src_len": run_len,
+                "off": k, "term": term,
+                "max": int(np.clip(total - k, 0, 4).max(initial=0)),
+            })
+
+    for c in range(c_axis):
+        add_lit(gap_start[:, c], gap_len[:, c], term=False)
+        widest = np.maximum(
+            np.where(has_span[:, c], col_len[:, c], 0),
+            vl3[:, c, : max(opts_max[c], 1)].max(axis=1)
+            if opts_max[c] else 0,
+        )
+        mx = int(widest.max(initial=0))
+        if mx == 0 and opts_max[c] == 0:
+            continue  # padding column in every word
+        ecols.append({"kind": "sel", "c": c, "max": mx})
+    add_lit(tail_start, tail_len, term=True)
+
+    # --- static grouping: greedy adjacent packing -----------------------
+    # A group merges consecutive emission columns while (a) worst-case
+    # bytes fit one u32, (b) the variant product stays small, (c) every
+    # merged selector column is binary (the kernel indexes merged groups
+    # by packed chosen bits).  A column too wide to merge stands alone
+    # with ceil(maxlen/4) words.
+    specs: List[List[dict]] = []
+    cur: "List[dict] | None" = None
+
+    def col_variants(e):
+        return opts_max[e["c"]] + 1 if e["kind"] == "sel" else 1
+
+    def cur_bytes(spec):
+        return sum(e["max"] for e in spec)
+
+    def cur_variants(spec):
+        v = 1
+        for e in spec:
+            v *= col_variants(e)
+        return v
+
+    for e in ecols:
+        v_c = col_variants(e)
+        sel_after = (
+            [] if cur is None
+            else [x for x in cur if col_variants(x) > 1]
+        ) + ([e] if v_c > 1 else [])
+        can_merge = (
+            cur is not None
+            and cur_bytes(cur) + e["max"] <= _MAX_GROUP_BYTES
+            and cur_variants(cur) * v_c <= _MAX_GROUP_VARIANTS
+            and (len(sel_after) <= 1
+                 or all(col_variants(x) == 2 for x in sel_after))
+        )
+        if can_merge:
+            cur.append(e)
+        else:
+            if cur is not None:
+                specs.append(cur)
+            cur = [e]
+    if cur is not None:
+        specs.append(cur)
+    if not specs:
+        return None
+
+    ng = len(specs)
+    vmax = max(cur_variants(s) for s in specs)
+    nwmax = max(-(-max(cur_bytes(s), 1) // 4) for s in specs)
+    if nwmax > _MAX_PIECE_WORDS or vmax > max(
+        _MAX_GROUP_VARIANTS, _MAX_COL_VARIANTS
+    ):
+        return None
+
+    gb = np.zeros((b, ng, vmax, nwmax * 4), np.uint8)
+    gl = np.zeros((b, ng, vmax), np.int64)
+    #: variant (gi, vi) is reachable for word b — the kernels can select
+    #: it on an EMITTED lane (a selector digit d needs col_opts >= d).
+    #: Bounds the placement windows; unreachable variants only ever feed
+    #: masked garbage lanes.
+    reach = np.zeros((b, ng, vmax), bool)
+    nrows = val_bytes.shape[0]
+    vw = val_bytes.shape[1]
+    rows_iota = np.arange(b)
+
+    def emit_bytes(gi, vi, at_len, data, dlen):
+        """OR bytes ([B, K] u8 + [B] length) into group (gi, vi) at the
+        running per-word offset ``at_len``; returns the new offset."""
+        for j in range(data.shape[1]):
+            live = j < dlen
+            pos = np.clip(at_len + j, 0, nwmax * 4 - 1)
+            old = gb[rows_iota, gi, vi, pos]
+            gb[rows_iota, gi, vi, pos] = np.where(live, data[:, j], old)
+        return at_len + dlen
+
+    def gather_tok(start, width):
+        if width == 0:
+            return np.zeros((b, 0), np.uint8)
+        idx = np.clip(
+            start[:, None] + np.arange(width)[None, :], 0, length_axis - 1
+        )
+        return np.take_along_axis(tokens, idx.astype(np.int64), axis=1)
+
+    def lit_chunk(e):
+        """One <=4-byte literal chunk: bytes [off, off+4) of the run
+        (plus the 0x80 terminator at the run's own end for the tail)."""
+        rel = e["src_len"] - e["off"]  # bytes of the run in/after chunk
+        width = e["max"]
+        data = gather_tok(e["start"] + e["off"], width)
+        for j in range(width):
+            dead = rel <= j
+            data[:, j] = np.where(dead, 0, data[:, j])
+            if e["term"]:
+                data[:, j] = np.where(rel == j, 0x80, data[:, j])
+        ln = np.clip(rel + (1 if e["term"] else 0), 0, 4)
+        return data, ln
+
+    for gi, spec in enumerate(specs):
+        sel = [e["c"] for e in spec if col_variants(e) > 1]
+        n_var = cur_variants(spec)
+        for vi in range(n_var):
+            # Decompose the variant index into per-selector digits,
+            # low column first (the kernel packs bits the same way).
+            digits = {}
+            rem = vi
+            rch = np.ones(b, bool)
+            for c in sel:
+                digits[c] = rem % (opts_max[c] + 1)
+                rem //= opts_max[c] + 1
+                if digits[c] > 0:
+                    rch &= col_opts[:, c] >= digits[c]
+            reach[:, gi, vi] = rch
+            at = np.zeros(b, np.int64)
+            for e in spec:
+                if e["kind"] == "lit":
+                    data, ln = lit_chunk(e)
+                    at = emit_bytes(gi, vi, at, data, ln)
+                    continue
+                c = e["c"]
+                d = digits.get(c, 0)
+                if d == 0:
+                    ln = np.where(has_span[:, c], col_len[:, c], 0
+                                  ).astype(np.int64)
+                    data = gather_tok(gap_start[:, c] + gap_len[:, c],
+                                      int(col_len[:, c].max(initial=0)))
+                else:
+                    row = np.clip(col_vstart[:, c] + d - 1, 0,
+                                  max(nrows - 1, 0))
+                    ln = np.where(
+                        col_opts[:, c] >= d, vl3[:, c, d - 1], 0
+                    ).astype(np.int64)
+                    data = val_bytes[row][:, :vw]
+                at = emit_bytes(gi, vi, at, data, ln)
+            gl[:, gi, vi] = at
+
+    gw = np.zeros((b, ng, vmax, nwmax), np.uint32)
+    for w in range(nwmax):
+        for k in range(4):
+            gw[:, :, :, w] |= gb[:, :, :, 4 * w + k].astype(
+                np.uint32
+            ) << np.uint32(8 * k)
+
+    # Per-group placed-length extrema over launched rows × reachable
+    # variants — the hierarchical-placement windows.
+    big = 1 << 30
+    live = reach[launched_rows]
+    glv = gl[launched_rows]
+    gwv = gw[launched_rows]
+    g_min = np.where(live, glv, big).min(axis=(0, 2))
+    g_max = np.where(live, glv, -1).max(axis=(0, 2))
+
+    groups = []
+    floor_off = cap_off = 0
+    n16 = nwide = n_dyn = 0
+    for gi, spec in enumerate(specs):
+        sel = tuple(e["c"] for e in spec if col_variants(e) > 1)
+        nbytes = cur_bytes(spec)
+        n_words = -(-max(nbytes, 1) // 4)
+        mn, mx = int(g_min[gi]), int(g_max[gi])
+        # 16-bit table gate: single-word groups whose every variant word
+        # fits 2 bytes move to the u16 ``gw16`` table (halved table
+        # loads).  Like the placement windows above, the gate maxes over
+        # launched rows × reachable variants only — a fallback word's or
+        # unreachable variant's wide entry must not keep everyone else
+        # in the u32 table (each row is read only by its own word, so
+        # the u16 cast truncating a masked-out entry is unobservable).
+        p16 = n_words == 1 and int(
+            np.where(live[:, gi], gwv[:, gi, :, 0], 0).max(initial=0)
+        ) < (1 << 16)
+        groups.append(
+            PieceGroup(
+                sel_cols=sel,
+                n_variants=cur_variants(spec),
+                n_words=n_words,
+                off_cap=cap_off,
+                has_term=any(e["kind"] == "lit" and e["term"]
+                             for e in spec),
+                off_floor=floor_off,
+                len_fixed=mn if mn == mx else None,
+                packed16=p16,
+                tab_idx=n16 if p16 else nwide,
+                gl_idx=n_dyn if mn != mx else 0,
+            )
+        )
+        if p16:
+            n16 += 1
+        else:
+            nwide += 1
+        if mn != mx:
+            n_dyn += 1
+        floor_off += mn
+        cap_off += mx
+
+    # --- pair-lane gate --------------------------------
+    # K=2 candidates per hash lane need consecutive ranks 2r / 2r+1 to
+    # share one index decompose and differ in ONE static group's
+    # variant: (a) every launched word's innermost slot (column 0) has
+    # EVEN radix (odd ``col_opts``) — or the word has no variants at
+    # all, so its lone partner lane is masked; (b) column 0 is the
+    # LOWEST selector factor of its group (construction order
+    # guarantees ascending ``sel_cols``, so this is "first"); (c) for
+    # suball schemas, slot 0 drives column 0 and ONLY column 0 on
+    # every launched row (a pattern occurring twice would patch two
+    # groups); closed schemas keep K=1 (the joint index couples
+    # columns).  ``pair_dmin/dmax`` bound the partner-minus-base
+    # placed-length delta of the pair group over launched rows ×
+    # reachable (even, odd) variant pairs.
+    pair_ok, pair_g0, pair_dmin, pair_dmax = _pair_gate(
+        groups, col_opts, launched_rows, gl, reach,
+        kind=kind, closed=closed, sel_slot=sel_slot, sel_bit=sel_bit,
+    )
+
+    wide_idx = [gi for gi, grp in enumerate(groups) if not grp.packed16]
+    p16_idx = [gi for gi, grp in enumerate(groups) if grp.packed16]
+    gw_wide = gw[:, wide_idx] if wide_idx else None
+    gw16 = (
+        # (index then slice — a list at axis 1 combined with the basic
+        # integer 0 at axis 3 would hoist the advanced axes to the front)
+        gw[:, p16_idx][..., 0].astype(np.uint16) if p16_idx else None
+    )
+    # Length-table slicing: fixed-length groups fold their
+    # length into the static prefix and never read a row, so the shipped
+    # ``gl`` keeps only the dynamic groups' rows (the gw/gw16 split
+    # applied to lengths); an all-fixed schema ships no table at all.
+    dyn_idx = [gi for gi, grp in enumerate(groups)
+               if grp.len_fixed is None]
+    gl_dyn = gl[:, dyn_idx].astype(np.uint8) if dyn_idx else None
+
+    return PieceSchema(
+        kind=kind,
+        groups=tuple(groups),
+        gw=gw_wide,
+        gl=gl_dyn,
+        gw16=gw16,
+        sel_bit=None if sel_bit is None else sel_bit.astype(np.uint8),
+        sel_slot=None if sel_slot is None else sel_slot.astype(np.int32),
+        closed=closed,
+        max_out=cap_off,
+        n_cols=c_axis,
+        pair_ok=pair_ok,
+        pair_g0=pair_g0,
+        pair_dmin=pair_dmin,
+        pair_dmax=pair_dmax,
+    )
+
+
+def _pair_gate(groups, col_opts, launched_rows, gl, reach, *,
+               kind, closed, sel_slot, sel_bit):
+    """The schema-level half of the pair-lane eligibility (see
+    :class:`PieceSchema`): returns ``(pair_ok, g0, dmin, dmax)``.
+    Wrapper-level facts (hash-block count, windowed decode) are checked
+    by ``fused_expand.pair_for_config``."""
+    if closed:
+        return False, 0, 0, 0
+    g0 = next(
+        (gi for gi, grp in enumerate(groups) if 0 in grp.sel_cols), None
+    )
+    if g0 is None:
+        return False, 0, 0, 0
+    if groups[g0].sel_cols[0] != 0:
+        return False, 0, 0, 0
+    rows = launched_rows
+    opts0 = np.asarray(col_opts)[:, 0]
+    inert = (np.asarray(col_opts) == 0).all(axis=1)
+    row_ok = (opts0 % 2 == 1) | inert
+    if kind == "suball":
+        # Column 0 must be driven by slot 0 (bit 0 of the packed
+        # chosen vector) and slot 0 by NO other column.
+        c_axis = col_opts.shape[1]
+        slot0_cols = (np.asarray(sel_slot) == 0) & (
+            np.asarray(col_opts) > 0
+        )
+        drives_only_c0 = slot0_cols[:, 1:].sum(axis=1) == 0 \
+            if c_axis > 1 else np.ones(len(opts0), bool)
+        col0_is_slot0 = (
+            (np.asarray(sel_slot)[:, 0] == 0)
+            & (np.asarray(sel_bit)[:, 0] == 0)
+        ) | (opts0 == 0)
+        row_ok = row_ok & col0_is_slot0 & drives_only_c0
+    if not row_ok[rows].all():
+        return False, 0, 0, 0
+    # Partner-minus-base length delta of the pair group over launched
+    # rows × reachable (even, odd) variant pairs.  Column 0 is the
+    # lowest factor, so pairs are consecutive variant indices (2i,
+    # 2i+1).
+    grp = groups[g0]
+    if grp.len_fixed is not None:
+        return True, g0, 0, 0
+    n_var = grp.n_variants
+    glv = gl[rows][:, g0, :]
+    rch = reach[rows][:, g0, :]
+    dmin, dmax = 0, 0
+    found = False
+    for v in range(0, n_var - 1, 2):
+        both = rch[:, v] & rch[:, v + 1]
+        if not both.any():
+            continue
+        d = (glv[:, v + 1] - glv[:, v])[both]
+        dmin = int(d.min()) if not found else min(dmin, int(d.min()))
+        dmax = int(d.max()) if not found else max(dmax, int(d.max()))
+        found = True
+    return True, g0, dmin, dmax
+
+
+
+def piece_schema_for(plan, ct) -> "PieceSchema | None":
+    """The per-slot emission gate for a match plan: a :class:`PieceSchema`
+    when the plan's static geometry supports piece emission, else None.
+
+    The schema's tables are ``gw uint32 [B, NG, VM, NW]`` group variant
+    words, ``gw16 uint16 [B, NG16, VM]`` narrow groups and ``gl uint8
+    [B, NGD, VM]`` placed lengths.  Cached on the plan object (plans are
+    frozen, keyed by table identity)."""
+    cache = getattr(plan, "_piece_schema_cache", None)
+    if cache is not None and cache[0] is ct:
+        return cache[1]
+    radix = np.asarray(plan.match_radix)
+    schema = build_piece_schema(
+        tokens=np.asarray(plan.tokens),
+        lengths=np.asarray(plan.lengths),
+        col_pos=np.asarray(plan.match_pos),
+        col_len=np.asarray(plan.match_len),
+        col_opts=(radix - 1).clip(min=0),
+        col_vstart=np.asarray(plan.match_val_start),
+        val_bytes=np.asarray(ct.val_bytes),
+        val_len=np.asarray(ct.val_len),
+        kind="match",
+        launched=~np.asarray(plan.fallback, bool),
+    )
+    object.__setattr__(plan, "_piece_schema_cache", (ct, schema))
+    return schema
+
+
+# ---------------------------------------------------------------------------
+# File -> packed batches (vectorized numpy)
+# ---------------------------------------------------------------------------
+
+
+def bucket_widths(
+    lengths: np.ndarray, buckets: Tuple[int, ...] = DEFAULT_BUCKETS
+) -> np.ndarray:
+    """Vectorized bucket-width assignment, matching :func:`bucket_words`:
+    the smallest bucket boundary covering the word, else the word's own
+    power-of-two width (min 4)."""
+    lengths = np.asarray(lengths, dtype=np.int64)
+    b = np.asarray(validate_buckets(buckets), dtype=np.int64)
+    idx = np.searchsorted(b, lengths, side="left")
+    over = idx >= len(b)
+    widths = (
+        np.where(over, 0, b[np.minimum(idx, len(b) - 1)])
+        if len(b)
+        else np.zeros(len(lengths), dtype=np.int64)
+    )
+    if over.any():
+        pow2 = np.maximum(
+            4, 2 ** np.ceil(np.log2(np.maximum(lengths, 1))).astype(np.int64)
+        )
+        widths = np.where(over, pow2, widths)
+    return widths.astype(np.int64)
+
+
+def pack_rows(
+    buf: np.ndarray,
+    offsets: np.ndarray,
+    lengths: np.ndarray,
+    sel: Optional[np.ndarray],
+    width: int,
+) -> PackedWords:
+    """Pack the selected lines (all when ``sel`` is None) of a scanned
+    buffer into one ``uint8[m, width]`` batch with one vectorized gather;
+    ``index`` holds the lines' dictionary positions."""
+    rows = (
+        np.arange(len(offsets), dtype=np.int64) if sel is None
+        else np.asarray(sel, dtype=np.int64)
+    )
+    lens = np.asarray(lengths)[rows].astype(np.int32)
+    if len(lens) and int(lens.max()) > width:
+        raise ValueError(f"row longer than width {width}")
+    tokens = np.zeros((len(rows), width), dtype=np.uint8)
+    if len(rows) and len(buf):
+        col = np.arange(width, dtype=np.int64)[None, :]
+        live = col < lens[:, None]
+        pos = np.minimum(np.asarray(offsets)[rows][:, None] + col,
+                         len(buf) - 1)
+        tokens = np.where(live, buf[pos], np.uint8(0)).astype(np.uint8)
+    return PackedWords(tokens=tokens, lengths=lens, index=rows)
+
+
+def read_packed_buckets(
+    path: str,
+    *,
+    buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
+    max_word_bytes: int = DEFAULT_MAX_WORD_BYTES,
+) -> Dict[int, PackedWords]:
+    """File -> ``{bucket_width: PackedWords}``, equivalent to
+    ``bucket_words(read_wordlist(path))``: each batch keeps its words'
+    dictionary positions in ``index``."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    buf, offsets, lengths = read_wordlist_lines(
+        data, max_word_bytes=max_word_bytes
+    )
+    if len(lengths) == 0:
+        return {}
+    widths = bucket_widths(lengths, buckets)
+    return {
+        int(w): pack_rows(buf, offsets, lengths,
+                          np.nonzero(widths == w)[0], int(w))
+        for w in sorted(int(x) for x in np.unique(widths))
+    }

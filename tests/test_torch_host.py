@@ -1,0 +1,227 @@
+"""The PyTorch/CUDA package's host layer against the JAX reference.
+
+The port runs without JAX and imports nothing of the reference package;
+its host arrays (plans, piece schemas, block indexes, digest sets, packed
+wordlists) are array-equal to the reference's on the same inputs, for
+every built-in and derived layout.
+"""
+
+import ast
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import hashcat_a5_table_generator_tpu.models.attack as j_attack
+import hashcat_a5_table_generator_tpu.ops.blocks as j_blocks
+import hashcat_a5_table_generator_tpu.ops.membership as j_member
+import hashcat_a5_table_generator_tpu.ops.packing as j_packing
+import hashcat_a5_table_generator_tpu.ops.pallas_expand as j_pe
+import hashcat_a5_table_generator_tpu.tables.compile as j_compile
+import hashcat_a5_table_generator_tpu_torch.models.attack as t_attack
+import hashcat_a5_table_generator_tpu_torch.ops.blocks as t_blocks
+import hashcat_a5_table_generator_tpu_torch.ops.fused_expand as t_fe
+import hashcat_a5_table_generator_tpu_torch.ops.membership as t_member
+import hashcat_a5_table_generator_tpu_torch.ops.packing as t_packing
+import hashcat_a5_table_generator_tpu_torch.tables.compile as t_compile
+from hashcat_a5_table_generator_tpu.native import read_packed_buckets
+from hashcat_a5_table_generator_tpu_torch.tables.layouts import (
+    BUILTIN_LAYOUTS,
+    DERIVED_LAYOUTS,
+    get_layout,
+)
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "hashcat_a5_table_generator_tpu_torch"
+LAYOUTS = sorted(BUILTIN_LAYOUTS) + sorted(DERIVED_LAYOUTS)
+
+
+def synth_words(sub_map, n=60, seed=0):
+    """Seeded words mixing the layout's keys with filler letters and
+    digits, 1-30 bytes (buckets 16 and 32)."""
+    rng = np.random.default_rng(seed)
+    keys = sorted(sub_map)
+    filler = [bytes([c]) for c in b"abcdefxyz0123456789"]
+    words = []
+    for _ in range(n):
+        parts = []
+        while sum(map(len, parts)) < int(rng.integers(1, 31)):
+            pool = keys if rng.random() < 0.5 else filler
+            parts.append(pool[int(rng.integers(len(pool)))])
+        words.append(b"".join(parts)[:30])
+    return words
+
+
+def spec_pair():
+    return j_attack.AttackSpec(), t_attack.AttackSpec()
+
+
+def assert_plans_equal(jp, tp):
+    for f in dataclasses.fields(jp):
+        a, b = getattr(jp, f.name), getattr(tp, f.name)
+        if isinstance(a, np.ndarray) or a is None:
+            assert (a is None) == (b is None), f.name
+            if a is not None:
+                assert a.dtype == b.dtype and np.array_equal(a, b), f.name
+        else:
+            assert a == b, f.name
+
+
+def assert_schemas_equal(js, ts):
+    assert (js is None) == (ts is None)
+    if js is None:
+        return
+    for f in dataclasses.fields(js):
+        a, b = getattr(js, f.name), getattr(ts, f.name)
+        if f.name == "groups":
+            assert [dataclasses.astuple(g) for g in a] == [
+                dataclasses.astuple(g) for g in b
+            ]
+        elif isinstance(a, np.ndarray) or a is None:
+            assert (a is None) == (b is None), f.name
+            if a is not None:
+                assert a.dtype == b.dtype and np.array_equal(a, b), f.name
+        else:
+            assert a == b, f.name
+
+
+def test_port_imports_with_jax_blocked():
+    modules = sorted(
+        ".".join(p.relative_to(REPO).with_suffix("").parts)
+        for p in PORT.rglob("*.py") if p.name != "__main__.py"
+    )
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['hashcat_a5_table_generator_tpu'] = None\n"
+        + "".join(f"import {m}\n" for m in modules)
+        + "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(str(p.relative_to(REPO)) for p in PORT.rglob("*.py"))
+    + ["chip_smoke.py"],
+)
+def test_no_jax_or_reference_imports(path):
+    for mod in _imported_modules(REPO / path):
+        top = mod.split(".")[0]
+        assert top != "jax", f"{path} imports {mod}"
+        assert top != "hashcat_a5_table_generator_tpu", (
+            f"{path} imports the reference package ({mod})"
+        )
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_plans_schemas_and_indexes_equal(layout):
+    sub = get_layout(layout).to_substitution_map()
+    words = synth_words(sub, seed=LAYOUTS.index(layout))
+    jspec, tspec = spec_pair()
+    jct, tct = j_compile.compile_table(sub), t_compile.compile_table(sub)
+    for jb, tb in zip(j_packing.bucket_words(words).values(),
+                      t_packing.bucket_words(words).values()):
+        jplan = j_attack.build_plan(jspec, jct, jb)
+        tplan = t_attack.build_plan(tspec, tct, tb)
+        assert_plans_equal(jplan, tplan)
+        js = j_packing.piece_schema_for(jplan, jct)
+        ts = t_packing.piece_schema_for(tplan, tct)
+        assert_schemas_equal(js, ts)
+        assert t_fe.k_opts_for(tplan) == j_pe.k_opts_for(jplan)
+        assert t_fe.scalar_units_for(tplan) == j_pe.scalar_units_for(jplan)
+        if j_pe.scalar_units_for(jplan):
+            weight = j_pe.scalar_units_fields(jplan, jct)["weight"]
+            assert np.array_equal(t_fe.scalar_units_weight(tplan), weight)
+        for stride in (4, 128):
+            assert t_fe.pair_for_config(
+                tspec, tplan, ts, block_stride=stride
+            ) == j_pe.pair_for_config(jspec, jplan, js, block_stride=stride)
+            ji = j_blocks.superstep_index(jplan, stride)
+            ti = t_blocks.superstep_index(tplan, stride)
+            assert np.array_equal(ji[0], ti[0])
+            assert np.array_equal(ji[1], ti[1]) and ji[2] == ti[2]
+            for b in (0, ji[2] // 2, max(ji[2] - 1, 0), ji[2]):
+                assert t_blocks.block_cursor(tplan, stride, ti[0], b) == \
+                    j_blocks.block_cursor(jplan, stride, ji[0], b)
+        host = t_attack.piece_host_tables(ts)
+        jhost = j_attack.piece_host_tables(js)
+        assert set(host) <= set(jhost)
+        for k, v in host.items():
+            assert np.array_equal(v, jhost[k])
+
+
+def test_device_arrays_same_from_either_package():
+    """``device_arrays`` fed the reference's host objects gives the same
+    tensors as fed the port's."""
+    sub = get_layout("qwerty-cyrillic").to_substitution_map()
+    words = synth_words(sub, seed=3)
+    digests = [bytes(range(i, i + 16)) for i in range(5)]
+    jspec, tspec = spec_pair()
+    jct, tct = j_compile.compile_table(sub), t_compile.compile_table(sub)
+    jplan = j_attack.build_plan(jspec, jct, j_packing.pack_words(words))
+    tplan = t_attack.build_plan(tspec, tct, t_packing.pack_words(words))
+    out = []
+    for plan, ct, pk, bl, mem in (
+        (jplan, jct, j_packing, j_blocks, j_member),
+        (tplan, tct, t_packing, t_blocks, t_member),
+    ):
+        out.append(t_attack.device_arrays(
+            plan, pk.piece_schema_for(plan, ct),
+            mem.build_digest_set(digests, "md5"),
+            bl.superstep_index(plan, 8), device="cpu",
+        ))
+    assert out[0].keys() == out[1].keys()
+    for k in out[0]:
+        if isinstance(out[0][k], torch.Tensor):
+            assert torch.equal(out[0][k], out[1][k]), k
+        else:
+            assert out[0][k] == out[1][k], k
+
+
+def test_digest_sets_equal():
+    rng = np.random.default_rng(5)
+    raw = rng.integers(0, 256, size=(300, 16), dtype=np.uint8)
+    raw[:50, 3] |= 0x80  # words with the top bit set
+    as_list = [r.tobytes() for r in raw] + [raw[0].tobytes()]  # duplicate
+    for digests in (as_list, raw, [d.hex() for d in as_list[:40]]):
+        j = j_member.build_digest_set(digests, "md5")
+        t = t_member.build_digest_set(digests, "md5")
+        assert np.array_equal(j.rows, t.rows) and j.rows.dtype == t.rows.dtype
+        assert np.array_equal(j.bitmap, t.bitmap)
+        assert j.bitmap_bits == t.bitmap_bits
+    lookup = t_member.HostDigestLookup(raw)
+    assert raw[7].tobytes() in lookup and bytes(16) not in lookup
+    assert t_member.auto_bitmap_bits(10**6) == j_member.auto_bitmap_bits(10**6)
+
+
+def test_read_packed_buckets_matches_reference(tmp_path):
+    path = tmp_path / "words.txt"
+    path.write_bytes(
+        b"password\r\nsesame\n\n" + b"x" * 40 + b"\n" + b"y" * 70
+        + b"\nzz\nlast-line-no-newline"
+    )
+    want = read_packed_buckets(str(path))
+    got = t_packing.read_packed_buckets(str(path))
+    assert list(want) == list(got)
+    for w in want:
+        assert np.array_equal(want[w].tokens, got[w].tokens)
+        assert np.array_equal(want[w].lengths, got[w].lengths)
+        assert np.array_equal(want[w].index, got[w].index)
+    with pytest.raises(ValueError):
+        t_packing.read_packed_buckets(str(path), max_word_bytes=50)

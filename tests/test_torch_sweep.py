@@ -1,0 +1,238 @@
+"""The crack sweep and CLI of the PyTorch/CUDA package against the JAX
+reference, on the CPU: equal hit streams ``(word_index, rank, candidate)``
+and emitted counts with the pair tier on and off, exact overflow re-runs,
+byte-identical CLI stdout, and refusals — exit status 2 or
+``NotImplementedError`` — for everything outside the ported slice."""
+
+import hashlib
+
+import numpy as np
+import pytest
+import torch
+
+import hashcat_a5_table_generator_tpu.cli as j_cli
+import hashcat_a5_table_generator_tpu_torch.cli as t_cli
+from hashcat_a5_table_generator_tpu.models.attack import AttackSpec as JSpec
+from hashcat_a5_table_generator_tpu.oracle.engines import iter_candidates
+from hashcat_a5_table_generator_tpu.runtime import Sweep as JSweep
+from hashcat_a5_table_generator_tpu.runtime import SweepConfig as JConfig
+from hashcat_a5_table_generator_tpu_torch.models.attack import AttackSpec
+from hashcat_a5_table_generator_tpu_torch.ops import fused_expand as fe
+from hashcat_a5_table_generator_tpu_torch.runtime.bucketed import (
+    BucketedSweep,
+)
+from hashcat_a5_table_generator_tpu_torch.runtime.sweep import (
+    Sweep,
+    SweepConfig,
+)
+from hashcat_a5_table_generator_tpu_torch.tables.layouts import (
+    emit_table,
+    get_layout,
+)
+
+SUB = get_layout("qwerty-cyrillic").to_substitution_map()
+GEOMETRY = dict(lanes=256, num_blocks=16)
+GEOMETRY_ARGV = ["--lanes", "256", "--blocks", "16"]
+
+
+def make_words(n=40, seed=11):
+    rng = np.random.default_rng(seed)
+    words = []
+    for i in range(n):
+        ln = int(rng.integers(1, 9))
+        w = bytes(rng.integers(ord("a"), ord("z") + 1, size=ln,
+                               dtype=np.uint8))
+        words.append(w + b"19" * int(rng.integers(0, 2)))
+    words.append(b"20" * 9 + b"ab")  # a 20-byte line: the 32-wide bucket
+    return words
+
+
+def planted_digests(words, every=4, seed=12):
+    """Every ``every``-th word's middle oracle candidate, plus decoys."""
+    rng = np.random.default_rng(seed)
+    planted = []
+    for w in words[::every]:
+        cands = list(iter_candidates(w, SUB, 1, 15))
+        if cands:
+            planted.append(cands[len(cands) // 2])
+    decoys = [rng.integers(0, 256, 16, dtype=np.uint8).tobytes()
+              for _ in range(50)]
+    return planted, [hashlib.md5(c).digest() for c in planted] + decoys
+
+
+def hit_tuples(res):
+    return [(h.word_index, h.variant_rank, h.candidate) for h in res.hits]
+
+
+@pytest.fixture(scope="module")
+def contract():
+    words = make_words()
+    planted, digests = planted_digests(words)
+    return words, planted, digests
+
+
+@pytest.mark.parametrize("pair", [None, "off"], ids=["pair-auto", "pair-off"])
+def test_hits_and_emitted_match_reference(contract, pair):
+    words, planted, digests = contract
+    want = JSweep(JSpec(), SUB, words, digests,
+                  config=JConfig(pair=pair, **GEOMETRY)).run_crack()
+    got = Sweep(AttackSpec(), SUB, words, digests,
+                SweepConfig(device="cpu", pair=pair, **GEOMETRY)
+                ).run_crack()
+    assert hit_tuples(got) == hit_tuples(want)
+    assert got.n_emitted == want.n_emitted
+    assert {h.candidate for h in got.hits} == set(planted)
+    assert got.superstep["pair"] == (2 if pair is None else 0)
+    assert want.superstep["pair"] == got.superstep["pair"]
+
+
+def test_overflowing_hit_buffer_reruns_exactly(contract):
+    words, _planted, digests = contract
+    full = Sweep(AttackSpec(), SUB, words, digests,
+                 SweepConfig(device="cpu", **GEOMETRY)).run_crack()
+    tiny = Sweep(AttackSpec(), SUB, words, digests,
+                 SweepConfig(device="cpu", superstep_hit_cap=1,
+                             superstep=64, **GEOMETRY)).run_crack()
+    assert tiny.superstep["replays"] > 0
+    assert hit_tuples(tiny) == hit_tuples(full)
+    assert tiny.n_emitted == full.n_emitted
+
+
+def test_bucketed_sweep_merges_in_word_order(contract):
+    from hashcat_a5_table_generator_tpu_torch.ops.packing import (
+        bucket_words,
+    )
+
+    words, _planted, digests = contract
+    whole = Sweep(AttackSpec(), SUB, words, digests,
+                  SweepConfig(device="cpu", **GEOMETRY)).run_crack()
+    buckets = bucket_words(words)
+    assert len(buckets) == 2
+    res = BucketedSweep(AttackSpec(), SUB, buckets, digests,
+                        SweepConfig(device="cpu", **GEOMETRY)).run_crack()
+    assert hit_tuples(res) == hit_tuples(whole)
+    assert res.n_emitted == whole.n_emitted
+
+
+def test_cli_stdout_matches_reference_cli(contract, tmp_path, capsysbinary):
+    words, _planted, digests = contract
+    (tmp_path / "words.txt").write_bytes(b"\n".join(words) + b"\n")
+    (tmp_path / "left.txt").write_text(
+        "".join(d.hex() + "\n" for d in digests)
+    )
+    emit_table(get_layout("qwerty-cyrillic"), str(tmp_path / "t.table"))
+    argv = [str(tmp_path / "words.txt"), "-t", str(tmp_path / "t.table"),
+            "--backend", "device", "--algo", "md5", "--digests",
+            str(tmp_path / "left.txt"), *GEOMETRY_ARGV]
+    assert j_cli.main(argv) == 0
+    want = capsysbinary.readouterr().out
+    assert t_cli.main(argv + ["--device", "cpu"]) == 0
+    got = capsysbinary.readouterr()
+    assert got.out == want
+    assert len(want.splitlines()) == len(set(_planted))
+    assert b"candidates hashed" in got.err
+
+
+@pytest.mark.parametrize("extra", [
+    ["-s"], ["-r"], ["--algo", "sha1"], ["--devices", "2"],
+    ["--checkpoint", "ck.json"], ["--coordinator", "h:1"],
+    ["--backend", "oracle"], ["--superstep", "off"], ["--progress"],
+    ["--hex-unsafe"], ["--emit-table", "german"],
+], ids=lambda a: a[0])
+def test_flags_outside_the_slice_exit_2(extra, tmp_path, capsys):
+    argv = ["words.txt", "-t", "t.table", "--backend", "device",
+            "--digests", "left.txt"]
+    if extra[0] == "--backend":
+        argv = argv[:3] + argv[5:]
+    with pytest.raises(SystemExit) as exc:
+        t_cli.main(argv + extra)
+    assert exc.value.code == 2
+    assert "ROADMAP.md port queue item" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("sub", ["serve", "fleet", "tune"])
+def test_subcommands_exit_2(sub, capsys):
+    with pytest.raises(SystemExit) as exc:
+        t_cli.main([sub])
+    assert exc.value.code == 2
+    assert "ROADMAP.md port queue item" in capsys.readouterr().err
+
+
+def test_candidates_mode_exits_2(capsys):
+    with pytest.raises(SystemExit) as exc:
+        t_cli.main(["w.txt", "-t", "t.table", "--backend", "device"])
+    assert exc.value.code == 2
+    assert "candidates mode" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("case,reason", [
+    ("multi-option", "multi-option"), ("windowed", "windowed"),
+    ("suball", "mode"), ("sha1", "algo"), ("superstep-off", "superstep"),
+])
+def test_unported_plans_raise_before_any_launch(case, reason):
+    words = [b"password", b"sesame"]
+    sub, spec, cfg = SUB, AttackSpec(), SweepConfig(device="cpu",
+                                                    **GEOMETRY)
+    if case == "multi-option":
+        sub = {b"a": [b"4", b"@"], b"s": [b"$"]}
+    elif case == "windowed":
+        spec = AttackSpec(min_substitute=1, max_substitute=1)
+    elif case == "superstep-off":
+        cfg = SweepConfig(device="cpu", superstep=0, **GEOMETRY)
+    launches = dict(fe.LAUNCHES)
+    plain = fe.PLAIN_CALLS
+    with pytest.raises(NotImplementedError, match=reason):
+        if case == "suball":
+            spec = AttackSpec(mode="suball")
+        elif case == "sha1":
+            spec = AttackSpec(algo="sha1")
+        Sweep(spec, sub, words, [bytes(16)], cfg).run_crack()
+    assert fe.LAUNCHES == launches and fe.PLAIN_CALLS == plain
+
+
+@pytest.mark.parametrize("case,reason", [
+    ("many-slots", "slots 40"), ("4-hash-blocks", "4 hash blocks"),
+])
+def test_bucketed_cli_refuses_before_any_bucket_launches(
+    case, reason, contract, tmp_path, capsys
+):
+    """The short buckets hold planted hits and sort first, but a wide
+    bucket the kernel does not take refuses the whole run up front."""
+    words, _planted, digests = contract
+    tables = ["-t", str(tmp_path / "t.table")]
+    emit_table(get_layout("qwerty-cyrillic"), tables[1])
+    argv_extra = []
+    if case == "many-slots":
+        long_line = b"qwertyuiop" * 4  # 40 substitutable letters
+    else:
+        # 20 one-to-four-byte substitutions in the 128-wide bucket: a
+        # 188-byte candidate needs 4 MD5 blocks.
+        (tmp_path / "wide.table").write_bytes(b"1=$HEX[f09f9880]\n")
+        tables += ["-t", str(tmp_path / "wide.table")]
+        long_line = b"1" * 20 + b"0" * 100
+        argv_extra = ["--buckets", "16,32,64,128"]
+    (tmp_path / "words.txt").write_bytes(
+        b"\n".join(words + [long_line]) + b"\n"
+    )
+    (tmp_path / "left.txt").write_text(
+        "".join(d.hex() + "\n" for d in digests)
+    )
+    launches = dict(fe.LAUNCHES)
+    plain = fe.PLAIN_CALLS
+    rc = t_cli.main([str(tmp_path / "words.txt"), *tables, "--backend",
+                     "device", "--digests", str(tmp_path / "left.txt"),
+                     "--device", "cpu", *GEOMETRY_ARGV, *argv_extra])
+    out = capsys.readouterr()
+    assert rc == 2
+    assert out.out == ""
+    assert reason in out.err
+    assert fe.LAUNCHES == launches and fe.PLAIN_CALLS == plain
+
+
+def test_default_device_is_cuda_and_never_falls_back():
+    if torch.cuda.is_available():
+        assert SweepConfig().device == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Sweep(AttackSpec(), SUB, [b"abc"], [bytes(16)])
+    assert SweepConfig().device == "cuda"
