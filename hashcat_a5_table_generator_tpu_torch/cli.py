@@ -3,12 +3,13 @@
 Same flags and output as the reference CLI for what this package runs::
 
   a5gen DICT_FILE -t TABLE [-t TABLE ...] [-m MIN] [-x MAX]
-        --backend device --algo md5 --digests FILE [--device cuda|cpu]
+        --backend device --algo md5|md4|sha1|ntlm --digests FILE
+        [--device cuda|cpu]
 
-Default mode, MD5, one GPU: hits print to stdout as ``digest:plain``
-potfile lines, bucket-major in the order found; the summary goes to
-stderr.  ``--device`` defaults to ``cuda`` and never falls back to the
-CPU on its own.
+Default mode, one GPU, every hash the reference's piece kernel takes:
+hits print to stdout as ``digest:plain`` potfile lines, bucket-major in
+the order found; the summary goes to stderr.  ``--device`` defaults to
+``cuda`` and never falls back to the CPU on its own.
 
 Every other surface of the reference CLI is recognized and refused with
 exit status 2 and a message naming the ROADMAP.md port-queue item that
@@ -31,7 +32,6 @@ _ITEMS = {
     7: "multi-GPU",
     8: "the service layer",
     9: "tuning",
-    10: "other hashes",
 }
 
 #: Refused flags: (flags, argparse kwargs, queue item).
@@ -98,7 +98,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="'device' runs the GPU sweep (the oracle backend "
                          "is not ported)")
     ap.add_argument("--algo", choices=sorted(DIGEST_BYTES), default="md5",
-                    help="hash algorithm for --digests mode (md5)")
+                    help="hash algorithm for --digests mode (default md5)")
     ap.add_argument("--digests", metavar="FILE",
                     help="hex digest list (one per line); crack mode: "
                          "print digest:plain hits")
@@ -354,8 +354,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         ap.error(_not_ported("--backend oracle", 5))
     if args.digests is None:
         ap.error(_not_ported("candidates mode (no --digests)", 5))
-    if args.algo != "md5":
-        ap.error(_not_ported(f"--algo {args.algo}", 10))
     if args.superstep == 0:
         ap.error(_not_ported("--superstep off", 6))
     from .ops.packing import (

@@ -1,5 +1,5 @@
 """The crack pipeline: on-device block cutting -> piece kernel (expand +
-MD5) -> digest membership -> hit compaction.
+hash) -> digest membership -> hit compaction.
 
 The host compiles tables, plans, the piece schema, the block index and the
 digest set once per sweep (numpy); :func:`device_arrays` ships them to the
@@ -21,7 +21,7 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
-from ..ops.expand_matches import MatchPlan, build_match_plan
+from ..ops.expand_matches import MatchPlan, build_match_plan, unrank_windowed
 from ..ops.fused_expand import (
     fused_expand_md5,
     group_descriptors,
@@ -118,26 +118,33 @@ def device_arrays(plan, pieces, digests: DigestSet, idx: tuple, *,
                   device) -> Tree:
     """Everything a sweep keeps on the device, shipped once: the piece
     tables (:func:`piece_tables`); the block index (``cum`` ``[B+1]``,
-    ``totals`` ``[B]``, ``radix``/``place``/``weight`` ``[B, P]`` int32,
-    and the block count ``total``); and the digest set (``rows``
-    ``[D, 4]``, ``bitmap``, uint32 bits as int32).  ``idx`` is
-    ``ops.blocks.superstep_index(plan, stride)``.
+    ``totals`` ``[B]``, ``radix``/``weight`` ``[B, P]`` int32 — plus the
+    mixed-radix ``place`` values ``[B, P]`` for full enumeration, or the
+    windowed suffix counts ``win_v`` ``[B, P+1, K2]`` — and the block
+    count ``total``); and the digest set (``rows`` ``[D, K]``, ``bitmap``,
+    uint32 bits as int32).  ``radix`` and ``win_v`` are also the digit and
+    windowed decodes' resident tables, read by word index in the kernel.
+    ``idx`` is ``ops.blocks.superstep_index(plan, stride)``.
 
     Works from any objects with the reference's field names, so the JAX
     package's host arrays and this package's give the same tensors."""
     cum, totals, total_blocks = idx
     radix = np.asarray(plan.pat_radix, dtype=np.int64)
-    # Mixed-radix place values (slot 0 least significant): every prefix
-    # product divides a word's variant total, which the int32 index keeps
-    # below 2^30.
-    place = np.cumprod(np.concatenate(
-        [np.ones((radix.shape[0], 1), np.int64), radix[:, :-1]], axis=1
-    ), axis=1)
     host = {
-        "cum": cum, "totals": totals, "radix": radix, "place": place,
+        "cum": cum, "totals": totals, "radix": radix,
         "weight": scalar_units_weight(plan),
         "rows": digests.rows, "bitmap": digests.bitmap,
     }
+    if getattr(plan, "windowed", False):
+        host["win_v"] = plan.win_v
+    else:
+        # Mixed-radix place values (slot 0 least significant): every
+        # prefix product divides a word's variant total, which the int32
+        # index keeps below 2^30.  (A windowed plan's full product may not
+        # fit; its blocks start at scalar windowed ranks instead.)
+        host["place"] = np.cumprod(np.concatenate(
+            [np.ones((radix.shape[0], 1), np.int64), radix[:, :-1]], axis=1
+        ), axis=1)
     out: Tree = {
         k: torch.as_tensor(_i32(v), device=device) for k, v in host.items()
     }
@@ -146,11 +153,16 @@ def device_arrays(plan, pieces, digests: DigestSet, idx: tuple, *,
     return out
 
 
-def cut_blocks(arrays: Tree, b0: int, num_blocks: int, rank_stride: int):
+def cut_blocks(arrays: Tree, b0: int, num_blocks: int, rank_stride: int,
+               decode: str = "scalar"):
     """One launch's blocks from the device-resident index: global
     fixed-stride blocks ``b0 .. b0 + num_blocks``, each ``rank_stride``
-    candidate ranks of one word.  Returns int32 ``[NB]`` ``(word, count,
-    pbase, rank0)``; blocks past the sweep's end keep count 0 (their lanes
+    candidate ranks of one word.  Returns ``(word, count, base, rank0)``,
+    int32 ``[NB]`` each except ``base``, the decode's block input: the
+    packed chosen vector ``pbase`` ``[NB]`` (``decode="scalar"``), the
+    base digits ``[NB, P]`` (``"digits"``), or the scalar windowed rank
+    ``[NB]`` (``"windowed"``: ``rank0`` itself — ``totals`` are windowed
+    totals there).  Blocks past the sweep's end keep count 0 (their lanes
     are masked)."""
     cum, totals = arrays["cum"], arrays["totals"]
     dev = cum.device
@@ -162,12 +174,16 @@ def cut_blocks(arrays: Tree, b0: int, num_blocks: int, rank_stride: int):
     count = torch.where(
         valid, torch.clamp(totals[w] - rank0, 0, rank_stride), 0
     )
-    # Mixed-radix decompose of each block's first rank, packed to the
-    # scalar tier's chosen vector: pbase = sum(digit * weight).
-    digits = (rank0[:, None] // arrays["place"][w]) % arrays["radix"][w]
-    pbase = (digits * arrays["weight"][w]).sum(dim=1)
+    if decode == "windowed":
+        base = rank0
+    else:
+        # Mixed-radix decompose of each block's first rank; the scalar
+        # tier packs it to its chosen vector: pbase = sum(digit * weight).
+        base = (rank0[:, None] // arrays["place"][w]) % arrays["radix"][w]
+        if decode == "scalar":
+            base = (base * arrays["weight"][w]).sum(dim=1)
     return (w.to(torch.int32), count.to(torch.int32),
-            pbase.to(torch.int32), rank0.to(torch.int32))
+            base.to(torch.int32).contiguous(), rank0.to(torch.int32))
 
 
 def superstep_buffers(hit_cap: int, *, device) -> Tree:
@@ -185,13 +201,16 @@ def superstep_buffers(hit_cap: int, *, device) -> Tree:
 def make_superstep_body(
     spec: AttackSpec, *, num_lanes: int, out_width: int, block_stride: int,
     num_blocks: int, pieces, pair_k: "int | None" = None,
+    decode: str = "scalar", pack_cb: bool = False, k_opts: int = 1,
 ) -> Callable[..., Tree]:
     """The superstep executor: ``body(arrays, b0, steps, bufs) -> dict``
     runs ``steps`` fused launches starting at global block ``b0``, with no
     host sync inside.  Each step cuts ``num_blocks`` blocks, runs the
-    piece kernel (K=1, or the pair tier with ``pair_k`` = 2: blocks then
-    span ``2 * block_stride`` candidate ranks on ``block_stride`` lanes),
-    tests membership, and compacts hits in cursor order into ``bufs``
+    piece kernel of ``spec.algo`` with the plan's decode tier (``decode``,
+    ``pack_cb``, ``k_opts``: ``ops.fused_expand.decode_for`` and
+    ``k_vals_for``) — K=1, or the pair tier with ``pair_k`` = 2: blocks
+    then span ``2 * block_stride`` candidate ranks on ``block_stride``
+    lanes — tests membership, and compacts hits in cursor order into ``bufs``
     (``hit_word``/``hit_rank`` int32 ``[hit_cap + 1]``).  Returns the
     buffers and ``counters`` int32 ``[2]`` = ``[n_emitted, n_hits]``
     (callers keep ``steps * num_lanes * pair_k`` below 2^31).  Hits past
@@ -203,6 +222,7 @@ def make_superstep_body(
         pieces=pieces, block_stride=block_stride, out_width=out_width,
         min_substitute=spec.effective_min,
         max_substitute=spec.max_substitute, pair=pair_k is not None,
+        algo=spec.algo, decode=decode, pack_cb=pack_cb, k_opts=k_opts,
     )
 
     def body(arrays: Tree, b0: int, steps: int, bufs: Tree) -> Tree:
@@ -216,10 +236,10 @@ def make_superstep_body(
         ne = torch.zeros((), dtype=torch.int32, device=dev)
         nh = torch.zeros((), dtype=torch.int32, device=dev)
         for s in range(steps):
-            word, count, pbase, rank0 = cut_blocks(
-                arrays, b0 + s * num_blocks, num_blocks, rank_stride
+            word, count, base, rank0 = cut_blocks(
+                arrays, b0 + s * num_blocks, num_blocks, rank_stride, decode
             )
-            state, emit = fused_expand_md5(word, count, pbase, arrays,
+            state, emit = fused_expand_md5(word, count, base, arrays,
                                            **common)
             hit = digest_member(state, arrays["rows"], arrays["bitmap"])
             hit &= emit
@@ -253,17 +273,21 @@ def decode_variant(
     rank: int,
 ) -> bytes:
     """Reconstruct the candidate bytes of one variant on the host, exactly
-    as the device splices it.  Raises ``ValueError`` for ranks the device
-    would not emit (overlap clashes or count-window misses)."""
+    as the device splices it; windowed plans unrank through ``win_v``
+    (``ops.expand_matches.unrank_windowed``).  Raises ``ValueError`` for
+    ranks the device would not emit (overlap clashes or count-window
+    misses)."""
+    radices = [int(x) for x in plan.pat_radix[word_idx]]
     if getattr(plan, "windowed", False):
-        raise NotImplementedError("windowed plans are not ported")
-    digits = []
-    r = rank
-    for radix in (int(x) for x in plan.pat_radix[word_idx]):
-        digits.append(r % radix)
-        r //= radix
-    if r:
-        raise ValueError(f"rank {rank} out of range for word {word_idx}")
+        digits = unrank_windowed(plan.win_v[word_idx], radices, rank)
+    else:
+        digits = []
+        r = rank
+        for radix in radices:
+            digits.append(r % radix)
+            r //= radix
+        if r:
+            raise ValueError(f"rank {rank} out of range for word {word_idx}")
     word = bytes(plan.tokens[word_idx, : plan.lengths[word_idx]])
 
     def val(vrow: int) -> bytes:

@@ -1,12 +1,15 @@
 """Build-on-first-use for the CUDA kernels of ``csrc/``.
 
-Each ``csrc/*.cu`` source compiles with ``nvcc`` into its own shared
-library with a plain ``extern "C"`` interface, loaded through ``ctypes``:
-no PyTorch headers, so a build takes seconds.  Libraries land in
-``build/torch_kernels/`` at the root of the checkout, keyed by a hash of
-the source and the flags, so an edited source rebuilds and an unchanged one
-loads straight away.  ``nvcc``'s ``-Xptxas -v`` report (registers, stack
-frame, spills, shared memory per kernel) is kept beside each library.
+Each library compiles with one ``nvcc`` from one ``csrc/*.cu`` source
+into a shared library with a plain ``extern "C"`` interface, loaded
+through ``ctypes``: no PyTorch headers, so a build takes seconds.  One
+source may give several libraries (:data:`LIBRARIES`: the piece kernel
+builds once per hash, ``-DPIECE_ALGO=n``), and :func:`build` starts their
+compilers together.  Libraries land in ``build/torch_kernels/`` at the
+root of the checkout, keyed by a hash of the source and the flags, so an
+edited source rebuilds and an unchanged one loads straight away.
+``nvcc``'s ``-Xptxas -v`` report (registers, stack frame, spills, shared
+memory per kernel) is kept beside each library.
 
 A missing ``nvcc`` or a failed build raises with the compiler's output;
 nothing falls back.
@@ -31,6 +34,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
+#: Library name -> (source stem in ``csrc/``, extra nvcc flags).  A name
+#: not listed builds ``csrc/<name>.cu`` with no extra flags.
+LIBRARIES: Dict[str, "tuple[str, tuple[str, ...]]"] = {
+    f"piece_hash_{algo}": ("piece_hash", (f"-DPIECE_ALGO={i}",))
+    for i, algo in enumerate(("md5", "md4", "sha1", "ntlm"))
+}
+
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -50,55 +60,62 @@ def nvcc_path() -> str:
     )
 
 
+def _flags(name: str) -> "tuple[str, ...]":
+    return NVCC_FLAGS + LIBRARIES.get(name, (name, ()))[1]
+
+
 def _target(name: str) -> "tuple[pathlib.Path, pathlib.Path, pathlib.Path]":
-    src = CSRC / f"{name}.cu"
+    src = CSRC / f"{LIBRARIES.get(name, (name, ()))[0]}.cu"
     tag = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + " ".join(_flags(name)).encode()
     ).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{tag}.so", BUILD_DIR / f"{name}-{tag}.ptxas.txt"
 
 
 def _compile(name: str) -> "subprocess.Popen | None":
-    """Start one ``nvcc`` for ``csrc/<name>.cu`` unless its library is
-    built; returns the running process (or None)."""
+    """Start one ``nvcc`` for library ``name`` unless it is built;
+    returns the running process (or None)."""
     src, lib, log = _target(name)
     if lib.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
     return subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        [nvcc_path(), *_flags(name), "-o", str(tmp), str(src)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
     )
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
-    """Build the named kernels' libraries, one ``nvcc`` per source, all
-    started together.  Returns ``{name: ptxas report}``; raises
-    ``RuntimeError`` with the compiler output when a build fails."""
+    """Build the named libraries, one ``nvcc`` per library, all started
+    together.  Returns ``{name: ptxas report}``; raises ``RuntimeError``
+    with the compiler output when a build fails (after every compiler
+    started here has exited)."""
     names = list(names)
     with _LOCK:
         procs = {n: _compile(n) for n in names}
-        for name, proc in procs.items():
-            if proc is None:
-                continue
-            out, _ = proc.communicate()
-            _src, lib, log = _target(name)
+        outs = {n: p.communicate()[0] for n, p in procs.items()
+                if p is not None}
+        failed = None
+        for name, out in outs.items():
+            src, lib, log = _target(name)
             tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-            if proc.returncode != 0:
+            if procs[name].returncode != 0:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed for csrc/{name}.cu "
-                    f"(exit {proc.returncode}):\n{out}"
+                failed = failed or (
+                    f"nvcc failed for {name} ({src.name}) "
+                    f"(exit {procs[name].returncode}):\n{out}"
                 )
+                continue
             log.write_text(out)
             os.replace(tmp, lib)
+        if failed:
+            raise RuntimeError(failed)
     return {n: _target(n)[2].read_text() for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it first when
-    needed."""
+    """The loaded library ``name``, building it first when needed."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib

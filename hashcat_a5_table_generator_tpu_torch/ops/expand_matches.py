@@ -19,7 +19,7 @@ no oracle-fallback words.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
@@ -178,6 +178,31 @@ def windowed_plan_fields(
     return True, v, totals
 
 
+def unrank_windowed(
+    v_row: np.ndarray, radices: Sequence[int], rank: int
+) -> List[int]:
+    """Host mirror of the device's windowed unranking: the digit vector of
+    ``rank`` in a word's windowed enumeration.  ``v_row`` is
+    ``win_v[word]`` (``[M+1, K+2]``).  Raises ``ValueError`` for ranks past
+    the windowed total."""
+    digits: List[int] = []
+    j = 0
+    r = int(rank)
+    if r >= int(v_row[0, 0]):
+        raise ValueError(f"windowed rank {rank} out of range")
+    for s, _radix in enumerate(radices):
+        vn0 = int(v_row[s + 1, j])
+        if r < vn0:
+            digits.append(0)
+        else:
+            r -= vn0
+            vn1 = int(v_row[s + 1, j + 1])
+            digits.append(r // vn1 + 1)
+            r %= vn1
+            j += 1
+    return digits
+
+
 def variant_totals(radix_matrix: np.ndarray) -> List[int]:
     """Per-row radix products as EXACT Python ints, shared by both plan
     constructors: rows whose log2 sum is comfortably inside int64 take the
@@ -235,9 +260,8 @@ def build_match_plan(
     WINDOWED_MAX_SUBST``, windowed totals < 2^30, and at least a 2x lane
     saving over full enumeration), the plan switches to count-windowed
     enumeration: ranks walk only in-window digit vectors via the ``win_v``
-    DP instead of masking the full mixed-radix space (the piece kernel
-    of this package takes full enumeration only; the sweep refuses
-    windowed plans before any launch).
+    DP instead of masking the full mixed-radix space (the piece kernel's
+    windowed tier walks the same DP on the device).
     """
     b, width = packed.tokens.shape
 

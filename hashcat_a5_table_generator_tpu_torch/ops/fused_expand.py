@@ -1,25 +1,30 @@
-"""The fused decode + splice + MD5 piece kernel: gates, wrapper, plain version.
+"""The fused decode + splice + hash piece kernel: gates, wrapper, plain
+version.
 
-Counterpart of the reference package's ``ops/pallas_expand.py`` for the one
-tier this slice runs: the per-slot piece kernel (``_make_piece_kernel``) in
-its match / scalar-units / full-enumeration tier, MD5, at K=1 (1-3 chained
-hash blocks) and at K=2 (the pair tier, one hash block).
+Counterpart of the reference package's ``ops/pallas_expand.py`` for the
+per-slot piece kernel (``_make_piece_kernel``) over match plans, in each of
+its decode tiers — the scalar-units full enumeration, the general
+mixed-radix digit decode and the count-windowed DP walk — for MD5, MD4,
+SHA-1 and NTLM, at K=1 (1-3 chained hash blocks) and at K=2 (the pair
+tier, one hash block).
 
-* The host gates (:func:`eligible`, :func:`k_opts_for`,
-  :func:`scalar_units_for`, :func:`pair_for_config`,
-  :func:`opts_for_config`, :func:`_hash_blocks_for`) decide on the host,
-  from the plan and schema alone, whether a launch can take the kernel.
-  :func:`kernel_refusal` names the first reason it cannot; the sweep raises
-  ``NotImplementedError`` with it before any launch.
+* The host gates (:func:`eligible`, :func:`k_opts_for`, :func:`k_vals_for`,
+  :func:`scalar_units_for`, :func:`opts_for_config`,
+  :func:`pair_for_config`, :func:`_hash_blocks_for`) are the reference's,
+  minus its TPU probe and tiling rules (block strides and counts are free
+  on the GPU).  :func:`decode_for` names the decode tier the reference's
+  wrapper would pick, and :func:`kernel_refusal` the first reason a plan
+  cannot take the kernel; the sweep raises ``NotImplementedError`` with it
+  before any launch.
 * :func:`fused_expand_md5` is the wrapper.  For CUDA tensors it launches
-  the hand-written kernel of ``csrc/piece_md5.cu`` (or raises); for CPU
+  the hand-written kernel of ``csrc/piece_hash.cu`` (or raises); for CPU
   tensors it runs :func:`piece_md5_reference`, the plain PyTorch version
-  of the same function.  ``LAUNCHES`` counts kernel launches by kernel and
-  ``PLAIN_CALLS`` counts runs of the plain version.
+  of the same function.  ``LAUNCHES`` counts kernel launches by entry
+  point and hash, ``PLAIN_CALLS`` runs of the plain version.
 
 Contract (the reference's): for every EMITTED candidate the state equals
-the MD5 of the candidate bytes the host would splice, and the emit mask is
-exact; non-emitted rows may hold anything.
+the hash of the candidate bytes the host would splice, and the emit mask
+is exact; non-emitted rows may hold anything.
 """
 
 from __future__ import annotations
@@ -29,22 +34,46 @@ import ctypes
 import numpy as np
 import torch
 
-from .hashes import lsr, md5_words
+from .hashes import (
+    DIGEST_WORDS,
+    hash_words,
+    length_word,
+    lsr,
+    utf16_code_units,
+)
 
-#: Piece-kernel bounds: packed chosen vectors must stay well inside int32
-#: (``_MAX_SLOTS``), values pack into one u32 (<= 4 bytes), and up to
-#: ``_MAX_HASH_BLOCKS`` chained hash blocks (candidates to 183 bytes).
+#: The reference's static bounds: packed chosen vectors stay well inside
+#: int32 (``_MAX_SLOTS``), the byte-scan tiers' token axis (``_MAX_TOKENS``),
+#: value-select widths (``_MAX_OPTIONS``; plain plans keep the per-key
+#: ``_MAX_RAW_OPTIONS``), suball segments, the windowed DP's columns
+#: (window <= 8, + 2), and up to ``_MAX_HASH_BLOCKS`` chained hash blocks
+#: (candidates to 183 bytes, 91 under NTLM's UTF-16LE doubling).
 _MAX_SLOTS = 24
+_MAX_TOKENS = 64
+_MAX_OPTIONS = 12
+_MAX_RAW_OPTIONS = 8
+_MAX_SEGMENTS = 64
+_MAX_WIN_K2 = 10
 _MAX_HASH_BLOCKS = 3
 
-#: Group descriptor layout shared with ``csrc/piece_md5.cu`` (D_* there).
+ALGOS = ("md5", "md4", "sha1", "ntlm")
+DECODES = ("scalar", "digits", "windowed")
+_DECODE_ID = {d: i for i, d in enumerate(DECODES)}
+
+#: Group descriptor layout shared with ``csrc/piece_hash.cu`` (D_* there).
 DESC_WIDTH = 16
 MAX_GROUPS = 256
 MAX_SEL = 4
 
-#: Kernel launches by kernel name, and runs of the plain version — plain
-#: integers the caller may reset; nothing else is global.
-LAUNCHES = {"piece_md5_k1": 0, "piece_md5_pair": 0}
+#: Kernel launches by ``piece_<entry>/<algo>`` — entry ``k1`` (scalar),
+#: ``digits``, ``windowed``, ``pair`` (scalar decode) and ``pair_digits``
+#: (the pair entry point with the digit decode) — and runs of the plain
+#: version: plain integers the caller may reset; nothing else is global.
+LAUNCHES = {
+    f"piece_{entry}/{algo}": 0
+    for algo in ALGOS
+    for entry in ("k1", "pair", "pair_digits", "digits", "windowed")
+}
 PLAIN_CALLS = 0
 
 
@@ -55,21 +84,27 @@ def eligible(
     windowed: bool,
     out_width: int,
     num_slots: int,
+    token_width: int,
     max_val_len: int,
     max_options: int,
+    num_segments: int = 0,
+    win_k2: int = 0,
 ) -> bool:
-    """Static eligibility of a launch configuration for the piece kernel
-    (the reference's ``eligible`` without the TPU tiling rules: block
-    strides and counts are free on the GPU)."""
+    """Static eligibility of a launch configuration for the piece kernel:
+    the reference's ``eligible`` without the TPU tiling rules.  ``win_k2``
+    is the windowed plan's DP column count (0 when not windowed)."""
     return (
-        mode == "default"
-        and algo == "md5"
-        and not windowed
+        mode in ("default", "reverse", "suball", "suball-reverse")
+        and algo in ALGOS
+        and (not windowed or 2 <= win_k2 <= _MAX_WIN_K2)
         and 0 < out_width
-        and out_width + 9 <= 64 * _MAX_HASH_BLOCKS
+        and (out_width * (2 if algo == "ntlm" else 1) + 9
+             <= 64 * _MAX_HASH_BLOCKS)
         and 1 <= num_slots <= _MAX_SLOTS
+        and 1 <= token_width <= _MAX_TOKENS
         and 1 <= max_val_len <= 4
-        and max_options == 1
+        and 1 <= max_options <= _MAX_OPTIONS
+        and num_segments <= _MAX_SEGMENTS
     )
 
 
@@ -77,6 +112,12 @@ def k_opts_for(plan) -> int:
     """Static per-key option count K (Python int scalar) — the decode's
     radix bound, from the plan's ``pat_radix`` int32 ``[B, P]`` matrix."""
     return max(1, int(plan.pat_radix.max()) - 1)
+
+
+def k_vals_for(plan) -> int:
+    """Static value-select width: :func:`k_opts_for`, widened to the joint
+    closure tables of a cascade-closed plan (``close_opts``)."""
+    return max(k_opts_for(plan), int(getattr(plan, "close_opts", 0) or 0))
 
 
 def scalar_units_for(plan) -> "bool | str":
@@ -88,6 +129,8 @@ def scalar_units_for(plan) -> "bool | str":
     ``"single"`` when every active match span is one byte (all shipped 1:1
     layout maps), ``True`` for unique starts, ``False`` otherwise."""
     if k_opts_for(plan) != 1:
+        return False
+    if getattr(plan, "close_next", None) is not None:
         return False
     mp = np.asarray(plan.match_pos)
     act = np.asarray(plan.match_radix) > 1
@@ -112,86 +155,131 @@ def scalar_units_weight(plan) -> np.ndarray:
 
 def _hash_blocks_for(out_width: "int | None", scale: int = 1) -> int:
     """Static hash-block count for a launch: the longest emitted candidate
-    (``out_width`` bytes) plus terminator and 8-byte length must fit
-    ``64 * n`` bytes."""
+    (``out_width`` bytes, doubled under NTLM: ``scale`` 2) plus terminator
+    and 8-byte length must fit ``64 * n`` bytes."""
     if out_width is None:
         return 1
     return max(1, -(-(int(out_width) * scale + 9) // 64))
 
 
-def pair_for_config(spec, plan, pieces, *,
-                    block_stride: "int | None") -> "int | None":
-    """Pair-lane eligibility: 2 when this launch configuration can take
-    the pair tier, else None — a pair-eligible
-    schema, full enumeration, one hash block, and doubled in-block ranks
-    that stay far inside int32."""
-    if pieces is None or not getattr(pieces, "pair_ok", False):
-        return None
-    if getattr(plan, "windowed", False):
-        return None
-    if block_stride is None or 2 * block_stride > (1 << 24):
-        return None
-    if _hash_blocks_for(int(plan.out_width)) != 1:
-        return None
-    return 2
+def _scale(algo: str) -> int:
+    return 2 if algo == "ntlm" else 1
+
+
+def _win_k2(plan) -> int:
+    win_v = getattr(plan, "win_v", None)
+    return int(win_v.shape[2]) if win_v is not None else 0
 
 
 def opts_for_config(spec, plan, ct) -> "int | None":
-    """The static option count K (1) when the plan can take the piece
-    kernel's scalar tier, else None."""
+    """The static option count K when the launch configuration can take
+    the piece kernel, else None (the reference's gate without its TPU
+    probe)."""
+    if k_opts_for(plan) > _MAX_RAW_OPTIONS:
+        return None
+    max_options = k_vals_for(plan)
+    cval = getattr(plan, "cval_bytes", None)
+    max_val_len = int(ct.max_val_len if cval is None else cval.shape[1])
     ok = eligible(
         mode=spec.mode,
         algo=spec.algo,
         windowed=bool(getattr(plan, "windowed", False)),
         out_width=int(plan.out_width),
         num_slots=int(plan.num_slots),
-        max_val_len=int(ct.max_val_len),
-        max_options=k_opts_for(plan),
+        token_width=int(plan.tokens.shape[1]),
+        max_val_len=max_val_len,
+        max_options=max_options,
+        num_segments=int(getattr(plan, "num_segments", 0)),
+        win_k2=_win_k2(plan),
     )
-    return 1 if ok and scalar_units_for(plan) else None
+    return max_options if ok else None
+
+
+def decode_for(plan) -> "tuple[str, bool]":
+    """``(decode, pack_cb)``: the decode tier the reference's wrapper runs
+    for this plan — ``"scalar"`` (packed base + rank) for scalar-units K=1
+    full enumeration, ``"windowed"`` for count-windowed plans (``pack_cb``:
+    its chosen bits packed for the scalar selectors when the plan is
+    scalar-units K=1), ``"digits"`` otherwise."""
+    scalar = bool(scalar_units_for(plan)) and k_vals_for(plan) == 1
+    if getattr(plan, "windowed", False):
+        return "windowed", scalar
+    return ("scalar" if scalar else "digits"), False
+
+
+def pair_for_config(spec, plan, pieces, *,
+                    block_stride: "int | None") -> "int | None":
+    """Pair-lane eligibility: 2 when this launch configuration can take
+    the pair tier, else None — a pair-eligible schema, full enumeration,
+    no cascade closure, one hash block (NTLM counts its doubled width), and
+    doubled in-block ranks that stay far inside int32."""
+    if pieces is None or not getattr(pieces, "pair_ok", False):
+        return None
+    if getattr(plan, "windowed", False):
+        return None
+    if getattr(plan, "close_next", None) is not None:
+        return None
+    if block_stride is None or 2 * block_stride > (1 << 24):
+        return None
+    if _hash_blocks_for(int(plan.out_width), _scale(spec.algo)) != 1:
+        return None
+    return 2
+
+
+#: The reference routes what the piece kernel refuses to its XLA expand +
+#: hash path (ROADMAP port queue item 11) or to its byte-scan kernels.
+_XLA = "the XLA expand + hash path (ROADMAP item 11)"
 
 
 def kernel_refusal(spec, plan, ct, pieces) -> "str | None":
     """Why the piece kernel cannot take this plan (None = it can).  The
     first failing condition, in the order a reader would check them."""
     if pieces is None:
-        return "the plan has no per-slot piece schema (piece_schema_for)"
+        return ("the plan has no per-slot piece schema (piece_schema_for): "
+                "the byte-scan tiers, TPU kernel rows 7-9")
     k = k_opts_for(plan)
-    if k > 1:
-        return f"multi-option table (K={k}): the general tier"
-    if getattr(plan, "windowed", False):
-        return "count-windowed plan: the windowed tier"
-    hb = _hash_blocks_for(int(plan.out_width))
+    if k > _MAX_RAW_OPTIONS:
+        return f"{k} options per key > {_MAX_RAW_OPTIONS}: {_XLA}"
+    hb = _hash_blocks_for(int(plan.out_width), _scale(spec.algo))
     if hb > _MAX_HASH_BLOCKS:
-        return f"{hb} hash blocks (out_width {plan.out_width})"
-    if not scalar_units_for(plan):
-        return "colliding match starts: the general tier"
+        return (f"{hb} hash blocks (out_width {plan.out_width}, "
+                f"{spec.algo}): {_XLA}")
+    k2 = _win_k2(plan)
+    if getattr(plan, "windowed", False) and not 2 <= k2 <= _MAX_WIN_K2:
+        return (f"count-windowed plan with {k2} DP columns (the kernel "
+                f"takes 2..{_MAX_WIN_K2}): {_XLA}")
     if opts_for_config(spec, plan, ct) is None:
-        return (f"launch configuration outside the kernel's bounds "
-                f"(slots {plan.num_slots} <= {_MAX_SLOTS}, values "
-                f"<= 4 bytes)")
-    return _schema_refusal(pieces)
+        return (f"launch configuration outside the kernel's bounds (slots "
+                f"{plan.num_slots} <= {_MAX_SLOTS}, token width "
+                f"{plan.tokens.shape[1]} <= {_MAX_TOKENS}, values <= 4 "
+                f"bytes, mode {spec.mode}, algo {spec.algo}): {_XLA}")
+    decode, pack = decode_for(plan)
+    return _schema_refusal(pieces, bitfield=decode == "scalar" or pack)
 
 
-def _schema_refusal(pieces) -> "str | None":
+def _schema_refusal(pieces, *, bitfield: bool) -> "str | None":
     """Why the kernels cannot read this schema (None = they can): the
-    descriptor table's size, and groups whose variant index is not a bit
-    field of the packed chosen vector (the general tier's schemas)."""
+    descriptor table's size, groups with more selector columns than a
+    descriptor holds, and — for the scalar selectors (``bitfield``) —
+    groups whose variant index is not a bit field of the packed chosen
+    vector."""
     if len(pieces.groups) > MAX_GROUPS:
         return f"{len(pieces.groups)} emission groups > {MAX_GROUPS}"
     for grp in pieces.groups:
-        if grp.n_variants > 1 and (
-            len(grp.sel_cols) > MAX_SEL
-            or grp.n_variants != 1 << len(grp.sel_cols)
-            or max(grp.sel_cols) >= 31
-        ):
+        if grp.n_variants <= 1:
+            continue
+        if len(grp.sel_cols) > MAX_SEL:
+            return (f"a group with {len(grp.sel_cols)} selector columns > "
+                    f"{MAX_SEL}")
+        if bitfield and (grp.n_variants != 1 << len(grp.sel_cols)
+                         or max(grp.sel_cols) >= 31):
             return "a group outside the scalar tier's bit-field selects"
     return None
 
 
 def group_descriptors(pieces) -> np.ndarray:
     """The schema's static group structure as int32 ``[NG, DESC_WIDTH]``
-    rows for the kernel (field order: ``D_*`` in ``csrc/piece_md5.cu``)."""
+    rows for the kernel (field order: ``D_*`` in ``csrc/piece_hash.cu``)."""
     out = np.zeros((len(pieces.groups), DESC_WIDTH), np.int32)
     for gi, grp in enumerate(pieces.groups):
         sel = list(grp.sel_cols)[:MAX_SEL]
@@ -214,57 +302,100 @@ def group_descriptors(pieces) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
+def launch_key(algo: str, decode: str, pair: bool) -> str:
+    """The ``LAUNCHES`` key of the entry point a launch runs."""
+    if pair:
+        entry = "pair" if decode == "scalar" else "pair_digits"
+    else:
+        entry = {"scalar": "k1", "digits": "digits",
+                 "windowed": "windowed"}[decode]
+    return f"piece_{entry}/{algo}"
+
+
 def fused_expand_md5(
     blk_word: torch.Tensor,  # int32 [NB] — plan row of each block
     blk_count: torch.Tensor,  # int32 [NB] — candidates in each block
-    pbase: torch.Tensor,  # int32 [NB] — each block's packed chosen vector
-    tables: dict,  # "pw"/"pw16"/"pl" piece tables (int32) + "desc"
+    base: torch.Tensor,  # int32 [NB] (scalar, windowed) or [NB, M] (digits)
+    tables: dict,  # "pw"/"pw16"/"pl" piece tables + "desc" (+ "radix",
+    #                "win_v"), int32
     *,
     pieces,
     block_stride: int,
     out_width: int,
     min_substitute: int,
     max_substitute: int,
+    algo: str = "md5",
+    decode: str = "scalar",
+    pack_cb: bool = False,
+    k_opts: int = 1,
     pair: bool = False,
 ) -> "tuple[torch.Tensor, torch.Tensor]":
-    """Fused decode + splice + MD5 over ``NB`` blocks of ``block_stride``
-    lanes.
+    """Fused decode + splice + hash over ``NB`` blocks of ``block_stride``
+    lanes (named after the reference's wrapper; ``algo`` picks the hash).
 
-    Returns ``(state int32[N, 4], emit bool[N])`` with ``N = NB *
-    block_stride`` candidates, or ``2 * NB * block_stride`` under ``pair``
-    (member ``p`` of lane ``r`` of block ``b`` at row ``b * 2 * stride +
-    2r + p`` — candidate-rank order; blocks then span ``2 * stride``
-    ranks and ``blk_count`` counts candidates).
+    ``decode`` (gate via :func:`decode_for`): ``"scalar"`` — ``base`` is
+    each block's packed chosen vector ``pbase``; ``"digits"`` — ``base``
+    holds each block's base digits ``[NB, M]`` and ``tables["radix"]`` the
+    plan's ``[B, M]`` radices; ``"windowed"`` — ``base`` is each block's
+    scalar windowed rank, ``tables["win_v"]`` the plan's ``[B, M+1, K2]``
+    suffix counts, ``k_opts`` the plan's option count, and ``pack_cb``
+    packs the walk's chosen bits for the scalar selectors.
 
-    Schemas this package has no kernel for (the general tier's, more than
-    3 hash blocks) raise ``NotImplementedError``; callers gate plans with
-    :func:`kernel_refusal` first."""
-    hb = _hash_blocks_for(out_width)
+    Returns ``(state int32[N, DIGEST_WORDS[algo]], emit bool[N])`` with
+    ``N = NB * block_stride`` candidates, or ``2 * NB * block_stride``
+    under ``pair`` (member ``p`` of lane ``r`` of block ``b`` at row
+    ``b * 2 * stride + 2r + p`` — candidate-rank order; blocks then span
+    ``2 * stride`` ranks and ``blk_count`` counts candidates).
+
+    Schemas this package has no kernel for (more than 3 hash blocks; the
+    scalar selectors over a group that is not a bit field) raise
+    ``NotImplementedError``; callers gate plans with :func:`kernel_refusal`
+    first."""
+    if algo not in ALGOS:
+        raise ValueError(f"unknown algo {algo!r}; one of {ALGOS}")
+    if decode not in DECODES:
+        raise ValueError(f"unknown decode {decode!r}; one of {DECODES}")
+    hb = _hash_blocks_for(out_width, _scale(algo))
     if hb > _MAX_HASH_BLOCKS:
         raise NotImplementedError(f"piece kernel: {hb} hash blocks > 3")
-    why = _schema_refusal(pieces)
+    why = _schema_refusal(
+        pieces, bitfield=decode == "scalar" or (decode == "windowed"
+                                                and pack_cb))
     if why is not None:
         raise NotImplementedError(f"piece kernel: {why}")
-    if pair and (not pieces.pair_ok or hb != 1):
+    if pair and (not pieces.pair_ok or hb != 1 or decode == "windowed"):
         raise ValueError(
-            "pair=True needs a pair-eligible PieceSchema and one hash "
-            "block; gate via pair_for_config"
+            "pair=True needs a pair-eligible PieceSchema, one hash block "
+            "and full enumeration; gate via pair_for_config"
         )
     nb = int(blk_word.shape[0])
-    for name, t in (("blk_word", blk_word), ("blk_count", blk_count),
-                    ("pbase", pbase)):
-        if t.dtype != torch.int32 or t.shape != (nb,):
-            raise ValueError(f"{name} must be int32 [{nb}], got "
+    m = 0
+    if decode != "scalar":
+        if "radix" not in tables or (decode == "windowed"
+                                     and "win_v" not in tables):
+            raise ValueError(f"decode {decode!r} needs tables['radix']"
+                             + (" and tables['win_v']"
+                                if decode == "windowed" else ""))
+        m = int(tables["radix"].shape[1])
+        if m > _MAX_SLOTS:
+            raise NotImplementedError(
+                f"piece kernel: {m} slots > {_MAX_SLOTS}")
+    base_shape = (nb, m) if decode == "digits" else (nb,)
+    for name, t, shape in (("blk_word", blk_word, (nb,)),
+                           ("blk_count", blk_count, (nb,)),
+                           ("base", base, base_shape)):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be int32 {list(shape)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
     args = dict(pieces=pieces, block_stride=block_stride,
                 hash_blocks=hb, min_substitute=min_substitute,
-                max_substitute=max_substitute, pair=pair)
+                max_substitute=max_substitute, algo=algo, decode=decode,
+                pack_cb=pack_cb, k_opts=k_opts, pair=pair)
     if blk_word.device.type == "cpu":
-        return piece_md5_reference(blk_word, blk_count, pbase, tables,
-                                   **args)
+        return piece_md5_reference(blk_word, blk_count, base, tables, **args)
     if blk_word.device.type != "cuda":
         raise ValueError(f"unsupported device {blk_word.device}")
-    return _launch_cuda(blk_word, blk_count, pbase, tables, **args)
+    return _launch_cuda(blk_word, blk_count, base, tables, **args)
 
 
 def _table_dims(tables: dict) -> "tuple[int, int, int, int, int]":
@@ -280,58 +411,67 @@ def _table_dims(tables: dict) -> "tuple[int, int, int, int, int]":
     )
 
 
-def _launch_cuda(blk_word, blk_count, pbase, tables, *, pieces,
-                 block_stride, hash_blocks, min_substitute, max_substitute,
-                 pair):
+def _launch_cuda(blk_word, blk_count, base, tables, *, pieces, block_stride,
+                 hash_blocks, min_substitute, max_substitute, algo, decode,
+                 pack_cb, k_opts, pair):
     from . import _native_build
 
-    lib = _native_build.load("piece_md5")
+    lib = _native_build.load(f"piece_hash_{algo}")
     dev = blk_word.device
     desc = tables["desc"]
-    for name in ("pw", "pw16", "pl", "desc"):
+    names = ["pw", "pw16", "pl", "desc"]
+    if decode != "scalar":
+        names.append("radix")
+    if decode == "windowed":
+        names.append("win_v")
+    for name in names:
         t = tables.get(name)
         if t is not None and (t.device != dev or t.dtype != torch.int32
                               or not t.is_contiguous()):
             raise ValueError(
-                f"piece table {name} must be a contiguous int32 tensor on "
+                f"table {name} must be a contiguous int32 tensor on "
                 f"{dev}, got {t.dtype} on {t.device}"
             )
-    for t in (blk_word, blk_count, pbase):
+    for t in (blk_word, blk_count, base):
         if t.device != dev or not t.is_contiguous():
             raise ValueError("block fields must be contiguous, on one device")
     if int(desc.shape[0]) != len(pieces.groups):
         raise ValueError("group descriptors do not match the schema")
     nb = int(blk_word.shape[0])
     rows = nb * block_stride * (2 if pair else 1)
-    state = torch.empty((rows, 4), dtype=torch.int32, device=dev)
+    state = torch.empty((rows, DIGEST_WORDS[algo]), dtype=torch.int32,
+                        device=dev)
     emit = torch.empty((rows,), dtype=torch.bool, device=dev)
 
     def ptr(t):
         return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
+    radix = tables.get("radix") if decode != "scalar" else None
+    win_v = tables.get("win_v") if decode == "windowed" else None
     ngw, ng16, ngd, vm, nw = _table_dims(tables)
-    common = [
-        ptr(blk_word), ptr(blk_count), ptr(pbase),
+    call = [
+        ptr(blk_word), ptr(blk_count), ptr(base), ptr(radix), ptr(win_v),
         ctypes.c_int(nb), ctypes.c_int(block_stride),
+        ctypes.c_int(0 if radix is None else int(radix.shape[1])),
+        ctypes.c_int(0 if win_v is None else int(win_v.shape[2])),
+        ctypes.c_int(k_opts), ctypes.c_int(int(pack_cb)),
+        ctypes.c_int(_DECODE_ID[decode]),
         ptr(tables.get("pw")), ptr(tables.get("pw16")), ptr(tables.get("pl")),
         ctypes.c_int(ngw), ctypes.c_int(ng16), ctypes.c_int(ngd),
         ctypes.c_int(vm), ctypes.c_int(nw),
         ptr(desc), ctypes.c_int(int(desc.shape[0])),
         ctypes.c_int(min_substitute), ctypes.c_int(max_substitute),
+        ctypes.c_int(hash_blocks), ptr(state), ptr(emit),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     ]
-    stream = ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream)
-    if pair:
-        fn, name = lib.a5_piece_md5_pair, "piece_md5_pair"
-        call = common + [ptr(state), ptr(emit), stream]
-    else:
-        fn, name = lib.a5_piece_md5_k1, "piece_md5_k1"
-        call = common + [ctypes.c_int(hash_blocks), ptr(state), ptr(emit),
-                         stream]
+    key = launch_key(algo, decode, pair)
+    entry = "pair" if pair else key.split("/")[0][len("piece_"):]
+    fn = getattr(lib, f"a5_piece_{entry}")
     fn.restype = ctypes.c_int
     err = fn(*call)
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+        raise RuntimeError(f"{key} launch failed: CUDA error {err}")
+    LAUNCHES[key] += 1
     return state, emit
 
 
@@ -349,11 +489,89 @@ def _popcount(x: torch.Tensor) -> torch.Tensor:
     return (x + lsr(x, 16)) & 0x3F
 
 
-def _plain_message(cb, w, tables, pieces, hash_blocks):
-    """The candidate message of each lane (int32 ``[N, 16*HB]``) and its
-    length — the kernel's ``build_message`` + length words, in tensors."""
-    n = cb.shape[0]
-    dev = cb.device
+def _decode_digits(r, base_rows, radix_rows):
+    """The kernel's ``decode_digits``: per-slot int32 ``[N]`` digits of
+    base digits + mixed-radix(``r``) with carry (exact integer division)."""
+    digits = []
+    carry = torch.zeros_like(r)
+    for s in range(radix_rows.shape[1]):
+        rs = radix_rows[:, s]
+        q = torch.div(r, rs, rounding_mode="floor")
+        t = base_rows[:, s] + (r - q * rs) + carry
+        ge = (t >= rs).to(torch.int32)
+        digits.append(t - ge * rs)
+        carry = ge
+        r = q
+    return digits
+
+
+def _decode_windowed(big_r, winv_rows, radix_rows, k_opts):
+    """The kernel's ``decode_windowed``: the suffix-count DP walk of the
+    windowed rank ``big_r`` through ``winv_rows`` ``[N, M+1, K2]``."""
+    k2 = int(winv_rows.shape[2])
+    jcnt = torch.zeros_like(big_r)
+    digits = []
+    for s in range(radix_rows.shape[1]):
+        row = winv_rows[:, s + 1]
+        vn0 = torch.zeros_like(big_r)
+        vn1 = torch.zeros_like(big_r)
+        for c in range(k2):
+            vn0 = torch.where(jcnt == c, row[:, c], vn0)
+            if c + 1 < k2:
+                vn1 = torch.where(jcnt == c, row[:, c + 1], vn1)
+        not_chosen = big_r < vn0
+        rr = big_r - vn0
+        safe = torch.clamp(vn1, min=1)
+        q = torch.zeros_like(big_r)
+        for _ in range(max(0, k_opts - 1)):
+            ge = (rr >= safe).to(torch.int32)
+            rr = rr - ge * safe
+            q = q + ge
+        d = torch.where(not_chosen, 0, 1 + q)
+        big_r = torch.where(not_chosen, big_r, rr)
+        digits.append(torch.minimum(torch.clamp(d, min=0),
+                                    radix_rows[:, s] - 1))
+        jcnt = jcnt + (~not_chosen).to(torch.int32)
+    return digits
+
+
+def _group_index(grp, cb, digits):
+    """A group's variant index (int64 ``[N]``): bit-fields of ``cb``, or
+    from ``digits`` (one column: its digit; merged binary columns: their
+    chosen bits), clamped to the group's rows."""
+    if cb is not None:
+        idx = torch.zeros(cb.shape, dtype=torch.int64, device=cb.device)
+        for i, c in enumerate(grp.sel_cols):
+            idx |= (lsr(cb, c) & 1).long() << i
+    elif len(grp.sel_cols) == 1:
+        idx = digits[grp.sel_cols[0]].long()
+    else:
+        idx = torch.zeros(digits[0].shape, dtype=torch.int64,
+                          device=digits[0].device)
+        for i, c in enumerate(grp.sel_cols):
+            idx |= (digits[c] > 0).long() << i
+    return torch.clamp(idx, max=grp.n_variants - 1)
+
+
+def _place(msg, nw_data, o, wd):
+    """OR ``wd`` into the word list ``msg`` at byte offset ``o`` (int32
+    ``[N]``): the kernel's ``place``, dropping words past the data area."""
+    q = o >> 2
+    sh = (o & 3) * 8
+    lo = wd << sh
+    hi = torch.where(sh > 0, lsr(wd, (32 - sh) & 31), 0)
+    for j in range(nw_data):
+        msg[j] = msg[j] | torch.where(q == j, lo, 0) \
+            | torch.where(q + 1 == j, hi, 0)
+
+
+def _plain_message(index, w, tables, pieces, hash_blocks, algo):
+    """The candidate message of each lane (int32 ``[N, 16*HB]``, length
+    words in place) and its message length in bytes — the kernel's
+    ``build_message`` + ``hash_message`` length words, in tensors.
+    ``index(grp)`` gives a group's variant index."""
+    n = w.shape[0]
+    dev = w.device
     nw_data = 16 * hash_blocks - 2
     msg = [torch.zeros((n,), dtype=torch.int32, device=dev)
            for _ in range(16 * hash_blocks)]
@@ -361,47 +579,45 @@ def _plain_message(cb, w, tables, pieces, hash_blocks):
     for grp in pieces.groups:
         if grp.len_fixed == 0:
             continue
-        idx = torch.zeros((n,), dtype=torch.int64, device=dev)
-        if grp.n_variants > 1:
-            for i, c in enumerate(grp.sel_cols):
-                idx |= (lsr(cb, c) & 1).long() << i
-            idx = torch.clamp(idx, max=grp.n_variants - 1)
+        idx = (index(grp) if grp.n_variants > 1
+               else torch.zeros((n,), dtype=torch.int64, device=dev))
         for wi in range(grp.n_words):
             if grp.packed16:
                 wd = tables["pw16"][w, grp.tab_idx, idx]
             else:
                 wd = tables["pw"][w, grp.tab_idx, idx, wi]
             o = off + 4 * wi
-            q = o >> 2
-            sh = (o & 3) * 8
-            lo = wd << sh
-            hi = torch.where(sh > 0, lsr(wd, (32 - sh) & 31), 0)
-            for j in range(nw_data):
-                msg[j] = msg[j] | torch.where(q == j, lo, 0) \
-                    | torch.where(q + 1 == j, hi, 0)
+            if algo == "ntlm":
+                lo16, hi16 = utf16_code_units(wd)
+                _place(msg, nw_data, 2 * o, lo16)
+                if not grp.packed16:
+                    _place(msg, nw_data, 2 * o + 4, hi16)
+            else:
+                _place(msg, nw_data, o, wd)
         if grp.len_fixed is not None:
             off = off + grp.len_fixed
         else:
             off = off + tables["pl"][w, grp.gl_idx, idx]
-    end = off - 1
-    bits = end * 8
+    end = (off - 1) * _scale(algo)
+    lw, bits = length_word(end, algo)
     for k in range(hash_blocks):
         fits = end <= 64 * (k + 1) - 9
         if k + 1 < hash_blocks:
             bits_k = torch.where(fits, bits, 0)
         else:
             bits_k = bits
-        msg[16 * k + 14] = msg[16 * k + 14] | bits_k
+        msg[16 * k + lw] = msg[16 * k + lw] | bits_k
     return torch.stack(msg, dim=1), end
 
 
-def piece_md5_reference(blk_word, blk_count, pbase, tables, *, pieces,
+def piece_md5_reference(blk_word, blk_count, base, tables, *, pieces,
                         block_stride, hash_blocks, min_substitute,
-                        max_substitute, pair):
+                        max_substitute, algo="md5", decode="scalar",
+                        pack_cb=False, k_opts=1, pair=False):
     """Plain PyTorch version of the piece kernel: the same function over
     int32 ``[N]`` lanes (wrapping adds, logical right shifts by masking),
-    on whatever device the inputs live on.  Same outputs as
-    :func:`fused_expand_md5`."""
+    on whatever device the inputs live on, lane for lane the kernel's
+    arithmetic.  Same outputs as :func:`fused_expand_md5`."""
     global PLAIN_CALLS
     PLAIN_CALLS += 1
     dev = blk_word.device
@@ -411,23 +627,55 @@ def piece_md5_reference(blk_word, blk_count, pbase, tables, *, pieces,
     r = (lane - blk * block_stride).to(torch.int32)
     w = blk_word.long()[blk]
     count = blk_count[blk]
-    base = pbase[blk]
 
     def window(cc):
         return (cc >= min_substitute) & (cc <= max_substitute)
 
+    def hashed(cb, digits, hb):
+        msg, end = _plain_message(lambda g: _group_index(g, cb, digits), w,
+                                  tables, pieces, hb, algo)
+        return hash_words(msg, end, algo)
+
+    def chosen(digits):
+        return sum((d > 0).to(torch.int32) for d in digits)
+
     if not pair:
-        cb = base + r
-        msg, end = _plain_message(cb, w, tables, pieces, hash_blocks)
-        emit = (r < count) & window(_popcount(cb))
-        return md5_words(msg, end), emit
-    cb = base + 2 * r
-    cc = _popcount(cb)
+        cb = digits = None
+        if decode == "scalar":
+            cb = base[blk] + r
+        else:
+            radix_rows = tables["radix"][w]
+            if decode == "digits":
+                digits = _decode_digits(r, base[blk], radix_rows)
+            else:
+                digits = _decode_windowed(base[blk] + r, tables["win_v"][w],
+                                          radix_rows, k_opts)
+                if pack_cb:
+                    cb = torch.zeros_like(r)
+                    for s, d in enumerate(digits):
+                        cb = cb | ((d > 0).to(torch.int32) << s)
+                    digits = None
+        cc = _popcount(cb) if cb is not None else chosen(digits)
+        emit = (r < count) & window(cc)
+        return hashed(cb, digits, hash_blocks), emit
     states, emits = [], []
-    for p in (0, 1):
-        msg, end = _plain_message(cb | p, w, tables, pieces, 1)
-        states.append(md5_words(msg, end))
-        emits.append((2 * r + p < count) & window(cc + p))
-    state = torch.stack(states, dim=1).reshape(-1, 4)
+    if decode == "scalar":
+        cb = base[blk] + 2 * r
+        cc = _popcount(cb)
+        for p in (0, 1):
+            states.append(hashed(cb | p, None, 1))
+            emits.append((2 * r + p < count) & window(cc + p))
+    else:
+        radix_rows = tables["radix"][w]
+        digits = _decode_digits(2 * r, base[blk], radix_rows)
+        cc = chosen(digits)
+        d0 = digits[0]
+        d0p = torch.minimum(d0 + 1, radix_rows[:, 0] - 1)
+        cc1 = cc + (d0p > 0).to(torch.int32) - (d0 > 0).to(torch.int32)
+        for p, cc_p in ((0, cc), (1, cc1)):
+            dg = digits if p == 0 else [d0p] + digits[1:]
+            states.append(hashed(None, dg, 1))
+            emits.append((2 * r + p < count) & window(cc_p))
+    state = torch.stack(states, dim=1).reshape(-1, DIGEST_WORDS[algo])
     emit = torch.stack(emits, dim=1).reshape(-1)
     return state, emit

@@ -17,7 +17,6 @@ rank)`` cursor and their digest re-verified before they are recorded.
 
 from __future__ import annotations
 
-import hashlib
 import sys
 import time
 from collections import deque
@@ -36,10 +35,16 @@ from ..models.attack import (
     superstep_buffers,
 )
 from ..ops.blocks import superstep_index
-from ..ops.fused_expand import kernel_refusal, pair_for_config
+from ..ops.fused_expand import (
+    decode_for,
+    k_vals_for,
+    kernel_refusal,
+    pair_for_config,
+)
 from ..ops.membership import HostDigestLookup, build_digest_set
 from ..ops.packing import PackedWords, pack_words, piece_schema_for
 from ..tables.compile import compile_table
+from ..utils.digests import HOST_DIGEST
 from .sinks import HitRecord, HitRecorder
 
 #: Supersteps in flight: two alternating buffer sets, so superstep N+1 is
@@ -152,10 +157,6 @@ class Sweep:
         self.spec = spec
         self.config = config or SweepConfig()
         self.device = resolve_device(self.config.device)
-        if spec.algo != "md5":
-            raise NotImplementedError(
-                f"algo {spec.algo!r} is not ported (md5 only)"
-            )
         self.digests = (
             digests if isinstance(digests, np.ndarray) else list(digests)
         )
@@ -204,8 +205,9 @@ class Sweep:
         if pair_k is None and str(cfg.pair).lower() in ("on", "1", "2",
                                                         "true"):
             print("a5gen: warning: pair requested (--pair on) but this "
-                  "plan/config is not pair-eligible (schema gate or "
-                  "hash-block count); running K=1", file=sys.stderr)
+                  "plan/config is not pair-eligible (schema gate, windowed "
+                  "decode, or hash-block count); running K=1",
+                  file=sys.stderr)
         rank_stride = stride * (pair_k or 1)
         idx = superstep_index(plan, rank_stride)
         if idx is None:
@@ -219,10 +221,12 @@ class Sweep:
             plan, pieces, build_digest_set(self.digests, spec.algo), idx,
             device=dev,
         )
+        decode, pack_cb = decode_for(plan)
         body = make_superstep_body(
             spec, num_lanes=lanes, out_width=int(plan.out_width),
             block_stride=stride, num_blocks=nb, pieces=pieces,
-            pair_k=pair_k,
+            pair_k=pair_k, decode=decode, pack_cb=pack_cb,
+            k_opts=k_vals_for(plan),
         )
         t_drive = time.monotonic()
         stats, n_emitted, n_hits = self._drive(body, arrays, nb, steps,
@@ -293,7 +297,7 @@ class Sweep:
         """Re-derive a device-flagged hit's candidate, re-verify its
         digest on the host, record it."""
         cand = decode_variant(self.plan, self.ct, self.spec, w_row, rank)
-        dig = hashlib.md5(cand).digest()
+        dig = HOST_DIGEST[self.spec.algo](cand)
         if dig not in self._digest_lookup:
             raise RuntimeError(
                 f"device hit failed host re-verification: word {w_row} "

@@ -7,9 +7,10 @@ machine that has only PyTorch with CUDA::
 
 (``--noconftest``: the suite's conftest pins JAX to the CPU.)  Without a
 GPU every test here skips.  Inputs come from seeds through the package's
-own host code; each kernel is held against its plain PyTorch version on
-the card (equal emit masks, equal state on every emitted row, tolerance
-0), and a small sweep on the GPU must equal the same sweep on the CPU.
+own host code; each kernel entry point, for every hash and decode tier,
+is held against its plain PyTorch version on the card (equal emit masks,
+equal state on every emitted row, tolerance 0), and small sweeps on the
+GPU must equal the same sweeps on the CPU.
 """
 
 import hashlib
@@ -22,6 +23,7 @@ from hashcat_a5_table_generator_tpu_torch.models.attack import (
     AttackSpec,
     build_plan,
     cut_blocks,
+    decode_variant,
     device_arrays,
 )
 from hashcat_a5_table_generator_tpu_torch.ops import fused_expand as fe
@@ -41,10 +43,16 @@ from hashcat_a5_table_generator_tpu_torch.tables.compile import (
     compile_table,
 )
 from hashcat_a5_table_generator_tpu_torch.tables.layouts import get_layout
+from hashcat_a5_table_generator_tpu_torch.utils.digests import HOST_DIGEST
 
 pytestmark = pytest.mark.cuda
 
 SUB = get_layout("qwerty-cyrillic").to_substitution_map()
+CZECH = get_layout("czech").to_substitution_map()
+#: 1 -> a 4-byte value: 19 of them take a 64-byte word past 2 MD5 blocks.
+SUB_WIDE = {**SUB, b"1": [b"\xf0\x9f\x98\x80"]}
+LEET3 = {b"a": [b"4", b"@", b"^"], b"e": [b"3", b"&", b"EE"],
+         b"s": [b"$", b"5", b"z"], b"o": [b"0", b"()", b"*"]}
 
 
 @pytest.fixture
@@ -54,12 +62,41 @@ def cuda():
     return torch.device("cuda")
 
 
+def letter_words(n, lo, hi, seed):
+    rng = np.random.default_rng(seed)
+    return [bytes(rng.integers(97, 123, size=int(rng.integers(lo, hi + 1)),
+                               dtype=np.uint8)) for _ in range(n)]
+
+
+def czech_long_words(n, lo, hi, k, seed):
+    """``lo``..``hi`` letters, ``k`` of them czech keys (the slots), the
+    rest letters czech does not map."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        w = np.frombuffer(b"bfghjklmpqvwx", np.uint8)[rng.integers(
+            0, 13, size=int(rng.integers(lo, hi + 1)))].copy()
+        pos = rng.choice(len(w), size=k, replace=False)
+        w[pos] = np.frombuffer(b"acdeinorstuyz", np.uint8)[rng.integers(
+            0, 13, size=k)]
+        out.append(bytes(w))
+    return out
+
+
 def words_for(case, seed=0):
     rng = np.random.default_rng(seed)
     if case in ("k1", "pair"):
-        return [bytes(rng.integers(97, 123, size=int(rng.integers(3, 11)),
-                                   dtype=np.uint8)) for _ in range(300)]
-    lo, hi = (40, 64) if case == "2-hash-blocks" else (100, 120)
+        return letter_words(300, 3, 10, seed)
+    if case == "3-hash-blocks":
+        out = []
+        for _ in range(40):
+            w = np.full(int(rng.integers(40, 65)), ord("0"), np.uint8)
+            pos = rng.choice(len(w), size=22, replace=False)
+            w[pos[:19]] = ord("1")
+            w[pos[19:]] = rng.integers(97, 123, size=3, dtype=np.uint8)
+            out.append(bytes(w))
+        return out
+    lo, hi = (40, 64)
     out = []
     for _ in range(40):
         w = rng.integers(48, 58, size=int(rng.integers(lo, hi + 1)),
@@ -70,33 +107,91 @@ def words_for(case, seed=0):
     return out
 
 
+class Case:
+    """Blocks cut on the card from a real plan's index, and the wrapper
+    arguments of the plan's decode tier."""
+
+    def __init__(self, sub, words, device, *, algo="md5", mx=15, pair=False,
+                 stride=128, nb=256):
+        spec = AttackSpec(algo=algo, max_substitute=mx)
+        ct = compile_table(sub)
+        plan = build_plan(spec, ct, pack_words(words))
+        pieces = piece_schema_for(plan, ct)
+        assert fe.kernel_refusal(spec, plan, ct, pieces) is None
+        self.plan = plan
+        self.decode, pack_cb = fe.decode_for(plan)
+        rank_stride = stride * (2 if pair else 1)
+        self.arrays = device_arrays(
+            plan, pieces, build_digest_set([], algo),
+            superstep_index(plan, rank_stride), device=device)
+        self.blocks = cut_blocks(self.arrays, 0, nb, rank_stride,
+                                 self.decode)[:3]
+        self.hash_blocks = fe._hash_blocks_for(plan.out_width,
+                                               2 if algo == "ntlm" else 1)
+        self.key = fe.launch_key(algo, self.decode, pair)
+        self.kw = dict(pieces=pieces, block_stride=stride,
+                       min_substitute=spec.effective_min,
+                       max_substitute=mx, pair=pair, algo=algo,
+                       decode=self.decode, pack_cb=pack_cb,
+                       k_opts=fe.k_vals_for(plan))
+
+    def check(self):
+        launches = dict(fe.LAUNCHES)
+        state, emit = fe.fused_expand_md5(
+            *self.blocks, self.arrays, out_width=int(self.plan.out_width),
+            **self.kw)
+        assert fe.LAUNCHES[self.key] == launches[self.key] + 1
+        want_state, want_emit = fe.piece_md5_reference(
+            *self.blocks, self.arrays, hash_blocks=self.hash_blocks,
+            **self.kw)
+        torch.cuda.synchronize()
+        assert emit.any()
+        assert torch.equal(emit, want_emit)
+        assert torch.equal(state[emit], want_state[emit])
+
+
 @pytest.mark.parametrize("case", ["k1", "pair", "2-hash-blocks",
                                   "3-hash-blocks"])
 def test_kernel_matches_plain_version(case, cuda):
-    spec, ct = AttackSpec(), compile_table(SUB)
-    plan = build_plan(spec, ct, pack_words(words_for(case)))
-    pieces = piece_schema_for(plan, ct)
-    assert fe.kernel_refusal(spec, plan, ct, pieces) is None
-    pair = case == "pair"
-    stride = 128
-    idx = superstep_index(plan, stride * (2 if pair else 1))
-    arrays = device_arrays(plan, pieces, build_digest_set([], "md5"), idx,
-                           device=cuda)
-    blocks = cut_blocks(arrays, 0, 256, stride * (2 if pair else 1))[:3]
-    kw = dict(pieces=pieces, block_stride=stride, min_substitute=1,
-              max_substitute=15, pair=pair)
-    launches = dict(fe.LAUNCHES)
-    state, emit = fe.fused_expand_md5(*blocks, arrays,
-                                      out_width=int(plan.out_width), **kw)
-    name = "piece_md5_pair" if pair else "piece_md5_k1"
-    assert fe.LAUNCHES[name] == launches[name] + 1
-    want_state, want_emit = fe.piece_md5_reference(
-        *blocks, arrays, hash_blocks=fe._hash_blocks_for(plan.out_width),
-        **kw)
-    torch.cuda.synchronize()
-    assert emit.any()
-    assert torch.equal(emit, want_emit)
-    assert torch.equal(state[emit], want_state[emit])
+    sub = SUB_WIDE if case == "3-hash-blocks" else SUB
+    c = Case(sub, words_for(case), cuda, pair=case == "pair")
+    assert c.hash_blocks == {"k1": 1, "pair": 1, "2-hash-blocks": 2,
+                             "3-hash-blocks": 3}[case]
+    c.check()
+
+
+#: (entry, hash) -> (table, words, max_substitute, pair, hash blocks).
+_ENTRY_CASES = {}
+for _algo in ("md5", "md4", "sha1", "ntlm"):
+    _ENTRY_CASES[("k1", _algo)] = (SUB, letter_words(300, 3, 8, 1), 15,
+                                   False, 1)
+    _ENTRY_CASES[("pair", _algo)] = (SUB, letter_words(300, 3, 8, 2), 15,
+                                     True, 1)
+    _ENTRY_CASES[("digits", _algo)] = (CZECH, letter_words(300, 3, 8, 3),
+                                       15, False, 1)
+    _ENTRY_CASES[("pair_digits", _algo)] = (
+        LEET3, letter_words(300, 3, 8, 4), 15, True, 1)
+    _ENTRY_CASES[("windowed", _algo)] = (
+        (CZECH if _algo in ("ntlm", "md4") else SUB),
+        letter_words(300, 9, 12, 5), 2, False, 1)
+_ENTRY_CASES[("digits-2", "ntlm")] = (CZECH, letter_words(200, 18, 26, 6),
+                                      15, False, 2)
+_ENTRY_CASES[("digits-3", "ntlm")] = (
+    CZECH, czech_long_words(200, 50, 64, 12, 7), 15, False, 3)
+_ENTRY_CASES[("k1-2", "sha1")] = (SUB, words_for("2-hash-blocks", 8), 15,
+                                  False, 2)
+_ENTRY_CASES[("k1-3", "sha1")] = (SUB_WIDE, words_for("3-hash-blocks", 9),
+                                  15, False, 3)
+
+
+@pytest.mark.parametrize("entry,algo", sorted(_ENTRY_CASES),
+                         ids=[f"{e}-{a}" for e, a in sorted(_ENTRY_CASES)])
+def test_every_entry_point_matches_plain_version(entry, algo, cuda):
+    sub, words, mx, pair, blocks = _ENTRY_CASES[(entry, algo)]
+    c = Case(sub, words, cuda, algo=algo, mx=mx, pair=pair)
+    assert c.key == f"piece_{entry.split('-')[0]}/{algo}"
+    assert c.hash_blocks == blocks
+    c.check()
 
 
 def test_sweep_on_the_gpu_equals_the_cpu(cuda):
@@ -104,9 +199,6 @@ def test_sweep_on_the_gpu_equals_the_cpu(cuda):
     digests = [hashlib.md5(w).digest() for w in words[:5]]  # never emitted
     spec, ct = AttackSpec(), compile_table(SUB)
     plan = build_plan(spec, ct, pack_words(words[:40]))
-    from hashcat_a5_table_generator_tpu_torch.models.attack import (
-        decode_variant,
-    )
     for row in range(0, 40, 4):
         digests.append(hashlib.md5(decode_variant(
             plan, ct, spec, row, plan.n_variants[row] // 2)).digest())
@@ -121,3 +213,31 @@ def test_sweep_on_the_gpu_equals_the_cpu(cuda):
     assert got == want and len(got) == 10
     assert results[0].n_emitted == results[1].n_emitted
     assert results[0].superstep["replays"] > 0
+
+
+@pytest.mark.parametrize("table,algo,mx", [
+    ("czech", "ntlm", 15), ("greek-hebrew", "sha1", 15),
+    ("qwerty-cyrillic", "md5", 2), ("czech", "ntlm", 2),
+])
+def test_other_tiers_sweep_on_the_gpu_equals_the_cpu(table, algo, mx, cuda):
+    sub = get_layout(table).to_substitution_map()
+    if table == "greek-hebrew":
+        qg = get_layout("qwerty-greek").to_substitution_map()
+        words = [b"".join(qg.get(bytes([c]), [bytes([c])])[0] for c in w)
+                 for w in letter_words(200, 2, 8, 10)]
+    else:
+        words = letter_words(200, 2 if mx == 15 else 9, 12, 11)
+    spec = AttackSpec(algo=algo, max_substitute=mx)
+    cfg = dict(lanes=4096, num_blocks=32)
+    probe = Sweep(spec, sub, words, [], SweepConfig(device="cpu", **cfg))
+    assert probe.plan.windowed == (mx == 2)
+    digests = [HOST_DIGEST[algo](decode_variant(
+        probe.plan, probe.ct, spec, row, probe.plan.n_variants[row] // 2))
+        for row in range(0, 200, 7) if probe.plan.n_variants[row] >= 2]
+    results = [Sweep(spec, sub, words, digests,
+                     SweepConfig(device=dev, **cfg)).run_crack()
+               for dev in ("cuda", "cpu")]
+    got, want = ([(h.word_index, h.variant_rank, h.candidate)
+                  for h in r.hits] for r in results)
+    assert got == want and len(got) >= len(digests)
+    assert results[0].n_emitted == results[1].n_emitted

@@ -1,13 +1,15 @@
 """The piece kernel of the PyTorch/CUDA package against the JAX reference.
 
 On the CPU the wrapper runs the kernel's plain PyTorch version; it must
-match the reference's fused Pallas kernel (interpret mode) bit for bit on
-every emitted lane, with equal emit masks, at K=1 and in the pair tier,
-for static and dynamic pair deltas.  Wider candidates (2 and 3 chained
-MD5 blocks) are held against the reference's XLA twin (``expand_matches``
-+ ``HASH_FNS["md5"]``).  The CUDA source itself is compiled for the host
-with g++ (CUDA keywords stubbed) and must equal the plain version on every
-lane; ``tests/test_torch_cuda.py`` compares the real kernels on a GPU.
+match the reference's fused Pallas kernel (interpret mode, a few tiny
+cases) and its XLA twin (``expand_matches`` + ``HASH_FNS[algo]``) bit for
+bit on every emitted lane, with equal emit masks: at K=1 and in the pair
+tier, for static and dynamic pair deltas, for the scalar, digit and
+windowed decodes, for MD5, MD4, SHA-1 and NTLM, and for 1-3 chained hash
+blocks.  The CUDA source itself is compiled for the host with g++ (CUDA
+keywords stubbed) and must equal the plain version on every lane of every
+instantiation; ``tests/test_torch_cuda.py`` compares the real kernels on
+a GPU.
 """
 
 import hashlib
@@ -40,31 +42,50 @@ from hashcat_a5_table_generator_tpu_torch.models.attack import (
 )
 from hashcat_a5_table_generator_tpu_torch.ops import fused_expand as fe
 from hashcat_a5_table_generator_tpu_torch.tables.layouts import get_layout
+from hashcat_a5_table_generator_tpu_torch.utils.digests import HOST_DIGEST
 
 #: 1:1 option maps (radix 2 everywhere, pair-eligible), as in
 #: tests/test_pair.py.  STATIC: every value 2 bytes (pair delta +1
 #: always); DYN: 1- and 2-byte values (delta 0 or +1 per word).
 SUB_STATIC = {b"a": [b"@@"], b"o": [b"00"], b"s": [b"$$"], b"e": [b"33"]}
 SUB_DYN = {b"a": [b"@@"], b"o": [b"0"], b"s": [b"$"], b"e": [b"33"]}
+#: Three options per key (radix 4, even): the digit decode's pair tier.
+SUB_LEET3 = {b"a": [b"4", b"@", b"^"], b"e": [b"3", b"&", b"EE"],
+             b"s": [b"$", b"5", b"z"], b"o": [b"0", b"()", b"*"]}
 WORDS = [b"ase", b"oo", b"z", b"seas", b"es", b"password", b"oases"]
+CYR = get_layout("qwerty-cyrillic").to_substitution_map()
+CZECH = get_layout("czech").to_substitution_map()
+ALGOS = ("md5", "md4", "sha1", "ntlm")
 CSRC = (pathlib.Path(__file__).resolve().parent.parent
-        / "hashcat_a5_table_generator_tpu_torch" / "csrc" / "piece_md5.cu")
+        / "hashcat_a5_table_generator_tpu_torch" / "csrc" / "piece_hash.cu")
 
 
 class Launch:
-    """One launch's blocks, cut by the reference's host cutter, and the
-    same numpy arrays as the port's torch inputs."""
+    """One launch's blocks, cut by the reference's host cutter from the
+    reference's plan, and the same numpy arrays as the port's torch
+    inputs.  ``mx`` < 9 may make the plan count-windowed."""
 
-    def __init__(self, sub, words, *, pair, stride=128, nb=8):
-        self.spec = AttackSpec()
+    def __init__(self, sub, words, *, pair, stride=128, nb=8, algo="md5",
+                 mx=15):
+        self.spec = AttackSpec(algo=algo, max_substitute=mx)
+        self.algo = algo
         self.ct = compile_table(sub)
         self.plan = build_plan(self.spec, self.ct, pack_words(words))
         self.pieces = piece_schema_for(self.plan, self.ct)
+        self.decode, self.pack_cb = fe.decode_for(self.plan)
+        self.k_opts = fe.k_vals_for(self.plan)
         self.pair, self.stride, self.nb = pair, stride, nb
         rank_stride = stride * (2 if pair else 1)
         batch, _, _ = make_blocks(self.plan, max_variants=nb * rank_stride,
                                   max_blocks=nb, fixed_stride=rank_stride)
         self.batch = pad_batch(batch, nb)
+        self.hash_blocks = fe._hash_blocks_for(self.plan.out_width,
+                                               fe._scale(algo))
+
+    def _win_v(self):
+        import jax.numpy as jnp
+
+        return jnp.asarray(self.plan.win_v) if self.plan.windowed else None
 
     def reference_pallas(self):
         p, t = plan_arrays(self.plan), table_arrays(self.ct)
@@ -77,13 +98,20 @@ class Launch:
             out_width=int(self.plan.out_width),
             min_substitute=self.spec.effective_min,
             max_substitute=self.spec.max_substitute,
-            block_stride=self.stride, k_opts=1, interpret=True,
+            block_stride=self.stride, k_opts=self.k_opts, interpret=True,
             scalar_units=pe.scalar_units_for(self.plan),
-            pieces=self.pieces, pair=self.pair,
+            pieces=self.pieces, pair=self.pair, algo=self.algo,
+            win_v=self._win_v(),
         )
         return np.asarray(state).view(np.int32), np.asarray(emit)
 
     def reference_xla(self):
+        cand, clen, emit = self.reference_expand()
+        state = np.asarray(HASH_FNS[self.algo](cand, clen)).view(np.int32)
+        return state, np.asarray(emit)
+
+    def reference_expand(self):
+        """The XLA twin's candidate buffers (hash-independent)."""
         p, t = plan_arrays(self.plan), table_arrays(self.ct)
         b = block_arrays(self.batch, num_blocks=self.nb)
         cand, clen, _w, emit = expand_matches(
@@ -95,29 +123,47 @@ class Launch:
             out_width=int(self.plan.out_width),
             min_substitute=self.spec.effective_min,
             max_substitute=self.spec.max_substitute,
-            block_stride=self.stride, radix2=True, pieces=self.pieces,
+            block_stride=self.stride, radix2=self.k_opts == 1,
+            pieces=self.pieces, win_v=self._win_v(),
+            pair_k=2 if self.pair else None,
         )
-        state = np.asarray(HASH_FNS["md5"](cand, clen)).view(np.int32)
-        return state, np.asarray(emit)
+        return cand, clen, emit
 
     def inputs(self):
-        """(word, count, pbase, tables) as CPU torch tensors."""
-        weight = fe.scalar_units_weight(self.plan)
-        pbase = (self.batch.base_digits.astype(np.int64)
-                 * weight[self.batch.word]).sum(axis=1).astype(np.int32)
+        """(word, count, base, tables) as CPU torch tensors: the decode's
+        block input and the piece tables plus ``radix`` / ``win_v``."""
+        digits = self.batch.base_digits
+        if self.decode == "scalar":
+            weight = fe.scalar_units_weight(self.plan)
+            base = (digits.astype(np.int64) * weight[self.batch.word]
+                    ).sum(axis=1)
+        elif self.decode == "windowed":
+            base = digits[:, 0]  # windowed blocks start at scalar ranks
+        else:
+            base = digits
+        tables = piece_tables(self.pieces, device="cpu")
+        tables["radix"] = torch.from_numpy(
+            np.ascontiguousarray(self.plan.pat_radix, np.int32))
+        if self.plan.windowed:
+            tables["win_v"] = torch.from_numpy(
+                np.ascontiguousarray(self.plan.win_v, np.int32))
         return (torch.from_numpy(self.batch.word.copy()),
                 torch.from_numpy(self.batch.count.copy()),
-                torch.from_numpy(pbase),
-                piece_tables(self.pieces, device="cpu"))
+                torch.from_numpy(np.ascontiguousarray(base, np.int32)),
+                tables)
+
+    def kwargs(self):
+        return dict(pieces=self.pieces, block_stride=self.stride,
+                    out_width=int(self.plan.out_width),
+                    min_substitute=self.spec.effective_min,
+                    max_substitute=self.spec.max_substitute, pair=self.pair,
+                    algo=self.algo, decode=self.decode,
+                    pack_cb=self.pack_cb, k_opts=self.k_opts)
 
     def port(self):
-        word, count, pbase, tables = self.inputs()
-        state, emit = fe.fused_expand_md5(
-            word, count, pbase, tables, pieces=self.pieces,
-            block_stride=self.stride, out_width=int(self.plan.out_width),
-            min_substitute=self.spec.effective_min,
-            max_substitute=self.spec.max_substitute, pair=self.pair,
-        )
+        word, count, base, tables = self.inputs()
+        state, emit = fe.fused_expand_md5(word, count, base, tables,
+                                          **self.kwargs())
         return state.numpy(), emit.numpy()
 
 
@@ -142,23 +188,30 @@ def test_plain_matches_reference_kernel(sub, pair):
     assert_same(launch.port(), launch.reference_pallas())
 
 
-def _long_words(n, lo, hi, seed):
+def _long_words(n, lo, hi, seed, letters=5):
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n):
         w = rng.integers(ord("0"), ord("9") + 1, size=int(rng.integers(
             lo, hi + 1)), dtype=np.uint8)
-        pos = rng.choice(len(w), size=5, replace=False)
-        w[pos] = rng.integers(ord("a"), ord("z") + 1, size=5, dtype=np.uint8)
+        pos = rng.choice(len(w), size=letters, replace=False)
+        w[pos] = rng.integers(ord("a"), ord("z") + 1, size=letters,
+                              dtype=np.uint8)
         out.append(bytes(w))
     return out
+
+
+def _letter_words(n, lo, hi, seed):
+    rng = np.random.default_rng(seed)
+    return [bytes(rng.integers(ord("a"), ord("z") + 1,
+                               size=int(rng.integers(lo, hi + 1)),
+                               dtype=np.uint8)) for _ in range(n)]
 
 
 @pytest.mark.parametrize("blocks,lo,hi", [(2, 40, 64), (3, 100, 120)],
                          ids=["2-hash-blocks", "3-hash-blocks"])
 def test_plain_matches_reference_multi_block(blocks, lo, hi):
-    sub = get_layout("qwerty-cyrillic").to_substitution_map()
-    launch = Launch(sub, _long_words(6, lo, hi, seed=blocks), pair=False,
+    launch = Launch(CYR, _long_words(6, lo, hi, seed=blocks), pair=False,
                     stride=8, nb=24)
     assert fe._hash_blocks_for(launch.plan.out_width) == blocks
     assert_same(launch.port(), launch.reference_xla())
@@ -186,6 +239,100 @@ def test_emitted_states_are_md5_of_the_spliced_candidates():
             hashlib.md5(cand).digest()
 
 
+# ---------------------------------------------------------------------------
+# The digit and windowed decodes and the other hashes
+# ---------------------------------------------------------------------------
+
+#: Decode tiers by workload: (table, words, max_substitute, pair).
+TIERS = {
+    "digits": (CZECH, _letter_words(12, 1, 6, seed=21), 15, False),
+    "windowed-cb": (CYR, _letter_words(12, 6, 9, seed=22), 2, False),
+    "windowed-digits": (CZECH, _letter_words(12, 9, 12, seed=23), 2, False),
+    "pair-digits": (SUB_LEET3, WORDS + [b"assessee", b"lasso"], 15, True),
+}
+_TIER_DECODE = {"digits": ("digits", False), "windowed-cb": ("windowed", True),
+                "windowed-digits": ("windowed", False),
+                "pair-digits": ("digits", False)}
+
+
+def tier_launch(tier, algo, **kw):
+    sub, words, mx, pair = TIERS[tier]
+    launch = Launch(sub, words, pair=pair, algo=algo, mx=mx, **kw)
+    assert (launch.decode, launch.pack_cb) == _TIER_DECODE[tier]
+    assert launch.plan.windowed == tier.startswith("windowed")
+    return launch
+
+
+_EXPANDED = {}
+
+
+@pytest.mark.parametrize("algo", ALGOS)
+@pytest.mark.parametrize("tier", sorted(TIERS))
+def test_plain_matches_reference_xla_twin(tier, algo):
+    launch = tier_launch(tier, algo, stride=32, nb=8)
+    assert launch.hash_blocks == 1
+    # The candidate buffers do not depend on the hash: expand once a tier.
+    if tier not in _EXPANDED:
+        _EXPANDED[tier] = launch.reference_expand()
+    cand, clen, emit = _EXPANDED[tier]
+    want = np.asarray(HASH_FNS[algo](cand, clen)).view(np.int32)
+    assert_same(launch.port(), (want, np.asarray(emit)))
+
+
+@pytest.mark.parametrize("tier,algo", [("digits", "ntlm"),
+                                       ("windowed-cb", "sha1"),
+                                       ("pair-digits", "md5")])
+def test_plain_matches_reference_kernel_decodes(tier, algo):
+    """The reference's Pallas body itself (interpret mode), tiny shapes."""
+    launch = tier_launch(tier, algo, stride=16, nb=8)
+    assert_same(launch.port(), launch.reference_pallas())
+
+
+#: Multi-block workloads per hash: NTLM's doubled width reaches 2 and 3
+#: blocks at half the candidate length.
+MULTI = {
+    ("ntlm", 2): (CZECH, lambda: _letter_words(6, 18, 26, seed=31)),
+    ("ntlm", 3): (CZECH, lambda: _long_words(6, 40, 60, seed=32,
+                                             letters=12)),
+    ("sha1", 2): (CYR, lambda: _long_words(6, 40, 64, seed=33)),
+    ("sha1", 3): (CYR, lambda: _long_words(6, 100, 120, seed=34)),
+    ("md4", 2): (CYR, lambda: _long_words(6, 40, 64, seed=35)),
+}
+
+
+@pytest.mark.parametrize(
+    "algo,blocks", sorted(MULTI),
+    ids=[f"{a}-{b}-hash-blocks" for a, b in sorted(MULTI)])
+def test_plain_matches_reference_multi_block_hashes(algo, blocks):
+    sub, words = MULTI[(algo, blocks)]
+    launch = Launch(sub, words(), pair=False, stride=8, nb=24, algo=algo)
+    assert launch.hash_blocks == blocks
+    assert_same(launch.port(), launch.reference_xla())
+
+
+@pytest.mark.parametrize("algo", ALGOS)
+def test_emitted_states_are_host_digests_of_the_candidates(algo):
+    """Emitted windowed states re-hash on the host: ``decode_variant``
+    unranks windowed ranks, ``HOST_DIGEST`` hashes (SHA-1's state words
+    serialize big-endian)."""
+    from hashcat_a5_table_generator_tpu_torch.models.attack import (
+        decode_variant,
+    )
+
+    launch = tier_launch("windowed-digits", algo, stride=16, nb=8)
+    state, emit = launch.port()
+    order = ">u4" if algo == "sha1" else "<u4"
+    assert emit.sum() > 10
+    for row in np.flatnonzero(emit):
+        blk = row // launch.stride
+        w = int(launch.batch.word[blk])
+        rank = int(launch.batch.base_digits[blk, 0]) + int(
+            row % launch.stride)
+        cand = decode_variant(launch.plan, launch.ct, launch.spec, w, rank)
+        assert state[row].view(np.uint32).astype(order).tobytes() == \
+            HOST_DIGEST[algo](cand)
+
+
 def test_wrapper_counts_plain_runs_and_refuses_other_tiers():
     launch = Launch(SUB_STATIC, WORDS, pair=False)
     word, count, pbase, tables = launch.inputs()
@@ -204,20 +351,92 @@ def test_wrapper_counts_plain_runs_and_refuses_other_tiers():
     with pytest.raises(NotImplementedError, match="hash blocks"):
         fe.fused_expand_md5(word, count, pbase, tables,
                             **dict(kw, out_width=190))
+    with pytest.raises(NotImplementedError, match="hash blocks"):
+        fe.fused_expand_md5(word, count, pbase, tables,
+                            **dict(kw, out_width=100, algo="ntlm"))
     with pytest.raises(ValueError):
         fe.fused_expand_md5(word.long(), count, pbase, tables, **kw)
+    with pytest.raises(ValueError, match="radix"):
+        fe.fused_expand_md5(word, count, pbase, {
+            k: v for k, v in tables.items() if k != "radix"
+        }, **dict(kw, decode="digits"))
+    with pytest.raises(ValueError, match="pair"):
+        fe.fused_expand_md5(word, count, pbase, tables,
+                            **dict(kw, decode="windowed", pair=True))
+
+
+# ---------------------------------------------------------------------------
+# The CUDA source, compiled for the host
+# ---------------------------------------------------------------------------
+
+_HARNESS_MAIN = r"""
+template <class T> static std::vector<T> rd(const char* p, size_t n) {
+  std::vector<T> v(n ? n : 1); FILE* f = fopen(p, "rb");
+  if (n && fread(v.data(), sizeof(T), n, f) != n) exit(3);
+  fclose(f); return v; }
+template <int A> static void run(const LaunchArgs& a, const PieceTables& t,
+                                 int pair, int decode, int hb) {
+  for (long long lane = 0; lane < (long long)a.nb * a.stride; ++lane) {
+    blockIdx.x = (unsigned)lane;
+    if (pair && decode == 0) piece_pair_kernel<A, 0>(a, t);
+    else if (pair) piece_pair_kernel<A, 1>(a, t);
+    else switch (decode * 4 + hb) {
+      case 1: piece_kernel<A, 0, 1>(a, t); break;
+      case 2: piece_kernel<A, 0, 2>(a, t); break;
+      case 3: piece_kernel<A, 0, 3>(a, t); break;
+      case 5: piece_kernel<A, 1, 1>(a, t); break;
+      case 6: piece_kernel<A, 1, 2>(a, t); break;
+      case 7: piece_kernel<A, 1, 3>(a, t); break;
+      case 9: piece_kernel<A, 2, 1>(a, t); break;
+      case 10: piece_kernel<A, 2, 2>(a, t); break;
+      default: piece_kernel<A, 2, 3>(a, t); break;
+    }
+  }
+}
+int main(int argc, char** argv) {
+  int v[21]; for (int i = 0; i < 21; ++i) v[i] = atoi(argv[i + 1]);
+  int algo = v[0], pair = v[1], decode = v[2], hb = v[3], nb = v[4],
+      stride = v[5], m = v[6], k2 = v[7], k_opts = v[8], pack = v[9],
+      ngw = v[10], ng16 = v[11], ngd = v[12], vm = v[13], nw = v[14],
+      ng = v[15], mn = v[16], mx = v[17], B = v[18], nbase = v[19],
+      words = v[20];
+  auto bw = rd<int32_t>("bw.bin", nb); auto bc = rd<int32_t>("bc.bin", nb);
+  auto base = rd<int32_t>("base.bin", nbase);
+  auto radix = rd<int32_t>("radix.bin", (size_t)B * m);
+  auto winv = rd<int32_t>("winv.bin", (size_t)B * (m + 1) * k2);
+  auto gw = rd<uint32_t>("pw.bin", (size_t)B * ngw * vm * nw);
+  auto g16 = rd<int32_t>("pw16.bin", (size_t)B * ng16 * vm);
+  auto gl = rd<int32_t>("pl.bin", (size_t)B * ngd * vm);
+  auto desc = rd<int32_t>("desc.bin", (size_t)ng * DESC_WIDTH);
+  long long n = (long long)nb * stride * (pair ? 2 : 1);
+  std::vector<int32_t> st(n * words); std::vector<uint8_t> em(n);
+  LaunchArgs a{bw.data(), bc.data(), base.data(), radix.data(), winv.data(),
+               nb, stride, m, k2, k_opts, pack, desc.data(), ng, mn, mx,
+               st.data(), em.data()};
+  PieceTables t{gw.data(), g16.data(), gl.data(), ngw, ng16, ngd, vm, nw};
+  switch (algo) {
+    case 0: run<0>(a, t, pair, decode, hb); break;
+    case 1: run<1>(a, t, pair, decode, hb); break;
+    case 2: run<2>(a, t, pair, decode, hb); break;
+    default: run<3>(a, t, pair, decode, hb); break;
+  }
+  FILE* f = fopen("state.bin", "wb"); fwrite(st.data(), 4, n * words, f);
+  fclose(f); f = fopen("emit.bin", "wb"); fwrite(em.data(), 1, n, f);
+  fclose(f); return 0; }
+"""
 
 
 @pytest.fixture(scope="module")
 def host_harness(tmp_path_factory):
     """The CUDA source's device code compiled for the host: CUDA keywords
-    and intrinsics stubbed, each launch a loop over lanes."""
+    and intrinsics stubbed, each launch a loop over lanes, every
+    (hash, decode, hash-block) instantiation in one binary."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
     tmp_path = tmp_path_factory.mktemp("harness")
     src = CSRC.read_text()
-    body = src[src.index("#define DESC_WIDTH"):
-               src.index("static PieceTables make_tables")]
+    body = src[src.index("#define ALGO_MD5"):
+               src.index("// ---- host launch wrappers ----")]
     stub = r"""
 #include <algorithm>
 #include <cstdint>
@@ -238,49 +457,50 @@ static inline int __popc(uint32_t x) { return __builtin_popcount(x); }
 struct int4 { int x, y, z, w; };
 static inline int4 make_int4(int a, int b, int c, int d) {
   return {a, b, c, d}; }
+using std::max;
 using std::min;
 """
-    main = r"""
-template <class T> static std::vector<T> rd(const char* p, size_t n) {
-  std::vector<T> v(n ? n : 1); FILE* f = fopen(p, "rb");
-  if (n && fread(v.data(), sizeof(T), n, f) != n) exit(3);
-  fclose(f); return v; }
-int main(int argc, char** argv) {
-  int a[13]; for (int i = 0; i < 13; ++i) a[i] = atoi(argv[i + 1]);
-  int nb = a[0], stride = a[1], ngw = a[2], ng16 = a[3], ngd = a[4],
-      vm = a[5], nw = a[6], ng = a[7], mn = a[8], mx = a[9], hb = a[10],
-      pair = a[11], B = a[12];
-  auto bw = rd<int32_t>("bw.bin", nb); auto bc = rd<int32_t>("bc.bin", nb);
-  auto bp = rd<int32_t>("bp.bin", nb);
-  auto gw = rd<uint32_t>("pw.bin", (size_t)B * ngw * vm * nw);
-  auto g16 = rd<int32_t>("pw16.bin", (size_t)B * ng16 * vm);
-  auto gl = rd<int32_t>("pl.bin", (size_t)B * ngd * vm);
-  auto desc = rd<int32_t>("desc.bin", (size_t)ng * DESC_WIDTH);
-  PieceTables t{gw.data(), g16.data(), gl.data(), ngw, ng16, ngd, vm, nw};
-  long long n = (long long)nb * stride * (pair ? 2 : 1);
-  std::vector<int32_t> st(n * 4); std::vector<uint8_t> em(n);
-  for (long long lane = 0; lane < (long long)nb * stride; ++lane) {
-    blockIdx.x = (unsigned)lane;
-    if (pair) piece_md5_pair_kernel(bw.data(), bc.data(), bp.data(), nb,
-        stride, t, desc.data(), ng, mn, mx, st.data(), em.data());
-    else if (hb == 1) piece_md5_k1_kernel<1>(bw.data(), bc.data(),
-        bp.data(), nb, stride, t, desc.data(), ng, mn, mx, st.data(),
-        em.data());
-    else if (hb == 2) piece_md5_k1_kernel<2>(bw.data(), bc.data(),
-        bp.data(), nb, stride, t, desc.data(), ng, mn, mx, st.data(),
-        em.data());
-    else piece_md5_k1_kernel<3>(bw.data(), bc.data(), bp.data(), nb,
-        stride, t, desc.data(), ng, mn, mx, st.data(), em.data());
-  }
-  FILE* f = fopen("state.bin", "wb"); fwrite(st.data(), 4, n * 4, f);
-  fclose(f); f = fopen("emit.bin", "wb"); fwrite(em.data(), 1, n, f);
-  fclose(f); return 0; }
-"""
-    (tmp_path / "harness.cpp").write_text(stub + body + main)
+    (tmp_path / "harness.cpp").write_text(stub + body + _HARNESS_MAIN)
     subprocess.run(["g++", "-O1", "-std=c++17", "-o", "harness",
                     "harness.cpp"], cwd=tmp_path, check=True,
                    capture_output=True, timeout=300)
     return tmp_path / "harness"
+
+
+def _run_harness(harness, launch, tmp_path):
+    """The host build of the CUDA source on ``launch``'s inputs: its
+    state and emit on every lane."""
+    word, count, base, tables = launch.inputs()
+    for name, t in (("bw", word), ("bc", count), ("base", base),
+                    ("radix", tables["radix"])):
+        t.numpy().astype(np.int32).tofile(tmp_path / f"{name}.bin")
+    for name, fname in (("pw", "pw"), ("pw16", "pw16"), ("pl", "pl"),
+                        ("desc", "desc"), ("win_v", "winv")):
+        arr = tables[name].numpy() if name in tables else np.zeros(1)
+        arr.astype(np.int32).tofile(tmp_path / f"{fname}.bin")
+    ngw, ng16, ngd, vm, nw = fe._table_dims(tables)
+    m = int(tables["radix"].shape[1])
+    k2 = int(tables["win_v"].shape[2]) if "win_v" in tables else 0
+    words = fe.DIGEST_WORDS[launch.algo]
+    args = [fe.ALGOS.index(launch.algo), int(launch.pair),
+            fe.DECODES.index(launch.decode), launch.hash_blocks, launch.nb,
+            launch.stride, m, k2, launch.k_opts, int(launch.pack_cb), ngw,
+            ng16, ngd, vm, nw, len(launch.pieces.groups),
+            launch.spec.effective_min, launch.spec.max_substitute,
+            launch.plan.batch, base.numel(), words]
+    subprocess.run([str(harness)] + [str(a) for a in args], cwd=tmp_path,
+                   check=True, timeout=300)
+    state = np.fromfile(tmp_path / "state.bin", np.int32).reshape(-1, words)
+    emit = np.fromfile(tmp_path / "emit.bin", np.uint8).astype(bool)
+    return state, emit
+
+
+def _assert_source_equals_plain(harness, launch, tmp_path):
+    want_state, want_emit = launch.port()
+    state, emit = _run_harness(harness, launch, tmp_path)
+    assert want_emit.any()
+    assert (emit == want_emit).all()
+    assert (state == want_state).all()
 
 
 @pytest.mark.parametrize("case", ["k1", "pair", "2-hash-blocks",
@@ -293,28 +513,59 @@ def test_cuda_source_logic_equals_plain_version(case, host_harness,
         launch = Launch(SUB_DYN, WORDS, pair=case == "pair", stride=16)
     else:
         blocks = int(case[0])
-        launch = Launch(get_layout("qwerty-cyrillic").to_substitution_map(),
-                        _long_words(5, *((40, 64) if blocks == 2
-                                         else (100, 120)), seed=blocks),
+        launch = Launch(CYR, _long_words(5, *((40, 64) if blocks == 2
+                                              else (100, 120)), seed=blocks),
                         pair=False, stride=8, nb=24)
-    want_state, want_emit = launch.port()
-    word, count, pbase, tables = launch.inputs()
-    for name, t in (("bw", word), ("bc", count), ("bp", pbase)):
-        t.numpy().tofile(tmp_path / f"{name}.bin")
-    for name in ("pw", "pw16", "pl", "desc"):
-        arr = tables[name].numpy() if name in tables else np.zeros(1)
-        arr.astype(np.int32).tofile(tmp_path / f"{name}.bin")
-    ngw, ng16, ngd, vm, nw = fe._table_dims(tables)
-    hb = fe._hash_blocks_for(launch.plan.out_width)
-    args = [launch.nb, launch.stride, ngw, ng16, ngd, vm, nw,
-            len(launch.pieces.groups), 1, 15, hb, int(launch.pair),
-            launch.plan.batch]
-    subprocess.run([str(host_harness)] + [str(a) for a in args], cwd=tmp_path,
-                   check=True, timeout=300)
-    state = np.fromfile(tmp_path / "state.bin", np.int32).reshape(-1, 4)
-    emit = np.fromfile(tmp_path / "emit.bin", np.uint8).astype(bool)
-    assert (emit == want_emit).all()
-    assert (state == want_state).all()
+    _assert_source_equals_plain(host_harness, launch, tmp_path)
+
+
+#: Word lengths per (hash scale, hash blocks) for words of 5 (12 when
+#: count-windowed) substitutable letters among digits: the candidate
+#: width lands in that many hash blocks.
+_SOURCE_LENGTHS = {(1, 1): (20, 36), (1, 2): (48, 60), (1, 3): (112, 120),
+                   (2, 1): (12, 12), (2, 2): (24, 32), (2, 3): (50, 60)}
+
+
+def _source_launch(tier, algo, blocks):
+    """A launch of one instantiation: decode tier x hash x hash blocks."""
+    scale = 2 if algo == "ntlm" else 1
+    lo, hi = _SOURCE_LENGTHS[(scale, blocks)]
+    windowed = tier.startswith("windowed")
+    letters = 12 if windowed else 5
+    sub = CYR if tier in ("scalar", "pair", "windowed-cb") else CZECH
+    if tier == "pair-digits":
+        sub = SUB_LEET3
+    if tier in ("digits", "windowed-digits", "pair-digits"):
+        # Only letters czech (or the leet table) maps become slots.
+        words = [bytes(c if c < 97 else b"aeosiut"[c % 7] for c in w)
+                 for w in _long_words(6, lo, hi, seed=blocks, letters=letters)]
+    else:
+        words = _long_words(6, lo, hi, seed=blocks, letters=letters)
+    return Launch(sub, words, pair=tier.startswith("pair"), stride=8, nb=24,
+                  algo=algo, mx=2 if windowed else 15)
+
+
+_SOURCE_CASES = [
+    (tier, algo, hb) for algo in ALGOS
+    for tier in ("scalar", "digits", "windowed-cb", "windowed-digits")
+    for hb in (1, 2, 3)
+] + [(tier, algo, 1) for algo in ALGOS for tier in ("pair", "pair-digits")]
+
+
+@pytest.mark.parametrize("tier,algo,blocks", _SOURCE_CASES,
+                         ids=[f"{t}-{a}-{b}" for t, a, b in _SOURCE_CASES])
+def test_cuda_source_instantiations_equal_plain_version(
+        tier, algo, blocks, host_harness, tmp_path):
+    """Every (hash, decode, hash-block) instantiation of the source, built
+    for the host, against the plain version on every lane."""
+    launch = _source_launch(tier, algo, blocks)
+    assert launch.hash_blocks == blocks
+    assert (launch.decode, launch.pack_cb) == {
+        "scalar": ("scalar", False), "pair": ("scalar", False),
+        "digits": ("digits", False), "pair-digits": ("digits", False),
+        "windowed-cb": ("windowed", True),
+        "windowed-digits": ("windowed", False)}[tier]
+    _assert_source_equals_plain(host_harness, launch, tmp_path)
 
 
 def test_native_build_raises_without_nvcc(monkeypatch):
@@ -332,11 +583,11 @@ def test_native_build_failure_raises_with_compiler_output(monkeypatch,
     from hashcat_a5_table_generator_tpu_torch.ops import _native_build
 
     fake = tmp_path / "nvcc"
-    fake.write_text("#!/bin/sh\necho 'piece_md5.cu(1): error: boom'\n"
+    fake.write_text("#!/bin/sh\necho 'piece_hash.cu(1): error: boom'\n"
                     "exit 2\n")
     fake.chmod(0o755)
     monkeypatch.setattr(_native_build, "nvcc_path", lambda: str(fake))
     monkeypatch.setattr(_native_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="error: boom"):
-        _native_build.build(["piece_md5"])
+        _native_build.build(["piece_hash_md5", "piece_hash_sha1"])
     assert not list((tmp_path / "build").glob("*.so"))

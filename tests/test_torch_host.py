@@ -225,3 +225,117 @@ def test_read_packed_buckets_matches_reference(tmp_path):
         assert np.array_equal(want[w].index, got[w].index)
     with pytest.raises(ValueError):
         t_packing.read_packed_buckets(str(path), max_word_bytes=50)
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+def test_kernel_gates_equal_reference(layout):
+    """The piece-kernel gates on every layout x hash x window: the option
+    count, the pair tier, the decode tier, and whether the plan takes the
+    kernel at all (the reference sends it there iff its gate passes at a
+    TPU-legal geometry and the plan has a piece schema)."""
+    sub = get_layout(layout).to_substitution_map()
+    words = synth_words(sub, seed=40 + LAYOUTS.index(layout))
+    jct, tct = j_compile.compile_table(sub), t_compile.compile_table(sub)
+    jb = next(iter(j_packing.bucket_words(words).values()))
+    tb = next(iter(t_packing.bucket_words(words).values()))
+    for algo in ("md5", "md4", "sha1", "ntlm"):
+        for mx in (15, 2):
+            jspec = j_attack.AttackSpec(algo=algo, max_substitute=mx)
+            tspec = t_attack.AttackSpec(algo=algo, max_substitute=mx)
+            jplan = j_attack.build_plan(jspec, jct, jb)
+            tplan = t_attack.build_plan(tspec, tct, tb)
+            js = j_packing.piece_schema_for(jplan, jct)
+            ts = t_packing.piece_schema_for(tplan, tct)
+            jk = j_pe.opts_for_config(jspec, jplan, jct, block_stride=128,
+                                      num_blocks=8, require_tpu=False)
+            assert t_fe.opts_for_config(tspec, tplan, tct) == jk
+            assert t_fe.k_vals_for(tplan) == j_pe.k_vals_for(jplan)
+            assert t_fe.pair_for_config(tspec, tplan, ts, block_stride=128) \
+                == j_pe.pair_for_config(jspec, jplan, js, block_stride=128)
+            scalar = bool(j_pe.scalar_units_for(jplan)) and jk == 1
+            want = ("windowed", scalar) if jplan.windowed else (
+                "scalar" if scalar else "digits", False)
+            assert t_fe.decode_for(tplan) == want
+            took = t_fe.kernel_refusal(tspec, tplan, tct, ts) is None
+            assert took == (jk is not None and js is not None)
+
+
+@pytest.mark.parametrize("kw", [
+    {}, dict(algo="sha1"), dict(algo="ntlm", out_width=91),
+    dict(algo="ntlm", out_width=92), dict(out_width=183),
+    dict(out_width=184), dict(windowed=True, win_k2=2),
+    dict(windowed=True, win_k2=10), dict(windowed=True, win_k2=11),
+    dict(windowed=True), dict(num_slots=25), dict(token_width=64),
+    dict(token_width=65), dict(max_val_len=5), dict(max_options=12),
+    dict(max_options=13), dict(mode="suball"), dict(algo="sha256"),
+], ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()) or "base")
+def test_eligible_equals_reference(kw):
+    args = dict(mode="default", algo="md5", windowed=False, out_width=32,
+                num_slots=8, token_width=16, max_val_len=2, max_options=1)
+    args.update(kw)
+    assert t_fe.eligible(**args) == j_pe.eligible(
+        block_stride=128, num_blocks=8, **args)
+
+
+def test_unrank_windowed_equals_reference():
+    import hashcat_a5_table_generator_tpu.ops.expand_matches as j_em
+    import hashcat_a5_table_generator_tpu_torch.ops.expand_matches as t_em
+
+    sub = get_layout("czech").to_substitution_map()
+    words = [w for w in synth_words(sub, n=80, seed=9) if len(w) > 12]
+    tct = t_compile.compile_table(sub)
+    plan = t_attack.build_plan(t_attack.AttackSpec(max_substitute=3), tct,
+                               t_packing.pack_words(words))
+    assert plan.windowed
+    rng = np.random.default_rng(9)
+    for w in range(plan.batch):
+        radices = [int(r) for r in plan.pat_radix[w]]
+        total = plan.n_variants[w]
+        for rank in set(rng.integers(0, max(total, 1), size=6).tolist()) | {
+                0, total - 1}:
+            if rank < 0:
+                continue
+            got = t_em.unrank_windowed(plan.win_v[w], radices, rank)
+            assert got == j_em.unrank_windowed(plan.win_v[w], radices, rank)
+            assert 1 <= sum(d > 0 for d in got) <= 3
+        with pytest.raises(ValueError):
+            t_em.unrank_windowed(plan.win_v[w], radices, total)
+
+
+@pytest.mark.parametrize("algo", ["md5", "md4", "sha1", "ntlm"])
+def test_plain_compressions_equal_reference_hashes(algo):
+    """``hash_words`` on padded message words equals the reference's
+    ``HASH_FNS`` on the bytes (NTLM: MD4 over the byte-wise UTF-16LE
+    expansion), at lengths around every block boundary."""
+    import struct
+
+    import jax.numpy as jnp
+
+    from hashcat_a5_table_generator_tpu.ops.hashes import HASH_FNS
+    from hashcat_a5_table_generator_tpu_torch.ops.hashes import (
+        hash_words,
+        utf16_code_units,
+    )
+
+    rng = np.random.default_rng(7)
+    lengths = [0, 1, 27, 28, 55, 56, 63, 64, 91, 119, 120, 150]
+    raw = rng.integers(0, 256, size=(len(lengths), 160), dtype=np.uint8)
+    raw[:, 0] |= 0x80  # top bits set in the first message word
+    want = np.asarray(HASH_FNS[algo](
+        jnp.asarray(raw), jnp.asarray(np.array(lengths, np.int32))))
+    for i, n in enumerate(lengths):
+        data = raw[i, :n].tobytes()
+        if algo == "ntlm":
+            data = bytes(b for c in data for b in (c, 0))
+        nblk = -(-(len(data) + 9) // 64)
+        buf = bytearray(data + b"\x80" + bytes(nblk * 64 - len(data) - 1))
+        buf[-8:] = struct.pack(">Q" if algo == "sha1" else "<Q",
+                               8 * len(data))
+        words = torch.from_numpy(np.frombuffer(bytes(buf), "<i4").copy())
+        got = hash_words(words[None], torch.tensor([len(data)],
+                                                   dtype=torch.int32), algo)
+        assert np.array_equal(got[0].numpy().view(np.uint32), want[i]), n
+    lo, hi = utf16_code_units(torch.tensor([-0x3BCCDDEF],  # 0xC4332211
+                                           dtype=torch.int32))
+    assert (int(lo) & 0xFFFFFFFF, int(hi) & 0xFFFFFFFF) == \
+        (0x00220011, 0x00C40033)

@@ -80,3 +80,40 @@ def test_row_compare_is_unsigned_lexicographic():
         for k in range(4):
             le = bool(t_member._row_cmp_le(t[i], t[k]))
             assert le == (tuple(rows[k]) <= tuple(rows[i]))
+
+
+@pytest.mark.parametrize("n_digests", [1, 300, 3000])
+def test_sha1_rows_and_verdicts_match_reference(n_digests):
+    """``[D, 5]`` SHA-1 digest sets: rows in the reference's big-endian
+    word order (``digest_to_words``), top bits set in every word position
+    for some digests, and the same verdicts as the reference's
+    ``digest_member`` — near misses in the last word included."""
+    import jax.numpy as jnp
+
+    from hashcat_a5_table_generator_tpu_torch.ops.hashes import (
+        digest_to_words,
+    )
+
+    rng = np.random.default_rng(n_digests)
+    raw = rng.integers(0, 256, size=(n_digests, 20), dtype=np.uint8)
+    for word in range(5):  # a top bit in each state word for some rows
+        raw[word::5, 4 * word] |= 0x80
+    digests = [r.tobytes() for r in raw]
+    ds = t_member.build_digest_set(digests, "sha1")
+    jds = j_member.build_digest_set(digests, "sha1")
+    assert ds.rows.shape == (n_digests, 5)
+    assert np.array_equal(ds.rows, jds.rows)
+    assert np.array_equal(ds.bitmap, jds.bitmap)
+    assert {tuple(digest_to_words(d, "sha1")) for d in digests} == \
+        {tuple(r) for r in ds.rows}
+    present = ds.rows[rng.integers(0, n_digests, size=100)]
+    near = present.copy()
+    near[:, 4] ^= np.uint32(0x80000000)
+    absent = rng.integers(0, 2**32, size=(100, 5),
+                          dtype=np.uint64).astype(np.uint32)
+    probes = np.concatenate([present, near, absent])
+    want = np.asarray(j_member.digest_member(
+        jnp.asarray(probes), jnp.asarray(jds.rows), jnp.asarray(jds.bitmap)))
+    got = _port_member(ds, probes)
+    assert (got == want).all()
+    assert got[:100].all() and not got[100:].any()

@@ -1,6 +1,7 @@
 """The crack sweep and CLI of the PyTorch/CUDA package against the JAX
 reference, on the CPU: equal hit streams ``(word_index, rank, candidate)``
-and emitted counts with the pair tier on and off, exact overflow re-runs,
+and emitted counts with the pair tier on and off, for every decode tier
+(scalar, digits, windowed) and every hash, exact overflow re-runs,
 byte-identical CLI stdout, and refusals — exit status 2 or
 ``NotImplementedError`` — for everything outside the ported slice."""
 
@@ -11,12 +12,14 @@ import pytest
 import torch
 
 import hashcat_a5_table_generator_tpu.cli as j_cli
+import hashcat_a5_table_generator_tpu.ops.pallas_expand as pe
 import hashcat_a5_table_generator_tpu_torch.cli as t_cli
 from hashcat_a5_table_generator_tpu.models.attack import AttackSpec as JSpec
 from hashcat_a5_table_generator_tpu.oracle.engines import iter_candidates
 from hashcat_a5_table_generator_tpu.runtime import Sweep as JSweep
 from hashcat_a5_table_generator_tpu.runtime import SweepConfig as JConfig
 from hashcat_a5_table_generator_tpu_torch.models.attack import AttackSpec
+from hashcat_a5_table_generator_tpu_torch.ops import expand_matches as t_em
 from hashcat_a5_table_generator_tpu_torch.ops import fused_expand as fe
 from hashcat_a5_table_generator_tpu_torch.runtime.bucketed import (
     BucketedSweep,
@@ -134,7 +137,7 @@ def test_cli_stdout_matches_reference_cli(contract, tmp_path, capsysbinary):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-s"], ["-r"], ["--algo", "sha1"], ["--devices", "2"],
+    ["-s"], ["-r"], ["--devices", "2"],
     ["--checkpoint", "ck.json"], ["--coordinator", "h:1"],
     ["--backend", "oracle"], ["--superstep", "off"], ["--progress"],
     ["--hex-unsafe"], ["--emit-table", "german"],
@@ -166,17 +169,22 @@ def test_candidates_mode_exits_2(capsys):
 
 
 @pytest.mark.parametrize("case,reason", [
-    ("multi-option", "multi-option"), ("windowed", "windowed"),
-    ("suball", "mode"), ("sha1", "algo"), ("superstep-off", "superstep"),
+    ("nine-options", "options per key"), ("long-line", "token width 68"),
+    ("many-slots", "slots 25"), ("suball", "mode"),
+    ("superstep-off", "superstep"),
 ])
 def test_unported_plans_raise_before_any_launch(case, reason):
+    """Plans the reference sends off the piece kernel (to its XLA expand
+    + hash path) refuse before any launch, as do unported modes."""
     words = [b"password", b"sesame"]
     sub, spec, cfg = SUB, AttackSpec(), SweepConfig(device="cpu",
                                                     **GEOMETRY)
-    if case == "multi-option":
-        sub = {b"a": [b"4", b"@"], b"s": [b"$"]}
-    elif case == "windowed":
-        spec = AttackSpec(min_substitute=1, max_substitute=1)
+    if case == "nine-options":
+        sub = {b"a": [bytes([c]) for c in b"123456789"], b"s": [b"$"]}
+    elif case == "long-line":
+        words = words + [b"1" * 65]
+    elif case == "many-slots":
+        words = words + [b"qwertyuiop" * 2 + b"asdfg"]
     elif case == "superstep-off":
         cfg = SweepConfig(device="cpu", superstep=0, **GEOMETRY)
     launches = dict(fe.LAUNCHES)
@@ -184,8 +192,6 @@ def test_unported_plans_raise_before_any_launch(case, reason):
     with pytest.raises(NotImplementedError, match=reason):
         if case == "suball":
             spec = AttackSpec(mode="suball")
-        elif case == "sha1":
-            spec = AttackSpec(algo="sha1")
         Sweep(spec, sub, words, [bytes(16)], cfg).run_crack()
     assert fe.LAUNCHES == launches and fe.PLAIN_CALLS == plain
 
@@ -222,6 +228,44 @@ def test_bucketed_cli_refuses_before_any_bucket_launches(
     rc = t_cli.main([str(tmp_path / "words.txt"), *tables, "--backend",
                      "device", "--digests", str(tmp_path / "left.txt"),
                      "--device", "cpu", *GEOMETRY_ARGV, *argv_extra])
+    out = capsys.readouterr()
+    assert rc == 2
+    assert out.out == ""
+    assert reason in out.err
+    assert fe.LAUNCHES == launches and fe.PLAIN_CALLS == plain
+
+
+@pytest.mark.parametrize("case,reason", [
+    ("25-letter-line", "slots 25"), ("win-k2-11", "11 DP columns"),
+])
+def test_cli_refuses_off_kernel_plans_before_any_launch(
+        case, reason, contract, tmp_path, capsys, monkeypatch):
+    """A plan the reference sends to its XLA path exits 2 with empty
+    stdout: a 25-letter line (25 slots), and a count-windowed plan whose
+    DP has 11 columns (a window ceiling of 9, admitted here by raising
+    the windowed plan bound; the reference's gate refuses it too)."""
+    words, _planted, digests = contract
+    argv_extra = []
+    if case == "25-letter-line":
+        words = words + [b"qwertyuiop" * 2 + b"asdfg"]
+    else:
+        monkeypatch.setattr(t_em, "WINDOWED_MAX_SUBST", 9)
+        words = [w + b"qwertyuiopas" for w in words]
+        argv_extra = ["-x", "9"]
+        assert not pe.eligible(
+            mode="default", algo="md5", windowed=True, block_stride=128,
+            num_blocks=8, out_width=64, num_slots=12, token_width=32,
+            max_val_len=2, max_options=1, win_k2=11)
+    (tmp_path / "words.txt").write_bytes(b"\n".join(words) + b"\n")
+    (tmp_path / "left.txt").write_text(
+        "".join(d.hex() + "\n" for d in digests))
+    emit_table(get_layout("qwerty-cyrillic"), str(tmp_path / "t.table"))
+    launches = dict(fe.LAUNCHES)
+    plain = fe.PLAIN_CALLS
+    rc = t_cli.main([str(tmp_path / "words.txt"), "-t",
+                     str(tmp_path / "t.table"), "--backend", "device",
+                     "--digests", str(tmp_path / "left.txt"), "--device",
+                     "cpu", *GEOMETRY_ARGV, *argv_extra])
     out = capsys.readouterr()
     assert rc == 2
     assert out.out == ""
