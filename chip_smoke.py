@@ -13,24 +13,32 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    kernel once per hash, all compilers started together) and print the
    ``-Xptxas -v`` register / stack / spill / shared-memory lines;
 3. every kernel entry point x hash against its plain PyTorch version on
-   the card, at the main path's shapes (2^22 lanes, stride 128): the
-   scalar K=1 and pair tiers, the digit decode (czech, qwerty-azerty, the
-   pair tier on a three-option table), the windowed decode (``-x 2``),
-   plus batches that need 2 and 3 hash blocks (MD5, NTLM, SHA-1); emit
-   masks equal and state equal on every emitted lane, tolerance 0
-   (integer arithmetic);
-4. the main path through the CLI at full width, 1M dictionary words and
-   1M digests of the run's hash (1000 planted hits + decoys) each:
-   qwerty-cyrillic x MD5 with the pair tier auto and off, czech x NTLM,
-   greek words x greek-hebrew x SHA-1 (pair auto and off), and
-   qwerty-cyrillic x MD5 ``-x 2``; every planted plaintext printed
-   exactly once, every printed hit re-hashing to its digest, ``candidates
-   hashed`` equal to the host keyspace, the expected kernels' launch
+   the card, at the main path's shapes (2^22 lanes, stride 128): over
+   match plans the scalar K=1 and pair tiers, the digit decode (czech,
+   qwerty-azerty, the pair tier on a three-option table), the windowed
+   decode (``-x 2``) and the reverse-mode pair tier; over substitute-all
+   plans (``-s``) the scalar, digit, cascade-closed (qwerty-azerty and
+   azerty-qwerty, joint tables up to 12 rows), windowed (cb packing and
+   digits, open and closed) and pair selectors; plus batches that need 2
+   and 3 hash blocks (MD5, NTLM, SHA-1); emit masks equal and state equal
+   on every emitted lane, tolerance 0 (integer arithmetic);
+4. the main path through the CLI at full width, each run with 1M digests
+   of its hash (1000 planted hits + decoys): the default-mode runs at
+   250k dictionary words (qwerty-cyrillic x MD5 with the pair tier auto
+   and off, czech x NTLM, greek words x greek-hebrew x SHA-1 (pair auto
+   and off), qwerty-cyrillic x MD5 ``-x 2``) and, at 1M words,
+   qwerty-cyrillic x MD5 ``-s`` (pair auto), qwerty-azerty x MD5 ``-s``
+   with cascade-closed and oracle-fallback words, qwerty-cyrillic x SHA-1
+   ``-s -x 2``, czech x NTLM ``-s -r`` and qwerty-cyrillic x MD5 ``-r``
+   (pair auto); every planted plaintext printed exactly once, every
+   printed hit re-hashing to its digest, ``candidates hashed`` equal to
+   the host keyspace (oracle-fallback candidates included), the word
+   routing equal to the host plan's, the expected kernels' launch
    counters above 0 and the plain version never run;
 5. each entry point x hash timed with CUDA events at main-path shapes
    beside its bound and its plain version's time; stage breakdowns of one
-   launch (membership against the 1M-digest sets) and the masked-row
-   share of the czech run.
+   launch (membership against the 1M-digest sets), a closed substitute-all
+   launch among them, and the masked-row share of the czech run.
 
 The last three lines of standard output: the card's name and power limit,
 one ``{"kernels": [...]}`` JSON object, and the ``{"ok": true, ...}``
@@ -57,6 +65,7 @@ T0 = time.monotonic()
 LANES = 1 << 22
 STRIDE = 128
 N_WORDS = 1_000_000
+N_WORDS_DEFAULT = 250_000  # the default-mode runs, cut to keep time
 N_DIGESTS = 1_000_000
 N_PLANTED = 1000
 CASE_WORDS = 60_000  # words per phase-3 workload
@@ -80,6 +89,20 @@ PALLAS = "hashcat_a5_table_generator_tpu/ops/pallas_expand.py"
 #: The branch of the TPU body (``_make_piece_kernel`` :1303) each entry
 #: point replaces, and each hash's rounds.
 BRANCHES = {
+    "suball_k1": "kind=suball, scalar decode, selbit (:1384-1390, "
+                 ":1553-1555)",
+    "suball_pair": "kind=suball, pair=True, scalar decode (selbit "
+                   ":1553-1555, cb | 1)",
+    "suball_pair_digits": "kind=suball, pair=True, digit decode (selslot "
+                          ":1482-1487, d0p :1430-1435)",
+    "suball_digits": "kind=suball, general tier (selslot in col_variant "
+                     ":1482-1487, clamp :1557-1564)",
+    "suball_windowed": "kind=suball, windowed tier (bitpos cb packing "
+                       ":1443-1446, or selslot)",
+    "suball_closed": "kind=suball, cascade closure (joint index "
+                     ":1462-1476, :1488-1491), digit decode",
+    "suball_closed_windowed": "kind=suball, cascade closure (:1462-1476, "
+                              ":1488-1491), windowed decode",
     "k1": "scalar-units full enumeration (:1415-1421), K=1",
     "pair": "pair=True, scalar decode (:1401-1456)",
     "pair_digits": "pair=True, digit decode (d0p :1430-1435, cc1 :1458, "
@@ -94,6 +117,9 @@ ROUNDS = {"md5": "_md5_rounds", "md4": "_md4_rounds :1129",
           "ntlm": "_md4_rounds :1129 + split_pieces :1601-1629"}
 LEET3 = {b"a": [b"4", b"@", b"^"], b"e": [b"3", b"&", b"EE"],
          b"s": [b"$", b"5", b"z"], b"o": [b"0", b"()", b"*"]}
+#: One option per key: the substitute-all pair tier's table (words where
+#: each word's lowest-sorted pattern occurs once, first: ``pair_words``).
+SINGLE = {b"a": [b"@@"], b"o": [b"0"], b"s": [b"$"], b"e": [b"33"]}
 
 
 def log(msg: str) -> None:
@@ -188,6 +214,31 @@ def greek_words(words: list) -> list:
     return [b"".join(lut[c] for c in w) for w in words]
 
 
+def pair_words(n: int, seed: int) -> list:
+    """Words whose lowest-sorted pattern (``a``) occurs once, first: slot
+    0 drives column 0 only, as the substitute-all pair gate needs."""
+    return [b"a" + w for w in long_words(n, 2, 8, (1, 2), seed,
+                                         filler=b"bcdfgh", alphabet=b"eos")]
+
+
+def azerty_lines(n: int, seed: int) -> list:
+    """Short lines over ``aqzwAQZWm,;`` and letters: hazard words that
+    qwerty-azerty's cascade closure takes, and (every other line carries
+    ``m``, ``,`` and ``;``, mutually hazardous) words that overflow the
+    closure caps and go to the oracle."""
+    rng = np.random.default_rng(seed)
+    pool = np.frombuffer(b"aqzwAQZWm,;bcdefghijk", np.uint8)
+    out = []
+    for i in range(n):
+        w = list(pool[rng.integers(0, len(pool),
+                                   size=int(rng.integers(2, 5)))])
+        if i % 2:
+            for ch in b"m,;":
+                w.insert(int(rng.integers(0, len(w) + 1)), ch)
+        out.append(bytes(w))
+    return out
+
+
 def wide_table(sub: dict) -> dict:
     """``sub`` plus ``1`` -> a 4-byte value: 19 of them take a 64-byte
     line's candidates past 2 MD5 blocks (3-block batches at token width
@@ -196,15 +247,17 @@ def wide_table(sub: dict) -> dict:
 
 
 def keyspace(plan, spec) -> int:
-    """Candidates the plan emits, counted on the host from its radices:
-    per word, the digit vectors whose chosen count lies in the window —
-    the elementary symmetric sums of the slots' option counts."""
+    """Candidates the device emits for the plan, counted on the host from
+    its radices: per device word (oracle-fallback words excluded), the
+    digit vectors whose chosen count lies in the window — the elementary
+    symmetric sums of the slots' option counts."""
     opts = (np.asarray(plan.pat_radix, np.int64) - 1).clip(min=0)
     lo, hi = spec.effective_min, spec.max_substitute
     e = np.zeros((opts.shape[0], opts.shape[1] + 1), np.int64)
     e[:, 0] = 1
     for s in range(opts.shape[1]):
         e[:, 1:] = e[:, 1:] + opts[:, s:s + 1] * e[:, :-1]
+    e[np.asarray(plan.fallback, bool)] = 0
     return int(e[:, lo:min(hi, opts.shape[1]) + 1].sum())
 
 
@@ -239,7 +292,8 @@ class Case:
     real plan's index, with the plan's decode tier."""
 
     def __init__(self, name, workload, words, sub, *, algo="md5", mx=15,
-                 pair=False, lanes=None, stride=STRIDE, width=None, device):
+                 pair=False, lanes=None, stride=STRIDE, width=None,
+                 mode="default", device):
         from hashcat_a5_table_generator_tpu_torch.models.attack import (
             AttackSpec, cut_blocks, device_arrays,
         )
@@ -253,16 +307,17 @@ class Case:
 
         self.name, self.algo, self.pair = name, algo, pair
         self.stride = stride
-        self.spec = AttackSpec(algo=algo, max_substitute=mx)
+        self.spec = AttackSpec(mode=mode, algo=algo, max_substitute=mx)
         self.plan, self.ct, self.pieces = plan_for(
-            (workload, mx), sub, words, self.spec, width)
+            (workload, mode, mx), sub, words, self.spec, width)
         ct = self.ct
         why = fused_expand.kernel_refusal(self.spec, self.plan, ct,
                                           self.pieces)
         if why:
             fail(f"{name}: kernel refuses the plan: {why}")
         self.decode, pack_cb = fused_expand.decode_for(self.plan)
-        self.key = fused_expand.launch_key(algo, self.decode, pair)
+        self.key = fused_expand.launch_key(algo, self.pieces, self.decode,
+                                           pair)
         rank_stride = stride * (2 if pair else 1)
         idx = superstep_index(self.plan, rank_stride)
         self.arrays = device_arrays(self.plan, self.pieces,
@@ -300,8 +355,19 @@ class Case:
     def lane_blocks(self) -> int:
         """Compressions the longest candidate of any word here needs: the
         word plus each slot's widest option (the kernel stops after each
-        lane's own padding block, whatever its static block count)."""
-        plan, ct = self.plan, self.ct
+        lane's own padding block, whatever its static block count); for
+        substitute-all schemas, each device word's widest variant of every
+        emission group, summed."""
+        plan, ct, pieces = self.plan, self.ct, self.pieces
+        scale = 2 if self.algo == "ntlm" else 1
+        if pieces.kind == "suball":
+            placed = sum(g.len_fixed or 0 for g in pieces.groups)
+            if pieces.gl is not None:
+                placed = placed + pieces.gl.astype(np.int64).max(
+                    axis=2).sum(axis=1)
+            placed = np.broadcast_to(placed, (plan.batch,))
+            longest = int(placed[~np.asarray(plan.fallback)].max()) - 1
+            return -(-(longest * scale + 9) // 64)
         opts = np.asarray(plan.match_radix) - 1
         grow = np.zeros(opts.shape, np.int64)
         for o in range(int(opts.max(initial=0))):
@@ -310,7 +376,6 @@ class Case:
             grow = np.maximum(grow, np.where(
                 opts > o, ct.val_len[row] - np.asarray(plan.match_len), 0))
         longest = int((np.asarray(plan.lengths) + grow.sum(axis=1)).max())
-        scale = 2 if self.algo == "ntlm" else 1
         return -(-(longest * scale + 9) // 64)
 
     def bound(self, emit, peak_ops: float) -> "tuple[float, str]":
@@ -320,15 +385,16 @@ class Case:
         once over HBM bandwidth."""
         import torch
 
+        from hashcat_a5_table_generator_tpu_torch.ops import fused_expand
+
         if self.lane_blocks() != 1:
             fail(f"{self.name}: timed lanes need more than one compression")
         ops = float(int(emit.sum())) * OPS_PER_BLOCK[self.algo]
         words = torch.unique(self.blocks[0])
-        row_bytes = sum(
-            t[0].numel() * 4 for k, t in self.arrays.items()
-            if k in ("pw", "pw16", "pl")
-            or (k in ("radix", "win_v") and self.decode != "scalar")
-        )
+        used = ("pw", "pw16", "pl") + fused_expand._needed_tables(
+            self.pieces, self.decode, self.kw["pack_cb"])
+        row_bytes = sum(t[0].numel() * 4 for k, t in self.arrays.items()
+                        if k in used)
         nb = int(self.blocks[0].shape[0])
         rows = int(emit.shape[0])
         nbytes = (8 * nb + self.blocks[2].numel() * 4
@@ -460,13 +526,67 @@ def unique_sources(cand: bytes, inverse: dict, words: set) -> int:
     return n
 
 
+class SourceIndex:
+    """Which dictionary words can produce a candidate, for tables whose
+    keys and values are single characters: substitution only ever swaps a
+    character for one of its connected component (keys linked to their
+    values), so a source word has the candidate's component signature;
+    the oracle of the run's mode then counts how often each such word
+    emits the candidate."""
+
+    def __init__(self, sub: dict, words: list, mode: str) -> None:
+        chars = {}
+
+        def find(c):
+            while chars.setdefault(c, c) != c:
+                c = chars[c]
+            return c
+
+        for key, vals in sub.items():
+            for v in vals:
+                k, u = key.decode("utf-8"), v.decode("utf-8")
+                if len(k) != 1 or len(u) != 1:
+                    fail(f"SourceIndex needs single-character keys and "
+                         f"values, got {key!r} -> {v!r}")
+                ra, rb = find(k), find(u)
+                if ra != rb:
+                    chars[ra] = rb
+        self.lut = str.maketrans({c: find(c) for c in list(chars)})
+        self.by_sig: dict = {}
+        for i, w in enumerate(words):
+            self.by_sig.setdefault(self.sig(w), []).append(i)
+        self.words, self.sub, self.mode = words, sub, mode
+
+    def sig(self, data: bytes) -> str:
+        return data.decode("utf-8").translate(self.lut)
+
+    def count(self, cand: bytes) -> int:
+        """How many times the whole dictionary emits ``cand``."""
+        from hashcat_a5_table_generator_tpu_torch.oracle.engines import (
+            iter_candidates,
+        )
+
+        mode = self.mode
+        n = 0
+        for i in self.by_sig.get(self.sig(cand), []):
+            n += sum(c == cand for c in iter_candidates(
+                self.words[i], self.sub, 0, 15,
+                substitute_all=mode.startswith("suball"),
+                reverse=mode in ("reverse", "suball-reverse"),
+                bug_compat=False))
+        return n
+
+
 class MainPath:
     """One configuration of the main path: a wordlist file and a digest
     file of its hash, 1000 planted hits decoded by the port's
-    ``decode_variant`` and hashed by ``HOST_DIGEST``, and the host
-    keyspace."""
+    ``decode_variant`` (or, for oracle-fallback words, taken from the
+    oracle) and hashed by ``HOST_DIGEST``, the host keyspace and the host
+    plan's word routing.  ``quota`` plants at least that many hits in
+    words of a route (``device_closed``, ``oracle_fallback``)."""
 
-    def __init__(self, name, work, words, layout, algo, spec_kw, seed):
+    def __init__(self, name, work, words, layout, algo, spec_kw, seed,
+                 quota=None):
         from hashcat_a5_table_generator_tpu_torch.models.attack import (
             AttackSpec, build_plan, decode_variant,
         )
@@ -486,6 +606,10 @@ class MainPath:
             HOST_DIGEST,
         )
 
+        from hashcat_a5_table_generator_tpu_torch.oracle.engines import (
+            iter_candidates,
+        )
+
         self.name, self.algo = name, algo
         self.table = os.path.join(work, f"{layout}.table")
         emit_table(get_layout(layout), self.table)
@@ -494,14 +618,30 @@ class MainPath:
         with open(self.wordlist, "wb") as fh:
             fh.write(b"\n".join(words) + b"\n")
         spec = AttackSpec(algo=algo, **spec_kw)
+        self.mode = spec.mode
         ct = compile_table(sub)
-        inverse: dict = {}
-        for key, vals in sub.items():
-            for v in vals:
-                inverse.setdefault(v.decode("utf-8"), []).append(key)
-        word_set = set(words)
-        rng = np.random.default_rng(seed)
         self.prep = {}
+        t = time.monotonic()
+        if spec.mode == "default":
+            inverse: dict = {}
+            for key, vals in sub.items():
+                for v in vals:
+                    inverse.setdefault(v.decode("utf-8"), []).append(key)
+            word_set = set(words)
+
+            def unique(cand):
+                return unique_sources(cand, inverse, word_set) == 1
+        else:
+            index = SourceIndex(sub, words, spec.mode)
+
+            def unique(cand):
+                return index.count(cand) == 1
+        self.prep["source index"] = time.monotonic() - t
+        rng = np.random.default_rng(seed)
+        quota = dict(quota or {})
+        self.routing = {"device_clean": 0, "device_closed": 0,
+                        "oracle_fallback": 0}
+        self.planted_by_route: dict = {}
         t = time.monotonic()
         buckets = read_packed_buckets(self.wordlist)
         self.prep["read_packed_buckets"] = time.monotonic() - t
@@ -514,21 +654,56 @@ class MainPath:
                 + time.monotonic() - t
             self.windowed |= bool(plan.windowed)
             self.want_emitted += keyspace(plan, spec)
+            fallback = np.asarray(plan.fallback, bool)
+            closed = getattr(plan, "closed", None)
+            closed = (np.zeros_like(fallback) if closed is None
+                      else np.asarray(closed, bool))
+            route = np.where(fallback, "oracle_fallback", np.where(
+                closed, "device_closed", "device_clean"))
+            for r in self.routing:
+                self.routing[r] += int((route == r).sum())
+            t = time.monotonic()
+            oracle = {}
+            for row in np.flatnonzero(fallback).tolist():
+                oracle[row] = list(iter_candidates(
+                    packed.word(row), sub, spec.min_substitute,
+                    spec.max_substitute, substitute_all=True,
+                    reverse=spec.mode == "suball-reverse"))
+                self.want_emitted += len(oracle[row])
+            self.prep["oracle (fallback words)"] = self.prep.get(
+                "oracle (fallback words)", 0.0) + time.monotonic() - t
             share = packed.batch / len(words)
-            rows = rng.permutation(packed.batch)
-            want = max(1, round(N_PLANTED * share))
-            got = 0
-            for row in rows.tolist():
-                if got >= want:
-                    break
-                nv = plan.n_variants[row]
-                if nv < 2:
-                    continue
-                cand = decode_variant(plan, ct, spec, row, nv // 2)
-                if unique_sources(cand, inverse, word_set) != 1:
-                    continue  # another word splices the same plaintext
-                self.planted[HOST_DIGEST[algo](cand).hex()] = cand
-                got += 1
+            want = {"all": max(1, round(N_PLANTED * share))}
+            for r, n in quota.items():
+                want[r] = max(1, round(n * share))
+            for r, n in want.items():
+                rows = rng.permutation(packed.batch)
+                if r != "all":
+                    rows = rows[route[rows] == r]
+                got = 0
+                for row in rows.tolist():
+                    if got >= n:
+                        break
+                    # The middle candidate, else (a plaintext that another
+                    # word or choice also emits) up to 7 more.
+                    total = (len(oracle[row]) if row in oracle
+                             else plan.n_variants[row])
+                    for k in range(min(8, total - 1)):
+                        at = (total // 2 + k * (total // 8 + 1)) % total
+                        try:
+                            cand = (oracle[row][at] if row in oracle else
+                                    decode_variant(plan, ct, spec, row, at))
+                        except ValueError:  # a rank the window masks
+                            continue
+                        dig = HOST_DIGEST[algo](cand).hex()
+                        if dig not in self.planted and unique(cand):
+                            break
+                    else:
+                        continue
+                    self.planted[dig] = cand
+                    self.planted_by_route[str(route[row])] = \
+                        self.planted_by_route.get(str(route[row]), 0) + 1
+                    got += 1
         width = DIGEST_BYTES[algo]
         decoys = rng.integers(0, 256, size=(N_DIGESTS - len(self.planted),
                                             width), dtype=np.uint8)
@@ -545,9 +720,14 @@ class MainPath:
         self.buckets = {w: p.batch for w, p in buckets.items()}
         log(f"main path [{name}] inputs: {len(words)} words in buckets "
             f"{self.buckets}, {N_DIGESTS} {algo} digests ({len(self.planted)}"
-            f" planted), host keyspace {self.want_emitted}, windowed "
-            f"{self.windowed}; host prep on this machine's CPU: "
+            f" planted: {self.planted_by_route}), host keyspace "
+            f"{self.want_emitted}, windowed {self.windowed}, routing "
+            f"{self.routing}; host prep on this machine's CPU: "
             + ", ".join(f"{k} {v:.2f} s" for k, v in self.prep.items()))
+        for r, n in quota.items():
+            if self.planted_by_route.get(r, 0) < n:
+                fail(f"main path [{name}]: {self.planted_by_route.get(r, 0)}"
+                     f" plants in {r} words, want {n}")
 
     def run(self, arm, extra, card) -> dict:
         from hashcat_a5_table_generator_tpu_torch.ops import fused_expand
@@ -582,6 +762,14 @@ class MainPath:
         if missing:
             fail(f"{what}: {len(missing)} planted hits not printed exactly "
                  f"once, e.g. {missing[:3]!r}")
+        r = re.search(r"word routing: (\d+) device-clean, (\d+) "
+                      r"device-closed, (\d+) oracle-fallback", err)
+        got_routing = (dict(zip(self.routing, map(int, r.groups()))) if r
+                       else {"device_clean": sum(self.routing.values()),
+                             "device_closed": 0, "oracle_fallback": 0})
+        if got_routing != self.routing:
+            fail(f"{what}: word routing {got_routing}, host plan "
+                 f"{self.routing}")
         m = re.search(r"(\d+) hits, (\d+) candidates hashed", err)
         s = re.search(r"([\d.]+) s wall, ([\d.]+) s superstep drive, "
                       r"([\d.e+]+) candidate-hashes/s", err)
@@ -594,7 +782,7 @@ class MainPath:
         if plain:
             fail(f"{what}: the plain version ran {plain} times on the main "
                  "path")
-        rows = max(1, sum(v * LANES * (2 if k.startswith("piece_pair") else 1)
+        rows = max(1, sum(v * LANES * (2 if "pair" in k else 1)
                           for k, v in launches.items()))
         log(f"main path {what}: {len(got)} hits ({len(self.planted)} "
             f"planted), {emitted} candidates hashed, launches {launches}, "
@@ -674,7 +862,8 @@ def main() -> None:
     czech_tail = long_words(CASE_WORDS, 9, 10, (6, 6), seed=9,
                             filler=CZECH_FILLER, alphabet=CZECH_KEYS)
     long64 = long_words(400, 33, 64, (4, 10), seed=2)
-    # (entry, algo) -> (workload, words, table, max_substitute, pair).
+    # (entry, algo) -> (workload, words, table, max_substitute, pair[,
+    # mode]).
     timed = {}
     for algo in ALGOS:
         timed[("k1", algo)] = ("cyr", head, cyr, 15, False)
@@ -687,14 +876,36 @@ def main() -> None:
     timed[("k1", "sha1")] = ("greek", greek_head, gh, 15, False)
     timed[("pair", "sha1")] = ("greek", greek_head, gh, 15, True)
     timed[("windowed", "ntlm")] = ("czech-x2", czech_tail, czech, 2, False)
+    # Substitute-all: qwerty-azerty words holding a hazard pair (a/q, z/w
+    # — closed) and ``AQq`` (a 12-row joint table; with another hazard
+    # key the word goes to the oracle and takes no lanes).
+    az_words = mid + [b"AQq" + w[:4] for w in mid[:4000]]
+    az_x2 = [b"aq134567" + w[:3] for w in mid[:20000]]
+    for algo in ALGOS:
+        timed[("suball_k1", algo)] = ("cyr", head, cyr, 15, False, "suball")
+        timed[("suball_pair", algo)] = (
+            "single", pair_words(CASE_WORDS, 11), SINGLE, 15, True, "suball")
+        timed[("suball_pair_digits", algo)] = (
+            "leet3-pair", pair_words(CASE_WORDS, 12), LEET3, 15, True,
+            "suball")
+        timed[("suball_digits", algo)] = ("czech", mid, czech, 15, False,
+                                          "suball")
+        timed[("suball_closed", algo)] = ("azerty", az_words, azerty, 15,
+                                          False, "suball")
+        timed[("suball_windowed", algo)] = (
+            ("czech-x2", czech_tail, czech, 2, False, "suball")
+            if algo == "ntlm" else ("cyr-x2", tail, cyr, 2, False, "suball"))
+        timed[("suball_closed_windowed", algo)] = (
+            "azerty-x2", az_x2, azerty, 2, False, "suball")
     cases = {}
-    for (entry, algo), (wl, words, sub, mx, pair) in timed.items():
+    for (entry, algo), (wl, words, sub, mx, pair, *mode) in timed.items():
         # czech packs at the main path's bucket width, 16: NTLM then runs
         # its 2-block instantiation there, as the czech x NTLM run does
         # (every lane still needs one compression).
         cases[(entry, algo)] = Case(
-            f"{wl} x {algo}", wl, words, sub, algo=algo, mx=mx, pair=pair,
-            width=16 if wl == "czech" else None, device=dev)
+            f"{wl} x {algo}{' ' + mode[0] if mode else ''}", wl, words, sub,
+            algo=algo, mx=mx, pair=pair, mode=mode[0] if mode else "default",
+            width=16 if wl == "czech" and not mode else None, device=dev)
     multi = {
         ("k1-2", "md5"): ("long64", long64, cyr, 2),
         ("k1-3", "md5"): ("wide64", wide_words(200, seed=3), wide_table(cyr),
@@ -708,14 +919,55 @@ def main() -> None:
             4000, 50, 64, (12, 12), seed=4, filler=CZECH_FILLER,
             alphabet=CZECH_KEYS), czech, 3),
     }
+    # Substitute-all batches of 2 and 3 hash blocks (``-s``).
+    az_long = [b"aq" + w for w in long_words(
+        4000, 50, 62, (4, 8), seed=14, filler=b"bcdefghijklnoprstuvxy",
+        alphabet=b"aqzw")]
+    multi.update({
+        ("suball_k1-2", "md5"): ("long64", long64, cyr, 2),
+        ("suball_k1-3", "md5"): ("wide64", wide_words(200, seed=3),
+                                 wide_table(cyr), 3),
+        ("suball_k1-2", "sha1"): ("long64", long64, cyr, 2),
+        ("suball_k1-3", "sha1"): ("wide64", wide_words(200, seed=3),
+                                  wide_table(cyr), 3),
+        ("suball_closed-2", "ntlm"): (
+            "azerty24", [b"aq" + w * 2 + w[:4] for w in mid[:8000]], azerty,
+            2),
+        ("suball_closed-3", "ntlm"): ("azerty-long", az_long, azerty, 3),
+    })
     for (entry, algo), (wl, words, sub, hb) in multi.items():
         lanes = LANES >> (2 if hb == 2 else 3)
-        cases[(entry, algo)] = Case(f"{wl} x {algo}", wl, words, sub,
-                                    algo=algo, lanes=lanes, device=dev)
+        mode = "suball" if entry.startswith("suball") else "default"
+        cases[(entry, algo)] = Case(f"{wl} x {algo} {mode}", wl, words, sub,
+                                    algo=algo, lanes=lanes, mode=mode,
+                                    device=dev)
+    # Compared at main-path shapes but not timed (the timed case of the
+    # same entry point x hash runs another workload): the closure over
+    # azerty-qwerty's 6-wide joint tables, the other windowed selector
+    # (cb packing or digits) of each hash, and the reverse mode's pair
+    # tier.
+    azq = get_layout("azerty-qwerty").to_substitution_map()
+    others = {}
+    for algo in ALGOS:
+        others[("suball_closed:azq", algo)] = (
+            "azerty-qwerty", az_words, azq, 15, False, "suball", 1)
+        others[("suball_windowed:other", algo)] = (
+            ("cyr-x2", tail, cyr, 2, False, "suball", 2) if algo == "ntlm"
+            else ("czech-x2", czech_tail, czech, 2, False, "suball", 1))
+        others[("pair:reverse", algo)] = ("cyr", head, cyr, 15, True,
+                                         "reverse", 1)
+    want_hbs = {}
+    for (label, algo), (wl, words, sub, mx, pair, mode, hb) in \
+            others.items():
+        cases[(label, algo)] = Case(
+            f"{wl} x {algo} {mode}", wl, words, sub, algo=algo, mx=mx,
+            pair=pair, mode=mode, device=dev)
+        want_hbs[(label, algo)] = hb
     for (entry, algo), case in cases.items():
-        want_key = f"piece_{entry.split('-')[0]}/{algo}"
+        want_key = f"piece_{entry.split('-')[0].split(':')[0]}/{algo}"
         want_hb = int(entry.split("-")[1]) if "-" in entry else (
-            2 if (entry, algo) == ("digits", "ntlm") else 1)
+            2 if (entry, algo) == ("digits", "ntlm")
+            else want_hbs.get((entry, algo), 1))
         if case.key != want_key or case.hash_blocks != want_hb:
             fail(f"{case.name}: runs {case.key} with {case.hash_blocks} "
                  f"hash blocks, expected {want_key} with {want_hb}")
@@ -726,29 +978,63 @@ def main() -> None:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     # Unique words: qwerty-cyrillic and czech map letters one-to-one, so
-    # distinct words never share a candidate; greek-hebrew does not
-    # (MainPath plants only plaintexts with one source word).
-    words = list(dict.fromkeys(synth_words(N_WORDS + 1000, seed=0)))
-    words = words[: N_WORDS - 120]
-    rng = np.random.default_rng(4)
-    for w in long_words(100, 33, 64, (4, 10), seed=5) + \
-            long_words(20, 50, 64, (3, 8), seed=6):
-        words.insert(int(rng.integers(0, len(words))), w)
+    # distinct words never share a candidate; greek-hebrew and
+    # qwerty-azerty do not (MainPath plants only plaintexts with one
+    # source).  The default-mode runs take 250k words, the
+    # substitute-all and reverse runs 1M.
+    def dictionary(n, seed, long_lines=True):
+        out = list(dict.fromkeys(synth_words(n + 1000, seed=seed)))
+        out = out[: n - (120 if long_lines else 0)]
+        if long_lines:
+            rng = np.random.default_rng(4)
+            for w in long_words(100, 33, 64, (4, 10), seed=5) + \
+                    long_words(20, 50, 64, (3, 8), seed=6):
+                out.insert(int(rng.integers(0, len(out))), w)
+        return out
+
+    words = dictionary(N_WORDS_DEFAULT, seed=0)
+    words_1m = dictionary(N_WORDS, seed=0)
+    czech_1m = dictionary(N_WORDS, seed=11, long_lines=False)
+    azerty_1m = dictionary(N_WORDS - 2000, seed=21, long_lines=False)
+    rng = np.random.default_rng(22)
+    for w in dict.fromkeys(azerty_lines(2000, seed=23)):
+        azerty_1m.insert(int(rng.integers(0, len(azerty_1m))), w)
     paths = {
         "cyrillic-md5": MainPath("cyrillic-md5", work, words,
                                  "qwerty-cyrillic", "md5", {}, seed=10),
         "czech-ntlm": MainPath(
-            "czech-ntlm", work,
-            list(dict.fromkeys(synth_words(N_WORDS + 1000, seed=11)))[
-                :N_WORDS], "czech", "ntlm", {}, seed=12),
+            "czech-ntlm", work, czech_1m[:N_WORDS_DEFAULT], "czech", "ntlm",
+            {}, seed=12),
         "greek-hebrew-sha1": MainPath(
-            "greek-hebrew-sha1", work, greek_words(list(dict.fromkeys(
-                synth_words(N_WORDS + 1000, seed=13)))[:N_WORDS]),
+            "greek-hebrew-sha1", work, greek_words(dictionary(
+                N_WORDS_DEFAULT, seed=13, long_lines=False)),
             "greek-hebrew", "sha1", {}, seed=14),
         "cyrillic-md5-x2": MainPath("cyrillic-md5-x2", work, words,
                                     "qwerty-cyrillic", "md5",
                                     {"max_substitute": 2}, seed=15),
+        "cyrillic-md5-s": MainPath("cyrillic-md5-s", work, words_1m,
+                                   "qwerty-cyrillic", "md5",
+                                   {"mode": "suball"}, seed=24),
+        "azerty-md5-s": MainPath(
+            "azerty-md5-s", work, azerty_1m, "qwerty-azerty", "md5",
+            {"mode": "suball"}, seed=25,
+            quota={"device_closed": 120, "oracle_fallback": 60}),
+        "cyrillic-sha1-s-x2": MainPath(
+            "cyrillic-sha1-s-x2", work, words_1m, "qwerty-cyrillic", "sha1",
+            {"mode": "suball", "max_substitute": 2}, seed=26),
+        "czech-ntlm-s-r": MainPath(
+            "czech-ntlm-s-r", work, czech_1m, "czech", "ntlm",
+            {"mode": "suball-reverse"}, seed=27),
+        "cyrillic-md5-r": MainPath("cyrillic-md5-r", work, words_1m,
+                                   "qwerty-cyrillic", "md5",
+                                   {"mode": "reverse"}, seed=28),
     }
+    az = paths["azerty-md5-s"].routing
+    if az["device_closed"] < 100 or az["oracle_fallback"] < 100:
+        fail(f"azerty-md5-s routing {az}: want closed words and at least "
+             "100 oracle-fallback words")
+    if not paths["cyrillic-sha1-s-x2"].windowed:
+        fail("the -s -x 2 run's plans are not count-windowed")
     if not paths["cyrillic-md5-x2"].windowed:
         fail("the -x 2 run's plans are not count-windowed")
     small = os.path.join(work, "small.txt")
@@ -768,6 +1054,11 @@ def main() -> None:
         ("greek-hebrew-sha1", "pair auto", []),
         ("greek-hebrew-sha1", "pair off", ["--pair", "off"]),
         ("cyrillic-md5-x2", "-x 2", ["-x", "2"]),
+        ("cyrillic-md5-s", "-s, pair auto", ["-s"]),
+        ("azerty-md5-s", "-s", ["-s"]),
+        ("cyrillic-sha1-s-x2", "-s -x 2", ["-s", "-x", "2"]),
+        ("czech-ntlm-s-r", "-s -r", ["-s", "-r"]),
+        ("cyrillic-md5-r", "-r, pair auto", ["-r"]),
     ):
         runs[(name, arm)] = paths[name].run(arm, extra, card)
     for name in ("cyrillic-md5", "greek-hebrew-sha1"):
@@ -787,6 +1078,16 @@ def main() -> None:
                     ["piece_k1/sha1"], "greek-hebrew-sha1 (pair off)")
     expect_launched(runs[("cyrillic-md5-x2", "-x 2")],
                     ["piece_windowed/md5"], "cyrillic-md5-x2")
+    expect_launched(runs[("cyrillic-md5-s", "-s, pair auto")],
+                    ["piece_suball_k1/md5"], "cyrillic-md5-s")
+    expect_launched(runs[("azerty-md5-s", "-s")],
+                    ["piece_suball_closed/md5"], "azerty-md5-s")
+    expect_launched(runs[("cyrillic-sha1-s-x2", "-s -x 2")],
+                    ["piece_suball_windowed/sha1"], "cyrillic-sha1-s-x2")
+    expect_launched(runs[("czech-ntlm-s-r", "-s -r")],
+                    ["piece_suball_k1/ntlm"], "czech-ntlm-s-r")
+    expect_launched(runs[("cyrillic-md5-r", "-r, pair auto")],
+                    ["piece_pair/md5"], "cyrillic-md5-r")
     main_launches: dict = {}
     for run in runs.values():
         for k, v in run["launches"].items():
@@ -800,16 +1101,18 @@ def main() -> None:
     # -- phase 5: timing ----------------------------------------------------
     kernels = []
     for (entry, algo), case in cases.items():
-        if (entry, algo) in multi:
+        if (entry, algo) in multi or (entry, algo) in others:
             continue
         ms = time_call(case.kernel, 20)
         plain_ms = time_call(case.plain, 2)
         emit = checks[(entry, algo)]["emit"]
         bound_ms, bound_by = case.bound(emit, peak_ops)
         rows = int(emit.shape[0])
-        multi_checks = {f"{e}/{a}": checks[(e, a)]["mismatches"]
-                        for (e, a) in multi if a == algo
-                        and e.split("-")[0] == entry}
+        # The same entry point x hash on the multi-block and other
+        # workloads of phase 3.
+        more_checks = {f"{e}/{a}": checks[(e, a)]["mismatches"]
+                       for (e, a) in list(multi) + list(others) if a == algo
+                       and e.split("-")[0].split(":")[0] == entry}
         log(f"{case.key} [{case.name}, {case.hash_blocks} hash block(s) "
             f"compiled]: {ms:.4f} ms/launch over {rows} "
             f"candidate rows ({rows / ms * 1e3:.4g} candidates/s, "
@@ -822,12 +1125,15 @@ def main() -> None:
             "source": KERNEL_SOURCE,
             "replaces": f"{PALLAS}:1303",
             "branch": f"{BRANCHES[entry]}; {ROUNDS[algo]}",
+            "wrapper": (f"{PALLAS}:2373 fused_expand_suball_md5"
+                        if entry.startswith("suball")
+                        else f"{PALLAS}:2019 fused_expand_md5"),
             "workload": case.name,
             "hash_blocks": case.hash_blocks,
             "launches": main_launches.get(case.key, 0),
             "main_path": case.key in main_launches,
             "mismatches": checks[(entry, algo)]["mismatches"],
-            "multi_block_mismatches": multi_checks,
+            "other_cases_mismatches": more_checks,
             "max_abs_err": checks[(entry, algo)]["max_abs_err"],
             "ms": ms,
             "plain_ms": plain_ms,
@@ -841,6 +1147,8 @@ def main() -> None:
                     paths["czech-ntlm"].digest_set, None)
     stage_breakdown(cases[("pair", "sha1")],
                     paths["greek-hebrew-sha1"].digest_set, 2)
+    stage_breakdown(cases[("suball_closed", "md5")],
+                    paths["azerty-md5-s"].digest_set, None)
     shutil.rmtree(work, ignore_errors=True)
     elapsed = time.monotonic() - T0
     log(f"done in {elapsed:.1f} s")

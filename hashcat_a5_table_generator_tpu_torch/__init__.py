@@ -3,19 +3,23 @@ NVIDIA Hopper GPU.
 
 The PyTorch/CUDA port of ``hashcat_a5_table_generator_tpu`` (the JAX/TPU
 package, which stays the reference).  It imports ``torch`` and numpy only.
-It covers the single-GPU crack sweep in default mode for MD5, MD4, SHA-1
+It covers the single-GPU crack sweep in default, reverse (``-r``),
+substitute-all (``-s``) and substitute-all reverse mode for MD5, MD4, SHA-1
 and NTLM: tables are compiled on the host, the per-slot piece schema and
 block index are shipped to the device once per sweep, and every superstep
 cuts its blocks, expands + hashes each candidate in the hand-written piece
 kernel (``csrc/piece_hash.cu``: scalar, digit and count-windowed decodes,
-one or two candidates per thread), tests digest membership and compacts
-hits on the device; only the counters and the hit slice come back.
+match and substitute-all selectors, the cascade closure, one or two
+candidates per thread), tests digest membership and compacts hits on the
+device; only the counters and the hit slice come back.  Substitute-all
+words no plan can splice exactly go through the host oracle.
 
 Layer map (same names as the reference package):
   tables/    — table parsing, merging, $HEX codec, layouts, compilation
-  ops/       — packing, piece schema, block index, match plans, hashes,
-               membership, the piece-kernel wrapper and its plain PyTorch
-               version
+  oracle/    — the byte-exact CPU generation engines (fallback words)
+  ops/       — packing, piece schema, block index, match and substitute-all
+               plans, hashes, membership, the piece-kernel wrapper and its
+               plain PyTorch version
   csrc/      — the CUDA C++ kernels (built with nvcc at first use)
   models/    — the attack spec, host plans, device arrays, the superstep body
   runtime/   — the crack sweep loop, length buckets, hit sinks

@@ -2,13 +2,15 @@
 
 Same flags and output as the reference CLI for what this package runs::
 
-  a5gen DICT_FILE -t TABLE [-t TABLE ...] [-m MIN] [-x MAX]
+  a5gen DICT_FILE -t TABLE [-t TABLE ...] [-m MIN] [-x MAX] [-s] [-r]
         --backend device --algo md5|md4|sha1|ntlm --digests FILE
         [--device cuda|cpu]
 
-Default mode, one GPU, every hash the reference's piece kernel takes:
-hits print to stdout as ``digest:plain`` potfile lines, bucket-major in
-the order found; the summary goes to stderr.  ``--device`` defaults to
+Default, reverse (``-r``), substitute-all (``-s``) and substitute-all
+reverse (``-s -r``) mode, one GPU, every hash the reference's piece kernel
+takes: hits print to stdout as ``digest:plain`` potfile lines,
+bucket-major in the order found; the summary (with the substitute-all
+word routing) goes to stderr.  ``--device`` defaults to
 ``cuda`` and never falls back to the CPU on its own.
 
 Every other surface of the reference CLI is recognized and refused with
@@ -27,7 +29,8 @@ DIGEST_BYTES = {"md5": 16, "md4": 16, "ntlm": 16, "sha1": 20}
 
 #: ROADMAP.md port-queue items for the surfaces this package does not run.
 _ITEMS = {
-    5: "candidates mode, the oracle backend and the other generation modes",
+    5: "candidates mode, the oracle backend, --hex-unsafe, --emit-table, "
+       "--list-layouts, --output and --bug-compat",
     6: "checkpoints, streaming and robustness",
     7: "multi-GPU",
     8: "the service layer",
@@ -36,8 +39,6 @@ _ITEMS = {
 
 #: Refused flags: (flags, argparse kwargs, queue item).
 _REFUSED = (
-    (("-s", "--substitute-all"), dict(action="store_true"), 5),
-    (("-r", "--reverse-sub"), dict(action="store_true"), 5),
     (("--hex-unsafe",), dict(action="store_true"), 5),
     (("--bug-compat",), dict(action="store_true"), 5),
     (("--emit-table",), dict(metavar="LAYOUT"), 5),
@@ -90,6 +91,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="minimum substitutions per candidate (default 0)")
     ap.add_argument("-x", "--table-max", type=int, default=15,
                     help="maximum substitutions per candidate (default 15)")
+    ap.add_argument("-s", "--substitute-all", action="store_true",
+                    help="substitute-all mode: replace every occurrence of "
+                         "each chosen pattern (transliteration)")
+    ap.add_argument("-r", "--reverse-sub", action="store_true",
+                    help="reverse mode: first option per key only "
+                         "(with -s: substitute-all reverse)")
     ap.add_argument("--threads", type=int, default=-1,
                     help="oracle-backend parallelism; the device backend "
                          "ignores it")
@@ -296,6 +303,26 @@ def _print_superstep(res) -> None:
     )
 
 
+def _mode(args) -> str:
+    if args.substitute_all:
+        return "suball-reverse" if args.reverse_sub else "suball"
+    return "reverse" if args.reverse_sub else "default"
+
+
+def _print_routing(res) -> None:
+    """Word-routing summary (stderr): device-clean / cascade-closed /
+    oracle-fallback counts; silent when every word is device-clean."""
+    r = res.routing
+    if not (r.get("device_closed") or r.get("oracle_fallback")):
+        return
+    print(
+        f"{PROG}: word routing: {r.get('device_clean', 0)} device-clean, "
+        f"{r.get('device_closed', 0)} device-closed, "
+        f"{r.get('oracle_fallback', 0)} oracle-fallback",
+        file=sys.stderr,
+    )
+
+
 def _run_device(args, sub_map, packed) -> int:
     """``packed`` is a PackedWords batch or a ``{width: PackedWords}``
     bucket dict."""
@@ -304,7 +331,7 @@ def _run_device(args, sub_map, packed) -> int:
     from .runtime.sinks import HitRecorder
     from .runtime.sweep import Sweep, SweepConfig
 
-    spec = AttackSpec(mode="default", algo=args.algo,
+    spec = AttackSpec(mode=_mode(args), algo=args.algo,
                       min_substitute=args.table_min,
                       max_substitute=args.table_max)
     cfg = SweepConfig(
@@ -319,6 +346,7 @@ def _run_device(args, sub_map, packed) -> int:
     res = sweep.run_crack(_DedupRecorder(HitRecorder(sys.stdout.buffer)))
     print(f"{res.n_hits} hits, {res.n_emitted} candidates hashed",
           file=sys.stderr)
+    _print_routing(res)
     _print_superstep(res)
     rate = res.n_emitted / res.drive_s if res.drive_s > 0 else 0.0
     print(f"{PROG}: sweep: {res.wall_s:.3f} s wall, {res.drive_s:.3f} s "

@@ -5,7 +5,9 @@
 // Replaces the TPU kernel body `_make_piece_kernel` of the reference
 // package (hashcat_a5_table_generator_tpu/ops/pallas_expand.py:1303,
 // launched through `_launch_fused` / `pl.pallas_call` at :1961) in every
-// match-plan tier that body has:
+// tier that body has, for match plans (`fused_expand_md5` :2019: default
+// and reverse mode) and substitute-all plans (`kind="suball"`, through
+// `fused_expand_suball_md5` :2373: `-s` and `-s -r`):
 //   DECODE_SCALAR    the scalar-units full enumeration (cb = pbase + rank;
 //                    `scalar and not windowed`, :1415-1421);
 //   DECODE_DIGITS    the general tier: mixed-radix digits from per-block
@@ -19,6 +21,15 @@
 //                    (`_decode_tile_windowed` :333), optionally packing the
 //                    chosen bits into cb for the scalar selectors
 //                    (:1436-1446);
+// the substitute-all selectors (KIND_SUBALL, :1384-1390): a column is one
+// pattern OCCURRENCE, driven by its pattern slot — scalar decodes test bit
+// `sel_bit[w, c]` of cb (`selbit` :1553-1555), digit decodes read the digit
+// of slot `sel_slot[w, c]` (`selslot` in `col_variant` :1482-1491), and
+// the windowed decode packs slot s's chosen bit at `bitpos[w, s]`
+// (:1443-1446); the cascade closure (CLOSED, :1462-1476, :1488-1491): a
+// chosen closed slot's variant is 1 + its joint index over its own digit
+// and up to three later successor slots' digits, addressing pre-cascaded
+// value rows;
 // and, per hash, `_md5_rounds`, `_md4_rounds` (:1129), `_sha1_rounds`
 // (:1162), the NTLM code-unit split of `split_pieces` (:1601-1629), the
 // length words of `_length_words` (:949) and the per-lane padding-block
@@ -26,10 +37,11 @@
 // :1401-1460, :1571-1579) runs the scalar or the digit decode with one
 // hash block.
 //
-// One device body, templated on ALGO (md5, md4, sha1, ntlm), DECODE
-// (scalar, digits, windowed) and HB (hash blocks, 1-3).  Each shared
-// library built from this file holds one ALGO (`-DPIECE_ALGO=n`), so the
-// four hashes build in parallel.
+// One device body, templated on ALGO (md5, md4, sha1, ntlm), KIND (match,
+// suball), DECODE (scalar, digits, windowed), HB (hash blocks, 1-3) and
+// CLOSED (the joint closure index; suball digit and windowed decodes).
+// Each shared library built from this file holds one ALGO
+// (`-DPIECE_ALGO=n`), so the four hashes build in parallel.
 //
 // What one lane computes (block b, in-block lane r, word w = blk_word[b]):
 //   decode   scalar: cb = base[b] + r (pair: base[b] + 2r, partner cb | 1);
@@ -39,8 +51,11 @@
 //            (pair partner: 2r + 1 < count[b], chosen count of cb | 1, or
 //            of the digits with slot 0's digit + 1).
 //   splice   For each PieceSchema group, in emission order: the variant
-//            index (a bit-field of cb, or the group's column digit clamped
-//            to its rows, or the merged columns' chosen bits) picks the
+//            index (a bit-field of cb, or the group's column variant
+//            clamped to its rows, or the merged columns' chosen bits;
+//            a match column's variant is its slot's digit, a suball
+//            column's that of its owning pattern slot, or 1 + the slot's
+//            joint closure index when the slot is closed) picks the
 //            variant's pre-masked word(s), OR-ed into the message at the
 //            lane's running byte offset; the offset advances by the
 //            group's placed length.  The tail group carries the 0x80
@@ -59,12 +74,16 @@
 // bytes and a few table words read through L1/L2, so every instantiation
 // sits far on the operations side of the roofline.  The digit decodes add
 // one integer divide per slot (digits) or the DP walk's table reads
-// (windowed); both are small beside a compression.
+// (windowed); both are small beside a compression.  The substitute-all
+// selectors add one table read per selector column (sel_bit or sel_slot,
+// by word index) and, when closed, a joint index of at most three
+// multiply-adds per column.
 //
 // What this design does about it, first version: one thread per lane, no
 // shared state between lanes except the group descriptors (copied once per
 // CTA into shared memory), radix / win_v / piece rows read by word index
-// from the resident tables (no per-launch gather), rotates as funnel
+// from the resident tables (no per-launch gather), the substitute-all
+// selector and closure tables read the same way, rotates as funnel
 // shifts, round functions in their 3-input forms.  The message
 // (`uint32_t[16 * HB]`) and the digit vector (`int[24]`) are indexed by
 // data-dependent offsets and columns, so they live in local memory
@@ -73,8 +92,9 @@
 // are levers for a later change, not correctness matters.
 //
 // Shifts by 32 are undefined in C++ and CUDA: placement shifts only by
-// 8..24 when the spill word is written, and selectors test the column
-// bound before shifting.
+// 8..24 when the spill word is written, and the scalar selectors test the
+// bit position (a match column, or a suball column's sel_bit) against 32
+// before shifting.
 //
 // Types: torch tensors are int32; the kernel reinterprets them as
 // uint32_t.  `gw16` and `gl` arrive widened to int32.
@@ -86,6 +106,9 @@
 #define ALGO_MD4 1
 #define ALGO_SHA1 2
 #define ALGO_NTLM 3
+
+#define KIND_MATCH 0
+#define KIND_SUBALL 1
 
 #define DECODE_SCALAR 0
 #define DECODE_DIGITS 1
@@ -99,7 +122,8 @@
 // Group descriptor fields (int32, DESC_WIDTH per group; built by
 // ops/fused_expand.py::group_descriptors — keep the two in step).
 #define D_NSEL 0        // number of selector columns
-#define D_SEL 1         // selector columns (match slots), MAX_SEL
+#define D_SEL 1         // selector columns, MAX_SEL (match: slots;
+                        // suball: pattern occurrences)
 #define D_NVAR 5        // variants
 #define D_NWORDS 6      // u32 words per variant
 #define D_FLOOR 7       // static lower bound of the group's byte offset
@@ -129,7 +153,34 @@ struct LaunchArgs {
     int ngroups, min_sub, max_sub;
     int32_t* state;            // [rows, state words]
     uint8_t* emit;             // [rows]
+    // Substitute-all selector and closure tables (null for match plans).
+    const int32_t* sel_bit;    // [B, C] chosen-bit position of column c
+    const int32_t* sel_slot;   // [B, C] pattern slot driving column c
+    const int32_t* bitpos;     // [B, M] chosen-bit position of slot s
+    const int32_t* cnext;      // [B, M, S] successor slots (-1 none)
+    const int32_t* cmul;       // [B, M, S+1] joint index multipliers
+    int ncols, close_s;
 };
+
+// One word's rows of the substitute-all tables.
+struct SelRows {
+    const int32_t* sel_bit;
+    const int32_t* sel_slot;
+    const int32_t* cnext;
+    const int32_t* cmul;
+    int m, close_s;
+};
+
+__device__ __forceinline__ SelRows sel_rows(const LaunchArgs& a, int w) {
+    SelRows r;
+    r.sel_bit = a.sel_bit ? a.sel_bit + (size_t)w * a.ncols : nullptr;
+    r.sel_slot = a.sel_slot ? a.sel_slot + (size_t)w * a.ncols : nullptr;
+    r.cnext = a.cnext ? a.cnext + (size_t)w * a.m * a.close_s : nullptr;
+    r.cmul = a.cmul ? a.cmul + (size_t)w * a.m * (a.close_s + 1) : nullptr;
+    r.m = a.m;
+    r.close_s = a.close_s;
+    return r;
+}
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int s) {
     return __funnelshift_l(x, x, s);
@@ -399,16 +450,39 @@ __device__ __forceinline__ void place(uint32_t* m, int o, uint32_t wd) {
     if (sh != 0 && q + 1 < NW_DATA) m[q + 1] |= wd >> (32 - sh);
 }
 
+// The variant a digit-decoded column selects (0 = the span's own bytes):
+// match plans, its slot's digit; suball plans, the digit of the pattern
+// slot that owns the occurrence — or, for a chosen slot of a closed plan,
+// 1 + its joint index (d - 1) * cmul[sl, 0] + sum_s d[cnext[sl, s]] *
+// cmul[sl, 1 + s] over its successor slots (always later slots).
+template <int KIND, bool CLOSED>
+__device__ __forceinline__ int col_variant(int c, const int* dg,
+                                           const SelRows& sr) {
+    if (KIND == KIND_MATCH) return dg[c];
+    const int sl = sr.sel_slot[c];
+    const int d = (unsigned)sl < (unsigned)sr.m ? dg[sl] : 0;
+    if (!CLOSED || d <= 0) return d;
+    const int* mul = sr.cmul + sl * (sr.close_s + 1);
+    int jc = (d - 1) * mul[0];
+    for (int i = 0; i < sr.close_s; ++i) {
+        const int nt = sr.cnext[sl * sr.close_s + i];
+        if (nt > sl && nt < sr.m) jc += dg[nt] * mul[1 + i];
+    }
+    return 1 + jc;
+}
+
 // Splice one candidate's bytes (terminator included) into m[0..16*HB) and
 // return its length in bytes.  CB: variant indices are bit-fields of the
-// packed chosen vector `cb`; otherwise they come from the digit vector
-// `dg` (one column: its digit clamped to the group's rows; merged binary
-// columns: their chosen bits).
-template <int ALGO, int HB, bool CB>
+// packed chosen vector `cb` (a match column c is bit c; a suball column
+// bit sel_bit[c], 31 on padding columns, which no cb sets); otherwise they
+// come from the digit vector `dg` (one column: its variant clamped to the
+// group's rows; merged binary columns: their chosen bits).
+template <int ALGO, int HB, int KIND, bool CB, bool CLOSED>
 __device__ __forceinline__ int build_message(uint32_t* m, uint32_t cb,
                                              const int* dg, int w,
                                              const int* desc, int ngroups,
-                                             const PieceTables& t) {
+                                             const PieceTables& t,
+                                             const SelRows& sr) {
     constexpr int NW_DATA = 16 * HB - 2;
 #pragma unroll
     for (int j = 0; j < 16 * HB; ++j) m[j] = 0u;
@@ -424,16 +498,19 @@ __device__ __forceinline__ int build_message(uint32_t* m, uint32_t cb,
             if (CB) {
                 for (int i = 0; i < nsel; ++i) {
                     const int c = g[D_SEL + i];
-                    idx |= (int)((c < 32 ? (cb >> c) : 0u) & 1u) << i;
+                    const int bit = KIND == KIND_MATCH ? c : sr.sel_bit[c];
+                    idx |= (int)(((unsigned)bit < 32u ? (cb >> bit) : 0u)
+                                 & 1u) << i;
                 }
             } else if (nsel == 1) {
-                idx = dg[g[D_SEL]];
+                idx = col_variant<KIND, CLOSED>(g[D_SEL], dg, sr);
             } else {
                 for (int i = 0; i < nsel; ++i) {
-                    idx |= (dg[g[D_SEL + i]] > 0 ? 1 : 0) << i;
+                    idx |= (col_variant<KIND, CLOSED>(g[D_SEL + i], dg, sr)
+                            > 0 ? 1 : 0) << i;
                 }
             }
-            idx = min(idx, nvar - 1);
+            idx = min(max(idx, 0), nvar - 1);
         }
         const int nwords = g[D_NWORDS];
         for (int wi = 0; wi < nwords; ++wi) {
@@ -537,7 +614,7 @@ __device__ __forceinline__ bool in_window(int cc, const LaunchArgs& a) {
 
 // One candidate per thread: lane r of block b is candidate rank r of the
 // block, row b * stride + r.
-template <int ALGO, int DECODE, int HB>
+template <int ALGO, int KIND, int DECODE, int HB, bool CLOSED>
 __global__ void piece_kernel(LaunchArgs a, PieceTables t) {
     __shared__ int sdesc[MAX_GROUPS * DESC_WIDTH];
     load_desc(sdesc, a.desc, a.ngroups);
@@ -546,13 +623,14 @@ __global__ void piece_kernel(LaunchArgs a, PieceTables t) {
     const int blk = (int)(lane / a.stride);
     const int r = (int)(lane - (long long)blk * a.stride);
     const int w = a.blk_word[blk];
+    const SelRows sr = sel_rows(a, w);
     uint32_t m[16 * HB];
     int len, cc;
     if (DECODE == DECODE_SCALAR) {
         const uint32_t cb = (uint32_t)(a.blk_base[blk] + r);
         cc = __popc(cb);
-        len = build_message<ALGO, HB, true>(m, cb, nullptr, w, sdesc,
-                                            a.ngroups, t);
+        len = build_message<ALGO, HB, KIND, true, false>(
+            m, cb, nullptr, w, sdesc, a.ngroups, t, sr);
     } else {
         int dg[MAX_SLOTS];
         const int32_t* radix = a.radix + (size_t)w * a.m;
@@ -563,21 +641,23 @@ __global__ void piece_kernel(LaunchArgs a, PieceTables t) {
                             a.win_v + (size_t)w * (a.m + 1) * a.k2, radix,
                             a.m, a.k2, a.k_opts);
         }
-        if (DECODE == DECODE_WINDOWED && a.pack) {
+        if (DECODE == DECODE_WINDOWED && !CLOSED && a.pack) {
             // Scalar selectors over the walk's chosen bits: match slot s
-            // is bit s of cb.
+            // is bit s of cb, suball slot s bit bitpos[w, s].
             uint32_t cb = 0u;
             for (int s = 0; s < a.m; ++s) {
-                cb |= (dg[s] > 0 ? 1u : 0u) << s;
+                const int bit = KIND == KIND_MATCH
+                    ? s : a.bitpos[(size_t)w * a.m + s];
+                cb |= (dg[s] > 0 ? 1u : 0u) << (bit & 31);
             }
             cc = __popc(cb);
-            len = build_message<ALGO, HB, true>(m, cb, nullptr, w, sdesc,
-                                                a.ngroups, t);
+            len = build_message<ALGO, HB, KIND, true, false>(
+                m, cb, nullptr, w, sdesc, a.ngroups, t, sr);
         } else {
             cc = 0;
             for (int s = 0; s < a.m; ++s) cc += dg[s] > 0 ? 1 : 0;
-            len = build_message<ALGO, HB, false>(m, 0u, dg, w, sdesc,
-                                                 a.ngroups, t);
+            len = build_message<ALGO, HB, KIND, false, CLOSED>(
+                m, 0u, dg, w, sdesc, a.ngroups, t, sr);
         }
     }
     hash_lane<ALGO, HB>(m, len, a, lane);
@@ -587,10 +667,11 @@ __global__ void piece_kernel(LaunchArgs a, PieceTables t) {
 // Pair tier (one hash block): lane r of block b owns candidate ranks 2r
 // and 2r + 1 of a block spanning 2 * stride ranks; the outputs land in
 // rank order, row b * 2 * stride + 2r + p.  The schema's pair gate
-// guarantees slot 0's radix is even on every launched word, so the
-// partner differs from rank 2r only in slot 0: cb | 1 (scalar), or slot
-// 0's digit + 1, which never carries (digits; clamped for garbage lanes).
-template <int ALGO, int DECODE>
+// guarantees slot 0's radix is even on every launched word (and, for
+// suball plans, that slot 0 drives column 0 and no other), so the partner
+// differs from rank 2r only in slot 0: cb | 1 (scalar), or slot 0's digit
+// + 1, which never carries (digits; clamped for garbage lanes).
+template <int ALGO, int KIND, int DECODE>
 __global__ void piece_pair_kernel(LaunchArgs a, PieceTables t) {
     __shared__ int sdesc[MAX_GROUPS * DESC_WIDTH];
     load_desc(sdesc, a.desc, a.ngroups);
@@ -599,6 +680,7 @@ __global__ void piece_pair_kernel(LaunchArgs a, PieceTables t) {
     const int blk = (int)(lane / a.stride);
     const int r = (int)(lane - (long long)blk * a.stride);
     const int w = a.blk_word[blk];
+    const SelRows sr = sel_rows(a, w);
     const int count = a.blk_count[blk];
     const long long row = 2 * lane;  // == b * 2 * stride + 2r
     if (DECODE == DECODE_SCALAR) {
@@ -607,8 +689,8 @@ __global__ void piece_pair_kernel(LaunchArgs a, PieceTables t) {
 #pragma unroll
         for (int p = 0; p < 2; ++p) {
             uint32_t m[16];
-            const int len = build_message<ALGO, 1, true>(
-                m, p ? (cb | 1u) : cb, nullptr, w, sdesc, a.ngroups, t);
+            const int len = build_message<ALGO, 1, KIND, true, false>(
+                m, p ? (cb | 1u) : cb, nullptr, w, sdesc, a.ngroups, t, sr);
             hash_lane<ALGO, 1>(m, len, a, row + p);
             a.emit[row + p] = (2 * r + p < count && in_window(cc + p, a));
         }
@@ -625,8 +707,8 @@ __global__ void piece_pair_kernel(LaunchArgs a, PieceTables t) {
         for (int p = 0; p < 2; ++p) {
             if (p) dg[0] = d0p;
             uint32_t m[16];
-            const int len = build_message<ALGO, 1, false>(
-                m, 0u, dg, w, sdesc, a.ngroups, t);
+            const int len = build_message<ALGO, 1, KIND, false, false>(
+                m, 0u, dg, w, sdesc, a.ngroups, t, sr);
             hash_lane<ALGO, 1>(m, len, a, row + p);
             a.emit[row + p] = (2 * r + p < count
                                && in_window(p ? cc1 : cc, a));
@@ -649,25 +731,61 @@ static int launch_checks(const LaunchArgs& a, int hash_blocks) {
     return 0;
 }
 
-template <int DECODE, int HB>
+// The tables a kind / decode / closure combination reads must be present.
+static int kind_checks(const LaunchArgs& a, int kind, int decode, int closed) {
+    if (kind != KIND_MATCH && kind != KIND_SUBALL) return 1;
+    if (closed && (kind != KIND_SUBALL || decode == DECODE_SCALAR
+                   || !a.cnext || !a.cmul || a.close_s < 1)) {
+        return 1;
+    }
+    if (kind == KIND_SUBALL) {
+        const bool cb = decode == DECODE_SCALAR
+            || (decode == DECODE_WINDOWED && a.pack && !closed);
+        if (cb ? !a.sel_bit : !a.sel_slot) return 1;
+        if (cb && decode == DECODE_WINDOWED && !a.bitpos) return 1;
+    }
+    return 0;
+}
+
+template <int KIND, int DECODE, int HB, bool CLOSED>
 static void launch_one(const LaunchArgs& a, const PieceTables& t,
                        unsigned grid, cudaStream_t s) {
-    piece_kernel<PIECE_ALGO, DECODE, HB><<<grid, kThreads, 0, s>>>(a, t);
+    piece_kernel<PIECE_ALGO, KIND, DECODE, HB, CLOSED>
+        <<<grid, kThreads, 0, s>>>(a, t);
+}
+
+template <int KIND, int DECODE, bool CLOSED>
+static void launch_hb(const LaunchArgs& a, const PieceTables& t,
+                      int hash_blocks, unsigned grid, cudaStream_t s) {
+    switch (hash_blocks) {
+        case 1: launch_one<KIND, DECODE, 1, CLOSED>(a, t, grid, s); break;
+        case 2: launch_one<KIND, DECODE, 2, CLOSED>(a, t, grid, s); break;
+        default: launch_one<KIND, DECODE, 3, CLOSED>(a, t, grid, s); break;
+    }
 }
 
 template <int DECODE>
 static int launch_single(const LaunchArgs& a, const PieceTables& t,
-                         int hash_blocks, void* stream) {
-    if (launch_checks(a, hash_blocks)) return (int)cudaErrorInvalidValue;
+                         int kind, int closed, int hash_blocks,
+                         void* stream) {
+    if (launch_checks(a, hash_blocks) || kind_checks(a, kind, DECODE, closed)) {
+        return (int)cudaErrorInvalidValue;
+    }
     const long long n = (long long)a.nb * a.stride;
     if (n == 0) return (int)cudaSuccess;
     const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    switch (hash_blocks) {
-        case 1: launch_one<DECODE, 1>(a, t, grid, s); break;
-        case 2: launch_one<DECODE, 2>(a, t, grid, s); break;
-        default: launch_one<DECODE, 3>(a, t, grid, s); break;
+    if (kind == KIND_MATCH) {
+        launch_hb<KIND_MATCH, DECODE, false>(a, t, hash_blocks, grid, s);
+        return (int)cudaGetLastError();
     }
+    if constexpr (DECODE != DECODE_SCALAR) {  // closed plans decode digits
+        if (closed) {
+            launch_hb<KIND_SUBALL, DECODE, true>(a, t, hash_blocks, grid, s);
+            return (int)cudaGetLastError();
+        }
+    }
+    launch_hb<KIND_SUBALL, DECODE, false>(a, t, hash_blocks, grid, s);
     return (int)cudaGetLastError();
 }
 
@@ -676,7 +794,10 @@ static LaunchArgs make_args(const void* blk_word, const void* blk_count,
                             const void* win_v, int nb, int stride, int m,
                             int k2, int k_opts, int pack, const void* desc,
                             int ngroups, int min_sub, int max_sub,
-                            void* state, void* emit) {
+                            void* state, void* emit, const void* sel_bit,
+                            const void* sel_slot, const void* bitpos,
+                            const void* cnext, const void* cmul, int ncols,
+                            int close_s) {
     LaunchArgs a;
     a.blk_word = static_cast<const int32_t*>(blk_word);
     a.blk_count = static_cast<const int32_t*>(blk_count);
@@ -695,6 +816,13 @@ static LaunchArgs make_args(const void* blk_word, const void* blk_count,
     a.max_sub = max_sub;
     a.state = static_cast<int32_t*>(state);
     a.emit = static_cast<uint8_t*>(emit);
+    a.sel_bit = static_cast<const int32_t*>(sel_bit);
+    a.sel_slot = static_cast<const int32_t*>(sel_slot);
+    a.bitpos = static_cast<const int32_t*>(bitpos);
+    a.cnext = static_cast<const int32_t*>(cnext);
+    a.cmul = static_cast<const int32_t*>(cmul);
+    a.ncols = ncols;
+    a.close_s = close_s;
     return a;
 }
 
@@ -716,21 +844,27 @@ static PieceTables make_tables(const void* gw, const void* gw16,
 // Every entry point takes the same arguments (ops/fused_expand.py builds
 // one list): the block fields, the decode tables, the piece tables, the
 // group descriptors, the window, the hash-block count, the outputs (state
-// int32[rows, 4|5], emit uint8[rows]) and the stream.  `decode` must be
-// one the entry point takes.  Each returns cudaGetLastError() after the
-// launch (or cudaErrorInvalidValue for arguments it refuses).
+// int32[rows, 4|5], emit uint8[rows]), the plan kind (0 match, 1 suball),
+// the closure flag, the suball selector and closure tables (null for
+// match plans) and the stream.  `decode` must be one the entry point
+// takes.  Each returns cudaGetLastError() after the launch (or
+// cudaErrorInvalidValue for arguments it refuses).
 #define PIECE_PARAMS                                                        \
     const void *blk_word, const void *blk_count, const void *blk_base,      \
         const void *radix, const void *win_v, int nb, int stride, int m,    \
         int k2, int k_opts, int pack, int decode, const void *gw,           \
         const void *gw16, const void *gl, int ngw, int ng16, int ngd,       \
         int vm, int nw, const void *desc, int ngroups, int min_sub,         \
-        int max_sub, int hash_blocks, void *state, void *emit, void *stream
+        int max_sub, int hash_blocks, void *state, void *emit, int kind,    \
+        int closed, const void *sel_bit, const void *sel_slot,              \
+        const void *bitpos, const void *cnext, const void *cmul, int ncols, \
+        int close_s, void *stream
 #define PIECE_SETUP                                                         \
     const LaunchArgs a = make_args(blk_word, blk_count, blk_base, radix,    \
                                    win_v, nb, stride, m, k2, k_opts, pack,  \
                                    desc, ngroups, min_sub, max_sub, state,  \
-                                   emit);                                   \
+                                   emit, sel_bit, sel_slot, bitpos, cnext,  \
+                                   cmul, ncols, close_s);                   \
     const PieceTables t = make_tables(gw, gw16, gl, ngw, ng16, ngd, vm, nw)
 
 extern "C" {
@@ -739,14 +873,16 @@ extern "C" {
 int a5_piece_k1(PIECE_PARAMS) {
     PIECE_SETUP;
     if (decode != DECODE_SCALAR) return (int)cudaErrorInvalidValue;
-    return launch_single<DECODE_SCALAR>(a, t, hash_blocks, stream);
+    return launch_single<DECODE_SCALAR>(a, t, kind, closed, hash_blocks,
+                                        stream);
 }
 
 // K=1, digit decode (base digits [NB, M]), 1-3 hash blocks.
 int a5_piece_digits(PIECE_PARAMS) {
     PIECE_SETUP;
     if (decode != DECODE_DIGITS) return (int)cudaErrorInvalidValue;
-    return launch_single<DECODE_DIGITS>(a, t, hash_blocks, stream);
+    return launch_single<DECODE_DIGITS>(a, t, kind, closed, hash_blocks,
+                                        stream);
 }
 
 // K=1, windowed decode (scalar windowed rank [NB]), cb packing when
@@ -756,27 +892,34 @@ int a5_piece_windowed(PIECE_PARAMS) {
     if (decode != DECODE_WINDOWED || a.k2 < 1 || a.k_opts < 1) {
         return (int)cudaErrorInvalidValue;
     }
-    return launch_single<DECODE_WINDOWED>(a, t, hash_blocks, stream);
+    return launch_single<DECODE_WINDOWED>(a, t, kind, closed, hash_blocks,
+                                          stream);
 }
 
-// Pair tier, scalar or digit decode, one hash block.
+// Pair tier, scalar or digit decode, one hash block, no closure.
 int a5_piece_pair(PIECE_PARAMS) {
     PIECE_SETUP;
-    if (launch_checks(a, hash_blocks) || hash_blocks != 1) {
+    if (launch_checks(a, hash_blocks) || hash_blocks != 1 || closed
+        || (decode != DECODE_SCALAR && decode != DECODE_DIGITS)
+        || kind_checks(a, kind, decode, 0)) {
         return (int)cudaErrorInvalidValue;
     }
     const long long n = (long long)a.nb * a.stride;
     if (n == 0) return (int)cudaSuccess;
     const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (decode == DECODE_SCALAR) {
-        piece_pair_kernel<PIECE_ALGO, DECODE_SCALAR>
+    if (kind == KIND_MATCH && decode == DECODE_SCALAR) {
+        piece_pair_kernel<PIECE_ALGO, KIND_MATCH, DECODE_SCALAR>
             <<<grid, kThreads, 0, s>>>(a, t);
-    } else if (decode == DECODE_DIGITS) {
-        piece_pair_kernel<PIECE_ALGO, DECODE_DIGITS>
+    } else if (kind == KIND_MATCH) {
+        piece_pair_kernel<PIECE_ALGO, KIND_MATCH, DECODE_DIGITS>
+            <<<grid, kThreads, 0, s>>>(a, t);
+    } else if (decode == DECODE_SCALAR) {
+        piece_pair_kernel<PIECE_ALGO, KIND_SUBALL, DECODE_SCALAR>
             <<<grid, kThreads, 0, s>>>(a, t);
     } else {
-        return (int)cudaErrorInvalidValue;
+        piece_pair_kernel<PIECE_ALGO, KIND_SUBALL, DECODE_DIGITS>
+            <<<grid, kThreads, 0, s>>>(a, t);
     }
     return (int)cudaGetLastError();
 }

@@ -1,12 +1,13 @@
 """The crack pipeline: on-device block cutting -> piece kernel (expand +
 hash) -> digest membership -> hit compaction.
 
-The host compiles tables, plans, the piece schema, the block index and the
-digest set once per sweep (numpy); :func:`device_arrays` ships them to the
-device as int32 tensors.  :func:`make_superstep_body` then runs ``steps``
-fused launches per call with nothing crossing back to the host: each step
-cuts its blocks from the cumulative index, runs the piece kernel
-(``ops.fused_expand.fused_expand_md5``), tests membership
+The host compiles tables, plans (match plans for default and reverse mode,
+substitute-all plans for ``-s`` and ``-s -r``), the piece schema, the block
+index and the digest set once per sweep (numpy); :func:`device_arrays`
+ships them to the device as int32 tensors.  :func:`make_superstep_body`
+then runs ``steps`` fused launches per call with nothing crossing back to
+the host: each step cuts its blocks from the cumulative index, runs the
+piece kernel (``ops.fused_expand.fused_expand_md5``), tests membership
 (``ops.membership.digest_member``) and compacts hits into a capped
 ``(word, rank)`` buffer.  Only the stacked counters (and, on hit-bearing
 supersteps, the hit slice) are fetched; the candidate bytes of a hit are
@@ -22,17 +23,18 @@ import numpy as np
 import torch
 
 from ..ops.expand_matches import MatchPlan, build_match_plan, unrank_windowed
+from ..ops.expand_suball import SubAllPlan, build_suball_plan
 from ..ops.fused_expand import (
     fused_expand_md5,
     group_descriptors,
     scalar_units_weight,
+    selector_tables,
 )
 from ..ops.membership import DigestSet, digest_member
 from ..ops.packing import PackedWords
 from ..tables.compile import CompiledTable
 
-#: The reference's four generation modes (``main.go:80-92``); this package
-#: runs "default".
+#: The reference's four generation modes (``main.go:80-92``).
 MODES = ("default", "reverse", "suball", "suball-reverse")
 ALGOS = ("md5", "sha1", "md4", "ntlm")
 
@@ -64,14 +66,19 @@ class AttackSpec:
 
 
 def build_plan(spec: AttackSpec, ct: CompiledTable,
-               packed: PackedWords) -> MatchPlan:
-    """Host plan for default mode, with the spec's EFFECTIVE window."""
-    if spec.mode != "default":
-        raise NotImplementedError(
-            f"mode {spec.mode!r} is not ported (default mode only)"
+               packed: PackedWords) -> "MatchPlan | SubAllPlan":
+    """Mode-dispatched host plan with the spec's EFFECTIVE window: match
+    plans for default and reverse mode (reverse applies each key's first
+    option only), substitute-all plans for ``suball`` and
+    ``suball-reverse`` (first option only)."""
+    if spec.mode in ("default", "reverse"):
+        return build_match_plan(
+            ct, packed, first_option_only=spec.mode == "reverse",
+            min_substitute=spec.effective_min,
+            max_substitute=spec.max_substitute,
         )
-    return build_match_plan(
-        ct, packed, first_option_only=False,
+    return build_suball_plan(
+        ct, packed, first_option_only=spec.mode == "suball-reverse",
         min_substitute=spec.effective_min,
         max_substitute=spec.max_substitute,
     )
@@ -121,10 +128,11 @@ def device_arrays(plan, pieces, digests: DigestSet, idx: tuple, *,
     ``totals`` ``[B]``, ``radix``/``weight`` ``[B, P]`` int32 — plus the
     mixed-radix ``place`` values ``[B, P]`` for full enumeration, or the
     windowed suffix counts ``win_v`` ``[B, P+1, K2]`` — and the block
-    count ``total``); and the digest set (``rows`` ``[D, K]``, ``bitmap``,
-    uint32 bits as int32).  ``radix`` and ``win_v`` are also the digit and
-    windowed decodes' resident tables, read by word index in the kernel.
-    ``idx`` is ``ops.blocks.superstep_index(plan, stride)``.
+    count ``total``); a substitute-all plan's selector and closure tables
+    (``ops.fused_expand.selector_tables``); and the digest set (``rows``
+    ``[D, K]``, ``bitmap``, uint32 bits as int32).  ``radix``, ``win_v``
+    and the selector tables are the kernel's resident tables, read by
+    word index.  ``idx`` is ``ops.blocks.superstep_index(plan, stride)``.
 
     Works from any objects with the reference's field names, so the JAX
     package's host arrays and this package's give the same tensors."""
@@ -134,6 +142,7 @@ def device_arrays(plan, pieces, digests: DigestSet, idx: tuple, *,
         "cum": cum, "totals": totals, "radix": radix,
         "weight": scalar_units_weight(plan),
         "rows": digests.rows, "bitmap": digests.bitmap,
+        **selector_tables(plan, pieces),
     }
     if getattr(plan, "windowed", False):
         host["win_v"] = plan.win_v
@@ -269,14 +278,15 @@ def make_superstep_body(
 
 
 def decode_variant(
-    plan: MatchPlan, ct: CompiledTable, spec: AttackSpec, word_idx: int,
-    rank: int,
+    plan: "MatchPlan | SubAllPlan", ct: CompiledTable, spec: AttackSpec,
+    word_idx: int, rank: int,
 ) -> bytes:
     """Reconstruct the candidate bytes of one variant on the host, exactly
     as the device splices it; windowed plans unrank through ``win_v``
-    (``ops.expand_matches.unrank_windowed``).  Raises ``ValueError`` for
-    ranks the device would not emit (overlap clashes or count-window
-    misses)."""
+    (``ops.expand_matches.unrank_windowed``), cascade-closed plans read
+    their own value table at the joint closure index.  Raises
+    ``ValueError`` for ranks the device would not emit (overlap clashes or
+    count-window misses)."""
     radices = [int(x) for x in plan.pat_radix[word_idx]]
     if getattr(plan, "windowed", False):
         digits = unrank_windowed(plan.win_v[word_idx], radices, rank)
@@ -289,25 +299,56 @@ def decode_variant(
         if r:
             raise ValueError(f"rank {rank} out of range for word {word_idx}")
     word = bytes(plan.tokens[word_idx, : plan.lengths[word_idx]])
+    cval = getattr(plan, "cval_bytes", None)
+    val_bytes = ct.val_bytes if cval is None else cval
+    val_lens = ct.val_len if cval is None else plan.cval_len
 
     def val(vrow: int) -> bytes:
-        return bytes(ct.val_bytes[vrow, : ct.val_len[vrow]])
+        return bytes(val_bytes[vrow, : val_lens[vrow]])
 
-    chosen = [
-        (int(plan.match_pos[word_idx, s]), int(plan.match_len[word_idx, s]),
-         int(plan.match_val_start[word_idx, s]) + d - 1)
-        for s, d in enumerate(digits)
-        if d > 0
-    ]
-    if not (spec.effective_min <= len(chosen) <= spec.max_substitute):
+    if getattr(plan, "match_pos", None) is not None:
+        chosen = [
+            (int(plan.match_pos[word_idx, s]),
+             int(plan.match_len[word_idx, s]),
+             int(plan.match_val_start[word_idx, s]) + d - 1)
+            for s, d in enumerate(digits)
+            if d > 0
+        ]
+        if not (spec.effective_min <= len(chosen) <= spec.max_substitute):
+            raise ValueError("variant outside the count window")
+        out = []
+        cursor = 0
+        for pos, klen, vrow in sorted(chosen):
+            if pos < cursor:
+                raise ValueError("variant has overlapping matches")
+            out.append(word[cursor:pos])
+            out.append(val(vrow))
+            cursor = pos + klen
+        out.append(word[cursor:])
+        return b"".join(out)
+
+    # Substitute-all plans: walk the static segment list.
+    count = sum(1 for s, d in enumerate(digits) if d > 0 and radices[s] > 1)
+    if not (spec.effective_min <= count <= spec.max_substitute):
         raise ValueError("variant outside the count window")
     out = []
-    cursor = 0
-    for pos, klen, vrow in sorted(chosen):
-        if pos < cursor:
-            raise ValueError("variant has overlapping matches")
-        out.append(word[cursor:pos])
-        out.append(val(vrow))
-        cursor = pos + klen
-    out.append(word[cursor:])
+    close_next = getattr(plan, "close_next", None)
+    for g in range(plan.num_segments):
+        slot = int(plan.seg_pat[word_idx, g])
+        start = int(plan.seg_orig_start[word_idx, g])
+        length = int(plan.seg_orig_len[word_idx, g])
+        if slot < 0 or digits[slot] == 0:
+            out.append(word[start: start + length])
+            continue
+        jd = digits[slot] - 1
+        if close_next is not None:
+            # Joint closure index: the own digit scaled by the successor
+            # radix product, plus each successor's digit at its place.
+            mul = plan.close_mul[word_idx, slot]
+            jd = (digits[slot] - 1) * int(mul[0])
+            for s_i in range(close_next.shape[2]):
+                nxt = int(close_next[word_idx, slot, s_i])
+                if nxt >= 0:
+                    jd += digits[nxt] * int(mul[1 + s_i])
+        out.append(val(int(plan.pat_val_start[word_idx, slot]) + jd))
     return b"".join(out)

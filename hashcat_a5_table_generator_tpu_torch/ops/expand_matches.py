@@ -156,12 +156,14 @@ def windowed_plan_fields(
     n_variants: List[int],
     min_substitute: "int | None",
     max_substitute: "int | None",
+    zero_mask: "np.ndarray | None" = None,
 ) -> "Tuple[bool, np.ndarray | None, List[int]]":
     """Windowed-enumeration eligibility + table construction: bounds
     check, suffix-count DP, and the 2x lane-saving vote (windowed
     enumeration engages only when it at least halves the lane count).
-    Returns ``(windowed, win_v, n_variants)`` — unchanged inputs when
-    ineligible."""
+    ``zero_mask`` marks words whose totals are forced to 0 (substitute-all
+    plans' oracle-routed words).  Returns ``(windowed, win_v,
+    n_variants)`` — unchanged inputs when ineligible."""
     if (
         min_substitute is None
         or max_substitute is None
@@ -172,6 +174,8 @@ def windowed_plan_fields(
     v, totals = _windowed_tables(radix_matrix, min_substitute, max_substitute)
     if v is None:
         return False, None, n_variants
+    if zero_mask is not None:
+        totals = [0 if zero_mask[i] else t for i, t in enumerate(totals)]
     full = sum(min(t, 1 << 62) for t in n_variants)
     if sum(totals) * 2 > full:
         return False, None, n_variants

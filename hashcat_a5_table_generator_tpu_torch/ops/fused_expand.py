@@ -2,11 +2,13 @@
 version.
 
 Counterpart of the reference package's ``ops/pallas_expand.py`` for the
-per-slot piece kernel (``_make_piece_kernel``) over match plans, in each of
-its decode tiers — the scalar-units full enumeration, the general
-mixed-radix digit decode and the count-windowed DP walk — for MD5, MD4,
-SHA-1 and NTLM, at K=1 (1-3 chained hash blocks) and at K=2 (the pair
-tier, one hash block).
+per-slot piece kernel (``_make_piece_kernel``) over match plans
+(``fused_expand_md5``: default and reverse mode) and substitute-all plans
+(``fused_expand_suball_md5``: ``-s`` and ``-s -r``, with the cascade
+closure), in each of its decode tiers — the scalar-units full enumeration,
+the general mixed-radix digit decode and the count-windowed DP walk — for
+MD5, MD4, SHA-1 and NTLM, at K=1 (1-3 chained hash blocks) and at K=2 (the
+pair tier, one hash block).
 
 * The host gates (:func:`eligible`, :func:`k_opts_for`, :func:`k_vals_for`,
   :func:`scalar_units_for`, :func:`opts_for_config`,
@@ -19,8 +21,10 @@ tier, one hash block).
 * :func:`fused_expand_md5` is the wrapper.  For CUDA tensors it launches
   the hand-written kernel of ``csrc/piece_hash.cu`` (or raises); for CPU
   tensors it runs :func:`piece_md5_reference`, the plain PyTorch version
-  of the same function.  ``LAUNCHES`` counts kernel launches by entry
-  point and hash, ``PLAIN_CALLS`` runs of the plain version.
+  of the same function.  The schema's ``kind`` (match or suball) and
+  ``closed`` flag pick the selectors.  ``LAUNCHES`` counts kernel
+  launches by entry point and hash, ``PLAIN_CALLS`` runs of the plain
+  version.
 
 Contract (the reference's): for every EMITTED candidate the state equals
 the hash of the candidate bytes the host would splice, and the emit mask
@@ -30,6 +34,7 @@ is exact; non-emitted rows may hold anything.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict
 
 import numpy as np
 import torch
@@ -59,20 +64,29 @@ _MAX_HASH_BLOCKS = 3
 ALGOS = ("md5", "md4", "sha1", "ntlm")
 DECODES = ("scalar", "digits", "windowed")
 _DECODE_ID = {d: i for i, d in enumerate(DECODES)}
+#: The K=1 entry point of each decode (``a5_piece_<entry>``).
+_ENTRY = {"scalar": "k1", "digits": "digits", "windowed": "windowed"}
 
 #: Group descriptor layout shared with ``csrc/piece_hash.cu`` (D_* there).
 DESC_WIDTH = 16
 MAX_GROUPS = 256
 MAX_SEL = 4
 
-#: Kernel launches by ``piece_<entry>/<algo>`` — entry ``k1`` (scalar),
-#: ``digits``, ``windowed``, ``pair`` (scalar decode) and ``pair_digits``
-#: (the pair entry point with the digit decode) — and runs of the plain
+#: Kernel entries: ``k1`` (scalar decode), ``digits``, ``windowed``,
+#: ``pair`` (scalar decode) and ``pair_digits`` (the pair tier with the
+#: digit decode) over match plans; the same five prefixed ``suball_`` over
+#: substitute-all plans, and ``suball_closed`` / ``suball_closed_windowed``
+#: for cascade-closed plans (digit / windowed decode).
+ENTRIES = ("k1", "pair", "pair_digits", "digits", "windowed")
+SUBALL_ENTRIES = tuple(f"suball_{e}" for e in ENTRIES) + (
+    "suball_closed", "suball_closed_windowed")
+
+#: Kernel launches by ``piece_<entry>/<algo>`` and runs of the plain
 #: version: plain integers the caller may reset; nothing else is global.
 LAUNCHES = {
     f"piece_{entry}/{algo}": 0
     for algo in ALGOS
-    for entry in ("k1", "pair", "pair_digits", "digits", "windowed")
+    for entry in ENTRIES + SUBALL_ENTRIES
 }
 PLAIN_CALLS = 0
 
@@ -125,13 +139,18 @@ def scalar_units_for(plan) -> "bool | str":
 
     K=1 plans have all radices <= 2, so a lane's chosen-slot vector is
     exactly the binary digits of ``packed_base + rank``.  Match plans
-    additionally need at most one match START per byte position.  Returns
-    ``"single"`` when every active match span is one byte (all shipped 1:1
-    layout maps), ``True`` for unique starts, ``False`` otherwise."""
+    additionally need at most one match START per byte position;
+    substitute-all plans qualify unless cascade-closed (a closed span's
+    value depends on other slots' digits).  Returns ``"single"`` when
+    every active match span is one byte (all shipped 1:1 layout maps),
+    ``True`` for unique starts (and substitute-all plans), ``False``
+    otherwise."""
     if k_opts_for(plan) != 1:
         return False
     if getattr(plan, "close_next", None) is not None:
         return False
+    if getattr(plan, "match_pos", None) is None:
+        return True
     mp = np.asarray(plan.match_pos)
     act = np.asarray(plan.match_radix) > 1
     if not np.where(act, np.asarray(plan.match_len) > 1, False).any():
@@ -144,13 +163,20 @@ def scalar_units_for(plan) -> "bool | str":
     return not bool((srt[:, 1:] == srt[:, :-1]).any())
 
 
+def scalar_units_bitpos(plan) -> np.ndarray:
+    """Per-slot chosen-bit positions int32 ``[B, P]``: the active slots
+    before each slot (the reference's ``scalar_units_fields`` ``bitpos``)
+    — where a substitute-all windowed walk packs slot s's chosen bit."""
+    act = (np.asarray(plan.pat_radix) > 1).astype(np.int32)
+    return (np.cumsum(act, axis=1) - act).astype(np.int32)
+
+
 def scalar_units_weight(plan) -> np.ndarray:
     """Per-slot bit weights int32 ``[B, P]``: ``1 << bitpos`` for active
-    slots (``bitpos`` = active slots before it), 0 for padding.  A block's
-    packed chosen vector is ``pbase = sum(base_digits * weight[word])``."""
+    slots, 0 for padding.  A block's packed chosen vector is
+    ``pbase = sum(base_digits * weight[word])``."""
     act = (np.asarray(plan.pat_radix) > 1).astype(np.int32)
-    bitpos = np.cumsum(act, axis=1) - act
-    return (act << bitpos).astype(np.int32)
+    return (act << scalar_units_bitpos(plan)).astype(np.int32)
 
 
 def _hash_blocks_for(out_width: "int | None", scale: int = 1) -> int:
@@ -262,7 +288,10 @@ def _schema_refusal(pieces, *, bitfield: bool) -> "str | None":
     descriptor table's size, groups with more selector columns than a
     descriptor holds, and — for the scalar selectors (``bitfield``) —
     groups whose variant index is not a bit field of the packed chosen
-    vector."""
+    vector.  A match column c is bit c of that vector, so its column must
+    stay below 31; a substitute-all column reads bit ``sel_bit[w, c]``
+    (an active slot's bit position, below 24, or 31 on padding columns),
+    so its column index (up to the plan's occurrence count) is no bound."""
     if len(pieces.groups) > MAX_GROUPS:
         return f"{len(pieces.groups)} emission groups > {MAX_GROUPS}"
     for grp in pieces.groups:
@@ -272,7 +301,8 @@ def _schema_refusal(pieces, *, bitfield: bool) -> "str | None":
             return (f"a group with {len(grp.sel_cols)} selector columns > "
                     f"{MAX_SEL}")
         if bitfield and (grp.n_variants != 1 << len(grp.sel_cols)
-                         or max(grp.sel_cols) >= 31):
+                         or (pieces.kind == "match"
+                             and max(grp.sel_cols) >= 31)):
             return "a group outside the scalar tier's bit-field selects"
     return None
 
@@ -302,14 +332,54 @@ def group_descriptors(pieces) -> np.ndarray:
 # ---------------------------------------------------------------------------
 
 
-def launch_key(algo: str, decode: str, pair: bool) -> str:
-    """The ``LAUNCHES`` key of the entry point a launch runs."""
+def launch_key(algo: str, pieces, decode: str, pair: bool) -> str:
+    """The ``LAUNCHES`` key of the entry point a launch over ``pieces``
+    (its plan kind and closure) runs."""
     if pair:
         entry = "pair" if decode == "scalar" else "pair_digits"
     else:
-        entry = {"scalar": "k1", "digits": "digits",
-                 "windowed": "windowed"}[decode]
+        entry = _ENTRY[decode]
+    if pieces.kind == "suball":
+        entry = f"suball_{entry}"
+        if pieces.closed:
+            entry = ("suball_closed" if decode == "digits"
+                     else "suball_closed_windowed")
     return f"piece_{entry}/{algo}"
+
+
+def selector_tables(plan, pieces) -> "Dict[str, np.ndarray]":
+    """A substitute-all plan's selector and closure tables as HOST int32
+    arrays under the names :func:`fused_expand_md5` reads them by:
+    ``sel_bit``/``sel_slot`` ``[B, C]`` (the schema's selector columns),
+    ``bitpos`` ``[B, P]`` (the windowed decode's cb packing) and, for a
+    cascade-closed plan, ``close_next`` ``[B, P, S]`` / ``close_mul``
+    ``[B, P, S+1]``.  Empty for match plans."""
+    if pieces is None or pieces.kind != "suball":
+        return {}
+    out = {
+        "sel_bit": np.asarray(pieces.sel_bit, np.int32),
+        "sel_slot": np.asarray(pieces.sel_slot, np.int32),
+        "bitpos": scalar_units_bitpos(plan),
+    }
+    if pieces.closed:
+        out["close_next"] = np.asarray(plan.close_next, np.int32)
+        out["close_mul"] = np.asarray(plan.close_mul, np.int32)
+    return out
+
+
+def _needed_tables(pieces, decode: str, pack_cb: bool) -> "tuple[str, ...]":
+    """The names of ``tables`` a launch reads besides the piece tables."""
+    names = () if decode == "scalar" else ("radix",)
+    if decode == "windowed":
+        names += ("win_v",)
+    if pieces.kind == "suball":
+        cb = decode == "scalar" or (decode == "windowed" and pack_cb)
+        names += ("sel_bit",) if cb else ("sel_slot",)
+        if cb and decode == "windowed":
+            names += ("bitpos",)
+        if pieces.closed:
+            names += ("close_next", "close_mul")
+    return names
 
 
 def fused_expand_md5(
@@ -317,7 +387,7 @@ def fused_expand_md5(
     blk_count: torch.Tensor,  # int32 [NB] — candidates in each block
     base: torch.Tensor,  # int32 [NB] (scalar, windowed) or [NB, M] (digits)
     tables: dict,  # "pw"/"pw16"/"pl" piece tables + "desc" (+ "radix",
-    #                "win_v"), int32
+    #                "win_v", the suball selector tables), int32
     *,
     pieces,
     block_stride: int,
@@ -331,15 +401,20 @@ def fused_expand_md5(
     pair: bool = False,
 ) -> "tuple[torch.Tensor, torch.Tensor]":
     """Fused decode + splice + hash over ``NB`` blocks of ``block_stride``
-    lanes (named after the reference's wrapper; ``algo`` picks the hash).
+    lanes (named after the reference's wrapper; ``algo`` picks the hash,
+    ``pieces.kind`` the match or substitute-all selectors).
 
     ``decode`` (gate via :func:`decode_for`): ``"scalar"`` — ``base`` is
     each block's packed chosen vector ``pbase``; ``"digits"`` — ``base``
     holds each block's base digits ``[NB, M]`` and ``tables["radix"]`` the
     plan's ``[B, M]`` radices; ``"windowed"`` — ``base`` is each block's
     scalar windowed rank, ``tables["win_v"]`` the plan's ``[B, M+1, K2]``
-    suffix counts, ``k_opts`` the plan's option count, and ``pack_cb``
-    packs the walk's chosen bits for the scalar selectors.
+    suffix counts, ``k_opts`` the plan's value-select width, and
+    ``pack_cb`` packs the walk's chosen bits for the scalar selectors.
+    Substitute-all schemas also read :func:`selector_tables` (``sel_bit``
+    for the scalar selectors, ``sel_slot`` for the digit selectors,
+    ``bitpos`` for windowed cb packing, ``close_next``/``close_mul`` when
+    the schema is ``closed``), each by word index.
 
     Returns ``(state int32[N, DIGEST_WORDS[algo]], emit bool[N])`` with
     ``N = NB * block_stride`` candidates, or ``2 * NB * block_stride``
@@ -358,6 +433,9 @@ def fused_expand_md5(
     hb = _hash_blocks_for(out_width, _scale(algo))
     if hb > _MAX_HASH_BLOCKS:
         raise NotImplementedError(f"piece kernel: {hb} hash blocks > 3")
+    if pieces.closed and (decode == "scalar" or pack_cb):
+        raise ValueError("a cascade-closed schema takes the digit "
+                         "selectors; gate via decode_for")
     why = _schema_refusal(
         pieces, bitfield=decode == "scalar" or (decode == "windowed"
                                                 and pack_cb))
@@ -368,14 +446,14 @@ def fused_expand_md5(
             "pair=True needs a pair-eligible PieceSchema, one hash block "
             "and full enumeration; gate via pair_for_config"
         )
+    missing = [n for n in _needed_tables(pieces, decode, pack_cb)
+               if n not in tables]
+    if missing:
+        raise ValueError(f"decode {decode!r} over a {pieces.kind} schema "
+                         f"needs tables {missing}")
     nb = int(blk_word.shape[0])
     m = 0
     if decode != "scalar":
-        if "radix" not in tables or (decode == "windowed"
-                                     and "win_v" not in tables):
-            raise ValueError(f"decode {decode!r} needs tables['radix']"
-                             + (" and tables['win_v']"
-                                if decode == "windowed" else ""))
         m = int(tables["radix"].shape[1])
         if m > _MAX_SLOTS:
             raise NotImplementedError(
@@ -419,12 +497,9 @@ def _launch_cuda(blk_word, blk_count, base, tables, *, pieces, block_stride,
     lib = _native_build.load(f"piece_hash_{algo}")
     dev = blk_word.device
     desc = tables["desc"]
-    names = ["pw", "pw16", "pl", "desc"]
-    if decode != "scalar":
-        names.append("radix")
-    if decode == "windowed":
-        names.append("win_v")
-    for name in names:
+    used = ("pw", "pw16", "pl", "desc") + _needed_tables(pieces, decode,
+                                                         pack_cb)
+    for name in used:
         t = tables.get(name)
         if t is not None and (t.device != dev or t.dtype != torch.int32
                               or not t.is_contiguous()):
@@ -443,18 +518,24 @@ def _launch_cuda(blk_word, blk_count, base, tables, *, pieces, block_stride,
                         device=dev)
     emit = torch.empty((rows,), dtype=torch.bool, device=dev)
 
+    def tab(name):
+        return tables[name] if name in used else None
+
     def ptr(t):
         return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
-    radix = tables.get("radix") if decode != "scalar" else None
-    win_v = tables.get("win_v") if decode == "windowed" else None
+    def dim(t, i):
+        return ctypes.c_int(0 if t is None else int(t.shape[i]))
+
+    radix, win_v = tab("radix"), tab("win_v")
+    sel_bit, sel_slot = tab("sel_bit"), tab("sel_slot")
+    cnext = tab("close_next")
+    sel = sel_bit if sel_bit is not None else sel_slot
     ngw, ng16, ngd, vm, nw = _table_dims(tables)
     call = [
         ptr(blk_word), ptr(blk_count), ptr(base), ptr(radix), ptr(win_v),
-        ctypes.c_int(nb), ctypes.c_int(block_stride),
-        ctypes.c_int(0 if radix is None else int(radix.shape[1])),
-        ctypes.c_int(0 if win_v is None else int(win_v.shape[2])),
-        ctypes.c_int(k_opts), ctypes.c_int(int(pack_cb)),
+        ctypes.c_int(nb), ctypes.c_int(block_stride), dim(radix, 1),
+        dim(win_v, 2), ctypes.c_int(k_opts), ctypes.c_int(int(pack_cb)),
         ctypes.c_int(_DECODE_ID[decode]),
         ptr(tables.get("pw")), ptr(tables.get("pw16")), ptr(tables.get("pl")),
         ctypes.c_int(ngw), ctypes.c_int(ng16), ctypes.c_int(ngd),
@@ -462,11 +543,14 @@ def _launch_cuda(blk_word, blk_count, base, tables, *, pieces, block_stride,
         ptr(desc), ctypes.c_int(int(desc.shape[0])),
         ctypes.c_int(min_substitute), ctypes.c_int(max_substitute),
         ctypes.c_int(hash_blocks), ptr(state), ptr(emit),
+        ctypes.c_int(int(pieces.kind == "suball")),
+        ctypes.c_int(int(bool(pieces.closed))), ptr(sel_bit), ptr(sel_slot),
+        ptr(tab("bitpos")), ptr(cnext), ptr(tab("close_mul")), dim(sel, 1),
+        dim(cnext, 2),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream),
     ]
-    key = launch_key(algo, decode, pair)
-    entry = "pair" if pair else key.split("/")[0][len("piece_"):]
-    fn = getattr(lib, f"a5_piece_{entry}")
+    key = launch_key(algo, pieces, decode, pair)
+    fn = getattr(lib, f"a5_piece_{'pair' if pair else _ENTRY[decode]}")
     fn.restype = ctypes.c_int
     err = fn(*call)
     if err != 0:
@@ -535,22 +619,70 @@ def _decode_windowed(big_r, winv_rows, radix_rows, k_opts):
     return digits
 
 
-def _group_index(grp, cb, digits):
-    """A group's variant index (int64 ``[N]``): bit-fields of ``cb``, or
-    from ``digits`` (one column: its digit; merged binary columns: their
-    chosen bits), clamped to the group's rows."""
+def _column_selectors(pieces, tables, w, cb, digits):
+    """``(bit, variant)``: functions of a selector column ``c`` giving
+    each lane's chosen bit (scalar selectors over ``cb``) or the column's
+    variant (digit selectors over ``digits``) — the kernel's
+    ``build_message`` / ``col_variant``.  Match column c is slot c;
+    a substitute-all column reads bit ``sel_bit[w, c]`` or the digit of
+    slot ``sel_slot[w, c]``, and, for a chosen slot of a closed plan,
+    ``1 +`` its joint closure index over its successors' digits."""
+    suball = pieces.kind == "suball"
     if cb is not None:
-        idx = torch.zeros(cb.shape, dtype=torch.int64, device=cb.device)
+        if not suball:
+            return (lambda c: lsr(cb, c) & 1), None
+        sb = tables["sel_bit"][w]
+
+        def bit(c):
+            b = sb[:, c]
+            return torch.where((b >= 0) & (b < 32),
+                               lsr(cb, torch.clamp(b, 0, 31)) & 1, 0)
+        return bit, None
+    if not suball:
+        return None, (lambda c: digits[c])
+    dmat = torch.stack(digits, dim=1)
+    p = dmat.shape[1]
+    ss = tables["sel_slot"][w]
+
+    def slot_digit(sl):
+        ok = (sl >= 0) & (sl < p)
+        got = dmat.gather(1, torch.clamp(sl, 0, p - 1).long()[:, None])
+        return torch.where(ok, got[:, 0], 0)
+
+    if not pieces.closed:
+        return None, (lambda c: slot_digit(ss[:, c]))
+
+    def variant(c):
+        sl = ss[:, c]
+        d = slot_digit(sl)
+        slc = torch.clamp(sl, 0, p - 1).long()
+        mul = tables["close_mul"][w, slc]  # [N, S+1]
+        nxt = tables["close_next"][w, slc]  # [N, S]
+        jc = (d - 1) * mul[:, 0]
+        for i in range(nxt.shape[1]):
+            nt = nxt[:, i]
+            jc = jc + torch.where(nt > sl, slot_digit(nt), 0) * mul[:, 1 + i]
+        return torch.where(d > 0, 1 + jc, 0)
+
+    return None, variant
+
+
+def _group_index(grp, bit, variant):
+    """A group's variant index (int64 ``[N]``): bit-fields of ``cb``
+    (``bit``), or from the column variants (one column: its variant;
+    merged binary columns: their chosen bits), clamped to the group's
+    rows."""
+    if bit is not None:
+        idx = 0
         for i, c in enumerate(grp.sel_cols):
-            idx |= (lsr(cb, c) & 1).long() << i
+            idx = idx | (bit(c).long() << i)
     elif len(grp.sel_cols) == 1:
-        idx = digits[grp.sel_cols[0]].long()
+        idx = variant(grp.sel_cols[0]).long()
     else:
-        idx = torch.zeros(digits[0].shape, dtype=torch.int64,
-                          device=digits[0].device)
+        idx = 0
         for i, c in enumerate(grp.sel_cols):
-            idx |= (digits[c] > 0).long() << i
-    return torch.clamp(idx, max=grp.n_variants - 1)
+            idx = idx | ((variant(c) > 0).long() << i)
+    return torch.clamp(idx, 0, grp.n_variants - 1)
 
 
 def _place(msg, nw_data, o, wd):
@@ -632,8 +764,9 @@ def piece_md5_reference(blk_word, blk_count, base, tables, *, pieces,
         return (cc >= min_substitute) & (cc <= max_substitute)
 
     def hashed(cb, digits, hb):
-        msg, end = _plain_message(lambda g: _group_index(g, cb, digits), w,
-                                  tables, pieces, hb, algo)
+        bit, variant = _column_selectors(pieces, tables, w, cb, digits)
+        msg, end = _plain_message(lambda g: _group_index(g, bit, variant),
+                                  w, tables, pieces, hb, algo)
         return hash_words(msg, end, algo)
 
     def chosen(digits):
@@ -651,9 +784,12 @@ def piece_md5_reference(blk_word, blk_count, base, tables, *, pieces,
                 digits = _decode_windowed(base[blk] + r, tables["win_v"][w],
                                           radix_rows, k_opts)
                 if pack_cb:
+                    bitpos = (tables["bitpos"][w] if pieces.kind == "suball"
+                              else None)
                     cb = torch.zeros_like(r)
                     for s, d in enumerate(digits):
-                        cb = cb | ((d > 0).to(torch.int32) << s)
+                        at = s if bitpos is None else bitpos[:, s] & 31
+                        cb = cb | ((d > 0).to(torch.int32) << at)
                     digits = None
         cc = _popcount(cb) if cb is not None else chosen(digits)
         emit = (r < count) & window(cc)

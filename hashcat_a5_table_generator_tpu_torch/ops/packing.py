@@ -736,30 +736,111 @@ def _pair_gate(groups, col_opts, launched_rows, gl, reach, *,
 
 
 
+def _suball_piece_cols(plan) -> tuple:
+    """Per-column arrays for a substitute-all plan: one column per PATTERN
+    segment (occurrence), in word order, with gap segments folded into the
+    following column's literal prefix by interval arithmetic.  Returns
+    ``(pos, ln, opts, vstart, sel_slot, sel_bit, closed)``: padding
+    columns alias slot 0 with ``sel_bit`` 31 (a bit no packed chosen
+    vector sets)."""
+    seg_pat = np.asarray(plan.seg_pat)
+    seg_start = np.asarray(plan.seg_orig_start)
+    seg_len = np.asarray(plan.seg_orig_len)
+    radix = np.asarray(plan.pat_radix)
+    pvs = np.asarray(plan.pat_val_start)
+    b, _ = seg_pat.shape
+    p = radix.shape[1]
+    is_pat = seg_pat >= 0
+    fb = np.asarray(plan.fallback)
+    if fb.any():
+        # Oracle-routed words never reach the device; blank their columns
+        # so their (possibly degenerate) segment data can't veto the
+        # schema for everyone else.
+        is_pat = is_pat & ~fb[:, None]
+    c_axis = max(1, int(is_pat.sum(axis=1).max(initial=0)))
+    cols = np.cumsum(is_pat, axis=1) - 1
+    rows, segs = np.nonzero(is_pat)
+    cc = cols[rows, segs]
+    pos = np.zeros((b, c_axis), np.int32)
+    ln = np.zeros((b, c_axis), np.int32)
+    slot = np.zeros((b, c_axis), np.int32)
+    pos[rows, cc] = seg_start[rows, segs]
+    ln[rows, cc] = seg_len[rows, segs]
+    slot[rows, cc] = seg_pat[rows, segs]
+    # Joint-closure plans: a slot's value row is indexed by the JOINT
+    # digit (own + successors), so the column's variant count is the
+    # joint table's row count, not radix - 1.
+    closed = getattr(plan, "close_next", None) is not None
+    if closed:
+        cn = np.asarray(plan.close_next)
+        cm = np.asarray(plan.close_mul)
+        succ_r = np.where(
+            cn >= 0,
+            np.take_along_axis(
+                radix, np.clip(cn, 0, p - 1).reshape(b, -1), axis=1
+            ).reshape(cn.shape),
+            1,
+        )
+        # Own digit d is in [1, radix-1] when the slot is chosen, so the
+        # kernel's (d-1)*mul0 term peaks at (radix-2)*mul0.
+        jmax = (radix - 2).clip(min=0) * cm[:, :, 0] + (
+            (succ_r - 1) * cm[:, :, 1:]
+        ).sum(axis=2)
+        slot_opts = np.where(radix > 1, jmax + 1, 0)
+    else:
+        slot_opts = (radix - 1).clip(min=0)
+    act = (radix > 1).astype(np.int32)
+    bitpos = np.cumsum(act, axis=1) - act
+    take = lambda a: np.take_along_axis(a, slot, axis=1)  # noqa: E731
+    opts = np.where(ln > 0, take(slot_opts), 0)
+    vstart = take(pvs)
+    sel_bit = np.where(ln > 0, take(bitpos), 31)
+    return pos, ln, opts, vstart, slot, sel_bit, closed
+
+
 def piece_schema_for(plan, ct) -> "PieceSchema | None":
-    """The per-slot emission gate for a match plan: a :class:`PieceSchema`
-    when the plan's static geometry supports piece emission, else None.
+    """The per-slot emission gate: a :class:`PieceSchema` when the plan's
+    static geometry supports piece emission, else None.
 
     The schema's tables are ``gw uint32 [B, NG, VM, NW]`` group variant
     words, ``gw16 uint16 [B, NG16, VM]`` narrow groups and ``gl uint8
-    [B, NGD, VM]`` placed lengths.  Cached on the plan object (plans are
+    [B, NGD, VM]`` placed lengths (plus a substitute-all plan's
+    ``sel_slot int32 [B, C]`` / ``sel_bit uint8 [B, C]`` selector
+    columns; a cascade-closed plan's value rows come from its own
+    ``cval_bytes``/``cval_len``).  Cached on the plan object (plans are
     frozen, keyed by table identity)."""
     cache = getattr(plan, "_piece_schema_cache", None)
     if cache is not None and cache[0] is ct:
         return cache[1]
-    radix = np.asarray(plan.match_radix)
-    schema = build_piece_schema(
-        tokens=np.asarray(plan.tokens),
-        lengths=np.asarray(plan.lengths),
-        col_pos=np.asarray(plan.match_pos),
-        col_len=np.asarray(plan.match_len),
-        col_opts=(radix - 1).clip(min=0),
-        col_vstart=np.asarray(plan.match_val_start),
-        val_bytes=np.asarray(ct.val_bytes),
-        val_len=np.asarray(ct.val_len),
-        kind="match",
-        launched=~np.asarray(plan.fallback, bool),
-    )
+    tokens = np.asarray(plan.tokens)
+    lengths = np.asarray(plan.lengths)
+    launched = ~np.asarray(plan.fallback, bool)
+    if getattr(plan, "match_pos", None) is not None:
+        radix = np.asarray(plan.match_radix)
+        schema = build_piece_schema(
+            tokens=tokens, lengths=lengths,
+            col_pos=np.asarray(plan.match_pos),
+            col_len=np.asarray(plan.match_len),
+            col_opts=(radix - 1).clip(min=0),
+            col_vstart=np.asarray(plan.match_val_start),
+            val_bytes=np.asarray(ct.val_bytes),
+            val_len=np.asarray(ct.val_len),
+            kind="match", launched=launched,
+        )
+    else:
+        pos, ln, opts, vstart, slot, sel_bit, closed = \
+            _suball_piece_cols(plan)
+        vb = getattr(plan, "cval_bytes", None)
+        vl = getattr(plan, "cval_len", None)
+        if vb is None:
+            vb, vl = np.asarray(ct.val_bytes), np.asarray(ct.val_len)
+        schema = build_piece_schema(
+            tokens=tokens, lengths=lengths,
+            col_pos=pos, col_len=ln, col_opts=opts, col_vstart=vstart,
+            val_bytes=np.asarray(vb), val_len=np.asarray(vl),
+            kind="suball", sel_slot=slot, sel_bit=sel_bit,
+            closed=closed, launched=launched,
+        )
     object.__setattr__(plan, "_piece_schema_cache", (ct, schema))
     return schema
 

@@ -67,8 +67,11 @@ class BucketedSweep:
         ]
         hits = [h for r in results for h in r.hits]
         hits.sort(key=lambda h: (h.word_index, h.variant_rank))
+        routing: Dict[str, int] = {}
         superstep: Dict[str, int] = {}
         for r in results:
+            for k, v in r.routing.items():
+                routing[k] = routing.get(k, 0) + v
             for k, v in r.superstep.items():
                 summed = k in ("supersteps", "launches", "replays")
                 superstep[k] = superstep.get(k, 0) + v if summed \
@@ -83,4 +86,5 @@ class BucketedSweep:
             ),
             drive_s=sum(r.drive_s for r in results),
             superstep=superstep,
+            routing=routing,
         )

@@ -13,6 +13,15 @@ the only host sync per superstep.  A superstep whose hits overflow the
 capped buffer is re-run with a buffer sized from its hit count, so no hit
 is ever dropped.  Hits are re-derived on the host from their ``(word,
 rank)`` cursor and their digest re-verified before they are recorded.
+
+Substitute-all plans route each word three ways, as the reference does:
+device-clean words and cascade-closed words run on the device; words no
+plan splices exactly (``plan.fallback``) take no blocks and are expanded on
+the host by the oracle (``oracle.engines``), hashed with ``HOST_DIGEST``
+and looked up in the digest list.  Their hits carry the oracle's DFS index
+as rank and interleave in word order: a fallback word is flushed before
+the first device hit of a later word, and at each superstep boundary
+before the boundary's word.
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from ..models.attack import (
     make_superstep_body,
     superstep_buffers,
 )
-from ..ops.blocks import superstep_index
+from ..ops.blocks import block_cursor, superstep_index
 from ..ops.fused_expand import (
     decode_for,
     k_vals_for,
@@ -43,6 +52,7 @@ from ..ops.fused_expand import (
 )
 from ..ops.membership import HostDigestLookup, build_digest_set
 from ..ops.packing import PackedWords, pack_words, piece_schema_for
+from ..oracle.engines import iter_candidates
 from ..tables.compile import compile_table
 from ..utils.digests import HOST_DIGEST
 from .sinks import HitRecord, HitRecorder
@@ -110,6 +120,8 @@ class SweepResult:
     #: supersteps / launches / replays (overflow re-runs) /
     #: launches_per_fetch / pair (candidates per lane, 0 = K=1)
     superstep: Dict[str, int] = field(default_factory=dict)
+    #: word routing: device_clean / device_closed / oracle_fallback
+    routing: Dict[str, int] = field(default_factory=dict)
 
 
 class _Fetch:
@@ -155,6 +167,7 @@ class Sweep:
         config: Optional[SweepConfig] = None,
     ) -> None:
         self.spec = spec
+        self.sub_map = sub_map
         self.config = config or SweepConfig()
         self.device = resolve_device(self.config.device)
         self.digests = (
@@ -168,6 +181,17 @@ class Sweep:
         )
         self.n_words = self.packed.batch
         self.plan = build_plan(spec, self.ct, self.packed)
+        #: oracle-routed word rows, in word order
+        self.fallback_rows: List[int] = [
+            int(i) for i in np.nonzero(self.plan.fallback)[0]
+        ]
+        closed = getattr(self.plan, "closed", None)
+        n_closed = int(closed.sum()) if closed is not None else 0
+        self.routing = {
+            "device_clean": self.n_words - n_closed - len(self.fallback_rows),
+            "device_closed": n_closed,
+            "oracle_fallback": len(self.fallback_rows),
+        }
         # Plans the piece kernel does not take are refused here, so a
         # caller holding several sweeps (BucketedSweep) refuses before any
         # of them launches.
@@ -175,7 +199,7 @@ class Sweep:
         self.pieces = None
         # The schema is part of the run: SweepResult.wall_s counts it.
         self._schema_s = 0.0
-        if self.n_words:
+        if self.n_words > len(self.fallback_rows):
             t0 = time.monotonic()
             self.pieces = piece_schema_for(self.plan, self.ct)
             self._schema_s = time.monotonic() - t0
@@ -192,8 +216,13 @@ class Sweep:
         t0 = time.monotonic()
         recorder = recorder if recorder is not None else HitRecorder()
         spec, plan, cfg, dev = self.spec, self.plan, self.config, self.device
-        if self.n_words == 0:
-            return SweepResult(hits=recorder.hits)
+        flush = _FallbackFlush(self, recorder)
+        if self.pieces is None:  # no word takes the device
+            flush.until(self.n_words)
+            return SweepResult(
+                n_emitted=flush.n_emitted, n_hits=flush.n_hits,
+                hits=recorder.hits, words_done=self.n_words,
+                wall_s=time.monotonic() - t0, routing=dict(self.routing))
         lanes, nb, steps = cfg.resolve(dev)
         stride = lanes // nb
         pieces = self.pieces
@@ -229,24 +258,29 @@ class Sweep:
             k_opts=k_vals_for(plan),
         )
         t_drive = time.monotonic()
-        stats, n_emitted, n_hits = self._drive(body, arrays, nb, steps,
-                                               recorder)
+        stats, n_emitted, n_hits = self._drive(
+            body, arrays, nb, steps, recorder, flush,
+            lambda b: block_cursor(plan, rank_stride, idx[0], b)[0])
         stats["pair"] = pair_k or 0
         drive_s = time.monotonic() - t_drive
+        flush.until(self.n_words)
         return SweepResult(
-            n_emitted=n_emitted,
-            n_hits=n_hits,
+            n_emitted=n_emitted + flush.n_emitted,
+            n_hits=n_hits + flush.n_hits,
             hits=recorder.hits,
             words_done=self.n_words,
             wall_s=time.monotonic() - t0 + self._schema_s,
             drive_s=drive_s,
             superstep=stats,
+            routing=dict(self.routing),
         )
 
-    def _drive(self, body, arrays, nb: int, steps: int, recorder
-               ) -> "tuple[dict, int, int]":
+    def _drive(self, body, arrays, nb: int, steps: int, recorder, flush,
+               word_at) -> "tuple[dict, int, int]":
         """The double-buffered superstep loop; returns (stats, emitted,
-        hits)."""
+        hits) of the device words.  ``flush`` expands the fallback words
+        due before each device hit's word and, after each superstep, those
+        before ``word_at(end block)``."""
         cfg, dev = self.config, self.device
         total = arrays["total"]
         hit_cap = int(cfg.superstep_hit_cap)
@@ -285,7 +319,9 @@ class Sweep:
                 hw = hits_src["hit_word"][:nh].tolist()
                 hr = hits_src["hit_rank"][:nh].tolist()
                 for w_row, rank in sorted(zip(hw, hr)):
+                    flush.until(int(w_row))
                     self._device_hit(int(w_row), int(rank), recorder)
+            flush.until(word_at(min(sb0 + n_steps * nb, total)))
             n_emitted += ne
             n_hits += nh
             stats["supersteps"] += 1
@@ -311,3 +347,40 @@ class Sweep:
                 digest_hex=dig.hex(),
             )
         )
+
+
+class _FallbackFlush:
+    """The oracle route of a sweep's fallback words, flushed in word order:
+    :meth:`until` expands every not yet expanded fallback word below a row,
+    hashes each candidate with ``HOST_DIGEST`` and records the ones in the
+    digest list (rank = the candidate's DFS index in the oracle's stream)."""
+
+    def __init__(self, sweep: Sweep, recorder) -> None:
+        self.sweep, self.recorder = sweep, recorder
+        self.done = 0
+        self.n_emitted = self.n_hits = 0
+        spec = sweep.spec
+        self.substitute_all = spec.mode.startswith("suball")
+        self.reverse = spec.mode in ("reverse", "suball-reverse")
+        self.digest = HOST_DIGEST[spec.algo]
+
+    def until(self, word_row: int) -> None:
+        sw, rows = self.sweep, self.sweep.fallback_rows
+        while self.done < len(rows) and rows[self.done] < word_row:
+            row = rows[self.done]
+            cands = iter_candidates(
+                sw.packed.word(row), sw.sub_map, sw.spec.min_substitute,
+                sw.spec.max_substitute, substitute_all=self.substitute_all,
+                reverse=self.reverse,
+            )
+            for i, cand in enumerate(cands):
+                self.n_emitted += 1
+                dig = self.digest(cand)
+                if dig in sw._digest_lookup:
+                    self.n_hits += 1
+                    self.recorder.emit(HitRecord(
+                        word_index=int(sw.packed.index[row]),
+                        variant_rank=i, candidate=cand,
+                        digest_hex=dig.hex(),
+                    ))
+            self.done += 1

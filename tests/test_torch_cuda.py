@@ -9,8 +9,10 @@ machine that has only PyTorch with CUDA::
 GPU every test here skips.  Inputs come from seeds through the package's
 own host code; each kernel entry point, for every hash and decode tier,
 is held against its plain PyTorch version on the card (equal emit masks,
-equal state on every emitted row, tolerance 0), and small sweeps on the
-GPU must equal the same sweeps on the CPU.
+equal state on every emitted row, tolerance 0) over match and
+substitute-all schemas (the suball selectors, the cascade closure), and
+small sweeps on the GPU — default, reverse and substitute-all mode, with
+oracle-fallback words — must equal the same sweeps on the CPU.
 """
 
 import hashlib
@@ -53,6 +55,9 @@ CZECH = get_layout("czech").to_substitution_map()
 SUB_WIDE = {**SUB, b"1": [b"\xf0\x9f\x98\x80"]}
 LEET3 = {b"a": [b"4", b"@", b"^"], b"e": [b"3", b"&", b"EE"],
          b"s": [b"$", b"5", b"z"], b"o": [b"0", b"()", b"*"]}
+AZERTY = get_layout("qwerty-azerty").to_substitution_map()
+#: One option per key, fixed and mixed widths: the suball pair tier.
+SINGLE = {b"a": [b"@@"], b"o": [b"0"], b"s": [b"$"], b"e": [b"33"]}
 
 
 @pytest.fixture
@@ -112,8 +117,8 @@ class Case:
     arguments of the plan's decode tier."""
 
     def __init__(self, sub, words, device, *, algo="md5", mx=15, pair=False,
-                 stride=128, nb=256):
-        spec = AttackSpec(algo=algo, max_substitute=mx)
+                 stride=128, nb=256, mode="default"):
+        spec = AttackSpec(mode=mode, algo=algo, max_substitute=mx)
         ct = compile_table(sub)
         plan = build_plan(spec, ct, pack_words(words))
         pieces = piece_schema_for(plan, ct)
@@ -128,7 +133,7 @@ class Case:
                                  self.decode)[:3]
         self.hash_blocks = fe._hash_blocks_for(plan.out_width,
                                                2 if algo == "ntlm" else 1)
-        self.key = fe.launch_key(algo, self.decode, pair)
+        self.key = fe.launch_key(algo, pieces, self.decode, pair)
         self.kw = dict(pieces=pieces, block_stride=stride,
                        min_substitute=spec.effective_min,
                        max_substitute=mx, pair=pair, algo=algo,
@@ -192,6 +197,104 @@ def test_every_entry_point_matches_plain_version(entry, algo, cuda):
     assert c.key == f"piece_{entry.split('-')[0]}/{algo}"
     assert c.hash_blocks == blocks
     c.check()
+
+
+def keyed_words(n, lo, hi, seed, keys, filler, k):
+    """``lo``..``hi`` bytes of ``filler`` with ``k`` bytes of ``keys``."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        w = np.frombuffer(filler, np.uint8)[rng.integers(
+            0, len(filler), size=int(rng.integers(lo, hi + 1)))].copy()
+        pos = rng.choice(len(w), size=min(k, len(w)), replace=False)
+        w[pos] = np.frombuffer(keys, np.uint8)[rng.integers(
+            0, len(keys), size=len(pos))]
+        out.append(bytes(w))
+    return out
+
+
+def pair_words(n, seed):
+    """Each word's lowest-sorted pattern (``a``) occurs once, first: slot
+    0 drives column 0 only, as the suball pair gate needs."""
+    return [b"a" + w for w in keyed_words(n, 2, 8, seed, b"eos", b"bcdfgh",
+                                          2)]
+
+
+AZ_FILL = b"bcdefghijklnoprstuvxy"
+#: (suball entry, hash) -> (table, words, max_substitute, pair, blocks).
+_SUBALL_CASES = {}
+for _algo in ("md5", "md4", "sha1", "ntlm"):
+    _SUBALL_CASES[("suball_k1", _algo)] = (
+        SUB, letter_words(300, 3, 8, 21), 15, False, 1)
+    _SUBALL_CASES[("suball_digits", _algo)] = (
+        CZECH, letter_words(300, 3, 8, 22), 15, False, 1)
+    _SUBALL_CASES[("suball_closed", _algo)] = (
+        AZERTY, [b"aq" + w for w in keyed_words(300, 2, 8, 23, b"aqzwAQm",
+                                                AZ_FILL, 2)] + [b"AQq"],
+        15, False, 1)
+    _SUBALL_CASES[("suball_windowed", _algo)] = (
+        SUB, keyed_words(300, 11, 12, 24, b"qwertyuiopasdf", b"0123456789",
+                         10), 2, False, 1)
+    _SUBALL_CASES[("suball_windowed-digits", _algo)] = (
+        CZECH, czech_long_words(300, 11, 12, 10, 25), 2, False, 1)
+    _SUBALL_CASES[("suball_closed_windowed", _algo)] = (
+        AZERTY, [b"aq134567" + w for w in keyed_words(300, 1, 3, 26,
+                                                      b"zwm", AZ_FILL, 1)],
+        2, False, 1)
+    _SUBALL_CASES[("suball_pair", _algo)] = (
+        SINGLE, pair_words(300, 27), 15, True, 1)
+    _SUBALL_CASES[("suball_pair_digits", _algo)] = (
+        LEET3, pair_words(300, 28), 15, True, 1)
+_SUBALL_CASES[("suball_k1-2", "md5")] = (
+    SUB, keyed_words(100, 40, 64, 29, b"qwerty", b"0123456789", 6), 15,
+    False, 2)
+_SUBALL_CASES[("suball_k1-3", "sha1")] = (
+    SUB_WIDE, words_for("3-hash-blocks", 30), 15, False, 3)
+_SUBALL_CASES[("suball_closed-2", "ntlm")] = (
+    AZERTY, [b"aq" + w for w in keyed_words(100, 20, 26, 31, b"aqzw",
+                                            AZ_FILL, 4)], 15, False, 2)
+
+
+@pytest.mark.parametrize("entry,algo", sorted(_SUBALL_CASES),
+                         ids=[f"{e}-{a}" for e, a in sorted(_SUBALL_CASES)])
+def test_every_suball_entry_matches_plain_version(entry, algo, cuda):
+    sub, words, mx, pair, blocks = _SUBALL_CASES[(entry, algo)]
+    c = Case(sub, words, cuda, algo=algo, mx=mx, pair=pair, mode="suball")
+    name = entry.split("-")[0]
+    assert c.key == f"piece_{name}/{algo}"
+    assert c.hash_blocks == blocks
+    c.check()
+
+
+@pytest.mark.parametrize("table,mode,algo,mx", [
+    ("qwerty-azerty", "suball", "md5", 15),
+    ("qwerty-azerty", "suball-reverse", "sha1", 15),
+    ("qwerty-cyrillic", "suball", "sha1", 2),
+    ("czech", "suball-reverse", "ntlm", 15),
+    ("qwerty-cyrillic", "reverse", "md5", 15),
+])
+def test_suball_and_reverse_sweeps_on_the_gpu_equal_the_cpu(
+        table, mode, algo, mx, cuda):
+    """Oracle-fallback words (qwerty-azerty ``m,;`` lines) interleave in
+    the same places on both devices."""
+    sub = get_layout(table).to_substitution_map()
+    words = letter_words(200, 2, 8 if mx == 15 else 12, 12)
+    words[5:5] = [b"m,;", b"aqua", b"AQq", b"am,;q"]
+    spec = AttackSpec(mode=mode, algo=algo, max_substitute=mx)
+    cfg = dict(lanes=4096, num_blocks=32)
+    probe = Sweep(spec, sub, words, [], SweepConfig(device="cpu", **cfg))
+    digests = [HOST_DIGEST[algo](decode_variant(
+        probe.plan, probe.ct, spec, row, probe.plan.n_variants[row] // 2))
+        for row in range(0, len(words), 5)
+        if probe.plan.n_variants[row] >= 2]
+    results = [Sweep(spec, sub, words, digests,
+                     SweepConfig(device=dev, **cfg)).run_crack()
+               for dev in ("cuda", "cpu")]
+    got, want = ([(h.word_index, h.variant_rank, h.candidate)
+                  for h in r.hits] for r in results)
+    assert got == want and len(got) >= len(digests)
+    assert results[0].n_emitted == results[1].n_emitted
+    assert results[0].routing == results[1].routing
 
 
 def test_sweep_on_the_gpu_equals_the_cpu(cuda):

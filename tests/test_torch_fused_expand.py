@@ -31,6 +31,7 @@ from hashcat_a5_table_generator_tpu.models.attack import (
 )
 from hashcat_a5_table_generator_tpu.ops.blocks import make_blocks, pad_batch
 from hashcat_a5_table_generator_tpu.ops.expand_matches import expand_matches
+from hashcat_a5_table_generator_tpu.ops.expand_suball import expand_suball
 from hashcat_a5_table_generator_tpu.ops.hashes import HASH_FNS
 from hashcat_a5_table_generator_tpu.ops.packing import (
     pack_words,
@@ -63,11 +64,14 @@ CSRC = (pathlib.Path(__file__).resolve().parent.parent
 class Launch:
     """One launch's blocks, cut by the reference's host cutter from the
     reference's plan, and the same numpy arrays as the port's torch
-    inputs.  ``mx`` < 9 may make the plan count-windowed."""
+    inputs.  ``mx`` < 9 may make the plan count-windowed; ``mode`` picks
+    a match (default, reverse) or substitute-all plan."""
 
     def __init__(self, sub, words, *, pair, stride=128, nb=8, algo="md5",
-                 mx=15):
-        self.spec = AttackSpec(algo=algo, max_substitute=mx)
+                 mx=15, mode="default", mn=0):
+        self.spec = AttackSpec(mode=mode, algo=algo, min_substitute=mn,
+                               max_substitute=mx)
+        self.suball = mode.startswith("suball")
         self.algo = algo
         self.ct = compile_table(sub)
         self.plan = build_plan(self.spec, self.ct, pack_words(words))
@@ -87,13 +91,27 @@ class Launch:
 
         return jnp.asarray(self.plan.win_v) if self.plan.windowed else None
 
-    def reference_pallas(self):
+    def _plan_inputs(self):
+        """The plan's per-kind arrays, as the reference's wrappers take
+        them (a closed plan's own value table replaces the table's)."""
         p, t = plan_arrays(self.plan), table_arrays(self.ct)
+        if not self.suball:
+            return (p["tokens"], p["lengths"], p["match_pos"],
+                    p["match_len"], p["match_radix"], p["match_val_start"],
+                    t["val_bytes"], t["val_len"]), {}
+        return (p["tokens"], p["lengths"], p["pat_radix"],
+                p["pat_val_start"], p["seg_orig_start"], p["seg_orig_len"],
+                p["seg_pat"], p.get("cval_bytes", t["val_bytes"]),
+                p.get("cval_len", t["val_len"])), dict(
+                    close_next=p.get("close_next"),
+                    close_mul=p.get("close_mul"))
+
+    def reference_pallas(self):
+        args, close = self._plan_inputs()
         b = block_arrays(self.batch, num_blocks=self.nb)
-        state, emit = pe.fused_expand_md5(
-            p["tokens"], p["lengths"], p["match_pos"], p["match_len"],
-            p["match_radix"], p["match_val_start"],
-            t["val_bytes"], t["val_len"], b["word"], b["base"], b["count"],
+        fn = pe.fused_expand_suball_md5 if self.suball else pe.fused_expand_md5
+        state, emit = fn(
+            *args, b["word"], b["base"], b["count"],
             num_lanes=self.nb * self.stride,
             out_width=int(self.plan.out_width),
             min_substitute=self.spec.effective_min,
@@ -101,7 +119,7 @@ class Launch:
             block_stride=self.stride, k_opts=self.k_opts, interpret=True,
             scalar_units=pe.scalar_units_for(self.plan),
             pieces=self.pieces, pair=self.pair, algo=self.algo,
-            win_v=self._win_v(),
+            win_v=self._win_v(), **close,
         )
         return np.asarray(state).view(np.int32), np.asarray(emit)
 
@@ -112,13 +130,11 @@ class Launch:
 
     def reference_expand(self):
         """The XLA twin's candidate buffers (hash-independent)."""
-        p, t = plan_arrays(self.plan), table_arrays(self.ct)
+        args, close = self._plan_inputs()
         b = block_arrays(self.batch, num_blocks=self.nb)
-        cand, clen, _w, emit = expand_matches(
-            p["tokens"], p["lengths"], p["match_pos"], p["match_len"],
-            p["match_radix"], p["match_val_start"],
-            t["val_bytes"], t["val_len"],
-            b["word"], b["base"], b["count"], b["offset"],
+        fn = expand_suball if self.suball else expand_matches
+        cand, clen, _w, emit = fn(
+            *args, b["word"], b["base"], b["count"], b["offset"], **close,
             num_lanes=self.nb * self.stride,
             out_width=int(self.plan.out_width),
             min_substitute=self.spec.effective_min,
@@ -142,6 +158,8 @@ class Launch:
         else:
             base = digits
         tables = piece_tables(self.pieces, device="cpu")
+        for name, arr in fe.selector_tables(self.plan, self.pieces).items():
+            tables[name] = torch.from_numpy(arr)
         tables["radix"] = torch.from_numpy(
             np.ascontiguousarray(self.plan.pat_radix, np.int32))
         if self.plan.windowed:
@@ -374,32 +392,33 @@ template <class T> static std::vector<T> rd(const char* p, size_t n) {
   std::vector<T> v(n ? n : 1); FILE* f = fopen(p, "rb");
   if (n && fread(v.data(), sizeof(T), n, f) != n) exit(3);
   fclose(f); return v; }
-template <int A> static void run(const LaunchArgs& a, const PieceTables& t,
-                                 int pair, int decode, int hb) {
-  for (long long lane = 0; lane < (long long)a.nb * a.stride; ++lane) {
-    blockIdx.x = (unsigned)lane;
-    if (pair && decode == 0) piece_pair_kernel<A, 0>(a, t);
-    else if (pair) piece_pair_kernel<A, 1>(a, t);
-    else switch (decode * 4 + hb) {
-      case 1: piece_kernel<A, 0, 1>(a, t); break;
-      case 2: piece_kernel<A, 0, 2>(a, t); break;
-      case 3: piece_kernel<A, 0, 3>(a, t); break;
-      case 5: piece_kernel<A, 1, 1>(a, t); break;
-      case 6: piece_kernel<A, 1, 2>(a, t); break;
-      case 7: piece_kernel<A, 1, 3>(a, t); break;
-      case 9: piece_kernel<A, 2, 1>(a, t); break;
-      case 10: piece_kernel<A, 2, 2>(a, t); break;
-      default: piece_kernel<A, 2, 3>(a, t); break;
-    }
+template <int A, int K, int D, bool C>
+static void lane_hb(const LaunchArgs& a, const PieceTables& t, int hb) {
+  switch (hb) {
+    case 1: piece_kernel<A, K, D, 1, C>(a, t); break;
+    case 2: piece_kernel<A, K, D, 2, C>(a, t); break;
+    default: piece_kernel<A, K, D, 3, C>(a, t); break;
   }
 }
+template <int A, int K>
+static void lane(const LaunchArgs& a, const PieceTables& t, int pair,
+                 int decode, int hb, int closed) {
+  if (pair && decode == 0) piece_pair_kernel<A, K, 0>(a, t);
+  else if (pair) piece_pair_kernel<A, K, 1>(a, t);
+  else if (decode == 0) lane_hb<A, K, 0, false>(a, t, hb);
+  else if (decode == 1 && closed) lane_hb<A, K, 1, true>(a, t, hb);
+  else if (decode == 1) lane_hb<A, K, 1, false>(a, t, hb);
+  else if (closed) lane_hb<A, K, 2, true>(a, t, hb);
+  else lane_hb<A, K, 2, false>(a, t, hb);
+}
 int main(int argc, char** argv) {
-  int v[21]; for (int i = 0; i < 21; ++i) v[i] = atoi(argv[i + 1]);
-  int algo = v[0], pair = v[1], decode = v[2], hb = v[3], nb = v[4],
+  int v[25]; for (int i = 0; i < 25; ++i) v[i] = atoi(argv[i + 1]);
+  int pair = v[1], decode = v[2], hb = v[3], nb = v[4],
       stride = v[5], m = v[6], k2 = v[7], k_opts = v[8], pack = v[9],
       ngw = v[10], ng16 = v[11], ngd = v[12], vm = v[13], nw = v[14],
       ng = v[15], mn = v[16], mx = v[17], B = v[18], nbase = v[19],
-      words = v[20];
+      words = v[20], kind = v[21], closed = v[22], ncols = v[23],
+      close_s = v[24];
   auto bw = rd<int32_t>("bw.bin", nb); auto bc = rd<int32_t>("bc.bin", nb);
   auto base = rd<int32_t>("base.bin", nbase);
   auto radix = rd<int32_t>("radix.bin", (size_t)B * m);
@@ -408,36 +427,34 @@ int main(int argc, char** argv) {
   auto g16 = rd<int32_t>("pw16.bin", (size_t)B * ng16 * vm);
   auto gl = rd<int32_t>("pl.bin", (size_t)B * ngd * vm);
   auto desc = rd<int32_t>("desc.bin", (size_t)ng * DESC_WIDTH);
+  auto sbit = rd<int32_t>("sel_bit.bin", kind ? (size_t)B * ncols : 0);
+  auto sslot = rd<int32_t>("sel_slot.bin", kind ? (size_t)B * ncols : 0);
+  auto bpos = rd<int32_t>("bitpos.bin", kind ? (size_t)B * m : 0);
+  auto cnext = rd<int32_t>("close_next.bin",
+                           closed ? (size_t)B * m * close_s : 0);
+  auto cmul = rd<int32_t>("close_mul.bin",
+                          closed ? (size_t)B * m * (close_s + 1) : 0);
   long long n = (long long)nb * stride * (pair ? 2 : 1);
   std::vector<int32_t> st(n * words); std::vector<uint8_t> em(n);
   LaunchArgs a{bw.data(), bc.data(), base.data(), radix.data(), winv.data(),
                nb, stride, m, k2, k_opts, pack, desc.data(), ng, mn, mx,
-               st.data(), em.data()};
+               st.data(), em.data(),
+               kind ? sbit.data() : nullptr, kind ? sslot.data() : nullptr,
+               kind ? bpos.data() : nullptr,
+               closed ? cnext.data() : nullptr,
+               closed ? cmul.data() : nullptr, ncols, close_s};
   PieceTables t{gw.data(), g16.data(), gl.data(), ngw, ng16, ngd, vm, nw};
-  switch (algo) {
-    case 0: run<0>(a, t, pair, decode, hb); break;
-    case 1: run<1>(a, t, pair, decode, hb); break;
-    case 2: run<2>(a, t, pair, decode, hb); break;
-    default: run<3>(a, t, pair, decode, hb); break;
+  for (long long i = 0; i < (long long)nb * stride; ++i) {
+    blockIdx.x = (unsigned)i;
+    if (kind) lane<HARNESS_ALGO, 1>(a, t, pair, decode, hb, closed);
+    else lane<HARNESS_ALGO, 0>(a, t, pair, decode, hb, closed);
   }
   FILE* f = fopen("state.bin", "wb"); fwrite(st.data(), 4, n * words, f);
   fclose(f); f = fopen("emit.bin", "wb"); fwrite(em.data(), 1, n, f);
   fclose(f); return 0; }
 """
 
-
-@pytest.fixture(scope="module")
-def host_harness(tmp_path_factory):
-    """The CUDA source's device code compiled for the host: CUDA keywords
-    and intrinsics stubbed, each launch a loop over lanes, every
-    (hash, decode, hash-block) instantiation in one binary."""
-    if shutil.which("g++") is None:
-        pytest.skip("g++ is not installed")
-    tmp_path = tmp_path_factory.mktemp("harness")
-    src = CSRC.read_text()
-    body = src[src.index("#define ALGO_MD5"):
-               src.index("// ---- host launch wrappers ----")]
-    stub = r"""
+_HARNESS_STUB = r"""
 #include <algorithm>
 #include <cstdint>
 #include <cstdio>
@@ -460,14 +477,37 @@ static inline int4 make_int4(int a, int b, int c, int d) {
 using std::max;
 using std::min;
 """
-    (tmp_path / "harness.cpp").write_text(stub + body + _HARNESS_MAIN)
-    subprocess.run(["g++", "-O1", "-std=c++17", "-o", "harness",
-                    "harness.cpp"], cwd=tmp_path, check=True,
-                   capture_output=True, timeout=300)
-    return tmp_path / "harness"
 
 
-def _run_harness(harness, launch, tmp_path):
+def build_host_harness(out_dir):
+    """The CUDA source's device code compiled for the host, one binary per
+    hash (``harness_<algo>``, the four g++ started together): CUDA
+    keywords and intrinsics stubbed, each launch a loop over lanes, every
+    (kind, decode, hash-block, closure) instantiation of the hash in its
+    binary.  Returns ``out_dir``."""
+    src = CSRC.read_text()
+    body = src[src.index("#define ALGO_MD5"):
+               src.index("// ---- host launch wrappers ----")]
+    (out_dir / "harness.cpp").write_text(_HARNESS_STUB + body + _HARNESS_MAIN)
+    procs = [subprocess.Popen(
+        ["g++", "-O1", "-std=c++17", f"-DHARNESS_ALGO={i}",
+         "-o", f"harness_{algo}", "harness.cpp"], cwd=out_dir,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        for i, algo in enumerate(ALGOS)]
+    for proc in procs:
+        out = proc.communicate(timeout=300)[0]
+        assert proc.returncode == 0, out.decode()[-2000:]
+    return out_dir
+
+
+@pytest.fixture(scope="module")
+def host_harness(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    return build_host_harness(tmp_path_factory.mktemp("harness"))
+
+
+def run_harness(harness, launch, tmp_path):
     """The host build of the CUDA source on ``launch``'s inputs: its
     state and emit on every lane."""
     word, count, base, tables = launch.inputs()
@@ -475,29 +515,37 @@ def _run_harness(harness, launch, tmp_path):
                     ("radix", tables["radix"])):
         t.numpy().astype(np.int32).tofile(tmp_path / f"{name}.bin")
     for name, fname in (("pw", "pw"), ("pw16", "pw16"), ("pl", "pl"),
-                        ("desc", "desc"), ("win_v", "winv")):
+                        ("desc", "desc"), ("win_v", "winv"),
+                        ("sel_bit", "sel_bit"), ("sel_slot", "sel_slot"),
+                        ("bitpos", "bitpos"), ("close_next", "close_next"),
+                        ("close_mul", "close_mul")):
         arr = tables[name].numpy() if name in tables else np.zeros(1)
         arr.astype(np.int32).tofile(tmp_path / f"{fname}.bin")
     ngw, ng16, ngd, vm, nw = fe._table_dims(tables)
     m = int(tables["radix"].shape[1])
     k2 = int(tables["win_v"].shape[2]) if "win_v" in tables else 0
     words = fe.DIGEST_WORDS[launch.algo]
+    closed = bool(launch.pieces.closed)
     args = [fe.ALGOS.index(launch.algo), int(launch.pair),
             fe.DECODES.index(launch.decode), launch.hash_blocks, launch.nb,
             launch.stride, m, k2, launch.k_opts, int(launch.pack_cb), ngw,
             ng16, ngd, vm, nw, len(launch.pieces.groups),
             launch.spec.effective_min, launch.spec.max_substitute,
-            launch.plan.batch, base.numel(), words]
-    subprocess.run([str(harness)] + [str(a) for a in args], cwd=tmp_path,
-                   check=True, timeout=300)
+            launch.plan.batch, base.numel(), words,
+            int(launch.pieces.kind == "suball"), int(closed),
+            int(tables["sel_bit"].shape[1]) if "sel_bit" in tables else 0,
+            int(tables["close_next"].shape[2]) if closed else 0]
+    subprocess.run([str(harness / f"harness_{launch.algo}")]
+                   + [str(a) for a in args], cwd=tmp_path, check=True,
+                   timeout=300)
     state = np.fromfile(tmp_path / "state.bin", np.int32).reshape(-1, words)
     emit = np.fromfile(tmp_path / "emit.bin", np.uint8).astype(bool)
     return state, emit
 
 
-def _assert_source_equals_plain(harness, launch, tmp_path):
+def assert_source_equals_plain(harness, launch, tmp_path):
     want_state, want_emit = launch.port()
-    state, emit = _run_harness(harness, launch, tmp_path)
+    state, emit = run_harness(harness, launch, tmp_path)
     assert want_emit.any()
     assert (emit == want_emit).all()
     assert (state == want_state).all()
@@ -516,7 +564,7 @@ def test_cuda_source_logic_equals_plain_version(case, host_harness,
         launch = Launch(CYR, _long_words(5, *((40, 64) if blocks == 2
                                               else (100, 120)), seed=blocks),
                         pair=False, stride=8, nb=24)
-    _assert_source_equals_plain(host_harness, launch, tmp_path)
+    assert_source_equals_plain(host_harness, launch, tmp_path)
 
 
 #: Word lengths per (hash scale, hash blocks) for words of 5 (12 when
@@ -565,7 +613,7 @@ def test_cuda_source_instantiations_equal_plain_version(
         "digits": ("digits", False), "pair-digits": ("digits", False),
         "windowed-cb": ("windowed", True),
         "windowed-digits": ("windowed", False)}[tier]
-    _assert_source_equals_plain(host_harness, launch, tmp_path)
+    assert_source_equals_plain(host_harness, launch, tmp_path)
 
 
 def test_native_build_raises_without_nvcc(monkeypatch):

@@ -137,7 +137,7 @@ def test_cli_stdout_matches_reference_cli(contract, tmp_path, capsysbinary):
 
 
 @pytest.mark.parametrize("extra", [
-    ["-s"], ["-r"], ["--devices", "2"],
+    ["--list-layouts"], ["--output", "o.txt"], ["--devices", "2"],
     ["--checkpoint", "ck.json"], ["--coordinator", "h:1"],
     ["--backend", "oracle"], ["--superstep", "off"], ["--progress"],
     ["--hex-unsafe"], ["--emit-table", "german"],
@@ -170,12 +170,13 @@ def test_candidates_mode_exits_2(capsys):
 
 @pytest.mark.parametrize("case,reason", [
     ("nine-options", "options per key"), ("long-line", "token width 68"),
-    ("many-slots", "slots 25"), ("suball", "mode"),
+    ("many-slots", "slots 25"), ("suball", "options per key"),
     ("superstep-off", "superstep"),
 ])
 def test_unported_plans_raise_before_any_launch(case, reason):
     """Plans the reference sends off the piece kernel (to its XLA expand
-    + hash path) refuse before any launch, as do unported modes."""
+    + hash path) refuse before any launch — in default and substitute-all
+    mode — as does the unported per-launch pipeline."""
     words = [b"password", b"sesame"]
     sub, spec, cfg = SUB, AttackSpec(), SweepConfig(device="cpu",
                                                     **GEOMETRY)
@@ -192,6 +193,7 @@ def test_unported_plans_raise_before_any_launch(case, reason):
     with pytest.raises(NotImplementedError, match=reason):
         if case == "suball":
             spec = AttackSpec(mode="suball")
+            sub = {b"a": [bytes([c]) for c in b"123456789"], b"s": [b"$"]}
         Sweep(spec, sub, words, [bytes(16)], cfg).run_crack()
     assert fe.LAUNCHES == launches and fe.PLAIN_CALLS == plain
 
