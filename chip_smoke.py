@@ -85,6 +85,8 @@ OPS_PER_BLOCK = {"md5": 320, "md4": 176, "ntlm": 176, "sha1": 608}
 STATE_WORDS = {"md5": 4, "md4": 4, "ntlm": 4, "sha1": 5}
 DIGEST_BYTES = {"md5": 16, "md4": 16, "ntlm": 16, "sha1": 20}
 KERNEL_SOURCE = "hashcat_a5_table_generator_tpu_torch/csrc/piece_hash.cu"
+BYTESCAN_SOURCE = ("hashcat_a5_table_generator_tpu_torch/csrc/"
+                   "bytescan_hash.cu")
 PALLAS = "hashcat_a5_table_generator_tpu/ops/pallas_expand.py"
 #: The branch of the TPU body (``_make_piece_kernel`` :1303) each entry
 #: point replaces, and each hash's rounds.
@@ -246,11 +248,107 @@ def wide_table(sub: dict) -> dict:
     return {**sub, b"1": [b"\xf0\x9f\x98\x80"]}
 
 
+def german_words(n: int, seed: int) -> list:
+    """The bench recipe's words (:func:`synth_words`: 6-10 lowercase
+    letters, 0-2 trailing digits) with ``ss`` put in ~5% and ``sss`` in
+    ~1% of them (German compounds: Schlosssee, Flussstrand, Messstation),
+    at a seeded place."""
+    rng = np.random.default_rng(seed + 1)
+    out = []
+    for w in synth_words(n, seed):
+        u = rng.random()
+        if u < 0.06:
+            at = int(rng.integers(0, len(w)))
+            w = w[:at] + (b"sss" if u < 0.01 else b"ss") + w[at:]
+        out.append(w)
+    return out
+
+
+def overlap_rows(plan) -> np.ndarray:
+    """Rows of a match plan where two active spans overlap (german's ``ss``
+    in "sss"): their chosen vectors that pick both are clashes, which the
+    kernel masks."""
+    mp = getattr(plan, "match_pos", None)
+    if mp is None:
+        return np.zeros(0, np.int64)
+    act = np.asarray(plan.match_radix) > 1
+    pos, ln = np.asarray(mp), np.asarray(plan.match_len)
+    rows = []
+    for lo in range(0, pos.shape[0], 1 << 16):
+        r = slice(lo, lo + (1 << 16))
+        jj = np.arange(plan.tokens.shape[1])[None, None, :]
+        inside = (act[r, :, None] & (jj >= pos[r, :, None])
+                  & (jj < pos[r, :, None] + ln[r, :, None]))
+        rows.append(lo + np.flatnonzero((inside.sum(axis=1) > 1).any(axis=1)))
+    return np.concatenate(rows)
+
+
+def exact_count(plan, row: int, lo: int, hi: int) -> int:
+    """Candidates word ``row`` of a match plan emits: chosen sets of
+    pairwise non-overlapping slots with a count in ``[lo, hi]``, weighted
+    by their option counts — a DP over byte positions, right to left."""
+    width = int(plan.tokens.shape[1])
+    f = np.zeros((width + 2, int(plan.num_slots) + 2), np.int64)
+    f[width, 0] = 1
+    starts: dict = {}
+    for s in range(int(plan.num_slots)):
+        if plan.match_radix[row, s] > 1:
+            starts.setdefault(int(plan.match_pos[row, s]), []).append(s)
+    for j in range(width - 1, -1, -1):
+        f[j] = f[j + 1]
+        for s in starts.get(j, ()):
+            nxt = j + int(plan.match_len[row, s])
+            f[j, 1:] += (int(plan.match_radix[row, s]) - 1) * f[nxt, :-1]
+    return int(f[0, lo:hi + 1].sum())
+
+
+def brute_count(plan, row: int, lo: int, hi: int) -> int:
+    """:func:`exact_count` by enumerating every digit vector."""
+    slots = [s for s in range(int(plan.num_slots))
+             if plan.match_radix[row, s] > 1]
+    n = 0
+    for chosen in itertools.product(*[range(int(plan.match_radix[row, s]))
+                                      for s in slots]):
+        spans = sorted((int(plan.match_pos[row, s]),
+                        int(plan.match_len[row, s]))
+                       for s, d in zip(slots, chosen) if d)
+        if lo <= len(spans) <= hi and all(
+                a[0] + a[1] <= b[0] for a, b in zip(spans, spans[1:])):
+            n += 1
+    return n
+
+
+def check_overlap_counts(plan, spec, packed, sub, what) -> None:
+    """Hold :func:`exact_count` against brute force on a sample of the
+    plan's overlap words and against the port's oracle on a few."""
+    from hashcat_a5_table_generator_tpu_torch.oracle.engines import (
+        iter_candidates,
+    )
+
+    rows = overlap_rows(plan)
+    lo, hi = spec.effective_min, spec.max_substitute
+    for i, row in enumerate(rows[:200].tolist()):
+        want = exact_count(plan, row, lo, hi)
+        if brute_count(plan, row, lo, hi) != want:
+            fail(f"{what}: the keyspace DP disagrees with brute force on "
+                 f"{packed.word(row)!r}")
+        if i < 20 and want != len(list(iter_candidates(
+                packed.word(row), sub, lo, hi,
+                reverse=spec.mode == "reverse", bug_compat=False))):
+            fail(f"{what}: the keyspace DP disagrees with the oracle on "
+                 f"{packed.word(row)!r}")
+    log(f"{what}: {len(rows)} words with overlapping spans; keyspace DP = "
+        f"brute force on {min(200, len(rows))}, = the oracle on "
+        f"{min(20, len(rows))}")
+
+
 def keyspace(plan, spec) -> int:
     """Candidates the device emits for the plan, counted on the host from
     its radices: per device word (oracle-fallback words excluded), the
     digit vectors whose chosen count lies in the window — the elementary
-    symmetric sums of the slots' option counts."""
+    symmetric sums of the slots' option counts — except, for a word whose
+    match spans overlap, only the vectors of pairwise non-overlapping
+    spans (:func:`exact_count`; the others are masked clashes)."""
     opts = (np.asarray(plan.pat_radix, np.int64) - 1).clip(min=0)
     lo, hi = spec.effective_min, spec.max_substitute
     e = np.zeros((opts.shape[0], opts.shape[1] + 1), np.int64)
@@ -258,7 +356,10 @@ def keyspace(plan, spec) -> int:
     for s in range(opts.shape[1]):
         e[:, 1:] = e[:, 1:] + opts[:, s:s + 1] * e[:, :-1]
     e[np.asarray(plan.fallback, bool)] = 0
-    return int(e[:, lo:min(hi, opts.shape[1]) + 1].sum())
+    per_word = e[:, lo:min(hi, opts.shape[1]) + 1].sum(axis=1)
+    for row in overlap_rows(plan).tolist():
+        per_word[row] = exact_count(plan, row, lo, hi)
+    return int(per_word.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -313,8 +414,9 @@ class Case:
         ct = self.ct
         why = fused_expand.kernel_refusal(self.spec, self.plan, ct,
                                           self.pieces)
-        if why:
-            fail(f"{name}: kernel refuses the plan: {why}")
+        if why or self.pieces is None:
+            fail(f"{name}: the piece kernel refuses the plan: "
+                 f"{why or 'no piece schema'}")
         self.decode, pack_cb = fused_expand.decode_for(self.plan)
         self.key = fused_expand.launch_key(algo, self.pieces, self.decode,
                                            pair)
@@ -406,10 +508,114 @@ class Case:
                 "operations" if t_ops >= t_bytes else "bytes")
 
 
+class BSCase:
+    """One byte-scan kernel input at a given shape: blocks cut on the
+    device from a real plan's index, with the byte-scan tier the
+    reference's gate picks for the plan (``ops.bytescan.bytescan_tier``;
+    the plan's piece schema, if any, is left unused, as under
+    ``A5GEN_EMIT=bytescan``)."""
+
+    def __init__(self, name, workload, words, sub, *, algo="md5", mx=15,
+                 lanes=None, stride=STRIDE, width=None, mode="default",
+                 device):
+        from hashcat_a5_table_generator_tpu_torch.models.attack import (
+            AttackSpec, cut_blocks, device_arrays,
+        )
+        from hashcat_a5_table_generator_tpu_torch.ops import bytescan
+        from hashcat_a5_table_generator_tpu_torch.ops import fused_expand
+        from hashcat_a5_table_generator_tpu_torch.ops.blocks import (
+            superstep_index,
+        )
+        from hashcat_a5_table_generator_tpu_torch.ops.membership import (
+            build_digest_set,
+        )
+
+        self.name, self.algo, self.pair, self.stride = name, algo, False, stride
+        self.spec = AttackSpec(mode=mode, algo=algo, max_substitute=mx)
+        self.plan, self.ct, _pieces = plan_for(
+            (workload, mode, mx), sub, words, self.spec, width)
+        why = fused_expand.kernel_refusal(self.spec, self.plan, self.ct, None)
+        if why:
+            fail(f"{name}: the byte-scan tiers refuse the plan: {why}")
+        self.tier = bytescan.bytescan_tier(self.plan)
+        self.key = self.tier.launch_key(algo)
+        self.decode = {"scalar": "scalar", "windowed": "windowed"}.get(
+            self.tier.decode, "digits")
+        idx = superstep_index(self.plan, stride)
+        self.arrays = device_arrays(self.plan, None,
+                                    build_digest_set([], algo), idx,
+                                    device=device, ct=self.ct,
+                                    bytescan=self.tier)
+        nb = (lanes or LANES) // stride
+        self.blocks = cut_blocks(self.arrays, 0, nb, stride, self.decode)[:3]
+        self.hash_blocks = fused_expand._hash_blocks_for(
+            self.plan.out_width, 2 if algo == "ntlm" else 1)
+        self.kw = dict(tier=self.tier, block_stride=stride,
+                       min_substitute=self.spec.effective_min,
+                       max_substitute=self.spec.max_substitute, algo=algo)
+
+    @property
+    def variant(self) -> str:
+        t = self.tier
+        parts = [t.variant] if t.variant else []
+        parts += ["closed"] if t.closed else []
+        parts += [t.decode] if t.row != "scalar" or t.decode != "scalar" \
+            else []
+        return "+".join(parts)
+
+    def kernel(self):
+        from hashcat_a5_table_generator_tpu_torch.ops import bytescan
+
+        return bytescan.bytescan_expand(
+            *self.blocks, self.arrays, out_width=int(self.plan.out_width),
+            **self.kw)
+
+    def plain(self):
+        from hashcat_a5_table_generator_tpu_torch.ops import bytescan
+
+        return bytescan.bytescan_reference(
+            *self.blocks, self.arrays, hash_blocks=self.hash_blocks,
+            **self.kw)
+
+    def bound(self, emit, peak_ops: float) -> "tuple[float, str]":
+        """Least time for this input: one compression per emitted
+        candidate over the INT32 peak, against each input byte read once
+        (the block fields and the rows of the words the blocks touch) and
+        each output byte written once over HBM bandwidth."""
+        import torch
+
+        from hashcat_a5_table_generator_tpu_torch.ops import bytescan
+
+        ops = float(int(emit.sum())) * OPS_PER_BLOCK[self.algo]
+        words = torch.unique(self.blocks[0])
+        used = bytescan.needed_tables(self.tier)
+        row_bytes = sum(t[0].numel() * t.element_size()
+                        for k, t in self.arrays.items() if k in used)
+        nb = int(self.blocks[0].shape[0])
+        rows = int(emit.shape[0])
+        nbytes = (8 * nb + self.blocks[2].numel() * 4
+                  + int(words.numel()) * row_bytes
+                  + (4 * STATE_WORDS[self.algo] + 1) * rows)
+        t_ops, t_bytes = ops / peak_ops, nbytes / HBM_BYTES_PER_S
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+
+
 def compare(case) -> dict:
+    """The case's kernel against its plain version on the card; the
+    kernel call must move its launch counter and run no plain version."""
     import torch
 
+    from hashcat_a5_table_generator_tpu_torch.ops import (
+        bytescan, fused_expand,
+    )
+
+    mod = bytescan if case.key.startswith("bytescan") else fused_expand
+    launches, plain = mod.LAUNCHES[case.key], mod.PLAIN_CALLS
     state_k, emit_k = case.kernel()
+    if mod.LAUNCHES[case.key] != launches + 1 or mod.PLAIN_CALLS != plain:
+        fail(f"{case.name}: the CUDA call did not launch {case.key} "
+             "(or ran the plain version)")
     state_p, emit_p = case.plain()
     torch.cuda.synchronize()
     emit_mis = int((emit_k != emit_p).sum())
@@ -418,7 +624,8 @@ def compare(case) -> dict:
     state_mis = int((diff != 0).any(dim=1).sum()) if diff.numel() else 0
     err = int(diff.max()) if diff.numel() else 0
     emitted = int(emit_p.sum())
-    log(f"kernel vs plain [{case.name}, {case.key}, {case.hash_blocks} "
+    what = case.key + (f" {case.variant}" if hasattr(case, "tier") else "")
+    log(f"kernel vs plain [{case.name}, {what}, {case.hash_blocks} "
         f"hash block(s)]: rows {emit_k.shape[0]}, emitted {emitted} "
         f"({100.0 * (1 - emitted / emit_k.shape[0]):.1f}% masked), emit "
         f"mismatches {emit_mis}, state mismatches {state_mis}, max abs "
@@ -469,12 +676,13 @@ def stage_breakdown(case, digest_set, pair_k) -> None:
     nb = int(case.blocks[0].shape[0])
     rank_stride = case.stride * (pair_k or 1)
     state, emit = case.kernel()
+    tier = getattr(case, "tier", None)
     body = make_superstep_body(
         case.spec, num_lanes=nb * case.stride,
         out_width=int(case.plan.out_width), block_stride=case.stride,
-        num_blocks=nb, pieces=case.pieces, pair_k=pair_k,
-        decode=case.decode, pack_cb=case.kw["pack_cb"],
-        k_opts=case.kw["k_opts"],
+        num_blocks=nb, pieces=None if tier else case.pieces, pair_k=pair_k,
+        decode=case.decode, pack_cb=False if tier else case.kw["pack_cb"],
+        k_opts=tier.k_opts if tier else case.kw["k_opts"], bytescan=tier,
     )
     bufs = superstep_buffers(4096, device=dev)
     t_cut = time_call(
@@ -487,7 +695,7 @@ def stage_breakdown(case, digest_set, pair_k) -> None:
     log(f"stage breakdown [{case.name}, {case.key}], one launch "
         f"({emit.shape[0]} candidate rows, {int(emit.sum())} emitted, "
         f"{digest_set.size} {case.algo} digests), CUDA events: whole step "
-        f"{t_step:.3f} ms = block cut {t_cut:.3f} ms + piece kernel "
+        f"{t_step:.3f} ms = block cut {t_cut:.3f} ms + kernel "
         f"{t_kernel:.3f} ms + membership {t_member:.3f} ms + hit "
         f"compaction and the rest {rest:.3f} ms")
 
@@ -622,7 +830,9 @@ class MainPath:
         ct = compile_table(sub)
         self.prep = {}
         t = time.monotonic()
-        if spec.mode == "default":
+        if spec.mode == "default" or layout == "german":
+            # One option per key (german) or default mode: a candidate's
+            # sources are the words its characters map back to.
             inverse: dict = {}
             for key, vals in sub.items():
                 for v in vals:
@@ -654,6 +864,9 @@ class MainPath:
                 + time.monotonic() - t
             self.windowed |= bool(plan.windowed)
             self.want_emitted += keyspace(plan, spec)
+            if layout == "german":
+                check_overlap_counts(plan, spec, packed, sub,
+                                     f"main path [{name}] bucket {width}")
             fallback = np.asarray(plan.fallback, bool)
             closed = getattr(plan, "closed", None)
             closed = (np.zeros_like(fallback) if closed is None
@@ -729,22 +942,37 @@ class MainPath:
                 fail(f"main path [{name}]: {self.planted_by_route.get(r, 0)}"
                      f" plants in {r} words, want {n}")
 
-    def run(self, arm, extra, card) -> dict:
-        from hashcat_a5_table_generator_tpu_torch.ops import fused_expand
+    def run(self, arm, extra, card, emit_scheme=None) -> dict:
+        """One CLI run; ``emit_scheme`` sets ``A5GEN_EMIT`` for this run
+        alone (``bytescan``: every plan on the byte-scan tiers)."""
+        from hashcat_a5_table_generator_tpu_torch.ops import (
+            bytescan, fused_expand,
+        )
         from hashcat_a5_table_generator_tpu_torch.utils.digests import (
             HOST_DIGEST,
         )
 
-        for k in fused_expand.LAUNCHES:
-            fused_expand.LAUNCHES[k] = 0
-        fused_expand.PLAIN_CALLS = 0
+        mods = (fused_expand, bytescan)
+        for mod in mods:
+            for k in mod.LAUNCHES:
+                mod.LAUNCHES[k] = 0
+            mod.PLAIN_CALLS = 0
         argv = [self.wordlist, "-t", self.table, "--backend", "device",
                 "--algo", self.algo, "--digests", self.digests] + extra
+        saved = os.environ.pop("A5GEN_EMIT", None)
+        if emit_scheme is not None:
+            os.environ["A5GEN_EMIT"] = emit_scheme
         t = time.monotonic()
-        out, err, rc = run_cli(argv)
+        try:
+            out, err, rc = run_cli(argv)
+        finally:
+            os.environ.pop("A5GEN_EMIT", None)
+            if saved is not None:
+                os.environ["A5GEN_EMIT"] = saved
         wall = time.monotonic() - t
-        launches = {k: v for k, v in fused_expand.LAUNCHES.items() if v}
-        plain = fused_expand.PLAIN_CALLS
+        launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()
+                    if v}
+        plain = sum(mod.PLAIN_CALLS for mod in mods)
         what = f"{self.name} ({arm})"
         if rc != 0:
             fail(f"main path {what} exited {rc}: {err}")
@@ -791,7 +1019,33 @@ class MainPath:
             f"{s.group(2)} s), {s.group(3)} candidate-hashes/s on {card}")
         return dict(hits=sorted(got), launches=launches, emitted=emitted,
                     wall=wall, sweep_wall=float(s.group(1)),
-                    drive=float(s.group(2)), rate=float(s.group(3)))
+                    drive=float(s.group(2)), rate=float(s.group(3)),
+                    stdout=out)
+
+
+def ptxas_kernels(report: str) -> list:
+    """``(kernel, "R registers, S B stack, spill X/Y B, M B smem")`` per
+    entry of an ``-Xptxas -v`` report of ``bytescan_hash.cu``; the kernel
+    named by its template arguments (ROW, VAR, DECODE, CLOSED, HB)."""
+    out, name, frame = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            args = re.findall(r"L[ib](\d+)E", m.group(1))
+            name = f"bytescan_kernel<{','.join(args[1:])}>"
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            frame = (f"{m.group(1)} B stack, spill {m.group(2)}/"
+                     f"{m.group(3)} B")
+            continue
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and name:
+            out.append((name, f"{m.group(1)} registers, {frame}, "
+                              f"{m.group(2)} B smem"))
+            name = None
+    return out
 
 
 def expect_launched(run, keys, what) -> None:
@@ -835,15 +1089,20 @@ def main() -> None:
     # -- phase 2: build -----------------------------------------------------
     t = time.monotonic()
     libs = [f"piece_hash_{a}" for a in ALGOS]
-    reports = _native_build.build(libs)
-    log(f"built {len(libs)} libraries from csrc/piece_hash.cu in "
-        f"{time.monotonic() - t:.1f} s (nvcc "
-        f"{' '.join(_native_build.NVCC_FLAGS)} -DPIECE_ALGO=n, in parallel)")
+    bs_libs = [f"bytescan_hash_{a}" for a in ALGOS]
+    reports = _native_build.build(libs + bs_libs)
+    log(f"built {len(libs + bs_libs)} libraries from csrc/piece_hash.cu and "
+        f"csrc/bytescan_hash.cu in {time.monotonic() - t:.1f} s (nvcc "
+        f"{' '.join(_native_build.NVCC_FLAGS)} -DPIECE_ALGO=n, all in "
+        f"parallel)")
     for lib in libs:
         for line in reports[lib].splitlines():
             if re.search(r"Compiling entry|registers|spill|stack frame|smem",
                          line):
                 print(f"  ptxas [{lib}]: {line.strip()}")
+    for lib in bs_libs:
+        for kernel, info in ptxas_kernels(reports[lib]):
+            print(f"  ptxas [{lib}]: {kernel}: {info}")
 
     cyr = get_layout("qwerty-cyrillic").to_substitution_map()
     czech = get_layout("czech").to_substitution_map()
@@ -973,6 +1232,122 @@ def main() -> None:
                  f"hash blocks, expected {want_key} with {want_hb}")
     checks = {key: compare(case) for key, case in cases.items()}
 
+    # Byte-scan kernels (TPU rows 7-9): every tier x hash at main-path
+    # shapes, on plans whose piece schema (if any) is left unused, as
+    # under A5GEN_EMIT=bytescan.  (tier label, hash) -> (workload, words,
+    # table, max_substitute, mode, (row, decode, variant)).
+    german = get_layout("german").to_substitution_map()
+    collide = {b"s": [b"Z"], b"ss": ["\u00df".encode()]}
+    gwords = german_words(CASE_WORDS, seed=31)
+    # Count-windowed at -x 2: 14-15 bytes, 8-11 umlaut letters and "sss".
+    gwin = [w[:4] + b"sss" + w[4:] for w in long_words(
+        CASE_WORDS, 11, 12, (8, 11), seed=32, filler=b"bcdfghklm",
+        alphabet=b"aou")]
+    bs_timed = {}
+    for algo in ALGOS:
+        for label, spec in {
+            "scalar-single": ("cyr", head, cyr, 15, "default"),
+            "scalar-single-win": ("cyr-x2", tail, cyr, 2, "default"),
+            "scalar-bitmask": ("german", gwords, german, 15, "default"),
+            "scalar-bitmask-win": ("german-x2", gwin, german, 2, "default"),
+            "scalar-suball": ("cyr", head, cyr, 15, "suball"),
+            "scalar-suball-win": ("cyr-x2", tail, cyr, 2, "suball"),
+            "match-radix2": ("collide", gwords, collide, 15, "default"),
+            "match-digits": ("czech", mid, czech, 15, "default"),
+            "match-win": ("czech-x2", czech_tail, czech, 2, "default"),
+            "suball-digits": ("czech", mid, czech, 15, "suball"),
+            "suball-win": ("czech-x2", czech_tail, czech, 2, "suball"),
+            "suball-closed": ("azerty", az_words, azerty, 15, "suball"),
+            "suball-closed-win": ("azerty-x2", az_x2, azerty, 2, "suball"),
+        }.items():
+            bs_timed[(label, algo)] = spec
+    bs_tiers = {
+        "scalar-single": ("scalar", "scalar", "single"),
+        "scalar-single-win": ("scalar", "windowed", "single"),
+        "scalar-bitmask": ("scalar", "scalar", "bitmask"),
+        "scalar-bitmask-win": ("scalar", "windowed", "bitmask"),
+        "scalar-suball": ("scalar", "scalar", "suball"),
+        "scalar-suball-win": ("scalar", "windowed", "suball"),
+        "match-radix2": ("match", "radix2", ""),
+        "match-digits": ("match", "digits", ""),
+        "match-win": ("match", "windowed", ""),
+        "suball-digits": ("suball", "digits", ""),
+        "suball-win": ("suball", "windowed", ""),
+        "suball-closed": ("suball", "digits", ""),
+        "suball-closed-win": ("suball", "windowed", ""),
+    }
+    bs_cases = {}
+    for (label, algo), (wl, words, sub, mx, mode) in bs_timed.items():
+        bs_cases[(label, algo)] = BSCase(
+            f"{wl} x {algo} {mode}", wl, words, sub, algo=algo, mx=mx,
+            mode=mode, width=16 if wl == "czech" and mode == "default"
+            else None, device=dev)
+    # 2 and 3 hash blocks: the piece cases' long workloads, and german's
+    # "sss" among 4-byte values.
+    wide_german = {**german, b"x": [b"\xf0\x9f\x98\x80"]}
+    gl2 = [w[:6] + b"sss" + w[9:] for w in long_words(
+        4000, 40, 48, (4, 4), seed=33, filler=b"bcdefghijklnpr",
+        alphabet=b"x")]
+    gl3 = [w[:6] + b"sss" + w[9:] for w in long_words(
+        4000, 52, 60, (19, 19), seed=34, filler=b"bcdefghijklnpr",
+        alphabet=b"x")]
+    bs_multi = {
+        ("scalar-bitmask-2", "md5"): ("german-long2", gl2, wide_german,
+                                      "default", 2),
+        ("scalar-bitmask-3", "sha1"): ("german-long3", gl3, wide_german,
+                                       "default", 3),
+        ("scalar-suball-2", "md5"): ("long64", long64, cyr, "suball", 2),
+        ("scalar-suball-3", "sha1"): ("wide64", wide_words(200, seed=3),
+                                      wide_table(cyr), "suball", 3),
+        ("match-digits-2", "ntlm"): (
+            "czech24", [w * 2 + w[:4] for w in mid[:8000]], czech,
+            "default", 2),
+        ("match-digits-3", "ntlm"): ("czech-long", long_words(
+            4000, 50, 64, (12, 12), seed=4, filler=CZECH_FILLER,
+            alphabet=CZECH_KEYS), czech, "default", 3),
+        ("suball-closed-2", "ntlm"): (
+            "azerty24", [b"aq" + w * 2 + w[:4] for w in mid[:8000]], azerty,
+            "suball", 2),
+        ("suball-closed-3", "ntlm"): ("azerty-long", az_long, azerty,
+                                      "suball", 3),
+    }
+    for (label, algo), (wl, words, sub, mode, hb) in bs_multi.items():
+        bs_cases[(label, algo)] = BSCase(
+            f"{wl} x {algo} {mode}", wl, words, sub, algo=algo, mode=mode,
+            lanes=LANES >> (2 if hb == 2 else 3), device=dev)
+    def tier_of(label):
+        """The tier label and hash-block count of a byte-scan case."""
+        m = re.fullmatch(r"(.*)-([23])", label)
+        return (m.group(1), int(m.group(2))) if m else (label, None)
+
+    for (label, algo), case in bs_cases.items():
+        want = bs_tiers[tier_of(label)[0]]
+        got = (case.tier.row, case.tier.decode, case.tier.variant)
+        want_hb = tier_of(label)[1]
+        if got != want or (want_hb and case.hash_blocks != want_hb):
+            fail(f"{case.name}: byte-scan tier {got} with "
+                 f"{case.hash_blocks} hash blocks, expected {want}"
+                 f"{f' with {want_hb}' if want_hb else ''}")
+    bs_checks = {key: compare(case) for key, case in bs_cases.items()}
+    # One german plan, two tiers: words with "ss" but no "sss" have a
+    # piece schema (the piece kernel by default) and take row 7 under
+    # A5GEN_EMIT=bytescan; both kernels on the same blocks.
+    g_no_sss = [w for w in gwords if b"sss" not in w]
+    tier_pair = {algo: (
+        Case(f"german-ss x {algo}", "german-ss", g_no_sss, german,
+             algo=algo, device=dev),
+        BSCase(f"german-ss x {algo}", "german-ss", g_no_sss, german,
+               algo=algo, device=dev)) for algo in ("md5", "ntlm")}
+    tier_emitted = {}
+    for algo, (pc, bc) in tier_pair.items():
+        if pc.key != f"piece_k1/{algo}" or bc.tier.variant != "bitmask":
+            fail(f"german-ss x {algo}: runs {pc.key} / {bc.key} "
+                 f"{bc.variant}, expected piece_k1 / bytescan bitmask")
+        want = compare(pc)["emit"]
+        if not bool((compare(bc)["emit"] == want).all()):
+            fail(f"german-ss x {algo}: the tiers emit different rows")
+        tier_emitted[algo] = int(want.sum())
+
     # -- phase 4: the main path at full width -------------------------------
     work = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -995,10 +1370,21 @@ def main() -> None:
     words = dictionary(N_WORDS_DEFAULT, seed=0)
     words_1m = dictionary(N_WORDS, seed=0)
     czech_1m = dictionary(N_WORDS, seed=11, long_lines=False)
-    azerty_1m = dictionary(N_WORDS - 2000, seed=21, long_lines=False)
+    # qwerty-azerty -s: 250k words (1M cost most of the script's time in
+    # host prep), with the same 2000 seeded hazard lines.
+    azerty_words = dictionary(N_WORDS_DEFAULT - 2000, seed=21,
+                              long_lines=False)
     rng = np.random.default_rng(22)
     for w in dict.fromkeys(azerty_lines(2000, seed=23)):
-        azerty_1m.insert(int(rng.integers(0, len(azerty_1m))), w)
+        azerty_words.insert(int(rng.integers(0, len(azerty_words))), w)
+    # german x MD5: the bench recipe with ss (~5%) and sss (~1%), unique,
+    # plus the 120 long lines (bucket 64, no "sss": the piece kernel).
+    german_1m = list(dict.fromkeys(german_words(N_WORDS + 1000, seed=41)))
+    german_1m = german_1m[: N_WORDS - 120]
+    rng = np.random.default_rng(4)
+    for w in long_words(100, 33, 64, (4, 10), seed=5) + \
+            long_words(20, 50, 64, (3, 8), seed=6):
+        german_1m.insert(int(rng.integers(0, len(german_1m))), w)
     paths = {
         "cyrillic-md5": MainPath("cyrillic-md5", work, words,
                                  "qwerty-cyrillic", "md5", {}, seed=10),
@@ -1016,7 +1402,7 @@ def main() -> None:
                                    "qwerty-cyrillic", "md5",
                                    {"mode": "suball"}, seed=24),
         "azerty-md5-s": MainPath(
-            "azerty-md5-s", work, azerty_1m, "qwerty-azerty", "md5",
+            "azerty-md5-s", work, azerty_words, "qwerty-azerty", "md5",
             {"mode": "suball"}, seed=25,
             quota={"device_closed": 120, "oracle_fallback": 60}),
         "cyrillic-sha1-s-x2": MainPath(
@@ -1028,6 +1414,14 @@ def main() -> None:
         "cyrillic-md5-r": MainPath("cyrillic-md5-r", work, words_1m,
                                    "qwerty-cyrillic", "md5",
                                    {"mode": "reverse"}, seed=28),
+        "german-md5": MainPath("german-md5", work, german_1m, "german",
+                               "md5", {}, seed=42),
+        "german-r-ntlm": MainPath(
+            "german-r-ntlm", work, german_1m[:N_WORDS_DEFAULT], "german",
+            "ntlm", {"mode": "reverse"}, seed=43),
+        "cyrillic-sha1-s": MainPath("cyrillic-sha1-s", work, words,
+                                    "qwerty-cyrillic", "sha1",
+                                    {"mode": "suball"}, seed=44),
     }
     az = paths["azerty-md5-s"].routing
     if az["device_closed"] < 100 or az["oracle_fallback"] < 100:
@@ -1059,8 +1453,28 @@ def main() -> None:
         ("cyrillic-sha1-s-x2", "-s -x 2", ["-s", "-x", "2"]),
         ("czech-ntlm-s-r", "-s -r", ["-s", "-r"]),
         ("cyrillic-md5-r", "-r, pair auto", ["-r"]),
+        ("german-md5", "german", []),
+        ("german-r-ntlm", "-r", ["-r"]),
+        ("cyrillic-sha1-s", "-s", ["-s"]),
     ):
         runs[(name, arm)] = paths[name].run(arm, extra, card)
+    # A5GEN_EMIT=bytescan (this run alone): every plan on the byte-scan
+    # tiers; stdout byte-identical to the per-slot run of the same input.
+    for name, arm, extra, twin in (
+        ("czech-ntlm", "bytescan", [], "pair auto"),
+        ("cyrillic-md5-x2", "bytescan -x 2", ["-x", "2"], "-x 2"),
+        ("azerty-md5-s", "bytescan -s", ["-s"], "-s"),
+        ("cyrillic-sha1-s", "bytescan -s", ["-s"], "-s"),
+    ):
+        run = paths[name].run(arm, extra, card, emit_scheme="bytescan")
+        runs[(name, arm)] = run
+        if run["stdout"] != runs[(name, twin)]["stdout"]:
+            fail(f"{name} ({arm}): stdout differs from the per-slot run")
+        pieces = [k for k in run["launches"] if k.startswith("piece_")]
+        if pieces:
+            fail(f"{name} ({arm}): launched piece kernels {pieces}")
+        log(f"main path {name} ({arm}): stdout byte-identical to the "
+            f"per-slot run ({len(run['stdout'])} bytes)")
     for name in ("cyrillic-md5", "greek-hebrew-sha1"):
         if runs[(name, "pair auto")]["hits"] != runs[(name, "pair off")][
                 "hits"]:
@@ -1088,6 +1502,21 @@ def main() -> None:
                     ["piece_suball_k1/ntlm"], "czech-ntlm-s-r")
     expect_launched(runs[("cyrillic-md5-r", "-r, pair auto")],
                     ["piece_pair/md5"], "cyrillic-md5-r")
+    expect_launched(runs[("german-md5", "german")],
+                    ["bytescan_scalar/md5", "piece_k1/md5"],
+                    "german-md5 (bucket 16: row 7; bucket 64: piece)")
+    expect_launched(runs[("german-r-ntlm", "-r")], ["bytescan_scalar/ntlm"],
+                    "german-r-ntlm")
+    expect_launched(runs[("cyrillic-sha1-s", "-s")],
+                    ["piece_suball_k1/sha1"], "cyrillic-sha1-s")
+    expect_launched(runs[("czech-ntlm", "bytescan")],
+                    ["bytescan_match/ntlm"], "bytescan-czech-ntlm")
+    expect_launched(runs[("cyrillic-md5-x2", "bytescan -x 2")],
+                    ["bytescan_scalar/md5"], "bytescan-cyrillic-x2")
+    expect_launched(runs[("azerty-md5-s", "bytescan -s")],
+                    ["bytescan_suball/md5"], "bytescan-azerty-s")
+    expect_launched(runs[("cyrillic-sha1-s", "bytescan -s")],
+                    ["bytescan_scalar/sha1"], "bytescan-cyrillic-s-sha1")
     main_launches: dict = {}
     for run in runs.values():
         for k, v in run["launches"].items():
@@ -1149,6 +1578,80 @@ def main() -> None:
                     paths["greek-hebrew-sha1"].digest_set, 2)
     stage_breakdown(cases[("suball_closed", "md5")],
                     paths["azerty-md5-s"].digest_set, None)
+    # The byte-scan kernels: every tier x hash timed; the kernels line
+    # lists one entry per kernel x hash (bytescan_<row>/<algo>, the
+    # LAUNCHES key) with the main path's workload as its representative
+    # and every other tier of that kernel under "variants".
+    bs_times = {}
+    for (label, algo), case in bs_cases.items():
+        if (label, algo) in bs_multi:
+            continue
+        ms = time_call(case.kernel, 20)
+        plain_ms = time_call(case.plain, 2)
+        emit = bs_checks[(label, algo)]["emit"]
+        bound_ms, bound_by = case.bound(emit, peak_ops)
+        rows = int(emit.shape[0])
+        bs_times[(label, algo)] = dict(
+            workload=case.name, variant=case.variant,
+            hash_blocks=case.hash_blocks, ms=ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by,
+            mismatches=bs_checks[(label, algo)]["mismatches"],
+            max_abs_err=bs_checks[(label, algo)]["max_abs_err"])
+        log(f"{case.key} {case.variant} [{case.name}, {case.hash_blocks} "
+            f"hash block(s) compiled]: {ms:.4f} ms/launch over {rows} "
+            f"candidate rows ({int(emit.sum()) / ms * 1e3:.4g} emitted/s); "
+            f"bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{100 * bound_ms / ms:.0f}% of it reached); plain "
+            f"{plain_ms:.3f} ms")
+    representative = {"scalar": "scalar-bitmask", "match": "match-digits",
+                      "suball": "suball-closed"}
+    bs_replaces = {"scalar": f"{PALLAS}:619 _make_scalar_kernel",
+                   "match": f"{PALLAS}:1758 _make_kernel",
+                   "suball": f"{PALLAS}:2214 _make_suball_kernel"}
+    for algo in ALGOS:
+        for row, label in representative.items():
+            t = bs_times[(label, algo)]
+            key = f"bytescan_{row}/{algo}"
+            kernels.append({
+                "name": key,
+                "route": "cuda",
+                "source": BYTESCAN_SOURCE,
+                "replaces": bs_replaces[row],
+                "wrapper": (f"{PALLAS}:2502-2603 fused_expand_suball_md5"
+                            if row == "suball" or label.startswith(
+                                "scalar-suball")
+                            else f"{PALLAS}:2117-2211 fused_expand_md5"),
+                "workload": t["workload"],
+                "variant": t["variant"],
+                "hash_blocks": t["hash_blocks"],
+                "launches": main_launches.get(key, 0),
+                "main_path": key in main_launches,
+                "mismatches": t["mismatches"],
+                "variants": {lb: {k: v for k, v in tv.items()}
+                             for (lb, a), tv in bs_times.items()
+                             if a == algo and lb != label
+                             and bs_tiers[lb][0] == row},
+                "other_cases_mismatches": {
+                    f"{lb}/{a}": bs_checks[(lb, a)]["mismatches"]
+                    for (lb, a) in bs_multi
+                    if a == algo and bs_tiers[tier_of(lb)[0]][0] == row},
+                "max_abs_err": t["max_abs_err"],
+                "ms": t["ms"],
+                "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"],
+                "library_ms": None,
+            })
+    stage_breakdown(bs_cases[("scalar-bitmask", "md5")],
+                    paths["german-md5"].digest_set, None)
+    for algo, (pc, bc) in tier_pair.items():
+        # In turns (piece, row 7, row 7, piece) within this call.
+        t = [time_call(c.kernel, 20) for c in (pc, bc, bc, pc)]
+        log(f"german-ss x {algo}, one plan on both tiers "
+            f"({tier_emitted[algo]} emitted of {LANES} rows): {pc.key} "
+            f"{t[0]:.4f} / {t[3]:.4f} "
+            f"ms, {bc.key} bitmask {t[1]:.4f} / {t[2]:.4f} ms per launch "
+            f"(row 7 / piece: {(t[1] + t[2]) / (t[0] + t[3]):.2f}x)")
     shutil.rmtree(work, ignore_errors=True)
     elapsed = time.monotonic() - T0
     log(f"done in {elapsed:.1f} s")

@@ -7,10 +7,12 @@ Same flags and output as the reference CLI for what this package runs::
         [--device cuda|cpu]
 
 Default, reverse (``-r``), substitute-all (``-s``) and substitute-all
-reverse (``-s -r``) mode, one GPU, every hash the reference's piece kernel
-takes: hits print to stdout as ``digest:plain`` potfile lines,
-bucket-major in the order found; the summary (with the substitute-all
-word routing) goes to stderr.  ``--device`` defaults to
+reverse (``-s -r``) mode, one GPU, every hash the reference's Pallas
+kernels take, on the piece kernel or (plans without a piece schema, or
+``A5GEN_EMIT=bytescan``) the byte-scan kernels: hits print to stdout as
+``digest:plain`` potfile lines, bucket-major in the order found; the
+summary (with the substitute-all word routing and the kernel tiers) goes
+to stderr.  ``--device`` defaults to
 ``cuda`` and never falls back to the CPU on its own.
 
 Every other surface of the reference CLI is recognized and refused with
@@ -323,6 +325,17 @@ def _print_routing(res) -> None:
     )
 
 
+def _print_kernels(res) -> None:
+    """Kernel-tier summary (stderr): launches per tier, e.g. ``piece_k1``
+    or the byte-scan tiers ``bytescan_scalar`` / ``bytescan_match`` /
+    ``bytescan_suball`` (TPU kernel rows 7-9)."""
+    if not res.kernels:
+        return
+    print(f"{PROG}: kernels: " + ", ".join(
+        f"{k} {v} launches" for k, v in sorted(res.kernels.items())),
+        file=sys.stderr)
+
+
 def _run_device(args, sub_map, packed) -> int:
     """``packed`` is a PackedWords batch or a ``{width: PackedWords}``
     bucket dict."""
@@ -347,6 +360,7 @@ def _run_device(args, sub_map, packed) -> int:
     print(f"{res.n_hits} hits, {res.n_emitted} candidates hashed",
           file=sys.stderr)
     _print_routing(res)
+    _print_kernels(res)
     _print_superstep(res)
     rate = res.n_emitted / res.drive_s if res.drive_s > 0 else 0.0
     print(f"{PROG}: sweep: {res.wall_s:.3f} s wall, {res.drive_s:.3f} s "

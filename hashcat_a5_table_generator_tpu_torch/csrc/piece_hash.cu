@@ -30,10 +30,10 @@
 // chosen closed slot's variant is 1 + its joint index over its own digit
 // and up to three later successor slots' digits, addressing pre-cascaded
 // value rows;
-// and, per hash, `_md5_rounds`, `_md4_rounds` (:1129), `_sha1_rounds`
-// (:1162), the NTLM code-unit split of `split_pieces` (:1601-1629), the
-// length words of `_length_words` (:949) and the per-lane padding-block
-// select of `_compress_message` (:1231).  The pair tier (pair=True,
+// and, per hash, the NTLM code-unit split of `split_pieces`
+// (:1601-1629); the rounds, the decodes, the length words and the
+// per-lane padding-block select come from hash_common.cuh, shared with
+// the byte-scan kernels (bytescan_hash.cu).  The pair tier (pair=True,
 // :1401-1460, :1571-1579) runs the scalar or the digit decode with one
 // hash block.
 //
@@ -99,25 +99,14 @@
 // Types: torch tensors are int32; the kernel reinterprets them as
 // uint32_t.  `gw16` and `gl` arrive widened to int32.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#define ALGO_MD5 0
-#define ALGO_MD4 1
-#define ALGO_SHA1 2
-#define ALGO_NTLM 3
+#include "hash_common.cuh"
 
 #define KIND_MATCH 0
 #define KIND_SUBALL 1
 
-#define DECODE_SCALAR 0
-#define DECODE_DIGITS 1
-#define DECODE_WINDOWED 2
-
 #define DESC_WIDTH 16
 #define MAX_GROUPS 256
 #define MAX_SEL 4
-#define MAX_SLOTS 24
 
 // Group descriptor fields (int32, DESC_WIDTH per group; built by
 // ops/fused_expand.py::group_descriptors — keep the two in step).
@@ -182,273 +171,9 @@ __device__ __forceinline__ SelRows sel_rows(const LaunchArgs& a, int w) {
     return r;
 }
 
-__device__ __forceinline__ uint32_t rotl32(uint32_t x, int s) {
-    return __funnelshift_l(x, x, s);
-}
-
-__device__ __forceinline__ uint32_t bswap32(uint32_t x) {
-    return ((x & 0xFFu) << 24) | ((x & 0xFF00u) << 8)
-        | ((x >> 8) & 0xFF00u) | (x >> 24);
-}
-
-// ---------------------------------------------------------------------------
-// Compressions
-// ---------------------------------------------------------------------------
-
-#define MD5_F(x, y, z) ((z) ^ ((x) & ((y) ^ (z))))
-#define MD5_G(x, y, z) ((y) ^ ((z) & ((x) ^ (y))))
-#define MD5_H(x, y, z) ((x) ^ (y) ^ (z))
-#define MD5_I(x, y, z) ((y) ^ ((x) | ~(z)))
-#define MD5_STEP(f, a, b, x, t, s) (a) = (b) + rotl32((a) + (f) + (x) + (t), (s))
-
-__device__ __forceinline__ void md5_compress(uint32_t* st,
-                                             const uint32_t* m) {
-    uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
-    MD5_STEP(MD5_F(b, c, d), a, b, m[ 0], 0xd76aa478u,  7);
-    MD5_STEP(MD5_F(a, b, c), d, a, m[ 1], 0xe8c7b756u, 12);
-    MD5_STEP(MD5_F(d, a, b), c, d, m[ 2], 0x242070dbu, 17);
-    MD5_STEP(MD5_F(c, d, a), b, c, m[ 3], 0xc1bdceeeu, 22);
-    MD5_STEP(MD5_F(b, c, d), a, b, m[ 4], 0xf57c0fafu,  7);
-    MD5_STEP(MD5_F(a, b, c), d, a, m[ 5], 0x4787c62au, 12);
-    MD5_STEP(MD5_F(d, a, b), c, d, m[ 6], 0xa8304613u, 17);
-    MD5_STEP(MD5_F(c, d, a), b, c, m[ 7], 0xfd469501u, 22);
-    MD5_STEP(MD5_F(b, c, d), a, b, m[ 8], 0x698098d8u,  7);
-    MD5_STEP(MD5_F(a, b, c), d, a, m[ 9], 0x8b44f7afu, 12);
-    MD5_STEP(MD5_F(d, a, b), c, d, m[10], 0xffff5bb1u, 17);
-    MD5_STEP(MD5_F(c, d, a), b, c, m[11], 0x895cd7beu, 22);
-    MD5_STEP(MD5_F(b, c, d), a, b, m[12], 0x6b901122u,  7);
-    MD5_STEP(MD5_F(a, b, c), d, a, m[13], 0xfd987193u, 12);
-    MD5_STEP(MD5_F(d, a, b), c, d, m[14], 0xa679438eu, 17);
-    MD5_STEP(MD5_F(c, d, a), b, c, m[15], 0x49b40821u, 22);
-    MD5_STEP(MD5_G(b, c, d), a, b, m[ 1], 0xf61e2562u,  5);
-    MD5_STEP(MD5_G(a, b, c), d, a, m[ 6], 0xc040b340u,  9);
-    MD5_STEP(MD5_G(d, a, b), c, d, m[11], 0x265e5a51u, 14);
-    MD5_STEP(MD5_G(c, d, a), b, c, m[ 0], 0xe9b6c7aau, 20);
-    MD5_STEP(MD5_G(b, c, d), a, b, m[ 5], 0xd62f105du,  5);
-    MD5_STEP(MD5_G(a, b, c), d, a, m[10], 0x02441453u,  9);
-    MD5_STEP(MD5_G(d, a, b), c, d, m[15], 0xd8a1e681u, 14);
-    MD5_STEP(MD5_G(c, d, a), b, c, m[ 4], 0xe7d3fbc8u, 20);
-    MD5_STEP(MD5_G(b, c, d), a, b, m[ 9], 0x21e1cde6u,  5);
-    MD5_STEP(MD5_G(a, b, c), d, a, m[14], 0xc33707d6u,  9);
-    MD5_STEP(MD5_G(d, a, b), c, d, m[ 3], 0xf4d50d87u, 14);
-    MD5_STEP(MD5_G(c, d, a), b, c, m[ 8], 0x455a14edu, 20);
-    MD5_STEP(MD5_G(b, c, d), a, b, m[13], 0xa9e3e905u,  5);
-    MD5_STEP(MD5_G(a, b, c), d, a, m[ 2], 0xfcefa3f8u,  9);
-    MD5_STEP(MD5_G(d, a, b), c, d, m[ 7], 0x676f02d9u, 14);
-    MD5_STEP(MD5_G(c, d, a), b, c, m[12], 0x8d2a4c8au, 20);
-    MD5_STEP(MD5_H(b, c, d), a, b, m[ 5], 0xfffa3942u,  4);
-    MD5_STEP(MD5_H(a, b, c), d, a, m[ 8], 0x8771f681u, 11);
-    MD5_STEP(MD5_H(d, a, b), c, d, m[11], 0x6d9d6122u, 16);
-    MD5_STEP(MD5_H(c, d, a), b, c, m[14], 0xfde5380cu, 23);
-    MD5_STEP(MD5_H(b, c, d), a, b, m[ 1], 0xa4beea44u,  4);
-    MD5_STEP(MD5_H(a, b, c), d, a, m[ 4], 0x4bdecfa9u, 11);
-    MD5_STEP(MD5_H(d, a, b), c, d, m[ 7], 0xf6bb4b60u, 16);
-    MD5_STEP(MD5_H(c, d, a), b, c, m[10], 0xbebfbc70u, 23);
-    MD5_STEP(MD5_H(b, c, d), a, b, m[13], 0x289b7ec6u,  4);
-    MD5_STEP(MD5_H(a, b, c), d, a, m[ 0], 0xeaa127fau, 11);
-    MD5_STEP(MD5_H(d, a, b), c, d, m[ 3], 0xd4ef3085u, 16);
-    MD5_STEP(MD5_H(c, d, a), b, c, m[ 6], 0x04881d05u, 23);
-    MD5_STEP(MD5_H(b, c, d), a, b, m[ 9], 0xd9d4d039u,  4);
-    MD5_STEP(MD5_H(a, b, c), d, a, m[12], 0xe6db99e5u, 11);
-    MD5_STEP(MD5_H(d, a, b), c, d, m[15], 0x1fa27cf8u, 16);
-    MD5_STEP(MD5_H(c, d, a), b, c, m[ 2], 0xc4ac5665u, 23);
-    MD5_STEP(MD5_I(b, c, d), a, b, m[ 0], 0xf4292244u,  6);
-    MD5_STEP(MD5_I(a, b, c), d, a, m[ 7], 0x432aff97u, 10);
-    MD5_STEP(MD5_I(d, a, b), c, d, m[14], 0xab9423a7u, 15);
-    MD5_STEP(MD5_I(c, d, a), b, c, m[ 5], 0xfc93a039u, 21);
-    MD5_STEP(MD5_I(b, c, d), a, b, m[12], 0x655b59c3u,  6);
-    MD5_STEP(MD5_I(a, b, c), d, a, m[ 3], 0x8f0ccc92u, 10);
-    MD5_STEP(MD5_I(d, a, b), c, d, m[10], 0xffeff47du, 15);
-    MD5_STEP(MD5_I(c, d, a), b, c, m[ 1], 0x85845dd1u, 21);
-    MD5_STEP(MD5_I(b, c, d), a, b, m[ 8], 0x6fa87e4fu,  6);
-    MD5_STEP(MD5_I(a, b, c), d, a, m[15], 0xfe2ce6e0u, 10);
-    MD5_STEP(MD5_I(d, a, b), c, d, m[ 6], 0xa3014314u, 15);
-    MD5_STEP(MD5_I(c, d, a), b, c, m[13], 0x4e0811a1u, 21);
-    MD5_STEP(MD5_I(b, c, d), a, b, m[ 4], 0xf7537e82u,  6);
-    MD5_STEP(MD5_I(a, b, c), d, a, m[11], 0xbd3af235u, 10);
-    MD5_STEP(MD5_I(d, a, b), c, d, m[ 2], 0x2ad7d2bbu, 15);
-    MD5_STEP(MD5_I(c, d, a), b, c, m[ 9], 0xeb86d391u, 21);
-    st[0] += a;
-    st[1] += b;
-    st[2] += c;
-    st[3] += d;
-}
-
-// MD4 (RFC 1320), the NTLM core: three rounds of 16 steps; each step
-// rotates the (a, b, c, d) roles as `_md4_rounds` does.
-#define MD4_STEP(f, k, add, s)                                  \
-    {                                                           \
-        const uint32_t t_ = rotl32(a + (f) + m[k] + (add), s);  \
-        a = d;                                                  \
-        d = c;                                                  \
-        c = b;                                                  \
-        b = t_;                                                 \
-    }
-#define MD4_F (d ^ (b & (c ^ d)))
-#define MD4_G ((b & (c | d)) | (c & d))
-#define MD4_H (b ^ c ^ d)
-
-__device__ __forceinline__ void md4_compress(uint32_t* st,
-                                             const uint32_t* m) {
-    uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
-    MD4_STEP(MD4_F, 0, 0u, 3) MD4_STEP(MD4_F, 1, 0u, 7)
-    MD4_STEP(MD4_F, 2, 0u, 11) MD4_STEP(MD4_F, 3, 0u, 19)
-    MD4_STEP(MD4_F, 4, 0u, 3) MD4_STEP(MD4_F, 5, 0u, 7)
-    MD4_STEP(MD4_F, 6, 0u, 11) MD4_STEP(MD4_F, 7, 0u, 19)
-    MD4_STEP(MD4_F, 8, 0u, 3) MD4_STEP(MD4_F, 9, 0u, 7)
-    MD4_STEP(MD4_F, 10, 0u, 11) MD4_STEP(MD4_F, 11, 0u, 19)
-    MD4_STEP(MD4_F, 12, 0u, 3) MD4_STEP(MD4_F, 13, 0u, 7)
-    MD4_STEP(MD4_F, 14, 0u, 11) MD4_STEP(MD4_F, 15, 0u, 19)
-    MD4_STEP(MD4_G, 0, 0x5A827999u, 3) MD4_STEP(MD4_G, 4, 0x5A827999u, 5)
-    MD4_STEP(MD4_G, 8, 0x5A827999u, 9) MD4_STEP(MD4_G, 12, 0x5A827999u, 13)
-    MD4_STEP(MD4_G, 1, 0x5A827999u, 3) MD4_STEP(MD4_G, 5, 0x5A827999u, 5)
-    MD4_STEP(MD4_G, 9, 0x5A827999u, 9) MD4_STEP(MD4_G, 13, 0x5A827999u, 13)
-    MD4_STEP(MD4_G, 2, 0x5A827999u, 3) MD4_STEP(MD4_G, 6, 0x5A827999u, 5)
-    MD4_STEP(MD4_G, 10, 0x5A827999u, 9) MD4_STEP(MD4_G, 14, 0x5A827999u, 13)
-    MD4_STEP(MD4_G, 3, 0x5A827999u, 3) MD4_STEP(MD4_G, 7, 0x5A827999u, 5)
-    MD4_STEP(MD4_G, 11, 0x5A827999u, 9) MD4_STEP(MD4_G, 15, 0x5A827999u, 13)
-    MD4_STEP(MD4_H, 0, 0x6ED9EBA1u, 3) MD4_STEP(MD4_H, 8, 0x6ED9EBA1u, 9)
-    MD4_STEP(MD4_H, 4, 0x6ED9EBA1u, 11) MD4_STEP(MD4_H, 12, 0x6ED9EBA1u, 15)
-    MD4_STEP(MD4_H, 2, 0x6ED9EBA1u, 3) MD4_STEP(MD4_H, 10, 0x6ED9EBA1u, 9)
-    MD4_STEP(MD4_H, 6, 0x6ED9EBA1u, 11) MD4_STEP(MD4_H, 14, 0x6ED9EBA1u, 15)
-    MD4_STEP(MD4_H, 1, 0x6ED9EBA1u, 3) MD4_STEP(MD4_H, 9, 0x6ED9EBA1u, 9)
-    MD4_STEP(MD4_H, 5, 0x6ED9EBA1u, 11) MD4_STEP(MD4_H, 13, 0x6ED9EBA1u, 15)
-    MD4_STEP(MD4_H, 3, 0x6ED9EBA1u, 3) MD4_STEP(MD4_H, 11, 0x6ED9EBA1u, 9)
-    MD4_STEP(MD4_H, 7, 0x6ED9EBA1u, 11) MD4_STEP(MD4_H, 15, 0x6ED9EBA1u, 15)
-    st[0] += a;
-    st[1] += b;
-    st[2] += c;
-    st[3] += d;
-}
-
-// SHA-1 (RFC 3174) over the shared little-endian message layout: each
-// word is byte-swapped into the big-endian schedule, expanded in a rolling
-// 16-word window (`_sha1_rounds`).
-__device__ __forceinline__ void sha1_compress(uint32_t* st,
-                                              const uint32_t* m) {
-    uint32_t w[16];
-#pragma unroll
-    for (int t = 0; t < 16; ++t) w[t] = bswap32(m[t]);
-    uint32_t a = st[0], b = st[1], c = st[2], d = st[3], e = st[4];
-#pragma unroll
-    for (int t = 0; t < 80; ++t) {
-        if (t >= 16) {
-            w[t & 15] = rotl32(w[(t - 3) & 15] ^ w[(t - 8) & 15]
-                               ^ w[(t - 14) & 15] ^ w[t & 15], 1);
-        }
-        uint32_t f, k;
-        if (t < 20) {
-            f = d ^ (b & (c ^ d));
-            k = 0x5A827999u;
-        } else if (t < 40) {
-            f = b ^ c ^ d;
-            k = 0x6ED9EBA1u;
-        } else if (t < 60) {
-            f = (b & (c | d)) | (c & d);
-            k = 0x8F1BBCDCu;
-        } else {
-            f = b ^ c ^ d;
-            k = 0xCA62C1D6u;
-        }
-        const uint32_t tmp = rotl32(a, 5) + f + e + k + w[t & 15];
-        e = d;
-        d = c;
-        c = rotl32(b, 30);
-        b = a;
-        a = tmp;
-    }
-    st[0] += a;
-    st[1] += b;
-    st[2] += c;
-    st[3] += d;
-    st[4] += e;
-}
-
-template <int ALGO>
-struct Hash {
-    static constexpr int WORDS = ALGO == ALGO_SHA1 ? 5 : 4;
-    static constexpr int SCALE = ALGO == ALGO_NTLM ? 2 : 1;
-};
-
-template <int ALGO>
-__device__ __forceinline__ void compress(uint32_t* st, const uint32_t* m) {
-    if (ALGO == ALGO_MD5) {
-        md5_compress(st, m);
-    } else if (ALGO == ALGO_SHA1) {
-        sha1_compress(st, m);
-    } else {
-        md4_compress(st, m);
-    }
-}
-
-// ---------------------------------------------------------------------------
-// Decode
-// ---------------------------------------------------------------------------
-
-// Mixed-radix digits of `r` added to the block's base digits with carry
-// (slot 0 least significant); exact integer division — in-block ranks are
-// below the block stride.
-__device__ __forceinline__ void decode_digits(int* dg, int r,
-                                              const int32_t* base,
-                                              const int32_t* radix, int m) {
-    int carry = 0;
-    for (int s = 0; s < m; ++s) {
-        const int rs = radix[s];
-        const int q = r / rs;
-        const int t = base[s] + (r - q * rs) + carry;
-        const int ge = t >= rs ? 1 : 0;
-        dg[s] = t - ge * rs;
-        carry = ge;
-        r = q;
-    }
-}
-
-// The windowed rank `big_r` unranked through the suffix-count DP rows
-// `v[(M+1) * K2]` of its word: per slot, "skip" covers v[s+1][j]
-// completions and each option v[s+1][j+1]; the option quotient comes from
-// a (k_opts - 1)-step subtractive chain (digits run 1..radix-1 <= k_opts).
-// Digits are clipped to radix - 1 (lanes past the block's count decode
-// garbage; emit masks them).  big_r stays below 2^30 + stride.
-__device__ __forceinline__ void decode_windowed(int* dg, int big_r,
-                                                const int32_t* v,
-                                                const int32_t* radix, int m,
-                                                int k2, int k_opts) {
-    int jcnt = 0;
-    for (int s = 0; s < m; ++s) {
-        const int32_t* row = v + (s + 1) * k2;
-        const int vn0 = jcnt < k2 ? row[jcnt] : 0;
-        const int vn1 = jcnt + 1 < k2 ? row[jcnt + 1] : 0;
-        const bool not_chosen = big_r < vn0;
-        const int r2 = big_r - vn0;
-        const int safe = vn1 > 1 ? vn1 : 1;
-        int q = 0;
-        int rr = r2;
-        for (int i = 0; i < k_opts - 1; ++i) {
-            const int ge = rr >= safe ? 1 : 0;
-            rr -= ge * safe;
-            q += ge;
-        }
-        const int d = not_chosen ? 0 : 1 + q;
-        big_r = not_chosen ? big_r : rr;
-        dg[s] = min(max(d, 0), radix[s] - 1);
-        jcnt += not_chosen ? 0 : 1;
-    }
-}
-
 // ---------------------------------------------------------------------------
 // Splice + hash
 // ---------------------------------------------------------------------------
-
-// OR one piece word into the message at byte offset `o`: a (lo, hi) pair
-// straddling words o/4 and o/4 + 1.  Words past the data area (the last
-// block's length words) are never written.
-template <int NW_DATA>
-__device__ __forceinline__ void place(uint32_t* m, int o, uint32_t wd) {
-    const int q = o >> 2;
-    const int sh = (o & 3) * 8;
-    if (q < NW_DATA) m[q] |= wd << sh;
-    if (sh != 0 && q + 1 < NW_DATA) m[q + 1] |= wd >> (32 - sh);
-}
 
 // The variant a digit-decoded column selects (0 = the span's own bytes):
 // match plans, its slot's digit; suball plans, the digit of the pattern
@@ -544,33 +269,6 @@ __device__ __forceinline__ int build_message(uint32_t* m, uint32_t cb,
     return off - 1;
 }
 
-// Length words + chained compressions up to the lane's own padding block.
-// `end` is the message length in bytes (NTLM: twice the candidate's).
-template <int ALGO, int HB>
-__device__ __forceinline__ void hash_message(uint32_t* m, int end,
-                                             uint32_t* st) {
-    const uint32_t bits = (uint32_t)end * 8u;
-#pragma unroll
-    for (int k = 0; k < HB; ++k) {
-        if (k + 1 == HB || end <= 64 * (k + 1) - 9) {
-            if (ALGO == ALGO_SHA1) {
-                m[16 * k + 15] |= bswap32(bits);
-            } else {
-                m[16 * k + 14] |= bits;
-            }
-        }
-    }
-    st[0] = 0x67452301u;
-    st[1] = 0xefcdab89u;
-    st[2] = 0x98badcfeu;
-    st[3] = 0x10325476u;
-    if (ALGO == ALGO_SHA1) st[Hash<ALGO>::WORDS - 1] = 0xc3d2e1f0u;
-#pragma unroll
-    for (int k = 0; k < HB; ++k) {
-        compress<ALGO>(st, m + 16 * k);
-        if (end <= 64 * (k + 1) - 9) break;
-    }
-}
 
 __device__ __forceinline__ void load_desc(int* sdesc, const int* desc,
                                           int ngroups) {
@@ -580,20 +278,6 @@ __device__ __forceinline__ void load_desc(int* sdesc, const int* desc,
     __syncthreads();
 }
 
-// One 16-byte store per 4-word state (the rows are 16-byte aligned);
-// SHA-1's 20-byte rows take five word stores.
-template <int ALGO>
-__device__ __forceinline__ void store_state(int32_t* state, long long row,
-                                            const uint32_t* st) {
-    constexpr int W = Hash<ALGO>::WORDS;
-    if (W == 4) {
-        reinterpret_cast<int4*>(state)[row] =
-            make_int4((int)st[0], (int)st[1], (int)st[2], (int)st[3]);
-    } else {
-#pragma unroll
-        for (int i = 0; i < W; ++i) state[row * W + i] = (int32_t)st[i];
-    }
-}
 
 template <int ALGO, int HB>
 __device__ __forceinline__ void hash_lane(uint32_t* m, int len,

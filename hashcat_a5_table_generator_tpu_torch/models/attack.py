@@ -1,13 +1,15 @@
-"""The crack pipeline: on-device block cutting -> piece kernel (expand +
-hash) -> digest membership -> hit compaction.
+"""The crack pipeline: on-device block cutting -> piece or byte-scan kernel
+(expand + hash) -> digest membership -> hit compaction.
 
 The host compiles tables, plans (match plans for default and reverse mode,
-substitute-all plans for ``-s`` and ``-s -r``), the piece schema, the block
-index and the digest set once per sweep (numpy); :func:`device_arrays`
-ships them to the device as int32 tensors.  :func:`make_superstep_body`
-then runs ``steps`` fused launches per call with nothing crossing back to
-the host: each step cuts its blocks from the cumulative index, runs the
-piece kernel (``ops.fused_expand.fused_expand_md5``), tests membership
+substitute-all plans for ``-s`` and ``-s -r``), the piece schema (or, for
+a plan without one, the byte-scan tier's per-word fields), the block index
+and the digest set once per sweep (numpy); :func:`device_arrays` ships
+them to the device as tensors.  :func:`make_superstep_body` then runs
+``steps`` fused launches per call with nothing crossing back to the host:
+each step cuts its blocks from the cumulative index, runs the piece kernel
+(``ops.fused_expand.fused_expand_md5``) or the byte-scan kernel
+(``ops.bytescan.bytescan_expand``), tests membership
 (``ops.membership.digest_member``) and compacts hits into a capped
 ``(word, rank)`` buffer.  Only the stacked counters (and, on hit-bearing
 supersteps, the hit slice) are fetched; the candidate bytes of a hit are
@@ -22,6 +24,7 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
+from ..ops.bytescan import ByteScanTier, bytescan_expand, bytescan_host_tables
 from ..ops.expand_matches import MatchPlan, build_match_plan, unrank_windowed
 from ..ops.expand_suball import SubAllPlan, build_suball_plan
 from ..ops.fused_expand import (
@@ -112,7 +115,9 @@ def piece_tables(pieces, *, device) -> Tree:
     int32 tensors ``pw`` ``[B, NGW, VM, NW]`` (u32 bits kept), ``pw16``
     ``[B, NG16, VM]`` and ``pl`` ``[B, NGD, VM]`` (widened from u16/u8),
     each absent when the schema has none, plus the group descriptors
-    ``desc`` ``[NG, 16]``."""
+    ``desc`` ``[NG, 16]``.  Empty without a schema."""
+    if pieces is None:
+        return {}
     host = {"desc": group_descriptors(pieces)}
     for name, key in (("pw", "gw"), ("pw16", "gw16"), ("pl", "gl")):
         if getattr(pieces, key) is not None:
@@ -122,9 +127,14 @@ def piece_tables(pieces, *, device) -> Tree:
 
 
 def device_arrays(plan, pieces, digests: DigestSet, idx: tuple, *,
-                  device) -> Tree:
+                  device, ct: "CompiledTable | None" = None,
+                  bytescan: "ByteScanTier | None" = None) -> Tree:
     """Everything a sweep keeps on the device, shipped once: the piece
-    tables (:func:`piece_tables`); the block index (``cum`` ``[B+1]``,
+    tables (:func:`piece_tables`) or, for a plan without a piece schema,
+    the byte-scan tier ``bytescan``'s tables
+    (``ops.bytescan.bytescan_host_tables`` of ``plan`` and ``ct``: tokens
+    and per-byte fields uint8, the rest int32); the block index (``cum``
+    ``[B+1]``,
     ``totals`` ``[B]``, ``radix``/``weight`` ``[B, P]`` int32 — plus the
     mixed-radix ``place`` values ``[B, P]`` for full enumeration, or the
     windowed suffix counts ``win_v`` ``[B, P+1, K2]`` — and the block
@@ -158,6 +168,11 @@ def device_arrays(plan, pieces, digests: DigestSet, idx: tuple, *,
         k: torch.as_tensor(_i32(v), device=device) for k, v in host.items()
     }
     out.update(piece_tables(pieces, device=device))
+    if bytescan is not None:
+        for k, v in bytescan_host_tables(plan, ct, bytescan).items():
+            v = np.ascontiguousarray(v)
+            out[k] = torch.as_tensor(v if v.dtype == np.uint8 else _i32(v),
+                                     device=device)
     out["total"] = int(total_blocks)
     return out
 
@@ -211,6 +226,7 @@ def make_superstep_body(
     spec: AttackSpec, *, num_lanes: int, out_width: int, block_stride: int,
     num_blocks: int, pieces, pair_k: "int | None" = None,
     decode: str = "scalar", pack_cb: bool = False, k_opts: int = 1,
+    bytescan: "ByteScanTier | None" = None,
 ) -> Callable[..., Tree]:
     """The superstep executor: ``body(arrays, b0, steps, bufs) -> dict``
     runs ``steps`` fused launches starting at global block ``b0``, with no
@@ -219,7 +235,9 @@ def make_superstep_body(
     ``pack_cb``, ``k_opts``: ``ops.fused_expand.decode_for`` and
     ``k_vals_for``) — K=1, or the pair tier with ``pair_k`` = 2: blocks
     then span ``2 * block_stride`` candidate ranks on ``block_stride``
-    lanes — tests membership, and compacts hits in cursor order into ``bufs``
+    lanes — or, for a plan without a piece schema, the byte-scan kernel of
+    the tier ``bytescan`` (``ops.bytescan.bytescan_tier``; ``pieces`` None),
+    tests membership, and compacts hits in cursor order into ``bufs``
     (``hit_word``/``hit_rank`` int32 ``[hit_cap + 1]``).  Returns the
     buffers and ``counters`` int32 ``[2]`` = ``[n_emitted, n_hits]``
     (callers keep ``steps * num_lanes * pair_k`` below 2^31).  Hits past
@@ -227,12 +245,25 @@ def make_superstep_body(
     in ``n_hits`` and re-runs the superstep with a larger buffer."""
     rank_stride = block_stride * (pair_k or 1)
     num_cands = num_lanes * (pair_k or 1)
-    common = dict(
-        pieces=pieces, block_stride=block_stride, out_width=out_width,
-        min_substitute=spec.effective_min,
-        max_substitute=spec.max_substitute, pair=pair_k is not None,
-        algo=spec.algo, decode=decode, pack_cb=pack_cb, k_opts=k_opts,
-    )
+    window = dict(block_stride=block_stride, out_width=out_width,
+                  min_substitute=spec.effective_min,
+                  max_substitute=spec.max_substitute, algo=spec.algo)
+    if bytescan is not None:
+        if pieces is not None or pair_k is not None:
+            raise ValueError("the byte-scan tiers take plans without a "
+                             "piece schema, at K=1")
+        decode = "scalar" if bytescan.decode == "scalar" else (
+            "windowed" if bytescan.decode == "windowed" else "digits")
+
+        def expand(word, count, base, arrays):
+            return bytescan_expand(word, count, base, arrays, tier=bytescan,
+                                   **window)
+    else:
+        common = dict(pieces=pieces, pair=pair_k is not None, decode=decode,
+                      pack_cb=pack_cb, k_opts=k_opts, **window)
+
+        def expand(word, count, base, arrays):
+            return fused_expand_md5(word, count, base, arrays, **common)
 
     def body(arrays: Tree, b0: int, steps: int, bufs: Tree) -> Tree:
         hw, hr = bufs["hit_word"], bufs["hit_rank"]
@@ -248,8 +279,7 @@ def make_superstep_body(
             word, count, base, rank0 = cut_blocks(
                 arrays, b0 + s * num_blocks, num_blocks, rank_stride, decode
             )
-            state, emit = fused_expand_md5(word, count, base, arrays,
-                                           **common)
+            state, emit = expand(word, count, base, arrays)
             hit = digest_member(state, arrays["rows"], arrays["bitmap"])
             hit &= emit
             ne += emit.sum(dtype=torch.int32)

@@ -4,10 +4,12 @@ Each library compiles with one ``nvcc`` from one ``csrc/*.cu`` source
 into a shared library with a plain ``extern "C"`` interface, loaded
 through ``ctypes``: no PyTorch headers, so a build takes seconds.  One
 source may give several libraries (:data:`LIBRARIES`: the piece kernel
-builds once per hash, ``-DPIECE_ALGO=n``), and :func:`build` starts their
-compilers together.  Libraries land in ``build/torch_kernels/`` at the
-root of the checkout, keyed by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads straight away.
+and the byte-scan kernels build once per hash, ``-DPIECE_ALGO=n``), and
+:func:`build` starts their compilers together.  Libraries land in
+``build/torch_kernels/`` at the root of the checkout, keyed by a hash of
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and an unchanged one loads straight
+away.
 ``nvcc``'s ``-Xptxas -v`` report (registers, stack frame, spills, shared
 memory per kernel) is kept beside each library.
 
@@ -37,7 +39,8 @@ NVCC_FLAGS = (
 #: Library name -> (source stem in ``csrc/``, extra nvcc flags).  A name
 #: not listed builds ``csrc/<name>.cu`` with no extra flags.
 LIBRARIES: Dict[str, "tuple[str, tuple[str, ...]]"] = {
-    f"piece_hash_{algo}": ("piece_hash", (f"-DPIECE_ALGO={i}",))
+    f"{stem}_{algo}": (stem, (f"-DPIECE_ALGO={i}",))
+    for stem in ("piece_hash", "bytescan_hash")
     for i, algo in enumerate(("md5", "md4", "sha1", "ntlm"))
 }
 
@@ -66,8 +69,9 @@ def _flags(name: str) -> "tuple[str, ...]":
 
 def _target(name: str) -> "tuple[pathlib.Path, pathlib.Path, pathlib.Path]":
     src = CSRC / f"{LIBRARIES.get(name, (name, ()))[0]}.cu"
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(
-        src.read_bytes() + " ".join(_flags(name)).encode()
+        src.read_bytes() + headers + " ".join(_flags(name)).encode()
     ).hexdigest()[:16]
     return src, BUILD_DIR / f"lib{name}-{tag}.so", BUILD_DIR / f"{name}-{tag}.ptxas.txt"
 

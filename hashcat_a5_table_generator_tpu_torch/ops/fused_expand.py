@@ -151,9 +151,17 @@ def scalar_units_for(plan) -> "bool | str":
         return False
     if getattr(plan, "match_pos", None) is None:
         return True
-    mp = np.asarray(plan.match_pos)
-    act = np.asarray(plan.match_radix) > 1
-    if not np.where(act, np.asarray(plan.match_len) > 1, False).any():
+    return scalar_units_tier(plan.match_pos, plan.match_len,
+                             plan.match_radix)
+
+
+def scalar_units_tier(match_pos, match_len, match_radix) -> "bool | str":
+    """The unique-start verdict of :func:`scalar_units_for` from concrete
+    match arrays ``[B, M]`` (shared with the byte-scan tier's host re-check,
+    ``ops.bytescan.check_scalar_units_gate``)."""
+    mp = np.asarray(match_pos)
+    act = np.asarray(match_radix) > 1
+    if not np.where(act, np.asarray(match_len) > 1, False).any():
         return "single"
     m = mp.shape[1]
     # Inactive (padding) slots sit at distinct negative positions so they
@@ -252,17 +260,18 @@ def pair_for_config(spec, plan, pieces, *,
     return 2
 
 
-#: The reference routes what the piece kernel refuses to its XLA expand +
-#: hash path (ROADMAP port queue item 11) or to its byte-scan kernels.
+#: The reference routes what its Pallas kernels refuse to its XLA expand +
+#: hash path (ROADMAP port queue item 11).
 _XLA = "the XLA expand + hash path (ROADMAP item 11)"
 
 
 def kernel_refusal(spec, plan, ct, pieces) -> "str | None":
-    """Why the piece kernel cannot take this plan (None = it can).  The
-    first failing condition, in the order a reader would check them."""
-    if pieces is None:
-        return ("the plan has no per-slot piece schema (piece_schema_for): "
-                "the byte-scan tiers, TPU kernel rows 7-9")
+    """Why no kernel of this package can take this plan (None = one can):
+    the first failing condition, in the order a reader would check them.
+    A plan without a per-slot piece schema (``pieces`` None) goes to the
+    byte-scan tiers (``ops.bytescan``), which share the piece kernel's
+    static bounds; with a schema, the schema must also fit the piece
+    kernel's descriptors."""
     k = k_opts_for(plan)
     if k > _MAX_RAW_OPTIONS:
         return f"{k} options per key > {_MAX_RAW_OPTIONS}: {_XLA}"
@@ -279,6 +288,8 @@ def kernel_refusal(spec, plan, ct, pieces) -> "str | None":
                 f"{plan.num_slots} <= {_MAX_SLOTS}, token width "
                 f"{plan.tokens.shape[1]} <= {_MAX_TOKENS}, values <= 4 "
                 f"bytes, mode {spec.mode}, algo {spec.algo}): {_XLA}")
+    if pieces is None:
+        return None
     decode, pack = decode_for(plan)
     return _schema_refusal(pieces, bitfield=decode == "scalar" or pack)
 

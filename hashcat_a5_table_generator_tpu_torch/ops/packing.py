@@ -27,6 +27,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..runtime.env import emit_scheme
+
 #: Go bufio.Scanner default token limit (reference main.go Q8).
 DEFAULT_MAX_WORD_BYTES = 64 * 1024
 
@@ -800,7 +802,9 @@ def _suball_piece_cols(plan) -> tuple:
 
 def piece_schema_for(plan, ct) -> "PieceSchema | None":
     """The per-slot emission gate: a :class:`PieceSchema` when the plan's
-    static geometry supports piece emission, else None.
+    static geometry supports piece emission (and ``A5GEN_EMIT`` does not
+    opt out: ``runtime.env.emit_scheme``), else None — the plan then takes
+    the byte-scan tiers (``ops.bytescan``).
 
     The schema's tables are ``gw uint32 [B, NG, VM, NW]`` group variant
     words, ``gw16 uint16 [B, NG16, VM]`` narrow groups and ``gl uint8
@@ -809,6 +813,8 @@ def piece_schema_for(plan, ct) -> "PieceSchema | None":
     columns; a cascade-closed plan's value rows come from its own
     ``cval_bytes``/``cval_len``).  Cached on the plan object (plans are
     frozen, keyed by table identity)."""
+    if emit_scheme() != "perslot":
+        return None
     cache = getattr(plan, "_piece_schema_cache", None)
     if cache is not None and cache[0] is ct:
         return cache[1]

@@ -68,10 +68,13 @@ class BucketedSweep:
         hits = [h for r in results for h in r.hits]
         hits.sort(key=lambda h: (h.word_index, h.variant_rank))
         routing: Dict[str, int] = {}
+        kernels: Dict[str, int] = {}
         superstep: Dict[str, int] = {}
         for r in results:
             for k, v in r.routing.items():
                 routing[k] = routing.get(k, 0) + v
+            for k, v in r.kernels.items():
+                kernels[k] = kernels.get(k, 0) + v
             for k, v in r.superstep.items():
                 summed = k in ("supersteps", "launches", "replays")
                 superstep[k] = superstep.get(k, 0) + v if summed \
@@ -87,4 +90,5 @@ class BucketedSweep:
             drive_s=sum(r.drive_s for r in results),
             superstep=superstep,
             routing=routing,
+            kernels=kernels,
         )

@@ -1,0 +1,56 @@
+"""The ``A5GEN_*`` environment knobs this package reads: one read point.
+
+A copy of the reference package's ``runtime/env.py`` reduced to what the
+port honours: :func:`read_env` (the ``A5GEN_*`` accessor),
+:func:`env_warn_once` (one diagnostic per knob spelling per process) and
+:func:`emit_scheme` (``A5GEN_EMIT``: per-slot piece emission or the
+byte-scan tiers).  Standard library only.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+from typing import Optional
+
+
+def read_env(name: str, default: Optional[str] = None) -> Optional[str]:
+    """``os.environ.get`` restricted to the engine's knob namespace."""
+    if not name.startswith("A5GEN_"):
+        raise ValueError(
+            f"read_env is the A5GEN_* accessor; got {name!r} "
+            "(read other variables with os.environ directly)"
+        )
+    return os.environ.get(name, default)
+
+
+#: (name, value) pairs already warned about: accessors run per plan, and
+#: one typo must produce one diagnostic, not one per call.
+_WARNED: set = set()
+
+
+def env_warn_once(name: str, value: str, message: str) -> None:
+    """One knob diagnostic per (name, spelling) process-wide, on stderr."""
+    if (name, value) in _WARNED:
+        return
+    _WARNED.add((name, value))
+    print(f"a5gen: warning: {message}", file=sys.stderr)
+
+
+def emit_scheme() -> str:
+    """Message-emission scheme knob: ``A5GEN_EMIT`` selects the per-slot
+    piece emission (``perslot``, the default) or the per-byte unit scan
+    (``bytescan``, the A/B arm and escape hatch).  Unrecognized values
+    warn once and keep the default: a typo must not silently change the
+    kernels a sweep runs."""
+    val = read_env("A5GEN_EMIT")
+    if val is None or val in ("", "perslot"):
+        return "perslot"
+    if val == "bytescan":
+        return "bytescan"
+    env_warn_once(
+        "A5GEN_EMIT", val,
+        f"unrecognized A5GEN_EMIT={val!r} (want perslot|bytescan); "
+        "keeping the default (perslot)",
+    )
+    return "perslot"

@@ -1,6 +1,11 @@
 """The crack sweep: one wordlist × one merged table × one attack spec,
 driven through the device superstep loop.
 
+Each sweep's plan takes one kernel tier, by the reference's own gate: the
+per-slot piece kernel when ``packing.piece_schema_for`` gives a schema,
+else the byte-scan tier of ``ops.bytescan.bytescan_tier`` (TPU kernel rows
+7-9).  ``SweepResult.kernels`` names it with its launch count.
+
 The unit of work is a *variant block* — a contiguous rank range of one
 word's mixed-radix space — so the whole sweep is one linear cursor over a
 fixed-stride block index.  :meth:`Sweep.run_crack` ships the plan's tables
@@ -44,10 +49,12 @@ from ..models.attack import (
     superstep_buffers,
 )
 from ..ops.blocks import block_cursor, superstep_index
+from ..ops.bytescan import bytescan_tier
 from ..ops.fused_expand import (
     decode_for,
     k_vals_for,
     kernel_refusal,
+    launch_key,
     pair_for_config,
 )
 from ..ops.membership import HostDigestLookup, build_digest_set
@@ -122,6 +129,10 @@ class SweepResult:
     superstep: Dict[str, int] = field(default_factory=dict)
     #: word routing: device_clean / device_closed / oracle_fallback
     routing: Dict[str, int] = field(default_factory=dict)
+    #: launches by kernel tier: ``piece_<entry>`` (``piece_k1``,
+    #: ``piece_pair``, ``piece_suball_closed``, ...) or ``bytescan_<row>``
+    #: (``bytescan_scalar``, ``bytescan_match``, ``bytescan_suball``)
+    kernels: Dict[str, int] = field(default_factory=dict)
 
 
 class _Fetch:
@@ -192,22 +203,25 @@ class Sweep:
             "device_closed": n_closed,
             "oracle_fallback": len(self.fallback_rows),
         }
-        # Plans the piece kernel does not take are refused here, so a
-        # caller holding several sweeps (BucketedSweep) refuses before any
-        # of them launches.
+        # Plans no kernel takes are refused here, so a caller holding
+        # several sweeps (BucketedSweep) refuses before any of them
+        # launches.  A plan without a piece schema takes the byte-scan
+        # tier the reference's wrappers pick.
         self.config.resolve(self.device)
+        self.device_words = self.n_words > len(self.fallback_rows)
         self.pieces = None
+        self.bytescan = None
         # The schema is part of the run: SweepResult.wall_s counts it.
         self._schema_s = 0.0
-        if self.n_words > len(self.fallback_rows):
+        if self.device_words:
             t0 = time.monotonic()
             self.pieces = piece_schema_for(self.plan, self.ct)
             self._schema_s = time.monotonic() - t0
             why = kernel_refusal(spec, self.plan, self.ct, self.pieces)
             if why is not None:
-                raise NotImplementedError(
-                    f"piece kernel not ported for: {why}"
-                )
+                raise NotImplementedError(f"kernel not ported for: {why}")
+            if self.pieces is None:
+                self.bytescan = bytescan_tier(self.plan)
 
     def run_crack(self, recorder: Optional[HitRecorder] = None
                   ) -> SweepResult:
@@ -217,7 +231,7 @@ class Sweep:
         recorder = recorder if recorder is not None else HitRecorder()
         spec, plan, cfg, dev = self.spec, self.plan, self.config, self.device
         flush = _FallbackFlush(self, recorder)
-        if self.pieces is None:  # no word takes the device
+        if not self.device_words:  # no word takes the device
             flush.until(self.n_words)
             return SweepResult(
                 n_emitted=flush.n_emitted, n_hits=flush.n_hits,
@@ -248,15 +262,18 @@ class Sweep:
         steps = max(1, min(steps, ((1 << 31) - 1) // (lanes * (pair_k or 1))))
         arrays = device_arrays(
             plan, pieces, build_digest_set(self.digests, spec.algo), idx,
-            device=dev,
+            device=dev, ct=self.ct, bytescan=self.bytescan,
         )
         decode, pack_cb = decode_for(plan)
         body = make_superstep_body(
             spec, num_lanes=lanes, out_width=int(plan.out_width),
             block_stride=stride, num_blocks=nb, pieces=pieces,
             pair_k=pair_k, decode=decode, pack_cb=pack_cb,
-            k_opts=k_vals_for(plan),
+            k_opts=k_vals_for(plan), bytescan=self.bytescan,
         )
+        tier = (self.bytescan.name if self.bytescan is not None else
+                launch_key(spec.algo, pieces, decode,
+                           pair_k is not None).split("/")[0])
         t_drive = time.monotonic()
         stats, n_emitted, n_hits = self._drive(
             body, arrays, nb, steps, recorder, flush,
@@ -273,6 +290,7 @@ class Sweep:
             drive_s=drive_s,
             superstep=stats,
             routing=dict(self.routing),
+            kernels={tier: stats["launches"]},
         )
 
     def _drive(self, body, arrays, nb: int, steps: int, recorder, flush,

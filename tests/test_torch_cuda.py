@@ -10,9 +10,12 @@ GPU every test here skips.  Inputs come from seeds through the package's
 own host code; each kernel entry point, for every hash and decode tier,
 is held against its plain PyTorch version on the card (equal emit masks,
 equal state on every emitted row, tolerance 0) over match and
-substitute-all schemas (the suball selectors, the cascade closure), and
+substitute-all schemas (the suball selectors, the cascade closure), as is
+every byte-scan kernel (rows 7-9: the scalar-units variants, the match
+and substitute-all scans, closed and windowed, 1-3 hash blocks), and
 small sweeps on the GPU — default, reverse and substitute-all mode, with
-oracle-fallback words — must equal the same sweeps on the CPU.
+oracle-fallback words, german's ``ss`` words and ``A5GEN_EMIT=bytescan``
+— must equal the same sweeps on the CPU.
 """
 
 import hashlib
@@ -28,6 +31,7 @@ from hashcat_a5_table_generator_tpu_torch.models.attack import (
     decode_variant,
     device_arrays,
 )
+from hashcat_a5_table_generator_tpu_torch.ops import bytescan as bs
 from hashcat_a5_table_generator_tpu_torch.ops import fused_expand as fe
 from hashcat_a5_table_generator_tpu_torch.ops.blocks import superstep_index
 from hashcat_a5_table_generator_tpu_torch.ops.membership import (
@@ -344,3 +348,194 @@ def test_other_tiers_sweep_on_the_gpu_equals_the_cpu(table, algo, mx, cuda):
                   for h in r.hits] for r in results)
     assert got == want and len(got) >= len(digests)
     assert results[0].n_emitted == results[1].n_emitted
+
+
+# ---------------------------------------------------------------------------
+# The byte-scan kernels (TPU kernel rows 7-9)
+# ---------------------------------------------------------------------------
+
+GERMAN = get_layout("german").to_substitution_map()
+#: Keys colliding at one start: K=1 plans off the scalar tier (row 8).
+COLLIDE = {b"s": [b"Z"], b"ss": ["ß".encode()]}
+#: x -> a 4-byte value (no table here maps x): long lines past 2 blocks.
+WIDE = {b"x": [b"\xf0\x9f\x98\x80"]}
+
+
+def german_words(n, lo, hi, seed, sss_every=3):
+    """Lowercase words, every ``sss_every``-th holding "sss" (two
+    overlapping ``ss`` matches), the others ``ss`` or none."""
+    out = []
+    for i, w in enumerate(letter_words(n, lo, hi, seed)):
+        w = w.replace(b"s", b"t")
+        at = i % len(w)
+        piece = b"sss" if i % sss_every == 0 else (b"ss" if i % 2 else b"")
+        out.append(w[:at] + piece + w[at:])
+    return out
+
+
+class BSCase:
+    """A byte-scan launch: blocks cut on the card from a real plan's index
+    and the plan's byte-scan tier (as the gate picks it, or forced)."""
+
+    def __init__(self, sub, words, device, *, algo="md5", mx=15,
+                 mode="default", stride=128, nb=256, tier=None):
+        spec = AttackSpec(mode=mode, algo=algo, max_substitute=mx)
+        ct = compile_table(sub)
+        plan = build_plan(spec, ct, pack_words(words))
+        assert fe.opts_for_config(spec, plan, ct) is not None
+        self.plan, self.tier = plan, tier or bs.bytescan_tier(plan)
+        self.arrays = device_arrays(
+            plan, None, build_digest_set([], algo),
+            superstep_index(plan, stride), device=device, ct=ct,
+            bytescan=self.tier)
+        cut = {"scalar": "scalar", "windowed": "windowed"}.get(
+            self.tier.decode, "digits")
+        self.blocks = cut_blocks(self.arrays, 0, nb, stride, cut)[:3]
+        self.hash_blocks = fe._hash_blocks_for(plan.out_width,
+                                               2 if algo == "ntlm" else 1)
+        self.key = self.tier.launch_key(algo)
+        self.kw = dict(tier=self.tier, block_stride=stride,
+                       min_substitute=spec.effective_min, max_substitute=mx,
+                       algo=algo)
+
+    def check(self):
+        launches, plain = dict(bs.LAUNCHES), bs.PLAIN_CALLS
+        state, emit = bs.bytescan_expand(
+            *self.blocks, self.arrays, out_width=int(self.plan.out_width),
+            **self.kw)
+        assert bs.LAUNCHES[self.key] == launches[self.key] + 1
+        assert bs.PLAIN_CALLS == plain
+        want_state, want_emit = bs.bytescan_reference(
+            *self.blocks, self.arrays, hash_blocks=self.hash_blocks,
+            **self.kw)
+        torch.cuda.synchronize()
+        assert emit.any()
+        assert torch.equal(emit, want_emit)
+        assert torch.equal(state[emit], want_state[emit])
+
+
+def long_keyed(n, lo, hi, seed, pieces, wide, filler):
+    """Long lines of ``filler`` with each of ``pieces`` and ``wide`` x's."""
+    out = []
+    for w in keyed_words(n, lo, hi, seed, b"x", filler, wide):
+        for i, piece in enumerate(pieces):
+            at = (7 * i + seed) % (len(w) - len(piece))
+            w = w[:at] + piece + w[at + len(piece):]
+        out.append(w)
+    return out
+
+
+#: (tier label, hash) -> (table, words, mode, max_substitute, hash blocks,
+#: (row, decode, variant)).
+_BYTESCAN_CASES = {}
+for _algo in ("md5", "md4", "sha1", "ntlm"):
+    _BYTESCAN_CASES[("scalar-single", _algo)] = (
+        SUB, letter_words(300, 3, 8, 41), "default", 15, 1,
+        ("scalar", "scalar", "single"))
+    _BYTESCAN_CASES[("scalar-single-win", _algo)] = (
+        SUB, letter_words(300, 9, 11, 42), "default", 2, 1,
+        ("scalar", "windowed", "single"))
+    _BYTESCAN_CASES[("scalar-bitmask", _algo)] = (
+        GERMAN, german_words(300, 3, 8, 43), "default", 15, 1,
+        ("scalar", "scalar", "bitmask"))
+    _BYTESCAN_CASES[("scalar-bitmask-r", _algo)] = (
+        GERMAN, german_words(300, 3, 8, 44), "reverse", 15, 1,
+        ("scalar", "scalar", "bitmask"))
+    _BYTESCAN_CASES[("scalar-bitmask-win", _algo)] = (
+        GERMAN, [w + b"sss" for w in keyed_words(300, 8, 9, 45, b"aou",
+                                                 b"bcdfgh", 8)],
+        "default", 2, 1, ("scalar", "windowed", "bitmask"))
+    _BYTESCAN_CASES[("scalar-suball", _algo)] = (
+        SUB, letter_words(300, 3, 8, 46), "suball", 15, 1,
+        ("scalar", "scalar", "suball"))
+    _BYTESCAN_CASES[("scalar-suball-win", _algo)] = (
+        SUB, keyed_words(300, 11, 12, 47, b"qwertyuiopasdf", b"0123456789",
+                         10), "suball", 2, 1, ("scalar", "windowed", "suball"))
+    _BYTESCAN_CASES[("match-radix2", _algo)] = (
+        COLLIDE, keyed_words(300, 3, 9, 48, b"s", b"abcde", 4), "default",
+        15, 1, ("match", "radix2", ""))
+    _BYTESCAN_CASES[("match-digits", _algo)] = (
+        CZECH, letter_words(300, 3, 8, 49), "default", 15, 1,
+        ("match", "digits", ""))
+    _BYTESCAN_CASES[("match-win", _algo)] = (
+        CZECH, czech_long_words(300, 10, 11, 9, 50), "default", 2, 1,
+        ("match", "windowed", ""))
+    _BYTESCAN_CASES[("suball-digits", _algo)] = (
+        CZECH, letter_words(300, 3, 8, 51), "suball", 15, 1,
+        ("suball", "digits", ""))
+    _BYTESCAN_CASES[("suball-win", _algo)] = (
+        CZECH, czech_long_words(300, 10, 11, 9, 52), "suball", 2, 1,
+        ("suball", "windowed", ""))
+    _BYTESCAN_CASES[("suball-closed", _algo)] = (
+        AZERTY, [b"aq" + w for w in keyed_words(300, 2, 8, 53, b"aqzwAQm",
+                                                AZ_FILL, 2)] + [b"AQq"],
+        "suball", 15, 1, ("suball", "digits", ""))
+    _BYTESCAN_CASES[("suball-closed-win", _algo)] = (
+        AZERTY, [b"aq134567" + w for w in keyed_words(300, 1, 3, 54, b"zwm",
+                                                      AZ_FILL, 1)],
+        "suball", 2, 1, ("suball", "windowed", ""))
+_BYTESCAN_CASES[("scalar-bitmask-2", "md5")] = (
+    {**GERMAN, **WIDE}, long_keyed(100, 40, 48, 55, (b"sss", b"a"), 4,
+                                   b"bcdefghijklnpr"), "default", 15, 2,
+    ("scalar", "scalar", "bitmask"))
+_BYTESCAN_CASES[("scalar-bitmask-3", "sha1")] = (
+    {**GERMAN, **WIDE}, long_keyed(100, 52, 60, 56, (b"sss", b"a"), 19,
+                                   b"bcdefghijklnpr"), "default", 15, 3,
+    ("scalar", "scalar", "bitmask"))
+_BYTESCAN_CASES[("match-digits-3", "ntlm")] = (
+    {**CZECH, **WIDE}, long_keyed(100, 40, 44, 57, (b"ue", b"e"), 6,
+                                  b"bfghjklmpqvw"), "default", 15, 3,
+    ("match", "digits", ""))
+_BYTESCAN_CASES[("suball-closed-2", "ntlm")] = (
+    {**AZERTY, **WIDE}, long_keyed(100, 24, 28, 58, (b"aq", b"zw"), 0,
+                                   b"bcdefghijklnpr"), "suball", 15, 2,
+    ("suball", "digits", ""))
+
+
+@pytest.mark.parametrize("label,algo", sorted(_BYTESCAN_CASES),
+                         ids=[f"{t}-{a}" for t, a in sorted(_BYTESCAN_CASES)])
+def test_every_bytescan_kernel_matches_plain_version(label, algo, cuda):
+    sub, words, mode, mx, blocks, tier = _BYTESCAN_CASES[(label, algo)]
+    c = BSCase(sub, words, cuda, algo=algo, mx=mx, mode=mode)
+    assert (c.tier.row, c.tier.decode, c.tier.variant) == tier
+    assert c.hash_blocks == blocks or (blocks == 1 and algo == "ntlm")
+    c.check()
+
+
+def test_forced_suball_radix2_kernel_matches_plain_version(cuda):
+    c = BSCase(SUB, letter_words(300, 3, 8, 59), cuda, mode="suball",
+               tier=bs.ByteScanTier("suball", "radix2"))
+    c.check()
+
+
+@pytest.mark.parametrize("table,mode,algo,env", [
+    ("german", "default", "md5", ""),
+    ("german", "reverse", "ntlm", ""),
+    ("czech", "default", "ntlm", "bytescan"),
+    ("qwerty-azerty", "suball", "md5", "bytescan"),
+    ("qwerty-cyrillic", "suball-reverse", "sha1", "bytescan"),
+])
+def test_bytescan_sweeps_on_the_gpu_equal_the_cpu(table, mode, algo, env,
+                                                  cuda, monkeypatch):
+    monkeypatch.setenv("A5GEN_EMIT", env)
+    sub = get_layout(table).to_substitution_map()
+    words = (german_words(200, 3, 8, 60) if table == "german"
+             else letter_words(200, 2, 8, 61))
+    words[5:5] = [b"m,;", b"aqua", b"AQq", b"am,;q"]
+    spec = AttackSpec(mode=mode, algo=algo)
+    cfg = dict(lanes=4096, num_blocks=32)
+    probe = Sweep(spec, sub, words, [], SweepConfig(device="cpu", **cfg))
+    assert probe.pieces is None and probe.bytescan is not None
+    digests = [HOST_DIGEST[algo](decode_variant(
+        probe.plan, probe.ct, spec, row, probe.plan.n_variants[row] // 2))
+        for row in range(0, len(words), 5)
+        if probe.plan.n_variants[row] >= 2 and not probe.plan.fallback[row]]
+    results = [Sweep(spec, sub, words, digests,
+                     SweepConfig(device=dev, **cfg)).run_crack()
+               for dev in ("cuda", "cpu")]
+    got, want = ([(h.word_index, h.variant_rank, h.candidate)
+                  for h in r.hits] for r in results)
+    assert got == want
+    assert results[0].n_emitted == results[1].n_emitted
+    assert results[0].routing == results[1].routing
+    assert results[0].kernels == results[1].kernels

@@ -14,6 +14,7 @@ a GPU.
 
 import hashlib
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -479,13 +480,23 @@ using std::min;
 """
 
 
+def cuda_source(path):
+    """A CUDA source with its local headers (``#include "x.cuh"``) inlined:
+    the host build compiles one file from a temporary directory."""
+    out = []
+    for line in path.read_text().splitlines(keepends=True):
+        inc = re.match(r'#include "([^"]+)"', line)
+        out.append(cuda_source(path.parent / inc.group(1)) if inc else line)
+    return "".join(out)
+
+
 def build_host_harness(out_dir):
     """The CUDA source's device code compiled for the host, one binary per
     hash (``harness_<algo>``, the four g++ started together): CUDA
     keywords and intrinsics stubbed, each launch a loop over lanes, every
     (kind, decode, hash-block, closure) instantiation of the hash in its
     binary.  Returns ``out_dir``."""
-    src = CSRC.read_text()
+    src = cuda_source(CSRC)
     body = src[src.index("#define ALGO_MD5"):
                src.index("// ---- host launch wrappers ----")]
     (out_dir / "harness.cpp").write_text(_HARNESS_STUB + body + _HARNESS_MAIN)

@@ -229,10 +229,11 @@ def test_read_packed_buckets_matches_reference(tmp_path):
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_kernel_gates_equal_reference(layout):
-    """The piece-kernel gates on every layout x hash x window: the option
-    count, the pair tier, the decode tier, and whether the plan takes the
-    kernel at all (the reference sends it there iff its gate passes at a
-    TPU-legal geometry and the plan has a piece schema)."""
+    """The kernel gates on every layout x hash x window: the option
+    count, the pair tier, the decode tier, and whether the plan takes a
+    kernel at all (the reference runs one of its Pallas kernels iff its
+    gate passes at a TPU-legal geometry: the piece kernel when the plan
+    has a piece schema, a byte-scan kernel otherwise)."""
     sub = get_layout(layout).to_substitution_map()
     words = synth_words(sub, seed=40 + LAYOUTS.index(layout))
     jct, tct = j_compile.compile_table(sub), t_compile.compile_table(sub)
@@ -257,7 +258,8 @@ def test_kernel_gates_equal_reference(layout):
                 "scalar" if scalar else "digits", False)
             assert t_fe.decode_for(tplan) == want
             took = t_fe.kernel_refusal(tspec, tplan, tct, ts) is None
-            assert took == (jk is not None and js is not None)
+            assert took == (jk is not None)
+            assert (ts is None) == (js is None)
 
 
 @pytest.mark.parametrize("kw", [
