@@ -9,9 +9,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 
 1. the card: ``nvidia-smi`` name and power limit, the torch device name,
    the SM clock the INT32 peak rests on;
-2. build every CUDA library from ``csrc/`` (``nvcc``, sm_90a; the piece
-   kernel once per hash, all compilers started together) and print the
-   ``-Xptxas -v`` register / stack / spill / shared-memory lines;
+2. build every CUDA library from ``csrc/`` (``nvcc``, sm_90a; the piece,
+   byte-scan and buffer-hash kernels once per hash, all twelve compilers
+   started together) and print the ``-Xptxas -v`` register / stack /
+   spill / shared-memory lines;
 3. every kernel entry point x hash against its plain PyTorch version on
    the card, at the main path's shapes (2^22 lanes, stride 128): over
    match plans the scalar K=1 and pair tiers, the digit decode (czech,
@@ -20,8 +21,21 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    plans (``-s``) the scalar, digit, cascade-closed (qwerty-azerty and
    azerty-qwerty, joint tables up to 12 rows), windowed (cb packing and
    digits, open and closed) and pair selectors; plus batches that need 2
-   and 3 hash blocks (MD5, NTLM, SHA-1); emit masks equal and state equal
-   on every emitted lane, tolerance 0 (integer arithmetic);
+   and 3 hash blocks (MD5, NTLM, SHA-1); the byte-scan kernels (TPU rows
+   7-9) in every tier x hash, with 2- and 3-block batches, and both tiers
+   on one german plan; emit masks equal and state equal on every emitted
+   lane, tolerance 0 (integer arithmetic); the buffer hash (TPU row 10
+   and its siblings: ``buffer_hash`` x 4 hashes x 1, 2, 3 and 5 blocks,
+   each at an odd width (byte loads) and a multiple of 4 (4-byte loads),
+   and the main path's width 376, at 2^22 rows) equal to its plain
+   version on every row and, for MD5, to ``hashlib`` on a sample; the XLA
+   route's torch expansion on the card equal to the same call on the CPU
+   for one plan per splice kind; one XLA-route launch per splice kind (a
+   pair plan, a substitute-all plan over long lines and the main path's
+   plans among them), crack and candidates bodies, at the lanes the sweep
+   picks, holding no more device memory than the stated budget
+   (``torch.cuda.max_memory_allocated``), its bytes per row beside the
+   sweep's estimate;
 4. the main path through the CLI at full width, each run with 1M digests
    of its hash (1000 planted hits + decoys): the default-mode runs at
    250k dictionary words (qwerty-cyrillic x MD5 with the pair tier auto
@@ -34,11 +48,27 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    printed hit re-hashing to its digest, ``candidates hashed`` equal to
    the host keyspace (oracle-fallback candidates included), the word
    routing equal to the host plan's, the expected kernels' launch
-   counters above 0 and the plain version never run;
+   counters above 0 and the plain version never run; german x MD5 and
+   german x NTLM ``-r`` (byte-scan row 7), qwerty-cyrillic x SHA-1 ``-s``,
+   and four ``A5GEN_EMIT=bytescan`` twins whose stdout must equal the
+   per-slot run's; on the XLA expand + hash route: qwerty-cyrillic x MD5
+   ``-x 2`` at 1M words plus 2000 lines of 65-200 bytes and 1000 lines
+   of 25-40 letters (cyrillic-x2-long), 5e4 words x a nine-option table
+   with a 5-byte value, SHA-1 (leet9-sha1), four ``A5GEN_PALLAS=off``
+   twins (czech-ntlm, greek-hebrew-sha1, german-md5, azerty-s) whose
+   stdout must equal the kernel route's, and candidates mode
+   (qwerty-cyrillic, 2e4 words, ``--output``: line count = the host
+   keyspace, the first 2000 words byte-identical to a ``--device cpu``
+   run, per word the oracle's multiset on 200 sampled words; qwerty-azerty
+   ``-s`` with oracle-fallback words interleaved); every run on the XLA
+   route within the memory budget over the whole run;
 5. each entry point x hash timed with CUDA events at main-path shapes
    beside its bound and its plain version's time; stage breakdowns of one
    launch (membership against the 1M-digest sets), a closed substitute-all
-   launch among them, and the masked-row share of the czech run.
+   launch among them, and the masked-row share of the czech run; the
+   byte-scan kernels likewise, and the two tiers on one german plan; the
+   buffer hash per hash x shape beside its bound, and one XLA-route
+   launch's stages (block cut, expansion, hash, membership, the rest).
 
 The last three lines of standard output: the card's name and power limit,
 one ``{"kernels": [...]}`` JSON object, and the ``{"ok": true, ...}``
@@ -87,7 +117,14 @@ DIGEST_BYTES = {"md5": 16, "md4": 16, "ntlm": 16, "sha1": 20}
 KERNEL_SOURCE = "hashcat_a5_table_generator_tpu_torch/csrc/piece_hash.cu"
 BYTESCAN_SOURCE = ("hashcat_a5_table_generator_tpu_torch/csrc/"
                    "bytescan_hash.cu")
+BUFFER_SOURCE = "hashcat_a5_table_generator_tpu_torch/csrc/buffer_hash.cu"
 PALLAS = "hashcat_a5_table_generator_tpu/ops/pallas_expand.py"
+PALLAS_MD5 = "hashcat_a5_table_generator_tpu/ops/pallas_md5.py"
+#: Nine options on ``a`` (one of them 5 bytes): past the fused kernels'
+#: 8 options per key and 4-byte values, so every bucket takes the XLA
+#: route.  No value is a letter or one of the recipe's digits (1-3).
+LEET9 = {b"a": [b"4", b"@", b"^", b"&", b"*", b"!", b"%", b"#", b"/-\\-/"],
+         b"s": [b"$", b"5"], b"e": [b"9"]}
 #: The branch of the TPU body (``_make_piece_kernel`` :1303) each entry
 #: point replaces, and each hash's rounds.
 BRANCHES = {
@@ -412,11 +449,12 @@ class Case:
         self.plan, self.ct, self.pieces = plan_for(
             (workload, mode, mx), sub, words, self.spec, width)
         ct = self.ct
-        why = fused_expand.kernel_refusal(self.spec, self.plan, ct,
-                                          self.pieces)
-        if why or self.pieces is None:
-            fail(f"{name}: the piece kernel refuses the plan: "
-                 f"{why or 'no piece schema'}")
+        if fused_expand.opts_for(self.spec, self.plan, ct) is None:
+            fail(f"{name}: the plan takes the XLA route")
+        why = (fused_expand.schema_refusal(self.plan, self.pieces)
+               if self.pieces is not None else "no piece schema")
+        if why:
+            fail(f"{name}: the piece kernel refuses the plan: {why}")
         self.decode, pack_cb = fused_expand.decode_for(self.plan)
         self.key = fused_expand.launch_key(algo, self.pieces, self.decode,
                                            pair)
@@ -534,9 +572,8 @@ class BSCase:
         self.spec = AttackSpec(mode=mode, algo=algo, max_substitute=mx)
         self.plan, self.ct, _pieces = plan_for(
             (workload, mode, mx), sub, words, self.spec, width)
-        why = fused_expand.kernel_refusal(self.spec, self.plan, self.ct, None)
-        if why:
-            fail(f"{name}: the byte-scan tiers refuse the plan: {why}")
+        if fused_expand.opts_for(self.spec, self.plan, self.ct) is None:
+            fail(f"{name}: the plan takes the XLA route")
         self.tier = bytescan.bytescan_tier(self.plan)
         self.key = self.tier.launch_key(algo)
         self.decode = {"scalar": "scalar", "windowed": "windowed"}.get(
@@ -723,6 +760,22 @@ def run_cli(argv) -> "tuple[bytes, str, int]":
     return out.getvalue(), err.getvalue(), rc
 
 
+@contextlib.contextmanager
+def knobs(**env):
+    """``A5GEN_*`` variables set (or, given None, unset) for one block."""
+    saved = {k: os.environ.pop(k, None) for k in env}
+    try:
+        for k, v in env.items():
+            if v is not None:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
 def unique_sources(cand: bytes, inverse: dict, words: set) -> int:
     """How many dictionary words can splice to ``cand``: every value
     character of the table stands for one of its keys (no dictionary word
@@ -819,9 +872,18 @@ class MainPath:
         )
 
         self.name, self.algo = name, algo
-        self.table = os.path.join(work, f"{layout}.table")
-        emit_table(get_layout(layout), self.table)
-        sub = get_layout(layout).to_substitution_map()
+        if isinstance(layout, dict):
+            # A table of its own, written in $HEX[] notation.
+            sub = layout
+            self.table = os.path.join(work, f"{name}.table")
+            with open(self.table, "wb") as fh:
+                fh.write(b"".join(k + b"=$HEX[" + v.hex().encode() + b"]\n"
+                                  for k, vs in sub.items() for v in vs))
+            layout = name
+        else:
+            self.table = os.path.join(work, f"{layout}.table")
+            emit_table(get_layout(layout), self.table)
+            sub = get_layout(layout).to_substitution_map()
         self.wordlist = os.path.join(work, f"{name}.words.txt")
         with open(self.wordlist, "wb") as fh:
             fh.write(b"\n".join(words) + b"\n")
@@ -942,34 +1004,35 @@ class MainPath:
                 fail(f"main path [{name}]: {self.planted_by_route.get(r, 0)}"
                      f" plants in {r} words, want {n}")
 
-    def run(self, arm, extra, card, emit_scheme=None) -> dict:
+    def run(self, arm, extra, card, emit_scheme=None, pallas=None) -> dict:
         """One CLI run; ``emit_scheme`` sets ``A5GEN_EMIT`` for this run
-        alone (``bytescan``: every plan on the byte-scan tiers)."""
+        alone (``bytescan``: every plan on the byte-scan tiers), ``pallas``
+        ``A5GEN_PALLAS`` (``off``: every bucket on the XLA route).  A run
+        with XLA-route buckets must stay within the route's memory budget
+        over the whole run (its resident tables included)."""
         from hashcat_a5_table_generator_tpu_torch.ops import (
-            bytescan, fused_expand,
+            buffer_hash, bytescan, fused_expand,
+        )
+        from hashcat_a5_table_generator_tpu_torch.runtime.sweep import (
+            XLA_BUDGET_BYTES,
         )
         from hashcat_a5_table_generator_tpu_torch.utils.digests import (
             HOST_DIGEST,
         )
 
-        mods = (fused_expand, bytescan)
+        mods = (fused_expand, bytescan, buffer_hash)
         for mod in mods:
             for k in mod.LAUNCHES:
                 mod.LAUNCHES[k] = 0
             mod.PLAIN_CALLS = 0
         argv = [self.wordlist, "-t", self.table, "--backend", "device",
                 "--algo", self.algo, "--digests", self.digests] + extra
-        saved = os.environ.pop("A5GEN_EMIT", None)
-        if emit_scheme is not None:
-            os.environ["A5GEN_EMIT"] = emit_scheme
-        t = time.monotonic()
-        try:
-            out, err, rc = run_cli(argv)
-        finally:
-            os.environ.pop("A5GEN_EMIT", None)
-            if saved is not None:
-                os.environ["A5GEN_EMIT"] = saved
-        wall = time.monotonic() - t
+        with knobs(A5GEN_EMIT=emit_scheme, A5GEN_PALLAS=pallas):
+            t = time.monotonic()
+            res = []
+            peak = launch_peak_bytes(lambda: res.append(run_cli(argv)))
+            out, err, rc = res[0]
+            wall = time.monotonic() - t
         launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()
                     if v}
         plain = sum(mod.PLAIN_CALLS for mod in mods)
@@ -1010,17 +1073,563 @@ class MainPath:
         if plain:
             fail(f"{what}: the plain version ran {plain} times on the main "
                  "path")
-        rows = max(1, sum(v * LANES * (2 if "pair" in k else 1)
-                          for k, v in launches.items()))
+        # Rows: a kernel launch holds LANES lanes (x 2 on the pair tier);
+        # the XLA route's launches, the rows the CLI prints for them.
+        x = re.search(r"(\d+) lanes per XLA launch, (\d+) XLA candidate "
+                      r"rows", err)
+        xla_lanes, xla_rows = (int(x.group(1)), int(x.group(2))) if x \
+            else (0, 0)
+        rows = max(1, xla_rows + sum(
+            v * LANES * (2 if "pair" in k else 1)
+            for k, v in launches.items() if not k.startswith("buffer_")))
+        routes = re.search(r"bucket routes: ([^\n]*)", err)
+        budget = XLA_BUDGET_BYTES["cuda"]
+        if xla_lanes and peak > budget:
+            fail(f"{what}: the run held {peak} device bytes at its peak, "
+                 f"over the XLA route's {budget} byte budget")
         log(f"main path {what}: {len(got)} hits ({len(self.planted)} "
             f"planted), {emitted} candidates hashed, launches {launches}, "
             f"{rows} candidate rows ({100.0 * (1 - emitted / rows):.1f}% "
-            f"masked), CLI wall {wall:.2f} s, sweep {s.group(1)} s (drive "
-            f"{s.group(2)} s), {s.group(3)} candidate-hashes/s on {card}")
+            f"masked), bucket routes: "
+            f"{routes.group(1) if routes else '?'}, device memory peak "
+            f"{peak / 2**30:.3f} GiB above the run's start, CLI wall "
+            f"{wall:.2f} s, "
+            f"sweep {s.group(1)} s (drive {s.group(2)} s), {s.group(3)} "
+            f"candidate-hashes/s on {card}")
         return dict(hits=sorted(got), launches=launches, emitted=emitted,
                     wall=wall, sweep_wall=float(s.group(1)),
                     drive=float(s.group(2)), rate=float(s.group(3)),
-                    stdout=out)
+                    stdout=out, xla_lanes=xla_lanes, peak_bytes=peak)
+
+
+# ---------------------------------------------------------------------------
+# The XLA expand + hash route (TPU kernel row 10 and its siblings)
+# ---------------------------------------------------------------------------
+
+BUFFER_BLOCKS = (1, 2, 3, 5)
+
+#: The main path's own XLA-route width: cyrillic-x2-long's long-line
+#: bucket (out_width 376: 7 MD5 blocks, a multiple of 4).
+MAIN_XLA_WIDTH = 376
+
+
+def buffer_shapes(algo: str) -> list:
+    """``(label, width)`` of every checked and timed buffer-hash shape: per
+    block count the widest width it holds (NTLM doubles its width; odd:
+    the byte-load branch) and three bytes less (a multiple of 4: the
+    4-byte-load branch), and the main path's own XLA width."""
+    out = []
+    for b in BUFFER_BLOCKS:
+        width = (64 * b - 9) // (2 if algo == "ntlm" else 1)
+        out.append((f"{b} block{'s' if b > 1 else ''}", width))
+        out.append((f"{b} block{'s' if b > 1 else ''}, width % 4 == 0",
+                    width - 3))
+    out.append(("main path width", MAIN_XLA_WIDTH))
+    return out
+
+
+def buffer_rows(width: int, seed: int, n: int = LANES):
+    """``n`` seeded random rows of ``width`` bytes with lengths uniform in
+    0..W, on the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    msg = torch.randint(0, 256, (n, width), dtype=torch.uint8,
+                        device="cuda", generator=g)
+    ln = torch.randint(0, width + 1, (n,), dtype=torch.int32,
+                       device="cuda", generator=g)
+    return msg, ln
+
+
+def check_buffer_hash() -> dict:
+    """``buffer_hash`` x hash x shape (:func:`buffer_shapes`: both load
+    branches at 1, 2, 3 and 5 blocks, and the main path's width) at 2^22
+    rows against its plain version on every row (tolerance 0), MD5 also
+    against ``hashlib`` on 4096 rows; each CUDA call must move
+    ``LAUNCHES`` and not ``PLAIN_CALLS``."""
+    import hashlib
+
+    import torch
+
+    from hashcat_a5_table_generator_tpu_torch.ops import buffer_hash as bh
+
+    out = {}
+    for algo in ALGOS:
+        for label, width in buffer_shapes(algo):
+            msg, ln = buffer_rows(width, seed=width)
+            key = f"buffer_hash/{algo}"
+            launches, plain = bh.LAUNCHES[key], bh.PLAIN_CALLS
+            got = bh.buffer_hash(msg, ln, algo)
+            if bh.LAUNCHES[key] != launches + 1 or bh.PLAIN_CALLS != plain:
+                fail(f"{key}: the CUDA call did not launch the kernel (or "
+                     "ran the plain version)")
+            want = bh.HASH_FNS[algo](msg, ln)
+            torch.cuda.synchronize()
+            diff = (got.long() - want.long()).abs()
+            mis = int((diff != 0).any(dim=1).sum())
+            err = int(diff.max())
+            if algo == "md5":
+                m, n = msg[:4096].cpu().numpy(), ln[:4096].cpu().numpy()
+                st = got[:4096].cpu().numpy().view(np.uint32)
+                mis += sum(st[i].astype("<u4").tobytes()
+                           != hashlib.md5(m[i, :n[i]].tobytes()).digest()
+                           for i in range(4096))
+            loads = "4-byte" if width % 4 == 0 else "byte"
+            log(f"kernel vs plain [{key}, {label}, width {width}, {loads} "
+                f"loads]: rows {msg.shape[0]}, state mismatches "
+                f"{mis}{' (hashlib on 4096 rows included)' if algo == 'md5' else ''}"
+                f", max abs err {err} (tolerance 0)")
+            if mis:
+                fail(f"{key} [{label}, width {width}] disagrees with its "
+                     "plain version")
+            out[(algo, label)] = {"mismatches": mis, "max_abs_err": err}
+            del msg, ln, got, want, diff
+    return out
+
+
+def time_buffer_hash(peak_ops: float) -> dict:
+    """ms per call of ``buffer_hash`` and of its plain version at 2^22
+    rows, per hash x shape, and the bound: the compressions these lengths
+    need (each row its own ``ceil((len * scale + 9) / 64)``) over the
+    INT32 peak, against the bytes the function must move over HBM — each
+    row's first ``len`` bytes (all the kernel reads; NTLM widens them in
+    registers), the lengths and the states, once each."""
+    import torch
+
+    from hashcat_a5_table_generator_tpu_torch.ops import buffer_hash as bh
+
+    out = {}
+    for algo in ALGOS:
+        scale = 2 if algo == "ntlm" else 1
+        for label, width in buffer_shapes(algo):
+            msg, ln = buffer_rows(width, seed=width)
+            ms = time_call(lambda: bh.buffer_hash(msg, ln, algo), 20)
+            plain_ms = time_call(lambda: bh.HASH_FNS[algo](msg, ln), 2)
+            comp = int(torch.div(ln.long() * scale + 72, 64,
+                                 rounding_mode="floor").sum())
+            ops = float(comp) * OPS_PER_BLOCK[algo]
+            nbytes = int(ln.long().sum()) + 4 * ln.numel() \
+                + 4 * STATE_WORDS[algo] * ln.numel()
+            t_ops, t_bytes = ops / peak_ops, nbytes / HBM_BYTES_PER_S
+            bound_ms = max(t_ops, t_bytes) * 1e3
+            by = "operations" if t_ops >= t_bytes else "bytes"
+            out[(algo, label)] = dict(
+                width=width, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=by, compressions=comp, bytes=nbytes)
+            log(f"buffer_hash/{algo} [{label}, width {width}, "
+                f"{msg.shape[0]} rows, {comp} compressions, {nbytes} bytes]:"
+                f" {ms:.4f} ms/launch; bound {bound_ms:.4f} ms ({by}; ops "
+                f"{t_ops * 1e3:.4f} ms, bytes {t_bytes * 1e3:.4f} ms; "
+                f"{100 * bound_ms / ms:.0f}% of it reached); plain "
+                f"{plain_ms:.3f} ms")
+            del msg, ln
+    return out
+
+
+def xla_launch(spec, sub, words, device, lanes, stride=STRIDE,
+               digests=None, width=None):
+    """One XLA-route launch's inputs on ``device``: the plan, its schema,
+    the route's tables (``models.attack.xla_arrays``) and the first
+    ``lanes // stride`` blocks."""
+    from hashcat_a5_table_generator_tpu_torch.models.attack import (
+        build_plan, cut_blocks, xla_arrays,
+    )
+    from hashcat_a5_table_generator_tpu_torch.ops.blocks import (
+        superstep_index,
+    )
+    from hashcat_a5_table_generator_tpu_torch.ops.packing import (
+        pack_words, piece_schema_for,
+    )
+    from hashcat_a5_table_generator_tpu_torch.tables.compile import (
+        compile_table,
+    )
+
+    ct = compile_table(sub)
+    plan = build_plan(spec, ct, pack_words(words, width=width))
+    pieces = piece_schema_for(plan, ct)
+    arrays = xla_arrays(plan, ct, pieces, digests,
+                        superstep_index(plan, stride), device=device)
+    windowed = bool(plan.windowed)
+    word, count, base, rank0 = cut_blocks(
+        arrays, 0, lanes // stride, stride,
+        "windowed" if windowed else "digits")
+    return plan, pieces, arrays, (word, count, base, rank0), windowed
+
+
+def xla_kinds() -> dict:
+    """One XLA-route plan per splice kind: ``kind -> (table, words,
+    AttackSpec keywords, pair)``."""
+    from hashcat_a5_table_generator_tpu_torch.tables.layouts import (
+        get_layout,
+    )
+
+    cyr = get_layout("qwerty-cyrillic").to_substitution_map()
+    german = get_layout("german").to_substitution_map()
+    azerty = get_layout("qwerty-azerty").to_substitution_map()
+    words = synth_words(4000, seed=61)
+    gwords = [w for w in german_words(20000, seed=62) if b"ss" in w]
+    longs = long_lines(200, seed=63) + letter_lines(100, seed=64)
+    return {
+        "match piece": (cyr, words, {}, False),
+        "match pair": (cyr, words, {}, True),
+        "match schema-less (german sss)": (
+            german, [w for w in gwords if b"sss" in w], {}, False),
+        "match windowed, long lines": (cyr, longs, {"max_substitute": 2},
+                                       False),
+        "match nine options": (LEET9, words, {}, False),
+        "suball piece": (cyr, words, {"mode": "suball"}, False),
+        "suball schema-less (A5GEN_EMIT=bytescan)": (
+            cyr, words, {"mode": "suball"}, False),
+        "suball closed": (azerty, azerty_lines(4000, seed=65),
+                          {"mode": "suball"}, False),
+    }
+
+
+def check_xla_expansion() -> dict:
+    """The XLA route's torch expansion (``models.attack._expand``) on the
+    card against the same call on the CPU, for one plan per splice kind:
+    every lane's length, word row, emit and ``cand[:len]`` equal."""
+    import torch
+
+    from hashcat_a5_table_generator_tpu_torch.models.attack import (
+        AttackSpec, _expand, _xla_base,
+    )
+
+    kinds = xla_kinds()
+    lanes = 1 << 16
+    out = {}
+    for kind, (sub, ws, kw, pair) in kinds.items():
+        spec = AttackSpec(**kw)
+        res = []
+        for dev in (torch.device("cuda"), torch.device("cpu")):
+            k = 2 if pair else 1
+            with knobs(A5GEN_EMIT="bytescan" if "A5GEN_EMIT" in kind
+                       else None):
+                plan, pieces, arrays, (word, count, base, _), win = \
+                    xla_launch(spec, sub, ws, dev, lanes * k,
+                               stride=STRIDE * k)
+            if pair and not (pieces is not None and pieces.pair_ok):
+                fail(f"XLA expansion [{kind}]: the plan is not "
+                     "pair-eligible")
+            if "schema-less" in kind and pieces is not None:
+                fail(f"XLA expansion [{kind}]: the plan has a schema")
+            got = _expand(spec, arrays, word, count,
+                          _xla_base(arrays, base, win), num_lanes=lanes,
+                          out_width=int(plan.out_width), block_stride=STRIDE,
+                          radix2=int(plan.pat_radix.max()) <= 2,
+                          pieces=pieces, pair_k=2 if pair else None)
+            res.append([t.cpu() for t in got])
+        (gc, gl, gw, ge), (wc, wl, ww, we) = res
+        o = torch.arange(wc.shape[1])[None, :]
+        live = o < wl.clamp(min=0)[:, None]
+        mis = int((gl != wl).sum() + (gw != ww).sum() + (ge != we).sum()
+                  + ((gc != wc) & live).any(dim=1).sum())
+        log(f"XLA expansion on the card vs the CPU [{kind}]: "
+            f"{gl.shape[0]} rows, {int(we.sum())} emitted, out_width "
+            f"{wc.shape[1]}, schema {'yes' if pieces is not None else 'no'}"
+            f", mismatches {mis} (tolerance 0)")
+        if mis or not int(we.sum()):
+            fail(f"XLA expansion [{kind}]: the card disagrees with the CPU")
+        out[kind] = mis
+    return out
+
+
+def launch_peak_bytes(fn) -> int:
+    """Device bytes ``fn()`` allocates at its peak above what was allocated
+    before it (``torch.cuda.max_memory_allocated``), its result included."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out
+    return peak
+
+
+def check_xla_memory(main_plans: dict) -> dict:
+    """One XLA-route launch per splice kind (:func:`xla_kinds`, a
+    substitute-all plan over long lines, and ``main_plans``: the main
+    path's own) at the lanes the sweep picks (``runtime.sweep.xla_lanes``
+    within ``XLA_BUDGET_BYTES["cuda"]``): the crack superstep body (one
+    step: cut, expansion, buffer hash, membership, hit compaction) and,
+    without the pair tier, the candidates body, each measured with
+    :func:`launch_peak_bytes`.  Fails if a launch holds more than the
+    budget, or more bytes per candidate row than the sweep's estimate
+    (``xla_row_bytes``, which the budget rests on)."""
+    import torch
+
+    from hashcat_a5_table_generator_tpu_torch.models.attack import (
+        AttackSpec, make_candidates_body, make_superstep_body,
+        superstep_buffers,
+    )
+    from hashcat_a5_table_generator_tpu_torch.ops.fused_expand import (
+        k_opts_for,
+    )
+    from hashcat_a5_table_generator_tpu_torch.ops.membership import (
+        build_digest_set,
+    )
+    from hashcat_a5_table_generator_tpu_torch.runtime.sweep import (
+        XLA_BUDGET_BYTES, xla_lanes, xla_row_bytes,
+    )
+    from hashcat_a5_table_generator_tpu_torch.tables.layouts import (
+        get_layout,
+    )
+
+    budget = XLA_BUDGET_BYTES["cuda"]
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(66)
+    kinds = dict(xla_kinds())
+    kinds["suball windowed, long lines"] = (
+        get_layout("qwerty-cyrillic").to_substitution_map(),
+        long_lines(200, seed=63), {"mode": "suball", "max_substitute": 2},
+        False)
+    kinds.update(main_plans)
+    out = {}
+    for kind, (sub, ws, kw, pair) in kinds.items():
+        spec = AttackSpec(**kw)
+        k = 2 if pair else 1
+        digests = [rng.bytes(20 if spec.algo == "sha1" else 16)
+                   for _ in range(100_000)]
+        with knobs(A5GEN_EMIT="bytescan" if "A5GEN_EMIT" in kind
+                   else None):
+            plan, pieces, arrays, _blocks, win = xla_launch(
+                spec, sub, ws, dev, STRIDE * k, stride=STRIDE * k,
+                digests=build_digest_set(digests, spec.algo))
+            _p, _s, cand_arrays, _b, _w = xla_launch(
+                spec, sub, ws, dev, STRIDE, stride=STRIDE)
+        lanes = xla_lanes(plan, LANES, STRIDE, k, budget)
+        nb = lanes // STRIDE
+        geom = dict(num_lanes=lanes, out_width=int(plan.out_width),
+                    block_stride=STRIDE, num_blocks=nb, pieces=pieces,
+                    windowed=win, radix2=k_opts_for(plan) == 1)
+        body = make_superstep_body(spec, pair_k=2 if pair else None,
+                                   xla=True, **geom)
+        bufs = superstep_buffers(4096, device=dev)
+        est = xla_row_bytes(plan)
+        rows = lanes * k
+        res = {"lanes": lanes, "rows": rows, "estimate_per_row": est,
+               "crack_peak": launch_peak_bytes(
+                   lambda: body(arrays, 0, 1, bufs))}
+        if not pair:
+            cbody = make_candidates_body(spec, **geom)
+            res["candidates_peak"] = launch_peak_bytes(
+                lambda: cbody(cand_arrays, 0))
+        for what in ("crack", "candidates"):
+            peak = res.get(f"{what}_peak")
+            if peak is None:
+                continue
+            log(f"XLA-route memory [{kind}, {what}]: token width "
+                f"{plan.tokens.shape[1]}, out_width {plan.out_width}, "
+                f"{plan.num_slots} slots, "
+                f"{int(getattr(plan, 'num_segments', 0) or 0)} segments, "
+                f"{spec.algo}; {lanes} lanes, {rows} rows; peak "
+                f"{peak} bytes ({peak / 2**30:.3f} GiB of the "
+                f"{budget >> 30} GiB budget), {peak / rows:.1f} bytes per "
+                f"row against the estimate's {est} "
+                f"({peak / rows / est:.2f}x)")
+            if peak > budget or peak > est * rows:
+                fail(f"XLA-route memory [{kind}, {what}]: one launch held "
+                     f"{peak} bytes, over the {budget} byte budget or the "
+                     f"estimate's {est} bytes per row")
+        out[kind] = res
+        del arrays, cand_arrays, body, bufs
+    return out
+
+
+def xla_stage_breakdown(spec, sub, words, digest_set) -> None:
+    """One XLA-route launch's device time by stage, CUDA events: block
+    cut, expansion, buffer hash, membership against the run's 1M-digest
+    set, and the rest (hit compaction)."""
+    import torch
+
+    from hashcat_a5_table_generator_tpu_torch.models.attack import (
+        _expand, _xla_base, cut_blocks, make_superstep_body,
+        superstep_buffers,
+    )
+    from hashcat_a5_table_generator_tpu_torch.ops.buffer_hash import (
+        buffer_hash,
+    )
+    from hashcat_a5_table_generator_tpu_torch.ops.membership import (
+        digest_member,
+    )
+    from hashcat_a5_table_generator_tpu_torch.runtime.sweep import (
+        XLA_BUDGET_BYTES, xla_lanes,
+    )
+
+    dev = torch.device("cuda")
+    plan, pieces, arrays, (word, count, base, _), win = xla_launch(
+        spec, sub, words, dev, STRIDE, digests=digest_set)
+    lanes = xla_lanes(plan, LANES, STRIDE, 1, XLA_BUDGET_BYTES["cuda"])
+    nb = lanes // STRIDE
+    decode = "windowed" if win else "digits"
+    common = dict(num_lanes=lanes, out_width=int(plan.out_width),
+                  block_stride=STRIDE, radix2=int(plan.pat_radix.max()) <= 2,
+                  pieces=pieces)
+    blocks = cut_blocks(arrays, 0, nb, STRIDE, decode)
+    full_base = _xla_base(arrays, blocks[2], win)
+    cand, clen, _, emit = _expand(spec, arrays, blocks[0], blocks[1],
+                                  full_base, **common)
+    state = buffer_hash(cand, clen, spec.algo)
+    body = make_superstep_body(
+        spec, num_lanes=lanes, out_width=int(plan.out_width),
+        block_stride=STRIDE, num_blocks=nb, pieces=pieces, xla=True,
+        windowed=win, radix2=common["radix2"])
+    bufs = superstep_buffers(4096, device=dev)
+    t_cut = time_call(lambda: cut_blocks(arrays, 0, nb, STRIDE, decode), 5)
+    t_exp = time_call(lambda: _expand(spec, arrays, blocks[0], blocks[1],
+                                      full_base, **common), 3)
+    t_hash = time_call(lambda: buffer_hash(cand, clen, spec.algo), 5)
+    t_member = time_call(
+        lambda: digest_member(state, arrays["rows"], arrays["bitmap"]), 3)
+    t_step = time_call(lambda: body(arrays, 0, 1, bufs), 3)
+    rest = t_step - t_cut - t_exp - t_hash - t_member
+    log(f"XLA-route stage breakdown [token width {plan.tokens.shape[1]}, "
+        f"out_width {plan.out_width}, {plan.num_slots} slots, "
+        f"{'windowed' if win else 'full'}, schema "
+        f"{'yes' if pieces is not None else 'no'}, {spec.algo}], one launch "
+        f"({lanes} lanes within the {XLA_BUDGET_BYTES['cuda'] >> 30} GiB "
+        f"budget, {int(emit.sum())} emitted, {digest_set.size} digests), "
+        f"CUDA events: whole step {t_step:.3f} ms = block cut {t_cut:.3f} "
+        f"ms + expansion {t_exp:.3f} ms + buffer hash {t_hash:.3f} ms + "
+        f"membership {t_member:.3f} ms + the rest {rest:.3f} ms")
+
+
+def long_lines(n: int, seed: int) -> list:
+    """Rockyou's long lines: lowercase words of 3-9 letters joined by
+    spaces, 65-200 bytes (a token width over 64: the XLA route)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        want = int(rng.integers(65, 201))
+        parts, size = [], -1
+        while size < want:
+            w = bytes(rng.integers(ord("a"), ord("z") + 1,
+                                   size=int(rng.integers(3, 10)),
+                                   dtype=np.uint8))
+            parts.append(w)
+            size += len(w) + 1
+        out.append(b" ".join(parts)[:want])
+    return out
+
+
+def letter_lines(n: int, seed: int) -> list:
+    """Lines of 25-40 letters within 64 bytes (the rest digits): more than
+    24 substitution slots, the XLA route."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        k = int(rng.integers(25, 41))
+        ln = int(rng.integers(k, 65))
+        w = rng.integers(ord("0"), ord("9") + 1, size=ln, dtype=np.uint8)
+        pos = rng.choice(ln, size=k, replace=False)
+        w[pos] = rng.integers(ord("a"), ord("z") + 1, size=k, dtype=np.uint8)
+        out.append(bytes(w))
+    return out
+
+
+def candidates_checks(work: str, dictionary, card: str) -> None:
+    """Candidates mode through the CLI on the card: qwerty-cyrillic over
+    2e4 words to ``--output`` (line count = the host keyspace; the first
+    2000 words byte-identical to a ``--device cpu`` run; per word the
+    oracle's multiset on 200 sampled words), and qwerty-azerty ``-s``
+    with oracle-fallback words interleaved (byte-identical to the CPU
+    run of the same list)."""
+    from hashcat_a5_table_generator_tpu_torch.models.attack import (
+        AttackSpec, build_plan,
+    )
+    from hashcat_a5_table_generator_tpu_torch.ops import buffer_hash
+    from hashcat_a5_table_generator_tpu_torch.ops.packing import pack_words
+    from hashcat_a5_table_generator_tpu_torch.oracle.engines import (
+        iter_candidates,
+    )
+    from hashcat_a5_table_generator_tpu_torch.tables.compile import (
+        compile_table,
+    )
+    from hashcat_a5_table_generator_tpu_torch.tables.layouts import (
+        emit_table, get_layout,
+    )
+
+    def run(words, layout, name, extra, device="cuda"):
+        wl = os.path.join(work, f"{name}.words.txt")
+        with open(wl, "wb") as fh:
+            fh.write(b"\n".join(words) + b"\n")
+        table = os.path.join(work, f"{layout}.table")
+        emit_table(get_layout(layout), table)
+        out = os.path.join(work, f"{name}.out")
+        t = time.monotonic()
+        _o, err, rc = run_cli([wl, "-t", table, "--backend", "device",
+                               "--output", out, "--device", device]
+                              + extra)
+        wall = time.monotonic() - t
+        if rc != 0:
+            fail(f"candidates [{name}] exited {rc}: {err}")
+        with open(out, "rb") as fh:
+            data = fh.read()
+        n = int(re.search(r"(\d+) candidates written", err).group(1))
+        s = re.search(r"([\d.]+) s wall, ([\d.]+) s launch loop, "
+                      r"([\d.e+]+) candidates/s", err)
+        log(f"candidates [{name}] on {device}: {n} candidates, "
+            f"{len(data)} bytes, CLI wall {wall:.2f} s, sweep {s.group(1)} "
+            f"s (launch loop {s.group(2)} s, {s.group(3)} candidates/s)"
+            + (f" on {card}" if device == "cuda" else ""))
+        return data, n
+
+    for k in buffer_hash.LAUNCHES:
+        buffer_hash.LAUNCHES[k] = 0
+    cyr = get_layout("qwerty-cyrillic").to_substitution_map()
+    words = dictionary(20000, seed=71, long_lines=False)
+    data, n = run(words, "qwerty-cyrillic", "cand-cyrillic", [])
+    if any(buffer_hash.LAUNCHES.values()):
+        fail("candidates mode hashed")
+    spec = AttackSpec()
+    plan = build_plan(spec, compile_table(cyr), pack_words(words))
+    opts = (np.asarray(plan.pat_radix, np.int64) - 1).clip(min=0)
+    e = np.zeros((opts.shape[0], opts.shape[1] + 1), np.int64)
+    e[:, 0] = 1
+    for s_ in range(opts.shape[1]):
+        e[:, 1:] = e[:, 1:] + opts[:, s_:s_ + 1] * e[:, :-1]
+    per_word = e[:, spec.effective_min:spec.max_substitute + 1].sum(axis=1)
+    lines = data.split(b"\n")[:-1]
+    if n != len(lines) or len(lines) != int(per_word.sum()):
+        fail(f"candidates [cand-cyrillic]: {len(lines)} lines, {n} written, "
+             f"host keyspace {int(per_word.sum())}")
+    head, _hn = run(words[:2000], "qwerty-cyrillic", "cand-cyrillic-cpu",
+                    ["--lanes", "65536"], device="cpu")
+    if data[:len(head)] != head:
+        fail("candidates [cand-cyrillic]: the first 2000 words differ from "
+             "the --device cpu run")
+    at = np.concatenate([[0], np.cumsum(per_word)])
+    rng = np.random.default_rng(72)
+    for w in rng.choice(len(words), size=200, replace=False).tolist():
+        got = sorted(lines[at[w]:at[w + 1]])
+        if got != sorted(iter_candidates(words[w], cyr, 0, 15)):
+            fail(f"candidates [cand-cyrillic]: word {words[w]!r} is not "
+                 "the oracle's multiset")
+    log(f"candidates [cand-cyrillic]: {len(lines)} lines = the host "
+        f"keyspace; first 2000 words ({len(head)} bytes) byte-identical to "
+        "the --device cpu run; 200 sampled words = the oracle's multisets")
+    az_words = dictionary(4000, seed=73, long_lines=False)
+    rng = np.random.default_rng(74)
+    for w in dict.fromkeys(azerty_lines(400, seed=75)):
+        az_words.insert(int(rng.integers(0, len(az_words))), w)
+    gpu, n_gpu = run(az_words, "qwerty-azerty", "cand-azerty-s", ["-s"])
+    cpu, n_cpu = run(az_words, "qwerty-azerty", "cand-azerty-s-cpu",
+                     ["-s", "--lanes", "65536"], device="cpu")
+    if gpu != cpu or n_gpu != n_cpu:
+        fail("candidates [cand-azerty-s]: the card's stream differs from "
+             "the --device cpu run")
+    azerty = get_layout("qwerty-azerty").to_substitution_map()
+    plan = build_plan(AttackSpec(mode="suball"), compile_table(azerty),
+                      pack_words(az_words))
+    fallback = np.flatnonzero(plan.fallback)
+    if len(fallback) < 50:
+        fail(f"candidates [cand-azerty-s]: {len(fallback)} oracle words")
+    log(f"candidates [cand-azerty-s]: {n_gpu} candidates, "
+        f"{len(fallback)} oracle-fallback words interleaved; byte-identical "
+        "to the --device cpu run")
 
 
 def ptxas_kernels(report: str) -> list:
@@ -1062,6 +1671,9 @@ def main() -> None:
              "a CUDA device")
     sys.path.insert(0, HERE)
     try:
+        from hashcat_a5_table_generator_tpu_torch.models.attack import (
+            AttackSpec,
+        )
         from hashcat_a5_table_generator_tpu_torch.ops import (
             _native_build, fused_expand,
         )
@@ -1090,11 +1702,17 @@ def main() -> None:
     t = time.monotonic()
     libs = [f"piece_hash_{a}" for a in ALGOS]
     bs_libs = [f"bytescan_hash_{a}" for a in ALGOS]
-    reports = _native_build.build(libs + bs_libs)
-    log(f"built {len(libs + bs_libs)} libraries from csrc/piece_hash.cu and "
-        f"csrc/bytescan_hash.cu in {time.monotonic() - t:.1f} s (nvcc "
+    bh_libs = [f"buffer_hash_{a}" for a in ALGOS]
+    reports = _native_build.build(libs + bs_libs + bh_libs)
+    log(f"built {len(libs + bs_libs + bh_libs)} libraries from "
+        f"csrc/piece_hash.cu, csrc/bytescan_hash.cu and csrc/buffer_hash.cu "
+        f"in {time.monotonic() - t:.1f} s (nvcc "
         f"{' '.join(_native_build.NVCC_FLAGS)} -DPIECE_ALGO=n, all in "
         f"parallel)")
+    for lib in bh_libs:
+        for line in reports[lib].splitlines():
+            if re.search(r"registers|spill|stack frame", line):
+                print(f"  ptxas [{lib}]: {line.strip()}")
     for lib in libs:
         for line in reports[lib].splitlines():
             if re.search(r"Compiling entry|registers|spill|stack frame|smem",
@@ -1347,6 +1965,10 @@ def main() -> None:
         if not bool((compare(bc)["emit"] == want).all()):
             fail(f"german-ss x {algo}: the tiers emit different rows")
         tier_emitted[algo] = int(want.sum())
+    # The buffer hash (TPU row 10 and its siblings) and the XLA route's
+    # torch expansion on the card.
+    bh_checks = check_buffer_hash()
+    check_xla_expansion()
 
     # -- phase 4: the main path at full width -------------------------------
     work = os.path.join(HERE, "build", "chip_smoke")
@@ -1368,8 +1990,13 @@ def main() -> None:
         return out
 
     words = dictionary(N_WORDS_DEFAULT, seed=0)
-    words_1m = dictionary(N_WORDS, seed=0)
     czech_1m = dictionary(N_WORDS, seed=11, long_lines=False)
+    # cyrillic-x2-long: 1M recipe words, 2000 lines of 65-200 bytes and
+    # 1000 of 25-40 letters (both on the XLA route) at seeded places.
+    long_1m = dictionary(N_WORDS - 3000, seed=0, long_lines=False)
+    rng = np.random.default_rng(81)
+    for w in long_lines(2000, seed=82) + letter_lines(1000, seed=83):
+        long_1m.insert(int(rng.integers(0, len(long_1m))), w)
     # qwerty-azerty -s: 250k words (1M cost most of the script's time in
     # host prep), with the same 2000 seeded hazard lines.
     azerty_words = dictionary(N_WORDS_DEFAULT - 2000, seed=21,
@@ -1380,7 +2007,7 @@ def main() -> None:
     # german x MD5: the bench recipe with ss (~5%) and sss (~1%), unique,
     # plus the 120 long lines (bucket 64, no "sss": the piece kernel).
     german_1m = list(dict.fromkeys(german_words(N_WORDS + 1000, seed=41)))
-    german_1m = german_1m[: N_WORDS - 120]
+    german_1m = german_1m[: N_WORDS_DEFAULT - 120]
     rng = np.random.default_rng(4)
     for w in long_words(100, 33, 64, (4, 10), seed=5) + \
             long_words(20, 50, 64, (3, 8), seed=6):
@@ -1398,7 +2025,7 @@ def main() -> None:
         "cyrillic-md5-x2": MainPath("cyrillic-md5-x2", work, words,
                                     "qwerty-cyrillic", "md5",
                                     {"max_substitute": 2}, seed=15),
-        "cyrillic-md5-s": MainPath("cyrillic-md5-s", work, words_1m,
+        "cyrillic-md5-s": MainPath("cyrillic-md5-s", work, words,
                                    "qwerty-cyrillic", "md5",
                                    {"mode": "suball"}, seed=24),
         "azerty-md5-s": MainPath(
@@ -1406,12 +2033,12 @@ def main() -> None:
             {"mode": "suball"}, seed=25,
             quota={"device_closed": 120, "oracle_fallback": 60}),
         "cyrillic-sha1-s-x2": MainPath(
-            "cyrillic-sha1-s-x2", work, words_1m, "qwerty-cyrillic", "sha1",
+            "cyrillic-sha1-s-x2", work, words, "qwerty-cyrillic", "sha1",
             {"mode": "suball", "max_substitute": 2}, seed=26),
         "czech-ntlm-s-r": MainPath(
-            "czech-ntlm-s-r", work, czech_1m, "czech", "ntlm",
-            {"mode": "suball-reverse"}, seed=27),
-        "cyrillic-md5-r": MainPath("cyrillic-md5-r", work, words_1m,
+            "czech-ntlm-s-r", work, czech_1m[:N_WORDS_DEFAULT], "czech",
+            "ntlm", {"mode": "suball-reverse"}, seed=27),
+        "cyrillic-md5-r": MainPath("cyrillic-md5-r", work, words,
                                    "qwerty-cyrillic", "md5",
                                    {"mode": "reverse"}, seed=28),
         "german-md5": MainPath("german-md5", work, german_1m, "german",
@@ -1422,6 +2049,12 @@ def main() -> None:
         "cyrillic-sha1-s": MainPath("cyrillic-sha1-s", work, words,
                                     "qwerty-cyrillic", "sha1",
                                     {"mode": "suball"}, seed=44),
+        "cyrillic-x2-long": MainPath(
+            "cyrillic-x2-long", work, long_1m, "qwerty-cyrillic", "md5",
+            {"max_substitute": 2}, seed=84),
+        "leet9-sha1": MainPath(
+            "leet9-sha1", work, dictionary(50000, seed=85, long_lines=False),
+            LEET9, "sha1", {}, seed=86),
     }
     az = paths["azerty-md5-s"].routing
     if az["device_closed"] < 100 or az["oracle_fallback"] < 100:
@@ -1456,6 +2089,8 @@ def main() -> None:
         ("german-md5", "german", []),
         ("german-r-ntlm", "-r", ["-r"]),
         ("cyrillic-sha1-s", "-s", ["-s"]),
+        ("cyrillic-x2-long", "-x 2", ["-x", "2"]),
+        ("leet9-sha1", "nine options", []),
     ):
         runs[(name, arm)] = paths[name].run(arm, extra, card)
     # A5GEN_EMIT=bytescan (this run alone): every plan on the byte-scan
@@ -1475,6 +2110,24 @@ def main() -> None:
             fail(f"{name} ({arm}): launched piece kernels {pieces}")
         log(f"main path {name} ({arm}): stdout byte-identical to the "
             f"per-slot run ({len(run['stdout'])} bytes)")
+    # A5GEN_PALLAS=off (this run alone): every bucket on the XLA expand +
+    # hash route; stdout byte-identical to the kernel route's run.
+    for name, arm, extra, twin in (
+        ("czech-ntlm", "A5GEN_PALLAS=off", [], "pair auto"),
+        ("greek-hebrew-sha1", "A5GEN_PALLAS=off", [], "pair auto"),
+        ("german-md5", "A5GEN_PALLAS=off", [], "german"),
+        ("azerty-md5-s", "A5GEN_PALLAS=off -s", ["-s"], "-s"),
+    ):
+        run = paths[name].run(arm, extra, card, pallas="off")
+        runs[(name, arm)] = run
+        if run["stdout"] != runs[(name, twin)]["stdout"]:
+            fail(f"{name} ({arm}): stdout differs from the kernel route's")
+        fused = [k for k in run["launches"]
+                 if k.startswith(("piece_", "bytescan_"))]
+        if fused:
+            fail(f"{name} ({arm}): launched fused kernels {fused}")
+        log(f"main path {name} ({arm}): stdout byte-identical to the kernel "
+            f"route's ({len(run['stdout'])} bytes)")
     for name in ("cyrillic-md5", "greek-hebrew-sha1"):
         if runs[(name, "pair auto")]["hits"] != runs[(name, "pair off")][
                 "hits"]:
@@ -1517,6 +2170,22 @@ def main() -> None:
                     ["bytescan_suball/md5"], "bytescan-azerty-s")
     expect_launched(runs[("cyrillic-sha1-s", "bytescan -s")],
                     ["bytescan_scalar/sha1"], "bytescan-cyrillic-s-sha1")
+    expect_launched(runs[("cyrillic-x2-long", "-x 2")],
+                    ["buffer_hash/md5", "piece_windowed/md5"],
+                    "cyrillic-x2-long (long buckets: the XLA route)")
+    expect_launched(runs[("leet9-sha1", "nine options")],
+                    ["buffer_hash/sha1"], "leet9-sha1")
+    if any(k.startswith(("piece_", "bytescan_"))
+           for k in runs[("leet9-sha1", "nine options")]["launches"]):
+        fail("leet9-sha1: a bucket took a fused kernel")
+    for name, arm, algo in (
+        ("czech-ntlm", "A5GEN_PALLAS=off", "ntlm"),
+        ("greek-hebrew-sha1", "A5GEN_PALLAS=off", "sha1"),
+        ("german-md5", "A5GEN_PALLAS=off", "md5"),
+        ("azerty-md5-s", "A5GEN_PALLAS=off -s", "md5"),
+    ):
+        expect_launched(runs[(name, arm)], [f"buffer_hash/{algo}"],
+                        f"{name} ({arm})")
     main_launches: dict = {}
     for run in runs.values():
         for k, v in run["launches"].items():
@@ -1526,6 +2195,8 @@ def main() -> None:
     log(f"czech-ntlm main path: {czech['emitted']} candidates on "
         f"{czech_rows} rows: {100.0 * (1 - czech['emitted'] / czech_rows):.1f}"
         f"% of the rows masked")
+    # Candidates mode (no --digests): the XLA expansion alone.
+    candidates_checks(work, dictionary, card)
 
     # -- phase 5: timing ----------------------------------------------------
     kernels = []
@@ -1652,6 +2323,49 @@ def main() -> None:
             f"{t[0]:.4f} / {t[3]:.4f} "
             f"ms, {bc.key} bitmask {t[1]:.4f} / {t[2]:.4f} ms per launch "
             f"(row 7 / piece: {(t[1] + t[2]) / (t[0] + t[3]):.2f}x)")
+    # The buffer hash, per hash x block count; the kernels line lists one
+    # entry per hash (buffer_hash/<algo>, the LAUNCHES key) at one block
+    # (TPU row 10's shape), the other block counts under "variants".
+    bh_times = time_buffer_hash(peak_ops)
+    for algo in ALGOS:
+        t = bh_times[(algo, "1 block")]
+        key = f"buffer_hash/{algo}"
+        kernels.append({
+            "name": key,
+            "route": "cuda",
+            "source": BUFFER_SOURCE,
+            "replaces": f"{PALLAS_MD5}:47 _md5_kernel",
+            "wrapper": (f"{PALLAS_MD5}:87 md5_pallas" if algo == "md5" else
+                        "hashcat_a5_table_generator_tpu/ops/hashes.py:257-295 "
+                        f"HASH_FNS['{algo}'] (the XLA hash row 10 stands "
+                        "in for under A5GEN_PALLAS=1)"),
+            "workload": f"random rows, width {t['width']}, lengths 0..W",
+            "hash_blocks": 1,
+            "launches": main_launches.get(key, 0),
+            "main_path": key in main_launches,
+            "mismatches": bh_checks[(algo, "1 block")]["mismatches"],
+            "variants": {label: dict(bh_times[(algo, label)], **bh_checks[
+                (algo, label)]) for label, _w in buffer_shapes(algo)
+                if label != "1 block"},
+            "max_abs_err": bh_checks[(algo, "1 block")]["max_abs_err"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+        })
+    cyr_long = [w for w in long_1m if len(w) > 64]
+    leet9_words = dictionary(50000, seed=85, long_lines=False)
+    check_xla_memory({
+        "main path cyrillic-x2-long, lines over 64 bytes": (
+            cyr, cyr_long, {"max_substitute": 2}, False),
+        "main path leet9-sha1": (LEET9, leet9_words, {"algo": "sha1"},
+                                 False),
+    })
+    xla_stage_breakdown(AttackSpec(max_substitute=2), cyr, cyr_long,
+                        paths["cyrillic-x2-long"].digest_set)
+    xla_stage_breakdown(AttackSpec(algo="sha1"), LEET9, leet9_words,
+                        paths["leet9-sha1"].digest_set)
     shutil.rmtree(work, ignore_errors=True)
     elapsed = time.monotonic() - T0
     log(f"done in {elapsed:.1f} s")

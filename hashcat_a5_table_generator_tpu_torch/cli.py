@@ -1,18 +1,25 @@
-"""The command-line surface of the PyTorch/CUDA package: the crack subset.
+"""The command-line surface of the PyTorch/CUDA package: the device
+backend's crack and candidates modes.
 
 Same flags and output as the reference CLI for what this package runs::
 
   a5gen DICT_FILE -t TABLE [-t TABLE ...] [-m MIN] [-x MAX] [-s] [-r]
-        --backend device --algo md5|md4|sha1|ntlm --digests FILE
-        [--device cuda|cpu]
+        --backend device [--algo md5|md4|sha1|ntlm --digests FILE]
+        [--output FILE] [--hex-unsafe] [--device cuda|cpu]
 
 Default, reverse (``-r``), substitute-all (``-s``) and substitute-all
-reverse (``-s -r``) mode, one GPU, every hash the reference's Pallas
-kernels take, on the piece kernel or (plans without a piece schema, or
-``A5GEN_EMIT=bytescan``) the byte-scan kernels: hits print to stdout as
-``digest:plain`` potfile lines, bucket-major in the order found; the
-summary (with the substitute-all word routing and the kernel tiers) goes
-to stderr.  ``--device`` defaults to
+reverse (``-s -r``) mode, one GPU.  Crack mode (``--digests``): every
+hash, each bucket on the route the reference's gate picks — the piece
+kernel, the byte-scan kernels (plans without a piece schema, or
+``A5GEN_EMIT=bytescan``) or the XLA expand + hash route (plans the fused
+kernels refuse, or ``A5GEN_PALLAS=off``); hits print to stdout as
+``digest:plain`` potfile lines, bucket-major in the order found.
+Candidates mode (no ``--digests``): every candidate, one line each, in
+word order (one global width unless ``--buckets`` is given), to stdout or
+``--output FILE`` (in the reference ``--output`` names ``--emit-table``'s
+file, and candidates always go to stdout), ``--hex-unsafe`` wrapping
+line-corrupting candidates in ``$HEX[]``.  The summary (word routing,
+kernel tiers, bucket routes) goes to stderr.  ``--device`` defaults to
 ``cuda`` and never falls back to the CPU on its own.
 
 Every other surface of the reference CLI is recognized and refused with
@@ -23,6 +30,7 @@ carries it — it never runs a different path.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 from typing import List, Optional, Sequence
 
@@ -31,8 +39,7 @@ DIGEST_BYTES = {"md5": 16, "md4": 16, "ntlm": 16, "sha1": 20}
 
 #: ROADMAP.md port-queue items for the surfaces this package does not run.
 _ITEMS = {
-    5: "candidates mode, the oracle backend, --hex-unsafe, --emit-table, "
-       "--list-layouts, --output and --bug-compat",
+    5: "the oracle backend, --emit-table, --list-layouts and --bug-compat",
     6: "checkpoints, streaming and robustness",
     7: "multi-GPU",
     8: "the service layer",
@@ -41,10 +48,8 @@ _ITEMS = {
 
 #: Refused flags: (flags, argparse kwargs, queue item).
 _REFUSED = (
-    (("--hex-unsafe",), dict(action="store_true"), 5),
     (("--bug-compat",), dict(action="store_true"), 5),
     (("--emit-table",), dict(metavar="LAYOUT"), 5),
-    (("--output",), dict(metavar="FILE"), 5),
     (("--list-layouts",), dict(action="store_true"), 5),
     (("--checkpoint",), dict(metavar="FILE"), 6),
     (("--checkpoint-every",), dict(type=float, metavar="SECONDS"), 6),
@@ -79,8 +84,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog=PROG,
         description=(
             "Table-lookup candidate engine (hashcat -a 5 style), PyTorch/"
-            "CUDA crack path: apply substitution tables to a dictionary "
-            "and hash every variant on the GPU against a digest list."
+            "CUDA device backend: apply substitution tables to a "
+            "dictionary and stream every variant, or hash every variant "
+            "on the GPU against a digest list."
         ),
     )
     ap.add_argument("dict_file", nargs="?",
@@ -110,7 +116,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="hash algorithm for --digests mode (default md5)")
     ap.add_argument("--digests", metavar="FILE",
                     help="hex digest list (one per line); crack mode: "
-                         "print digest:plain hits")
+                         "print digest:plain hits instead of candidates")
+    ap.add_argument("--output", metavar="FILE",
+                    help="candidates mode: write the candidate stream to "
+                         "FILE instead of stdout")
+    ap.add_argument("--hex-unsafe", action="store_true",
+                    help="wrap line-corrupting candidates in $HEX[...]")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the sweep runs (default cuda; cpu runs "
                          "the plain PyTorch version of the kernels)")
@@ -128,8 +139,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "the substitution geometry allows (default auto)")
     ap.add_argument("--buckets", type=_buckets_arg, default="auto",
                     metavar="W1,W2,...",
-                    help="length-bucket boundaries (default 16,32,64; "
-                         "'none' = one global width)")
+                    help="length-bucket boundaries (default 16,32,64 in "
+                         "crack mode; none in candidates mode, so the "
+                         "stream keeps dictionary order; 'none' = one "
+                         "global width)")
     ap.add_argument("--max-word-bytes", type=int, default=64 * 1024,
                     help="reject dictionary lines longer than this instead "
                          "of silently truncating input (reference Q8)")
@@ -325,6 +338,26 @@ def _print_routing(res) -> None:
     )
 
 
+_ROUTE_NAMES = {"piece": "the piece kernel",
+                "bytescan": "the byte-scan kernels",
+                "xla": "the XLA expand + hash route"}
+
+
+def _print_routes(res) -> None:
+    """Bucket-route summary (stderr): sweeps (buckets) on each route, and
+    the XLA route's lanes per launch and memory budget."""
+    if not res.routes:
+        return
+    parts = [f"{res.routes[k]} on {name}" for k, name in _ROUTE_NAMES.items()
+             if res.routes.get(k)]
+    line = f"{PROG}: bucket routes: " + ", ".join(parts)
+    if res.xla:
+        line += (f" ({res.xla['lanes']} lanes per XLA launch, "
+                 f"{res.xla['rows']} XLA candidate rows, "
+                 f"{res.xla['budget_bytes'] / (1 << 30):g} GiB budget)")
+    print(line, file=sys.stderr)
+
+
 def _print_kernels(res) -> None:
     """Kernel-tier summary (stderr): launches per tier, e.g. ``piece_k1``
     or the byte-scan tiers ``bytescan_scalar`` / ``bytescan_match`` /
@@ -341,7 +374,7 @@ def _run_device(args, sub_map, packed) -> int:
     bucket dict."""
     from .models.attack import AttackSpec
     from .runtime.bucketed import BucketedSweep
-    from .runtime.sinks import HitRecorder
+    from .runtime.sinks import CandidateWriter, HitRecorder
     from .runtime.sweep import Sweep, SweepConfig
 
     spec = AttackSpec(mode=_mode(args), algo=args.algo,
@@ -352,20 +385,35 @@ def _run_device(args, sub_map, packed) -> int:
         superstep=args.superstep,
         pair={"auto": None, "on": "on", "off": 0}[args.pair],
     )
-    digests = _read_digests(args.digests, args.algo)
+    crack = args.digests is not None
+    digests = _read_digests(args.digests, args.algo) if crack else ()
     sweep = (BucketedSweep if isinstance(packed, dict) else Sweep)(
         spec, sub_map, packed, digests, config=cfg
     )
-    res = sweep.run_crack(_DedupRecorder(HitRecorder(sys.stdout.buffer)))
-    print(f"{res.n_hits} hits, {res.n_emitted} candidates hashed",
-          file=sys.stderr)
+    if crack:
+        res = sweep.run_crack(_DedupRecorder(HitRecorder(sys.stdout.buffer)))
+        print(f"{res.n_hits} hits, {res.n_emitted} candidates hashed",
+              file=sys.stderr)
+        what = "superstep drive"
+        unit = "candidate-hashes/s"
+    else:
+        with contextlib.ExitStack() as stack:
+            stream = (stack.enter_context(open(args.output, "wb"))
+                      if args.output else None)
+            writer = stack.enter_context(
+                CandidateWriter(stream, hex_unsafe=args.hex_unsafe))
+            res = sweep.run_candidates(writer)
+        print(f"{res.n_emitted} candidates written", file=sys.stderr)
+        what = "launch loop"
+        unit = "candidates/s"
     _print_routing(res)
+    _print_routes(res)
     _print_kernels(res)
     _print_superstep(res)
     rate = res.n_emitted / res.drive_s if res.drive_s > 0 else 0.0
     print(f"{PROG}: sweep: {res.wall_s:.3f} s wall, {res.drive_s:.3f} s "
-          f"superstep drive, {rate:.6g} candidate-hashes/s "
-          f"(device {args.device})", file=sys.stderr)
+          f"{what}, {rate:.6g} {unit} (device {args.device})",
+          file=sys.stderr)
     return 0
 
 
@@ -394,8 +442,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         )
     if args.backend != "device":
         ap.error(_not_ported("--backend oracle", 5))
-    if args.digests is None:
-        ap.error(_not_ported("candidates mode (no --digests)", 5))
+    if args.output and args.digests is not None:
+        ap.error("--output names the candidate stream's file; crack mode "
+                 "prints its hits to stdout")
     if args.superstep == 0:
         ap.error(_not_ported("--superstep off", 6))
     from .ops.packing import (
@@ -411,6 +460,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except OSError as e:
         raise SystemExit(f"{PROG}: cannot read table: {e}")
     try:
+        if args.buckets == "auto":
+            # Crack mode buckets by width (one launch geometry per
+            # bucket); candidates mode keeps one global width, so the
+            # stream keeps dictionary order, as in the reference.
+            args.buckets = (16, 32, 64) if args.digests is not None else None
         if args.buckets is None:
             with open(args.dict_file, "rb") as fh:
                 buf, offsets, lengths = read_wordlist_lines(
@@ -422,11 +476,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             )
         else:
             packed = read_packed_buckets(
-                args.dict_file,
-                buckets=(16, 32, 64) if args.buckets == "auto"
-                else args.buckets,
+                args.dict_file, buckets=args.buckets,
                 max_word_bytes=args.max_word_bytes,
             )
+            if args.digests is None and sum(
+                    1 for p in packed.values() if p.batch) > 1:
+                print(f"{PROG}: notice: --buckets reorders a mixed-length "
+                      "candidate stream bucket-major (per-word multisets "
+                      "unchanged); pass --buckets none for strict "
+                      "dictionary order", file=sys.stderr)
         return _run_device(args, sub_map, packed)
     except NotImplementedError as e:
         print(f"{PROG}: not ported: {e}", file=sys.stderr)

@@ -1,5 +1,6 @@
 """The crack pipeline: on-device block cutting -> piece or byte-scan kernel
-(expand + hash) -> digest membership -> hit compaction.
+(expand + hash), or the XLA expand + hash route -> digest membership -> hit
+compaction; and the candidates pipeline: block cutting -> expansion.
 
 The host compiles tables, plans (match plans for default and reverse mode,
 substitute-all plans for ``-s`` and ``-s -r``), the piece schema (or, for
@@ -14,6 +15,14 @@ each step cuts its blocks from the cumulative index, runs the piece kernel
 ``(word, rank)`` buffer.  Only the stacked counters (and, on hit-bearing
 supersteps, the hit slice) are fetched; the candidate bytes of a hit are
 re-derived on the host by :func:`decode_variant`.
+
+Plans the fused kernels do not take (the reference's ``opts_for`` gate)
+run the XLA expand + hash route, as the reference does: :func:`_expand`
+materializes each candidate's bytes (``ops.expand_matches`` /
+``ops.expand_suball``, torch ops) and ``ops.buffer_hash`` hashes them
+(TPU kernel row 10's counterpart); :func:`xla_arrays` ships that route's
+per-word tables.  Candidates mode (:func:`make_candidates_body`) runs the
+expansion alone, as in the reference.
 """
 
 from __future__ import annotations
@@ -24,9 +33,16 @@ from typing import Any, Callable, Dict
 import numpy as np
 import torch
 
+from ..ops.buffer_hash import buffer_hash
 from ..ops.bytescan import ByteScanTier, bytescan_expand, bytescan_host_tables
-from ..ops.expand_matches import MatchPlan, build_match_plan, unrank_windowed
-from ..ops.expand_suball import SubAllPlan, build_suball_plan
+from ..ops.expand_matches import (
+    MatchPlan,
+    build_match_plan,
+    expand_matches,
+    piece_device_tables,
+    unrank_windowed,
+)
+from ..ops.expand_suball import SubAllPlan, build_suball_plan, expand_suball
 from ..ops.fused_expand import (
     fused_expand_md5,
     group_descriptors,
@@ -177,6 +193,104 @@ def device_arrays(plan, pieces, digests: DigestSet, idx: tuple, *,
     return out
 
 
+def plan_array_keys(plan) -> "tuple[str, ...]":
+    """The plan fields the XLA route reads, by the reference's names."""
+    if getattr(plan, "match_pos", None) is not None:
+        keys = ("tokens", "lengths", "match_pos", "match_len",
+                "match_radix", "match_val_start")
+    else:
+        keys = ("tokens", "lengths", "pat_radix", "pat_val_start",
+                "seg_orig_start", "seg_orig_len", "seg_pat")
+        if getattr(plan, "close_next", None) is not None:
+            keys += ("close_next", "close_mul")
+    return keys
+
+
+def xla_arrays(plan, ct: CompiledTable, pieces, digests, idx: tuple, *,
+               device) -> Tree:
+    """What the XLA expand + hash route keeps on the device, shipped once:
+    the plan's per-word arrays (:func:`plan_array_keys`; ``tokens``
+    uint8, the rest int32), the value table ``val_bytes`` uint8 /
+    ``val_len`` (a cascade-closed plan's own ``cval_*``), ``win_v`` for a
+    windowed plan, the piece schema's tables under ``pp_*``
+    (``ops.expand_matches.piece_device_tables``), the block index
+    (``cum``, ``totals``, ``radix``, ``place`` and ``total``, as
+    :func:`device_arrays` has them) and, in crack mode, the digest set
+    (``rows``, ``bitmap``; ``digests`` None in candidates mode)."""
+    cum, totals, total_blocks = idx
+    radix = np.asarray(plan.pat_radix, dtype=np.int64)
+    host = {k: np.asarray(getattr(plan, k)) for k in plan_array_keys(plan)}
+    cval = getattr(plan, "cval_bytes", None)
+    host["val_bytes"] = np.asarray(ct.val_bytes if cval is None else cval)
+    host["val_len"] = np.asarray(ct.val_len if cval is None
+                                 else plan.cval_len)
+    host.update(cum=cum, totals=totals, radix=radix)
+    if getattr(plan, "windowed", False):
+        host["win_v"] = plan.win_v
+    else:
+        host["place"] = np.cumprod(np.concatenate(
+            [np.ones((radix.shape[0], 1), np.int64), radix[:, :-1]], axis=1
+        ), axis=1)
+    if digests is not None:
+        host.update(rows=digests.rows, bitmap=digests.bitmap)
+    out: Tree = {
+        k: torch.as_tensor(v if v.dtype == np.uint8 else _i32(v),
+                           device=device)
+        for k, v in ((k, np.ascontiguousarray(v)) for k, v in host.items())
+    }
+    if pieces is not None:
+        out.update({f"pp_{k}": v for k, v in
+                    piece_device_tables(pieces, device=device).items()})
+    out["total"] = int(total_blocks)
+    return out
+
+
+def _expand(spec: AttackSpec, arrays: Tree, word, count, base, *,
+            num_lanes: int, out_width: int, block_stride: int,
+            radix2: bool = False, pieces=None, pair_k: "int | None" = None):
+    """The XLA route's expansion of one launch's blocks (``word`` /
+    ``count`` int32 ``[NB]``, ``base`` the base digits ``[NB, P]`` — slot 0
+    the scalar windowed rank for a windowed plan): ``(cand uint8[N, W],
+    cand_len int32[N], word_row int32[N], emit bool[N])``, ``N`` =
+    ``num_lanes`` (× ``pair_k``).  The twin of the reference's ``_expand``:
+    match plans through ``expand_matches``, substitute-all plans through
+    ``expand_suball``, the piece splice when ``pieces`` is given."""
+    common = dict(
+        num_lanes=num_lanes, out_width=out_width,
+        min_substitute=spec.effective_min,
+        max_substitute=spec.max_substitute, block_stride=block_stride,
+        radix2=radix2, pieces=pieces, pair_k=pair_k,
+        piece_tables={k[3:]: v for k, v in arrays.items()
+                      if k.startswith("pp_")} if pieces is not None
+        else None,
+        win_v=arrays.get("win_v"),
+    )
+    a = arrays
+    if spec.mode in ("default", "reverse"):
+        return expand_matches(
+            a["tokens"], a["lengths"], a["match_pos"], a["match_len"],
+            a["match_radix"], a["match_val_start"], a["val_bytes"],
+            a["val_len"], word, base, count, None, **common)
+    return expand_suball(
+        a["tokens"], a["lengths"], a["pat_radix"], a["pat_val_start"],
+        a["seg_orig_start"], a["seg_orig_len"], a["seg_pat"],
+        a["val_bytes"], a["val_len"], word, base, count, None,
+        close_next=a.get("close_next"), close_mul=a.get("close_mul"),
+        **common)
+
+
+def _xla_base(arrays: Tree, base: torch.Tensor, windowed: bool
+              ) -> torch.Tensor:
+    """The XLA expansion's ``[NB, P]`` block base: the digits themselves,
+    or a windowed block's scalar rank in slot 0 (zeros elsewhere)."""
+    if not windowed:
+        return base
+    full = torch.zeros((base.shape[0], arrays["radix"].shape[1]),
+                       dtype=torch.int32, device=base.device)
+    full[:, 0] = base
+    return full
+
+
 def cut_blocks(arrays: Tree, b0: int, num_blocks: int, rank_stride: int,
                decode: str = "scalar"):
     """One launch's blocks from the device-resident index: global
@@ -226,7 +340,8 @@ def make_superstep_body(
     spec: AttackSpec, *, num_lanes: int, out_width: int, block_stride: int,
     num_blocks: int, pieces, pair_k: "int | None" = None,
     decode: str = "scalar", pack_cb: bool = False, k_opts: int = 1,
-    bytescan: "ByteScanTier | None" = None,
+    bytescan: "ByteScanTier | None" = None, xla: bool = False,
+    windowed: bool = False, radix2: bool = False,
 ) -> Callable[..., Tree]:
     """The superstep executor: ``body(arrays, b0, steps, bufs) -> dict``
     runs ``steps`` fused launches starting at global block ``b0``, with no
@@ -237,6 +352,9 @@ def make_superstep_body(
     then span ``2 * block_stride`` candidate ranks on ``block_stride``
     lanes — or, for a plan without a piece schema, the byte-scan kernel of
     the tier ``bytescan`` (``ops.bytescan.bytescan_tier``; ``pieces`` None),
+    or, with ``xla``, the XLA expand + hash route (:func:`_expand` over
+    :func:`xla_arrays`' tables, the piece splice when ``pieces`` is given,
+    then ``ops.buffer_hash``; ``windowed`` / ``radix2`` the plan's decode),
     tests membership, and compacts hits in cursor order into ``bufs``
     (``hit_word``/``hit_rank`` int32 ``[hit_cap + 1]``).  Returns the
     buffers and ``counters`` int32 ``[2]`` = ``[n_emitted, n_hits]``
@@ -248,7 +366,17 @@ def make_superstep_body(
     window = dict(block_stride=block_stride, out_width=out_width,
                   min_substitute=spec.effective_min,
                   max_substitute=spec.max_substitute, algo=spec.algo)
-    if bytescan is not None:
+    if xla:
+        decode = "windowed" if windowed else "digits"
+
+        def expand(word, count, base, arrays):
+            cand, clen, _, emit = _expand(
+                spec, arrays, word, count,
+                _xla_base(arrays, base, windowed), num_lanes=num_lanes,
+                out_width=out_width, block_stride=block_stride,
+                radix2=radix2, pieces=pieces, pair_k=pair_k)
+            return buffer_hash(cand, clen, spec.algo), emit
+    elif bytescan is not None:
         if pieces is not None or pair_k is not None:
             raise ValueError("the byte-scan tiers take plans without a "
                              "piece schema, at K=1")
@@ -298,6 +426,32 @@ def make_superstep_body(
             nh += nh_step
         return {"counters": torch.stack([ne, nh]), "hit_word": hw,
                 "hit_rank": hr}
+
+    return body
+
+
+def make_candidates_body(
+    spec: AttackSpec, *, num_lanes: int, out_width: int, block_stride: int,
+    num_blocks: int, pieces=None, windowed: bool = False,
+    radix2: bool = False,
+) -> Callable[..., Tree]:
+    """Candidates mode, one launch: ``body(arrays, b0) -> (cand, cand_len,
+    word_row)`` of the EMITTED rows of blocks ``b0 .. b0 + num_blocks``
+    (:func:`xla_arrays` without digests), compacted on the device in row
+    order — word order, and rank order within a word.  The expansion is
+    the XLA route's (:func:`_expand`), as the reference's
+    ``make_candidates_body``; no pair tier."""
+    decode = "windowed" if windowed else "digits"
+
+    def body(arrays: Tree, b0: int):
+        word, count, base, _ = cut_blocks(arrays, b0, num_blocks,
+                                          block_stride, decode)
+        cand, clen, word_row, emit = _expand(
+            spec, arrays, word, count, _xla_base(arrays, base, windowed),
+            num_lanes=num_lanes, out_width=out_width,
+            block_stride=block_stride, radix2=radix2, pieces=pieces)
+        keep = torch.nonzero(emit).flatten()
+        return cand[keep], clen[keep], word_row[keep]
 
     return body
 

@@ -3,9 +3,10 @@
 Each library compiles with one ``nvcc`` from one ``csrc/*.cu`` source
 into a shared library with a plain ``extern "C"`` interface, loaded
 through ``ctypes``: no PyTorch headers, so a build takes seconds.  One
-source may give several libraries (:data:`LIBRARIES`: the piece kernel
-and the byte-scan kernels build once per hash, ``-DPIECE_ALGO=n``), and
-:func:`build` starts their compilers together.  Libraries land in
+source may give several libraries (:data:`LIBRARIES`: the piece, byte-scan
+and buffer-hash kernels build once per hash, ``-DPIECE_ALGO=n``), and
+:func:`build` starts their compilers together; the first :func:`load`
+builds every library of :data:`LIBRARIES` not built yet, in parallel.  Libraries land in
 ``build/torch_kernels/`` at the root of the checkout, keyed by a hash of
 the source, the shared headers (``csrc/*.cuh``) and the flags, so an
 edited source or header rebuilds and an unchanged one loads straight
@@ -40,7 +41,7 @@ NVCC_FLAGS = (
 #: not listed builds ``csrc/<name>.cu`` with no extra flags.
 LIBRARIES: Dict[str, "tuple[str, tuple[str, ...]]"] = {
     f"{stem}_{algo}": (stem, (f"-DPIECE_ALGO={i}",))
-    for stem in ("piece_hash", "bytescan_hash")
+    for stem in ("piece_hash", "bytescan_hash", "buffer_hash")
     for i, algo in enumerate(("md5", "md4", "sha1", "ntlm"))
 }
 
@@ -119,11 +120,14 @@ def build(names: Iterable[str]) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, building it first when needed."""
+    """The loaded library ``name``, building it first when needed —
+    together with every other library of :data:`LIBRARIES` not built yet,
+    all compilers started at once."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    build([name])
+    build([name] + [n for n in LIBRARIES
+                    if n != name and not _target(n)[1].exists()])
     with _LOCK:
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(str(_target(name)[1]))

@@ -14,6 +14,16 @@ equality (Q9); enumeration order is rank order, not DFS order.
 Splicing is exact for every word and every table (empty keys can never
 match — the reference probes key lengths >= 1 only), so match plans have
 no oracle-fallback words.
+
+The device half (torch ops, on the CPU and on the card alike) is the twin
+of the reference's XLA expansion, which its XLA expand + hash route and
+candidates mode run: :func:`decode_digits` (full, radix-2 and windowed),
+:func:`lane_fields` / :func:`pair_lane_fields` (fixed-stride blocks
+only: the superstep path's layout), :func:`splice_pieces` (the per-slot
+piece splice, placed by scatter into a trash column instead of the
+reference's compare-selects: same bytes) and the schema-less
+:func:`_splice_scatter`, under :func:`expand_matches`.  Every gather
+index is in range by construction or clamped where JAX would clamp.
 """
 
 from __future__ import annotations
@@ -22,6 +32,7 @@ from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..tables.compile import CompiledTable
 from .packing import PackedWords
@@ -328,3 +339,379 @@ def build_match_plan(
         windowed=windowed,
         win_v=win_v,
     )
+
+
+# ---------------------------------------------------------------------------
+# Device half: the XLA expansion's torch twin
+# ---------------------------------------------------------------------------
+
+
+def _exact_div(r: torch.Tensor, rs: torch.Tensor) -> torch.Tensor:
+    """Floor ``r // rs``.  The reference computes it as an f32 divide + a
+    ±1 fixup (the TPU has no s32 divide); the GPU divides integers
+    exactly, with the same quotients."""
+    return torch.div(r, rs, rounding_mode="floor")
+
+
+def _col(row: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``row[:, c]`` per lane, 0 where ``c`` is past the row (the
+    reference's unrolled compare-sum column select)."""
+    k2 = row.shape[1]
+    got = row.gather(1, c.clamp(0, k2 - 1).long()[:, None])[:, 0]
+    return torch.where(c < k2, got, 0)
+
+
+def decode_digits(rank, base, radix, field, win_v, m, *,
+                  max_rank: "int | None" = None, radix2: bool = False):
+    """Per-lane digit vectors ``int32[N, M]``: full enumeration (``base +
+    mixed-radix(rank)`` with carry, slot 0 least significant; the bit
+    decode when ``radix2`` and ``m <= 31``, as the reference picks) or,
+    with ``win_v``, the windowed walk of the scalar rank ``base[:, 0] +
+    rank`` through the suffix-count DP (digits clipped to ``radix - 1``).
+    ``field`` expands a per-word array to per-lane rows.  ``max_rank`` is
+    accepted for the reference's signature (it picks the f32 divide
+    there)."""
+    del max_rank
+    if win_v is not None:
+        big_r = base[:, 0] + rank
+        jcnt = torch.zeros_like(rank)
+        digits = []
+        for s in range(m):
+            row = field(win_v[:, s + 1])  # [N, K2]
+            vn0 = _col(row, jcnt)
+            not_chosen = big_r < vn0
+            r2 = big_r - vn0
+            safe = torch.clamp(_col(row, jcnt + 1), min=1)
+            d = torch.where(not_chosen, 0, 1 + _exact_div(r2, safe))
+            big_r = torch.where(not_chosen, big_r,
+                                torch.remainder(r2, safe))
+            digits.append(torch.minimum(torch.clamp(d, min=0),
+                                        radix[:, s] - 1))
+            jcnt = jcnt + (~not_chosen).to(torch.int32)
+        return torch.stack(digits, dim=1).to(torch.int32)
+    if radix2 and m <= 31:
+        digits = []
+        carry = torch.zeros_like(rank)
+        nbits = torch.zeros_like(rank)
+        for s in range(m):
+            active = radix[:, s] > 1
+            bit = (rank >> nbits) & 1
+            t = base[:, s] + torch.where(active, bit, 0) + carry
+            digits.append(torch.where(active, t & 1, 0))
+            carry = torch.where(active, t >> 1, carry)
+            nbits = nbits + active.to(torch.int32)
+        return torch.stack(digits, dim=1).to(torch.int32)
+    digits = []
+    carry = torch.zeros_like(rank)
+    r = rank
+    for s in range(m):
+        rs = radix[:, s]
+        q = _exact_div(r, rs)
+        t = base[:, s] + (r - q * rs) + carry
+        ge = (t >= rs).to(torch.int32)
+        digits.append(t - ge * rs)
+        carry = ge
+        r = q
+    return torch.stack(digits, dim=1).to(torch.int32)
+
+
+def _lane_blocks(blk_word, num_lanes: int, block_stride: "int | None"):
+    if block_stride is None:
+        raise ValueError("the device expansion takes the fixed-stride "
+                         "block layout (block_stride)")
+    nb = num_lanes // block_stride
+    if nb * block_stride != num_lanes or blk_word.shape[0] != nb:
+        raise ValueError(
+            f"block_stride {block_stride} needs num_lanes divisible and "
+            f"exactly {num_lanes} // stride = {nb} blocks, got "
+            f"{blk_word.shape[0]}")
+    v = torch.arange(num_lanes, dtype=torch.int32, device=blk_word.device)
+    blk = torch.div(v, block_stride, rounding_mode="floor")
+    return v - blk * block_stride, blk.long()
+
+
+def lane_fields(blk_word, blk_base, blk_count, blk_offset, *, num_lanes,
+                block_stride):
+    """Lane -> block resolution of a fixed-stride launch: ``(rank, lane_ok,
+    w, base, field)`` — per-lane in-block rank, validity, word row, base
+    digits and ``field(x)``, a per-word array ``x[B, ...]`` per lane
+    ``[N, ...]``.  ``blk_offset`` is implied by the stride."""
+    del blk_offset
+    rank, blk = _lane_blocks(blk_word, num_lanes, block_stride)
+    lane_ok = rank < blk_count[blk]
+    w = blk_word[blk]
+    w_idx = w.long()
+    return rank, lane_ok, w, blk_base[blk], lambda x: x[w_idx]
+
+
+def pair_lane_fields(blk_word, blk_base, blk_count, *, num_lanes,
+                     block_stride):
+    """Lane -> block resolution of the pair tier (K=2 candidates per
+    lane, ranks ``2r`` and ``2r + 1``): ``(rank, ok0, ok1, w, base,
+    field)``."""
+    rank, blk = _lane_blocks(blk_word, num_lanes, block_stride)
+    count = blk_count[blk]
+    w = blk_word[blk]
+    w_idx = w.long()
+    return (rank, rank * 2 < count, rank * 2 + 1 < count, w, blk_base[blk],
+            lambda x: x[w_idx])
+
+
+def interleave_pairs(*arrays):
+    """``(a0[N, ...], a1[N, ...]) -> a[2N, ...]``, member ``p`` of lane
+    ``r`` at row ``2r + p``."""
+    stacked = torch.stack(arrays, dim=1)
+    return stacked.reshape((-1,) + tuple(stacked.shape[2:]))
+
+
+def piece_device_tables(pieces, *, device) -> dict:
+    """A ``PieceSchema``'s data tables for :func:`splice_pieces`, as
+    tensors: ``pl`` ``[B, NGD, V]`` dynamic-group lengths, ``pw``
+    ``[B, NG, V, NW]`` (uint32 bits as int32) and ``pw16`` ``[B, NG16,
+    VM]`` variant words, and a substitute-all schema's selector slots
+    ``sslot`` ``[B, C]``; each only when the schema has it."""
+    tabs = {}
+    for name, key in (("pl", "gl"), ("pw", "gw"), ("pw16", "gw16"),
+                      ("sslot", "sel_slot")):
+        arr = getattr(pieces, key)
+        if arr is None:
+            continue
+        arr = np.ascontiguousarray(arr)
+        arr = arr.view(np.int32) if arr.dtype == np.uint32 else \
+            arr.astype(np.int32)
+        tabs[name] = torch.as_tensor(arr, device=device)
+    return tabs
+
+
+def splice_pieces(schema, tables, field, col_variant, *, n, out_width,
+                  device=None):
+    """Per-slot piece materialization, the twin of the reference's
+    ``splice_pieces``: the schema's groups in output order, each group's
+    precomputed word(s) and length selected by its variant index
+    (``col_variant(c) -> int32[N]``), its bytes placed at the lane's
+    running prefix offset.  Bytes land by scatter into a trash column
+    past ``out_width`` (the reference's compare-selects drop them); the
+    terminator byte in the tail group is cut by the final ``o < out_len``
+    zero-fill.  Returns ``(out uint8[N, W], out_len int32[N])`` on
+    ``device``."""
+    dev = device
+    out = torch.zeros((n, out_width + 1), dtype=torch.uint8, device=dev)
+    cum_static = 0
+    cum = None  # dynamic offset once any group's length varies
+    pl, pw, pw16 = tables.get("pl"), tables.get("pw"), tables.get("pw16")
+    for grp in schema.groups:
+        n_var, n_words = grp.n_variants, grp.n_words
+        if grp.len_fixed == 0:
+            continue
+        idx = None
+        if n_var > 1:
+            sel = grp.sel_cols
+            if len(sel) == 1:
+                idx = col_variant(sel[0])
+            else:
+                idx = torch.zeros((n,), dtype=torch.int32, device=dev)
+                for i, c in enumerate(sel):
+                    idx = idx | ((col_variant(c) > 0).to(torch.int32) << i)
+            idx = idx.clamp(0, n_var - 1).long()[:, None]
+
+        def pick(rows):  # rows: per-word [B, n_var] -> per-lane [N]
+            got = field(rows)
+            if idx is None:
+                return got[:, 0]
+            return got.gather(1, idx)[:, 0]
+
+        if grp.packed16:
+            words = [pick(pw16[:, grp.tab_idx, :n_var])]
+        else:
+            words = [pick(pw[:, grp.tab_idx, :n_var, w])
+                     for w in range(n_words)]
+        ln = grp.len_fixed
+        if ln is None:
+            ln = pick(pl[:, grp.gl_idx, :n_var]).to(torch.int32)
+        off = cum_static if cum is None else cum
+        for bi in range(4 * n_words):
+            if bi >= out_width or (isinstance(ln, int) and bi >= ln):
+                break
+            byte = ((words[bi // 4] >> (8 * (bi % 4))) & 0xFF).to(
+                torch.uint8)
+            if isinstance(off, int):
+                if off + bi >= out_width:
+                    break
+                if isinstance(ln, int):
+                    out[:, off + bi] = byte
+                else:
+                    out[:, off + bi] = torch.where(bi < ln, byte,
+                                                   out[:, off + bi])
+                continue
+            col = off + bi
+            ok = (col >= 0) & (col < out_width)
+            if not isinstance(ln, int):
+                ok &= bi < ln
+            out.scatter_(1, torch.where(ok, col, out_width).long()[:, None],
+                         byte[:, None])
+        if isinstance(ln, int):
+            if cum is None:
+                cum_static += ln
+            else:
+                cum = cum + ln
+        elif cum is not None:
+            cum = cum + ln
+        else:
+            cum = ln if cum_static == 0 else ln + cum_static
+    if cum is None:
+        out_len = torch.full((n,), cum_static - 1, dtype=torch.int32,
+                             device=dev)
+    else:
+        out_len = (cum - 1).to(torch.int32)
+    o = torch.arange(out_width, dtype=torch.int32, device=dev)[None, :]
+    out = out[:, :out_width] * (o < out_len[:, None])
+    return out, out_len
+
+
+def splice_pieces_pair(schema, tables, field, digits, d0_partner,
+                       col_variant, *, n, out_width):
+    """Both pair members' buffers: the partner's variant vector is the
+    base's with column 0 replaced by ``d0_partner``.  Returns ``(out0,
+    len0, out1, len1)``."""
+    out0, len0 = splice_pieces(schema, tables, field, col_variant, n=n,
+                               out_width=out_width, device=digits.device)
+    out1, len1 = splice_pieces(
+        schema, tables, field,
+        lambda c: d0_partner if c == 0 else col_variant(c),
+        n=n, out_width=out_width, device=digits.device)
+    return out0, len0, out1, len1
+
+
+def expand_matches(
+    tokens, lengths, match_pos, match_len, match_radix, match_val_start,
+    val_bytes, val_len, blk_word, blk_base, blk_count, blk_offset, *,
+    num_lanes: int, out_width: int, min_substitute: int,
+    max_substitute: int, block_stride: "int | None" = None,
+    win_v=None, radix2: bool = False, pieces=None,
+    piece_tables: "dict | None" = None, pair_k: "int | None" = None,
+):
+    """Decode + materialize ``num_lanes`` variants of a match plan (per-word
+    arrays as tensors: ``tokens`` uint8 ``[B, L]``, the rest int32; the
+    compiled table's ``val_bytes`` uint8 ``[V, VW]`` / ``val_len``), the
+    twin of the reference's ``expand_matches``.  With ``pieces`` (and
+    ``piece_tables``, :func:`piece_device_tables`) the per-slot piece
+    splice, else the schema-less scatter splice; ``pair_k=2`` runs the
+    pair tier (rows ``2r + p``).  Returns ``(cand uint8[N, out_width],
+    cand_len int32[N], word_row int32[N], emit bool[N])``; bytes past
+    ``cand_len`` are zero."""
+    n = num_lanes
+    m = match_pos.shape[1]
+    if pair_k:
+        if pair_k != 2:
+            raise ValueError(f"pair_k must be 2 or None, got {pair_k}")
+        if pieces is None or not pieces.pair_ok or win_v is not None:
+            raise ValueError("the pair-lane tier needs a pair-eligible "
+                             "PieceSchema and full enumeration")
+        rank, ok0, ok1, w, base, field = pair_lane_fields(
+            blk_word, blk_base, blk_count, num_lanes=n,
+            block_stride=block_stride)
+        radix = field(match_radix)
+        digits = decode_digits(rank * 2, base, radix, field, None, m,
+                               radix2=radix2)
+        d0 = digits[:, 0]
+        d0p = torch.minimum(d0 + 1, radix[:, 0] - 1)
+        out0, len0, out1, len1 = splice_pieces_pair(
+            pieces, piece_tables, field, digits, d0p,
+            lambda c: digits[:, c], n=n, out_width=out_width)
+        cc0 = (digits > 0).sum(dim=1, dtype=torch.int32)
+        cc1 = cc0 + (d0p > 0).to(torch.int32) - (d0 > 0).to(torch.int32)
+
+        def window(ok, cc):
+            return ok & (cc >= min_substitute) & (cc <= max_substitute)
+
+        return (interleave_pairs(out0, out1), interleave_pairs(len0, len1),
+                interleave_pairs(w, w),
+                interleave_pairs(window(ok0, cc0), window(ok1, cc1)))
+
+    rank, lane_ok, w, base, field = lane_fields(
+        blk_word, blk_base, blk_count, blk_offset, num_lanes=n,
+        block_stride=block_stride)
+    radix = field(match_radix)
+    digits = decode_digits(rank, base, radix, field, win_v, m,
+                           radix2=radix2)
+    chosen = digits > 0
+    chosen_count = chosen.sum(dim=1, dtype=torch.int32)
+    window = (lane_ok & (chosen_count >= min_substitute)
+              & (chosen_count <= max_substitute))
+    if pieces is not None:
+        out, out_len = splice_pieces(
+            pieces, piece_tables, field, lambda c: digits[:, c], n=n,
+            out_width=out_width, device=digits.device)
+        return out, out_len, w, window
+    opt_row = torch.where(chosen, field(match_val_start) + digits - 1, 0)
+    vlen = torch.where(chosen, _take_rows(val_len, opt_row), 0)
+    out, out_len, clash = _splice_scatter(
+        chosen, vlen, opt_row, field(match_pos), field(match_len),
+        field(tokens), field(lengths), val_bytes, n=n, m=m,
+        length_axis=int(tokens.shape[1]), out_width=out_width)
+    return out, out_len, w, window & ~clash
+
+
+def _take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` with the index clamped into range, as a JAX gather
+    clamps."""
+    return table[idx.clamp(0, table.shape[0] - 1).long()]
+
+
+def _scatter_add(t: torch.Tensor, idx: torch.Tensor, val: torch.Tensor):
+    """``t[lane, idx] += val`` along dim 1; out-of-range updates are
+    dropped, as a JAX scatter drops them."""
+    ok = (idx >= 0) & (idx < t.shape[1])
+    t.scatter_add_(1, torch.where(ok, idx, 0).long(),
+                   torch.where(ok, val, 0).to(t.dtype))
+    return t
+
+
+def _splice_scatter(chosen, vlen, opt_row, pos_w, len_w, tokens_w,
+                    lengths_w, val_bytes, *, n, m, length_axis, out_width):
+    """The schema-less splice, the twin of the reference's
+    ``_splice_scatter`` (and, by the reference's own equality, of its
+    ``_splice_compare``): per-byte coverage and start fields by scatter-
+    adds, each output column's source unit by ``searchsorted`` over the
+    units' inclusive ends.  A chosen match's start emits its value, a
+    covered byte nothing, any other byte of the word its token; ``clash``
+    marks lanes whose chosen matches overlap.  Returns ``(out uint8[N,
+    W], out_len int32[N], clash bool[N])``."""
+    del m
+    dev = chosen.device
+    la = length_axis
+    ch = chosen.to(torch.int32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    cov = torch.zeros((n, la + 1), **i32)
+    _scatter_add(cov, pos_w, ch)
+    _scatter_add(cov, pos_w + len_w, -ch)
+    cover = torch.cumsum(cov[:, :la], dim=1, dtype=torch.int32)
+    covered = cover > 0
+    clash = (cover > 1).any(dim=1)
+    start_col = torch.minimum(pos_w, torch.tensor(la - 1, device=dev))
+    started = _scatter_add(torch.zeros((n, la), **i32), start_col, ch)
+    start_vlen = _scatter_add(torch.zeros((n, la), **i32), start_col, vlen)
+    start_vrow = _scatter_add(torch.zeros((n, la), **i32), start_col,
+                              opt_row)
+    j = torch.arange(la, **i32)[None, :]
+    unit_len = torch.where(
+        j < lengths_w[:, None],
+        torch.where(started > 0, start_vlen,
+                    torch.where(covered, 0, 1)), 0).to(torch.int32)
+    cum = torch.cumsum(unit_len, dim=1, dtype=torch.int32)
+    out_len = cum[:, -1].contiguous()
+    o = torch.arange(out_width, **i32)
+    j_of_o = torch.searchsorted(
+        cum, o[None, :].expand(n, out_width).contiguous(), right=True,
+        out_int32=True).clamp(0, la - 1).long()
+
+    def take(a):
+        return a.gather(1, j_of_o)
+
+    rel = o[None, :] - (take(cum) - take(unit_len))
+    vw = val_bytes.shape[1]
+    vrow = take(start_vrow).clamp(0, val_bytes.shape[0] - 1).long()
+    from_val = val_bytes[vrow, rel.clamp(0, vw - 1).long()]
+    out = torch.where(take(started) > 0, from_val, take(tokens_w))
+    out = out * (o[None, :] < out_len[:, None])
+    return out, out_len, clash

@@ -28,6 +28,11 @@ Words failing these checks get ``fallback=True`` and are expanded on the
 host by the byte-exact oracle (``oracle.engines``).  Cascade closure is
 always on here (the reference's ``A5GEN_CASCADE_CLOSE`` opt-out is not
 ported).
+
+:func:`expand_suball` is the device half (torch ops), the twin of the
+reference's XLA expansion of substitute-all plans: the per-slot piece
+splice or the schema-less segment splice, the pair tier, count windows
+and the cascade closure's joint value index.
 """
 
 from __future__ import annotations
@@ -36,12 +41,20 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..tables.compile import CompiledTable, boundary_match_possible
 from .expand_matches import (
+    _take_rows,
+    decode_digits,
+    interleave_pairs,
     key_deltas,
+    lane_fields,
+    pair_lane_fields,
     rounded_out_width,
     variant_totals,
+    splice_pieces,
+    splice_pieces_pair,
     windowed_plan_fields,
 )
 from .packing import PackedWords
@@ -712,3 +725,121 @@ def build_suball_plan(
         cval_len=cval_len,
         close_opts=close_opts,
     )
+
+
+def expand_suball(
+    tokens, lengths, pat_radix, pat_val_start, seg_orig_start, seg_orig_len,
+    seg_pat, val_bytes, val_len, blk_word, blk_base, blk_count, blk_offset,
+    *, num_lanes: int, out_width: int, min_substitute: int,
+    max_substitute: int, block_stride: "int | None" = None, win_v=None,
+    radix2: bool = False, close_next=None, close_mul=None, pieces=None,
+    piece_tables: "dict | None" = None, pair_k: "int | None" = None,
+):
+    """Decode + materialize ``num_lanes`` variants of a substitute-all
+    plan (per-word arrays as tensors), the twin of the reference's
+    ``expand_suball``.  ``close_next`` / ``close_mul``: a cascade-closed
+    plan's joint value index (``val_bytes`` / ``val_len`` are then the
+    plan's ``cval_*``).  With ``pieces`` (and ``piece_tables`` holding its
+    ``sslot`` column slots) the per-slot piece splice, else the segment
+    splice; ``pair_k=2`` runs the pair tier.  Returns ``(cand uint8[N,
+    out_width], cand_len int32[N], word_row int32[N], emit bool[N])``;
+    bytes past ``cand_len`` are zero."""
+    n = num_lanes
+    p = pat_radix.shape[1]
+    g = seg_orig_start.shape[1]
+    if pair_k:
+        if pair_k != 2:
+            raise ValueError(f"pair_k must be 2 or None, got {pair_k}")
+        if (pieces is None or not pieces.pair_ok or win_v is not None
+                or close_next is not None):
+            raise ValueError("the pair-lane tier needs a pair-eligible "
+                             "PieceSchema, full enumeration and no "
+                             "cascade closure")
+        rank, ok0, ok1, w, base, field = pair_lane_fields(
+            blk_word, blk_base, blk_count, num_lanes=n,
+            block_stride=block_stride)
+        lane_ok, rank_c = ok0, rank * 2
+    else:
+        rank, lane_ok, w, base, field = lane_fields(
+            blk_word, blk_base, blk_count, blk_offset, num_lanes=n,
+            block_stride=block_stride)
+        rank_c = rank
+    radix = field(pat_radix)
+    digits = decode_digits(rank_c, base, radix, field, win_v, p,
+                           radix2=radix2)
+    active = radix > 1
+    chosen_count = ((digits > 0) & active).sum(dim=1, dtype=torch.int32)
+    if close_next is not None:
+        cn = field(close_next)  # [N, P, S]
+        cm = field(close_mul)  # [N, P, S+1]
+        s_ax = cn.shape[2]
+        idx = cn.clamp(0, p - 1).reshape(-1, p * s_ax).long()
+        dsucc = digits.gather(1, idx).reshape(-1, p, s_ax)
+        jd = (digits - 1) * cm[:, :, 0] + torch.where(
+            cn >= 0, dsucc * cm[:, :, 1:], 0).sum(dim=2, dtype=torch.int32)
+    else:
+        jd = digits - 1
+
+    def window(ok, cc):
+        return ok & (cc >= min_substitute) & (cc <= max_substitute)
+
+    if pieces is not None:
+        sslot_w = field(piece_tables["sslot"]).clamp(0, p - 1).long()
+        col_d = digits.gather(1, sslot_w)
+        if close_next is not None:
+            col_var = torch.where(col_d > 0, 1 + jd.gather(1, sslot_w), 0)
+        else:
+            col_var = col_d
+        if pair_k:
+            d0 = digits[:, 0]
+            d0p = torch.minimum(d0 + 1, radix[:, 0] - 1)
+            col0p = torch.where(sslot_w[:, 0] == 0, d0p, col_var[:, 0])
+            out0, len0, out1, len1 = splice_pieces_pair(
+                pieces, piece_tables, field, digits, col0p,
+                lambda c: col_var[:, c], n=n, out_width=out_width)
+            act0 = active[:, 0]
+            cc1 = (chosen_count + ((d0p > 0) & act0).to(torch.int32)
+                   - ((d0 > 0) & act0).to(torch.int32))
+            return (interleave_pairs(out0, out1),
+                    interleave_pairs(len0, len1), interleave_pairs(w, w),
+                    interleave_pairs(window(ok0, chosen_count),
+                                     window(ok1, cc1)))
+        out, out_len = splice_pieces(
+            pieces, piece_tables, field, lambda c: col_var[:, c], n=n,
+            out_width=out_width, device=digits.device)
+        return out, out_len, w, window(lane_ok, chosen_count)
+
+    # Per-segment output lengths and value rows for this variant.
+    spat_w = field(seg_pat)
+    is_span = spat_w >= 0
+    safe_slot = torch.where(is_span, spat_w, 0).clamp(0, p - 1).long()
+    seg_digit = torch.where(is_span, digits.gather(1, safe_slot), 0)
+    chosen = seg_digit > 0
+    vstart = field(pat_val_start).gather(1, safe_slot)
+    opt_row = torch.where(chosen, vstart + jd.gather(1, safe_slot), 0)
+    seg_len = torch.where(chosen, _take_rows(val_len, opt_row),
+                          field(seg_orig_len)).to(torch.int32)
+    seg_end = torch.cumsum(seg_len, dim=1, dtype=torch.int32)
+    out_len = seg_end[:, -1].contiguous()
+    seg_start_out = seg_end - seg_len
+    # Each output column's segment: the first whose inclusive end exceeds
+    # it (seg_end is non-decreasing, so a right-sided search counts the
+    # ends at or below the column, as the reference's compare-sum does).
+    j = torch.arange(out_width, dtype=torch.int32, device=digits.device)
+    seg_of_j = torch.searchsorted(
+        seg_end, j[None, :].expand(n, out_width).contiguous(), right=True,
+        out_int32=True).clamp(0, g - 1).long()
+
+    def take(a):
+        return a.gather(1, seg_of_j)
+
+    rel = j[None, :] - take(seg_start_out)
+    vw = val_bytes.shape[1]
+    src_row = take(opt_row).clamp(0, val_bytes.shape[0] - 1).long()
+    from_val = val_bytes[src_row, rel.clamp(0, vw - 1).long()]
+    src_orig = (take(field(seg_orig_start)) + rel).clamp(
+        0, tokens.shape[1] - 1).long()
+    from_word = field(tokens).gather(1, src_orig)
+    out = torch.where(take(chosen.to(torch.int32)) > 0, from_val, from_word)
+    out = out * (j[None, :] < out_len[:, None])
+    return out, out_len, w, window(lane_ok, chosen_count)

@@ -14,10 +14,15 @@ pair tier, one hash block).
   :func:`scalar_units_for`, :func:`opts_for_config`,
   :func:`pair_for_config`, :func:`_hash_blocks_for`) are the reference's,
   minus its TPU probe and tiling rules (block strides and counts are free
-  on the GPU).  :func:`decode_for` names the decode tier the reference's
-  wrapper would pick, and :func:`kernel_refusal` the first reason a plan
-  cannot take the kernel; the sweep raises ``NotImplementedError`` with it
-  before any launch.
+  on the GPU).  :func:`opts_for` is the route gate under ``A5GEN_PALLAS``
+  (:func:`enabled_by_env`): None sends a plan to the XLA expand + hash
+  route, as the reference's does.  :func:`decode_for` names the decode
+  tier the reference's wrapper would pick and :func:`schema_refusal` why
+  the piece kernel's descriptors cannot hold a schema the gate admits —
+  the one refusal left, raised as ``NotImplementedError`` by the sweep
+  before any launch.  A fused kernel takes a plan iff :func:`opts_for` is
+  not None and, for a plan with a schema, :func:`schema_refusal` is None
+  (``runtime.sweep.Sweep`` routes on exactly that).
 * :func:`fused_expand_md5` is the wrapper.  For CUDA tensors it launches
   the hand-written kernel of ``csrc/piece_hash.cu`` (or raises); for CPU
   tensors it runs :func:`piece_md5_reference`, the plain PyTorch version
@@ -39,6 +44,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..runtime.env import env_warn_once, read_env
 from .hashes import (
     DIGEST_WORDS,
     hash_words,
@@ -260,36 +266,40 @@ def pair_for_config(spec, plan, pieces, *,
     return 2
 
 
-#: The reference routes what its Pallas kernels refuse to its XLA expand +
-#: hash path (ROADMAP port queue item 11).
-_XLA = "the XLA expand + hash path (ROADMAP item 11)"
+def enabled_by_env() -> bool:
+    """The fused kernels are ON by default; ``A5GEN_PALLAS`` set to
+    ``off``/``0``/``xla``/``none``/``1`` sends every plan to the XLA expand
+    + hash route (``1`` selects the reference's hash-only kernel, whose
+    counterpart here is the buffer hash of that route), ``expand`` (or
+    unset/empty) keeps the kernels.  Unrecognized values warn once and
+    keep the default: a typo must not silently change the route."""
+    val = read_env("A5GEN_PALLAS")
+    if val is None or val in ("", "expand"):
+        return True
+    if val in ("off", "0", "xla", "none", "1"):
+        return False
+    env_warn_once(
+        "A5GEN_PALLAS", val,
+        f"unrecognized A5GEN_PALLAS={val!r} "
+        "(want expand|off|0|xla|none|1); keeping the default "
+        "(fused kernels on for eligible plans)",
+    )
+    return True
 
 
-def kernel_refusal(spec, plan, ct, pieces) -> "str | None":
-    """Why no kernel of this package can take this plan (None = one can):
-    the first failing condition, in the order a reader would check them.
-    A plan without a per-slot piece schema (``pieces`` None) goes to the
-    byte-scan tiers (``ops.bytescan``), which share the piece kernel's
-    static bounds; with a schema, the schema must also fit the piece
-    kernel's descriptors."""
-    k = k_opts_for(plan)
-    if k > _MAX_RAW_OPTIONS:
-        return f"{k} options per key > {_MAX_RAW_OPTIONS}: {_XLA}"
-    hb = _hash_blocks_for(int(plan.out_width), _scale(spec.algo))
-    if hb > _MAX_HASH_BLOCKS:
-        return (f"{hb} hash blocks (out_width {plan.out_width}, "
-                f"{spec.algo}): {_XLA}")
-    k2 = _win_k2(plan)
-    if getattr(plan, "windowed", False) and not 2 <= k2 <= _MAX_WIN_K2:
-        return (f"count-windowed plan with {k2} DP columns (the kernel "
-                f"takes 2..{_MAX_WIN_K2}): {_XLA}")
-    if opts_for_config(spec, plan, ct) is None:
-        return (f"launch configuration outside the kernel's bounds (slots "
-                f"{plan.num_slots} <= {_MAX_SLOTS}, token width "
-                f"{plan.tokens.shape[1]} <= {_MAX_TOKENS}, values <= 4 "
-                f"bytes, mode {spec.mode}, algo {spec.algo}): {_XLA}")
-    if pieces is None:
+def opts_for(spec, plan, ct) -> "int | None":
+    """The route gate: :func:`opts_for_config` under the ``A5GEN_PALLAS``
+    opt-out (:func:`enabled_by_env`).  The static option count K when a
+    fused kernel (piece or byte-scan) takes the plan; None sends it to the
+    XLA expand + hash route, as the reference's ``opts_for`` does."""
+    if not enabled_by_env():
         return None
+    return opts_for_config(spec, plan, ct)
+
+
+def schema_refusal(plan, pieces) -> "str | None":
+    """The port-only refusal of a plan the fused kernels take: why the
+    piece kernel's descriptors cannot hold its schema (None = they can)."""
     decode, pack = decode_for(plan)
     return _schema_refusal(pieces, bitfield=decode == "scalar" or pack)
 
@@ -435,8 +445,8 @@ def fused_expand_md5(
 
     Schemas this package has no kernel for (more than 3 hash blocks; the
     scalar selectors over a group that is not a bit field) raise
-    ``NotImplementedError``; callers gate plans with :func:`kernel_refusal`
-    first."""
+    ``NotImplementedError``; callers gate plans with :func:`opts_for` and
+    :func:`schema_refusal` first."""
     if algo not in ALGOS:
         raise ValueError(f"unknown algo {algo!r}; one of {ALGOS}")
     if decode not in DECODES:

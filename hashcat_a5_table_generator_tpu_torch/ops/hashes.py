@@ -1,5 +1,6 @@
-"""Hash constants and plain PyTorch MD5, MD4 and SHA-1 over pre-built
-message words.
+"""Hash constants and plain PyTorch MD5, MD4, SHA-1 and NTLM: over
+pre-built message words (the piece and byte-scan kernels' plain
+versions) and over candidate byte buffers (the reference's ``HASH_FNS``).
 
 The device state layout is the reference package's: a digest is its raw
 state words, ``int32[N, 4]`` (``int32[N, 5]`` for SHA-1) here — the uint32
@@ -16,6 +17,16 @@ little-endian message words into its big-endian schedule).  NTLM is MD4
 over the byte-wise UTF-16LE expansion (every byte followed by ``00``, the
 reference's ``utf16le_expand``): :func:`utf16_code_units` is that
 expansion for one message word.
+
+:data:`HASH_FNS` (``md5``, ``md4``, ``sha1``, ``ntlm``) are the twins of the
+reference's byte-level hashes (``ops/hashes.py``), which its XLA expand +
+hash route runs: ``uint8[N, W]`` candidate rows and ``int32[N]`` lengths
+in, ``int32[N, DIGEST_WORDS[algo]]`` state words out, through the same
+Merkle-Damgard layout (:func:`pad_message`: the 0x80 terminator at byte
+``length``, the 64-bit bit length little-endian at the end of the row's
+own last block, big-endian for SHA-1) and the same per-row block masking
+(:func:`_run_blocks`).  They are the plain version of the buffer-hash
+kernel (``ops.buffer_hash``).
 """
 
 from __future__ import annotations
@@ -188,3 +199,105 @@ def hash_words(msg: torch.Tensor, end: torch.Tensor, algo: str
         )
     return torch.stack(final, dim=1)
 
+
+
+# ---------------------------------------------------------------------------
+# Byte-level hashes of candidate buffers (the reference's HASH_FNS)
+# ---------------------------------------------------------------------------
+
+
+def _blocks_for_width(width: int) -> int:
+    """Static number of 64-byte blocks the padded layout needs."""
+    return -(-(width + 9) // 64)
+
+
+def pad_message(msg: torch.Tensor, length: torch.Tensor, *,
+                big_endian_length: bool
+                ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Merkle-Damgard padding for a batch: ``(words int32[N, NB*16],
+    n_blocks int32[N])``, ``NB = _blocks_for_width(W)``.  Bytes at and
+    past ``length`` are zeroed, 0x80 lands at byte ``length`` and the
+    64-bit bit length in the last 8 bytes of the row's own last block
+    (little-endian, or big-endian for SHA-1, whose compression byte-swaps
+    the little-endian words later); a row whose blocks exceed ``NB`` gets
+    no length field, as in the reference."""
+    n, width = msg.shape
+    nb = _blocks_for_width(width)
+    total = nb * 64
+    dev = msg.device
+    length = length.to(torch.int32)
+    buf = torch.zeros((n, total), dtype=torch.uint8, device=dev)
+    buf[:, :width] = msg
+    pos = torch.arange(total, dtype=torch.int32, device=dev)[None, :]
+    buf *= pos < length[:, None]
+    buf.masked_fill_(pos == length[:, None], 0x80)
+    # Little-endian words: the byte view reinterpreted (every torch device
+    # this package runs on is little-endian).
+    words = buf.view(torch.int32).clone()
+    n_blocks = torch.div(length + 72, 64, rounding_mode="floor")
+    # The 64-bit bit length of the uint32 length: low and high words.
+    bits = length.long() & 0xFFFFFFFF
+    lo = (bits * 8) & 0xFFFFFFFF
+    lo = torch.where(lo >= 1 << 31, lo - (1 << 32), lo).to(torch.int32)
+    hi = (bits >> 29).to(torch.int32)
+    if big_endian_length:
+        lo, hi = bswap(hi), bswap(lo)
+    rows = torch.nonzero((n_blocks >= 1) & (n_blocks <= nb)).flatten()
+    end = n_blocks[rows].long() * 16
+    words[rows, end - 2] = lo[rows]
+    words[rows, end - 1] = hi[rows]
+    return words, n_blocks
+
+
+def _run_blocks(algo: str, words: torch.Tensor, n_blocks: torch.Tensor
+                ) -> torch.Tensor:
+    """Every static block's compression, the state kept where a row's own
+    blocks have ended; ``int32[N, DIGEST_WORDS[algo]]``."""
+    compress, init = _COMPRESS[algo]
+    n = words.shape[0]
+    state = tuple(
+        torch.full((n,), i32(v), dtype=torch.int32, device=words.device)
+        for v in init
+    )
+    for blk in range(words.shape[1] // 16):
+        new = compress(state, [words[:, 16 * blk + j] for j in range(16)])
+        live = blk < n_blocks
+        state = tuple(torch.where(live, a, b) for a, b in zip(new, state))
+    return torch.stack(state, dim=1)
+
+
+def md5(msg: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """MD5 of each row: ``uint8[N, W], int32[N] -> int32[N, 4]``."""
+    words, n_blocks = pad_message(msg, length, big_endian_length=False)
+    return _run_blocks("md5", words, n_blocks)
+
+
+def md4(msg: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """MD4 of each row: ``uint8[N, W], int32[N] -> int32[N, 4]``."""
+    words, n_blocks = pad_message(msg, length, big_endian_length=False)
+    return _run_blocks("md4", words, n_blocks)
+
+
+def sha1(msg: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """SHA-1 of each row: ``uint8[N, W], int32[N] -> int32[N, 5]``."""
+    words, n_blocks = pad_message(msg, length, big_endian_length=True)
+    return _run_blocks("sha1", words, n_blocks)
+
+
+def utf16le_expand(msg: torch.Tensor, length: torch.Tensor
+                   ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Bytes to UTF-16LE code units the way hashcat's NTLM kernel does:
+    ``uint8[N, W] -> uint8[N, 2W]``, a zero byte after every byte."""
+    n, width = msg.shape
+    out = torch.zeros((n, 2 * width), dtype=torch.uint8, device=msg.device)
+    out[:, 0::2] = msg
+    return out, length.to(torch.int32) * 2
+
+
+def ntlm(msg: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """NTLM: MD4 over the UTF-16LE expansion; ``int32[N, 4]``."""
+    wide, wide_len = utf16le_expand(msg, length)
+    return md4(wide, wide_len)
+
+
+HASH_FNS = {"md5": md5, "sha1": sha1, "md4": md4, "ntlm": ntlm}

@@ -4,7 +4,9 @@ A copy of the reference package's ``runtime/env.py`` reduced to what the
 port honours: :func:`read_env` (the ``A5GEN_*`` accessor),
 :func:`env_warn_once` (one diagnostic per knob spelling per process) and
 :func:`emit_scheme` (``A5GEN_EMIT``: per-slot piece emission or the
-byte-scan tiers).  Standard library only.
+byte-scan tiers).  ``A5GEN_PALLAS`` keeps its own vocabulary at its call
+site, as in the reference (``ops.fused_expand.enabled_by_env``).  Standard
+library only.
 """
 
 from __future__ import annotations

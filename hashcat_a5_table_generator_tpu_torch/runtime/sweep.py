@@ -1,10 +1,21 @@
-"""The crack sweep: one wordlist × one merged table × one attack spec,
-driven through the device superstep loop.
+"""The crack and candidates sweeps: one wordlist × one merged table × one
+attack spec, driven through the device superstep loop (crack mode) or a
+launch loop that streams candidates (candidates mode).
 
-Each sweep's plan takes one kernel tier, by the reference's own gate: the
-per-slot piece kernel when ``packing.piece_schema_for`` gives a schema,
-else the byte-scan tier of ``ops.bytescan.bytescan_tier`` (TPU kernel rows
-7-9).  ``SweepResult.kernels`` names it with its launch count.
+Each sweep's plan takes one route, by the reference's own gate
+(``ops.fused_expand.opts_for``, under ``A5GEN_PALLAS``): a fused kernel —
+the per-slot piece kernel when ``packing.piece_schema_for`` gives a
+schema, else the byte-scan tier of ``ops.bytescan.bytescan_tier`` (TPU
+kernel rows 7-9) — or, for a plan the gate refuses (more than 24 slots,
+tokens over 64 bytes, more than 8 options per key, values over 4 bytes,
+more than 3 hash blocks, windows outside 2..10 DP columns), the XLA expand
++ hash route: the torch expansion of ``models.attack._expand`` and the
+buffer hash of ``ops.buffer_hash`` (TPU kernel row 10).  That route sizes
+its own launches from :data:`XLA_BUDGET_BYTES`, since its ``[N, L]`` and
+``[N, W]`` intermediates grow with the bucket's width.
+``SweepResult.kernels`` names the tier with its launch count,
+``SweepResult.routes`` the route.  Candidates mode runs the XLA expansion
+on every plan, as the reference's does.
 
 The unit of work is a *variant block* — a contiguous rank range of one
 word's mixed-radix space — so the whole sweep is one linear cursor over a
@@ -26,7 +37,8 @@ the host by the oracle (``oracle.engines``), hashed with ``HOST_DIGEST``
 and looked up in the digest list.  Their hits carry the oracle's DFS index
 as rank and interleave in word order: a fallback word is flushed before
 the first device hit of a later word, and at each superstep boundary
-before the boundary's word.
+before the boundary's word.  Candidates mode interleaves them the same
+way, at their word position in the stream.
 """
 
 from __future__ import annotations
@@ -45,28 +57,57 @@ from ..models.attack import (
     build_plan,
     decode_variant,
     device_arrays,
+    make_candidates_body,
     make_superstep_body,
     superstep_buffers,
+    xla_arrays,
 )
-from ..ops.blocks import block_cursor, superstep_index
+from ..ops.blocks import MAX_BLOCK, block_cursor, superstep_index
 from ..ops.bytescan import bytescan_tier
 from ..ops.fused_expand import (
     decode_for,
+    k_opts_for,
     k_vals_for,
-    kernel_refusal,
     launch_key,
+    opts_for,
     pair_for_config,
+    schema_refusal,
 )
 from ..ops.membership import HostDigestLookup, build_digest_set
 from ..ops.packing import PackedWords, pack_words, piece_schema_for
 from ..oracle.engines import iter_candidates
 from ..tables.compile import compile_table
 from ..utils.digests import HOST_DIGEST
-from .sinks import HitRecord, HitRecorder
+from .sinks import CandidateWriter, HitRecord, HitRecorder
 
 #: Supersteps in flight: two alternating buffer sets, so superstep N+1 is
 #: queued before superstep N's fetch is waited on.
 _DEPTH = 2
+
+#: Device memory the XLA route's per-launch intermediates may take, by
+#: device type: the route cuts its lane count to fit (the kernel routes'
+#: launches hold no per-candidate buffers and keep the configured lanes).
+XLA_BUDGET_BYTES = {"cuda": 8 << 30, "cpu": 1 << 30}
+
+
+def xla_row_bytes(plan) -> int:
+    """Estimated device bytes one candidate row of the XLA route holds at
+    its peak: the schema-less splice's int32 ``[L]`` unit fields and
+    ``[W]`` column fields (int64 gather indices among them), the per-slot
+    decode and plan-field gathers, and the candidate buffer."""
+    length_axis = int(plan.tokens.shape[1])
+    segments = int(getattr(plan, "num_segments", 0) or 0)
+    return (32 * length_axis + 48 * int(plan.out_width)
+            + 40 * int(plan.num_slots) + 16 * segments + 256)
+
+
+def xla_lanes(plan, lanes: int, stride: int, cands_per_lane: int,
+              budget: int) -> int:
+    """The XLA route's lanes per launch: the configured ``lanes``, cut to
+    a multiple of ``stride`` whose candidate rows fit ``budget`` bytes (at
+    least one block).  Launch geometry never changes the stream."""
+    fit = budget // (xla_row_bytes(plan) * cands_per_lane)
+    return stride * max(1, min(lanes // stride, fit // stride))
 
 
 def resolve_device(device) -> torch.device:
@@ -130,9 +171,17 @@ class SweepResult:
     #: word routing: device_clean / device_closed / oracle_fallback
     routing: Dict[str, int] = field(default_factory=dict)
     #: launches by kernel tier: ``piece_<entry>`` (``piece_k1``,
-    #: ``piece_pair``, ``piece_suball_closed``, ...) or ``bytescan_<row>``
-    #: (``bytescan_scalar``, ``bytescan_match``, ``bytescan_suball``)
+    #: ``piece_pair``, ``piece_suball_closed``, ...), ``bytescan_<row>``
+    #: (``bytescan_scalar``, ``bytescan_match``, ``bytescan_suball``) or,
+    #: on the XLA route, ``buffer_hash/<algo>`` (candidates mode: the
+    #: expansion launches, ``expand``)
     kernels: Dict[str, int] = field(default_factory=dict)
+    #: sweeps (buckets) by route: ``piece``, ``bytescan``, ``xla``
+    routes: Dict[str, int] = field(default_factory=dict)
+    #: the XLA route's launch geometry: ``lanes`` per launch (the
+    #: smallest over buckets), the ``budget_bytes`` it was cut to and the
+    #: candidate ``rows`` its launches held
+    xla: Dict[str, int] = field(default_factory=dict)
 
 
 class _Fetch:
@@ -203,34 +252,62 @@ class Sweep:
             "device_closed": n_closed,
             "oracle_fallback": len(self.fallback_rows),
         }
-        # Plans no kernel takes are refused here, so a caller holding
-        # several sweeps (BucketedSweep) refuses before any of them
-        # launches.  A plan without a piece schema takes the byte-scan
-        # tier the reference's wrappers pick.
+        # The route: a fused kernel where the reference's gate takes the
+        # plan (the piece kernel with a per-slot schema, else the
+        # byte-scan tier), else the XLA expand + hash route, which also
+        # splices with the schema when there is one.  The one refusal left
+        # (a schema the piece kernel's descriptors cannot hold) and
+        # int32-unsafe words are found here, before any launch, and
+        # raised by the run (BucketedSweep checks every bucket first).
         self.config.resolve(self.device)
         self.device_words = self.n_words > len(self.fallback_rows)
         self.pieces = None
         self.bytescan = None
+        self.route = None
+        #: why this package cannot run the sweep, by mode (None = it can)
+        self.refusal: Dict[str, Optional[str]] = {
+            "crack": None, "candidates": None}
         # The schema is part of the run: SweepResult.wall_s counts it.
         self._schema_s = 0.0
         if self.device_words:
             t0 = time.monotonic()
             self.pieces = piece_schema_for(self.plan, self.ct)
             self._schema_s = time.monotonic() - t0
-            why = kernel_refusal(spec, self.plan, self.ct, self.pieces)
-            if why is not None:
-                raise NotImplementedError(f"kernel not ported for: {why}")
-            if self.pieces is None:
+            if opts_for(spec, self.plan, self.ct) is None:
+                self.route = "xla"
+            elif self.pieces is None:
+                self.route = "bytescan"
                 self.bytescan = bytescan_tier(self.plan)
+            else:
+                self.route = "piece"
+                why = schema_refusal(self.plan, self.pieces)
+                if why is not None:
+                    self.refusal["crack"] = f"kernel not ported for: {why}"
+            launched = ~np.asarray(self.plan.fallback, bool)
+            biggest = max((int(t) for t, on in zip(self.plan.n_variants,
+                                                    launched) if on),
+                          default=0)
+            if biggest >= MAX_BLOCK:
+                self.refusal = dict.fromkeys(self.refusal, (
+                    f"a word with {biggest} variants (>= 2^30): its block "
+                    "index is not int32-safe; the per-launch pipeline "
+                    "(ROADMAP item 6) is not ported"))
+
+    def check(self, mode: str = "crack") -> None:
+        """Raise ``NotImplementedError`` when this package cannot run the
+        sweep in ``mode`` (``crack`` or ``candidates``)."""
+        if self.refusal[mode] is not None:
+            raise NotImplementedError(self.refusal[mode])
 
     def run_crack(self, recorder: Optional[HitRecorder] = None
                   ) -> SweepResult:
         """Fused expand → hash → membership on the device; only hits
         return to the host."""
+        self.check()
         t0 = time.monotonic()
         recorder = recorder if recorder is not None else HitRecorder()
         spec, plan, cfg, dev = self.spec, self.plan, self.config, self.device
-        flush = _FallbackFlush(self, recorder)
+        flush = _FallbackFlush(self, self._crack_word(recorder))
         if not self.device_words:  # no word takes the device
             flush.until(self.n_words)
             return SweepResult(
@@ -257,28 +334,44 @@ class Sweep:
             raise NotImplementedError(
                 "block index not int32-safe (a word with >= 2^30 variants)"
             )
+        digest_set = build_digest_set(self.digests, spec.algo)
+        decode, pack_cb = decode_for(plan)
+        xla_geom: Dict[str, int] = {}
+        if self.route == "xla":
+            budget = XLA_BUDGET_BYTES[dev.type]
+            lanes = xla_lanes(plan, lanes, stride, pair_k or 1, budget)
+            nb = lanes // stride
+            xla_geom = {"lanes": lanes, "budget_bytes": budget}
+            arrays = xla_arrays(plan, self.ct, pieces, digest_set, idx,
+                                device=dev)
+            tier = f"buffer_hash/{spec.algo}"
+        else:
+            arrays = device_arrays(
+                plan, pieces, digest_set, idx, device=dev, ct=self.ct,
+                bytescan=self.bytescan,
+            )
+            tier = (self.bytescan.name if self.bytescan is not None else
+                    launch_key(spec.algo, pieces, decode,
+                               pair_k is not None).split("/")[0])
         # The superstep's emitted counter is int32: cap steps so every
         # lane emitting cannot reach 2^31.
         steps = max(1, min(steps, ((1 << 31) - 1) // (lanes * (pair_k or 1))))
-        arrays = device_arrays(
-            plan, pieces, build_digest_set(self.digests, spec.algo), idx,
-            device=dev, ct=self.ct, bytescan=self.bytescan,
-        )
-        decode, pack_cb = decode_for(plan)
         body = make_superstep_body(
             spec, num_lanes=lanes, out_width=int(plan.out_width),
             block_stride=stride, num_blocks=nb, pieces=pieces,
             pair_k=pair_k, decode=decode, pack_cb=pack_cb,
             k_opts=k_vals_for(plan), bytescan=self.bytescan,
+            xla=self.route == "xla",
+            windowed=bool(getattr(plan, "windowed", False)),
+            radix2=k_opts_for(plan) == 1,
         )
-        tier = (self.bytescan.name if self.bytescan is not None else
-                launch_key(spec.algo, pieces, decode,
-                           pair_k is not None).split("/")[0])
         t_drive = time.monotonic()
         stats, n_emitted, n_hits = self._drive(
             body, arrays, nb, steps, recorder, flush,
             lambda b: block_cursor(plan, rank_stride, idx[0], b)[0])
         stats["pair"] = pair_k or 0
+        if xla_geom:
+            xla_geom["rows"] = stats["launches"] * lanes * (pair_k or 1)
         drive_s = time.monotonic() - t_drive
         flush.until(self.n_words)
         return SweepResult(
@@ -291,6 +384,81 @@ class Sweep:
             superstep=stats,
             routing=dict(self.routing),
             kernels={tier: stats["launches"]},
+            routes={self.route: 1},
+            xla=xla_geom,
+        )
+
+    def run_candidates(self, writer: CandidateWriter) -> SweepResult:
+        """Stream every candidate to ``writer`` in word order, rank order
+        within a word (per-word multiset parity with the oracle): the XLA
+        expansion on the device, one launch at a time, its emitted rows
+        compacted on the device before the copy to the host; fallback
+        words through the oracle at their word position."""
+        self.check("candidates")
+        t0 = time.monotonic()
+        spec, plan, cfg, dev = self.spec, self.plan, self.config, self.device
+
+        def on_word(row: int, cands) -> "tuple[int, int]":
+            n = 0
+            for cand in cands:
+                writer.emit(cand)
+                n += 1
+            return n, 0
+
+        flush = _FallbackFlush(self, on_word)
+        if not self.device_words:
+            flush.until(self.n_words)
+            return SweepResult(
+                n_emitted=flush.n_emitted, words_done=self.n_words,
+                wall_s=time.monotonic() - t0, routing=dict(self.routing))
+        lanes, nb, _ = cfg.resolve(dev)
+        stride = lanes // nb
+        idx = superstep_index(plan, stride)
+        if idx is None:
+            raise NotImplementedError(
+                "block index not int32-safe (a word with >= 2^30 variants)"
+            )
+        budget = XLA_BUDGET_BYTES[dev.type]
+        lanes = xla_lanes(plan, lanes, stride, 1, budget)
+        nb = lanes // stride
+        arrays = xla_arrays(plan, self.ct, self.pieces, None, idx,
+                            device=dev)
+        body = make_candidates_body(
+            spec, num_lanes=lanes, out_width=int(plan.out_width),
+            block_stride=stride, num_blocks=nb, pieces=self.pieces,
+            windowed=bool(getattr(plan, "windowed", False)),
+            radix2=k_opts_for(plan) == 1)
+        total = arrays["total"]
+        n_emitted = launches = 0
+        t_drive = time.monotonic()
+        for b0 in range(0, total, nb):
+            cand, clen, wrow = (t.cpu().numpy() for t in body(arrays, b0))
+            launches += 1
+            lo = 0
+            rows = self.fallback_rows
+            # Fallback words inside this launch's word range go between
+            # the rows of the words around them.
+            while flush.done < len(rows) and len(wrow) and \
+                    rows[flush.done] < int(wrow[-1]):
+                cut = int(np.searchsorted(wrow, rows[flush.done]))
+                n_emitted += _write_rows(writer, cand, clen, lo, cut)
+                lo = cut
+                flush.until(rows[flush.done] + 1)
+            n_emitted += _write_rows(writer, cand, clen, lo, len(clen))
+            flush.until(block_cursor(plan, stride, idx[0],
+                                     min(b0 + nb, total))[0])
+        drive_s = time.monotonic() - t_drive
+        flush.until(self.n_words)
+        return SweepResult(
+            n_emitted=n_emitted + flush.n_emitted,
+            words_done=self.n_words,
+            wall_s=time.monotonic() - t0 + self._schema_s,
+            drive_s=drive_s,
+            routing=dict(self.routing),
+            kernels={"expand": launches},
+            routes={"xla": 1},
+            xla={"lanes": lanes, "budget_bytes": budget,
+                 "rows": launches * lanes},
         )
 
     def _drive(self, body, arrays, nb: int, steps: int, recorder, flush,
@@ -347,6 +515,28 @@ class Sweep:
             free.append((bufs, fetch))
         return stats, n_emitted, n_hits
 
+    def _crack_word(self, recorder):
+        """Crack mode's handling of a fallback word's oracle candidates:
+        hash each with ``HOST_DIGEST`` and record the ones in the digest
+        list (rank = the candidate's DFS index in the oracle's stream)."""
+        digest = HOST_DIGEST[self.spec.algo]
+
+        def on_word(row: int, cands) -> "tuple[int, int]":
+            n = hits = 0
+            for i, cand in enumerate(cands):
+                n += 1
+                dig = digest(cand)
+                if dig in self._digest_lookup:
+                    hits += 1
+                    recorder.emit(HitRecord(
+                        word_index=int(self.packed.index[row]),
+                        variant_rank=i, candidate=cand,
+                        digest_hex=dig.hex(),
+                    ))
+            return n, hits
+
+        return on_word
+
     def _device_hit(self, w_row: int, rank: int, recorder) -> None:
         """Re-derive a device-flagged hit's candidate, re-verify its
         digest on the host, record it."""
@@ -367,38 +557,52 @@ class Sweep:
         )
 
 
+def _write_rows(writer: CandidateWriter, cand: np.ndarray,
+                clen: np.ndarray, lo: int, hi: int) -> int:
+    """Write rows ``lo .. hi`` of an emitted-row batch as ``candidate\n``
+    lines with one vectorized ragged flatten (row by row under
+    ``--hex-unsafe``); returns the number of lines."""
+    n = hi - lo
+    if n <= 0:
+        return 0
+    rows, lens = cand[lo:hi], clen[lo:hi].astype(np.int64)
+    if writer.hex_unsafe:
+        for i in range(n):
+            writer.emit(bytes(rows[i, : lens[i]]))
+        return n
+    w = rows.shape[1]
+    buf = np.empty((n, w + 1), dtype=np.uint8)
+    buf[:, :w] = rows
+    buf[np.arange(n), lens] = 0x0A  # newline at each row's length
+    writer.write_block(buf[np.arange(w + 1)[None, :] <= lens[:, None]]
+                       .tobytes(), n)
+    return n
+
+
 class _FallbackFlush:
     """The oracle route of a sweep's fallback words, flushed in word order:
-    :meth:`until` expands every not yet expanded fallback word below a row,
-    hashes each candidate with ``HOST_DIGEST`` and records the ones in the
-    digest list (rank = the candidate's DFS index in the oracle's stream)."""
+    :meth:`until` expands every not yet expanded fallback word below a row
+    through the port's oracle and hands its candidates to ``on_word(row,
+    candidates) -> (candidates, hits)`` (crack mode: hash and look up;
+    candidates mode: write)."""
 
-    def __init__(self, sweep: Sweep, recorder) -> None:
-        self.sweep, self.recorder = sweep, recorder
+    def __init__(self, sweep: Sweep, on_word) -> None:
+        self.sweep, self.on_word = sweep, on_word
         self.done = 0
         self.n_emitted = self.n_hits = 0
         spec = sweep.spec
         self.substitute_all = spec.mode.startswith("suball")
         self.reverse = spec.mode in ("reverse", "suball-reverse")
-        self.digest = HOST_DIGEST[spec.algo]
 
     def until(self, word_row: int) -> None:
         sw, rows = self.sweep, self.sweep.fallback_rows
         while self.done < len(rows) and rows[self.done] < word_row:
             row = rows[self.done]
-            cands = iter_candidates(
+            n, hits = self.on_word(row, iter_candidates(
                 sw.packed.word(row), sw.sub_map, sw.spec.min_substitute,
                 sw.spec.max_substitute, substitute_all=self.substitute_all,
                 reverse=self.reverse,
-            )
-            for i, cand in enumerate(cands):
-                self.n_emitted += 1
-                dig = self.digest(cand)
-                if dig in sw._digest_lookup:
-                    self.n_hits += 1
-                    self.recorder.emit(HitRecord(
-                        word_index=int(sw.packed.index[row]),
-                        variant_rank=i, candidate=cand,
-                        digest_hex=dig.hex(),
-                    ))
+            ))
+            self.n_emitted += n
+            self.n_hits += hits
             self.done += 1

@@ -296,7 +296,7 @@ def test_german_sss_has_no_piece_schema_and_takes_row_7():
             assert pe.opts_for_config(jspec, jplan, jct, block_stride=128,
                                       num_blocks=8, require_tpu=False) == 1
             assert pe.scalar_units_for(jplan) is True
-            assert fe.kernel_refusal(spec, tplan, tct, None) is None
+            assert fe.opts_for(spec, tplan, tct) is not None
             assert tier_tuple(bs.bytescan_tier(tplan)) == (
                 "scalar", "scalar", "bitmask")
 

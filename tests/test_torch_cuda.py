@@ -15,10 +15,15 @@ every byte-scan kernel (rows 7-9: the scalar-units variants, the match
 and substitute-all scans, closed and windowed, 1-3 hash blocks), and
 small sweeps on the GPU — default, reverse and substitute-all mode, with
 oracle-fallback words, german's ``ss`` words and ``A5GEN_EMIT=bytescan``
-— must equal the same sweeps on the CPU.
+— must equal the same sweeps on the CPU.  The XLA expand + hash route:
+the buffer hash (TPU row 10 and its siblings) against its plain version
+for every hash at 1, 2, 3 and 5 blocks, and XLA-route crack sweeps
+(nine options, long lines, ``A5GEN_PALLAS=off``) and candidates-mode
+streams on the GPU equal to the CPU's.
 """
 
 import hashlib
+import io
 
 import numpy as np
 import pytest
@@ -31,6 +36,7 @@ from hashcat_a5_table_generator_tpu_torch.models.attack import (
     decode_variant,
     device_arrays,
 )
+from hashcat_a5_table_generator_tpu_torch.ops import buffer_hash as bh
 from hashcat_a5_table_generator_tpu_torch.ops import bytescan as bs
 from hashcat_a5_table_generator_tpu_torch.ops import fused_expand as fe
 from hashcat_a5_table_generator_tpu_torch.ops.blocks import superstep_index
@@ -40,6 +46,9 @@ from hashcat_a5_table_generator_tpu_torch.ops.membership import (
 from hashcat_a5_table_generator_tpu_torch.ops.packing import (
     pack_words,
     piece_schema_for,
+)
+from hashcat_a5_table_generator_tpu_torch.runtime.sinks import (
+    CandidateWriter,
 )
 from hashcat_a5_table_generator_tpu_torch.runtime.sweep import (
     Sweep,
@@ -126,7 +135,8 @@ class Case:
         ct = compile_table(sub)
         plan = build_plan(spec, ct, pack_words(words))
         pieces = piece_schema_for(plan, ct)
-        assert fe.kernel_refusal(spec, plan, ct, pieces) is None
+        assert fe.opts_for(spec, plan, ct) is not None
+        assert fe.schema_refusal(plan, pieces) is None
         self.plan = plan
         self.decode, pack_cb = fe.decode_for(plan)
         rank_stride = stride * (2 if pair else 1)
@@ -539,3 +549,118 @@ def test_bytescan_sweeps_on_the_gpu_equal_the_cpu(table, mode, algo, env,
     assert results[0].n_emitted == results[1].n_emitted
     assert results[0].routing == results[1].routing
     assert results[0].kernels == results[1].kernels
+
+
+# ---------------------------------------------------------------------------
+# The XLA expand + hash route
+# ---------------------------------------------------------------------------
+
+#: Nine options on ``a`` (one 5 bytes): every bucket on the XLA route.
+LEET9 = {b"a": [bytes([c]) for c in b"4@^&*!%#"] + [b"/-\\-/"],
+         b"s": [b"$", b"5"], b"e": [b"9"]}
+
+
+def assert_buffer_hash_matches(algo, width, seed, cuda):
+    """Every row of ``width`` bytes (lengths uniform in 0..W) equal to the
+    plain version, tolerance 0; the call launches the kernel, never the
+    plain version."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    msg = torch.randint(0, 256, (1 << 16, width), dtype=torch.uint8,
+                        device=cuda, generator=g)
+    ln = torch.randint(0, width + 1, (1 << 16,), dtype=torch.int32,
+                       device=cuda, generator=g)
+    key = f"buffer_hash/{algo}"
+    launches, plain = bh.LAUNCHES[key], bh.PLAIN_CALLS
+    got = bh.buffer_hash(msg, ln, algo)
+    assert bh.LAUNCHES[key] == launches + 1 and bh.PLAIN_CALLS == plain
+    assert torch.equal(got, bh.HASH_FNS[algo](msg, ln)), width
+    if algo == "md5":
+        m, n = msg[:64].cpu().numpy(), ln[:64].cpu().numpy()
+        st = got[:64].cpu().numpy().view(np.uint32)
+        assert all(st[i].astype("<u4").tobytes()
+                   == hashlib.md5(m[i, :n[i]].tobytes()).digest()
+                   for i in range(64))
+
+
+@pytest.mark.parametrize("blocks", [1, 2, 3, 5])
+@pytest.mark.parametrize("algo", ["md5", "md4", "sha1", "ntlm"])
+def test_buffer_hash_matches_plain_version(algo, blocks, cuda):
+    """The widest width ``blocks`` blocks hold (odd: byte loads), one
+    byte less, and three bytes less (a multiple of 4: the 4-byte-load
+    branch)."""
+    width = (64 * blocks - 9) // (2 if algo == "ntlm" else 1)
+    for w in (width, width - 1, width - 3):
+        assert_buffer_hash_matches(algo, w, blocks, cuda)
+    assert (width - 3) % 4 == 0
+
+
+@pytest.mark.parametrize("algo", ["md5", "md4", "sha1", "ntlm"])
+def test_buffer_hash_main_path_widths(algo, cuda):
+    """The main path's own XLA-route widths: 376 (a long-line bucket, 7
+    MD5 blocks) and 28 (the nine-option plan), both multiples of 4."""
+    for w in (376, 28):
+        assert_buffer_hash_matches(algo, w, w, cuda)
+
+
+def xla_words(seed):
+    rng = np.random.default_rng(seed)
+    words = letter_words(150, 3, 9, seed)
+    for _ in range(6):  # lines over 64 bytes: the XLA route
+        w = rng.integers(ord("a"), ord("z") + 1, size=int(
+            rng.integers(66, 120)), dtype=np.uint8)
+        w[::5] = ord(" ")
+        words.insert(int(rng.integers(0, len(words))), bytes(w))
+    return words
+
+
+@pytest.mark.parametrize("table,mode,algo,mx,env", [
+    ("leet9", "default", "md5", 2, ""),
+    ("leet9", "suball", "ntlm", 2, ""),
+    ("qwerty-cyrillic", "default", "sha1", 2, ""),
+    ("qwerty-cyrillic", "suball-reverse", "md4", 2, ""),
+    ("czech", "default", "ntlm", 2, "off"),
+    ("qwerty-azerty", "suball", "md5", 15, "off"),
+])
+def test_xla_route_sweeps_on_the_gpu_equal_the_cpu(table, mode, algo, mx,
+                                                   env, cuda, monkeypatch):
+    monkeypatch.setenv("A5GEN_PALLAS", env)
+    sub = LEET9 if table == "leet9" else \
+        get_layout(table).to_substitution_map()
+    words = xla_words(62)
+    words[5:5] = [b"m,;", b"aqua", b"AQq", b"am,;q"]
+    spec = AttackSpec(mode=mode, algo=algo, max_substitute=mx)
+    cfg = dict(lanes=4096, num_blocks=32)
+    probe = Sweep(spec, sub, words, [], SweepConfig(device="cpu", **cfg))
+    digests = [HOST_DIGEST[algo](decode_variant(
+        probe.plan, probe.ct, spec, row, probe.plan.n_variants[row] // 2))
+        for row in range(0, len(words), 5)
+        if probe.plan.n_variants[row] >= 2 and not probe.plan.fallback[row]]
+    results = [Sweep(spec, sub, words, digests,
+                     SweepConfig(device=dev, **cfg)).run_crack()
+               for dev in ("cuda", "cpu")]
+    got, want = ([(h.word_index, h.variant_rank, h.candidate)
+                  for h in r.hits] for r in results)
+    assert got == want and got
+    assert results[0].n_emitted == results[1].n_emitted
+    assert results[0].kernels == results[1].kernels
+    assert results[0].routes == results[1].routes == {"xla": 1}
+
+
+@pytest.mark.parametrize("table,mode,mx", [
+    ("qwerty-cyrillic", "default", 2), ("qwerty-azerty", "suball", 15),
+    ("leet9", "reverse", 15),
+])
+def test_candidates_on_the_gpu_equal_the_cpu(table, mode, mx, cuda):
+    sub = LEET9 if table == "leet9" else \
+        get_layout(table).to_substitution_map()
+    words = xla_words(63)
+    words[5:5] = [b"m,;", b"aqua", b"AQq", b"am,;q"]
+    spec = AttackSpec(mode=mode, max_substitute=mx)
+    streams = []
+    for dev in ("cuda", "cpu"):
+        buf = io.BytesIO()
+        res = Sweep(spec, sub, words, (),
+                    SweepConfig(device=dev, lanes=4096, num_blocks=32)
+                    ).run_candidates(CandidateWriter(buf))
+        streams.append((buf.getvalue(), res.n_emitted))
+    assert streams[0] == streams[1] and streams[0][1] > 0

@@ -129,6 +129,20 @@ def test_no_jax_or_reference_imports(path):
         )
 
 
+def test_import_scans_cover_the_xla_route():
+    """The scans above take every module of the package: the XLA expand +
+    hash route's modules (the buffer hash and the expansions' device
+    halves) among them."""
+    scanned = {str(p.relative_to(REPO)) for p in PORT.rglob("*.py")}
+    for mod in ("ops/buffer_hash.py", "ops/hashes.py",
+                "ops/expand_matches.py", "ops/expand_suball.py",
+                "models/attack.py", "runtime/sinks.py"):
+        assert f"hashcat_a5_table_generator_tpu_torch/{mod}" in scanned
+    src = (PORT / "ops" / "buffer_hash.py").read_text()
+    assert "import jax" not in src and "hashcat_a5_table_generator_tpu." \
+        not in src
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_plans_schemas_and_indexes_equal(layout):
     sub = get_layout(layout).to_substitution_map()
@@ -257,7 +271,8 @@ def test_kernel_gates_equal_reference(layout):
             want = ("windowed", scalar) if jplan.windowed else (
                 "scalar" if scalar else "digits", False)
             assert t_fe.decode_for(tplan) == want
-            took = t_fe.kernel_refusal(tspec, tplan, tct, ts) is None
+            took = t_fe.opts_for(tspec, tplan, tct) is not None and (
+                ts is None or t_fe.schema_refusal(tplan, ts) is None)
             assert took == (jk is not None)
             assert (ts is None) == (js is None)
 

@@ -151,8 +151,8 @@ def assert_suball_host_equal(jspec, tspec, jplan, tplan, jct, tct):
                               fields["bitpos"])
     # The reference runs its piece kernel exactly where the port does not
     # refuse (an all-fallback batch launches nothing in either).
-    took = js is not None and t_fe.kernel_refusal(tspec, tplan, tct,
-                                                  ts) is None
+    took = (js is not None and t_fe.opts_for(tspec, tplan, tct) is not None
+            and t_fe.schema_refusal(tplan, ts) is None)
     assert took == (jk is not None and js is not None)
     return ts
 
@@ -215,22 +215,24 @@ def test_schema_refusal_is_kind_aware(occurrences):
     """Substitute-all columns are pattern occurrences, not chosen bits: a
     64-byte word of up to 31 occurrences (several per slot, merged into
     two-column groups that read the same bit) takes the scalar tier in
-    both packages; at 32 occurrences (65 segments) both refuse."""
+    both packages; at 32 occurrences (65 segments) both gates send the
+    plan to the XLA route."""
     sub = {b"a": [b"4"], b"b": [b"8"], b"c": [b"("]}
     word = (b"abca" * 16)[:occurrences] + b"x" * (64 - occurrences)
     words = [word, b"cab", b"xxabx" * 6]
     jspec, tspec, jplan, tplan, jct, tct = both("suball", sub, words)
     ts = assert_suball_host_equal(jspec, tspec, jplan, tplan, jct, tct)
-    why = t_fe.kernel_refusal(tspec, tplan, tct, ts)
     if occurrences == 31:
-        assert why is None and t_fe.decode_for(tplan) == ("scalar", False)
+        assert t_fe.opts_for(tspec, tplan, tct) is not None
+        assert t_fe.schema_refusal(tplan, ts) is None
+        assert t_fe.decode_for(tplan) == ("scalar", False)
         merged = [g for g in ts.groups if len(g.sel_cols) > 1]
         assert merged and max(max(g.sel_cols) for g in ts.groups
                               if g.sel_cols) == 30
         assert any(len({int(ts.sel_bit[0, c]) for c in g.sel_cols}) == 1
                    for g in merged)
     else:
-        assert why is not None and "bounds" in why
+        assert t_fe.opts_for(tspec, tplan, tct) is None
 
 
 # ---------------------------------------------------------------------------

@@ -76,15 +76,21 @@ def test_cli_stdout_matches_reference_cli(case, tmp_path, capsysbinary):
 
 @pytest.mark.parametrize("flags", [["-s"], ["-s", "-r"]],
                          ids=["s", "s-r"])
-def test_cli_refuses_off_kernel_suball_plans(flags, tmp_path, capsys):
-    """A substitute-all plan the reference sends off its piece kernel
-    (nine options per key: its XLA path) exits 2 with nothing on stdout,
-    before any launch; in ``-s -r`` the first options leave one per key,
-    so the same table runs."""
+def test_cli_refuses_off_kernel_suball_plans(flags, tmp_path, capsys,
+                                             monkeypatch):
+    """A substitute-all plan the piece kernel takes but whose schema its
+    descriptor table cannot hold (``MAX_GROUPS`` lowered to 0 here) exits
+    2 with nothing on stdout, before any launch; in ``-s -r`` the same
+    table's first options leave one per key, and the run cracks.  (Nine
+    options per key, which this test refused before, now take the XLA
+    route: ``test_torch_xla_sweep.py``.)"""
     (tmp_path / "t.table").write_bytes(
         b"".join(b"a=" + bytes([c]) + b"\n" for c in b"123456789"))
     (tmp_path / "words.txt").write_bytes(b"banana\nsesame\n")
     (tmp_path / "left.txt").write_text("00" * 16 + "\n")
+    if flags == ["-s"]:
+        (tmp_path / "t.table").write_bytes(b"a=1\n")
+        monkeypatch.setattr(fe, "MAX_GROUPS", 0)
     launches, plain = dict(fe.LAUNCHES), fe.PLAIN_CALLS
     rc = t_cli.main([str(tmp_path / "words.txt"), "-t",
                      str(tmp_path / "t.table"), "--backend", "device",
@@ -93,7 +99,7 @@ def test_cli_refuses_off_kernel_suball_plans(flags, tmp_path, capsys):
     out = capsys.readouterr()
     if flags == ["-s"]:
         assert rc == 2 and out.out == ""
-        assert "options per key" in out.err
+        assert "emission groups" in out.err
         assert fe.LAUNCHES == launches and fe.PLAIN_CALLS == plain
     else:
         assert rc == 0 and fe.PLAIN_CALLS > plain

@@ -3,7 +3,8 @@ reference, on the CPU: equal hit streams ``(word_index, rank, candidate)``
 and emitted counts with the pair tier on and off, for every decode tier
 (scalar, digits, windowed) and every hash, exact overflow re-runs,
 byte-identical CLI stdout, and refusals — exit status 2 or
-``NotImplementedError`` — for everything outside the ported slice."""
+``NotImplementedError`` — for everything outside the ported slice (the
+XLA expand + hash route's own tests: ``test_torch_xla_*.py``)."""
 
 import hashlib
 
@@ -137,10 +138,10 @@ def test_cli_stdout_matches_reference_cli(contract, tmp_path, capsysbinary):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--list-layouts"], ["--output", "o.txt"], ["--devices", "2"],
+    ["--list-layouts"], ["--bug-compat"], ["--devices", "2"],
     ["--checkpoint", "ck.json"], ["--coordinator", "h:1"],
     ["--backend", "oracle"], ["--superstep", "off"], ["--progress"],
-    ["--hex-unsafe"], ["--emit-table", "german"],
+    ["--metrics-json", "m.json"], ["--emit-table", "german"],
 ], ids=lambda a: a[0])
 def test_flags_outside_the_slice_exit_2(extra, tmp_path, capsys):
     argv = ["words.txt", "-t", "t.table", "--backend", "device",
@@ -162,63 +163,71 @@ def test_subcommands_exit_2(sub, capsys):
 
 
 def test_candidates_mode_exits_2(capsys):
+    """Candidates mode runs on the device backend; on the oracle backend
+    (the reference's default) it is still refused."""
     with pytest.raises(SystemExit) as exc:
-        t_cli.main(["w.txt", "-t", "t.table", "--backend", "device"])
+        t_cli.main(["w.txt", "-t", "t.table"])
     assert exc.value.code == 2
-    assert "candidates mode" in capsys.readouterr().err
+    assert "--backend oracle" in capsys.readouterr().err
+
+
+#: A 31-letter line: 2^31 variants, past the int32 block index (the
+#: reference takes its per-launch pipeline there, ROADMAP item 6).
+HUGE_WORD = b"qwertyuiop" * 3 + b"a"
 
 
 @pytest.mark.parametrize("case,reason", [
-    ("nine-options", "options per key"), ("long-line", "token width 68"),
-    ("many-slots", "slots 25"), ("suball", "options per key"),
+    ("huge-word", "int32-safe"), ("huge-word-suball", "int32-safe"),
+    ("schema-groups", "emission groups"),
+    ("schema-groups-suball", "emission groups"),
     ("superstep-off", "superstep"),
 ])
-def test_unported_plans_raise_before_any_launch(case, reason):
-    """Plans the reference sends off the piece kernel (to its XLA expand
-    + hash path) refuse before any launch — in default and substitute-all
-    mode — as does the unported per-launch pipeline."""
+def test_unported_plans_raise_before_any_launch(case, reason, monkeypatch):
+    """What this package still refuses raises before any launch — in
+    default and substitute-all mode: a word past the int32 block index,
+    a piece schema the kernel's descriptor table cannot hold, and the
+    unported per-launch pipeline.  (Plans the reference sends to its XLA
+    expand + hash route run there: ``test_torch_xla_sweep.py``.)"""
     words = [b"password", b"sesame"]
     sub, spec, cfg = SUB, AttackSpec(), SweepConfig(device="cpu",
                                                     **GEOMETRY)
-    if case == "nine-options":
-        sub = {b"a": [bytes([c]) for c in b"123456789"], b"s": [b"$"]}
-    elif case == "long-line":
-        words = words + [b"1" * 65]
-    elif case == "many-slots":
-        words = words + [b"qwertyuiop" * 2 + b"asdfg"]
+    if case.startswith("huge-word"):
+        words = words + [HUGE_WORD]
+        if case.endswith("suball"):
+            # 15 patterns of 3 options each: 4^15 = 2^30 variants.
+            sub = {bytes([c]): [b"1", b"2", b"3"] for c in b"qwertyuiopasdfg"}
+            words = [b"password", b"qwertyuiopasdfg"]
+    elif case.startswith("schema-groups"):
+        monkeypatch.setattr(fe, "MAX_GROUPS", 2)
     elif case == "superstep-off":
         cfg = SweepConfig(device="cpu", superstep=0, **GEOMETRY)
+    if case.endswith("suball"):
+        spec = AttackSpec(mode="suball")
     launches = dict(fe.LAUNCHES)
     plain = fe.PLAIN_CALLS
     with pytest.raises(NotImplementedError, match=reason):
-        if case == "suball":
-            spec = AttackSpec(mode="suball")
-            sub = {b"a": [bytes([c]) for c in b"123456789"], b"s": [b"$"]}
         Sweep(spec, sub, words, [bytes(16)], cfg).run_crack()
     assert fe.LAUNCHES == launches and fe.PLAIN_CALLS == plain
 
 
 @pytest.mark.parametrize("case,reason", [
-    ("many-slots", "slots 40"), ("4-hash-blocks", "4 hash blocks"),
+    ("many-slots", "int32-safe"), ("schema-groups", "emission groups"),
 ])
 def test_bucketed_cli_refuses_before_any_bucket_launches(
-    case, reason, contract, tmp_path, capsys
+    case, reason, contract, tmp_path, capsys, monkeypatch
 ):
     """The short buckets hold planted hits and sort first, but a wide
-    bucket the kernel does not take refuses the whole run up front."""
+    bucket this package refuses (a 40-letter line: 2^40 variants, past
+    the int32 block index; a schema past the piece kernel's descriptor
+    table) refuses the whole run up front."""
     words, _planted, digests = contract
     tables = ["-t", str(tmp_path / "t.table")]
     emit_table(get_layout("qwerty-cyrillic"), tables[1])
-    argv_extra = []
     if case == "many-slots":
         long_line = b"qwertyuiop" * 4  # 40 substitutable letters
     else:
-        # 20 one-to-four-byte substitutions in the 128-wide bucket: a
-        # 188-byte candidate needs 4 MD5 blocks.
-        (tmp_path / "wide.table").write_bytes(b"1=$HEX[f09f9880]\n")
-        tables += ["-t", str(tmp_path / "wide.table")]
-        long_line = b"1" * 20 + b"0" * 100
-        argv_extra = ["--buckets", "16,32,64,128"]
+        long_line = b"qwertyuiop" * 2  # 20 letters: the 32-wide bucket
+        monkeypatch.setattr(fe, "MAX_GROUPS", 10)
     (tmp_path / "words.txt").write_bytes(
         b"\n".join(words + [long_line]) + b"\n"
     )
@@ -229,7 +238,7 @@ def test_bucketed_cli_refuses_before_any_bucket_launches(
     plain = fe.PLAIN_CALLS
     rc = t_cli.main([str(tmp_path / "words.txt"), *tables, "--backend",
                      "device", "--digests", str(tmp_path / "left.txt"),
-                     "--device", "cpu", *GEOMETRY_ARGV, *argv_extra])
+                     "--device", "cpu", *GEOMETRY_ARGV])
     out = capsys.readouterr()
     assert rc == 2
     assert out.out == ""
@@ -238,26 +247,22 @@ def test_bucketed_cli_refuses_before_any_bucket_launches(
 
 
 @pytest.mark.parametrize("case,reason", [
-    ("25-letter-line", "slots 25"), ("win-k2-11", "11 DP columns"),
+    ("31-letter-line", "int32-safe"),
+    ("schema-selectors", "selector columns"),
 ])
 def test_cli_refuses_off_kernel_plans_before_any_launch(
         case, reason, contract, tmp_path, capsys, monkeypatch):
-    """A plan the reference sends to its XLA path exits 2 with empty
-    stdout: a 25-letter line (25 slots), and a count-windowed plan whose
-    DP has 11 columns (a window ceiling of 9, admitted here by raising
-    the windowed plan bound; the reference's gate refuses it too)."""
+    """A plan this package refuses exits 2 with empty stdout: a 31-letter
+    line (2^31 variants: the int32 block index), and a piece schema with
+    more selector columns per group than the kernel's descriptor holds
+    (``MAX_SEL`` lowered to 0 here).  (The 25-letter line and the
+    11-column windowed plan this test refused before now take the XLA
+    route: ``test_torch_xla_sweep.py``.)"""
     words, _planted, digests = contract
-    argv_extra = []
-    if case == "25-letter-line":
-        words = words + [b"qwertyuiop" * 2 + b"asdfg"]
+    if case == "31-letter-line":
+        words = words + [HUGE_WORD]
     else:
-        monkeypatch.setattr(t_em, "WINDOWED_MAX_SUBST", 9)
-        words = [w + b"qwertyuiopas" for w in words]
-        argv_extra = ["-x", "9"]
-        assert not pe.eligible(
-            mode="default", algo="md5", windowed=True, block_stride=128,
-            num_blocks=8, out_width=64, num_slots=12, token_width=32,
-            max_val_len=2, max_options=1, win_k2=11)
+        monkeypatch.setattr(fe, "MAX_SEL", 0)
     (tmp_path / "words.txt").write_bytes(b"\n".join(words) + b"\n")
     (tmp_path / "left.txt").write_text(
         "".join(d.hex() + "\n" for d in digests))
@@ -267,7 +272,7 @@ def test_cli_refuses_off_kernel_plans_before_any_launch(
     rc = t_cli.main([str(tmp_path / "words.txt"), "-t",
                      str(tmp_path / "t.table"), "--backend", "device",
                      "--digests", str(tmp_path / "left.txt"), "--device",
-                     "cpu", *GEOMETRY_ARGV, *argv_extra])
+                     "cpu", *GEOMETRY_ARGV])
     out = capsys.readouterr()
     assert rc == 2
     assert out.out == ""
