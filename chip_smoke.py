@@ -24,11 +24,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    and 3 hash blocks (MD5, NTLM, SHA-1); the byte-scan kernels (TPU rows
    7-9) in every tier x hash, with 2- and 3-block batches, and both tiers
    on one german plan; emit masks equal and state equal on every emitted
-   lane, tolerance 0 (integer arithmetic); the buffer hash (TPU row 10
-   and its siblings: ``buffer_hash`` x 4 hashes x 1, 2, 3 and 5 blocks,
-   each at an odd width (byte loads) and a multiple of 4 (4-byte loads),
-   and the main path's width 376, at 2^22 rows) equal to its plain
-   version on every row and, for MD5, to ``hashlib`` on a sample; the XLA
+   lane, tolerance 0 (integer arithmetic), the windowed tier's CTA edges
+   too (blocks of count 0, 1 and the stride, a partial last CTA); the
+   buffer hash (TPU row 10 and its siblings: ``buffer_hash`` x 4 hashes x
+   1, 2, 3 and 5 blocks, each at an odd width (funnel-shifted loads) and a
+   multiple of 4 (aligned loads), the main path's widths 376 and 432, at
+   2^22 rows, and the edges of ``BUFFER_EDGES``: widths 0-3, partial CTAs,
+   buffers that are not 4-byte aligned, rows of 2101 bytes) equal to its
+   plain version on every row and, for MD5, to ``hashlib`` on a sample; the XLA
    route's torch expansion on the card equal to the same call on the CPU
    for one plan per splice kind; one XLA-route launch per splice kind (a
    pair plan, a substitute-all plan over long lines and the main path's
@@ -56,15 +59,21 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    of 25-40 letters (cyrillic-x2-long), 5e4 words x a nine-option table
    with a 5-byte value, SHA-1 (leet9-sha1), four ``A5GEN_PALLAS=off``
    twins (czech-ntlm, greek-hebrew-sha1, german-md5, azerty-s) whose
-   stdout must equal the kernel route's, and candidates mode
+   stdout must equal the kernel route's, an ``A5GEN_PAIR=off`` twin of
+   the cyrillic crack run whose stdout must equal pair auto's (and which
+   launches no pair tier), and candidates mode
    (qwerty-cyrillic, 2e4 words, ``--output``: line count = the host
    keyspace, the first 2000 words byte-identical to a ``--device cpu``
    run, per word the oracle's multiset on 200 sampled words; qwerty-azerty
    ``-s`` with oracle-fallback words interleaved); every run on the XLA
    route within the memory budget over the whole run;
 5. each entry point x hash timed with CUDA events at main-path shapes
-   beside its bound and its plain version's time; stage breakdowns of one
-   launch (membership against the 1M-digest sets), a closed substitute-all
+   beside its bound, the compression floor this card measures (the
+   buffer hash at width 0: one compression a row, nothing loaded) and
+   its plain version's time, the windowed tier with its masked share and
+   CTA geometry; the buffer hash's main-path launches by row width;
+   stage breakdowns of one launch (membership against the 1M-digest
+   sets), a closed substitute-all
    launch among them, and the masked-row share of the czech run; the
    byte-scan kernels likewise, and the two tiers on one german plan; the
    buffer hash per hash x shape beside its bound, and one XLA-route
@@ -522,7 +531,9 @@ class Case:
         """Least time for this input: one compression per emitted
         candidate (every lane here needs exactly one) over the INT32 peak,
         against each input byte read once and each output byte written
-        once over HBM bandwidth."""
+        once over HBM bandwidth: an emit byte per row, and state words
+        per row — on the windowed tier only per live row (rank < count),
+        as its contract leaves the state of padding rows undefined."""
         import torch
 
         from hashcat_a5_table_generator_tpu_torch.ops import fused_expand
@@ -537,13 +548,60 @@ class Case:
                         if k in used)
         nb = int(self.blocks[0].shape[0])
         rows = int(emit.shape[0])
+        state_rows = rows
+        if self.decode == "windowed":
+            state_rows = int(torch.clamp(self.blocks[1], 0,
+                                         self.stride).sum())
         nbytes = (8 * nb + self.blocks[2].numel() * 4
                   + int(words.numel()) * row_bytes
                   + self.arrays["desc"].numel() * 4
-                  + (4 * STATE_WORDS[self.algo] + 1) * rows)
+                  + rows + 4 * STATE_WORDS[self.algo] * state_rows)
         t_ops, t_bytes = ops / peak_ops, nbytes / HBM_BYTES_PER_S
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes")
+
+
+def win_geometry(case) -> "tuple[int, int, int]":
+    """``(blocks per CTA, threads per CTA, dynamic shared bytes)`` of a
+    windowed launch over ``case``'s tables, as ``csrc/piece_hash.cu``
+    ``win_geometry`` sizes it."""
+    from hashcat_a5_table_generator_tpu_torch.ops import fused_expand
+
+    a, pieces = case.arrays, case.pieces
+    m, k2 = int(a["radix"].shape[1]), int(a["win_v"].shape[2])
+    suball, closed = pieces.kind == "suball", bool(pieces.closed)
+    pack = case.kw["pack_cb"] and not closed
+    ngw, ng16, ngd, vm, nw = fused_expand._table_dims(a)
+    ncols = int(a["sel_bit" if pack else "sel_slot"].shape[1]) if suball \
+        else 0
+    close_s = int(a["close_next"].shape[2]) if closed else 0
+    rec = max(1, m + (m + 1) * k2 + (m if suball and pack else 0)
+              + ngw * vm * nw + ng16 * vm + ngd * vm + ncols
+              + (m * close_s + m * (close_s + 1) if closed else 0))
+    g = max(1, min(32, 24 * 1024 // 4 // rec))
+    nt = 256 if case.hash_blocks == 1 else 128
+    s_msg = (len(pieces.groups) * 16 + 6 * g + 2 + g * rec + 3) & ~3
+    s_dig = s_msg + 16 * case.hash_blocks * nt
+    return g, nt, 4 * (s_dig + (0 if pack else (m * nt + 3) // 4))
+
+
+def windowed_edges(case):
+    """``case`` cut to the windowed tier's CTA edges: five blocks fewer (a
+    partial last CTA) and two blocks cut to counts 0 and 1, beside blocks
+    of the full stride (the case's words must have some)."""
+    import copy
+
+    import torch
+
+    edge = copy.copy(case)
+    word, count, base = (t[:-5].clone() for t in case.blocks)
+    count[3] = 0
+    count[7] = torch.clamp(count[7], max=1)
+    if not bool((count == case.stride).any()) or int(count[7]) != 1:
+        fail(f"{case.name}: no blocks of the full stride to hold the edges")
+    edge.blocks = (word, count, base)
+    edge.name = f"{case.name}, CTA edges"
+    return edge
 
 
 class BSCase:
@@ -1004,10 +1062,12 @@ class MainPath:
                 fail(f"main path [{name}]: {self.planted_by_route.get(r, 0)}"
                      f" plants in {r} words, want {n}")
 
-    def run(self, arm, extra, card, emit_scheme=None, pallas=None) -> dict:
+    def run(self, arm, extra, card, emit_scheme=None, pallas=None,
+            pair=None) -> dict:
         """One CLI run; ``emit_scheme`` sets ``A5GEN_EMIT`` for this run
         alone (``bytescan``: every plan on the byte-scan tiers), ``pallas``
-        ``A5GEN_PALLAS`` (``off``: every bucket on the XLA route).  A run
+        ``A5GEN_PALLAS`` (``off``: every bucket on the XLA route), ``pair``
+        ``A5GEN_PAIR`` (``off``: K=1 everywhere).  A run
         with XLA-route buckets must stay within the route's memory budget
         over the whole run (its resident tables included)."""
         from hashcat_a5_table_generator_tpu_torch.ops import (
@@ -1025,9 +1085,11 @@ class MainPath:
             for k in mod.LAUNCHES:
                 mod.LAUNCHES[k] = 0
             mod.PLAIN_CALLS = 0
+        buffer_hash.WIDTH_LAUNCHES.clear()
         argv = [self.wordlist, "-t", self.table, "--backend", "device",
                 "--algo", self.algo, "--digests", self.digests] + extra
-        with knobs(A5GEN_EMIT=emit_scheme, A5GEN_PALLAS=pallas):
+        with knobs(A5GEN_EMIT=emit_scheme, A5GEN_PALLAS=pallas,
+                   A5GEN_PAIR=pair):
             t = time.monotonic()
             res = []
             peak = launch_peak_bytes(lambda: res.append(run_cli(argv)))
@@ -1097,6 +1159,7 @@ class MainPath:
             f"sweep {s.group(1)} s (drive {s.group(2)} s), {s.group(3)} "
             f"candidate-hashes/s on {card}")
         return dict(hits=sorted(got), launches=launches, emitted=emitted,
+                    widths=dict(buffer_hash.WIDTH_LAUNCHES),
                     wall=wall, sweep_wall=float(s.group(1)),
                     drive=float(s.group(2)), rate=float(s.group(3)),
                     stdout=out, xla_lanes=xla_lanes, peak_bytes=peak)
@@ -1108,16 +1171,20 @@ class MainPath:
 
 BUFFER_BLOCKS = (1, 2, 3, 5)
 
-#: The main path's own XLA-route width: cyrillic-x2-long's long-line
-#: bucket (out_width 376: 7 MD5 blocks, a multiple of 4).
+#: XLA-route widths of the main path: 376 (cyrillic-x2-long's 200-byte
+#: lines packed at their own width, as check_xla_memory and
+#: xla_stage_breakdown launch them: 7 MD5 blocks), and 432 (the same lines
+#: in the CLI's 256-byte bucket, what its sweeps launch most).
 MAIN_XLA_WIDTH = 376
+BUCKET_XLA_WIDTH = 432
 
 
 def buffer_shapes(algo: str) -> list:
     """``(label, width)`` of every checked and timed buffer-hash shape: per
     block count the widest width it holds (NTLM doubles its width; odd:
-    the byte-load branch) and three bytes less (a multiple of 4: the
-    4-byte-load branch), and the main path's own XLA width."""
+    funnel-shifted loads) and three bytes less (a multiple of 4: aligned
+    loads), and the main path's own XLA widths (:data:`MAIN_XLA_WIDTH`,
+    :data:`BUCKET_XLA_WIDTH`)."""
     out = []
     for b in BUFFER_BLOCKS:
         width = (64 * b - 9) // (2 if algo == "ntlm" else 1)
@@ -1125,6 +1192,7 @@ def buffer_shapes(algo: str) -> list:
         out.append((f"{b} block{'s' if b > 1 else ''}, width % 4 == 0",
                     width - 3))
     out.append(("main path width", MAIN_XLA_WIDTH))
+    out.append(("long-line bucket width", BUCKET_XLA_WIDTH))
     return out
 
 
@@ -1141,12 +1209,44 @@ def buffer_rows(width: int, seed: int, n: int = LANES):
     return msg, ln
 
 
+#: Edge shapes held against the plain version (not timed): ``(label,
+#: width, rows, byte offset of the buffer)``: widths of 0-3 bytes, 55/56
+#: (funnel-shifted and aligned loads), 64, a row count that ends a CTA
+#: part-way, buffers that are not 4-byte aligned (funnel-shifted loads at
+#: every width; byte loads where an aligned word would leave the buffer),
+#: and rows wider than the sweeps make.
+BUFFER_EDGES = (
+    ("width 0", 0, LANES, 0),
+    ("width 1, partial CTA", 1, LANES - 5, 0),
+    ("width 3, partial CTA", 3, LANES - 5, 0),
+    ("width 55, partial CTA", 55, LANES - 5, 0),
+    ("width 56, partial CTA", 56, LANES - 5, 0),
+    ("width 64, partial CTA", 64, LANES - 5, 0),
+    ("width 55, offset 1", 55, LANES, 1),
+    ("width 376, offset 2", 376, LANES >> 2, 2),
+    ("width 2101, offset 1", 2101, 1 << 16, 1),
+)
+
+
+def buffer_rows_at(width: int, n: int, offset: int, seed: int):
+    """:func:`buffer_rows` whose buffer starts ``offset`` bytes into its
+    allocation (a contiguous view that is not 16-byte aligned)."""
+    import torch
+
+    msg, ln = buffer_rows(width, seed=seed, n=n)
+    if not offset or not width:
+        return msg, ln
+    raw = torch.empty(n * width + offset, dtype=torch.uint8, device="cuda")
+    raw[offset:] = msg.reshape(-1)
+    return raw[offset:].view(n, width), ln
+
+
 def check_buffer_hash() -> dict:
     """``buffer_hash`` x hash x shape (:func:`buffer_shapes`: both load
-    branches at 1, 2, 3 and 5 blocks, and the main path's width) at 2^22
-    rows against its plain version on every row (tolerance 0), MD5 also
-    against ``hashlib`` on 4096 rows; each CUDA call must move
-    ``LAUNCHES`` and not ``PLAIN_CALLS``."""
+    branches at 1, 2, 3 and 5 blocks, and the main path's width, at 2^22
+    rows; and :data:`BUFFER_EDGES`) against its plain version on every row
+    (tolerance 0), MD5 also against ``hashlib`` on 4096 rows; each CUDA
+    call must move ``LAUNCHES`` and not ``PLAIN_CALLS``."""
     import hashlib
 
     import torch
@@ -1155,8 +1255,10 @@ def check_buffer_hash() -> dict:
 
     out = {}
     for algo in ALGOS:
-        for label, width in buffer_shapes(algo):
-            msg, ln = buffer_rows(width, seed=width)
+        shapes = [(label, width, LANES, 0)
+                  for label, width in buffer_shapes(algo)] + list(BUFFER_EDGES)
+        for label, width, n, offset in shapes:
+            msg, ln = buffer_rows_at(width, n, offset, seed=width)
             key = f"buffer_hash/{algo}"
             launches, plain = bh.LAUNCHES[key], bh.PLAIN_CALLS
             got = bh.buffer_hash(msg, ln, algo)
@@ -1169,14 +1271,15 @@ def check_buffer_hash() -> dict:
             mis = int((diff != 0).any(dim=1).sum())
             err = int(diff.max())
             if algo == "md5":
-                m, n = msg[:4096].cpu().numpy(), ln[:4096].cpu().numpy()
+                m, k = msg[:4096].cpu().numpy(), ln[:4096].cpu().numpy()
                 st = got[:4096].cpu().numpy().view(np.uint32)
                 mis += sum(st[i].astype("<u4").tobytes()
-                           != hashlib.md5(m[i, :n[i]].tobytes()).digest()
+                           != hashlib.md5(m[i, :k[i]].tobytes()).digest()
                            for i in range(4096))
-            loads = "4-byte" if width % 4 == 0 else "byte"
+            loads = ("aligned" if width % 4 == 0 and not offset % 4
+                     else "funnel-shifted")
             log(f"kernel vs plain [{key}, {label}, width {width}, {loads} "
-                f"loads]: rows {msg.shape[0]}, state mismatches "
+                f"loads]: rows {n}, state mismatches "
                 f"{mis}{' (hashlib on 4096 rows included)' if algo == 'md5' else ''}"
                 f", max abs err {err} (tolerance 0)")
             if mis:
@@ -1187,7 +1290,30 @@ def check_buffer_hash() -> dict:
     return out
 
 
-def time_buffer_hash(peak_ops: float) -> dict:
+def compression_floor(peak_ops: float) -> dict:
+    """ms per 2^22 compressions of each hash measured on this card: the
+    buffer hash over 2^22 rows of width 0 (one compression each, nothing
+    loaded; the lengths read and the states written, 84-101 MB, take
+    under 0.03 ms of HBM) — what the rounds alone cost here, beside the
+    INT32-peak figure the bounds use."""
+    import torch
+
+    from hashcat_a5_table_generator_tpu_torch.ops import buffer_hash as bh
+
+    out = {}
+    for algo in ALGOS:
+        msg = torch.empty((LANES, 0), dtype=torch.uint8, device="cuda")
+        ln = torch.zeros(LANES, dtype=torch.int32, device="cuda")
+        out[algo] = time_call(lambda: bh.buffer_hash(msg, ln, algo), 20)
+        peak_ms = LANES * OPS_PER_BLOCK[algo] / peak_ops * 1e3
+        log(f"compression floor [{algo}]: {out[algo]:.4f} ms per {LANES} "
+            f"compressions ({out[algo] / LANES * 1e9:.1f} ps each), "
+            f"{out[algo] / peak_ms:.2f}x the INT32-peak figure "
+            f"{peak_ms:.4f} ms ({OPS_PER_BLOCK[algo]} ops each)")
+    return out
+
+
+def time_buffer_hash(peak_ops: float, floor: dict) -> dict:
     """ms per call of ``buffer_hash`` and of its plain version at 2^22
     rows, per hash x shape, and the bound: the compressions these lengths
     need (each row its own ``ceil((len * scale + 9) / 64)``) over the
@@ -1213,15 +1339,18 @@ def time_buffer_hash(peak_ops: float) -> dict:
             t_ops, t_bytes = ops / peak_ops, nbytes / HBM_BYTES_PER_S
             bound_ms = max(t_ops, t_bytes) * 1e3
             by = "operations" if t_ops >= t_bytes else "bytes"
+            floor_ms = floor[algo] * comp / LANES
             out[(algo, label)] = dict(
-                width=width, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                width=width, ms=ms, floor_ms=floor_ms,
+                plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=by, compressions=comp, bytes=nbytes)
             log(f"buffer_hash/{algo} [{label}, width {width}, "
                 f"{msg.shape[0]} rows, {comp} compressions, {nbytes} bytes]:"
                 f" {ms:.4f} ms/launch; bound {bound_ms:.4f} ms ({by}; ops "
                 f"{t_ops * 1e3:.4f} ms, bytes {t_bytes * 1e3:.4f} ms; "
-                f"{100 * bound_ms / ms:.0f}% of it reached); plain "
-                f"{plain_ms:.3f} ms")
+                f"{100 * bound_ms / ms:.0f}% of it reached); compression "
+                f"floor {floor_ms:.4f} ms ({100 * floor_ms / ms:.0f}% of it "
+                f"reached); plain {plain_ms:.3f} ms")
             del msg, ln
     return out
 
@@ -1634,14 +1763,20 @@ def candidates_checks(work: str, dictionary, card: str) -> None:
 
 def ptxas_kernels(report: str) -> list:
     """``(kernel, "R registers, S B stack, spill X/Y B, M B smem")`` per
-    entry of an ``-Xptxas -v`` report of ``bytescan_hash.cu``; the kernel
-    named by its template arguments (ROW, VAR, DECODE, CLOSED, HB)."""
+    entry of an ``-Xptxas -v`` report; the kernel named by its template
+    arguments after the hash (bytescan_kernel: ROW, VAR, DECODE, CLOSED,
+    HB; piece_kernel: KIND, DECODE, HB, CLOSED; piece_windowed_kernel:
+    KIND, HB, CLOSED, PACK; buffer_hash_kernel: MODE).  Static shared
+    memory only: the windowed and buffer-hash kernels size theirs at
+    launch (:func:`win_smem`, :func:`bh_smem`)."""
     out, name, frame = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
+            base = re.match(r"_Z\d+([A-Za-z_]+?)(I|v|$)", m.group(1))
             args = re.findall(r"L[ib](\d+)E", m.group(1))
-            name = f"bytescan_kernel<{','.join(args[1:])}>"
+            name = f"{base.group(1) if base else m.group(1)}" \
+                f"<{','.join(args[1:])}>"
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads", line)
@@ -1649,10 +1784,10 @@ def ptxas_kernels(report: str) -> list:
             frame = (f"{m.group(1)} B stack, spill {m.group(2)}/"
                      f"{m.group(3)} B")
             continue
-        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        m = re.search(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?", line)
         if m and name:
             out.append((name, f"{m.group(1)} registers, {frame}, "
-                              f"{m.group(2)} B smem"))
+                              f"{m.group(2) or 0} B static smem"))
             name = None
     return out
 
@@ -1709,16 +1844,7 @@ def main() -> None:
         f"in {time.monotonic() - t:.1f} s (nvcc "
         f"{' '.join(_native_build.NVCC_FLAGS)} -DPIECE_ALGO=n, all in "
         f"parallel)")
-    for lib in bh_libs:
-        for line in reports[lib].splitlines():
-            if re.search(r"registers|spill|stack frame", line):
-                print(f"  ptxas [{lib}]: {line.strip()}")
-    for lib in libs:
-        for line in reports[lib].splitlines():
-            if re.search(r"Compiling entry|registers|spill|stack frame|smem",
-                         line):
-                print(f"  ptxas [{lib}]: {line.strip()}")
-    for lib in bs_libs:
+    for lib in bh_libs + libs + bs_libs:
         for kernel, info in ptxas_kernels(reports[lib]):
             print(f"  ptxas [{lib}]: {kernel}: {info}")
 
@@ -1849,6 +1975,13 @@ def main() -> None:
             fail(f"{case.name}: runs {case.key} with {case.hash_blocks} "
                  f"hash blocks, expected {want_key} with {want_hb}")
     checks = {key: compare(case) for key, case in cases.items()}
+    # The windowed tier's CTA edges: lines of 16-20 bytes with 16 letters
+    # (137 ranks at -x 2, so blocks of the full stride), a partial last
+    # CTA and blocks of count 0 and 1 (windowed_edges).
+    win16 = long_words(20000, 16, 20, (16, 16), seed=51)
+    win_edges = {algo: compare(windowed_edges(Case(
+        f"cyr-x2-16 x {algo}", "cyr-x2-16", win16, cyr, algo=algo, mx=2,
+        lanes=LANES >> 2, device=dev))) for algo in ALGOS}
 
     # Byte-scan kernels (TPU rows 7-9): every tier x hash at main-path
     # shapes, on plans whose piece schema (if any) is left unused, as
@@ -2128,6 +2261,16 @@ def main() -> None:
             fail(f"{name} ({arm}): launched fused kernels {fused}")
         log(f"main path {name} ({arm}): stdout byte-identical to the kernel "
             f"route's ({len(run['stdout'])} bytes)")
+    # A5GEN_PAIR=off (this run alone): K=1 everywhere; stdout
+    # byte-identical to the pair auto run's.
+    run = paths["cyrillic-md5"].run("A5GEN_PAIR=off", [], card, pair="off")
+    runs[("cyrillic-md5", "A5GEN_PAIR=off")] = run
+    if run["stdout"] != runs[("cyrillic-md5", "pair auto")]["stdout"]:
+        fail("cyrillic-md5 (A5GEN_PAIR=off): stdout differs from pair auto")
+    if any("pair" in k for k in run["launches"]):
+        fail(f"cyrillic-md5 (A5GEN_PAIR=off): launched {run['launches']}")
+    log(f"main path cyrillic-md5 (A5GEN_PAIR=off): stdout byte-identical to "
+        f"pair auto's ({len(run['stdout'])} bytes)")
     for name in ("cyrillic-md5", "greek-hebrew-sha1"):
         if runs[(name, "pair auto")]["hits"] != runs[(name, "pair off")][
                 "hits"]:
@@ -2137,6 +2280,8 @@ def main() -> None:
                     "cyrillic-md5 (pair auto; long-word buckets: k1)")
     expect_launched(runs[("cyrillic-md5", "pair off")], ["piece_k1/md5"],
                     "cyrillic-md5 (pair off)")
+    expect_launched(runs[("cyrillic-md5", "A5GEN_PAIR=off")],
+                    ["piece_k1/md5"], "cyrillic-md5 (A5GEN_PAIR=off)")
     expect_launched(runs[("czech-ntlm", "pair auto")], ["piece_digits/ntlm"],
                     "czech-ntlm")
     expect_launched(runs[("greek-hebrew-sha1", "pair auto")],
@@ -2187,9 +2332,15 @@ def main() -> None:
         expect_launched(runs[(name, arm)], [f"buffer_hash/{algo}"],
                         f"{name} ({arm})")
     main_launches: dict = {}
+    width_launches: dict = {}
     for run in runs.values():
         for k, v in run["launches"].items():
             main_launches[k] = main_launches.get(k, 0) + v
+        for k, v in run["widths"].items():
+            width_launches[k] = width_launches.get(k, 0) + v
+    log("buffer_hash launches on the main path by (kernel, row width): "
+        + ", ".join(f"{k} width {w}: {n}"
+                    for (k, w), n in sorted(width_launches.items())))
     czech = runs[("czech-ntlm", "pair auto")]
     czech_rows = max(1, sum(czech["launches"].values()) * LANES)
     log(f"czech-ntlm main path: {czech['emitted']} candidates on "
@@ -2199,6 +2350,7 @@ def main() -> None:
     candidates_checks(work, dictionary, card)
 
     # -- phase 5: timing ----------------------------------------------------
+    floor = compression_floor(peak_ops)
     kernels = []
     for (entry, algo), case in cases.items():
         if (entry, algo) in multi or (entry, algo) in others:
@@ -2213,12 +2365,23 @@ def main() -> None:
         more_checks = {f"{e}/{a}": checks[(e, a)]["mismatches"]
                        for (e, a) in list(multi) + list(others) if a == algo
                        and e.split("-")[0].split(":")[0] == entry}
+        if entry == "windowed":
+            more_checks[f"cta-edges/{algo}"] = win_edges[algo]["mismatches"]
+        masked = 1 - int(emit.sum()) / rows
+        floor_ms = floor[algo] * int(emit.sum()) / LANES
+        geom = ""
+        if case.decode == "windowed":
+            g, nt, smem = win_geometry(case)
+            geom = (f"; CTA: {g} blocks, {nt} threads, {smem} B dynamic "
+                    "smem")
         log(f"{case.key} [{case.name}, {case.hash_blocks} hash block(s) "
             f"compiled]: {ms:.4f} ms/launch over {rows} "
             f"candidate rows ({rows / ms * 1e3:.4g} candidates/s, "
-            f"{int(emit.sum()) / ms * 1e3:.4g} emitted/s); bound "
-            f"{bound_ms:.4f} ms ({bound_by}, {100 * bound_ms / ms:.0f}% of "
-            f"it reached); plain {plain_ms:.3f} ms")
+            f"{int(emit.sum()) / ms * 1e3:.4g} emitted/s, "
+            f"{100 * masked:.1f}% masked); bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{100 * bound_ms / ms:.0f}% of it reached); compression floor "
+            f"{floor_ms:.4f} ms ({100 * floor_ms / ms:.0f}% of it reached); "
+            f"plain {plain_ms:.3f} ms{geom}")
         kernels.append({
             "name": case.key,
             "route": "cuda",
@@ -2236,6 +2399,8 @@ def main() -> None:
             "other_cases_mismatches": more_checks,
             "max_abs_err": checks[(entry, algo)]["max_abs_err"],
             "ms": ms,
+            "floor_ms": floor_ms,
+            "masked_share": masked,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
@@ -2326,7 +2491,7 @@ def main() -> None:
     # The buffer hash, per hash x block count; the kernels line lists one
     # entry per hash (buffer_hash/<algo>, the LAUNCHES key) at one block
     # (TPU row 10's shape), the other block counts under "variants".
-    bh_times = time_buffer_hash(peak_ops)
+    bh_times = time_buffer_hash(peak_ops, floor)
     for algo in ALGOS:
         t = bh_times[(algo, "1 block")]
         key = f"buffer_hash/{algo}"
@@ -2349,10 +2514,16 @@ def main() -> None:
                 if label != "1 block"},
             "max_abs_err": bh_checks[(algo, "1 block")]["max_abs_err"],
             "ms": t["ms"],
+            "floor_ms": t["floor_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
+            "launches_by_width": {str(w): n for (k, w), n in
+                                  sorted(width_launches.items())
+                                  if k == key},
+            "edge_mismatches": {label: bh_checks[(algo, label)]["mismatches"]
+                                for label, *_ in BUFFER_EDGES},
         })
     cyr_long = [w for w in long_1m if len(w) > 64]
     leet9_words = dictionary(50000, seed=85, long_lines=False)

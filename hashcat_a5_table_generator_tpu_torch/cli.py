@@ -447,6 +447,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                  "prints its hits to stdout")
     if args.superstep == 0:
         ap.error(_not_ported("--superstep off", 6))
+    from .runtime.env import pipeline_enabled, superstep_enabled
+
+    if not superstep_enabled():
+        ap.error(_not_ported("A5GEN_SUPERSTEP=off", 6))
+    if not pipeline_enabled():
+        ap.error(_not_ported("A5GEN_PIPELINE=off", 6))
     from .ops.packing import (
         aligned_width,
         pack_rows,

@@ -1,8 +1,9 @@
 // Shared device code of the hash kernels in this directory: the MD5, MD4
 // and SHA-1 compressions, the per-slot digit decodes, message placement,
 // the length words with the per-lane padding-block select, and the state
-// store.  Included by piece_hash.cu (the per-slot piece kernels) and
-// bytescan_hash.cu (the byte-scan kernels); every function is
+// store.  Included by piece_hash.cu (the per-slot piece kernels),
+// bytescan_hash.cu (the byte-scan kernels) and buffer_hash.cu (the
+// buffer hash); every function is
 // __device__ __forceinline__, so each library compiles its own copy.
 //
 // Counterparts in the reference package
@@ -13,11 +14,18 @@
 //
 // Types: torch tensors are int32; the kernels reinterpret them as
 // uint32_t.
+//
+// The host builds of these sources (tests/test_torch_*.py) compile
+// everything from the ALGO_* defines on with CUDA keywords stubbed, and
+// give DYN_SMEM a host meaning of their own.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+// A kernel's dynamic shared memory (sized at launch).
+#define DYN_SMEM(name) extern __shared__ __align__(16) uint8_t name[]
 
 #define ALGO_MD5 0
 #define ALGO_MD4 1
@@ -256,31 +264,44 @@ __device__ __forceinline__ void decode_digits(int* dg, int r,
 // completions and each option v[s+1][j+1]; the option quotient comes from
 // a (k_opts - 1)-step subtractive chain (digits run 1..radix-1 <= k_opts).
 // Digits are clipped to radix - 1 (lanes past the block's count decode
-// garbage; emit masks them).  big_r stays below 2^30 + stride.
-__device__ __forceinline__ void decode_windowed(int* dg, int big_r,
-                                                const int32_t* v,
-                                                const int32_t* radix, int m,
-                                                int k2, int k_opts) {
+// garbage; emit masks them).  big_r stays below 2^30 + stride.  Each
+// slot's digit goes to `put(s, digit)`, so a caller may keep the digits
+// where it likes (an array, a shared-memory slab) or fold them straight
+// into a chosen-bit vector.
+template <class Put>
+__device__ __forceinline__ void windowed_walk(int big_r, const int32_t* v,
+                                              const int32_t* radix, int m,
+                                              int k2, int k_opts,
+                                              Put&& put) {
     int jcnt = 0;
     for (int s = 0; s < m; ++s) {
         const int32_t* row = v + (s + 1) * k2;
         const int vn0 = jcnt < k2 ? row[jcnt] : 0;
-        const int vn1 = jcnt + 1 < k2 ? row[jcnt + 1] : 0;
         const bool not_chosen = big_r < vn0;
-        const int r2 = big_r - vn0;
-        const int safe = vn1 > 1 ? vn1 : 1;
         int q = 0;
-        int rr = r2;
-        for (int i = 0; i < k_opts - 1; ++i) {
-            const int ge = rr >= safe ? 1 : 0;
-            rr -= ge * safe;
-            q += ge;
+        int rr = big_r - vn0;
+        if (k_opts > 1) {
+            const int vn1 = jcnt + 1 < k2 ? row[jcnt + 1] : 0;
+            const int safe = vn1 > 1 ? vn1 : 1;
+            for (int i = 0; i < k_opts - 1; ++i) {
+                const int ge = rr >= safe ? 1 : 0;
+                rr -= ge * safe;
+                q += ge;
+            }
         }
         const int d = not_chosen ? 0 : 1 + q;
         big_r = not_chosen ? big_r : rr;
-        dg[s] = min(max(d, 0), radix[s] - 1);
+        put(s, min(max(d, 0), radix[s] - 1));
         jcnt += not_chosen ? 0 : 1;
     }
+}
+
+__device__ __forceinline__ void decode_windowed(int* dg, int big_r,
+                                                const int32_t* v,
+                                                const int32_t* radix, int m,
+                                                int k2, int k_opts) {
+    windowed_walk(big_r, v, radix, m, k2, k_opts,
+                  [&](int s, int d) { dg[s] = d; });
 }
 
 // ---------------------------------------------------------------------------

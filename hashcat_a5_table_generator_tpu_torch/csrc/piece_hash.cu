@@ -56,7 +56,7 @@
 //            a match column's variant is its slot's digit, a suball
 //            column's that of its owning pattern slot, or 1 + the slot's
 //            joint closure index when the slot is closed) picks the
-//            variant's pre-masked word(s), OR-ed into the message at the
+//            variant's pre-masked word(s), appended to the message at the
 //            lane's running byte offset; the offset advances by the
 //            group's placed length.  The tail group carries the 0x80
 //            terminator, so the candidate is `off - 1` bytes.  NTLM places
@@ -72,24 +72,23 @@
 // compression costs ~320 INT32 instructions for MD5, ~176 for MD4/NTLM and
 // ~608 for SHA-1 (chip_smoke.py derives the counts), against 17-21 output
 // bytes and a few table words read through L1/L2, so every instantiation
-// sits far on the operations side of the roofline.  The digit decodes add
-// one integer divide per slot (digits) or the DP walk's table reads
-// (windowed); both are small beside a compression.  The substitute-all
-// selectors add one table read per selector column (sel_bit or sel_slot,
-// by word index) and, when closed, a joint index of at most three
-// multiply-adds per column.
+// sits far on the operations side of the roofline.  Around the
+// compression each candidate pays its decode (an integer divide per slot
+// for the digits, the DP walk for the windowed tier) and its splice (per
+// group: the descriptor, the variant index, the table word, the append),
+// and those instructions, not the bytes, are what keep a launch above its
+// bound.
 //
-// What this design does about it, first version: one thread per lane, no
-// shared state between lanes except the group descriptors (copied once per
-// CTA into shared memory), radix / win_v / piece rows read by word index
-// from the resident tables (no per-launch gather), the substitute-all
-// selector and closure tables read the same way, rotates as funnel
-// shifts, round functions in their 3-input forms.  The message
-// (`uint32_t[16 * HB]`) and the digit vector (`int[24]`) are indexed by
-// data-dependent offsets and columns, so they live in local memory
-// (`-Xptxas -v` reports the stack frame); the pair kernel builds the
-// partner's message independently instead of sharing the prefix.  Those
-// are levers for a later change, not correctness matters.
+// What this design does about it: group descriptors in shared memory;
+// pieces appended in order (`append`: one
+// store per message word, no read-modify-write); rotates as funnel
+// shifts, round functions in their 3-input forms.  The scalar and digit
+// tiers run one thread per lane over the resident tables (by word index,
+// no per-launch gather); their message and digit vector sit in local
+// memory (`-Xptxas -v` reports the stack frame).  The count-windowed tier
+// (piece_windowed_kernel, below) skips the lanes past each block's count,
+// which are most of them at small windows, stages its words' tables in
+// shared memory and keeps the message and digits there.
 //
 // Shifts by 32 are undefined in C++ and CUDA: placement shifts only by
 // 8..24 when the spill word is written, and the scalar selectors test the
@@ -122,6 +121,26 @@
 #define D_TAB 11        // row of gw / gw16
 #define D_GL 12         // row of gl (dynamic-length groups)
 #define D_TERM 13       // the group carries the 0x80 terminator
+
+// Word j of a per-thread array kept in a shared-memory slab laid out
+// [word][thread] (`n` threads): neighbouring threads touch neighbouring
+// banks, and the array stays out of local memory though it is indexed by
+// data-dependent offsets.
+template <class T>
+struct Slab {
+    T* p;
+    int n;
+    __device__ __forceinline__ T& operator[](int j) const { return p[j * n]; }
+};
+
+template <class M>
+struct IsSlab {
+    static constexpr bool value = false;
+};
+template <class T>
+struct IsSlab<Slab<T>> {
+    static constexpr bool value = true;
+};
 
 struct PieceTables {
     const uint32_t* gw;    // [B, ngw, vm, nw]
@@ -180,9 +199,8 @@ __device__ __forceinline__ SelRows sel_rows(const LaunchArgs& a, int w) {
 // slot that owns the occurrence — or, for a chosen slot of a closed plan,
 // 1 + its joint index (d - 1) * cmul[sl, 0] + sum_s d[cnext[sl, s]] *
 // cmul[sl, 1 + s] over its successor slots (always later slots).
-template <int KIND, bool CLOSED>
-__device__ __forceinline__ int col_variant(int c, const int* dg,
-                                           const SelRows& sr) {
+template <int KIND, bool CLOSED, class Dig>
+__device__ __forceinline__ int col_variant(int c, Dig dg, const SelRows& sr) {
     if (KIND == KIND_MATCH) return dg[c];
     const int sl = sr.sel_slot[c];
     const int d = (unsigned)sl < (unsigned)sr.m ? dg[sl] : 0;
@@ -196,22 +214,45 @@ __device__ __forceinline__ int col_variant(int c, const int* dg,
     return 1 + jc;
 }
 
+// Append `cnt` bytes of `x` (its bytes past `cnt` must be zero or be
+// OR-ed over by later bytes, as a pre-masked piece word's are) to the
+// message being written in order: bytes collect in `acc` and each full
+// word is stored once at m[widx], past the data area dropped.
+template <int NW_DATA, class Msg>
+__device__ __forceinline__ void append(Msg m, uint64_t& acc, int& nacc,
+                                       int& widx, uint32_t x, int cnt) {
+    acc |= (uint64_t)x << (8 * nacc);
+    nacc += cnt;
+    if (nacc >= 4) {
+        if (widx < NW_DATA) m[widx] = (uint32_t)acc;
+        ++widx;
+        acc >>= 32;
+        nacc -= 4;
+    }
+}
+
 // Splice one candidate's bytes (terminator included) into m[0..16*HB) and
 // return its length in bytes.  CB: variant indices are bit-fields of the
 // packed chosen vector `cb` (a match column c is bit c; a suball column
 // bit sel_bit[c], 31 on padding columns, which no cb sets); otherwise they
 // come from the digit vector `dg` (one column: its variant clamped to the
-// group's rows; merged binary columns: their chosen bits).
-template <int ALGO, int HB, int KIND, bool CB, bool CLOSED>
-__device__ __forceinline__ int build_message(uint32_t* m, uint32_t cb,
-                                             const int* dg, int w,
-                                             const int* desc, int ngroups,
+// group's rows; merged binary columns: their chosen bits).  `Msg` and
+// `Dig` are arrays or shared-memory slabs (Slab); `dg` is unused under CB.
+// Groups follow each other in emission order, so the bytes are appended
+// (append): one store per message word, no read-modify-write.  Words
+// from `*nw` on are left alone for a slab (its reader zeroes them) and
+// zeroed for an array.
+template <int ALGO, int HB, int KIND, bool CB, bool CLOSED, class Msg,
+          class Dig>
+__device__ __forceinline__ int build_message(Msg m, uint32_t cb, Dig dg,
+                                             int w, const int* desc,
+                                             int ngroups,
                                              const PieceTables& t,
-                                             const SelRows& sr) {
+                                             const SelRows& sr,
+                                             int* nw = nullptr) {
     constexpr int NW_DATA = 16 * HB - 2;
-#pragma unroll
-    for (int j = 0; j < 16 * HB; ++j) m[j] = 0u;
-    int off = 0;
+    uint64_t acc = 0u;
+    int nacc = 0, widx = 0, off = 0;
     for (int gi = 0; gi < ngroups; ++gi) {
         const int* g = desc + gi * DESC_WIDTH;
         const int len_fixed = g[D_LEN_FIXED];
@@ -220,52 +261,72 @@ __device__ __forceinline__ int build_message(uint32_t* m, uint32_t cb,
         int idx = 0;
         if (nvar > 1) {
             const int nsel = g[D_NSEL];
-            if (CB) {
+            if constexpr (CB) {
                 for (int i = 0; i < nsel; ++i) {
                     const int c = g[D_SEL + i];
                     const int bit = KIND == KIND_MATCH ? c : sr.sel_bit[c];
                     idx |= (int)(((unsigned)bit < 32u ? (cb >> bit) : 0u)
                                  & 1u) << i;
                 }
-            } else if (nsel == 1) {
-                idx = col_variant<KIND, CLOSED>(g[D_SEL], dg, sr);
             } else {
-                for (int i = 0; i < nsel; ++i) {
-                    idx |= (col_variant<KIND, CLOSED>(g[D_SEL + i], dg, sr)
-                            > 0 ? 1 : 0) << i;
+                if (nsel == 1) {
+                    idx = col_variant<KIND, CLOSED>(g[D_SEL], dg, sr);
+                } else {
+                    for (int i = 0; i < nsel; ++i) {
+                        idx |= (col_variant<KIND, CLOSED>(g[D_SEL + i], dg,
+                                                          sr)
+                                > 0 ? 1 : 0) << i;
+                    }
                 }
             }
             idx = min(max(idx, 0), nvar - 1);
         }
-        const int nwords = g[D_NWORDS];
-        for (int wi = 0; wi < nwords; ++wi) {
-            uint32_t wd;
-            if (g[D_PACKED16]) {
-                wd = (uint32_t)t.gw16[((size_t)w * t.ng16 + g[D_TAB]) * t.vm
-                                      + idx];
-            } else {
-                wd = t.gw[(((size_t)w * t.ngw + g[D_TAB]) * t.vm + idx)
-                          * t.nw + wi];
-            }
-            const int o = off + 4 * wi;
-            if (ALGO == ALGO_NTLM) {
-                // Bytes b0..b3 become code units (b0 | b1 << 16) at 2o and
-                // (b2 | b3 << 16) at 2o + 4; the terminator byte becomes
-                // the padded message's 80 00.  u16 rows have no b2, b3.
-                place<NW_DATA>(m, 2 * o,
-                               (wd & 0xFFu) | ((wd & 0xFF00u) << 8));
-                if (!g[D_PACKED16]) {
-                    place<NW_DATA>(m, 2 * o + 4,
-                                   ((wd >> 16) & 0xFFu) | ((wd >> 24) << 16));
-                }
-            } else {
-                place<NW_DATA>(m, o, wd);
-            }
-        }
-        off += len_fixed >= 0
+        const int len = len_fixed >= 0
             ? len_fixed
             : t.gl[((size_t)w * t.ngd + g[D_GL]) * t.vm + idx];
+        const int nwords = g[D_NWORDS];
+        const bool p16 = g[D_PACKED16] != 0;
+        for (int wi = 0; wi < nwords; ++wi) {
+            const uint32_t wd = p16
+                ? (uint32_t)t.gw16[((size_t)w * t.ng16 + g[D_TAB]) * t.vm
+                                   + idx]
+                : t.gw[(((size_t)w * t.ngw + g[D_TAB]) * t.vm + idx)
+                       * t.nw + wi];
+            const int bc = min(max(len - 4 * wi, 0), 4);
+            if (ALGO == ALGO_NTLM) {
+                // Bytes b0..b3 become code units (b0 | b1 << 16) and
+                // (b2 | b3 << 16); the terminator byte becomes the padded
+                // message's 80 00.  u16 rows have no b2, b3.
+                append<NW_DATA>(m, acc, nacc, widx,
+                                (wd & 0xFFu) | ((wd & 0xFF00u) << 8),
+                                2 * min(bc, 2));
+                if (!p16) {
+                    append<NW_DATA>(m, acc, nacc, widx,
+                                    ((wd >> 16) & 0xFFu) | ((wd >> 24) << 16),
+                                    2 * max(bc - 2, 0));
+                }
+            } else {
+                append<NW_DATA>(m, acc, nacc, widx, wd, bc);
+            }
+        }
+        constexpr int STEP = 4 / Hash<ALGO>::SCALE;  // <= 4 message bytes
+        for (int rest = len - 4 * nwords; rest > 0; rest -= STEP) {
+            append<NW_DATA>(m, acc, nacc, widx, 0u,
+                            Hash<ALGO>::SCALE * min(rest, STEP));
+        }
+        off += len;
     }
+    // The pending bytes (and any set bits above them) end the data.
+    for (int k = 0; k < 2 && acc != 0u; ++k) {
+        if (widx < NW_DATA) m[widx] = (uint32_t)acc;
+        ++widx;
+        acc >>= 32;
+    }
+    widx = min(widx, NW_DATA);
+    if constexpr (!IsSlab<Msg>::value) {
+        for (int j = widx; j < 16 * HB; ++j) m[j] = 0u;
+    }
+    if (nw != nullptr) *nw = widx;
     return off - 1;
 }
 
@@ -296,8 +357,8 @@ __device__ __forceinline__ bool in_window(int cc, const LaunchArgs& a) {
 // Kernels
 // ---------------------------------------------------------------------------
 
-// One candidate per thread: lane r of block b is candidate rank r of the
-// block, row b * stride + r.
+// Scalar and digit decodes, one candidate per thread: lane r of block b is
+// candidate rank r of the block, row b * stride + r.
 template <int ALGO, int KIND, int DECODE, int HB, bool CLOSED>
 __global__ void piece_kernel(LaunchArgs a, PieceTables t) {
     __shared__ int sdesc[MAX_GROUPS * DESC_WIDTH];
@@ -314,35 +375,15 @@ __global__ void piece_kernel(LaunchArgs a, PieceTables t) {
         const uint32_t cb = (uint32_t)(a.blk_base[blk] + r);
         cc = __popc(cb);
         len = build_message<ALGO, HB, KIND, true, false>(
-            m, cb, nullptr, w, sdesc, a.ngroups, t, sr);
+            m, cb, (const int*)nullptr, w, sdesc, a.ngroups, t, sr);
     } else {
         int dg[MAX_SLOTS];
-        const int32_t* radix = a.radix + (size_t)w * a.m;
-        if (DECODE == DECODE_DIGITS) {
-            decode_digits(dg, r, a.blk_base + (size_t)blk * a.m, radix, a.m);
-        } else {
-            decode_windowed(dg, a.blk_base[blk] + r,
-                            a.win_v + (size_t)w * (a.m + 1) * a.k2, radix,
-                            a.m, a.k2, a.k_opts);
-        }
-        if (DECODE == DECODE_WINDOWED && !CLOSED && a.pack) {
-            // Scalar selectors over the walk's chosen bits: match slot s
-            // is bit s of cb, suball slot s bit bitpos[w, s].
-            uint32_t cb = 0u;
-            for (int s = 0; s < a.m; ++s) {
-                const int bit = KIND == KIND_MATCH
-                    ? s : a.bitpos[(size_t)w * a.m + s];
-                cb |= (dg[s] > 0 ? 1u : 0u) << (bit & 31);
-            }
-            cc = __popc(cb);
-            len = build_message<ALGO, HB, KIND, true, false>(
-                m, cb, nullptr, w, sdesc, a.ngroups, t, sr);
-        } else {
-            cc = 0;
-            for (int s = 0; s < a.m; ++s) cc += dg[s] > 0 ? 1 : 0;
-            len = build_message<ALGO, HB, KIND, false, CLOSED>(
-                m, 0u, dg, w, sdesc, a.ngroups, t, sr);
-        }
+        decode_digits(dg, r, a.blk_base + (size_t)blk * a.m,
+                      a.radix + (size_t)w * a.m, a.m);
+        cc = 0;
+        for (int s = 0; s < a.m; ++s) cc += dg[s] > 0 ? 1 : 0;
+        len = build_message<ALGO, HB, KIND, false, CLOSED>(
+            m, 0u, (const int*)dg, w, sdesc, a.ngroups, t, sr);
     }
     hash_lane<ALGO, HB>(m, len, a, lane);
     a.emit[lane] = (r < a.blk_count[blk] && in_window(cc, a));
@@ -374,7 +415,8 @@ __global__ void piece_pair_kernel(LaunchArgs a, PieceTables t) {
         for (int p = 0; p < 2; ++p) {
             uint32_t m[16];
             const int len = build_message<ALGO, 1, KIND, true, false>(
-                m, p ? (cb | 1u) : cb, nullptr, w, sdesc, a.ngroups, t, sr);
+                m, p ? (cb | 1u) : cb, (const int*)nullptr, w, sdesc,
+                a.ngroups, t, sr);
             hash_lane<ALGO, 1>(m, len, a, row + p);
             a.emit[row + p] = (2 * r + p < count && in_window(cc + p, a));
         }
@@ -392,11 +434,233 @@ __global__ void piece_pair_kernel(LaunchArgs a, PieceTables t) {
             if (p) dg[0] = d0p;
             uint32_t m[16];
             const int len = build_message<ALGO, 1, KIND, false, false>(
-                m, 0u, dg, w, sdesc, a.ngroups, t, sr);
+                m, 0u, (const int*)dg, w, sdesc, a.ngroups, t, sr);
             hash_lane<ALGO, 1>(m, len, a, row + p);
             a.emit[row + p] = (2 * r + p < count
                                && in_window(p ? cc1 : cc, a));
         }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// The count-windowed tier: live ranks only, word tables staged per CTA
+// ---------------------------------------------------------------------------
+//
+// A CTA owns G consecutive blocks.  It runs in WIN_PHASES phases with a
+// barrier between each (win_phase): 0, the group descriptors and the G
+// blocks' word / count / base into shared memory; 1, one thread takes
+// the prefix of the counts and numbers the distinct words; 2, each
+// distinct word's record — radix, DP rows, bit positions, piece rows,
+// selector and closure rows — is copied into shared memory once, and the
+// emit rows of padding lanes (rank >= count) are written 0; 3, the
+// threads stride over the LIVE ranks of the G blocks (block by binary
+// search over the prefix: no divide), each decoding, splicing and hashing
+// one candidate from the staged tables.  The message and the digit
+// vector live in per-thread shared-memory slabs laid out [word][thread]
+// (Slab), so nothing is in local memory; the message is copied into
+// registers for the compressions.  Padding lanes' state rows are not
+// written (the reference's contract: emit masks them).
+
+#define WIN_THREADS 256  // one hash block; 128 for two or three
+#define WIN_MAX_G 32
+#define WIN_RECORD_BYTES (24 * 1024)  // staged word records per CTA
+#define WIN_PHASES 4
+
+// A CTA's shared-memory layout (offsets in int32 words) and the record
+// layout of one staged word (offsets within the record).
+struct WinGeom {
+    int g, nt, rec;
+    int r_radix, r_winv, r_bitpos, r_gw, r_g16, r_gl, r_sel, r_cnext, r_cmul;
+    int s_desc, s_blk, s_rec, s_msg, s_dig;
+    int smem_bytes;
+};
+
+// Plain C++: the host launch and the host test build both call it.
+static inline WinGeom win_geometry(const LaunchArgs& a, const PieceTables& t,
+                                   int kind, bool closed, bool pack, int hb,
+                                   int nt, int gmax) {
+    WinGeom g;
+    const bool suball = kind == KIND_SUBALL;
+    int o = 0;
+    g.r_radix = o;  o += a.m;
+    g.r_winv = o;   o += (a.m + 1) * a.k2;
+    g.r_bitpos = o; o += suball && pack ? a.m : 0;
+    g.r_gw = o;     o += t.ngw * t.vm * t.nw;
+    g.r_g16 = o;    o += t.ng16 * t.vm;
+    g.r_gl = o;     o += t.ngd * t.vm;
+    g.r_sel = o;    o += suball ? a.ncols : 0;
+    g.r_cnext = o;  o += closed ? a.m * a.close_s : 0;
+    g.r_cmul = o;   o += closed ? a.m * (a.close_s + 1) : 0;
+    g.rec = o > 0 ? o : 1;
+    int fit = WIN_RECORD_BYTES / 4 / g.rec;
+    g.g = fit < 1 ? 1 : (fit < gmax ? fit : gmax);
+    g.nt = nt;
+    g.s_desc = 0;
+    g.s_blk = a.ngroups * DESC_WIDTH;
+    g.s_rec = g.s_blk + 6 * g.g + 2;
+    g.s_msg = (g.s_rec + g.g * g.rec + 3) & ~3;
+    g.s_dig = g.s_msg + 16 * hb * nt;
+    const int dig_words = pack ? 0 : (a.m * nt + 3) / 4;
+    g.smem_bytes = 4 * (g.s_dig + dig_words);
+    return g;
+}
+
+// Rows of one table for the CTA's `nu` distinct words (`uw`), `len` words
+// each, into field `off` of their records.
+__device__ __forceinline__ void stage_rows(int32_t* recs, int rec, int off,
+                                           const int32_t* src, int len,
+                                           const int32_t* uw, int nu) {
+    if (len <= 0 || src == nullptr) return;
+    const int nt = blockDim.x;
+    int u = threadIdx.x / len, j = threadIdx.x - u * len;
+    while (u < nu) {
+        recs[u * rec + off + j] = src[(size_t)uw[u] * len + j];
+        j += nt;
+        while (j >= len) {
+            j -= len;
+            ++u;
+        }
+    }
+}
+
+// One phase of a CTA of the windowed tier (see above).  PACK: the walk's
+// chosen bits feed the scalar selectors (no digit vector).
+template <int ALGO, int KIND, int HB, bool CLOSED, bool PACK>
+__device__ __forceinline__ void win_phase(int phase, const LaunchArgs& a,
+                                          const PieceTables& t,
+                                          const WinGeom& g, int32_t* s) {
+    const int tid = threadIdx.x, nt = blockDim.x, G = g.g;
+    int32_t* bw = s + g.s_blk;  // word of each block (-1 past nb)
+    int32_t* bc = bw + G;       // count, clamped to the stride
+    int32_t* bb = bc + G;       // windowed base rank
+    int32_t* bs = bb + G;       // distinct-word slot of each block
+    int32_t* bu = bs + G;       // word of each slot
+    int32_t* bp = bu + G;       // prefix of the counts [G + 1], then nu
+    const int blk0 = blockIdx.x * G;
+    if (phase == 0) {
+        for (int i = tid; i < a.ngroups * DESC_WIDTH; i += nt) {
+            s[g.s_desc + i] = a.desc[i];
+        }
+        for (int i = tid; i < G; i += nt) {
+            const bool in = blk0 + i < a.nb;
+            bw[i] = in ? a.blk_word[blk0 + i] : -1;
+            bc[i] = in ? min(max(a.blk_count[blk0 + i], 0), a.stride) : 0;
+            bb[i] = in ? a.blk_base[blk0 + i] : 0;
+        }
+    } else if (phase == 1) {
+        if (tid == 0) {
+            int u = -1, pre = 0;
+            for (int i = 0; i < G; ++i) {
+                if (bw[i] >= 0 && (u < 0 || bw[i] != bu[u])) bu[++u] = bw[i];
+                bs[i] = u < 0 ? 0 : u;
+                bp[i] = pre;
+                pre += bc[i];
+            }
+            bp[G] = pre;
+            bp[G + 1] = u + 1;
+        }
+    } else if (phase == 2) {
+        const int nu = bp[G + 1];
+        int32_t* recs = s + g.s_rec;
+        const size_t mk = (size_t)(a.m + 1) * a.k2;
+        stage_rows(recs, g.rec, g.r_radix, a.radix, a.m, bu, nu);
+        stage_rows(recs, g.rec, g.r_winv, a.win_v, (int)mk, bu, nu);
+        if (KIND == KIND_SUBALL && PACK) {
+            stage_rows(recs, g.rec, g.r_bitpos, a.bitpos, a.m, bu, nu);
+        }
+        stage_rows(recs, g.rec, g.r_gw,
+                   reinterpret_cast<const int32_t*>(t.gw),
+                   t.ngw * t.vm * t.nw, bu, nu);
+        stage_rows(recs, g.rec, g.r_g16, t.gw16, t.ng16 * t.vm, bu, nu);
+        stage_rows(recs, g.rec, g.r_gl, t.gl, t.ngd * t.vm, bu, nu);
+        if (KIND == KIND_SUBALL) {
+            stage_rows(recs, g.rec, g.r_sel, PACK ? a.sel_bit : a.sel_slot,
+                       a.ncols, bu, nu);
+        }
+        if (CLOSED) {
+            stage_rows(recs, g.rec, g.r_cnext, a.cnext, a.m * a.close_s, bu,
+                       nu);
+            stage_rows(recs, g.rec, g.r_cmul, a.cmul, a.m * (a.close_s + 1),
+                       bu, nu);
+        }
+        for (int i = 0; i < G && blk0 + i < a.nb; ++i) {
+            for (int r = bc[i] + tid; r < a.stride; r += nt) {
+                a.emit[(long long)(blk0 + i) * a.stride + r] = 0;
+            }
+        }
+    } else {
+        const int live = bp[G];
+        const Slab<uint32_t> msg{reinterpret_cast<uint32_t*>(s + g.s_msg)
+                                 + tid, nt};
+        const Slab<uint8_t> dig{reinterpret_cast<uint8_t*>(s + g.s_dig)
+                                + tid, nt};
+        const int* desc = s + g.s_desc;
+        for (int i = tid; i < live; i += nt) {
+            int lo = 0, hi = G;  // the last block whose prefix is <= i
+            while (hi - lo > 1) {
+                const int mid = (lo + hi) >> 1;
+                if (bp[mid] <= i) lo = mid; else hi = mid;
+            }
+            const int r = i - bp[lo];
+            const int32_t* rec = s + g.s_rec + bs[lo] * g.rec;
+            SelRows sr;
+            sr.sel_bit = sr.sel_slot = rec + g.r_sel;
+            sr.cnext = rec + g.r_cnext;
+            sr.cmul = rec + g.r_cmul;
+            sr.m = a.m;
+            sr.close_s = a.close_s;
+            PieceTables ts;
+            ts.gw = reinterpret_cast<const uint32_t*>(rec + g.r_gw);
+            ts.gw16 = rec + g.r_g16;
+            ts.gl = rec + g.r_gl;
+            ts.ngw = t.ngw;
+            ts.ng16 = t.ng16;
+            ts.ngd = t.ngd;
+            ts.vm = t.vm;
+            ts.nw = t.nw;
+            int len, cc = 0, nw = 0;
+            if constexpr (PACK) {
+                // Scalar selectors over the walk's chosen bits: match slot
+                // s is bit s of cb, suball slot s bit bitpos[w, s].
+                uint32_t cb = 0u;
+                const int32_t* bpos = rec + g.r_bitpos;
+                windowed_walk(bb[lo] + r, rec + g.r_winv, rec + g.r_radix,
+                              a.m, a.k2, a.k_opts, [&](int q, int d) {
+                    const int bit = KIND == KIND_MATCH ? q : bpos[q];
+                    cb |= (d > 0 ? 1u : 0u) << (bit & 31);
+                });
+                cc = __popc(cb);
+                len = build_message<ALGO, HB, KIND, true, false>(
+                    msg, cb, (const int*)nullptr, 0, desc, a.ngroups, ts,
+                    sr, &nw);
+            } else {
+                windowed_walk(bb[lo] + r, rec + g.r_winv, rec + g.r_radix,
+                              a.m, a.k2, a.k_opts, [&](int q, int d) {
+                    dig[q] = (uint8_t)d;
+                    cc += d > 0 ? 1 : 0;
+                });
+                len = build_message<ALGO, HB, KIND, false, CLOSED>(
+                    msg, 0u, dig, 0, desc, a.ngroups, ts, sr, &nw);
+            }
+            uint32_t mr[16 * HB];
+#pragma unroll
+            for (int j = 0; j < 16 * HB; ++j) mr[j] = j < nw ? msg[j] : 0u;
+            const long long row = (long long)(blk0 + lo) * a.stride + r;
+            hash_lane<ALGO, HB>(mr, len, a, row);
+            a.emit[row] = in_window(cc, a);
+        }
+    }
+}
+
+template <int ALGO, int KIND, int HB, bool CLOSED, bool PACK>
+__global__ void __launch_bounds__(HB == 1 ? WIN_THREADS : WIN_THREADS / 2)
+piece_windowed_kernel(LaunchArgs a, PieceTables t, WinGeom g) {
+    DYN_SMEM(smem);
+    int32_t* s = reinterpret_cast<int32_t*>(smem);
+#pragma unroll
+    for (int p = 0; p < WIN_PHASES; ++p) {
+        if (p) __syncthreads();
+        win_phase<ALGO, KIND, HB, CLOSED, PACK>(p, a, t, g, s);
     }
 }
 
@@ -525,6 +789,33 @@ static PieceTables make_tables(const void* gw, const void* gw16,
     return t;
 }
 
+template <int KIND, int HB, bool CLOSED, bool PACK>
+static int launch_win(const LaunchArgs& a, const PieceTables& t,
+                      cudaStream_t s) {
+    const WinGeom g = win_geometry(a, t, KIND, CLOSED, PACK, HB,
+                                   HB == 1 ? WIN_THREADS : WIN_THREADS / 2,
+                                   WIN_MAX_G);
+    auto kern = piece_windowed_kernel<PIECE_ALGO, KIND, HB, CLOSED, PACK>;
+    if (g.smem_bytes > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem_bytes);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const unsigned grid = (unsigned)((a.nb + g.g - 1) / g.g);
+    kern<<<grid, g.nt, g.smem_bytes, s>>>(a, t, g);
+    return (int)cudaGetLastError();
+}
+
+template <int KIND, bool CLOSED, bool PACK>
+static int launch_win_hb(const LaunchArgs& a, const PieceTables& t,
+                         int hash_blocks, cudaStream_t s) {
+    switch (hash_blocks) {
+        case 1: return launch_win<KIND, 1, CLOSED, PACK>(a, t, s);
+        case 2: return launch_win<KIND, 2, CLOSED, PACK>(a, t, s);
+        default: return launch_win<KIND, 3, CLOSED, PACK>(a, t, s);
+    }
+}
+
 // Every entry point takes the same arguments (ops/fused_expand.py builds
 // one list): the block fields, the decode tables, the piece tables, the
 // group descriptors, the window, the hash-block count, the outputs (state
@@ -576,8 +867,22 @@ int a5_piece_windowed(PIECE_PARAMS) {
     if (decode != DECODE_WINDOWED || a.k2 < 1 || a.k_opts < 1) {
         return (int)cudaErrorInvalidValue;
     }
-    return launch_single<DECODE_WINDOWED>(a, t, kind, closed, hash_blocks,
-                                          stream);
+    if (launch_checks(a, hash_blocks)
+        || kind_checks(a, kind, DECODE_WINDOWED, closed)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (a.nb == 0 || a.stride == 0) return (int)cudaSuccess;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool cb = a.pack && !closed;
+    if (kind == KIND_MATCH) {
+        return cb ? launch_win_hb<KIND_MATCH, false, true>(a, t, hash_blocks, s)
+                  : launch_win_hb<KIND_MATCH, false, false>(a, t, hash_blocks, s);
+    }
+    if (closed) {
+        return launch_win_hb<KIND_SUBALL, true, false>(a, t, hash_blocks, s);
+    }
+    return cb ? launch_win_hb<KIND_SUBALL, false, true>(a, t, hash_blocks, s)
+              : launch_win_hb<KIND_SUBALL, false, false>(a, t, hash_blocks, s);
 }
 
 // Pair tier, scalar or digit decode, one hash block, no closure.

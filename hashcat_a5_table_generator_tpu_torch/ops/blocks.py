@@ -21,6 +21,12 @@ import numpy as np
 #: Per-block variant-count cap: in-block ranks must fit int32.
 MAX_BLOCK = 1 << 30
 
+#: Most blocks one int32 block index holds: a bucket whose index would
+#: pass it runs as several sub-sweeps over word ranges (:func:`word_ranges`),
+#: each with its own index, so ``b0 + launch`` arithmetic on the device
+#: stays far inside int32.
+SPLIT_BLOCKS = 1 << 30
+
 #: Words whose variant total reaches this occupy one index slot and make
 #: the index int32-unsafe (no shipped table comes anywhere close; the cap
 #: exists for correctness, not tuning).
@@ -75,10 +81,12 @@ def _stride_index(plan, stride: int):
     return entry
 
 
-def superstep_index(plan, stride: int):
+def superstep_index(plan, stride: int, words: "Tuple[int, int] | None" = None):
     """int32 view of the fixed-stride block index for the DEVICE-side
     cutter (``models.attack.make_superstep_body``): each superstep cuts
-    its blocks on device from these per-sweep arrays.
+    its blocks on device from these per-sweep arrays.  ``words = (lo,
+    hi)`` indexes only words ``lo .. hi - 1`` (the others take no blocks):
+    one sub-sweep of :func:`word_ranges`.
 
     Returns ``(cum int32[B+1], totals int32[B], total_blocks int)`` or
     ``None`` when the plan cannot be cut in pure int32 on device:
@@ -96,10 +104,33 @@ def superstep_index(plan, stride: int):
         return None
     if len(totals) and int(totals.max()) >= MAX_BLOCK:
         return None
+    if words is not None:
+        lo, hi = words
+        cum = np.clip(cum - cum[lo], 0, cum[hi] - cum[lo])
     total_blocks = int(cum[-1])
     if total_blocks >= (1 << 31):
         return None
     return cum.astype(np.int32), totals.astype(np.int32), total_blocks
+
+
+def word_ranges(plan, stride: int) -> "list[Tuple[int, int]]":
+    """Consecutive word ranges ``[(lo, hi), ...]`` covering the plan, in
+    word order, each holding at most :data:`SPLIT_BLOCKS` blocks at
+    ``stride`` — one range unless the bucket's index would pass it; a
+    single word past the limit gets a range of its own.  ``[]`` when the
+    plan has a huge word or its index overflows int64."""
+    limit = SPLIT_BLOCKS
+    entry = _stride_index(plan, stride)
+    if entry is None or entry[2].any():
+        return []
+    cum = entry[0]
+    out, lo, batch = [], 0, int(plan.batch)
+    while lo < batch:
+        hi = int(np.searchsorted(cum, cum[lo] + limit, side="right")) - 1
+        hi = min(max(hi, lo + 1), batch)
+        out.append((lo, hi))
+        lo = hi
+    return out
 
 
 def block_cursor(plan, stride: int, cum: np.ndarray, b: int

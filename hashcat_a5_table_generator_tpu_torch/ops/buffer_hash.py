@@ -10,8 +10,8 @@ route runs at every width and hash (``ops/hashes.py`` ``HASH_FNS``).
 ``csrc/buffer_hash.cu`` (one library per hash, ``buffer_hash_<algo>``)
 for CUDA tensors, or raises; for CPU tensors it runs the plain PyTorch
 version, ``ops.hashes.HASH_FNS[algo]``.  ``LAUNCHES`` counts kernel
-launches by ``buffer_hash/<algo>``, ``PLAIN_CALLS`` runs of the plain
-version.
+launches by ``buffer_hash/<algo>`` (``WIDTH_LAUNCHES`` the same launches
+by ``(key, row width)``), ``PLAIN_CALLS`` runs of the plain version.
 
 Contract (the reference's): ``msg uint8[N, W]`` and ``length int32[N]``
 (each in ``0..W``) in, the raw state words ``int32[N, 4]`` (``[N, 5]``
@@ -31,6 +31,7 @@ ALGOS = ("md5", "md4", "sha1", "ntlm")
 #: Kernel launches by ``buffer_hash/<algo>`` and runs of the plain
 #: version: plain integers the caller may reset.
 LAUNCHES = {f"buffer_hash/{algo}": 0 for algo in ALGOS}
+WIDTH_LAUNCHES: "dict[tuple[str, int], int]" = {}
 PLAIN_CALLS = 0
 
 
@@ -67,17 +68,17 @@ def _launch_cuda(msg: torch.Tensor, length: torch.Tensor, algo: str
     n, width = (int(x) for x in msg.shape)
     state = torch.empty((n, DIGEST_WORDS[algo]), dtype=torch.int32,
                         device=msg.device)
-    aligned = width % 4 == 0 and msg.data_ptr() % 4 == 0
     fn = lib.a5_buffer_hash
     fn.restype = ctypes.c_int
     err = fn(ctypes.c_void_p(msg.data_ptr()),
              ctypes.c_void_p(length.data_ptr()), ctypes.c_longlong(n),
-             ctypes.c_int(width), ctypes.c_int(int(aligned)),
-             ctypes.c_void_p(state.data_ptr()),
+             ctypes.c_int(width), ctypes.c_void_p(state.data_ptr()),
              ctypes.c_void_p(torch.cuda.current_stream(msg.device)
                              .cuda_stream))
     if err != 0:
         raise RuntimeError(f"buffer_hash/{algo} launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES[f"buffer_hash/{algo}"] += 1
+    key = f"buffer_hash/{algo}"
+    LAUNCHES[key] += 1
+    WIDTH_LAUNCHES[(key, width)] = WIDTH_LAUNCHES.get((key, width), 0) + 1
     return state

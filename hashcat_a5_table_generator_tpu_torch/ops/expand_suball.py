@@ -26,8 +26,8 @@ Exactness conditions, checked per word at plan time:
 
 Words failing these checks get ``fallback=True`` and are expanded on the
 host by the byte-exact oracle (``oracle.engines``).  Cascade closure is
-always on here (the reference's ``A5GEN_CASCADE_CLOSE`` opt-out is not
-ported).
+on by default; ``A5GEN_CASCADE_CLOSE=off`` (:func:`close_enabled`) sends
+every hazard word to the oracle, as in the reference.
 
 :func:`expand_suball` is the device half (torch ops), the twin of the
 reference's XLA expansion of substitute-all plans: the per-slot piece
@@ -57,6 +57,7 @@ from .expand_matches import (
     splice_pieces_pair,
     windowed_plan_fields,
 )
+from ..runtime.env import env_opt_out
 from .packing import PackedWords
 
 #: Cascade-closure caps. A hazard slot's joint value table covers its own
@@ -67,6 +68,13 @@ from .packing import PackedWords
 #: holding 3+ mutually-hazardous patterns (e.g. , ; m together) overflow.
 MAX_CLOSE_SUCC = 3
 MAX_CLOSE_OPTS = 12
+
+
+def close_enabled() -> bool:
+    """Cascade closure is ON by default; ``A5GEN_CASCADE_CLOSE`` set to
+    ``off``/``0``/``no`` routes every hazard word through the host oracle
+    (the reference's escape hatch)."""
+    return not env_opt_out("A5GEN_CASCADE_CLOSE", "device cascade closure")
 
 
 def _close_pattern_set(
@@ -388,7 +396,7 @@ def _build_suball_plan_fast(
     closed_mask = np.zeros(b, dtype=bool)
     closure_sets: Dict[Tuple[int, ...], _SetClosure] = {}
     word_sets: Dict[Tuple[int, ...], List[int]] = {}
-    if bool(hazard_mask.any()):
+    if close_enabled() and bool(hazard_mask.any()):
         set_cache: Dict[Tuple[int, ...], "Optional[_SetClosure]"] = {}
         for i in np.nonzero(hazard_mask & ~overlap_mask)[0]:
             kis = tuple(int(x) for x in np.nonzero(present[i])[0])
@@ -593,7 +601,7 @@ def build_suball_plan(
             hazardous = bool(hazard[np.ix_(ks, ks)].any())
         fallback = overlap or hazardous
         closure = None
-        if hazardous and not overlap:
+        if hazardous and not overlap and close_enabled():
             kis = tuple(slots)
             if kis not in set_cache:
                 set_cache[kis] = _close_pattern_set(

@@ -12,7 +12,8 @@ pair tier, one hash block).
 
 * The host gates (:func:`eligible`, :func:`k_opts_for`, :func:`k_vals_for`,
   :func:`scalar_units_for`, :func:`opts_for_config`,
-  :func:`pair_for_config`, :func:`_hash_blocks_for`) are the reference's,
+  :func:`pair_for_config` and :func:`pair_for` under ``A5GEN_PAIR``,
+  :func:`_hash_blocks_for`) are the reference's,
   minus its TPU probe and tiling rules (block strides and counts are free
   on the GPU).  :func:`opts_for` is the route gate under ``A5GEN_PALLAS``
   (:func:`enabled_by_env`): None sends a plan to the XLA expand + hash
@@ -264,6 +265,18 @@ def pair_for_config(spec, plan, pieces, *,
     if _hash_blocks_for(int(plan.out_width), _scale(spec.algo)) != 1:
         return None
     return 2
+
+
+def pair_for(spec, plan, pieces, *,
+             block_stride: "int | None") -> "int | None":
+    """The production pair gate: :func:`pair_for_config` under the
+    ``A5GEN_PAIR`` escape hatch (``runtime.env.pair_enabled``), as the
+    reference's ``pair_for``."""
+    from ..runtime.env import pair_enabled
+
+    if not pair_enabled():
+        return None
+    return pair_for_config(spec, plan, pieces, block_stride=block_stride)
 
 
 def enabled_by_env() -> bool:

@@ -2,11 +2,15 @@
 
 A copy of the reference package's ``runtime/env.py`` reduced to what the
 port honours: :func:`read_env` (the ``A5GEN_*`` accessor),
-:func:`env_warn_once` (one diagnostic per knob spelling per process) and
+:func:`env_warn_once` (one diagnostic per knob spelling per process),
 :func:`emit_scheme` (``A5GEN_EMIT``: per-slot piece emission or the
-byte-scan tiers).  ``A5GEN_PALLAS`` keeps its own vocabulary at its call
-site, as in the reference (``ops.fused_expand.enabled_by_env``).  Standard
-library only.
+byte-scan tiers), :func:`env_opt_out` (the on-by-default escape hatches)
+and the hatches themselves: :func:`pair_enabled` (``A5GEN_PAIR``),
+:func:`superstep_enabled` (``A5GEN_SUPERSTEP``) and
+:func:`pipeline_enabled` (``A5GEN_PIPELINE``).  ``A5GEN_PALLAS`` keeps its
+own vocabulary at its call site, as in the reference
+(``ops.fused_expand.enabled_by_env``), and ``A5GEN_CASCADE_CLOSE`` is read
+by ``ops.expand_suball.close_enabled``.  Standard library only.
 """
 
 from __future__ import annotations
@@ -56,3 +60,43 @@ def emit_scheme() -> str:
         "keeping the default (perslot)",
     )
     return "perslot"
+
+
+def env_opt_out(name: str, default_desc: str) -> bool:
+    """Shared parse for the on-by-default escape hatches: True when the
+    hatch is pulled (``off``/``0``/``no``).  Any other value outside the
+    on-spellings (empty/``auto``/``on``/``1``) warns once and keeps the
+    default — a typo must not silently change behavior."""
+    val = read_env(name) or ""
+    if val.lower() in ("off", "0", "no"):
+        return True
+    if val.lower() not in ("", "auto", "on", "1"):
+        env_warn_once(
+            name, val,
+            f"unrecognized {name}={val!r} (want off|0|no or on|1|auto); "
+            f"keeping the default ({default_desc})",
+        )
+    return False
+
+
+def pair_enabled() -> bool:
+    """``A5GEN_PAIR`` set to ``off``/``0``/``no`` pins K=1 (one candidate
+    per hash lane) instead of the pair tier where the schema allows.  The
+    candidate and hit streams are the same either way."""
+    return not env_opt_out(
+        "A5GEN_PAIR", "pair-lane (K=2) tier on for eligible schemas")
+
+
+def superstep_enabled() -> bool:
+    """``A5GEN_SUPERSTEP`` set to ``off``/``0``/``no`` asks for the
+    per-launch pipeline, which this package does not run: the CLI and
+    ``SweepConfig.resolve`` refuse it (ROADMAP item 6)."""
+    return not env_opt_out(
+        "A5GEN_SUPERSTEP", "superstep on for eligible crack sweeps")
+
+
+def pipeline_enabled() -> bool:
+    """``A5GEN_PIPELINE`` set to ``off``/``0``/``no`` asks for the
+    barriered superstep drive, which this package does not run: the CLI
+    and ``SweepConfig.resolve`` refuse it (ROADMAP item 6)."""
+    return not env_opt_out("A5GEN_PIPELINE", "pipelined superstep drive")

@@ -62,7 +62,12 @@ from ..models.attack import (
     superstep_buffers,
     xla_arrays,
 )
-from ..ops.blocks import MAX_BLOCK, block_cursor, superstep_index
+from ..ops.blocks import (
+    MAX_BLOCK,
+    block_cursor,
+    superstep_index,
+    word_ranges,
+)
 from ..ops.bytescan import bytescan_tier
 from ..ops.fused_expand import (
     decode_for,
@@ -70,7 +75,7 @@ from ..ops.fused_expand import (
     k_vals_for,
     launch_key,
     opts_for,
-    pair_for_config,
+    pair_for,
     schema_refusal,
 )
 from ..ops.membership import HostDigestLookup, build_digest_set
@@ -78,6 +83,7 @@ from ..ops.packing import PackedWords, pack_words, piece_schema_for
 from ..oracle.engines import iter_candidates
 from ..tables.compile import compile_table
 from ..utils.digests import HOST_DIGEST
+from .env import pipeline_enabled, superstep_enabled
 from .sinks import CandidateWriter, HitRecord, HitRecorder
 
 #: Supersteps in flight: two alternating buffer sets, so superstep N+1 is
@@ -153,6 +159,15 @@ class SweepConfig:
         if self.superstep is not None and int(self.superstep) <= 0:
             raise NotImplementedError(
                 "superstep off (the per-launch pipeline) is not ported"
+            )
+        if not superstep_enabled():
+            raise NotImplementedError(
+                "A5GEN_SUPERSTEP=off (the per-launch pipeline) is not ported"
+            )
+        if not pipeline_enabled():
+            raise NotImplementedError(
+                "A5GEN_PIPELINE=off (the barriered superstep drive) is not "
+                "ported"
             )
         return lanes, nb, int(self.superstep or 16)
 
@@ -255,10 +270,12 @@ class Sweep:
         # The route: a fused kernel where the reference's gate takes the
         # plan (the piece kernel with a per-slot schema, else the
         # byte-scan tier), else the XLA expand + hash route, which also
-        # splices with the schema when there is one.  The one refusal left
-        # (a schema the piece kernel's descriptors cannot hold) and
-        # int32-unsafe words are found here, before any launch, and
-        # raised by the run (BucketedSweep checks every bucket first).
+        # splices with the schema when there is one.  The refusals left (a
+        # schema the piece kernel's descriptors cannot hold, a word of
+        # 2^30 rows or more) are found here, before any launch, and raised
+        # by the run (BucketedSweep checks every bucket first).  A bucket
+        # whose block index would not be int32-safe runs as sub-sweeps
+        # over word ranges (word_ranges).
         self.config.resolve(self.device)
         self.device_words = self.n_words > len(self.fallback_rows)
         self.pieces = None
@@ -289,9 +306,24 @@ class Sweep:
                           default=0)
             if biggest >= MAX_BLOCK:
                 self.refusal = dict.fromkeys(self.refusal, (
-                    f"a word with {biggest} variants (>= 2^30): its block "
+                    f"a word with {biggest} rows (>= 2^30): its block "
                     "index is not int32-safe; the per-launch pipeline "
-                    "(ROADMAP item 6) is not ported"))
+                    "(ROADMAP item 6a) is not ported"))
+
+    def word_ranges(self, rank_stride: int) -> "List[tuple]":
+        """The sub-sweeps this bucket runs at ``rank_stride``: consecutive
+        word ranges, each with an int32-safe block index
+        (``ops.blocks.word_ranges``); one range unless the bucket's index
+        passes ``ops.blocks.SPLIT_BLOCKS``."""
+        return word_ranges(self.plan, rank_stride)
+
+    def _index_range(self, arrays: dict, rank_stride: int, words: tuple):
+        """Point ``arrays`` at the block index of word range ``words``
+        (one sub-sweep); returns that index."""
+        idx = superstep_index(self.plan, rank_stride, words)
+        arrays["cum"] = torch.as_tensor(idx[0], device=self.device)
+        arrays["total"] = idx[2]
+        return idx
 
     def check(self, mode: str = "crack") -> None:
         """Raise ``NotImplementedError`` when this package cannot run the
@@ -321,7 +353,7 @@ class Sweep:
         if cfg.pair is None or str(cfg.pair).lower() not in (
             "0", "off", "no", "false"
         ):
-            pair_k = pair_for_config(spec, plan, pieces, block_stride=stride)
+            pair_k = pair_for(spec, plan, pieces, block_stride=stride)
         if pair_k is None and str(cfg.pair).lower() in ("on", "1", "2",
                                                         "true"):
             print("a5gen: warning: pair requested (--pair on) but this "
@@ -329,11 +361,8 @@ class Sweep:
                   "decode, or hash-block count); running K=1",
                   file=sys.stderr)
         rank_stride = stride * (pair_k or 1)
-        idx = superstep_index(plan, rank_stride)
-        if idx is None:
-            raise NotImplementedError(
-                "block index not int32-safe (a word with >= 2^30 variants)"
-            )
+        ranges = self.word_ranges(rank_stride)
+        idx = superstep_index(plan, rank_stride, ranges[0])
         digest_set = build_digest_set(self.digests, spec.algo)
         decode, pack_cb = decode_for(plan)
         xla_geom: Dict[str, int] = {}
@@ -366,9 +395,21 @@ class Sweep:
             radix2=k_opts_for(plan) == 1,
         )
         t_drive = time.monotonic()
-        stats, n_emitted, n_hits = self._drive(
-            body, arrays, nb, steps, recorder, flush,
-            lambda b: block_cursor(plan, rank_stride, idx[0], b)[0])
+        stats = {"supersteps": 0, "launches": 0, "replays": 0}
+        n_emitted = n_hits = 0
+        for lo, hi in ranges:
+            # One sub-sweep per word range, in word order: its own block
+            # index over the same resident tables.
+            idx = self._index_range(arrays, rank_stride, (lo, hi))
+            part, ne, nh = self._drive(
+                body, arrays, nb, steps, recorder, flush,
+                lambda b, cum=idx[0], hi=hi: min(
+                    block_cursor(plan, rank_stride, cum, b)[0], hi))
+            for k in stats:
+                stats[k] += part[k]
+            n_emitted += ne
+            n_hits += nh
+        stats["launches_per_fetch"] = steps
         stats["pair"] = pair_k or 0
         if xla_geom:
             xla_geom["rows"] = stats["launches"] * lanes * (pair_k or 1)
@@ -413,11 +454,8 @@ class Sweep:
                 wall_s=time.monotonic() - t0, routing=dict(self.routing))
         lanes, nb, _ = cfg.resolve(dev)
         stride = lanes // nb
-        idx = superstep_index(plan, stride)
-        if idx is None:
-            raise NotImplementedError(
-                "block index not int32-safe (a word with >= 2^30 variants)"
-            )
+        ranges = self.word_ranges(stride)
+        idx = superstep_index(plan, stride, ranges[0])
         budget = XLA_BUDGET_BYTES[dev.type]
         lanes = xla_lanes(plan, lanes, stride, 1, budget)
         nb = lanes // stride
@@ -428,25 +466,29 @@ class Sweep:
             block_stride=stride, num_blocks=nb, pieces=self.pieces,
             windowed=bool(getattr(plan, "windowed", False)),
             radix2=k_opts_for(plan) == 1)
-        total = arrays["total"]
         n_emitted = launches = 0
         t_drive = time.monotonic()
-        for b0 in range(0, total, nb):
-            cand, clen, wrow = (t.cpu().numpy() for t in body(arrays, b0))
-            launches += 1
-            lo = 0
-            rows = self.fallback_rows
-            # Fallback words inside this launch's word range go between
-            # the rows of the words around them.
-            while flush.done < len(rows) and len(wrow) and \
-                    rows[flush.done] < int(wrow[-1]):
-                cut = int(np.searchsorted(wrow, rows[flush.done]))
-                n_emitted += _write_rows(writer, cand, clen, lo, cut)
-                lo = cut
-                flush.until(rows[flush.done] + 1)
-            n_emitted += _write_rows(writer, cand, clen, lo, len(clen))
-            flush.until(block_cursor(plan, stride, idx[0],
-                                     min(b0 + nb, total))[0])
+        for w_lo, w_hi in ranges:
+            # One sub-sweep per word range, in word order.
+            idx = self._index_range(arrays, stride, (w_lo, w_hi))
+            total = arrays["total"]
+            for b0 in range(0, total, nb):
+                cand, clen, wrow = (t.cpu().numpy()
+                                    for t in body(arrays, b0))
+                launches += 1
+                lo = 0
+                rows = self.fallback_rows
+                # Fallback words inside this launch's word range go
+                # between the rows of the words around them.
+                while flush.done < len(rows) and len(wrow) and \
+                        rows[flush.done] < int(wrow[-1]):
+                    cut = int(np.searchsorted(wrow, rows[flush.done]))
+                    n_emitted += _write_rows(writer, cand, clen, lo, cut)
+                    lo = cut
+                    flush.until(rows[flush.done] + 1)
+                n_emitted += _write_rows(writer, cand, clen, lo, len(clen))
+                flush.until(min(block_cursor(plan, stride, idx[0],
+                                             min(b0 + nb, total))[0], w_hi))
         drive_s = time.monotonic() - t_drive
         flush.until(self.n_words)
         return SweepResult(
@@ -475,8 +517,7 @@ class Sweep:
             for _ in range(_DEPTH)
         ]
         inflight: deque = deque()
-        stats = {"supersteps": 0, "launches": 0, "replays": 0,
-                 "launches_per_fetch": steps}
+        stats = {"supersteps": 0, "launches": 0, "replays": 0}
         n_emitted = n_hits = 0
         b0 = 0
         while b0 < total or inflight:

@@ -17,7 +17,8 @@ small sweeps on the GPU — default, reverse and substitute-all mode, with
 oracle-fallback words, german's ``ss`` words and ``A5GEN_EMIT=bytescan``
 — must equal the same sweeps on the CPU.  The XLA expand + hash route:
 the buffer hash (TPU row 10 and its siblings) against its plain version
-for every hash at 1, 2, 3 and 5 blocks, and XLA-route crack sweeps
+for every hash at 1, 2, 3 and 5 blocks and in buffers that are not
+4-byte aligned, the windowed tier's CTA edges, and XLA-route crack sweeps
 (nine options, long lines, ``A5GEN_PALLAS=off``) and candidates-mode
 streams on the GPU equal to the CPU's.
 """
@@ -560,6 +561,40 @@ LEET9 = {b"a": [bytes([c]) for c in b"4@^&*!%#"] + [b"/-\\-/"],
          b"s": [b"$", b"5"], b"e": [b"9"]}
 
 
+@pytest.mark.parametrize("algo", ["md5", "md4", "sha1", "ntlm"])
+def test_windowed_cta_edges_match_plain_version(algo, cuda):
+    """The windowed tier's CTAs at their edges: 16-20-letter words (more
+    ranks than the stride, so full blocks), a launch whose block count
+    ends a CTA part-way, and blocks cut to counts 0 and 1."""
+    c = Case(SUB, letter_words(300, 16, 20, 11), cuda, algo=algo, mx=2,
+             nb=61)
+    assert c.decode == "windowed"
+    word, count, base = (t.clone() for t in c.blocks)
+    assert bool((count == 128).any())
+    count[3], count[7] = 0, 1
+    c.blocks = (word, count, base)
+    c.check()
+
+
+@pytest.mark.parametrize("width,offset", [(55, 1), (376, 2), (56, 3),
+                                          (2101, 1)])
+@pytest.mark.parametrize("algo", ["md5", "md4", "sha1", "ntlm"])
+def test_buffer_hash_unaligned_buffers(algo, width, offset, cuda):
+    """Rows in a buffer that is not 4-byte aligned (a view into a larger
+    allocation): funnel-shifted loads, byte loads where an aligned word
+    would leave the buffer."""
+    g = torch.Generator(device="cuda").manual_seed(width)
+    n = 4099
+    raw = torch.randint(0, 256, (n * width + offset,), dtype=torch.uint8,
+                        device=cuda, generator=g)
+    msg = raw[offset:].view(n, width)
+    ln = torch.randint(0, width + 1, (n,), dtype=torch.int32, device=cuda,
+                       generator=g)
+    ln[-1] = width
+    assert torch.equal(bh.buffer_hash(msg, ln, algo),
+                       bh.HASH_FNS[algo](msg, ln))
+
+
 def assert_buffer_hash_matches(algo, width, seed, cuda):
     """Every row of ``width`` bytes (lengths uniform in 0..W) equal to the
     plain version, tolerance 0; the call launches the kernel, never the
@@ -585,9 +620,9 @@ def assert_buffer_hash_matches(algo, width, seed, cuda):
 @pytest.mark.parametrize("blocks", [1, 2, 3, 5])
 @pytest.mark.parametrize("algo", ["md5", "md4", "sha1", "ntlm"])
 def test_buffer_hash_matches_plain_version(algo, blocks, cuda):
-    """The widest width ``blocks`` blocks hold (odd: byte loads), one
-    byte less, and three bytes less (a multiple of 4: the 4-byte-load
-    branch)."""
+    """The widest width ``blocks`` blocks hold (odd: funnel-shifted
+    loads), one byte less, and three bytes less (a multiple of 4: aligned
+    loads)."""
     width = (64 * blocks - 9) // (2 if algo == "ntlm" else 1)
     for w in (width, width - 1, width - 3):
         assert_buffer_hash_matches(algo, w, blocks, cuda)

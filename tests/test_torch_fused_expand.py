@@ -7,9 +7,11 @@ bit on every emitted lane, with equal emit masks: at K=1 and in the pair
 tier, for static and dynamic pair deltas, for the scalar, digit and
 windowed decodes, for MD5, MD4, SHA-1 and NTLM, and for 1-3 chained hash
 blocks.  The CUDA source itself is compiled for the host with g++ (CUDA
-keywords stubbed) and must equal the plain version on every lane of every
-instantiation; ``tests/test_torch_cuda.py`` compares the real kernels on
-a GPU.
+keywords stubbed; the windowed tier's CTAs run phase by phase) and must
+equal the plain version on every lane of every instantiation (the
+windowed tier writes no state for lanes past a block's count: its state
+is compared on every live lane); ``tests/test_torch_cuda.py`` compares
+the real kernels on a GPU.
 """
 
 import hashlib
@@ -69,7 +71,7 @@ class Launch:
     a match (default, reverse) or substitute-all plan."""
 
     def __init__(self, sub, words, *, pair, stride=128, nb=8, algo="md5",
-                 mx=15, mode="default", mn=0):
+                 mx=15, mode="default", mn=0, count_edits=None):
         self.spec = AttackSpec(mode=mode, algo=algo, min_substitute=mn,
                                max_substitute=mx)
         self.suball = mode.startswith("suball")
@@ -80,6 +82,9 @@ class Launch:
         self.decode, self.pack_cb = fe.decode_for(self.plan)
         self.k_opts = fe.k_vals_for(self.plan)
         self.pair, self.stride, self.nb = pair, stride, nb
+        #: {block: count} overrides of the cut's counts (lowering a count
+        #: keeps every rank inside its word).
+        self.count_edits = dict(count_edits or {})
         rank_stride = stride * (2 if pair else 1)
         batch, _, _ = make_blocks(self.plan, max_variants=nb * rank_stride,
                                   max_blocks=nb, fixed_stride=rank_stride)
@@ -166,8 +171,12 @@ class Launch:
         if self.plan.windowed:
             tables["win_v"] = torch.from_numpy(
                 np.ascontiguousarray(self.plan.win_v, np.int32))
+        count = self.batch.count.copy()
+        for b, c in self.count_edits.items():
+            assert c <= count[b]
+            count[b] = c
         return (torch.from_numpy(self.batch.word.copy()),
-                torch.from_numpy(self.batch.count.copy()),
+                torch.from_numpy(count),
                 torch.from_numpy(np.ascontiguousarray(base, np.int32)),
                 tables)
 
@@ -407,19 +416,53 @@ static void lane(const LaunchArgs& a, const PieceTables& t, int pair,
   if (pair && decode == 0) piece_pair_kernel<A, K, 0>(a, t);
   else if (pair) piece_pair_kernel<A, K, 1>(a, t);
   else if (decode == 0) lane_hb<A, K, 0, false>(a, t, hb);
-  else if (decode == 1 && closed) lane_hb<A, K, 1, true>(a, t, hb);
-  else if (decode == 1) lane_hb<A, K, 1, false>(a, t, hb);
-  else if (closed) lane_hb<A, K, 2, true>(a, t, hb);
-  else lane_hb<A, K, 2, false>(a, t, hb);
+  else if (closed) lane_hb<A, K, 1, true>(a, t, hb);
+  else lane_hb<A, K, 1, false>(a, t, hb);
+}
+// The windowed tier: every CTA's phases in order, each phase run by each
+// of its `nt` threads before the next (the barriers), shared memory
+// filled with garbage first.
+template <int A, int K, int HB, bool C, bool P>
+static void cta_win(const LaunchArgs& a, const PieceTables& t, int gmax,
+                    int nt) {
+  const WinGeom g = win_geometry(a, t, K, C, P, HB, nt, gmax);
+  std::vector<int32_t> smem(g.smem_bytes / 4 + 1);
+  blockDim.x = nt;
+  for (int cta = 0; cta * g.g < a.nb; ++cta) {
+    blockIdx.x = cta;
+    std::fill(smem.begin(), smem.end(), 0x5A5A5A5A);
+    for (int p = 0; p < WIN_PHASES; ++p)
+      for (int th = 0; th < nt; ++th) {
+        threadIdx.x = th;
+        win_phase<A, K, HB, C, P>(p, a, t, g, smem.data());
+      }
+  }
+  blockDim.x = 1; threadIdx.x = 0;
+}
+template <int A, int K, bool C, bool P>
+static void win_hb(const LaunchArgs& a, const PieceTables& t, int hb,
+                   int gmax, int nt) {
+  switch (hb) {
+    case 1: cta_win<A, K, 1, C, P>(a, t, gmax, nt); break;
+    case 2: cta_win<A, K, 2, C, P>(a, t, gmax, nt); break;
+    default: cta_win<A, K, 3, C, P>(a, t, gmax, nt); break;
+  }
+}
+template <int A, int K>
+static void windowed(const LaunchArgs& a, const PieceTables& t, int hb,
+                     int closed, int gmax, int nt) {
+  if (closed) { if (K) win_hb<A, 1, true, false>(a, t, hb, gmax, nt); }
+  else if (a.pack) win_hb<A, K, false, true>(a, t, hb, gmax, nt);
+  else win_hb<A, K, false, false>(a, t, hb, gmax, nt);
 }
 int main(int argc, char** argv) {
-  int v[25]; for (int i = 0; i < 25; ++i) v[i] = atoi(argv[i + 1]);
+  int v[27]; for (int i = 0; i < 27; ++i) v[i] = atoi(argv[i + 1]);
   int pair = v[1], decode = v[2], hb = v[3], nb = v[4],
       stride = v[5], m = v[6], k2 = v[7], k_opts = v[8], pack = v[9],
       ngw = v[10], ng16 = v[11], ngd = v[12], vm = v[13], nw = v[14],
       ng = v[15], mn = v[16], mx = v[17], B = v[18], nbase = v[19],
       words = v[20], kind = v[21], closed = v[22], ncols = v[23],
-      close_s = v[24];
+      close_s = v[24], gmax = v[25], nt = v[26];
   auto bw = rd<int32_t>("bw.bin", nb); auto bc = rd<int32_t>("bc.bin", nb);
   auto base = rd<int32_t>("base.bin", nbase);
   auto radix = rd<int32_t>("radix.bin", (size_t)B * m);
@@ -436,7 +479,7 @@ int main(int argc, char** argv) {
   auto cmul = rd<int32_t>("close_mul.bin",
                           closed ? (size_t)B * m * (close_s + 1) : 0);
   long long n = (long long)nb * stride * (pair ? 2 : 1);
-  std::vector<int32_t> st(n * words); std::vector<uint8_t> em(n);
+  std::vector<int32_t> st(n * words); std::vector<uint8_t> em(n, 7);
   LaunchArgs a{bw.data(), bc.data(), base.data(), radix.data(), winv.data(),
                nb, stride, m, k2, k_opts, pack, desc.data(), ng, mn, mx,
                st.data(), em.data(),
@@ -445,7 +488,11 @@ int main(int argc, char** argv) {
                closed ? cnext.data() : nullptr,
                closed ? cmul.data() : nullptr, ncols, close_s};
   PieceTables t{gw.data(), g16.data(), gl.data(), ngw, ng16, ngd, vm, nw};
-  for (long long i = 0; i < (long long)nb * stride; ++i) {
+  if (decode == 2) {
+    if (kind) windowed<HARNESS_ALGO, 1>(a, t, hb, closed, gmax, nt);
+    else windowed<HARNESS_ALGO, 0>(a, t, hb, closed, gmax, nt);
+  }
+  for (long long i = 0; decode != 2 && i < (long long)nb * stride; ++i) {
     blockIdx.x = (unsigned)i;
     if (kind) lane<HARNESS_ALGO, 1>(a, t, pair, decode, hb, closed);
     else lane<HARNESS_ALGO, 0>(a, t, pair, decode, hb, closed);
@@ -466,12 +513,21 @@ _HARNESS_STUB = r"""
 #define __global__
 #define __restrict__
 #define __shared__ static
+#define __launch_bounds__(n)
 struct Dim { unsigned x; };
-static Dim threadIdx = {0}, blockIdx = {0}, blockDim = {1};
+static Dim threadIdx = {0}, blockIdx = {0}, blockDim = {1}, gridDim = {1};
 static inline void __syncthreads() {}
+// Dynamic shared memory: the host build runs a CTA's phases with a
+// buffer of its own.
+#define DYN_SMEM(name) uint8_t* name = nullptr
 static inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, int s) {
   s &= 31; return s ? (hi << s) | (lo >> (32 - s)) : hi; }
+static inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, int s) {
+  s &= 31; return s ? (lo >> s) | (hi << (32 - s)) : lo; }
 static inline int __popc(uint32_t x) { return __builtin_popcount(x); }
+struct uint4 { uint32_t x, y, z, w; };
+static inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c,
+                               uint32_t d) { return {a, b, c, d}; }
 struct int4 { int x, y, z, w; };
 static inline int4 make_int4(int a, int b, int c, int d) {
   return {a, b, c, d}; }
@@ -518,9 +574,10 @@ def host_harness(tmp_path_factory):
     return build_host_harness(tmp_path_factory.mktemp("harness"))
 
 
-def run_harness(harness, launch, tmp_path):
+def run_harness(harness, launch, tmp_path, gmax=32, threads=128):
     """The host build of the CUDA source on ``launch``'s inputs: its
-    state and emit on every lane."""
+    state and emit on every lane.  The windowed tier runs in CTAs of at
+    most ``gmax`` blocks and ``threads`` threads."""
     word, count, base, tables = launch.inputs()
     for name, t in (("bw", word), ("bc", count), ("base", base),
                     ("radix", tables["radix"])):
@@ -545,7 +602,8 @@ def run_harness(harness, launch, tmp_path):
             launch.plan.batch, base.numel(), words,
             int(launch.pieces.kind == "suball"), int(closed),
             int(tables["sel_bit"].shape[1]) if "sel_bit" in tables else 0,
-            int(tables["close_next"].shape[2]) if closed else 0]
+            int(tables["close_next"].shape[2]) if closed else 0, gmax,
+            threads]
     subprocess.run([str(harness / f"harness_{launch.algo}")]
                    + [str(a) for a in args], cwd=tmp_path, check=True,
                    timeout=300)
@@ -554,12 +612,25 @@ def run_harness(harness, launch, tmp_path):
     return state, emit
 
 
-def assert_source_equals_plain(harness, launch, tmp_path):
+def live_rows(launch):
+    """Rows whose rank is below their block's count: every row the
+    windowed tier computes (it writes no state for padding lanes)."""
+    _word, count, _base, _tables = launch.inputs()
+    rank = np.arange(launch.nb * launch.stride) % launch.stride
+    return rank < np.repeat(count.numpy(), launch.stride)
+
+
+def assert_source_equals_plain(harness, launch, tmp_path, **geometry):
+    """Emit on every lane; state on every lane, or, for the windowed
+    tier, on every live lane (its padding lanes' state is garbage, as the
+    reference's contract allows)."""
     want_state, want_emit = launch.port()
-    state, emit = run_harness(harness, launch, tmp_path)
+    state, emit = run_harness(harness, launch, tmp_path, **geometry)
     assert want_emit.any()
     assert (emit == want_emit).all()
-    assert (state == want_state).all()
+    rows = live_rows(launch) if launch.decode == "windowed" else \
+        np.ones(len(emit), bool)
+    assert (state[rows] == want_state[rows]).all()
 
 
 @pytest.mark.parametrize("case", ["k1", "pair", "2-hash-blocks",
@@ -585,8 +656,10 @@ _SOURCE_LENGTHS = {(1, 1): (20, 36), (1, 2): (48, 60), (1, 3): (112, 120),
                    (2, 1): (12, 12), (2, 2): (24, 32), (2, 3): (50, 60)}
 
 
-def _source_launch(tier, algo, blocks):
-    """A launch of one instantiation: decode tier x hash x hash blocks."""
+def _source_launch(tier, algo, blocks, count_edits=None):
+    """A launch of one instantiation: decode tier x hash x hash blocks
+    (``count_edits``: block counts lowered, as :class:`Launch` takes
+    them)."""
     scale = 2 if algo == "ntlm" else 1
     lo, hi = _SOURCE_LENGTHS[(scale, blocks)]
     windowed = tier.startswith("windowed")
@@ -601,7 +674,8 @@ def _source_launch(tier, algo, blocks):
     else:
         words = _long_words(6, lo, hi, seed=blocks, letters=letters)
     return Launch(sub, words, pair=tier.startswith("pair"), stride=8, nb=24,
-                  algo=algo, mx=2 if windowed else 15)
+                  algo=algo, mx=2 if windowed else 15,
+                  count_edits=count_edits)
 
 
 _SOURCE_CASES = [
@@ -616,7 +690,8 @@ _SOURCE_CASES = [
 def test_cuda_source_instantiations_equal_plain_version(
         tier, algo, blocks, host_harness, tmp_path):
     """Every (hash, decode, hash-block) instantiation of the source, built
-    for the host, against the plain version on every lane."""
+    for the host, against the plain version on every lane (the windowed
+    tier's state on every live lane)."""
     launch = _source_launch(tier, algo, blocks)
     assert launch.hash_blocks == blocks
     assert (launch.decode, launch.pack_cb) == {
@@ -625,6 +700,32 @@ def test_cuda_source_instantiations_equal_plain_version(
         "windowed-cb": ("windowed", True),
         "windowed-digits": ("windowed", False)}[tier]
     assert_source_equals_plain(host_harness, launch, tmp_path)
+
+
+_CTA_CASES = [(tier, algo, geom) for algo in ALGOS
+              for tier in ("windowed-cb", "windowed-digits")
+              for geom in ("counts", "ctas")]
+
+
+@pytest.mark.parametrize("tier,algo,geom", _CTA_CASES,
+                         ids=[f"{t}-{a}-{g}" for t, a, g in _CTA_CASES])
+def test_cuda_source_windowed_ctas_equal_plain_version(
+        tier, algo, geom, host_harness, tmp_path):
+    """The windowed tier's CTA phases at edge geometries: blocks of count
+    0, 1 and the full stride ("counts"), and CTAs of 7 blocks and 32
+    threads, so CTAs span several words and the last CTA is partial
+    ("ctas": 24 blocks, 4 CTAs)."""
+    edits = {0: 0, 1: 1, 7: 0, 12: 1} if geom == "counts" else {}
+    launch = _source_launch(tier, algo, 1, count_edits=edits)
+    _word, count, _base, _t = launch.inputs()
+    count = count.numpy()
+    assert launch.decode == "windowed" and (count == launch.stride).any()
+    assert (count == 0).any() and (count == 1).any() or geom == "ctas"
+    g = 7 if geom == "ctas" else 24
+    words = _word.numpy().tolist()
+    assert any(len(set(words[i:i + g])) > 1 for i in range(0, 24, g))
+    geometry = dict(gmax=7, threads=32) if geom == "ctas" else {}
+    assert_source_equals_plain(host_harness, launch, tmp_path, **geometry)
 
 
 def test_native_build_raises_without_nvcc(monkeypatch):

@@ -431,7 +431,7 @@ def test_cuda_source_suball_instantiations_equal_plain_version(
         tier, algo, blocks, host_harness, tmp_path):
     """Every substitute-all (decode, closure, hash-block) instantiation
     of the source, built for the host, against the plain version on every
-    lane."""
+    lane (the windowed tier's state on every live lane)."""
     launch = _source_launch(tier, algo, blocks)
     assert launch.hash_blocks == blocks
     assert launch.pieces.kind == "suball"

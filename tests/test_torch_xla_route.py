@@ -136,23 +136,30 @@ _HARNESS_MAIN = r"""
 int main(int argc, char** argv) {
   const long long n = atoll(argv[1]);
   const int width = atoi(argv[2]);
-  const int aligned = atoi(argv[3]);
-  std::vector<uint8_t> msg((size_t)n * width + 1);
+  const int offset = atoi(argv[3]);  // bytes between allocation and row 0
+  // The rows at `offset` bytes past a 16-byte-aligned allocation, and
+  // nothing after them: aligned words past the buffer are never loaded.
+  std::vector<uint4> raw(((size_t)n * width + offset + 15) / 16 + 1);
+  uint8_t* msg = reinterpret_cast<uint8_t*>(raw.data()) + offset;
   std::vector<int32_t> len(n);
   FILE* f = fopen("msg.bin", "rb");
-  if (fread(msg.data(), 1, (size_t)n * width, f) != (size_t)n * width) return 1;
+  if (fread(msg, 1, (size_t)n * width, f) != (size_t)n * width) return 1;
   fclose(f);
   f = fopen("len.bin", "rb");
   if (fread(len.data(), 4, n, f) != (size_t)n) return 1;
   fclose(f);
   const int words = HARNESS_ALGO == ALGO_SHA1 ? 5 : 4;
   std::vector<int32_t> state((size_t)n * words);
+  BhArgs a;
+  a.msg = msg; a.len = len.data(); a.n = n; a.width = width;
+  a.state = state.data();
+  const bool aligned = width % 4 == 0 && offset % 4 == 0;
   blockDim.x = 1;
   threadIdx.x = 0;
   for (long long r = 0; r < n; ++r) {
     blockIdx.x = (unsigned)r;
-    buffer_hash_kernel<HARNESS_ALGO>(msg.data(), len.data(), n, width,
-                                     aligned != 0, state.data());
+    if (aligned) buffer_hash_kernel<HARNESS_ALGO, true>(a);
+    else buffer_hash_kernel<HARNESS_ALGO, false>(a);
   }
   f = fopen("state.bin", "wb");
   fwrite(state.data(), 4, state.size(), f);
@@ -185,27 +192,62 @@ def host_harness(tmp_path_factory):
     return out
 
 
+def harness_state(harness, algo, msg, ln, tmp_path, *, offset=0):
+    """The host build's state rows for ``msg`` / ``ln``, the buffer
+    ``offset`` bytes past a 16-byte boundary."""
+    (tmp_path / "msg.bin").write_bytes(msg.tobytes())
+    (tmp_path / "len.bin").write_bytes(ln.tobytes())
+    subprocess.run([str(harness / f"harness_{algo}"), str(len(ln)),
+                    str(msg.shape[1]), str(offset)], cwd=tmp_path,
+                   check=True, timeout=120)
+    return np.fromfile(tmp_path / "state.bin", np.int32).reshape(len(ln), -1)
+
+
 @pytest.mark.parametrize("algo", ALGOS)
 def test_cuda_source_equals_plain_version(algo, host_harness, tmp_path):
     """The kernel's source against the plain version on every row, at 1,
-    2, 3 and 5 hash blocks, word and byte loads (a width not a multiple
-    of 4), lengths 0..W and two rows outside them (negative, past W)."""
+    2, 3 and 5 hash blocks, rows at odd widths (funnel-shifted loads) and
+    at multiples of 4 (aligned loads, or funnel-shifted in a buffer that
+    is not 4-byte aligned), lengths 0..W and two rows outside them
+    (negative, past W)."""
     for blocks in BLOCKS:
         for width in (width_for(blocks, algo), width_for(blocks, algo) - 3):
             msg, ln = rows_for(width, seed=width)
             ln = np.concatenate([ln, [-5, width + 70]]).astype(np.int32)
             msg = np.concatenate([msg, msg[:2]])
-            (tmp_path / "msg.bin").write_bytes(msg.tobytes())
-            (tmp_path / "len.bin").write_bytes(ln.tobytes())
             want = t_hashes.HASH_FNS[algo](torch.from_numpy(msg),
                                            torch.from_numpy(ln)).numpy()
-            for aligned in {0, int(width % 4 == 0)}:
-                subprocess.run([str(host_harness / f"harness_{algo}"),
-                                str(len(ln)), str(width), str(aligned)],
-                               cwd=tmp_path, check=True, timeout=120)
-                got = np.fromfile(tmp_path / "state.bin",
-                                  np.int32).reshape(len(ln), -1)
-                assert np.array_equal(got, want), (blocks, width, aligned)
+            for offset in (0, 2):
+                got = harness_state(host_harness, algo, msg, ln, tmp_path,
+                                    offset=offset)
+                assert np.array_equal(got, want), (blocks, width, offset)
+
+
+#: Widths at the edges: 0-3 bytes, the one-block MD5 width and the next (a
+#: multiple of 4), 64 and 128 (whole aligned blocks), the main path's 376,
+#: and rows wider than any the sweeps make.
+EDGE_WIDTHS = (0, 1, 3, 48, 55, 56, 64, 128, 376, 2100, 2101)
+
+
+@pytest.mark.parametrize("width", EDGE_WIDTHS)
+@pytest.mark.parametrize("algo", ALGOS)
+def test_cuda_source_edge_widths_equal_plain_version(algo, width,
+                                                     host_harness, tmp_path):
+    """Edge widths against the plain version on every row, the buffer at
+    a 16-byte boundary and one byte past it (the first and last rows'
+    aligned words would reach outside it: byte loads there)."""
+    rng = np.random.default_rng(width + 7)
+    n = 300 + width % 7
+    msg = rng.integers(0, 256, (n, width), dtype=np.uint8)
+    ln = rng.integers(0, width + 1, n).astype(np.int32)
+    ln[:3] = (0, width, max(width - 1, 0))
+    ln[-1] = width
+    want = t_hashes.HASH_FNS[algo](torch.from_numpy(msg),
+                                   torch.from_numpy(ln)).numpy()
+    for offset in (0, 1):
+        got = harness_state(host_harness, algo, msg, ln, tmp_path,
+                            offset=offset)
+        assert np.array_equal(got, want), offset
 
 
 # ---------------------------------------------------------------------------
