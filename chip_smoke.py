@@ -25,7 +25,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    7-9) in every tier x hash, with 2- and 3-block batches, and both tiers
    on one german plan; emit masks equal and state equal on every emitted
    lane, tolerance 0 (integer arithmetic), the windowed tier's CTA edges
-   too (blocks of count 0, 1 and the stride, a partial last CTA); the
+   too (blocks of count 0, 1 and the stride, a partial last CTA), and the
+   scalar K=1 and pair tiers' (the same, a CTA of count-0 blocks, a
+   window cut -m 2 -x 9, blocks of 4096 lanes cut into chunks); the
    buffer hash (TPU row 10 and its siblings: ``buffer_hash`` x 4 hashes x
    1, 2, 3 and 5 blocks, each at an odd width (funnel-shifted loads) and a
    multiple of 4 (aligned loads), the main path's widths 376 and 432, at
@@ -61,7 +63,11 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    twins (czech-ntlm, greek-hebrew-sha1, german-md5, azerty-s) whose
    stdout must equal the kernel route's, an ``A5GEN_PAIR=off`` twin of
    the cyrillic crack run whose stdout must equal pair auto's (and which
-   launches no pair tier), and candidates mode
+   launches no pair tier), a ``--superstep off`` twin of it (the
+   per-launch pipeline, K=1: stdout equal to pair auto's), one word of
+   2^30 rows on the piece route (15 keys of three options: the per-launch
+   pipeline, hits planted in its last launch, each printed once; its
+   rows, launches and drive printed), and candidates mode
    (qwerty-cyrillic, 2e4 words, ``--output``: line count = the host
    keyspace, the first 2000 words byte-identical to a ``--device cpu``
    run, per word the oracle's multiset on 200 sampled words; qwerty-azerty
@@ -440,7 +446,7 @@ class Case:
 
     def __init__(self, name, workload, words, sub, *, algo="md5", mx=15,
                  pair=False, lanes=None, stride=STRIDE, width=None,
-                 mode="default", device):
+                 mode="default", mn=0, device):
         from hashcat_a5_table_generator_tpu_torch.models.attack import (
             AttackSpec, cut_blocks, device_arrays,
         )
@@ -454,9 +460,10 @@ class Case:
 
         self.name, self.algo, self.pair = name, algo, pair
         self.stride = stride
-        self.spec = AttackSpec(mode=mode, algo=algo, max_substitute=mx)
+        self.spec = AttackSpec(mode=mode, algo=algo, min_substitute=mn,
+                               max_substitute=mx)
         self.plan, self.ct, self.pieces = plan_for(
-            (workload, mode, mx), sub, words, self.spec, width)
+            (workload, mode, mn, mx), sub, words, self.spec, width)
         ct = self.ct
         if fused_expand.opts_for(self.spec, self.plan, ct) is None:
             fail(f"{name}: the plan takes the XLA route")
@@ -533,7 +540,8 @@ class Case:
         against each input byte read once and each output byte written
         once over HBM bandwidth: an emit byte per row, and state words
         per row — on the windowed tier only per live row (rank < count),
-        as its contract leaves the state of padding rows undefined."""
+        on the scalar K=1 and pair tiers only per emitted row, as their
+        contract leaves the state of dead rows undefined."""
         import torch
 
         from hashcat_a5_table_generator_tpu_torch.ops import fused_expand
@@ -552,6 +560,8 @@ class Case:
         if self.decode == "windowed":
             state_rows = int(torch.clamp(self.blocks[1], 0,
                                          self.stride).sum())
+        elif self.pair or self.decode == "scalar":
+            state_rows = int(emit.sum())
         nbytes = (8 * nb + self.blocks[2].numel() * 4
                   + int(words.numel()) * row_bytes
                   + self.arrays["desc"].numel() * 4
@@ -604,6 +614,28 @@ def windowed_edges(case):
     return edge
 
 
+def tile_edges(case):
+    """``case`` cut to the scalar K=1 and pair tiers' CTA edges: five
+    blocks fewer (a partial last CTA), blocks 3 and 7 cut to counts 0 and
+    1, and blocks 32-63 (whole CTAs at any tile width the stride allows)
+    cut to count 0, beside blocks of their full ranks."""
+    import copy
+
+    import torch
+
+    edge = copy.copy(case)
+    word, count, base = (t[:-5].clone() for t in case.blocks)
+    count[3] = 0
+    count[7] = torch.clamp(count[7], max=1)
+    count[32:64] = 0
+    ranks = case.stride * (2 if case.pair else 1)
+    if not bool((count == ranks).any()) or int(count[7]) != 1:
+        fail(f"{case.name}: no blocks of the full stride to hold the edges")
+    edge.blocks = (word, count, base)
+    edge.name = f"{case.name}, CTA edges"
+    return edge
+
+
 class BSCase:
     """One byte-scan kernel input at a given shape: blocks cut on the
     device from a real plan's index, with the byte-scan tier the
@@ -629,7 +661,7 @@ class BSCase:
         self.name, self.algo, self.pair, self.stride = name, algo, False, stride
         self.spec = AttackSpec(mode=mode, algo=algo, max_substitute=mx)
         self.plan, self.ct, _pieces = plan_for(
-            (workload, mode, mx), sub, words, self.spec, width)
+            (workload, mode, 0, mx), sub, words, self.spec, width)
         if fused_expand.opts_for(self.spec, self.plan, self.ct) is None:
             fail(f"{name}: the plan takes the XLA route")
         self.tier = bytescan.bytescan_tier(self.plan)
@@ -1124,8 +1156,8 @@ class MainPath:
             fail(f"{what}: word routing {got_routing}, host plan "
                  f"{self.routing}")
         m = re.search(r"(\d+) hits, (\d+) candidates hashed", err)
-        s = re.search(r"([\d.]+) s wall, ([\d.]+) s superstep drive, "
-                      r"([\d.e+]+) candidate-hashes/s", err)
+        s = re.search(r"([\d.]+) s wall, ([\d.]+) s (?:superstep|per-launch) "
+                      r"drive, ([\d.e+]+) candidate-hashes/s", err)
         if not m or not s:
             fail(f"{what}: no summary on stderr: {err}")
         emitted = int(m.group(2))
@@ -1792,6 +1824,101 @@ def ptxas_kernels(report: str) -> list:
     return out
 
 
+#: The huge word: 15 letters, each a key of three options (radix 4):
+#: 4^15 = 2^30 rows, a word the int32 block index cannot hold.
+HUGE_KEYS = b"bcdfghjklmnpqrs"
+HUGE_PLANTS = 10
+
+
+def huge_word_run(work: str, card: str, min_rows: int = 1 << 30) -> dict:
+    """One word of 2^30 rows on the piece route, through the CLI: the
+    per-launch pipeline cuts its blocks on the host (Python-int cursors)
+    and runs the digit decode; hits planted at ranks of its last launch
+    (decoded by the port's ``decode_variant``) are each printed once, and
+    ``candidates hashed`` is every row but rank 0 (no substitution: -m
+    1).  Prints the rows, the launches and the drive seconds; returns the
+    run's kernel launches (``launches``, ``widths``: none on the XLA
+    route), as ``MainPath.run`` does."""
+    from hashcat_a5_table_generator_tpu_torch.models.attack import (
+        AttackSpec, build_plan, decode_variant,
+    )
+    from hashcat_a5_table_generator_tpu_torch.ops import fused_expand
+    from hashcat_a5_table_generator_tpu_torch.ops.packing import (
+        pack_words, piece_schema_for,
+    )
+    from hashcat_a5_table_generator_tpu_torch.tables.compile import (
+        compile_table,
+    )
+    from hashcat_a5_table_generator_tpu_torch.utils.digests import (
+        HOST_DIGEST,
+    )
+
+    sub = {bytes([k]): [bytes([k - 32]), bytes([k - 32]) * 2,
+                        b"_" + bytes([k])] for k in HUGE_KEYS}
+    table = os.path.join(work, "huge.table")
+    with open(table, "wb") as fh:
+        fh.write(b"".join(k + b"=" + v + b"\n" for k, vs in sub.items()
+                          for v in vs))
+    words = [bytes(HUGE_KEYS), b"password", b"zebra"]
+    wordlist = os.path.join(work, "huge.words.txt")
+    with open(wordlist, "wb") as fh:
+        fh.write(b"\n".join(words) + b"\n")
+    spec = AttackSpec()
+    ct = compile_table(sub)
+    plan = build_plan(spec, ct, pack_words([words[0]]))
+    rows = int(plan.n_variants[0])
+    if rows < min_rows or int(plan.num_slots) > 24:
+        fail(f"huge word: {rows} rows over {plan.num_slots} slots")
+    if fused_expand.opts_for(spec, plan, ct) is None or \
+            piece_schema_for(plan, ct) is None:
+        fail("huge word: the plan does not take the piece kernel")
+    planted = {}
+    for k in range(HUGE_PLANTS):
+        cand = decode_variant(plan, ct, spec, 0, rows - 1 - 997 * k)
+        planted[HOST_DIGEST["md5"](cand).hex()] = cand
+    rng = np.random.default_rng(91)
+    digests = os.path.join(work, "huge.digests.txt")
+    with open(digests, "w") as fh:
+        fh.write("\n".join(list(planted) + [
+            rng.integers(0, 256, 16, dtype=np.uint8).tobytes().hex()
+            for _ in range(990)]) + "\n")
+    for k in fused_expand.LAUNCHES:
+        fused_expand.LAUNCHES[k] = 0
+    plain = fused_expand.PLAIN_CALLS
+    t = time.monotonic()
+    out, err, rc = run_cli([wordlist, "-t", table, "--backend", "device",
+                            "--digests", digests])
+    wall = time.monotonic() - t
+    if rc != 0:
+        fail(f"huge word: the CLI exited {rc}: {err}")
+    launches = {k: v for k, v in fused_expand.LAUNCHES.items() if v}
+    got = [ln.split(":", 1)[1].encode() for ln in
+           out.decode().splitlines()]
+    for cand in planted.values():
+        if got.count(cand) != 1:
+            fail(f"huge word: planted {cand!r} printed {got.count(cand)} "
+                 "times")
+    m = re.search(r"(\d+) candidates hashed", err)
+    # Every row but the unsubstituted one, of each word (3 options a key).
+    want = rows - 1 + sum(4 ** sum(bytes([c]) in sub for c in w) - 1
+                          for w in words[1:])
+    if not m or int(m.group(1)) != want:
+        fail(f"huge word: candidates hashed {m and m.group(1)}, want {want}")
+    p = re.search(r"per-launch pipeline: (\d+) launches", err)
+    d = re.search(r"([\d.]+) s per-launch drive, ([\d.e+]+) "
+                  r"candidate-hashes/s", err)
+    if not p or not d or launches.get("piece_digits/md5", 0) <= 0 \
+            or fused_expand.PLAIN_CALLS != plain:
+        fail(f"huge word: no per-launch run of piece_digits/md5 ({err})")
+    log(f"huge word [{bytes(HUGE_KEYS).decode()}, 15 slots of radix 4]: "
+        f"{rows} rows on the piece route, per-launch pipeline: "
+        f"{p.group(1)} launches {launches}, {len(got)} hits "
+        f"({HUGE_PLANTS} planted in the last launch, each printed once), "
+        f"drive {d.group(1)} s ({d.group(2)} candidate-hashes/s), CLI wall "
+        f"{wall:.2f} s on {card}")
+    return {"launches": launches, "widths": {}}
+
+
 def expect_launched(run, keys, what) -> None:
     for key in keys:
         if run["launches"].get(key, 0) <= 0:
@@ -1982,6 +2109,24 @@ def main() -> None:
     win_edges = {algo: compare(windowed_edges(Case(
         f"cyr-x2-16 x {algo}", "cyr-x2-16", win16, cyr, algo=algo, mx=2,
         lanes=LANES >> 2, device=dev))) for algo in ALGOS}
+    # The scalar K=1 and pair tiers' CTA edges (tile_edges) on each timed
+    # workload of theirs; a window cut (-m 2 -x 9: full enumeration, rows
+    # below the counts dead too); blocks of 4096 lanes, wider than a CTA's
+    # 2048, cut into chunks.
+    tile_checks = {}
+    for entry in ("k1", "pair", "pair_digits", "suball_k1"):
+        for algo in ALGOS:
+            tile_checks[f"cta-edges/{entry}/{algo}"] = compare(tile_edges(
+                cases[(entry, algo)]))["mismatches"]
+    for pair in (False, True):
+        entry = "pair" if pair else "k1"
+        for algo in ALGOS:
+            tile_checks[f"window/{entry}/{algo}"] = compare(Case(
+                f"cyr -m 2 -x 9 x {algo}", "cyr", head, cyr, algo=algo,
+                mn=2, mx=9, pair=pair, device=dev))["mismatches"]
+            tile_checks[f"chunks/{entry}/{algo}"] = compare(Case(
+                f"cyr x {algo}, stride 4096", "cyr", head, cyr, algo=algo,
+                pair=pair, stride=4096, device=dev))["mismatches"]
 
     # Byte-scan kernels (TPU rows 7-9): every tier x hash at main-path
     # shapes, on plans whose piece schema (if any) is left unused, as
@@ -2271,6 +2416,19 @@ def main() -> None:
         fail(f"cyrillic-md5 (A5GEN_PAIR=off): launched {run['launches']}")
     log(f"main path cyrillic-md5 (A5GEN_PAIR=off): stdout byte-identical to "
         f"pair auto's ({len(run['stdout'])} bytes)")
+    # --superstep off (this run alone): the per-launch pipeline, blocks
+    # cut on the host, K=1; stdout byte-identical to the superstep run's.
+    run = paths["cyrillic-md5"].run("superstep off", ["--superstep", "off"],
+                                    card)
+    runs[("cyrillic-md5", "superstep off")] = run
+    if run["stdout"] != runs[("cyrillic-md5", "pair auto")]["stdout"]:
+        fail("cyrillic-md5 (--superstep off): stdout differs from the "
+             "superstep run's")
+    if any("pair" in k for k in run["launches"]):
+        fail(f"cyrillic-md5 (--superstep off): launched {run['launches']}")
+    log(f"main path cyrillic-md5 (--superstep off): stdout byte-identical "
+        f"to the superstep run's ({len(run['stdout'])} bytes)")
+    runs[("huge-word", "per-launch")] = huge_word_run(work, card)
     for name in ("cyrillic-md5", "greek-hebrew-sha1"):
         if runs[(name, "pair auto")]["hits"] != runs[(name, "pair off")][
                 "hits"]:
@@ -2282,6 +2440,8 @@ def main() -> None:
                     "cyrillic-md5 (pair off)")
     expect_launched(runs[("cyrillic-md5", "A5GEN_PAIR=off")],
                     ["piece_k1/md5"], "cyrillic-md5 (A5GEN_PAIR=off)")
+    expect_launched(runs[("cyrillic-md5", "superstep off")],
+                    ["piece_k1/md5"], "cyrillic-md5 (--superstep off)")
     expect_launched(runs[("czech-ntlm", "pair auto")], ["piece_digits/ntlm"],
                     "czech-ntlm")
     expect_launched(runs[("greek-hebrew-sha1", "pair auto")],
@@ -2367,6 +2527,9 @@ def main() -> None:
                        and e.split("-")[0].split(":")[0] == entry}
         if entry == "windowed":
             more_checks[f"cta-edges/{algo}"] = win_edges[algo]["mismatches"]
+        more_checks.update({k: v for k, v in tile_checks.items()
+                            if k.split("/")[1] == entry
+                            and k.endswith(f"/{algo}")})
         masked = 1 - int(emit.sum()) / rows
         floor_ms = floor[algo] * int(emit.sum()) / LANES
         geom = ""

@@ -131,8 +131,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--blocks", type=int, default=None,
                     help="blocks per launch (default lanes/128)")
     ap.add_argument("--superstep", type=_superstep_arg, default=None,
-                    metavar="N|auto",
-                    help="launches per device superstep (default 16)")
+                    metavar="N|auto|off",
+                    help="launches per device superstep (default 16); "
+                         "'off' runs the per-launch pipeline (blocks cut "
+                         "on the host for each launch; also "
+                         "A5GEN_SUPERSTEP=off); the stream is the same")
     ap.add_argument("--pair", choices=("auto", "on", "off"),
                     default="auto",
                     help="pair-lane tier: 2 candidates per hash lane where "
@@ -176,8 +179,8 @@ def _buckets_arg(value: str):
 
 
 def _superstep_arg(value: str):
-    """--superstep: 'auto' (None) or a positive launch count; 'off' (the
-    per-launch pipeline) is refused at run time."""
+    """--superstep: 'auto' (None), 'off' (0: the per-launch pipeline) or
+    a positive launch count."""
     if value == "auto":
         return None
     if value == "off":
@@ -305,8 +308,12 @@ class _DedupRecorder:
 
 def _print_superstep(res) -> None:
     """Superstep summary (stderr): supersteps run, launches per fetch,
-    overflow re-runs, pair tier."""
+    overflow re-runs, pair tier; and the per-launch pipeline's
+    launches."""
     s = res.superstep
+    if s.get("per_launch"):
+        print(f"{PROG}: per-launch pipeline: {s['per_launch']} launches "
+              "(blocks cut on the host)", file=sys.stderr)
     if not s.get("supersteps"):
         return
     pair = f", pair K={s['pair']}" if s.get("pair") else ""
@@ -394,7 +401,9 @@ def _run_device(args, sub_map, packed) -> int:
         res = sweep.run_crack(_DedupRecorder(HitRecorder(sys.stdout.buffer)))
         print(f"{res.n_hits} hits, {res.n_emitted} candidates hashed",
               file=sys.stderr)
-        what = "superstep drive"
+        what = ("superstep drive" if res.superstep.get("supersteps")
+                or not res.superstep.get("per_launch")
+                else "per-launch drive")
         unit = "candidate-hashes/s"
     else:
         with contextlib.ExitStack() as stack:
@@ -445,14 +454,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.output and args.digests is not None:
         ap.error("--output names the candidate stream's file; crack mode "
                  "prints its hits to stdout")
-    if args.superstep == 0:
-        ap.error(_not_ported("--superstep off", 6))
-    from .runtime.env import pipeline_enabled, superstep_enabled
-
-    if not superstep_enabled():
-        ap.error(_not_ported("A5GEN_SUPERSTEP=off", 6))
-    if not pipeline_enabled():
-        ap.error(_not_ported("A5GEN_PIPELINE=off", 6))
     from .ops.packing import (
         aligned_width,
         pack_rows,

@@ -65,8 +65,8 @@
 //   hash     The bit length goes to the lane's own padding block k (word
 //            16k+14; SHA-1: byte-swapped into word 16k+15); the lane
 //            compresses blocks 0..k and outputs the state after block k.
-// Non-emitted lanes may hold garbage state (the reference's contract);
-// their bytes never land outside their own message.
+// Non-emitted lanes may hold garbage state, or none (the reference's
+// contract); their bytes never land outside their own message.
 //
 // What bounds it on the H100: integer throughput.  Per candidate one
 // compression costs ~320 INT32 instructions for MD5, ~176 for MD4/NTLM and
@@ -79,16 +79,18 @@
 // and those instructions, not the bytes, are what keep a launch above its
 // bound.
 //
-// What this design does about it: group descriptors in shared memory;
-// pieces appended in order (`append`: one
-// store per message word, no read-modify-write); rotates as funnel
-// shifts, round functions in their 3-input forms.  The scalar and digit
-// tiers run one thread per lane over the resident tables (by word index,
-// no per-launch gather); their message and digit vector sit in local
-// memory (`-Xptxas -v` reports the stack frame).  The count-windowed tier
-// (piece_windowed_kernel, below) skips the lanes past each block's count,
-// which are most of them at small windows, stages its words' tables in
-// shared memory and keeps the message and digits there.
+// What this design does about it: pieces appended in order (`append`:
+// one store per message word, no read-modify-write); rotates as funnel
+// shifts, round functions in their 3-input forms.  The scalar K=1 and
+// pair tiers (piece_tile_kernel) and the count-windowed tier
+// (piece_windowed_kernel) compute live lanes only, packed into full
+// warps, stage their words' tables in shared memory once a CTA and keep
+// the message (and digits) there, out of local memory; the scalar tiers
+// also merge neighbouring bit-field groups into one (fewer splice steps a
+// candidate), and the pair tier splices both candidates in one walk.  The
+// digit decode at K=1 (piece_kernel) runs one thread per lane over the
+// resident tables (by word index, no per-launch gather), its message and
+// digit vector in local memory (`-Xptxas -v` reports the stack frame).
 //
 // Shifts by 32 are undefined in C++ and CUDA: placement shifts only by
 // 8..24 when the spill word is written, and the scalar selectors test the
@@ -357,9 +359,9 @@ __device__ __forceinline__ bool in_window(int cc, const LaunchArgs& a) {
 // Kernels
 // ---------------------------------------------------------------------------
 
-// Scalar and digit decodes, one candidate per thread: lane r of block b is
-// candidate rank r of the block, row b * stride + r.
-template <int ALGO, int KIND, int DECODE, int HB, bool CLOSED>
+// The digit decode (general tier), one candidate per thread: lane r of
+// block b is candidate rank r of the block, row b * stride + r.
+template <int ALGO, int KIND, int HB, bool CLOSED>
 __global__ void piece_kernel(LaunchArgs a, PieceTables t) {
     __shared__ int sdesc[MAX_GROUPS * DESC_WIDTH];
     load_desc(sdesc, a.desc, a.ngroups);
@@ -370,76 +372,15 @@ __global__ void piece_kernel(LaunchArgs a, PieceTables t) {
     const int w = a.blk_word[blk];
     const SelRows sr = sel_rows(a, w);
     uint32_t m[16 * HB];
-    int len, cc;
-    if (DECODE == DECODE_SCALAR) {
-        const uint32_t cb = (uint32_t)(a.blk_base[blk] + r);
-        cc = __popc(cb);
-        len = build_message<ALGO, HB, KIND, true, false>(
-            m, cb, (const int*)nullptr, w, sdesc, a.ngroups, t, sr);
-    } else {
-        int dg[MAX_SLOTS];
-        decode_digits(dg, r, a.blk_base + (size_t)blk * a.m,
-                      a.radix + (size_t)w * a.m, a.m);
-        cc = 0;
-        for (int s = 0; s < a.m; ++s) cc += dg[s] > 0 ? 1 : 0;
-        len = build_message<ALGO, HB, KIND, false, CLOSED>(
-            m, 0u, (const int*)dg, w, sdesc, a.ngroups, t, sr);
-    }
+    int dg[MAX_SLOTS];
+    decode_digits(dg, r, a.blk_base + (size_t)blk * a.m,
+                  a.radix + (size_t)w * a.m, a.m);
+    int cc = 0;
+    for (int s = 0; s < a.m; ++s) cc += dg[s] > 0 ? 1 : 0;
+    const int len = build_message<ALGO, HB, KIND, false, CLOSED>(
+        m, 0u, (const int*)dg, w, sdesc, a.ngroups, t, sr);
     hash_lane<ALGO, HB>(m, len, a, lane);
     a.emit[lane] = (r < a.blk_count[blk] && in_window(cc, a));
-}
-
-// Pair tier (one hash block): lane r of block b owns candidate ranks 2r
-// and 2r + 1 of a block spanning 2 * stride ranks; the outputs land in
-// rank order, row b * 2 * stride + 2r + p.  The schema's pair gate
-// guarantees slot 0's radix is even on every launched word (and, for
-// suball plans, that slot 0 drives column 0 and no other), so the partner
-// differs from rank 2r only in slot 0: cb | 1 (scalar), or slot 0's digit
-// + 1, which never carries (digits; clamped for garbage lanes).
-template <int ALGO, int KIND, int DECODE>
-__global__ void piece_pair_kernel(LaunchArgs a, PieceTables t) {
-    __shared__ int sdesc[MAX_GROUPS * DESC_WIDTH];
-    load_desc(sdesc, a.desc, a.ngroups);
-    const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= (long long)a.nb * a.stride) return;
-    const int blk = (int)(lane / a.stride);
-    const int r = (int)(lane - (long long)blk * a.stride);
-    const int w = a.blk_word[blk];
-    const SelRows sr = sel_rows(a, w);
-    const int count = a.blk_count[blk];
-    const long long row = 2 * lane;  // == b * 2 * stride + 2r
-    if (DECODE == DECODE_SCALAR) {
-        const uint32_t cb = (uint32_t)(a.blk_base[blk] + 2 * r);
-        const int cc = __popc(cb);
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-            uint32_t m[16];
-            const int len = build_message<ALGO, 1, KIND, true, false>(
-                m, p ? (cb | 1u) : cb, (const int*)nullptr, w, sdesc,
-                a.ngroups, t, sr);
-            hash_lane<ALGO, 1>(m, len, a, row + p);
-            a.emit[row + p] = (2 * r + p < count && in_window(cc + p, a));
-        }
-    } else {
-        int dg[MAX_SLOTS];
-        const int32_t* radix = a.radix + (size_t)w * a.m;
-        decode_digits(dg, 2 * r, a.blk_base + (size_t)blk * a.m, radix, a.m);
-        int cc = 0;
-        for (int s = 0; s < a.m; ++s) cc += dg[s] > 0 ? 1 : 0;
-        const int d0 = dg[0];
-        const int d0p = min(d0 + 1, radix[0] - 1);
-        const int cc1 = cc + (d0p > 0 ? 1 : 0) - (d0 > 0 ? 1 : 0);
-#pragma unroll
-        for (int p = 0; p < 2; ++p) {
-            if (p) dg[0] = d0p;
-            uint32_t m[16];
-            const int len = build_message<ALGO, 1, KIND, false, false>(
-                m, 0u, (const int*)dg, w, sdesc, a.ngroups, t, sr);
-            hash_lane<ALGO, 1>(m, len, a, row + p);
-            a.emit[row + p] = (2 * r + p < count
-                               && in_window(p ? cc1 : cc, a));
-        }
-    }
 }
 
 // ---------------------------------------------------------------------------
@@ -664,6 +605,725 @@ piece_windowed_kernel(LaunchArgs a, PieceTables t, WinGeom g) {
     }
 }
 
+// ---------------------------------------------------------------------------
+// The scalar K=1 tier and the pair tier: live lanes only, word tables staged
+// per CTA, one splice walk for both pair candidates
+// ---------------------------------------------------------------------------
+//
+// A CTA owns a tile: G consecutive blocks, or, when a block's stride is
+// wider than TILE_LANES, one chunk of one block (C chunks a block).  It
+// runs in TILE_PHASES phases with a barrier between each (tile_phase):
+//   0  the tile's block fields into shared memory, and the group
+//      descriptors packed to one int4 a group (tile_desc); for the
+//      scalar selectors over a match plan one thread also drops the
+//      groups empty in every word and merges runs of up to three
+//      one-word groups — bit fields of cb side by side, and constant
+//      pieces between them — into one group of at most 16 variants;
+//   1  one thread numbers the distinct words and takes the prefix of the
+//      lanes each block has below its count (pair: 2r < count);
+//   2  each distinct word's record — piece rows, selector row, radix, and
+//      each merged group's variants as 16 bytes (three words, the
+//      pieces' bytes concatenated, then the length) — is staged in shared
+//      memory once;
+//   3  the threads walk the tile's lanes (a power-of-two stride: block and
+//      rank by shift and mask; else the lanes below the counts, block by
+//      binary search over the prefix), decide from cb alone which are
+//      live (K=1: the window on popc(cb); pair: either candidate in it;
+//      digit decodes: every lane below the count) and pack the live ones
+//      into a list (warp ballot + popc prefix, one shared atomic a warp),
+//      writing emit 0 for the rest;
+//   4  the threads stride over the packed list — full warps — each
+//      decoding, splicing and hashing its lane's candidate(s).
+// Dead rows get emit 0 and no state write (the reference's contract).  A
+// bit-field group's variant index is one shift and mask of cb; a merged
+// group's variant is one 16-byte shared load and at most three funnel-
+// shifted stores (tile_put3).  The message lives in a shared-memory slab
+// [word][thread] (Slab), so nothing is in local memory; its words past
+// the candidate's end are kept zero, so it is copied into registers for
+// the compressions with no selects.  The pair tier's two candidates
+// differ only in slot 0 (cb | 1, or slot 0's digit + 1): one walk over
+// the descriptors evaluates each group's selectors for both, reads the
+// piece words once where the two variant indices agree, and appends to
+// two messages, whose bytes shift apart after a group whose two variants
+// differ in length.  Only live candidates are compressed.  What still
+// holds the tiers above their bound, beside the compression: the splice
+// walk (per group a descriptor, a variant index and its appends), the
+// slab's stores and reloads, and each CTA's phases.
+
+#define TILE_LANES 2048  // lanes a CTA takes at most (its live list)
+#define TILE_MAX_G 32
+#define TILE_RECORD_BYTES (24 * 1024)
+#define TILE_PHASES 5
+#define TILE_MERGE_VARIANTS 16  // variants of a merged group, at most
+#define TILE_MERGE_GROUPS 3     // groups merged into one, at most
+#define TILE_MISC 5  // prefix end, distinct words, live lanes, groups, merges
+
+// A packed group descriptor (int4): x = placed length (16 bits, -1 =
+// dynamic) | the u32 rows' words a variant << 16; y = variants (16 bits)
+// | words << 16 (8 bits) | packed16 << 24 | bit field << 25 | selector
+// columns << 26 (4 bits) | merged << 30; z = the columns a byte each (a
+// bit field: its first column); w = offset of its word rows | offset of
+// its length row << 16, in the staged record (a merged group: the offset
+// of its variants, four int32 each — three words and the length).
+#define TD_P16 (1 << 24)
+#define TD_BITS (1 << 25)
+#define TD_MERGED (1 << 30)
+
+struct TileGeom {
+    int g, c, lc, nt, rec, bm, shift;
+    int r_radix, r_gw, r_g16, r_gl, r_sel, r_mrg;
+    int s_desc, s_mrg, s_blk, s_rec, s_list, s_msg, s_dig;
+    int smem_bytes;
+};
+
+// Plain C++: the host launch and the host test build both call it.
+static inline TileGeom tile_geometry(const LaunchArgs& a, const PieceTables& t,
+                                     int kind, int decode, int nm, int hb,
+                                     int nt, int gmax, int lmax) {
+    TileGeom g;
+    const bool digits = decode == DECODE_DIGITS;
+    const bool merge = kind == KIND_MATCH && !digits;
+    int o = 0;
+    g.r_radix = o;  o += digits ? a.m : 0;
+    g.r_gw = o;     o += t.ngw * t.vm * t.nw;
+    g.r_g16 = o;    o += t.ng16 * t.vm;
+    g.r_gl = o;     o += t.ngd * t.vm;
+    g.r_sel = o;    o += kind == KIND_SUBALL ? a.ncols : 0;
+    // Merged groups: three words and a length a variant (16-byte loads),
+    // of at least two groups each.
+    o = merge ? (o + 3) & ~3 : o;
+    g.r_mrg = o;    o += merge ? a.ngroups / 2 * 4 * TILE_MERGE_VARIANTS : 0;
+    g.rec = o > 0 ? (merge ? (o + 3) & ~3 : o) : 1;
+    int fit = TILE_RECORD_BYTES / 4 / g.rec;
+    fit = fit < 1 ? 1 : (fit < gmax ? fit : gmax);
+    if (a.stride <= lmax) {
+        const int per = lmax / (a.stride > 0 ? a.stride : 1);
+        g.g = per < fit ? per : fit;
+        g.c = 1;
+        g.lc = a.stride;
+    } else {
+        g.g = 1;
+        g.c = (a.stride + lmax - 1) / lmax;
+        g.lc = (a.stride + g.c - 1) / g.c;
+    }
+    g.nt = nt;
+    g.bm = digits ? a.m : 1;
+    // A power-of-two stride of whole blocks: a lane's block is a shift.
+    g.shift = -1;
+    for (int k = 0; g.c == 1 && k < 31; ++k) {
+        if (a.stride == 1 << k) g.shift = k;
+    }
+    g.s_desc = 0;
+    g.s_mrg = 4 * a.ngroups;
+    g.s_blk = g.s_mrg + a.ngroups;
+    // word, count, slot, distinct word [G] each; base [G * bm]; prefix
+    // [G + 1]; the TILE_MISC counts after it.
+    g.s_rec = (g.s_blk + 5 * g.g + g.g * g.bm + 1 + TILE_MISC + 3) & ~3;
+    g.s_list = g.s_rec + g.g * g.rec;
+    g.s_msg = (g.s_list + g.g * g.lc + 3) & ~3;
+    g.s_dig = g.s_msg + nm * 16 * hb * nt;
+    g.smem_bytes = 4 * (g.s_dig + (digits ? (a.m * nt + 3) / 4 : 0));
+    return g;
+}
+
+// A group's packed descriptor from its full one (D_*), its record offsets
+// from the geometry; `bits`: its selectors are a bit field of cb.
+__device__ __forceinline__ int4 tile_desc(const int* d, const TileGeom& g,
+                                          const PieceTables& t, bool bits) {
+    const int nsel = min(max(d[D_NSEL], 0), MAX_SEL);
+    int cols = 0;
+    for (int i = 0; i < MAX_SEL; ++i) {
+        cols |= (i < nsel ? d[D_SEL + i] & 0xFF : 0xFF) << (8 * i);
+    }
+    const bool p16 = d[D_PACKED16] != 0;
+    const int w_off = p16 ? g.r_g16 + d[D_TAB] * t.vm
+                          : g.r_gw + d[D_TAB] * t.vm * t.nw;
+    const int gl_off = d[D_LEN_FIXED] < 0 ? g.r_gl + d[D_GL] * t.vm : 0;
+    return make_int4((d[D_LEN_FIXED] & 0xFFFF) | (t.nw << 16),
+                     (d[D_NVAR] & 0xFFFF) | (d[D_NWORDS] << 16)
+                         | (p16 ? TD_P16 : 0) | (bits ? TD_BITS : 0)
+                         | (nsel << 26),
+                     cols, (w_off & 0xFFFF) | (gl_off << 16));
+}
+
+// Whether a group's selector columns are consecutive ascending slots and
+// its variants every value of them: its index is a bit field of cb.
+__device__ __forceinline__ bool tile_bits(const int* d) {
+    const int nsel = d[D_NSEL];
+    if (nsel < 1 || nsel > MAX_SEL || d[D_NVAR] != 1 << nsel) return false;
+    for (int i = 1; i < nsel; ++i) {
+        if (d[D_SEL + i] != d[D_SEL] + i) return false;
+    }
+    return d[D_SEL] >= 0 && d[D_SEL] + nsel <= 31;
+}
+
+// One piece of group `d` (full descriptor) for word `w`, variant `v`:
+// its first word and its placed length, read from the global tables.
+__device__ __forceinline__ void tile_piece(const int* d, const PieceTables& t,
+                                           int w, int v, uint32_t& wd,
+                                           int& len) {
+    len = d[D_LEN_FIXED] >= 0
+        ? d[D_LEN_FIXED] : t.gl[((size_t)w * t.ngd + d[D_GL]) * t.vm + v];
+    wd = d[D_PACKED16]
+        ? (uint32_t)t.gw16[((size_t)w * t.ng16 + d[D_TAB]) * t.vm + v]
+        : t.gw[(((size_t)w * t.ngw + d[D_TAB]) * t.vm + v) * t.nw];
+}
+
+// The block of prefix index `i`: the last block whose prefix is <= i.
+__device__ __forceinline__ int tile_block(const int32_t* bp, int G, int i) {
+    int lo = 0, hi = G;
+    while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (bp[mid] <= i) lo = mid; else hi = mid;
+    }
+    return lo;
+}
+
+// Mixed-radix digits of `r` added to a block's base digits with carry, into
+// a slab (decode_digits, for digit vectors kept out of local memory).
+template <class Dig>
+__device__ __forceinline__ void tile_digits(Dig dg, int r, const int32_t* base,
+                                            const int32_t* radix, int m) {
+    int carry = 0;
+    for (int s = 0; s < m; ++s) {
+        const int rs = radix[s];
+        const int q = r / rs;
+        const int v = base[s] + (r - q * rs) + carry;
+        const int ge = v >= rs ? 1 : 0;
+        dg[s] = (uint8_t)(v - ge * rs);
+        carry = ge;
+        r = q;
+    }
+}
+
+// One message being written in order: the pending bits `lo` (`nb` of
+// them, the bits above zero), the next word and the byte offset.
+struct MsgState {
+    uint32_t lo;
+    int nb, widx, off;
+};
+
+// Append the `nbytes` low bytes of `x` (its bytes above them zero) to a
+// message: each word that fills is stored once, past the data area
+// dropped.
+template <int NW_DATA, class Msg>
+__device__ __forceinline__ void tile_put(Msg m, MsgState& st, uint32_t x,
+                                         int nbytes) {
+    const uint32_t hi = __funnelshift_l(x, 0u, st.nb);  // x >> (32 - nb)
+    st.lo |= x << st.nb;
+    st.nb += 8 * nbytes;
+    if (st.nb >= 32) {
+        if (st.widx < NW_DATA) m[st.widx] = st.lo;
+        ++st.widx;
+        st.lo = hi;
+        st.nb -= 32;
+    }
+}
+
+// Append a merged variant — up to 12 bytes in three words, the bytes past
+// `nbytes` zero — with funnel shifts: up to three stores.
+template <int NW_DATA, class Msg>
+__device__ __forceinline__ void tile_put3(Msg m, MsgState& st, uint32_t w0,
+                                          uint32_t w1, uint32_t w2,
+                                          int nbytes) {
+    const uint32_t o0 = st.lo | (w0 << st.nb);
+    const uint32_t o1 = __funnelshift_l(w0, w1, st.nb);
+    const uint32_t o2 = __funnelshift_l(w1, w2, st.nb);
+    const uint32_t o3 = __funnelshift_l(w2, 0u, st.nb);
+    const int bits = st.nb + 8 * nbytes;
+    const int k = bits >> 5;  // words filled
+    if (k > 0 && st.widx < NW_DATA) m[st.widx] = o0;
+    if (k > 1 && st.widx + 1 < NW_DATA) m[st.widx + 1] = o1;
+    if (k > 2 && st.widx + 2 < NW_DATA) m[st.widx + 2] = o2;
+    st.lo = k == 0 ? o0 : (k == 1 ? o1 : (k == 2 ? o2 : o3));
+    st.widx += k;
+    st.nb = bits & 31;
+}
+
+// Splice NM candidates of one lane into the slabs `msg[0..NM)` with one
+// walk over the packed descriptors `gd` (TileDesc): candidate 1 differs
+// from candidate 0 in slot 0 only (CB: bit 0 of cb set; digits: slot 0's
+// digit `d0p`).  `rec` is the lane's staged word record (rows at the
+// offsets the descriptors carry; the selector row at `sel`).  Writes
+// each candidate's length in bytes (terminator excluded) to `len` and
+// its message words to `nw`.
+template <int ALGO, int HB, int KIND, bool CB, int NM, class Dig,
+          bool MERGED = CB && KIND == KIND_MATCH>
+__device__ __forceinline__ void tile_splice(const Slab<uint32_t>* msg,
+                                            uint32_t cb, Dig dg, int d0p,
+                                            int m, const int4* gd, int ng,
+                                            const int32_t* rec,
+                                            const int32_t* sel, int* len,
+                                            int* nw) {
+    constexpr int NW_DATA = 16 * HB - 2;
+    MsgState ms[NM];
+#pragma unroll
+    for (int p = 0; p < NM; ++p) ms[p] = MsgState{0u, 0, 0, 0};
+    for (int gi = 0; gi < ng; ++gi) {
+        const int4 d = gd[gi];
+        const int len_fixed = (int)(short)(d.x & 0xFFFF);
+        if (len_fixed == 0) continue;  // empty in every launched word
+        const int vstride = (int)((unsigned)d.x >> 16);
+        const int nvar = d.y & 0xFFFF;
+        const int nwords = (d.y >> 16) & 0xFF;
+        const bool p16 = (d.y & TD_P16) != 0;
+        int idx[NM];
+#pragma unroll
+        for (int p = 0; p < NM; ++p) idx[p] = 0;
+        if (nvar > 1) {
+            const int nsel = (d.y >> 26) & 15;
+            if (CB && KIND == KIND_MATCH && (d.y & TD_BITS)) {
+                const int c0 = d.z & 0xFF;
+                idx[0] = (int)((cb >> c0) & ((1u << nsel) - 1u));
+                if (NM == 2) idx[NM - 1] = idx[0] | (c0 == 0 ? 1 : 0);
+            } else {
+                for (int i = 0; i < nsel; ++i) {
+                    const int c = (d.z >> (8 * i)) & 0xFF;
+                    if constexpr (CB) {
+                        const int bit = KIND == KIND_MATCH ? c : sel[c];
+                        const uint32_t on = (unsigned)bit < 32u
+                            ? (cb >> (bit & 31)) & 1u : 0u;
+                        idx[0] |= (int)on << i;
+                        if (NM == 2) {
+                            idx[NM - 1] |= (int)(bit == 0 ? 1u : on) << i;
+                        }
+                    } else {
+                        const int sl = KIND == KIND_MATCH ? c : sel[c];
+                        const int v = (unsigned)sl < (unsigned)m ? dg[sl] : 0;
+                        const int v1 = sl == 0 ? d0p : v;
+                        if (nsel == 1) {
+                            idx[0] = v;
+                            if (NM == 2) idx[NM - 1] = v1;
+                        } else {
+                            idx[0] |= (v > 0 ? 1 : 0) << i;
+                            if (NM == 2) idx[NM - 1] |= (v1 > 0 ? 1 : 0) << i;
+                        }
+                    }
+                }
+            }
+#pragma unroll
+            for (int p = 0; p < NM; ++p) idx[p] = min(max(idx[p], 0), nvar - 1);
+        }
+        const int w_off = d.w & 0xFFFF;
+        if (MERGED && (d.y & TD_MERGED)) {
+            // A merged group: the variant's three words and length in one
+            // 16-byte load.
+            int4 q[NM];
+#pragma unroll
+            for (int p = 0; p < NM; ++p) {
+                q[p] = p > 0 && idx[p] == idx[0] ? q[0]
+                    : *reinterpret_cast<const int4*>(rec + w_off + 4 * idx[p]);
+            }
+#pragma unroll
+            for (int p = 0; p < NM; ++p) {
+                MsgState& st = ms[p];
+                if (ALGO == ALGO_NTLM) {
+                    // Each byte becomes a UTF-16LE code unit (the byte,
+                    // then 00).
+                    for (int wi = 0; wi < nwords; ++wi) {
+                        const uint32_t wd = (uint32_t)(wi == 0 ? q[p].x
+                            : (wi == 1 ? q[p].y : q[p].z));
+                        const int bc = min(max(q[p].w - 4 * wi, 0), 4);
+                        tile_put<NW_DATA>(msg[p], st,
+                                          (wd & 0xFFu) | ((wd & 0xFF00u) << 8),
+                                          2 * min(bc, 2));
+                        tile_put<NW_DATA>(msg[p], st,
+                                          ((wd >> 16) & 0xFFu)
+                                              | ((wd >> 24) << 16),
+                                          2 * max(bc - 2, 0));
+                    }
+                } else {
+                    tile_put3<NW_DATA>(msg[p], st, (uint32_t)q[p].x,
+                                       (uint32_t)q[p].y, (uint32_t)q[p].z,
+                                       q[p].w);
+                }
+            }
+#pragma unroll
+            for (int p = 0; p < NM; ++p) ms[p].off += q[p].w;
+            continue;
+        }
+        const int gl_off = (d.w >> 16) & 0xFFFF;
+        int glen[NM];
+#pragma unroll
+        for (int p = 0; p < NM; ++p) {
+            glen[p] = len_fixed >= 0 ? len_fixed
+                : (p > 0 && idx[p] == idx[0] ? glen[0] : rec[gl_off + idx[p]]);
+        }
+        for (int wi = 0; wi < nwords; ++wi) {
+            uint32_t wd[NM];
+#pragma unroll
+            for (int p = 0; p < NM; ++p) {
+                wd[p] = p > 0 && idx[p] == idx[0] ? wd[0]
+                    : (uint32_t)(p16 ? rec[w_off + idx[p]]
+                                     : rec[w_off + idx[p] * vstride + wi]);
+            }
+#pragma unroll
+            for (int p = 0; p < NM; ++p) {
+                const int bc = min(max(glen[p] - 4 * wi, 0), 4);
+                MsgState& st = ms[p];
+                if (ALGO == ALGO_NTLM) {
+                    tile_put<NW_DATA>(msg[p], st,
+                                      (wd[p] & 0xFFu) | ((wd[p] & 0xFF00u) << 8),
+                                      2 * min(bc, 2));
+                    if (!p16) {
+                        tile_put<NW_DATA>(msg[p], st,
+                                          ((wd[p] >> 16) & 0xFFu)
+                                              | ((wd[p] >> 24) << 16),
+                                          2 * max(bc - 2, 0));
+                    }
+                } else {
+                    tile_put<NW_DATA>(msg[p], st, wd[p], bc);
+                }
+            }
+        }
+        constexpr int STEP = 4 / Hash<ALGO>::SCALE;  // <= 4 message bytes
+#pragma unroll
+        for (int p = 0; p < NM; ++p) {
+            MsgState& st = ms[p];
+            for (int rest = glen[p] - 4 * nwords; rest > 0; rest -= STEP) {
+                tile_put<NW_DATA>(msg[p], st, 0u,
+                                  Hash<ALGO>::SCALE * min(rest, STEP));
+            }
+            st.off += glen[p];
+        }
+    }
+#pragma unroll
+    for (int p = 0; p < NM; ++p) {
+        MsgState& st = ms[p];
+        // The pending bytes end the data.
+        if (st.nb > 0 || st.lo != 0u) {
+            if (st.widx < NW_DATA) msg[p][st.widx] = st.lo;
+            ++st.widx;
+        }
+        nw[p] = min(st.widx, NW_DATA);
+        len[p] = st.off - 1;
+    }
+}
+
+// Compress a slab's message and store the state at `row` (the slab's
+// words past the data area are never written: zero).
+template <int ALGO, int HB>
+__device__ __forceinline__ void tile_hash(const Slab<uint32_t>& msg, int len,
+                                          const LaunchArgs& a,
+                                          long long row) {
+    constexpr int NW_DATA = 16 * HB - 2;
+    uint32_t mr[16 * HB];
+#pragma unroll
+    for (int j = 0; j < 16 * HB; ++j) mr[j] = j < NW_DATA ? msg[j] : 0u;
+    hash_lane<ALGO, HB>(mr, len, a, row);
+}
+
+// One phase of a CTA of the scalar K=1 or pair tier (see above).  PAIR:
+// lane r of block b owns candidate ranks 2r and 2r + 1 of a block of
+// 2 * stride ranks, rows b * 2 * stride + 2r + p; else lane r is rank r,
+// row b * stride + r.
+template <int ALGO, int KIND, int DECODE, int HB, bool PAIR>
+__device__ __forceinline__ void tile_phase(int phase, const LaunchArgs& a,
+                                           const PieceTables& t,
+                                           const TileGeom& g, int32_t* s) {
+    constexpr bool CB = DECODE == DECODE_SCALAR;
+    constexpr bool MERGE = CB && KIND == KIND_MATCH;
+    constexpr int NM = PAIR ? 2 : 1;
+    const int tid = threadIdx.x, nt = blockDim.x, G = g.g;
+    int4* gd = reinterpret_cast<int4*>(s + g.s_desc);
+    int32_t* mrg = s + g.s_mrg;  // merges: first group | second << 16
+    int32_t* bw = s + g.s_blk;  // word of each block (-1 past nb)
+    int32_t* bc = bw + G;       // count, clamped to the block's ranks
+    int32_t* bs = bc + G;       // distinct-word slot of each block
+    int32_t* bu = bs + G;       // word of each slot
+    int32_t* bb = bu + G;       // base [G * bm]: pbase, or base digits
+    int32_t* bp = bb + G * g.bm;  // prefix of the lanes [G + 1]
+    int32_t* misc = bp + G + 1;   // distinct words, live, groups, merges
+    const int grp = (int)blockIdx.x / g.c;
+    const int lane0 = ((int)blockIdx.x - grp * g.c) * g.lc;
+    const int lane1 = min(lane0 + g.lc, a.stride);
+    const int blk0 = grp * G;
+    const int ranks = a.stride * NM;  // candidate ranks a block spans
+    if (phase == 0) {
+        for (int i = tid; i < G; i += nt) {
+            const bool in = blk0 + i < a.nb;
+            bw[i] = in ? a.blk_word[blk0 + i] : -1;
+            bc[i] = in ? min(max(a.blk_count[blk0 + i], 0), ranks) : 0;
+        }
+        for (int i = tid; i < G * g.bm; i += nt) {
+            bb[i] = blk0 + i / g.bm < a.nb
+                ? a.blk_base[(size_t)blk0 * g.bm + i] : 0;
+        }
+        if (!MERGE) {
+            for (int gi = tid; gi < a.ngroups; gi += nt) {
+                gd[gi] = tile_desc(a.desc + gi * DESC_WIDTH, g, t, false);
+            }
+            if (tid == 0) {
+                misc[2] = a.ngroups;
+                misc[3] = 0;
+            }
+        } else if (tid == 0) {
+            // Runs of up to TILE_MERGE_GROUPS one-word groups — bit fields
+            // of cb side by side, and constant pieces — become one group
+            // of at most TILE_MERGE_VARIANTS variants (mixed radix over its
+            // groups, in order: the bit fields concatenated).
+            int nd = 0, nm = 0, moff = g.r_mrg;
+            int run[TILE_MERGE_GROUPS], nrun = 0, nvar = 1, next = -1;
+            int c0 = 0, nsel = 0;
+            auto close = [&]() {
+                if (nrun == 1) {
+                    const int* d = a.desc + run[0] * DESC_WIDTH;
+                    gd[nd++] = tile_desc(d, g, t, tile_bits(d));
+                } else if (nrun > 1) {
+                    gd[nd++] = make_int4(
+                        0xFFFF | (4 << 16),
+                        nvar | (nrun << 16) | TD_BITS | TD_MERGED
+                            | (nsel << 26),
+                        c0, moff);
+                    mrg[2 * nm] = run[0] | (run[1] << 8)
+                        | ((nrun > 2 ? run[2] : 0) << 16) | (nrun << 24);
+                    mrg[2 * nm + 1] = moff;
+                    ++nm;
+                    moff += 4 * nvar;
+                }
+                nrun = 0;
+                nvar = 1;
+                next = -1;
+                c0 = nsel = 0;
+            };
+            for (int gi = 0; gi < a.ngroups; ++gi) {
+                const int* d = a.desc + gi * DESC_WIDTH;
+                if (d[D_LEN_FIXED] == 0) continue;  // empty in every word
+                const bool bits = tile_bits(d);
+                const bool fixed = d[D_NVAR] == 1;
+                if (d[D_NWORDS] != 1 || !(bits || fixed)) {
+                    close();
+                    gd[nd++] = tile_desc(d, g, t, bits);
+                    continue;
+                }
+                if (nrun == TILE_MERGE_GROUPS
+                    || nvar * d[D_NVAR] > TILE_MERGE_VARIANTS
+                    || (bits && next >= 0 && d[D_SEL] != next)) {
+                    close();
+                }
+                if (bits) {
+                    if (next < 0) c0 = d[D_SEL];
+                    next = d[D_SEL] + d[D_NSEL];
+                    nsel += d[D_NSEL];
+                }
+                run[nrun++] = gi;
+                nvar *= d[D_NVAR];
+            }
+            close();
+            misc[2] = nd;
+            misc[3] = nm;
+        }
+    } else if (phase == 1) {
+        if (tid == 0) {
+            int u = -1, pre = 0;
+            for (int i = 0; i < G; ++i) {
+                if (bw[i] >= 0 && (u < 0 || bw[i] != bu[u])) bu[++u] = bw[i];
+                bs[i] = u < 0 ? 0 : u;
+                bp[i] = pre;
+                const int live = PAIR ? (bc[i] + 1) >> 1 : bc[i];
+                pre += max(min(live, lane1) - lane0, 0);
+            }
+            bp[G] = pre;
+            misc[0] = u + 1;
+            misc[1] = 0;
+        }
+    } else if (phase == 2) {
+        const int nu = misc[0];
+        int32_t* recs = s + g.s_rec;
+        if (DECODE == DECODE_DIGITS) {
+            stage_rows(recs, g.rec, g.r_radix, a.radix, a.m, bu, nu);
+        }
+        stage_rows(recs, g.rec, g.r_gw,
+                   reinterpret_cast<const int32_t*>(t.gw),
+                   t.ngw * t.vm * t.nw, bu, nu);
+        stage_rows(recs, g.rec, g.r_g16, t.gw16, t.ng16 * t.vm, bu, nu);
+        stage_rows(recs, g.rec, g.r_gl, t.gl, t.ngd * t.vm, bu, nu);
+        if (KIND == KIND_SUBALL) {
+            stage_rows(recs, g.rec, g.r_sel, CB ? a.sel_bit : a.sel_slot,
+                       a.ncols, bu, nu);
+        }
+        if (MERGE) {
+            // Each merged variant: its groups' pieces' bytes in order
+            // (each piece at most 4), then the length.
+            const int nm = misc[3];
+            for (int k = tid; k < nu * nm * TILE_MERGE_VARIANTS; k += nt) {
+                const int v = k % TILE_MERGE_VARIANTS;
+                const int j = k / TILE_MERGE_VARIANTS;
+                const int u = j / nm, mi = j - u * nm;
+                const int src = mrg[2 * mi], n = src >> 24;
+                // Every merged group's variant counts are powers of two.
+                int nbits = 0;
+                for (int q = 0; q < n; ++q) {
+                    nbits += a.desc[((src >> (8 * q)) & 0xFF) * DESC_WIDTH
+                                    + D_NSEL];
+                }
+                if (v >> nbits) continue;
+                uint32_t o0 = 0u, o1 = 0u, o2 = 0u;
+                int pos = 0, vv = v;
+                for (int q = 0; q < n; ++q) {
+                    const int* d = a.desc + ((src >> (8 * q)) & 0xFF)
+                        * DESC_WIDTH;
+                    const int nsel = d[D_NVAR] > 1 ? d[D_NSEL] : 0;
+                    uint32_t wd;
+                    int len;
+                    tile_piece(d, t, bu[u], vv & ((1 << nsel) - 1), wd, len);
+                    vv >>= nsel;
+                    // The piece (zero past its length, at most 4 bytes)
+                    // at byte `pos` of the three words.
+                    const int sh = 8 * (pos & 3), at = pos >> 2;
+                    const uint32_t lo = wd << sh;
+                    const uint32_t hi = sh ? wd >> (32 - sh) : 0u;
+                    o0 |= at == 0 ? lo : 0u;
+                    o1 |= at == 1 ? lo : (at == 0 ? hi : 0u);
+                    o2 |= at == 2 ? lo : (at == 1 ? hi : 0u);
+                    pos += len;
+                }
+                int32_t* row = recs + u * g.rec + mrg[2 * mi + 1] + 4 * v;
+                row[0] = (int32_t)o0;
+                row[1] = (int32_t)o1;
+                row[2] = (int32_t)o2;
+                row[3] = pos;
+            }
+        }
+        for (int i = 0; g.shift < 0 && i < G && blk0 + i < a.nb; ++i) {
+            const int live = PAIR ? (bc[i] + 1) >> 1 : bc[i];
+            const long long row0 = (long long)(blk0 + i) * ranks;
+            for (int r = max(live, lane0) + tid; r < lane1; r += nt) {
+#pragma unroll
+                for (int p = 0; p < NM; ++p) a.emit[row0 + NM * r + p] = 0;
+            }
+        }
+    } else if (phase == 3) {
+        // The lanes to walk: every lane of the tile's blocks (a
+        // power-of-two stride: block and rank by shift and mask, the dead
+        // ones' emit written here), or the lanes below the counts, by the
+        // prefix (block by binary search).
+        const bool shifted = g.shift >= 0;
+        const int total = shifted ? min(G, a.nb - blk0) << g.shift : bp[G];
+        int32_t* list = s + g.s_list;
+        for (int base = 0; base < total; base += nt) {
+            const int i = base + tid;
+            bool live = false;
+            int entry = 0;
+            if (i < total) {
+                const int lo = shifted ? i >> g.shift : tile_block(bp, G, i);
+                const int rr = shifted ? i & (a.stride - 1) : i - bp[lo];
+                const int r = lane0 + rr;  // rr: lanes from the tile's first
+                entry = (lo << 16) | rr;
+                live = !shifted || NM * r < bc[lo];
+                if (CB && live) {
+                    const uint32_t cb = (uint32_t)(bb[lo] + NM * r);
+                    const int cc = __popc(cb);
+                    if (PAIR) {
+                        live = in_window(cc, a)
+                            || (2 * r + 1 < bc[lo] && in_window(cc + 1, a));
+                    } else {
+                        live = in_window(cc, a);
+                    }
+                }
+                if (!live) {
+                    const long long row = (long long)(blk0 + lo) * ranks
+                        + NM * r;
+#pragma unroll
+                    for (int p = 0; p < NM; ++p) a.emit[row + p] = 0;
+                }
+            }
+            // Pack the live lanes: one shared atomic a warp, each live
+            // thread's place from the popc of the live lanes below it.
+            const unsigned mask = __ballot_sync(0xFFFFFFFFu, live);
+            if (mask != 0u) {
+                const int lane = tid & 31;
+                const int leader = __ffs(mask) - 1;
+                int at = 0;
+                if (lane == leader) at = atomicAdd(&misc[1], __popc(mask));
+                at = __shfl_sync(0xFFFFFFFFu, at, leader);
+                if (live) list[at + __popc(mask & ((1u << lane) - 1u))] = entry;
+            }
+        }
+    } else {
+        const int n = misc[1], nd = misc[2];
+        const int32_t* list = s + g.s_list;
+        Slab<uint32_t> msg[NM];
+#pragma unroll
+        for (int p = 0; p < NM; ++p) {
+            msg[p] = Slab<uint32_t>{reinterpret_cast<uint32_t*>(s + g.s_msg)
+                                        + p * 16 * HB * nt + tid, nt};
+        }
+        int hw[NM];  // slab words that may be non-zero
+#pragma unroll
+        for (int p = 0; p < NM; ++p) {
+            for (int j = 0; j < 16 * HB; ++j) msg[p][j] = 0u;
+            hw[p] = 0;
+        }
+        const Slab<uint8_t> dig{reinterpret_cast<uint8_t*>(s + g.s_dig)
+                                + tid, nt};
+        for (int j = tid; j < n; j += nt) {
+            const int entry = list[j];
+            const int lo = entry >> 16;
+            const int r = lane0 + (entry & 0xFFFF);
+            const int32_t* rec = s + g.s_rec + bs[lo] * g.rec;
+            const int32_t* sel = rec + g.r_sel;
+            const long long row = (long long)(blk0 + lo) * ranks + NM * r;
+            const int count = bc[lo];
+            int len[NM], nw[NM];
+            bool e[NM];
+            if constexpr (CB) {
+                const uint32_t cb = (uint32_t)(bb[lo] + NM * r);
+                const int cc = __popc(cb);
+#pragma unroll
+                for (int p = 0; p < NM; ++p) {
+                    e[p] = NM * r + p < count && in_window(cc + p, a);
+                }
+                tile_splice<ALGO, HB, KIND, true, NM>(
+                    msg, cb, (const int*)nullptr, 0, a.m, gd, nd, rec, sel,
+                    len, nw);
+            } else {
+                const int32_t* radix = rec + g.r_radix;
+                tile_digits(dig, NM * r, bb + lo * g.bm, radix, a.m);
+                int cc = 0;
+                for (int q = 0; q < a.m; ++q) cc += dig[q] > 0 ? 1 : 0;
+                const int d0 = a.m > 0 ? (int)dig[0] : 0;
+                const int d0p = a.m > 0 ? min(d0 + 1, radix[0] - 1) : 0;
+                const int cc1 = cc + (d0p > 0 ? 1 : 0) - (d0 > 0 ? 1 : 0);
+#pragma unroll
+                for (int p = 0; p < NM; ++p) {
+                    e[p] = NM * r + p < count && in_window(p ? cc1 : cc, a);
+                }
+                bool any = false;
+#pragma unroll
+                for (int p = 0; p < NM; ++p) any |= e[p];
+                if (!any) {
+#pragma unroll
+                    for (int p = 0; p < NM; ++p) a.emit[row + p] = 0;
+                    continue;
+                }
+                tile_splice<ALGO, HB, KIND, false, NM>(
+                    msg, 0u, dig, d0p, a.m, gd, nd, rec, sel, len, nw);
+            }
+#pragma unroll
+            for (int p = 0; p < NM; ++p) {
+                // Words past this message's end keep zero for the next.
+                for (int q = nw[p]; q < hw[p]; ++q) msg[p][q] = 0u;
+                hw[p] = nw[p];
+                if (e[p]) tile_hash<ALGO, HB>(msg[p], len[p], a, row + p);
+                a.emit[row + p] = e[p] ? 1 : 0;
+            }
+        }
+    }
+}
+
+template <int ALGO, int KIND, int DECODE, int HB, bool PAIR>
+__global__ void __launch_bounds__(HB == 1 ? 256 : 128)
+piece_tile_kernel(LaunchArgs a, PieceTables t, TileGeom g) {
+    DYN_SMEM(smem);
+    int32_t* s = reinterpret_cast<int32_t*>(smem);
+#pragma unroll
+    for (int p = 0; p < TILE_PHASES; ++p) {
+        if (p) __syncthreads();
+        tile_phase<ALGO, KIND, DECODE, HB, PAIR>(p, a, t, g, s);
+    }
+}
+
 // ---- host launch wrappers ----
 
 #ifndef PIECE_ALGO
@@ -695,28 +1355,28 @@ static int kind_checks(const LaunchArgs& a, int kind, int decode, int closed) {
     return 0;
 }
 
-template <int KIND, int DECODE, int HB, bool CLOSED>
+template <int KIND, int HB, bool CLOSED>
 static void launch_one(const LaunchArgs& a, const PieceTables& t,
                        unsigned grid, cudaStream_t s) {
-    piece_kernel<PIECE_ALGO, KIND, DECODE, HB, CLOSED>
-        <<<grid, kThreads, 0, s>>>(a, t);
+    piece_kernel<PIECE_ALGO, KIND, HB, CLOSED><<<grid, kThreads, 0, s>>>(a, t);
 }
 
-template <int KIND, int DECODE, bool CLOSED>
+template <int KIND, bool CLOSED>
 static void launch_hb(const LaunchArgs& a, const PieceTables& t,
                       int hash_blocks, unsigned grid, cudaStream_t s) {
     switch (hash_blocks) {
-        case 1: launch_one<KIND, DECODE, 1, CLOSED>(a, t, grid, s); break;
-        case 2: launch_one<KIND, DECODE, 2, CLOSED>(a, t, grid, s); break;
-        default: launch_one<KIND, DECODE, 3, CLOSED>(a, t, grid, s); break;
+        case 1: launch_one<KIND, 1, CLOSED>(a, t, grid, s); break;
+        case 2: launch_one<KIND, 2, CLOSED>(a, t, grid, s); break;
+        default: launch_one<KIND, 3, CLOSED>(a, t, grid, s); break;
     }
 }
 
-template <int DECODE>
-static int launch_single(const LaunchArgs& a, const PieceTables& t,
+// The digit decode, one thread a lane.
+static int launch_digits(const LaunchArgs& a, const PieceTables& t,
                          int kind, int closed, int hash_blocks,
                          void* stream) {
-    if (launch_checks(a, hash_blocks) || kind_checks(a, kind, DECODE, closed)) {
+    if (launch_checks(a, hash_blocks)
+        || kind_checks(a, kind, DECODE_DIGITS, closed)) {
         return (int)cudaErrorInvalidValue;
     }
     const long long n = (long long)a.nb * a.stride;
@@ -724,17 +1384,44 @@ static int launch_single(const LaunchArgs& a, const PieceTables& t,
     const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (kind == KIND_MATCH) {
-        launch_hb<KIND_MATCH, DECODE, false>(a, t, hash_blocks, grid, s);
-        return (int)cudaGetLastError();
+        launch_hb<KIND_MATCH, false>(a, t, hash_blocks, grid, s);
+    } else if (closed) {
+        launch_hb<KIND_SUBALL, true>(a, t, hash_blocks, grid, s);
+    } else {
+        launch_hb<KIND_SUBALL, false>(a, t, hash_blocks, grid, s);
     }
-    if constexpr (DECODE != DECODE_SCALAR) {  // closed plans decode digits
-        if (closed) {
-            launch_hb<KIND_SUBALL, DECODE, true>(a, t, hash_blocks, grid, s);
-            return (int)cudaGetLastError();
-        }
-    }
-    launch_hb<KIND_SUBALL, DECODE, false>(a, t, hash_blocks, grid, s);
     return (int)cudaGetLastError();
+}
+
+// The scalar K=1 and pair tiers (piece_tile_kernel): CTAs of TILE_LANES
+// lanes at most, 256 threads for one hash block, 128 for two or three.
+template <int KIND, int DECODE, int HB, bool PAIR>
+static int launch_tile(const LaunchArgs& a, const PieceTables& t,
+                       cudaStream_t s) {
+    const int nt = HB == 1 ? 256 : 128;
+    const TileGeom g = tile_geometry(a, t, KIND, DECODE, PAIR ? 2 : 1, HB,
+                                     nt, TILE_MAX_G, TILE_LANES);
+    // Record offsets ride 16-bit descriptor fields, columns 8-bit ones.
+    if (g.rec > 0xFFFF || a.ncols > 0xFF) return (int)cudaErrorInvalidValue;
+    auto kern = piece_tile_kernel<PIECE_ALGO, KIND, DECODE, HB, PAIR>;
+    if (g.smem_bytes > 48 * 1024) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem_bytes);
+        if (e != cudaSuccess) return (int)e;
+    }
+    const long long grid = (long long)((a.nb + g.g - 1) / g.g) * g.c;
+    kern<<<(unsigned)grid, nt, g.smem_bytes, s>>>(a, t, g);
+    return (int)cudaGetLastError();
+}
+
+template <int KIND>
+static int launch_tile_hb(const LaunchArgs& a, const PieceTables& t,
+                          int hash_blocks, cudaStream_t s) {
+    switch (hash_blocks) {
+        case 1: return launch_tile<KIND, DECODE_SCALAR, 1, false>(a, t, s);
+        case 2: return launch_tile<KIND, DECODE_SCALAR, 2, false>(a, t, s);
+        default: return launch_tile<KIND, DECODE_SCALAR, 3, false>(a, t, s);
+    }
 }
 
 static LaunchArgs make_args(const void* blk_word, const void* blk_count,
@@ -847,17 +1534,22 @@ extern "C" {
 // K=1, scalar decode (pbase), 1-3 hash blocks.
 int a5_piece_k1(PIECE_PARAMS) {
     PIECE_SETUP;
-    if (decode != DECODE_SCALAR) return (int)cudaErrorInvalidValue;
-    return launch_single<DECODE_SCALAR>(a, t, kind, closed, hash_blocks,
-                                        stream);
+    if (decode != DECODE_SCALAR || launch_checks(a, hash_blocks)
+        || kind_checks(a, kind, DECODE_SCALAR, closed)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (a.nb == 0 || a.stride == 0) return (int)cudaSuccess;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    return kind == KIND_MATCH
+        ? launch_tile_hb<KIND_MATCH>(a, t, hash_blocks, s)
+        : launch_tile_hb<KIND_SUBALL>(a, t, hash_blocks, s);
 }
 
 // K=1, digit decode (base digits [NB, M]), 1-3 hash blocks.
 int a5_piece_digits(PIECE_PARAMS) {
     PIECE_SETUP;
     if (decode != DECODE_DIGITS) return (int)cudaErrorInvalidValue;
-    return launch_single<DECODE_DIGITS>(a, t, kind, closed, hash_blocks,
-                                        stream);
+    return launch_digits(a, t, kind, closed, hash_blocks, stream);
 }
 
 // K=1, windowed decode (scalar windowed rank [NB]), cb packing when
@@ -893,24 +1585,16 @@ int a5_piece_pair(PIECE_PARAMS) {
         || kind_checks(a, kind, decode, 0)) {
         return (int)cudaErrorInvalidValue;
     }
-    const long long n = (long long)a.nb * a.stride;
-    if (n == 0) return (int)cudaSuccess;
-    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
+    if (a.nb == 0 || a.stride == 0) return (int)cudaSuccess;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (kind == KIND_MATCH && decode == DECODE_SCALAR) {
-        piece_pair_kernel<PIECE_ALGO, KIND_MATCH, DECODE_SCALAR>
-            <<<grid, kThreads, 0, s>>>(a, t);
-    } else if (kind == KIND_MATCH) {
-        piece_pair_kernel<PIECE_ALGO, KIND_MATCH, DECODE_DIGITS>
-            <<<grid, kThreads, 0, s>>>(a, t);
-    } else if (decode == DECODE_SCALAR) {
-        piece_pair_kernel<PIECE_ALGO, KIND_SUBALL, DECODE_SCALAR>
-            <<<grid, kThreads, 0, s>>>(a, t);
-    } else {
-        piece_pair_kernel<PIECE_ALGO, KIND_SUBALL, DECODE_DIGITS>
-            <<<grid, kThreads, 0, s>>>(a, t);
+    if (kind == KIND_MATCH) {
+        return decode == DECODE_SCALAR
+            ? launch_tile<KIND_MATCH, DECODE_SCALAR, 1, true>(a, t, s)
+            : launch_tile<KIND_MATCH, DECODE_DIGITS, 1, true>(a, t, s);
     }
-    return (int)cudaGetLastError();
+    return decode == DECODE_SCALAR
+        ? launch_tile<KIND_SUBALL, DECODE_SCALAR, 1, true>(a, t, s)
+        : launch_tile<KIND_SUBALL, DECODE_DIGITS, 1, true>(a, t, s);
 }
 
 }  // extern "C"

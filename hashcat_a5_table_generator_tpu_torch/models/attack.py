@@ -14,7 +14,13 @@ each step cuts its blocks from the cumulative index, runs the piece kernel
 (``ops.membership.digest_member``) and compacts hits into a capped
 ``(word, rank)`` buffer.  Only the stacked counters (and, on hit-bearing
 supersteps, the hit slice) are fetched; the candidate bytes of a hit are
-re-derived on the host by :func:`decode_variant`.
+re-derived on the host by :func:`decode_variant`.  The per-launch
+pipeline (:func:`make_crack_step`, :func:`make_candidates_step`; a plan
+whose index is not int32-safe, or the superstep turned off) runs the same
+expand + hash and membership on blocks the host cuts for each launch
+(:func:`host_blocks` over ``ops.blocks.make_blocks``) and returns the
+launch's hit mask, whose lanes the host maps back to ``(word, rank)``
+with ``ops.blocks.lane_cursor``.
 
 Plans the fused kernels do not take (the reference's ``opts_for`` gate)
 run the XLA expand + hash route, as the reference does: :func:`_expand`
@@ -49,6 +55,7 @@ from ..ops.fused_expand import (
     scalar_units_weight,
     selector_tables,
 )
+from ..ops.blocks import BlockBatch, pad_batch
 from ..ops.membership import DigestSet, digest_member
 from ..ops.packing import PackedWords
 from ..tables.compile import CompiledTable
@@ -158,28 +165,20 @@ def device_arrays(plan, pieces, digests: DigestSet, idx: tuple, *,
     (``ops.fused_expand.selector_tables``); and the digest set (``rows``
     ``[D, K]``, ``bitmap``, uint32 bits as int32).  ``radix``, ``win_v``
     and the selector tables are the kernel's resident tables, read by
-    word index.  ``idx`` is ``ops.blocks.superstep_index(plan, stride)``.
+    word index.  ``idx`` is ``ops.blocks.superstep_index(plan, stride)``,
+    or None for the per-launch pipeline, whose blocks are cut on the host
+    (no index, place values or block count: ``total`` 0).
 
     Works from any objects with the reference's field names, so the JAX
     package's host arrays and this package's give the same tensors."""
-    cum, totals, total_blocks = idx
     radix = np.asarray(plan.pat_radix, dtype=np.int64)
     host = {
-        "cum": cum, "totals": totals, "radix": radix,
-        "weight": scalar_units_weight(plan),
+        "radix": radix, "weight": scalar_units_weight(plan),
         "rows": digests.rows, "bitmap": digests.bitmap,
-        **selector_tables(plan, pieces),
+        **selector_tables(plan, pieces), **_index_arrays(plan, radix, idx),
     }
     if getattr(plan, "windowed", False):
         host["win_v"] = plan.win_v
-    else:
-        # Mixed-radix place values (slot 0 least significant): every
-        # prefix product divides a word's variant total, which the int32
-        # index keeps below 2^30.  (A windowed plan's full product may not
-        # fit; its blocks start at scalar windowed ranks instead.)
-        host["place"] = np.cumprod(np.concatenate(
-            [np.ones((radix.shape[0], 1), np.int64), radix[:, :-1]], axis=1
-        ), axis=1)
     out: Tree = {
         k: torch.as_tensor(_i32(v), device=device) for k, v in host.items()
     }
@@ -189,7 +188,25 @@ def device_arrays(plan, pieces, digests: DigestSet, idx: tuple, *,
             v = np.ascontiguousarray(v)
             out[k] = torch.as_tensor(v if v.dtype == np.uint8 else _i32(v),
                                      device=device)
-    out["total"] = int(total_blocks)
+    out["total"] = 0 if idx is None else int(idx[2])
+    return out
+
+
+def _index_arrays(plan, radix: np.ndarray, idx) -> Dict[str, np.ndarray]:
+    """The device cutter's host arrays: the block index (``cum``,
+    ``totals``) and, for a fully enumerated plan, the mixed-radix
+    ``place`` values (slot 0 least significant: every prefix product
+    divides a word's variant total, which the int32 index keeps below
+    2^30; a windowed plan's full product may not fit, and its blocks start
+    at scalar windowed ranks instead).  Empty for the per-launch pipeline
+    (``idx`` None)."""
+    if idx is None:
+        return {}
+    out = {"cum": idx[0], "totals": idx[1]}
+    if not getattr(plan, "windowed", False):
+        out["place"] = np.cumprod(np.concatenate(
+            [np.ones((radix.shape[0], 1), np.int64), radix[:, :-1]], axis=1
+        ), axis=1)
     return out
 
 
@@ -213,24 +230,20 @@ def xla_arrays(plan, ct: CompiledTable, pieces, digests, idx: tuple, *,
     uint8, the rest int32), the value table ``val_bytes`` uint8 /
     ``val_len`` (a cascade-closed plan's own ``cval_*``), ``win_v`` for a
     windowed plan, the piece schema's tables under ``pp_*``
-    (``ops.expand_matches.piece_device_tables``), the block index
-    (``cum``, ``totals``, ``radix``, ``place`` and ``total``, as
-    :func:`device_arrays` has them) and, in crack mode, the digest set
-    (``rows``, ``bitmap``; ``digests`` None in candidates mode)."""
-    cum, totals, total_blocks = idx
+    (``ops.expand_matches.piece_device_tables``), ``radix``, the block
+    index (``cum``, ``totals``, ``place`` and ``total``, as
+    :func:`device_arrays` has them; none for the per-launch pipeline) and,
+    in crack mode, the digest set (``rows``, ``bitmap``; ``digests`` None
+    in candidates mode)."""
     radix = np.asarray(plan.pat_radix, dtype=np.int64)
     host = {k: np.asarray(getattr(plan, k)) for k in plan_array_keys(plan)}
     cval = getattr(plan, "cval_bytes", None)
     host["val_bytes"] = np.asarray(ct.val_bytes if cval is None else cval)
     host["val_len"] = np.asarray(ct.val_len if cval is None
                                  else plan.cval_len)
-    host.update(cum=cum, totals=totals, radix=radix)
+    host.update(radix=radix, **_index_arrays(plan, radix, idx))
     if getattr(plan, "windowed", False):
         host["win_v"] = plan.win_v
-    else:
-        host["place"] = np.cumprod(np.concatenate(
-            [np.ones((radix.shape[0], 1), np.int64), radix[:, :-1]], axis=1
-        ), axis=1)
     if digests is not None:
         host.update(rows=digests.rows, bitmap=digests.bitmap)
     out: Tree = {
@@ -241,7 +254,7 @@ def xla_arrays(plan, ct: CompiledTable, pieces, digests, idx: tuple, *,
     if pieces is not None:
         out.update({f"pp_{k}": v for k, v in
                     piece_device_tables(pieces, device=device).items()})
-    out["total"] = int(total_blocks)
+    out["total"] = 0 if idx is None else int(idx[2])
     return out
 
 
@@ -336,6 +349,49 @@ def superstep_buffers(hit_cap: int, *, device) -> Tree:
     }
 
 
+def _launch_expand(
+    spec: AttackSpec, *, num_lanes: int, out_width: int, block_stride: int,
+    pieces, pair_k: "int | None" = None, decode: str = "scalar",
+    pack_cb: bool = False, k_opts: int = 1,
+    bytescan: "ByteScanTier | None" = None, xla: bool = False,
+    windowed: bool = False, radix2: bool = False,
+) -> "tuple[Callable[..., Any], str]":
+    """``(expand, decode)``: one launch's expand + hash,
+    ``expand(word, count, base, arrays) -> (state, emit)`` over blocks
+    whose ``base`` is the block input of the decode tier ``decode`` (see
+    :func:`cut_blocks`) — the piece kernel, the byte-scan kernel of
+    ``bytescan``, or, with ``xla``, the XLA route (see
+    :func:`make_superstep_body`)."""
+    window = dict(block_stride=block_stride, out_width=out_width,
+                  min_substitute=spec.effective_min,
+                  max_substitute=spec.max_substitute, algo=spec.algo)
+    if xla:
+        def expand(word, count, base, arrays):
+            cand, clen, _, emit = _expand(
+                spec, arrays, word, count,
+                _xla_base(arrays, base, windowed), num_lanes=num_lanes,
+                out_width=out_width, block_stride=block_stride,
+                radix2=radix2, pieces=pieces, pair_k=pair_k)
+            return buffer_hash(cand, clen, spec.algo), emit
+        return expand, "windowed" if windowed else "digits"
+    if bytescan is not None:
+        if pieces is not None or pair_k is not None:
+            raise ValueError("the byte-scan tiers take plans without a "
+                             "piece schema, at K=1")
+
+        def expand(word, count, base, arrays):
+            return bytescan_expand(word, count, base, arrays, tier=bytescan,
+                                   **window)
+        return expand, ("scalar" if bytescan.decode == "scalar" else (
+            "windowed" if bytescan.decode == "windowed" else "digits"))
+    common = dict(pieces=pieces, pair=pair_k is not None, decode=decode,
+                  pack_cb=pack_cb, k_opts=k_opts, **window)
+
+    def expand(word, count, base, arrays):
+        return fused_expand_md5(word, count, base, arrays, **common)
+    return expand, decode
+
+
 def make_superstep_body(
     spec: AttackSpec, *, num_lanes: int, out_width: int, block_stride: int,
     num_blocks: int, pieces, pair_k: "int | None" = None,
@@ -363,35 +419,11 @@ def make_superstep_body(
     in ``n_hits`` and re-runs the superstep with a larger buffer."""
     rank_stride = block_stride * (pair_k or 1)
     num_cands = num_lanes * (pair_k or 1)
-    window = dict(block_stride=block_stride, out_width=out_width,
-                  min_substitute=spec.effective_min,
-                  max_substitute=spec.max_substitute, algo=spec.algo)
-    if xla:
-        decode = "windowed" if windowed else "digits"
-
-        def expand(word, count, base, arrays):
-            cand, clen, _, emit = _expand(
-                spec, arrays, word, count,
-                _xla_base(arrays, base, windowed), num_lanes=num_lanes,
-                out_width=out_width, block_stride=block_stride,
-                radix2=radix2, pieces=pieces, pair_k=pair_k)
-            return buffer_hash(cand, clen, spec.algo), emit
-    elif bytescan is not None:
-        if pieces is not None or pair_k is not None:
-            raise ValueError("the byte-scan tiers take plans without a "
-                             "piece schema, at K=1")
-        decode = "scalar" if bytescan.decode == "scalar" else (
-            "windowed" if bytescan.decode == "windowed" else "digits")
-
-        def expand(word, count, base, arrays):
-            return bytescan_expand(word, count, base, arrays, tier=bytescan,
-                                   **window)
-    else:
-        common = dict(pieces=pieces, pair=pair_k is not None, decode=decode,
-                      pack_cb=pack_cb, k_opts=k_opts, **window)
-
-        def expand(word, count, base, arrays):
-            return fused_expand_md5(word, count, base, arrays, **common)
+    expand, decode = _launch_expand(
+        spec, num_lanes=num_lanes, out_width=out_width,
+        block_stride=block_stride, pieces=pieces, pair_k=pair_k,
+        decode=decode, pack_cb=pack_cb, k_opts=k_opts, bytescan=bytescan,
+        xla=xla, windowed=windowed, radix2=radix2)
 
     def body(arrays: Tree, b0: int, steps: int, bufs: Tree) -> Tree:
         hw, hr = bufs["hit_word"], bufs["hit_rank"]
@@ -430,28 +462,87 @@ def make_superstep_body(
     return body
 
 
-def make_candidates_body(
+def host_blocks(batch: BlockBatch, num_blocks: int, decode: str,
+                weight: np.ndarray, *, device) -> "tuple[torch.Tensor, ...]":
+    """One per-launch step's block inputs from a host-cut batch
+    (``ops.blocks.make_blocks``), padded to ``num_blocks`` with zero-count
+    blocks: ``(word, count, base)`` int32 tensors, ``base`` the decode
+    tier's block input as :func:`cut_blocks` gives it — the packed chosen
+    vector (``weight``: ``ops.fused_expand.scalar_units_weight`` of the
+    plan), the base digits ``[NB, P]`` or the windowed rank."""
+    batch = pad_batch(batch, num_blocks)
+    digits = batch.base_digits
+    if decode == "scalar":
+        base = (digits.astype(np.int64) * weight[batch.word]).sum(axis=1)
+    elif decode == "windowed":
+        base = digits[:, 0]  # windowed blocks start at scalar ranks
+    else:
+        base = digits
+    return tuple(torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                 device=device)
+                 for a in (batch.word, batch.count, base))
+
+
+def make_crack_step(spec: AttackSpec, **kwargs: Any) -> Callable[..., Tree]:
+    """The per-launch pipeline's crack step (the reference's
+    ``make_crack_step``): ``step(arrays, word, count, base) -> dict`` runs
+    one launch's expand + hash (:func:`_launch_expand`, the keyword
+    arguments of :func:`make_superstep_body`; never the pair tier) and
+    membership on blocks cut on the host (:func:`host_blocks` with
+    ``step.decode``), and returns ``counters`` int32 ``[2]`` =
+    ``[n_emitted, n_hits]`` and the launch's ``hit`` mask (bool, one row a
+    lane), left on the device."""
+    if kwargs.get("pair_k") is not None:
+        raise ValueError("the per-launch pipeline runs K=1")
+    kwargs.pop("num_blocks", None)
+    expand, decode = _launch_expand(spec, **kwargs)
+
+    def step(arrays: Tree, word, count, base) -> Tree:
+        state, emit = expand(word, count, base, arrays)
+        hit = digest_member(state, arrays["rows"], arrays["bitmap"]) & emit
+        return {"counters": torch.stack([emit.sum(dtype=torch.int32),
+                                         hit.sum(dtype=torch.int32)]),
+                "hit": hit}
+
+    step.decode = decode
+    return step
+
+
+def make_candidates_step(
     spec: AttackSpec, *, num_lanes: int, out_width: int, block_stride: int,
-    num_blocks: int, pieces=None, windowed: bool = False,
-    radix2: bool = False,
-) -> Callable[..., Tree]:
-    """Candidates mode, one launch: ``body(arrays, b0) -> (cand, cand_len,
-    word_row)`` of the EMITTED rows of blocks ``b0 .. b0 + num_blocks``
+    pieces=None, windowed: bool = False, radix2: bool = False,
+) -> Callable[..., Any]:
+    """Candidates mode, one launch over given blocks: ``step(arrays,
+    word, count, base) -> (cand, cand_len, word_row)`` of the EMITTED rows
     (:func:`xla_arrays` without digests), compacted on the device in row
     order — word order, and rank order within a word.  The expansion is
     the XLA route's (:func:`_expand`), as the reference's
-    ``make_candidates_body``; no pair tier."""
-    decode = "windowed" if windowed else "digits"
+    ``make_candidates_body``; no pair tier.  ``step.decode`` names the
+    block input ``base`` takes (:func:`cut_blocks`)."""
 
-    def body(arrays: Tree, b0: int):
-        word, count, base, _ = cut_blocks(arrays, b0, num_blocks,
-                                          block_stride, decode)
+    def step(arrays: Tree, word, count, base):
         cand, clen, word_row, emit = _expand(
             spec, arrays, word, count, _xla_base(arrays, base, windowed),
             num_lanes=num_lanes, out_width=out_width,
             block_stride=block_stride, radix2=radix2, pieces=pieces)
         keep = torch.nonzero(emit).flatten()
         return cand[keep], clen[keep], word_row[keep]
+
+    step.decode = "windowed" if windowed else "digits"
+    return step
+
+
+def make_candidates_body(spec: AttackSpec, *, num_blocks: int,
+                         **kwargs: Any) -> Callable[..., Any]:
+    """Candidates mode, one launch cut on the device: ``body(arrays, b0)``
+    runs :func:`make_candidates_step` (its keyword arguments) on blocks
+    ``b0 .. b0 + num_blocks`` of the resident index."""
+    step = make_candidates_step(spec, **kwargs)
+
+    def body(arrays: Tree, b0: int):
+        word, count, base, _ = cut_blocks(arrays, b0, num_blocks,
+                                          kwargs["block_stride"], step.decode)
+        return step(arrays, word, count, base)
 
     return body
 

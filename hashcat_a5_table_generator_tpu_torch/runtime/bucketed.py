@@ -96,7 +96,8 @@ class BucketedSweep:
                 for k, v in part.items():
                     total[k] = total.get(k, 0) + v
             for k, v in r.superstep.items():
-                summed = k in ("supersteps", "launches", "replays")
+                summed = k in ("supersteps", "launches", "replays",
+                               "per_launch")
                 superstep[k] = superstep.get(k, 0) + v if summed \
                     else max(superstep.get(k, 0), v)
             if r.xla:

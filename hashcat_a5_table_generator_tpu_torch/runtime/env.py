@@ -88,15 +88,15 @@ def pair_enabled() -> bool:
 
 
 def superstep_enabled() -> bool:
-    """``A5GEN_SUPERSTEP`` set to ``off``/``0``/``no`` asks for the
-    per-launch pipeline, which this package does not run: the CLI and
-    ``SweepConfig.resolve`` refuse it (ROADMAP item 6)."""
+    """``A5GEN_SUPERSTEP`` set to ``off``/``0``/``no`` runs every sweep on
+    the per-launch pipeline (``runtime.sweep``), as ``--superstep off``
+    does.  The candidate and hit streams are the same either way."""
     return not env_opt_out(
         "A5GEN_SUPERSTEP", "superstep on for eligible crack sweeps")
 
 
 def pipeline_enabled() -> bool:
-    """``A5GEN_PIPELINE`` set to ``off``/``0``/``no`` asks for the
-    barriered superstep drive, which this package does not run: the CLI
-    and ``SweepConfig.resolve`` refuse it (ROADMAP item 6)."""
+    """``A5GEN_PIPELINE`` set to ``off``/``0``/``no`` runs the barriered
+    superstep drive: each superstep's fetch is waited on before the next
+    dispatch.  The candidate and hit streams are the same either way."""
     return not env_opt_out("A5GEN_PIPELINE", "pipelined superstep drive")

@@ -29,6 +29,19 @@ the only host sync per superstep.  A superstep whose hits overflow the
 capped buffer is re-run with a buffer sized from its hit count, so no hit
 is ever dropped.  Hits are re-derived on the host from their ``(word,
 rank)`` cursor and their digest re-verified before they are recorded.
+``A5GEN_PIPELINE=off`` waits for each superstep's fetch before the next
+dispatch (the barriered drive).
+
+A plan whose block index is not int32-safe — a word of 2^30 rows or more
+(``ops.blocks.superstep_index`` is None), which the reference never
+refuses — and every plan under ``--superstep off`` / ``A5GEN_SUPERSTEP=off``
+take the per-launch pipeline instead, as in the reference: the host cuts
+each launch's blocks with Python-int cursors (``ops.blocks.make_blocks``),
+one step runs expand + hash + membership on them
+(``models.attack.make_crack_step``, K=1), and the next launch is
+dispatched before the previous one's counters are read; hit lanes map
+back to ``(word, rank)`` through ``ops.blocks.lane_cursor``, ranks as
+Python ints.  Candidates mode cuts on the host the same way.
 
 Substitute-all plans route each word three ways, as the reference does:
 device-clean words and cascade-closed words run on the device; words no
@@ -57,14 +70,18 @@ from ..models.attack import (
     build_plan,
     decode_variant,
     device_arrays,
+    host_blocks,
     make_candidates_body,
+    make_candidates_step,
+    make_crack_step,
     make_superstep_body,
     superstep_buffers,
     xla_arrays,
 )
 from ..ops.blocks import (
-    MAX_BLOCK,
     block_cursor,
+    lane_cursor,
+    make_blocks,
     superstep_index,
     word_ranges,
 )
@@ -76,6 +93,7 @@ from ..ops.fused_expand import (
     launch_key,
     opts_for,
     pair_for,
+    scalar_units_weight,
     schema_refusal,
 )
 from ..ops.membership import HostDigestLookup, build_digest_set
@@ -141,8 +159,8 @@ class SweepConfig:
     #   cuda, 2^17 on cpu
     num_blocks: Optional[int] = None  # blocks per launch; None = lanes/128
     #   (fixed stride: every block owns lanes/num_blocks lanes)
-    superstep: Optional[int] = None  # launches per superstep; None = 16.
-    #   0 would select the per-launch pipeline, which is not ported
+    superstep: Optional[int] = None  # launches per superstep; None = 16;
+    #   0 selects the per-launch pipeline
     pair: "Optional[int | str]" = None  # pair-lane tier: None/'auto'
     #   engages when the schema allows; 0/'off' keeps K=1
     superstep_hit_cap: int = 4096  # device hit-buffer slots per superstep
@@ -156,20 +174,14 @@ class SweepConfig:
                 f"fixed-stride layout needs lanes ({lanes}) divisible by "
                 f"blocks ({nb})"
             )
-        if self.superstep is not None and int(self.superstep) <= 0:
-            raise NotImplementedError(
-                "superstep off (the per-launch pipeline) is not ported"
-            )
-        if not superstep_enabled():
-            raise NotImplementedError(
-                "A5GEN_SUPERSTEP=off (the per-launch pipeline) is not ported"
-            )
-        if not pipeline_enabled():
-            raise NotImplementedError(
-                "A5GEN_PIPELINE=off (the barriered superstep drive) is not "
-                "ported"
-            )
         return lanes, nb, int(self.superstep or 16)
+
+    def superstep_on(self) -> bool:
+        """False when the per-launch pipeline is asked for: ``superstep``
+        0 or ``A5GEN_SUPERSTEP=off``."""
+        if self.superstep is not None and int(self.superstep) <= 0:
+            return False
+        return superstep_enabled()
 
 
 @dataclass
@@ -179,9 +191,10 @@ class SweepResult:
     hits: List[HitRecord] = field(default_factory=list)
     words_done: int = 0
     wall_s: float = 0.0  # the whole run: schema, uploads, drive
-    drive_s: float = 0.0  # the superstep drive alone
+    drive_s: float = 0.0  # the drive alone (superstep or per-launch)
     #: supersteps / launches / replays (overflow re-runs) /
-    #: launches_per_fetch / pair (candidates per lane, 0 = K=1)
+    #: launches_per_fetch / pair (candidates per lane, 0 = K=1) /
+    #: per_launch (launches of the per-launch pipeline)
     superstep: Dict[str, int] = field(default_factory=dict)
     #: word routing: device_clean / device_closed / oracle_fallback
     routing: Dict[str, int] = field(default_factory=dict)
@@ -270,12 +283,13 @@ class Sweep:
         # The route: a fused kernel where the reference's gate takes the
         # plan (the piece kernel with a per-slot schema, else the
         # byte-scan tier), else the XLA expand + hash route, which also
-        # splices with the schema when there is one.  The refusals left (a
-        # schema the piece kernel's descriptors cannot hold, a word of
-        # 2^30 rows or more) are found here, before any launch, and raised
-        # by the run (BucketedSweep checks every bucket first).  A bucket
-        # whose block index would not be int32-safe runs as sub-sweeps
-        # over word ranges (word_ranges).
+        # splices with the schema when there is one.  The refusal left (a
+        # schema the piece kernel's descriptors cannot hold) is found
+        # here, before any launch, and raised by the run (BucketedSweep
+        # checks every bucket first).  A bucket whose block index would
+        # pass 2^31 blocks runs as sub-sweeps over word ranges
+        # (word_ranges); one with a word of 2^30 rows or more, the
+        # per-launch pipeline (per_launch).
         self.config.resolve(self.device)
         self.device_words = self.n_words > len(self.fallback_rows)
         self.pieces = None
@@ -300,15 +314,18 @@ class Sweep:
                 why = schema_refusal(self.plan, self.pieces)
                 if why is not None:
                     self.refusal["crack"] = f"kernel not ported for: {why}"
-            launched = ~np.asarray(self.plan.fallback, bool)
-            biggest = max((int(t) for t, on in zip(self.plan.n_variants,
-                                                    launched) if on),
-                          default=0)
-            if biggest >= MAX_BLOCK:
-                self.refusal = dict.fromkeys(self.refusal, (
-                    f"a word with {biggest} rows (>= 2^30): its block "
-                    "index is not int32-safe; the per-launch pipeline "
-                    "(ROADMAP item 6a) is not ported"))
+
+    def per_launch(self, rank_stride: int) -> bool:
+        """Whether the sweep takes the per-launch pipeline at
+        ``rank_stride``, as the reference does: when the superstep is off
+        (``SweepConfig.superstep_on``), or when no int32-safe block index
+        exists (``ops.blocks.superstep_index`` None: a word of 2^30 rows
+        or more, a huge word, an index past int64)."""
+        if not self.config.superstep_on():
+            return True
+        ranges = self.word_ranges(rank_stride)
+        return not ranges or superstep_index(self.plan, rank_stride,
+                                             ranges[0]) is None
 
     def word_ranges(self, rank_stride: int) -> "List[tuple]":
         """The sub-sweeps this bucket runs at ``rank_stride``: consecutive
@@ -361,8 +378,13 @@ class Sweep:
                   "decode, or hash-block count); running K=1",
                   file=sys.stderr)
         rank_stride = stride * (pair_k or 1)
-        ranges = self.word_ranges(rank_stride)
-        idx = superstep_index(plan, rank_stride, ranges[0])
+        if pair_k is not None and self.per_launch(rank_stride):
+            # The per-launch step runs K=1, as the reference's does.
+            pair_k, rank_stride = None, stride
+        per_launch = self.per_launch(rank_stride)
+        ranges = [] if per_launch else self.word_ranges(rank_stride)
+        idx = None if per_launch else superstep_index(plan, rank_stride,
+                                                      ranges[0])
         digest_set = build_digest_set(self.digests, spec.algo)
         decode, pack_cb = decode_for(plan)
         xla_geom: Dict[str, int] = {}
@@ -382,11 +404,8 @@ class Sweep:
             tier = (self.bytescan.name if self.bytescan is not None else
                     launch_key(spec.algo, pieces, decode,
                                pair_k is not None).split("/")[0])
-        # The superstep's emitted counter is int32: cap steps so every
-        # lane emitting cannot reach 2^31.
-        steps = max(1, min(steps, ((1 << 31) - 1) // (lanes * (pair_k or 1))))
-        body = make_superstep_body(
-            spec, num_lanes=lanes, out_width=int(plan.out_width),
+        kw = dict(
+            num_lanes=lanes, out_width=int(plan.out_width),
             block_stride=stride, num_blocks=nb, pieces=pieces,
             pair_k=pair_k, decode=decode, pack_cb=pack_cb,
             k_opts=k_vals_for(plan), bytescan=self.bytescan,
@@ -395,20 +414,31 @@ class Sweep:
             radix2=k_opts_for(plan) == 1,
         )
         t_drive = time.monotonic()
-        stats = {"supersteps": 0, "launches": 0, "replays": 0}
-        n_emitted = n_hits = 0
-        for lo, hi in ranges:
-            # One sub-sweep per word range, in word order: its own block
-            # index over the same resident tables.
-            idx = self._index_range(arrays, rank_stride, (lo, hi))
-            part, ne, nh = self._drive(
-                body, arrays, nb, steps, recorder, flush,
-                lambda b, cum=idx[0], hi=hi: min(
-                    block_cursor(plan, rank_stride, cum, b)[0], hi))
-            for k in stats:
-                stats[k] += part[k]
-            n_emitted += ne
-            n_hits += nh
+        if per_launch:
+            stats, n_emitted, n_hits = self._drive_per_launch(
+                make_crack_step(spec, **kw), arrays, lanes, nb, stride,
+                recorder, flush)
+            steps = 1
+        else:
+            # The superstep's emitted counter is int32: cap steps so every
+            # lane emitting cannot reach 2^31.
+            steps = max(1, min(steps, ((1 << 31) - 1)
+                               // (lanes * (pair_k or 1))))
+            body = make_superstep_body(spec, **kw)
+            stats = {"supersteps": 0, "launches": 0, "replays": 0}
+            n_emitted = n_hits = 0
+            for lo, hi in ranges:
+                # One sub-sweep per word range, in word order: its own
+                # block index over the same resident tables.
+                idx = self._index_range(arrays, rank_stride, (lo, hi))
+                part, ne, nh = self._drive(
+                    body, arrays, nb, steps, recorder, flush,
+                    lambda b, cum=idx[0], hi=hi: min(
+                        block_cursor(plan, rank_stride, cum, b)[0], hi))
+                for k in stats:
+                    stats[k] += part[k]
+                n_emitted += ne
+                n_hits += nh
         stats["launches_per_fetch"] = steps
         stats["pair"] = pair_k or 0
         if xla_geom:
@@ -454,41 +484,56 @@ class Sweep:
                 wall_s=time.monotonic() - t0, routing=dict(self.routing))
         lanes, nb, _ = cfg.resolve(dev)
         stride = lanes // nb
-        ranges = self.word_ranges(stride)
-        idx = superstep_index(plan, stride, ranges[0])
+        per_launch = self.per_launch(stride)
+        ranges = [] if per_launch else self.word_ranges(stride)
+        idx = None if per_launch else superstep_index(plan, stride,
+                                                      ranges[0])
         budget = XLA_BUDGET_BYTES[dev.type]
         lanes = xla_lanes(plan, lanes, stride, 1, budget)
         nb = lanes // stride
         arrays = xla_arrays(plan, self.ct, self.pieces, None, idx,
                             device=dev)
-        body = make_candidates_body(
-            spec, num_lanes=lanes, out_width=int(plan.out_width),
-            block_stride=stride, num_blocks=nb, pieces=self.pieces,
-            windowed=bool(getattr(plan, "windowed", False)),
-            radix2=k_opts_for(plan) == 1)
-        n_emitted = launches = 0
+        kw = dict(num_lanes=lanes, out_width=int(plan.out_width),
+                  block_stride=stride, pieces=self.pieces,
+                  windowed=bool(getattr(plan, "windowed", False)),
+                  radix2=k_opts_for(plan) == 1)
+
+        def launches():
+            """Each launch's emitted rows and the first word it leaves
+            unfinished: blocks cut on the host (per-launch pipeline) or
+            on the device, one word range after the other."""
+            if per_launch:
+                step = make_candidates_step(spec, **kw)
+                for _batch, blocks, w_next in self._host_cuts(
+                        lanes, nb, stride, step.decode):
+                    yield step(arrays, *blocks), w_next
+                return
+            body = make_candidates_body(spec, num_blocks=nb, **kw)
+            for w_lo, w_hi in ranges:
+                # One sub-sweep per word range, in word order.
+                cum = self._index_range(arrays, stride, (w_lo, w_hi))[0]
+                total = arrays["total"]
+                for b0 in range(0, total, nb):
+                    yield body(arrays, b0), min(block_cursor(
+                        plan, stride, cum, min(b0 + nb, total))[0], w_hi)
+
+        n_emitted = n_launches = 0
         t_drive = time.monotonic()
-        for w_lo, w_hi in ranges:
-            # One sub-sweep per word range, in word order.
-            idx = self._index_range(arrays, stride, (w_lo, w_hi))
-            total = arrays["total"]
-            for b0 in range(0, total, nb):
-                cand, clen, wrow = (t.cpu().numpy()
-                                    for t in body(arrays, b0))
-                launches += 1
-                lo = 0
-                rows = self.fallback_rows
-                # Fallback words inside this launch's word range go
-                # between the rows of the words around them.
-                while flush.done < len(rows) and len(wrow) and \
-                        rows[flush.done] < int(wrow[-1]):
-                    cut = int(np.searchsorted(wrow, rows[flush.done]))
-                    n_emitted += _write_rows(writer, cand, clen, lo, cut)
-                    lo = cut
-                    flush.until(rows[flush.done] + 1)
-                n_emitted += _write_rows(writer, cand, clen, lo, len(clen))
-                flush.until(min(block_cursor(plan, stride, idx[0],
-                                             min(b0 + nb, total))[0], w_hi))
+        for out, w_end in launches():
+            cand, clen, wrow = (t.cpu().numpy() for t in out)
+            n_launches += 1
+            lo = 0
+            rows = self.fallback_rows
+            # Fallback words inside this launch's word range go between
+            # the rows of the words around them.
+            while flush.done < len(rows) and len(wrow) and \
+                    rows[flush.done] < int(wrow[-1]):
+                cut = int(np.searchsorted(wrow, rows[flush.done]))
+                n_emitted += _write_rows(writer, cand, clen, lo, cut)
+                lo = cut
+                flush.until(rows[flush.done] + 1)
+            n_emitted += _write_rows(writer, cand, clen, lo, len(clen))
+            flush.until(w_end)
         drive_s = time.monotonic() - t_drive
         flush.until(self.n_words)
         return SweepResult(
@@ -497,10 +542,10 @@ class Sweep:
             wall_s=time.monotonic() - t0 + self._schema_s,
             drive_s=drive_s,
             routing=dict(self.routing),
-            kernels={"expand": launches},
+            kernels={"expand": n_launches},
             routes={"xla": 1},
             xla={"lanes": lanes, "budget_bytes": budget,
-                 "rows": launches * lanes},
+                 "rows": n_launches * lanes},
         )
 
     def _drive(self, body, arrays, nb: int, steps: int, recorder, flush,
@@ -512,16 +557,19 @@ class Sweep:
         cfg, dev = self.config, self.device
         total = arrays["total"]
         hit_cap = int(cfg.superstep_hit_cap)
+        # A5GEN_PIPELINE=off: one superstep in flight, its fetch waited on
+        # before the next dispatch.
+        depth = _DEPTH if pipeline_enabled() else 1
         free = [
             (superstep_buffers(hit_cap, device=dev), _Fetch(hit_cap, dev))
-            for _ in range(_DEPTH)
+            for _ in range(depth)
         ]
         inflight: deque = deque()
         stats = {"supersteps": 0, "launches": 0, "replays": 0}
         n_emitted = n_hits = 0
         b0 = 0
         while b0 < total or inflight:
-            while b0 < total and len(inflight) < _DEPTH:
+            while b0 < total and len(inflight) < depth:
                 # The tail superstep runs only the launches it needs.
                 n_steps = min(steps, -(-(total - b0) // nb))
                 bufs, fetch = free.pop()
@@ -555,6 +603,61 @@ class Sweep:
             stats["launches"] += n_steps
             free.append((bufs, fetch))
         return stats, n_emitted, n_hits
+
+    def _host_cuts(self, lanes: int, nb: int, stride: int, decode: str):
+        """The per-launch pipeline's launches, in cursor order: each
+        launch's blocks cut on the host (``ops.blocks.make_blocks``,
+        Python-int cursors) — ``(batch, (word, count, base), next word)``,
+        the tensors on the sweep's device as ``decode`` takes them
+        (``models.attack.host_blocks``)."""
+        weight = scalar_units_weight(self.plan)
+        w = rank = 0
+        while True:
+            batch, w, rank = make_blocks(
+                self.plan, start_word=w, start_rank=rank, max_variants=lanes,
+                max_blocks=nb, fixed_stride=stride)
+            if batch.total == 0:
+                return
+            yield batch, host_blocks(batch, nb, decode, weight,
+                                     device=self.device), w
+
+    def _drive_per_launch(self, step, arrays, lanes: int, nb: int,
+                          stride: int, recorder, flush
+                          ) -> "tuple[dict, int, int]":
+        """The per-launch pipeline's crack drive: each launch of
+        :meth:`_host_cuts` run by ``step`` (``models.attack
+        .make_crack_step``), the next launch dispatched before this one's
+        counters are read; a hit-bearing launch's hit lanes come back and
+        map to ``(word, rank)`` through ``ops.blocks.lane_cursor``.
+        ``flush`` expands the fallback words due before each hit's word
+        and, after each launch, those before the launch's end cursor.
+        Returns (stats, emitted, hits) of the device words."""
+        plan = self.plan
+        pending: deque = deque()
+        stats = {"supersteps": 0, "launches": 0, "replays": 0}
+        totals = [0, 0]
+
+        def consume(batch, out, w_next) -> None:
+            ne, nh = (int(x) for x in out["counters"].tolist())
+            if nh:
+                hit = torch.nonzero(out["hit"]).flatten().tolist()
+                for w_row, rank in lane_cursor(plan, batch, hit):
+                    flush.until(w_row)
+                    self._device_hit(w_row, rank, recorder)
+            flush.until(w_next)
+            totals[0] += ne
+            totals[1] += nh
+
+        for batch, blocks, w_next in self._host_cuts(lanes, nb, stride,
+                                                     step.decode):
+            pending.append((batch, step(arrays, *blocks), w_next))
+            stats["launches"] += 1
+            if len(pending) >= _DEPTH:
+                consume(*pending.popleft())
+        while pending:
+            consume(*pending.popleft())
+        stats["per_launch"] = stats["launches"]
+        return stats, totals[0], totals[1]
 
     def _crack_word(self, recorder):
         """Crack mode's handling of a fallback word's oracle candidates:

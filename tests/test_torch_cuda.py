@@ -576,6 +576,29 @@ def test_windowed_cta_edges_match_plain_version(algo, cuda):
     c.check()
 
 
+_TILE_EDGES = [(tier, algo) for tier in ("k1", "pair", "suball_k1")
+               for algo in ("md5", "md4", "sha1", "ntlm")]
+
+
+@pytest.mark.parametrize("tier,algo", _TILE_EDGES,
+                         ids=[f"{t}-{a}" for t, a in _TILE_EDGES])
+def test_tile_cta_edges_match_plain_version(tier, algo, cuda):
+    """The scalar K=1 and pair tiers' CTAs at their edges: a launch whose
+    block count ends a CTA part-way, blocks cut to counts 0 and 1, and
+    a run of count-0 blocks (whole CTAs with no live lane), beside
+    blocks of their full ranks."""
+    c = Case(SUB, letter_words(300, 8, 10, 12), cuda, algo=algo,
+             pair=tier == "pair", nb=101,
+             mode="suball" if tier == "suball_k1" else "default")
+    assert c.decode == "scalar" and c.key == f"piece_{tier}/{algo}"
+    word, count, base = (t.clone() for t in c.blocks)
+    assert bool((count == (256 if tier == "pair" else 128)).any())
+    count[3], count[7] = 0, 1
+    count[32:64] = 0
+    c.blocks = (word, count, base)
+    c.check()
+
+
 @pytest.mark.parametrize("width,offset", [(55, 1), (376, 2), (56, 3),
                                           (2101, 1)])
 @pytest.mark.parametrize("algo", ["md5", "md4", "sha1", "ntlm"])

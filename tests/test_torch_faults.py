@@ -6,13 +6,12 @@ CPU.
   int32-safe index: the sweep accepts it up front, and with the split
   limit lowered the CLI's stdout — crack and candidates mode, default
   and substitute-all with oracle-fallback words — is byte-identical to
-  the reference CLI's.  Only a single word of 2^30 rows or more is still
-  refused, before any bucket launches, naming ROADMAP item 6a.
+  the reference CLI's.  (A single word of 2^30 rows or more runs the
+  per-launch pipeline: ``test_torch_perlaunch.py``.)
 * The reference's opt-out knobs: ``A5GEN_PAIR=off`` pins K=1 with the
-  same stdout, ``A5GEN_CASCADE_CLOSE=off`` sends hazard words to the
-  oracle with the reference's routing and stdout, and
-  ``A5GEN_SUPERSTEP=off`` / ``A5GEN_PIPELINE=off`` (drives this package
-  does not run) exit 2.
+  same stdout, and ``A5GEN_CASCADE_CLOSE=off`` sends hazard words to the
+  oracle with the reference's routing and stdout.  (``A5GEN_SUPERSTEP`` /
+  ``A5GEN_PIPELINE``: ``test_torch_perlaunch.py``.)
 """
 
 import hashlib
@@ -25,7 +24,6 @@ import hashcat_a5_table_generator_tpu.cli as j_cli
 import hashcat_a5_table_generator_tpu_torch.cli as t_cli
 from hashcat_a5_table_generator_tpu_torch.models.attack import AttackSpec
 from hashcat_a5_table_generator_tpu_torch.ops import blocks
-from hashcat_a5_table_generator_tpu_torch.ops import fused_expand as fe
 from hashcat_a5_table_generator_tpu_torch.runtime.sweep import (
     Sweep,
     SweepConfig,
@@ -39,7 +37,6 @@ GEOMETRY = dict(lanes=256, num_blocks=16)
 GEOMETRY_ARGV = ["--lanes", "256", "--blocks", "16"]
 CYR = get_layout("qwerty-cyrillic").to_substitution_map()
 AZERTY = get_layout("qwerty-azerty").to_substitution_map()
-THIRTY = b"qwertyuiopasdfghjklzxcvbnmqwer"  # 2^30 rows in default mode
 
 
 def letter_lines(n, length, seed):
@@ -144,22 +141,6 @@ def test_split_sub_sweeps_match_reference_cli(case, tmp_path, capsysbinary,
                                        if b"word routing" in ln]
 
 
-def test_a_word_of_2_30_rows_exits_2_before_any_hit(tmp_path, capsys):
-    """A 30-letter line (2^30 rows in default mode) is refused before
-    the short buckets, which hold hits, launch: exit 2, nothing on
-    stdout, the word's row count and ROADMAP item 6a named."""
-    words = make_words(seed=42, long_line=False) + [THIRTY]
-    digests = planted(words, CYR, "default", "md5", mn=1)
-    argv = write_inputs(tmp_path, words, digests, "qwerty-cyrillic")
-    launches, plain = dict(fe.LAUNCHES), fe.PLAIN_CALLS
-    rc = t_cli.main(argv + ["--digests", str(tmp_path / "left.txt"),
-                            "--device", "cpu", *GEOMETRY_ARGV])
-    out = capsys.readouterr()
-    assert rc == 2 and out.out == ""
-    assert f"{1 << 30} rows" in out.err and "item 6a" in out.err
-    assert fe.LAUNCHES == launches and fe.PLAIN_CALLS == plain
-
-
 def test_pair_off_knob_pins_k1_with_the_same_stdout(tmp_path, capsysbinary,
                                                     monkeypatch):
     """``A5GEN_PAIR=off`` runs no pair tier (a pair-eligible 1:1 table),
@@ -218,23 +199,3 @@ def test_cascade_close_off_matches_reference(flags, tmp_path, capsysbinary,
     assert routing(got.err) == routing(want.err)
     assert b" 0 device-closed" in routing(got.err)[0]
     assert routing(closing.err) != routing(got.err)
-
-
-@pytest.mark.parametrize("knob", ["A5GEN_SUPERSTEP", "A5GEN_PIPELINE"])
-def test_superstep_and_pipeline_off_exit_2(knob, tmp_path, capsys,
-                                           monkeypatch):
-    """The per-launch and barriered drives are not ported: their env
-    spellings exit 2 naming queue item 6 before anything runs, as
-    ``--superstep off`` does, and the sweep API raises."""
-    monkeypatch.setenv(knob, "off")
-    argv = write_inputs(tmp_path, [b"password"], [bytes(16)],
-                        "qwerty-cyrillic")
-    with pytest.raises(SystemExit) as exc:
-        t_cli.main(argv + ["--digests", str(tmp_path / "left.txt"),
-                           "--device", "cpu"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert f"{knob}=off" in err and "port queue item 6" in err
-    with pytest.raises(NotImplementedError, match=knob):
-        Sweep(AttackSpec(), CYR, [b"password"],
-              config=SweepConfig(device="cpu"))

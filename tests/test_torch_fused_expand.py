@@ -7,11 +7,13 @@ bit on every emitted lane, with equal emit masks: at K=1 and in the pair
 tier, for static and dynamic pair deltas, for the scalar, digit and
 windowed decodes, for MD5, MD4, SHA-1 and NTLM, and for 1-3 chained hash
 blocks.  The CUDA source itself is compiled for the host with g++ (CUDA
-keywords stubbed; the windowed tier's CTAs run phase by phase) and must
+keywords stubbed; the windowed, scalar K=1 and pair tiers' CTAs run
+phase by phase, a warp's ballot the one thread's own vote) and must
 equal the plain version on every lane of every instantiation (the
-windowed tier writes no state for lanes past a block's count: its state
-is compared on every live lane); ``tests/test_torch_cuda.py`` compares
-the real kernels on a GPU.
+windowed tier writes no state for lanes past a block's count, the scalar
+K=1 and pair tiers none for dead rows: their state is compared on the
+rows they write), at edge CTA geometries too;
+``tests/test_torch_cuda.py`` compares the real kernels on a GPU.
 """
 
 import hashlib
@@ -402,22 +404,44 @@ template <class T> static std::vector<T> rd(const char* p, size_t n) {
   std::vector<T> v(n ? n : 1); FILE* f = fopen(p, "rb");
   if (n && fread(v.data(), sizeof(T), n, f) != n) exit(3);
   fclose(f); return v; }
-template <int A, int K, int D, bool C>
+template <int A, int K, bool C>
 static void lane_hb(const LaunchArgs& a, const PieceTables& t, int hb) {
   switch (hb) {
-    case 1: piece_kernel<A, K, D, 1, C>(a, t); break;
-    case 2: piece_kernel<A, K, D, 2, C>(a, t); break;
-    default: piece_kernel<A, K, D, 3, C>(a, t); break;
+    case 1: piece_kernel<A, K, 1, C>(a, t); break;
+    case 2: piece_kernel<A, K, 2, C>(a, t); break;
+    default: piece_kernel<A, K, 3, C>(a, t); break;
   }
 }
+// The scalar K=1 and pair tiers: every CTA's phases in order, each phase
+// run by each of its `nt` threads before the next (the barriers; a warp's
+// ballot is the one thread's own vote), shared memory filled with garbage
+// first.
+template <int A, int K, int D, int HB, bool P>
+static void cta_tile(const LaunchArgs& a, const PieceTables& t, int gmax,
+                     int nt, int lmax) {
+  const TileGeom g = tile_geometry(a, t, K, D, P ? 2 : 1, HB, nt, gmax, lmax);
+  std::vector<int32_t> smem(g.smem_bytes / 4 + 1);
+  blockDim.x = nt;
+  const long long grid = (long long)((a.nb + g.g - 1) / g.g) * g.c;
+  for (long long cta = 0; cta < grid; ++cta) {
+    blockIdx.x = (unsigned)cta;
+    std::fill(smem.begin(), smem.end(), 0x5A5A5A5A);
+    for (int p = 0; p < TILE_PHASES; ++p)
+      for (int th = 0; th < nt; ++th) {
+        threadIdx.x = th;
+        tile_phase<A, K, D, HB, P>(p, a, t, g, smem.data());
+      }
+  }
+  blockDim.x = 1; threadIdx.x = 0; blockIdx.x = 0;
+}
 template <int A, int K>
-static void lane(const LaunchArgs& a, const PieceTables& t, int pair,
-                 int decode, int hb, int closed) {
-  if (pair && decode == 0) piece_pair_kernel<A, K, 0>(a, t);
-  else if (pair) piece_pair_kernel<A, K, 1>(a, t);
-  else if (decode == 0) lane_hb<A, K, 0, false>(a, t, hb);
-  else if (closed) lane_hb<A, K, 1, true>(a, t, hb);
-  else lane_hb<A, K, 1, false>(a, t, hb);
+static void tile(const LaunchArgs& a, const PieceTables& t, int pair,
+                 int decode, int hb, int gmax, int nt, int lmax) {
+  if (pair && decode == 0) cta_tile<A, K, 0, 1, true>(a, t, gmax, nt, lmax);
+  else if (pair) cta_tile<A, K, 1, 1, true>(a, t, gmax, nt, lmax);
+  else if (hb == 1) cta_tile<A, K, 0, 1, false>(a, t, gmax, nt, lmax);
+  else if (hb == 2) cta_tile<A, K, 0, 2, false>(a, t, gmax, nt, lmax);
+  else cta_tile<A, K, 0, 3, false>(a, t, gmax, nt, lmax);
 }
 // The windowed tier: every CTA's phases in order, each phase run by each
 // of its `nt` threads before the next (the barriers), shared memory
@@ -456,13 +480,13 @@ static void windowed(const LaunchArgs& a, const PieceTables& t, int hb,
   else win_hb<A, K, false, false>(a, t, hb, gmax, nt);
 }
 int main(int argc, char** argv) {
-  int v[27]; for (int i = 0; i < 27; ++i) v[i] = atoi(argv[i + 1]);
+  int v[28]; for (int i = 0; i < 28; ++i) v[i] = atoi(argv[i + 1]);
   int pair = v[1], decode = v[2], hb = v[3], nb = v[4],
       stride = v[5], m = v[6], k2 = v[7], k_opts = v[8], pack = v[9],
       ngw = v[10], ng16 = v[11], ngd = v[12], vm = v[13], nw = v[14],
       ng = v[15], mn = v[16], mx = v[17], B = v[18], nbase = v[19],
       words = v[20], kind = v[21], closed = v[22], ncols = v[23],
-      close_s = v[24], gmax = v[25], nt = v[26];
+      close_s = v[24], gmax = v[25], nt = v[26], lmax = v[27];
   auto bw = rd<int32_t>("bw.bin", nb); auto bc = rd<int32_t>("bc.bin", nb);
   auto base = rd<int32_t>("base.bin", nbase);
   auto radix = rd<int32_t>("radix.bin", (size_t)B * m);
@@ -491,11 +515,16 @@ int main(int argc, char** argv) {
   if (decode == 2) {
     if (kind) windowed<HARNESS_ALGO, 1>(a, t, hb, closed, gmax, nt);
     else windowed<HARNESS_ALGO, 0>(a, t, hb, closed, gmax, nt);
+  } else if (pair || decode == 0) {
+    if (kind) tile<HARNESS_ALGO, 1>(a, t, pair, decode, hb, gmax, nt, lmax);
+    else tile<HARNESS_ALGO, 0>(a, t, pair, decode, hb, gmax, nt, lmax);
   }
-  for (long long i = 0; decode != 2 && i < (long long)nb * stride; ++i) {
+  for (long long i = 0; decode == 1 && !pair && i < (long long)nb * stride;
+       ++i) {
     blockIdx.x = (unsigned)i;
-    if (kind) lane<HARNESS_ALGO, 1>(a, t, pair, decode, hb, closed);
-    else lane<HARNESS_ALGO, 0>(a, t, pair, decode, hb, closed);
+    if (closed) lane_hb<HARNESS_ALGO, 1, true>(a, t, hb);
+    else if (kind) lane_hb<HARNESS_ALGO, 1, false>(a, t, hb);
+    else lane_hb<HARNESS_ALGO, 0, false>(a, t, hb);
   }
   FILE* f = fopen("state.bin", "wb"); fwrite(st.data(), 4, n * words, f);
   fclose(f); f = fopen("emit.bin", "wb"); fwrite(em.data(), 1, n, f);
@@ -529,6 +558,13 @@ struct uint4 { uint32_t x, y, z, w; };
 static inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c,
                                uint32_t d) { return {a, b, c, d}; }
 struct int4 { int x, y, z, w; };
+// Warp votes as the host build runs them: one thread at a time, so a
+// thread's ballot holds its own vote only and it leads its own "warp".
+static inline unsigned __ballot_sync(unsigned, bool p) {
+  return p ? 1u << (threadIdx.x & 31) : 0u; }
+static inline int __shfl_sync(unsigned, int v, int) { return v; }
+static inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+static inline int atomicAdd(int* p, int v) { int o = *p; *p += v; return o; }
 static inline int4 make_int4(int a, int b, int c, int d) {
   return {a, b, c, d}; }
 using std::max;
@@ -574,10 +610,13 @@ def host_harness(tmp_path_factory):
     return build_host_harness(tmp_path_factory.mktemp("harness"))
 
 
-def run_harness(harness, launch, tmp_path, gmax=32, threads=128):
+def run_harness(harness, launch, tmp_path, gmax=32, threads=128,
+                lanes=2048):
     """The host build of the CUDA source on ``launch``'s inputs: its
-    state and emit on every lane.  The windowed tier runs in CTAs of at
-    most ``gmax`` blocks and ``threads`` threads."""
+    state and emit on every lane.  The windowed, scalar K=1 and pair
+    tiers run in CTAs of at most ``gmax`` blocks and ``threads`` threads;
+    the scalar K=1 and pair tiers' CTAs take at most ``lanes`` lanes (a
+    block wider than that is cut into chunks)."""
     word, count, base, tables = launch.inputs()
     for name, t in (("bw", word), ("bc", count), ("base", base),
                     ("radix", tables["radix"])):
@@ -603,7 +642,7 @@ def run_harness(harness, launch, tmp_path, gmax=32, threads=128):
             int(launch.pieces.kind == "suball"), int(closed),
             int(tables["sel_bit"].shape[1]) if "sel_bit" in tables else 0,
             int(tables["close_next"].shape[2]) if closed else 0, gmax,
-            threads]
+            threads, lanes]
     subprocess.run([str(harness / f"harness_{launch.algo}")]
                    + [str(a) for a in args], cwd=tmp_path, check=True,
                    timeout=300)
@@ -620,16 +659,28 @@ def live_rows(launch):
     return rank < np.repeat(count.numpy(), launch.stride)
 
 
-def assert_source_equals_plain(harness, launch, tmp_path, **geometry):
-    """Emit on every lane; state on every lane, or, for the windowed
-    tier, on every live lane (its padding lanes' state is garbage, as the
-    reference's contract allows)."""
+def state_rows(launch, want_emit):
+    """The rows whose state the launch's tier writes: every row of the
+    digit decode at K=1; every live row (rank below its block's count) of
+    the windowed tier; every emitted row of the scalar K=1 and pair tiers
+    (they write no state for dead rows, as the reference's contract
+    allows)."""
+    if launch.decode == "windowed":
+        return live_rows(launch)
+    if launch.pair or launch.decode == "scalar":
+        return want_emit
+    return np.ones(len(want_emit), bool)
+
+
+def assert_source_equals_plain(harness, launch, tmp_path, emits=True,
+                               **geometry):
+    """Emit on every lane; state on every row the tier writes
+    (:func:`state_rows`).  ``emits``: the launch has emitted rows."""
     want_state, want_emit = launch.port()
     state, emit = run_harness(harness, launch, tmp_path, **geometry)
-    assert want_emit.any()
+    assert bool(want_emit.any()) == emits
     assert (emit == want_emit).all()
-    rows = live_rows(launch) if launch.decode == "windowed" else \
-        np.ones(len(emit), bool)
+    rows = state_rows(launch, want_emit)
     assert (state[rows] == want_state[rows]).all()
 
 
@@ -638,7 +689,8 @@ def assert_source_equals_plain(harness, launch, tmp_path, **geometry):
 def test_cuda_source_logic_equals_plain_version(case, host_harness,
                                                 tmp_path):
     """The kernel's source, built for the host, against the plain version
-    on every lane (emitted or not) — the arithmetic the card runs."""
+    on every lane (emit; state on every row the tier writes) — the
+    arithmetic the card runs."""
     if case in ("k1", "pair"):
         launch = Launch(SUB_DYN, WORDS, pair=case == "pair", stride=16)
     else:
@@ -656,15 +708,25 @@ _SOURCE_LENGTHS = {(1, 1): (20, 36), (1, 2): (48, 60), (1, 3): (112, 120),
                    (2, 1): (12, 12), (2, 2): (24, 32), (2, 3): (50, 60)}
 
 
-def _source_launch(tier, algo, blocks, count_edits=None):
+def _source_launch(tier, algo, blocks, count_edits=None, mn=0, mx=None,
+                   stride=8):
     """A launch of one instantiation: decode tier x hash x hash blocks
     (``count_edits``: block counts lowered, as :class:`Launch` takes
-    them)."""
+    them; ``mn``/``mx``: a substitution window, else the tier's own;
+    ``suball``: the scalar K=1 tier over a substitute-all plan;
+    ``merged`` / ``pair-merged``: the scalar K=1 / pair tier over words
+    of letters only, whose neighbouring slot groups the kernel merges)."""
+    if tier in ("merged", "pair-merged"):
+        return Launch(CYR, _letter_words(6, 6, 10, seed=blocks),
+                      pair=tier == "pair-merged", stride=stride, nb=24,
+                      algo=algo, mn=mn, mx=mx or 15,
+                      count_edits=count_edits)
     scale = 2 if algo == "ntlm" else 1
     lo, hi = _SOURCE_LENGTHS[(scale, blocks)]
     windowed = tier.startswith("windowed")
     letters = 12 if windowed else 5
-    sub = CYR if tier in ("scalar", "pair", "windowed-cb") else CZECH
+    sub = CYR if tier in ("scalar", "pair", "windowed-cb", "suball") \
+        else CZECH
     if tier == "pair-digits":
         sub = SUB_LEET3
     if tier in ("digits", "windowed-digits", "pair-digits"):
@@ -673,8 +735,9 @@ def _source_launch(tier, algo, blocks, count_edits=None):
                  for w in _long_words(6, lo, hi, seed=blocks, letters=letters)]
     else:
         words = _long_words(6, lo, hi, seed=blocks, letters=letters)
-    return Launch(sub, words, pair=tier.startswith("pair"), stride=8, nb=24,
-                  algo=algo, mx=2 if windowed else 15,
+    return Launch(sub, words, pair=tier.startswith("pair"), stride=stride,
+                  nb=24, algo=algo, mn=mn, mx=mx or (2 if windowed else 15),
+                  mode="suball" if tier == "suball" else "default",
                   count_edits=count_edits)
 
 
@@ -726,6 +789,85 @@ def test_cuda_source_windowed_ctas_equal_plain_version(
     assert any(len(set(words[i:i + g])) > 1 for i in range(0, 24, g))
     geometry = dict(gmax=7, threads=32) if geom == "ctas" else {}
     assert_source_equals_plain(host_harness, launch, tmp_path, **geometry)
+
+
+#: Edge geometries of the scalar K=1 and pair tiers' CTAs: (count
+#: edits, -m, -x, host geometry).  "counts": blocks of count 0, 1 and the
+#: full stride; "ctas": CTAs of 7 blocks and 32 threads, so CTAs span
+#: several words and the last one is partial; "dead": a CTA whose every
+#: block has count 0; "chunks": CTAs of 4 lanes, so each block of 8 lanes
+#: is cut in two; "odd": blocks of 6 lanes (not a power of two: a lane's
+#: block found by search); "window": -m 2 -x 4 on a plan that stays fully
+#: enumerated (less than the 2x saving the windowed tier needs; -x 9 for
+#: the words of letters only, past the windowed tier's -x 8), so lanes
+#: below the counts are dead too.
+_TILE_GEOMS = {
+    "counts": ({0: 0, 1: 1, 7: 0, 12: 1}, 0, None, {}),
+    "ctas": ({}, 0, None, dict(gmax=7, threads=32)),
+    "dead": ({b: 0 for b in range(7, 14)}, 0, None,
+             dict(gmax=7, threads=32)),
+    "chunks": ({}, 0, None, dict(lanes=4, threads=32)),
+    "odd": ({}, 0, None, dict(gmax=5, threads=32)),
+    "window": ({}, 2, 4, dict(gmax=5, threads=64)),
+}
+_TILE_CASES = [(tier, algo, geom) for algo in ALGOS
+               for tier in ("scalar", "pair", "pair-digits", "suball",
+                            "merged", "pair-merged")
+               for geom in _TILE_GEOMS]
+
+
+def bit_field_neighbours(pieces):
+    """Neighbouring groups the scalar tiers merge: one word each, their
+    selector columns consecutive bits of cb, the second's right after
+    the first's."""
+    live = [g for g in pieces.groups if g.len_fixed != 0]
+
+    def bits(g):
+        c = g.sel_cols
+        return (g.n_words == 1 and len(c) >= 1
+                and g.n_variants == 1 << len(c)
+                and list(c) == list(range(c[0], c[0] + len(c))))
+
+    return sum(bits(a) and bits(b) and b.sel_cols[0] == a.sel_cols[-1] + 1
+               for a, b in zip(live, live[1:]))
+
+
+@pytest.mark.parametrize("tier,algo,geom", _TILE_CASES,
+                         ids=[f"{t}-{a}-{g}" for t, a, g in _TILE_CASES])
+def test_cuda_source_tile_ctas_equal_plain_version(
+        tier, algo, geom, host_harness, tmp_path):
+    """The scalar K=1 tier (match and substitute-all plans) and the pair
+    tier (scalar and digit decodes), with and without merged groups, at
+    edge CTA geometries (``_TILE_GEOMS``), against the plain version:
+    emit on every lane, state on every emitted row; a CTA of dead lanes
+    writes emit 0."""
+    edits, mn, mx, geometry = _TILE_GEOMS[geom]
+    if mx and tier.endswith("merged"):
+        mx = 9
+    if tier.startswith("pair"):
+        # Pair blocks span 16 ranks: the words fill blocks 0-11.
+        edits = {b // 2: c for b, c in edits.items()}
+    launch = _source_launch(tier, algo, 1, count_edits=edits, mn=mn, mx=mx,
+                            stride=6 if geom == "odd" else 8)
+    assert launch.decode == ("digits" if tier == "pair-digits" else "scalar")
+    assert bit_field_neighbours(launch.pieces) > 0 or not tier.endswith(
+        "merged")
+    assert not launch.plan.windowed and launch.hash_blocks == 1
+    word, count, _base, _t = launch.inputs()
+    count = count.numpy()
+    if geom == "counts":
+        assert {0, 1, 2 * launch.stride if launch.pair else launch.stride} \
+            <= set(count.tolist())
+    if geom == "dead":
+        assert (count[7 // (2 if launch.pair else 1):7] == 0).all()
+    assert_source_equals_plain(host_harness, launch, tmp_path, **geometry)
+    if geom == "window":
+        _s, want_emit = launch.port()
+        rank = np.arange(len(want_emit)) % (
+            launch.stride * (2 if launch.pair else 1))
+        below = rank < np.repeat(count, launch.stride * (
+            2 if launch.pair else 1))
+        assert (below & ~want_emit).any()
 
 
 def test_native_build_raises_without_nvcc(monkeypatch):

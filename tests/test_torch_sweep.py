@@ -140,8 +140,9 @@ def test_cli_stdout_matches_reference_cli(contract, tmp_path, capsysbinary):
 @pytest.mark.parametrize("extra", [
     ["--list-layouts"], ["--bug-compat"], ["--devices", "2"],
     ["--checkpoint", "ck.json"], ["--coordinator", "h:1"],
-    ["--backend", "oracle"], ["--superstep", "off"], ["--progress"],
+    ["--backend", "oracle"], ["--fetch-chunk", "4"], ["--progress"],
     ["--metrics-json", "m.json"], ["--emit-table", "german"],
+    ["--block-layout", "packed"],
 ], ids=lambda a: a[0])
 def test_flags_outside_the_slice_exit_2(extra, tmp_path, capsys):
     argv = ["words.txt", "-t", "t.table", "--backend", "device",
@@ -171,36 +172,21 @@ def test_candidates_mode_exits_2(capsys):
     assert "--backend oracle" in capsys.readouterr().err
 
 
-#: A 31-letter line: 2^31 variants, past the int32 block index (the
-#: reference takes its per-launch pipeline there, ROADMAP item 6).
-HUGE_WORD = b"qwertyuiop" * 3 + b"a"
-
-
 @pytest.mark.parametrize("case,reason", [
-    ("huge-word", "int32-safe"), ("huge-word-suball", "int32-safe"),
     ("schema-groups", "emission groups"),
     ("schema-groups-suball", "emission groups"),
-    ("superstep-off", "superstep"),
 ])
 def test_unported_plans_raise_before_any_launch(case, reason, monkeypatch):
     """What this package still refuses raises before any launch — in
-    default and substitute-all mode: a word past the int32 block index,
-    a piece schema the kernel's descriptor table cannot hold, and the
-    unported per-launch pipeline.  (Plans the reference sends to its XLA
-    expand + hash route run there: ``test_torch_xla_sweep.py``.)"""
+    default and substitute-all mode: a piece schema the kernel's
+    descriptor table cannot hold.  (Plans the reference sends to its XLA
+    expand + hash route run there: ``test_torch_xla_sweep.py``; words of
+    2^30 rows or more and ``superstep=0`` run the per-launch pipeline:
+    ``test_torch_perlaunch.py``.)"""
     words = [b"password", b"sesame"]
     sub, spec, cfg = SUB, AttackSpec(), SweepConfig(device="cpu",
                                                     **GEOMETRY)
-    if case.startswith("huge-word"):
-        words = words + [HUGE_WORD]
-        if case.endswith("suball"):
-            # 15 patterns of 3 options each: 4^15 = 2^30 variants.
-            sub = {bytes([c]): [b"1", b"2", b"3"] for c in b"qwertyuiopasdfg"}
-            words = [b"password", b"qwertyuiopasdfg"]
-    elif case.startswith("schema-groups"):
-        monkeypatch.setattr(fe, "MAX_GROUPS", 2)
-    elif case == "superstep-off":
-        cfg = SweepConfig(device="cpu", superstep=0, **GEOMETRY)
+    monkeypatch.setattr(fe, "MAX_GROUPS", 2)
     if case.endswith("suball"):
         spec = AttackSpec(mode="suball")
     launches = dict(fe.LAUNCHES)
@@ -211,23 +197,21 @@ def test_unported_plans_raise_before_any_launch(case, reason, monkeypatch):
 
 
 @pytest.mark.parametrize("case,reason", [
-    ("many-slots", "int32-safe"), ("schema-groups", "emission groups"),
+    ("schema-groups", "emission groups"),
 ])
 def test_bucketed_cli_refuses_before_any_bucket_launches(
     case, reason, contract, tmp_path, capsys, monkeypatch
 ):
     """The short buckets hold planted hits and sort first, but a wide
-    bucket this package refuses (a 40-letter line: 2^40 variants, past
-    the int32 block index; a schema past the piece kernel's descriptor
-    table) refuses the whole run up front."""
+    bucket this package refuses (a schema past the piece kernel's
+    descriptor table) refuses the whole run up front.  (A 40-letter line,
+    2^40 variants, is no longer refused: it runs the per-launch pipeline,
+    ``test_torch_perlaunch.py``.)"""
     words, _planted, digests = contract
     tables = ["-t", str(tmp_path / "t.table")]
     emit_table(get_layout("qwerty-cyrillic"), tables[1])
-    if case == "many-slots":
-        long_line = b"qwertyuiop" * 4  # 40 substitutable letters
-    else:
-        long_line = b"qwertyuiop" * 2  # 20 letters: the 32-wide bucket
-        monkeypatch.setattr(fe, "MAX_GROUPS", 10)
+    long_line = b"qwertyuiop" * 2  # 20 letters: the 32-wide bucket
+    monkeypatch.setattr(fe, "MAX_GROUPS", 10)
     (tmp_path / "words.txt").write_bytes(
         b"\n".join(words + [long_line]) + b"\n"
     )
@@ -247,22 +231,18 @@ def test_bucketed_cli_refuses_before_any_bucket_launches(
 
 
 @pytest.mark.parametrize("case,reason", [
-    ("31-letter-line", "int32-safe"),
     ("schema-selectors", "selector columns"),
 ])
 def test_cli_refuses_off_kernel_plans_before_any_launch(
         case, reason, contract, tmp_path, capsys, monkeypatch):
-    """A plan this package refuses exits 2 with empty stdout: a 31-letter
-    line (2^31 variants: the int32 block index), and a piece schema with
-    more selector columns per group than the kernel's descriptor holds
-    (``MAX_SEL`` lowered to 0 here).  (The 25-letter line and the
-    11-column windowed plan this test refused before now take the XLA
-    route: ``test_torch_xla_sweep.py``.)"""
+    """A plan this package refuses exits 2 with empty stdout: a piece
+    schema with more selector columns per group than the kernel's
+    descriptor holds (``MAX_SEL`` lowered to 0 here).  (The 25-letter
+    line and the 11-column windowed plan this test refused before now
+    take the XLA route: ``test_torch_xla_sweep.py``; the 31-letter line,
+    the per-launch pipeline: ``test_torch_perlaunch.py``.)"""
     words, _planted, digests = contract
-    if case == "31-letter-line":
-        words = words + [HUGE_WORD]
-    else:
-        monkeypatch.setattr(fe, "MAX_SEL", 0)
+    monkeypatch.setattr(fe, "MAX_SEL", 0)
     (tmp_path / "words.txt").write_bytes(b"\n".join(words) + b"\n")
     (tmp_path / "left.txt").write_text(
         "".join(d.hex() + "\n" for d in digests))
