@@ -25,9 +25,14 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    7-9) in every tier x hash, with 2- and 3-block batches, and both tiers
    on one german plan; emit masks equal and state equal on every emitted
    lane, tolerance 0 (integer arithmetic), the windowed tier's CTA edges
-   too (blocks of count 0, 1 and the stride, a partial last CTA), and the
-   scalar K=1 and pair tiers' (the same, a CTA of count-0 blocks, a
-   window cut -m 2 -x 9, blocks of 4096 lanes cut into chunks); the
+   too (blocks of count 0, 1 and the stride, a partial last CTA), the
+   tile tiers' (the scalar and digit decodes at K=1 — match,
+   substitute-all and cascade-closed over qwerty-azerty and azerty-qwerty
+   — and the pair tier: the same, a CTA of count-0 blocks, a window cut
+   -m 2 -x 9, blocks of 4096 lanes cut into chunks), the digit decode at
+   the huge word's shape (15 keys of three options, its first launch cut
+   on the host), and the byte-scan kernels' (every tier x hash at the
+   CTA edges, the window cut and chunks on one tier of each row); the
    buffer hash (TPU row 10 and its siblings: ``buffer_hash`` x 4 hashes x
    1, 2, 3 and 5 blocks, each at an odd width (funnel-shifted loads) and a
    multiple of 4 (aligned loads), the main path's widths 376 and 432, at
@@ -77,7 +82,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    beside its bound, the compression floor this card measures (the
    buffer hash at width 0: one compression a row, nothing loaded) and
    its plain version's time, the windowed tier with its masked share and
-   CTA geometry; the buffer hash's main-path launches by row width;
+   CTA geometry, the digit decode also at the huge word's shape; the
+   buffer hash's main-path launches by row width;
    stage breakdowns of one launch (membership against the 1M-digest
    sets), a closed substitute-all
    launch among them, and the masked-row share of the czech run; the
@@ -442,17 +448,19 @@ def plan_for(key, sub, words, spec, width=None):
 
 class Case:
     """One kernel input at a given shape: blocks cut on the device from a
-    real plan's index, with the plan's decode tier."""
+    real plan's index, with the plan's decode tier — or, for a plan with a
+    word of 2^30 rows or more (no device index), the per-launch pipeline's
+    first launch, its blocks cut on the host."""
 
     def __init__(self, name, workload, words, sub, *, algo="md5", mx=15,
                  pair=False, lanes=None, stride=STRIDE, width=None,
                  mode="default", mn=0, device):
         from hashcat_a5_table_generator_tpu_torch.models.attack import (
-            AttackSpec, cut_blocks, device_arrays,
+            AttackSpec, cut_blocks, device_arrays, host_blocks,
         )
         from hashcat_a5_table_generator_tpu_torch.ops import fused_expand
         from hashcat_a5_table_generator_tpu_torch.ops.blocks import (
-            superstep_index,
+            make_blocks, superstep_index,
         )
         from hashcat_a5_table_generator_tpu_torch.ops.membership import (
             build_digest_set,
@@ -480,8 +488,16 @@ class Case:
                                     build_digest_set([], algo), idx,
                                     device=device)
         nb = (lanes or LANES) // stride
-        self.blocks = cut_blocks(self.arrays, 0, nb, rank_stride,
-                                 self.decode)[:3]
+        if idx is None:
+            batch, _w, _r = make_blocks(self.plan, max_variants=nb * stride,
+                                        max_blocks=nb,
+                                        fixed_stride=rank_stride)
+            self.blocks = host_blocks(
+                batch, nb, self.decode,
+                fused_expand.scalar_units_weight(self.plan), device=device)
+        else:
+            self.blocks = cut_blocks(self.arrays, 0, nb, rank_stride,
+                                     self.decode)[:3]
         self.hash_blocks = fused_expand._hash_blocks_for(
             self.plan.out_width, 2 if algo == "ntlm" else 1)
         self.kw = dict(
@@ -540,8 +556,9 @@ class Case:
         against each input byte read once and each output byte written
         once over HBM bandwidth: an emit byte per row, and state words
         per row — on the windowed tier only per live row (rank < count),
-        on the scalar K=1 and pair tiers only per emitted row, as their
-        contract leaves the state of dead rows undefined."""
+        on the tile tiers (the scalar and digit decodes at K=1, the pair
+        tier) only per emitted row, as their contract leaves the state of
+        dead rows undefined."""
         import torch
 
         from hashcat_a5_table_generator_tpu_torch.ops import fused_expand
@@ -560,7 +577,7 @@ class Case:
         if self.decode == "windowed":
             state_rows = int(torch.clamp(self.blocks[1], 0,
                                          self.stride).sum())
-        elif self.pair or self.decode == "scalar":
+        else:
             state_rows = int(emit.sum())
         nbytes = (8 * nb + self.blocks[2].numel() * 4
                   + int(words.numel()) * row_bytes
@@ -645,7 +662,7 @@ class BSCase:
 
     def __init__(self, name, workload, words, sub, *, algo="md5", mx=15,
                  lanes=None, stride=STRIDE, width=None, mode="default",
-                 device):
+                 mn=0, device):
         from hashcat_a5_table_generator_tpu_torch.models.attack import (
             AttackSpec, cut_blocks, device_arrays,
         )
@@ -659,9 +676,10 @@ class BSCase:
         )
 
         self.name, self.algo, self.pair, self.stride = name, algo, False, stride
-        self.spec = AttackSpec(mode=mode, algo=algo, max_substitute=mx)
+        self.spec = AttackSpec(mode=mode, algo=algo, min_substitute=mn,
+                               max_substitute=mx)
         self.plan, self.ct, _pieces = plan_for(
-            (workload, mode, 0, mx), sub, words, self.spec, width)
+            (workload, mode, mn, mx), sub, words, self.spec, width)
         if fused_expand.opts_for(self.spec, self.plan, self.ct) is None:
             fail(f"{name}: the plan takes the XLA route")
         self.tier = bytescan.bytescan_tier(self.plan)
@@ -708,7 +726,8 @@ class BSCase:
         """Least time for this input: one compression per emitted
         candidate over the INT32 peak, against each input byte read once
         (the block fields and the rows of the words the blocks touch) and
-        each output byte written once over HBM bandwidth."""
+        each output byte written once over HBM bandwidth: an emit byte per
+        row, state words per emitted row (dead rows get none)."""
         import torch
 
         from hashcat_a5_table_generator_tpu_torch.ops import bytescan
@@ -722,7 +741,7 @@ class BSCase:
         rows = int(emit.shape[0])
         nbytes = (8 * nb + self.blocks[2].numel() * 4
                   + int(words.numel()) * row_bytes
-                  + (4 * STATE_WORDS[self.algo] + 1) * rows)
+                  + rows + 4 * STATE_WORDS[self.algo] * int(emit.sum()))
         t_ops, t_bytes = ops / peak_ops, nbytes / HBM_BYTES_PER_S
         return (max(t_ops, t_bytes) * 1e3,
                 "operations" if t_ops >= t_bytes else "bytes")
@@ -1797,10 +1816,10 @@ def ptxas_kernels(report: str) -> list:
     """``(kernel, "R registers, S B stack, spill X/Y B, M B smem")`` per
     entry of an ``-Xptxas -v`` report; the kernel named by its template
     arguments after the hash (bytescan_kernel: ROW, VAR, DECODE, CLOSED,
-    HB; piece_kernel: KIND, DECODE, HB, CLOSED; piece_windowed_kernel:
-    KIND, HB, CLOSED, PACK; buffer_hash_kernel: MODE).  Static shared
-    memory only: the windowed and buffer-hash kernels size theirs at
-    launch (:func:`win_smem`, :func:`bh_smem`)."""
+    HB; piece_tile_kernel: KIND, DECODE, HB, PAIR, CLOSED;
+    piece_windowed_kernel: KIND, HB, CLOSED, PACK; buffer_hash_kernel:
+    MODE).  Static shared memory only: every kernel but the buffer hash's
+    sizes its own at launch."""
     out, name, frame = [], None, ""
     for line in report.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -1830,6 +1849,13 @@ HUGE_KEYS = b"bcdfghjklmnpqrs"
 HUGE_PLANTS = 10
 
 
+def huge_table() -> dict:
+    """The huge word's table: each of its 15 letters a key of three
+    options (the capital, the capital twice, ``_`` and the letter)."""
+    return {bytes([k]): [bytes([k - 32]), bytes([k - 32]) * 2,
+                         b"_" + bytes([k])] for k in HUGE_KEYS}
+
+
 def huge_word_run(work: str, card: str, min_rows: int = 1 << 30) -> dict:
     """One word of 2^30 rows on the piece route, through the CLI: the
     per-launch pipeline cuts its blocks on the host (Python-int cursors)
@@ -1853,8 +1879,7 @@ def huge_word_run(work: str, card: str, min_rows: int = 1 << 30) -> dict:
         HOST_DIGEST,
     )
 
-    sub = {bytes([k]): [bytes([k - 32]), bytes([k - 32]) * 2,
-                        b"_" + bytes([k])] for k in HUGE_KEYS}
+    sub = huge_table()
     table = os.path.join(work, "huge.table")
     with open(table, "wb") as fh:
         fh.write(b"".join(k + b"=" + v + b"\n" for k, vs in sub.items()
@@ -1971,9 +1996,14 @@ def main() -> None:
         f"in {time.monotonic() - t:.1f} s (nvcc "
         f"{' '.join(_native_build.NVCC_FLAGS)} -DPIECE_ALGO=n, all in "
         f"parallel)")
+    frames = []
     for lib in bh_libs + libs + bs_libs:
         for kernel, info in ptxas_kernels(reports[lib]):
             print(f"  ptxas [{lib}]: {kernel}: {info}")
+            if not info.split(", ")[1].startswith("0 B stack"):
+                frames.append(f"{lib} {kernel}")
+    log(f"instantiations with a stack frame: {len(frames)}"
+        + (f" ({'; '.join(frames)})" if frames else ""))
 
     cyr = get_layout("qwerty-cyrillic").to_substitution_map()
     czech = get_layout("czech").to_substitution_map()
@@ -2086,6 +2116,11 @@ def main() -> None:
             else ("czech-x2", czech_tail, czech, 2, False, "suball", 1))
         others[("pair:reverse", algo)] = ("cyr", head, cyr, 15, True,
                                          "reverse", 1)
+    # The digit decode at the huge word's own shape (15 keys of three
+    # options: 2^30 rows, radix 4 a slot), the first launch of its
+    # per-launch pipeline (blocks cut on the host); timed in phase 5.
+    others[("digits:huge", "md5")] = ("huge", [bytes(HUGE_KEYS)],
+                                      huge_table(), 15, False, "default", 1)
     want_hbs = {}
     for (label, algo), (wl, words, sub, mx, pair, mode, hb) in \
             others.items():
@@ -2127,6 +2162,39 @@ def main() -> None:
             tile_checks[f"chunks/{entry}/{algo}"] = compare(Case(
                 f"cyr x {algo}, stride 4096", "cyr", head, cyr, algo=algo,
                 pair=pair, stride=4096, device=dev))["mismatches"]
+    # The digit decode at K=1 on the tile tier: the CTA edges of its
+    # match and substitute-all workloads and of cascade-closed ones
+    # (qwerty-azerty's joint tables of up to 12 rows, azerty-qwerty's 6:
+    # "AQq" before each word, so words fill whole blocks), the window cut
+    # -m 2 -x 9 and blocks of 4096 lanes cut into chunks.
+    az_full = [b"AQq" + w for w in mid[:20000]]
+    for algo in ALGOS:
+        for entry in ("digits", "suball_digits"):
+            tile_checks[f"cta-edges/{entry}/{algo}"] = compare(tile_edges(
+                cases[(entry, algo)]))["mismatches"]
+        for label, wl, sub in (("cta-edges", "azerty-full", azerty),
+                               ("cta-edges-azq", "azq-full", azq)):
+            case = Case(f"{wl} x {algo} suball", wl, az_full, sub,
+                        algo=algo, mode="suball", device=dev)
+            if case.key != f"piece_suball_closed/{algo}":
+                fail(f"{case.name}: runs {case.key}")
+            tile_checks[f"{label}/suball_closed/{algo}"] = compare(
+                tile_edges(case))["mismatches"]
+        for entry, wl, words, sub, mode, width in (
+                ("digits", "czech", mid, czech, "default", 16),
+                ("suball_closed", "azerty-full", az_full, azerty, "suball",
+                 None)):
+            window = Case(f"{wl} -m 2 -x 9 x {algo} {mode}", wl, words, sub,
+                          algo=algo, mn=2, mx=9, mode=mode, width=width,
+                          device=dev)
+            chunks = Case(f"{wl} x {algo} {mode}, stride 4096", wl, words,
+                          sub, algo=algo, mode=mode, stride=4096,
+                          width=width, device=dev)
+            for label, case in (("window", window), ("chunks", chunks)):
+                if case.key != f"piece_{entry}/{algo}":
+                    fail(f"{case.name}: runs {case.key}")
+                tile_checks[f"{label}/{entry}/{algo}"] = compare(
+                    case)["mismatches"]
 
     # Byte-scan kernels (TPU rows 7-9): every tier x hash at main-path
     # shapes, on plans whose piece schema (if any) is left unused, as
@@ -2225,6 +2293,36 @@ def main() -> None:
                  f"{case.hash_blocks} hash blocks, expected {want}"
                  f"{f' with {want_hb}' if want_hb else ''}")
     bs_checks = {key: compare(case) for key, case in bs_cases.items()}
+    # The byte-scan CTAs' edges (tile_edges: a partial last CTA, counts 0
+    # and 1, 32 count-0 blocks) on every tier x hash; german's "sss" clash
+    # lanes among them (scalar-bitmask); the window cut -m 2 -x 9 and
+    # blocks of 4096 lanes cut into chunks on one tier of each row.
+    bs_edge_checks = {}
+    for (label, algo), (wl, words, sub, mx, mode) in bs_timed.items():
+        # Blocks of 16 lanes: every workload has full ones, and a CTA
+        # spans up to 32 blocks of several words.
+        case = BSCase(f"{wl} x {algo} {mode}, stride 16", wl, words, sub,
+                      algo=algo, mx=mx, mode=mode, stride=16,
+                      width=16 if wl == "czech" and mode == "default"
+                      else None, device=dev)
+        bs_edge_checks[f"cta-edges/{label}/{algo}"] = compare(
+            tile_edges(case))["mismatches"]
+    for algo in ALGOS:
+        for label, (wl, words, sub, mode, width) in {
+            "scalar-bitmask": ("german", gwords, german, "default", None),
+            "match-digits": ("czech", mid, czech, "default", 16),
+            "suball-closed": ("azerty", az_words, azerty, "suball", None),
+        }.items():
+            for geom, kw in (("window", dict(mn=2, mx=9)),
+                             ("chunks", dict(stride=4096))):
+                case = BSCase(f"{wl} x {algo} {mode}, {geom}", wl, words,
+                              sub, algo=algo, mode=mode, width=width,
+                              device=dev, **kw)
+                if (case.tier.row, case.tier.decode, case.tier.variant) \
+                        != bs_tiers[label]:
+                    fail(f"{case.name}: byte-scan tier {case.tier}")
+                bs_edge_checks[f"{geom}/{label}/{algo}"] = compare(
+                    case)["mismatches"]
     # One german plan, two tiers: words with "ss" but no "sss" have a
     # piece schema (the piece kernel by default) and take row 7 under
     # A5GEN_EMIT=bytescan; both kernels on the same blocks.
@@ -2545,6 +2643,25 @@ def main() -> None:
             f"{100 * bound_ms / ms:.0f}% of it reached); compression floor "
             f"{floor_ms:.4f} ms ({100 * floor_ms / ms:.0f}% of it reached); "
             f"plain {plain_ms:.3f} ms{geom}")
+        variants = {}
+        if (entry, algo) == ("digits", "md5"):
+            # The huge word's own shape, where this entry's main-path
+            # launches come from.
+            huge = cases[("digits:huge", "md5")]
+            h_emit = checks[("digits:huge", "md5")]["emit"]
+            h_ms = time_call(huge.kernel, 20)
+            h_plain = time_call(huge.plain, 2)
+            h_bound, h_by = huge.bound(h_emit, peak_ops)
+            h_masked = 1 - int(h_emit.sum()) / int(h_emit.shape[0])
+            log(f"{huge.key} [{huge.name}, its per-launch pipeline's first "
+                f"launch, {int(h_emit.shape[0])} rows]: {h_ms:.4f} "
+                f"ms/launch ({100 * h_masked:.1f}% masked); bound "
+                f"{h_bound:.4f} ms ({h_by}, {100 * h_bound / h_ms:.0f}% of "
+                f"it reached); plain {h_plain:.3f} ms")
+            variants["huge word"] = dict(
+                workload=huge.name, ms=h_ms, plain_ms=h_plain,
+                bound_ms=h_bound, bound_by=h_by, masked_share=h_masked,
+                mismatches=checks[("digits:huge", "md5")]["mismatches"])
         kernels.append({
             "name": case.key,
             "route": "cuda",
@@ -2568,6 +2685,7 @@ def main() -> None:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
+            **({"variants": variants} if variants else {}),
         })
     stage_breakdown(cases[("pair", "md5")], paths["cyrillic-md5"].digest_set,
                     2)
@@ -2631,9 +2749,12 @@ def main() -> None:
                              if a == algo and lb != label
                              and bs_tiers[lb][0] == row},
                 "other_cases_mismatches": {
-                    f"{lb}/{a}": bs_checks[(lb, a)]["mismatches"]
-                    for (lb, a) in bs_multi
-                    if a == algo and bs_tiers[tier_of(lb)[0]][0] == row},
+                    **{f"{lb}/{a}": bs_checks[(lb, a)]["mismatches"]
+                       for (lb, a) in bs_multi
+                       if a == algo and bs_tiers[tier_of(lb)[0]][0] == row},
+                    **{k: v for k, v in bs_edge_checks.items()
+                       if k.endswith(f"/{algo}")
+                       and bs_tiers[k.split("/")[1]][0] == row}},
                 "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],

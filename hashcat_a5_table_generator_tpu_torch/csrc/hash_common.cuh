@@ -1,6 +1,8 @@
 // Shared device code of the hash kernels in this directory: the MD5, MD4
-// and SHA-1 compressions, the per-slot digit decodes, message placement,
-// the length words with the per-lane padding-block select, and the state
+// and SHA-1 compressions, the per-slot digit decodes (mixed radix by
+// multiply-high, the windowed DP walk) and the cascade closure's joint
+// index, the in-order message appender over shared-memory slabs, the
+// length words with the per-lane padding-block select, and the state
 // store.  Included by piece_hash.cu (the per-slot piece kernels),
 // bytescan_hash.cu (the byte-scan kernels) and buffer_hash.cu (the
 // buffer hash); every function is
@@ -241,22 +243,62 @@ __device__ __forceinline__ void compress(uint32_t* st, const uint32_t* m) {
 // Decode
 // ---------------------------------------------------------------------------
 
-// Mixed-radix digits of `r` added to the block's base digits with carry
-// (slot 0 least significant); exact integer division — in-block ranks are
-// below the block stride.
-__device__ __forceinline__ void decode_digits(int* dg, int r,
-                                              const int32_t* base,
-                                              const int32_t* radix, int m) {
+// One slot's row of the digit decode, staged once a word: x = the radix
+// d, and the reciprocal y and shift z that divide an in-block rank by it
+// (rank_div).  A power of two (1 included) divides by a shift alone (y =
+// 0); any other d by y = ceil(2^(31+s) / d), s = ceil(log2 d), z = s - 1,
+// which is exact for ranks below 2^31: y * d - 2^(31+s) < d <= 2^s.
+__device__ __forceinline__ int4 radix_row(int d) {
+    d = d > 1 ? d : 1;
+    int s = 0;
+    while ((1u << s) < (uint32_t)d) ++s;
+    if ((d & (d - 1)) == 0) return make_int4(d, 0, s, 0);
+    const uint64_t y = ((1ull << (31 + s)) + (uint64_t)d - 1u) / (uint64_t)d;
+    return make_int4(d, (int)(uint32_t)y, s - 1, 0);
+}
+
+// n / d for 0 <= n < 2^31, from d's radix_row.
+__device__ __forceinline__ int rank_div(int n, const int4& rr) {
+    const uint32_t q = rr.y ? __umulhi((uint32_t)n, (uint32_t)rr.y)
+                            : (uint32_t)n;
+    return (int)(q >> rr.z);
+}
+
+// Mixed-radix digits of the in-block rank `r` added to the block's base
+// digits with carry (slot 0 least significant), each slot's divide a
+// multiply-high or a shift (radix_row); each digit goes to `put(s, d)`.
+template <class Put>
+__device__ __forceinline__ void digits_walk(int r, const int32_t* base,
+                                            const int4* rows, int m,
+                                            Put&& put) {
     int carry = 0;
     for (int s = 0; s < m; ++s) {
-        const int rs = radix[s];
-        const int q = r / rs;
-        const int t = base[s] + (r - q * rs) + carry;
-        const int ge = t >= rs ? 1 : 0;
-        dg[s] = t - ge * rs;
+        const int4 rr = rows[s];
+        const int q = rank_div(r, rr);
+        const int v = base[s] + (r - q * rr.x) + carry;
+        const int ge = v >= rr.x ? 1 : 0;
+        put(s, v - ge * rr.x);
         carry = ge;
         r = q;
     }
+}
+
+// The joint closure index of slot q chosen with digit d >= 1 (the
+// cascade closure of substitute-all plans): (d - 1) * mul[0] + sum_i
+// dg[nxt[i]] * mul[1 + i] over its successor slots later than q (`nxt`:
+// the slot's `close_s` successors, -1 none; `mul`: its close_s + 1
+// multipliers).
+template <class Dig>
+__device__ __forceinline__ int closure_index(int q, int d, Dig dg, int m,
+                                             const int32_t* nxt,
+                                             const int32_t* mul,
+                                             int close_s) {
+    int k = (d - 1) * mul[0];
+    for (int i = 0; i < close_s; ++i) {
+        const int nt = nxt[i];
+        if (nt > q && nt < m) k += dg[nt] * mul[1 + i];
+    }
+    return k;
 }
 
 // The windowed rank `big_r` unranked through the suffix-count DP rows
@@ -296,27 +338,149 @@ __device__ __forceinline__ void windowed_walk(int big_r, const int32_t* v,
     }
 }
 
-__device__ __forceinline__ void decode_windowed(int* dg, int big_r,
-                                                const int32_t* v,
-                                                const int32_t* radix, int m,
-                                                int k2, int k_opts) {
-    windowed_walk(big_r, v, radix, m, k2, k_opts,
-                  [&](int s, int d) { dg[s] = d; });
-}
-
 // ---------------------------------------------------------------------------
 // Message placement, length words, compression chain, state store
 // ---------------------------------------------------------------------------
 
-// OR one piece word into the message at byte offset `o`: a (lo, hi) pair
-// straddling words o/4 and o/4 + 1.  Words past the data area (the last
-// block's length words) are never written.
-template <int NW_DATA>
-__device__ __forceinline__ void place(uint32_t* m, int o, uint32_t wd) {
-    const int q = o >> 2;
-    const int sh = (o & 3) * 8;
-    if (q < NW_DATA) m[q] |= wd << sh;
-    if (sh != 0 && q + 1 < NW_DATA) m[q + 1] |= wd >> (32 - sh);
+// Word j of a per-thread array kept in a shared-memory slab laid out
+// [word][thread] (`n` threads): neighbouring threads touch neighbouring
+// banks, and the array stays out of local memory though it is indexed by
+// data-dependent offsets.
+template <class T>
+struct Slab {
+    T* p;
+    int n;
+    __device__ __forceinline__ T& operator[](int j) const { return p[j * n]; }
+};
+
+// One message being written in order: the pending bits `lo` (`nb` of
+// them, the bits above zero), the next word and the byte offset.
+struct MsgState {
+    uint32_t lo;
+    int nb, widx, off;
+};
+
+// Append the `nbytes` low bytes of `x` (its bytes above them zero) to a
+// message: each word that fills is stored once, past the data area
+// dropped.
+template <int NW_DATA, class Msg>
+__device__ __forceinline__ void tile_put(Msg m, MsgState& st, uint32_t x,
+                                         int nbytes) {
+    const uint32_t hi = __funnelshift_l(x, 0u, st.nb);  // x >> (32 - nb)
+    st.lo |= x << st.nb;
+    st.nb += 8 * nbytes;
+    if (st.nb >= 32) {
+        if (st.widx < NW_DATA) m[st.widx] = st.lo;
+        ++st.widx;
+        st.lo = hi;
+        st.nb -= 32;
+    }
+}
+
+// Store a message's pending bits (the end of its data); returns the
+// words it spans within the data area.
+template <int NW_DATA, class Msg>
+__device__ __forceinline__ int tile_end(Msg m, MsgState& st) {
+    if (st.nb > 0 || st.lo != 0u) {
+        if (st.widx < NW_DATA) m[st.widx] = st.lo;
+        ++st.widx;
+    }
+    return st.widx < NW_DATA ? st.widx : NW_DATA;
+}
+
+// Rows of one table for the CTA's `nu` distinct words (`uw`), `len` words
+// each, into field `off` of their records.
+__device__ __forceinline__ void stage_rows(int32_t* recs, int rec, int off,
+                                           const int32_t* src, int len,
+                                           const int32_t* uw, int nu) {
+    if (len <= 0 || src == nullptr) return;
+    const int nt = blockDim.x;
+    int u = threadIdx.x / len, j = threadIdx.x - u * len;
+    while (u < nu) {
+        recs[u * rec + off + j] = src[(size_t)uw[u] * len + j];
+        j += nt;
+        while (j >= len) {
+            j -= len;
+            ++u;
+        }
+    }
+}
+
+// How a launch's blocks are cut into CTAs (plain C++: the host launches
+// and the host test builds call it): `g` whole blocks a CTA, as many as
+// `lmax` lanes and `fit` staged word records allow (at most `gmax`); or,
+// when a block's stride is wider than lmax, `c` chunks of `lc` lanes of
+// one block.  `shift`: log2 of a power-of-two stride of whole blocks (a
+// lane's block is then a shift), else -1.
+struct TileCut {
+    int g, c, lc, shift;
+};
+
+static inline TileCut tile_cut(int stride, int fit, int gmax, int lmax) {
+    TileCut k;
+    fit = fit < 1 ? 1 : (fit < gmax ? fit : gmax);
+    if (stride <= lmax) {
+        const int per = lmax / (stride > 0 ? stride : 1);
+        k.g = per < fit ? per : fit;
+        k.c = 1;
+        k.lc = stride;
+    } else {
+        k.g = 1;
+        k.c = (stride + lmax - 1) / lmax;
+        k.lc = (stride + k.c - 1) / k.c;
+    }
+    k.shift = -1;
+    for (int s = 0; k.c == 1 && s < 31; ++s) {
+        if (stride == 1 << s) k.shift = s;
+    }
+    return k;
+}
+
+// A tile CTA's phase 1, run by one thread: numbers the distinct words of
+// its G blocks (`bw`, -1 past the launch) into `bs` (each block's slot)
+// and `bu` (each slot's word), and takes the prefix `bp[0..G]` of the
+// lanes each block has below its count (`lanes(i)`) inside the CTA's
+// lanes [lane0, lane1).  Returns the number of distinct words.
+template <class Lanes>
+__device__ __forceinline__ int tile_words(const int32_t* bw, Lanes&& lanes,
+                                          int32_t* bs, int32_t* bu,
+                                          int32_t* bp, int G, int lane0,
+                                          int lane1) {
+    int u = -1, pre = 0;
+    for (int i = 0; i < G; ++i) {
+        if (bw[i] >= 0 && (u < 0 || bw[i] != bu[u])) bu[++u] = bw[i];
+        bs[i] = u < 0 ? 0 : u;
+        bp[i] = pre;
+        pre += max(min(lanes(i), lane1) - lane0, 0);
+    }
+    bp[G] = pre;
+    return u + 1;
+}
+
+// The block of prefix index `i`: the last block whose prefix is <= i.
+__device__ __forceinline__ int tile_block(const int32_t* bp, int G, int i) {
+    int lo = 0, hi = G;
+    while (hi - lo > 1) {
+        const int mid = (lo + hi) >> 1;
+        if (bp[mid] <= i) lo = mid; else hi = mid;
+    }
+    return lo;
+}
+
+// Pack the live lanes of a warp into `list` (the CTA's live-lane list):
+// one shared atomic a warp on `*n`, each live thread's place from the popc
+// of the live lanes below it.  Every thread of the warp calls it.
+__device__ __forceinline__ void pack_live(bool live, int entry, int* n,
+                                          int32_t* list) {
+    const unsigned mask = __ballot_sync(0xFFFFFFFFu, live);
+    if (mask != 0u) {
+        const int lane = threadIdx.x & 31;
+        const int leader = __ffs(mask) - 1;
+        int at = 0;
+        if (lane == leader) at = atomicAdd(n, __popc(mask));
+        at = __shfl_sync(0xFFFFFFFFu, at, leader);
+        if (live) list[at + __popc(mask & ((1u << lane) - 1u))] = entry;
+    }
 }
 
 // Length words + chained compressions up to the lane's own padding block.
@@ -360,4 +524,19 @@ __device__ __forceinline__ void store_state(int32_t* state, long long row,
 #pragma unroll
         for (int i = 0; i < W; ++i) state[row * W + i] = (int32_t)st[i];
     }
+}
+
+// Compress a slab's message of `end` bytes (NTLM: twice the candidate's)
+// and store the state at `row`.  The slab's words past the message's end
+// must be zero; those past the data area are never read.
+template <int ALGO, int HB>
+__device__ __forceinline__ void hash_slab(const Slab<uint32_t>& msg, int end,
+                                          int32_t* state, long long row) {
+    constexpr int NW_DATA = 16 * HB - 2;
+    uint32_t mr[16 * HB];
+#pragma unroll
+    for (int j = 0; j < 16 * HB; ++j) mr[j] = j < NW_DATA ? msg[j] : 0u;
+    uint32_t st[Hash<ALGO>::WORDS];
+    hash_message<ALGO, HB>(mr, end, st);
+    store_state<ALGO>(state, row, st);
 }

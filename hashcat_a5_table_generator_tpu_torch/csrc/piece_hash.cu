@@ -73,24 +73,24 @@
 // ~608 for SHA-1 (chip_smoke.py derives the counts), against 17-21 output
 // bytes and a few table words read through L1/L2, so every instantiation
 // sits far on the operations side of the roofline.  Around the
-// compression each candidate pays its decode (an integer divide per slot
+// compression each candidate pays its decode (a multiply-high per slot
 // for the digits, the DP walk for the windowed tier) and its splice (per
 // group: the descriptor, the variant index, the table word, the append),
 // and those instructions, not the bytes, are what keep a launch above its
 // bound.
 //
-// What this design does about it: pieces appended in order (`append`:
-// one store per message word, no read-modify-write); rotates as funnel
-// shifts, round functions in their 3-input forms.  The scalar K=1 and
-// pair tiers (piece_tile_kernel) and the count-windowed tier
-// (piece_windowed_kernel) compute live lanes only, packed into full
-// warps, stage their words' tables in shared memory once a CTA and keep
-// the message (and digits) there, out of local memory; the scalar tiers
+// What this design does about it: pieces appended in order (`append`,
+// `tile_put`: one store per message word, no read-modify-write); rotates
+// as funnel shifts, round functions in their 3-input forms.  Every tier
+// computes live lanes only, packed into full warps, stages its words'
+// tables in shared memory once a CTA and keeps the message (and digits)
+// there, out of local memory: piece_tile_kernel for the scalar and digit
+// decodes at K=1 (the closure included) and the pair tier,
+// piece_windowed_kernel for the count-windowed decode.  The scalar tiers
 // also merge neighbouring bit-field groups into one (fewer splice steps a
-// candidate), and the pair tier splices both candidates in one walk.  The
-// digit decode at K=1 (piece_kernel) runs one thread per lane over the
-// resident tables (by word index, no per-launch gather), its message and
-// digit vector in local memory (`-Xptxas -v` reports the stack frame).
+// candidate), the pair tier splices both candidates in one walk, and the
+// digit decode divides by a staged reciprocal (radix_row) instead of a
+// runtime divide.
 //
 // Shifts by 32 are undefined in C++ and CUDA: placement shifts only by
 // 8..24 when the spill word is written, and the scalar selectors test the
@@ -123,26 +123,6 @@
 #define D_TAB 11        // row of gw / gw16
 #define D_GL 12         // row of gl (dynamic-length groups)
 #define D_TERM 13       // the group carries the 0x80 terminator
-
-// Word j of a per-thread array kept in a shared-memory slab laid out
-// [word][thread] (`n` threads): neighbouring threads touch neighbouring
-// banks, and the array stays out of local memory though it is indexed by
-// data-dependent offsets.
-template <class T>
-struct Slab {
-    T* p;
-    int n;
-    __device__ __forceinline__ T& operator[](int j) const { return p[j * n]; }
-};
-
-template <class M>
-struct IsSlab {
-    static constexpr bool value = false;
-};
-template <class T>
-struct IsSlab<Slab<T>> {
-    static constexpr bool value = true;
-};
 
 struct PieceTables {
     const uint32_t* gw;    // [B, ngw, vm, nw]
@@ -181,17 +161,6 @@ struct SelRows {
     int m, close_s;
 };
 
-__device__ __forceinline__ SelRows sel_rows(const LaunchArgs& a, int w) {
-    SelRows r;
-    r.sel_bit = a.sel_bit ? a.sel_bit + (size_t)w * a.ncols : nullptr;
-    r.sel_slot = a.sel_slot ? a.sel_slot + (size_t)w * a.ncols : nullptr;
-    r.cnext = a.cnext ? a.cnext + (size_t)w * a.m * a.close_s : nullptr;
-    r.cmul = a.cmul ? a.cmul + (size_t)w * a.m * (a.close_s + 1) : nullptr;
-    r.m = a.m;
-    r.close_s = a.close_s;
-    return r;
-}
-
 // ---------------------------------------------------------------------------
 // Splice + hash
 // ---------------------------------------------------------------------------
@@ -199,21 +168,15 @@ __device__ __forceinline__ SelRows sel_rows(const LaunchArgs& a, int w) {
 // The variant a digit-decoded column selects (0 = the span's own bytes):
 // match plans, its slot's digit; suball plans, the digit of the pattern
 // slot that owns the occurrence — or, for a chosen slot of a closed plan,
-// 1 + its joint index (d - 1) * cmul[sl, 0] + sum_s d[cnext[sl, s]] *
-// cmul[sl, 1 + s] over its successor slots (always later slots).
+// 1 + its joint closure index (closure_index) over its successor slots.
 template <int KIND, bool CLOSED, class Dig>
 __device__ __forceinline__ int col_variant(int c, Dig dg, const SelRows& sr) {
     if (KIND == KIND_MATCH) return dg[c];
     const int sl = sr.sel_slot[c];
     const int d = (unsigned)sl < (unsigned)sr.m ? dg[sl] : 0;
     if (!CLOSED || d <= 0) return d;
-    const int* mul = sr.cmul + sl * (sr.close_s + 1);
-    int jc = (d - 1) * mul[0];
-    for (int i = 0; i < sr.close_s; ++i) {
-        const int nt = sr.cnext[sl * sr.close_s + i];
-        if (nt > sl && nt < sr.m) jc += dg[nt] * mul[1 + i];
-    }
-    return 1 + jc;
+    return 1 + closure_index(sl, d, dg, sr.m, sr.cnext + sl * sr.close_s,
+                             sr.cmul + sl * (sr.close_s + 1), sr.close_s);
 }
 
 // Append `cnt` bytes of `x` (its bytes past `cnt` must be zero or be
@@ -239,11 +202,10 @@ __device__ __forceinline__ void append(Msg m, uint64_t& acc, int& nacc,
 // bit sel_bit[c], 31 on padding columns, which no cb sets); otherwise they
 // come from the digit vector `dg` (one column: its variant clamped to the
 // group's rows; merged binary columns: their chosen bits).  `Msg` and
-// `Dig` are arrays or shared-memory slabs (Slab); `dg` is unused under CB.
-// Groups follow each other in emission order, so the bytes are appended
+// `Dig` are shared-memory slabs (Slab); `dg` is unused under CB.  Groups
+// follow each other in emission order, so the bytes are appended
 // (append): one store per message word, no read-modify-write.  Words
-// from `*nw` on are left alone for a slab (its reader zeroes them) and
-// zeroed for an array.
+// from `*nw` on are left alone (the reader zeroes them).
 template <int ALGO, int HB, int KIND, bool CB, bool CLOSED, class Msg,
           class Dig>
 __device__ __forceinline__ int build_message(Msg m, uint32_t cb, Dig dg,
@@ -251,7 +213,7 @@ __device__ __forceinline__ int build_message(Msg m, uint32_t cb, Dig dg,
                                              int ngroups,
                                              const PieceTables& t,
                                              const SelRows& sr,
-                                             int* nw = nullptr) {
+                                             int* nw) {
     constexpr int NW_DATA = 16 * HB - 2;
     uint64_t acc = 0u;
     int nacc = 0, widx = 0, off = 0;
@@ -324,21 +286,8 @@ __device__ __forceinline__ int build_message(Msg m, uint32_t cb, Dig dg,
         ++widx;
         acc >>= 32;
     }
-    widx = min(widx, NW_DATA);
-    if constexpr (!IsSlab<Msg>::value) {
-        for (int j = widx; j < 16 * HB; ++j) m[j] = 0u;
-    }
-    if (nw != nullptr) *nw = widx;
+    *nw = min(widx, NW_DATA);
     return off - 1;
-}
-
-
-__device__ __forceinline__ void load_desc(int* sdesc, const int* desc,
-                                          int ngroups) {
-    for (int i = threadIdx.x; i < ngroups * DESC_WIDTH; i += blockDim.x) {
-        sdesc[i] = desc[i];
-    }
-    __syncthreads();
 }
 
 
@@ -353,34 +302,6 @@ __device__ __forceinline__ void hash_lane(uint32_t* m, int len,
 
 __device__ __forceinline__ bool in_window(int cc, const LaunchArgs& a) {
     return cc >= a.min_sub && cc <= a.max_sub;
-}
-
-// ---------------------------------------------------------------------------
-// Kernels
-// ---------------------------------------------------------------------------
-
-// The digit decode (general tier), one candidate per thread: lane r of
-// block b is candidate rank r of the block, row b * stride + r.
-template <int ALGO, int KIND, int HB, bool CLOSED>
-__global__ void piece_kernel(LaunchArgs a, PieceTables t) {
-    __shared__ int sdesc[MAX_GROUPS * DESC_WIDTH];
-    load_desc(sdesc, a.desc, a.ngroups);
-    const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= (long long)a.nb * a.stride) return;
-    const int blk = (int)(lane / a.stride);
-    const int r = (int)(lane - (long long)blk * a.stride);
-    const int w = a.blk_word[blk];
-    const SelRows sr = sel_rows(a, w);
-    uint32_t m[16 * HB];
-    int dg[MAX_SLOTS];
-    decode_digits(dg, r, a.blk_base + (size_t)blk * a.m,
-                  a.radix + (size_t)w * a.m, a.m);
-    int cc = 0;
-    for (int s = 0; s < a.m; ++s) cc += dg[s] > 0 ? 1 : 0;
-    const int len = build_message<ALGO, HB, KIND, false, CLOSED>(
-        m, 0u, (const int*)dg, w, sdesc, a.ngroups, t, sr);
-    hash_lane<ALGO, HB>(m, len, a, lane);
-    a.emit[lane] = (r < a.blk_count[blk] && in_window(cc, a));
 }
 
 // ---------------------------------------------------------------------------
@@ -446,24 +367,6 @@ static inline WinGeom win_geometry(const LaunchArgs& a, const PieceTables& t,
     return g;
 }
 
-// Rows of one table for the CTA's `nu` distinct words (`uw`), `len` words
-// each, into field `off` of their records.
-__device__ __forceinline__ void stage_rows(int32_t* recs, int rec, int off,
-                                           const int32_t* src, int len,
-                                           const int32_t* uw, int nu) {
-    if (len <= 0 || src == nullptr) return;
-    const int nt = blockDim.x;
-    int u = threadIdx.x / len, j = threadIdx.x - u * len;
-    while (u < nu) {
-        recs[u * rec + off + j] = src[(size_t)uw[u] * len + j];
-        j += nt;
-        while (j >= len) {
-            j -= len;
-            ++u;
-        }
-    }
-}
-
 // One phase of a CTA of the windowed tier (see above).  PACK: the walk's
 // chosen bits feed the scalar selectors (no digit vector).
 template <int ALGO, int KIND, int HB, bool CLOSED, bool PACK>
@@ -490,15 +393,8 @@ __device__ __forceinline__ void win_phase(int phase, const LaunchArgs& a,
         }
     } else if (phase == 1) {
         if (tid == 0) {
-            int u = -1, pre = 0;
-            for (int i = 0; i < G; ++i) {
-                if (bw[i] >= 0 && (u < 0 || bw[i] != bu[u])) bu[++u] = bw[i];
-                bs[i] = u < 0 ? 0 : u;
-                bp[i] = pre;
-                pre += bc[i];
-            }
-            bp[G] = pre;
-            bp[G + 1] = u + 1;
+            bp[G + 1] = tile_words(bw, [&](int i) { return bc[i]; }, bs, bu,
+                                   bp, G, 0, a.stride);
         }
     } else if (phase == 2) {
         const int nu = bp[G + 1];
@@ -606,8 +502,9 @@ piece_windowed_kernel(LaunchArgs a, PieceTables t, WinGeom g) {
 }
 
 // ---------------------------------------------------------------------------
-// The scalar K=1 tier and the pair tier: live lanes only, word tables staged
-// per CTA, one splice walk for both pair candidates
+// The tile tiers — the scalar and digit decodes at K=1 and the pair tier:
+// live lanes only, word tables staged per CTA, one splice walk for both
+// pair candidates
 // ---------------------------------------------------------------------------
 //
 // A CTA owns a tile: G consecutive blocks, or, when a block's stride is
@@ -621,17 +518,19 @@ piece_windowed_kernel(LaunchArgs a, PieceTables t, WinGeom g) {
 //      pieces between them — into one group of at most 16 variants;
 //   1  one thread numbers the distinct words and takes the prefix of the
 //      lanes each block has below its count (pair: 2r < count);
-//   2  each distinct word's record — piece rows, selector row, radix, and
-//      each merged group's variants as 16 bytes (three words, the
-//      pieces' bytes concatenated, then the length) — is staged in shared
-//      memory once;
+//   2  each distinct word's record — the digit decode's slot rows (radix,
+//      reciprocal and shift: radix_row), piece rows, selector row, the
+//      closure's successor and multiplier rows, and each merged group's
+//      variants as 16 bytes (three words, the pieces' bytes concatenated,
+//      then the length) — is staged in shared memory once;
 //   3  the threads walk the tile's lanes (a power-of-two stride: block and
 //      rank by shift and mask; else the lanes below the counts, block by
-//      binary search over the prefix), decide from cb alone which are
-//      live (K=1: the window on popc(cb); pair: either candidate in it;
-//      digit decodes: every lane below the count) and pack the live ones
-//      into a list (warp ballot + popc prefix, one shared atomic a warp),
-//      writing emit 0 for the rest;
+//      binary search over the prefix), decide which are live (scalar
+//      decode: the window on popc(cb); digit decode: the window on the
+//      digits' chosen count, the digits decoded and dropped; pair: either
+//      candidate in it) and pack the live ones into a list (warp ballot +
+//      popc prefix, one shared atomic a warp), writing emit 0 for the
+//      rest;
 //   4  the threads stride over the packed list — full warps — each
 //      decoding, splicing and hashing its lane's candidate(s).
 // Dead rows get emit 0 and no state write (the reference's contract).  A
@@ -671,48 +570,41 @@ piece_windowed_kernel(LaunchArgs a, PieceTables t, WinGeom g) {
 
 struct TileGeom {
     int g, c, lc, nt, rec, bm, shift;
-    int r_radix, r_gw, r_g16, r_gl, r_sel, r_mrg;
+    int r_dec, r_gw, r_g16, r_gl, r_sel, r_cnext, r_cmul, r_mrg;
     int s_desc, s_mrg, s_blk, s_rec, s_list, s_msg, s_dig;
     int smem_bytes;
 };
 
 // Plain C++: the host launch and the host test build both call it.
 static inline TileGeom tile_geometry(const LaunchArgs& a, const PieceTables& t,
-                                     int kind, int decode, int nm, int hb,
-                                     int nt, int gmax, int lmax) {
+                                     int kind, int decode, bool closed,
+                                     int nm, int hb, int nt, int gmax,
+                                     int lmax) {
     TileGeom g;
     const bool digits = decode == DECODE_DIGITS;
     const bool merge = kind == KIND_MATCH && !digits;
     int o = 0;
-    g.r_radix = o;  o += digits ? a.m : 0;
+    // The digit decode's slot rows (radix_row: 16-byte loads) first.
+    g.r_dec = o;    o += digits ? 4 * a.m : 0;
     g.r_gw = o;     o += t.ngw * t.vm * t.nw;
     g.r_g16 = o;    o += t.ng16 * t.vm;
     g.r_gl = o;     o += t.ngd * t.vm;
     g.r_sel = o;    o += kind == KIND_SUBALL ? a.ncols : 0;
+    g.r_cnext = o;  o += closed ? a.m * a.close_s : 0;
+    g.r_cmul = o;   o += closed ? a.m * (a.close_s + 1) : 0;
     // Merged groups: three words and a length a variant (16-byte loads),
     // of at least two groups each.
     o = merge ? (o + 3) & ~3 : o;
     g.r_mrg = o;    o += merge ? a.ngroups / 2 * 4 * TILE_MERGE_VARIANTS : 0;
-    g.rec = o > 0 ? (merge ? (o + 3) & ~3 : o) : 1;
-    int fit = TILE_RECORD_BYTES / 4 / g.rec;
-    fit = fit < 1 ? 1 : (fit < gmax ? fit : gmax);
-    if (a.stride <= lmax) {
-        const int per = lmax / (a.stride > 0 ? a.stride : 1);
-        g.g = per < fit ? per : fit;
-        g.c = 1;
-        g.lc = a.stride;
-    } else {
-        g.g = 1;
-        g.c = (a.stride + lmax - 1) / lmax;
-        g.lc = (a.stride + g.c - 1) / g.c;
-    }
+    g.rec = o > 0 ? (merge || digits ? (o + 3) & ~3 : o) : 1;
+    const TileCut k = tile_cut(a.stride, TILE_RECORD_BYTES / 4 / g.rec, gmax,
+                               lmax);
+    g.g = k.g;
+    g.c = k.c;
+    g.lc = k.lc;
+    g.shift = k.shift;
     g.nt = nt;
     g.bm = digits ? a.m : 1;
-    // A power-of-two stride of whole blocks: a lane's block is a shift.
-    g.shift = -1;
-    for (int k = 0; g.c == 1 && k < 31; ++k) {
-        if (a.stride == 1 << k) g.shift = k;
-    }
     g.s_desc = 0;
     g.s_mrg = 4 * a.ngroups;
     g.s_blk = g.s_mrg + a.ngroups;
@@ -769,57 +661,6 @@ __device__ __forceinline__ void tile_piece(const int* d, const PieceTables& t,
         : t.gw[(((size_t)w * t.ngw + d[D_TAB]) * t.vm + v) * t.nw];
 }
 
-// The block of prefix index `i`: the last block whose prefix is <= i.
-__device__ __forceinline__ int tile_block(const int32_t* bp, int G, int i) {
-    int lo = 0, hi = G;
-    while (hi - lo > 1) {
-        const int mid = (lo + hi) >> 1;
-        if (bp[mid] <= i) lo = mid; else hi = mid;
-    }
-    return lo;
-}
-
-// Mixed-radix digits of `r` added to a block's base digits with carry, into
-// a slab (decode_digits, for digit vectors kept out of local memory).
-template <class Dig>
-__device__ __forceinline__ void tile_digits(Dig dg, int r, const int32_t* base,
-                                            const int32_t* radix, int m) {
-    int carry = 0;
-    for (int s = 0; s < m; ++s) {
-        const int rs = radix[s];
-        const int q = r / rs;
-        const int v = base[s] + (r - q * rs) + carry;
-        const int ge = v >= rs ? 1 : 0;
-        dg[s] = (uint8_t)(v - ge * rs);
-        carry = ge;
-        r = q;
-    }
-}
-
-// One message being written in order: the pending bits `lo` (`nb` of
-// them, the bits above zero), the next word and the byte offset.
-struct MsgState {
-    uint32_t lo;
-    int nb, widx, off;
-};
-
-// Append the `nbytes` low bytes of `x` (its bytes above them zero) to a
-// message: each word that fills is stored once, past the data area
-// dropped.
-template <int NW_DATA, class Msg>
-__device__ __forceinline__ void tile_put(Msg m, MsgState& st, uint32_t x,
-                                         int nbytes) {
-    const uint32_t hi = __funnelshift_l(x, 0u, st.nb);  // x >> (32 - nb)
-    st.lo |= x << st.nb;
-    st.nb += 8 * nbytes;
-    if (st.nb >= 32) {
-        if (st.widx < NW_DATA) m[st.widx] = st.lo;
-        ++st.widx;
-        st.lo = hi;
-        st.nb -= 32;
-    }
-}
-
 // Append a merged variant — up to 12 bytes in three words, the bytes past
 // `nbytes` zero — with funnel shifts: up to three stores.
 template <int NW_DATA, class Msg>
@@ -844,17 +685,21 @@ __device__ __forceinline__ void tile_put3(Msg m, MsgState& st, uint32_t w0,
 // walk over the packed descriptors `gd` (TileDesc): candidate 1 differs
 // from candidate 0 in slot 0 only (CB: bit 0 of cb set; digits: slot 0's
 // digit `d0p`).  `rec` is the lane's staged word record (rows at the
-// offsets the descriptors carry; the selector row at `sel`).  Writes
-// each candidate's length in bytes (terminator excluded) to `len` and
-// its message words to `nw`.
-template <int ALGO, int HB, int KIND, bool CB, int NM, class Dig,
-          bool MERGED = CB && KIND == KIND_MATCH>
+// offsets the descriptors carry; the selector row at `sel`).  CLOSED (one
+// candidate): a chosen slot's column variant is 1 + its joint closure
+// index over the record's successor rows `cnext` / `cmul` (closure_index).
+// Writes each candidate's length in bytes (terminator excluded) to `len`
+// and its message words to `nw`.
+template <int ALGO, int HB, int KIND, bool CB, int NM, bool CLOSED,
+          class Dig, bool MERGED = CB && KIND == KIND_MATCH>
 __device__ __forceinline__ void tile_splice(const Slab<uint32_t>* msg,
                                             uint32_t cb, Dig dg, int d0p,
                                             int m, const int4* gd, int ng,
                                             const int32_t* rec,
-                                            const int32_t* sel, int* len,
-                                            int* nw) {
+                                            const int32_t* sel,
+                                            const int32_t* cnext,
+                                            const int32_t* cmul, int close_s,
+                                            int* len, int* nw) {
     constexpr int NW_DATA = 16 * HB - 2;
     MsgState ms[NM];
 #pragma unroll
@@ -889,7 +734,13 @@ __device__ __forceinline__ void tile_splice(const Slab<uint32_t>* msg,
                         }
                     } else {
                         const int sl = KIND == KIND_MATCH ? c : sel[c];
-                        const int v = (unsigned)sl < (unsigned)m ? dg[sl] : 0;
+                        int v = (unsigned)sl < (unsigned)m ? dg[sl] : 0;
+                        if (CLOSED && v > 0) {
+                            v = 1 + closure_index(sl, v, dg, m,
+                                                  cnext + sl * close_s,
+                                                  cmul + sl * (close_s + 1),
+                                                  close_s);
+                        }
                         const int v1 = sl == 0 ? d0p : v;
                         if (nsel == 1) {
                             idx[0] = v;
@@ -989,35 +840,17 @@ __device__ __forceinline__ void tile_splice(const Slab<uint32_t>* msg,
     }
 #pragma unroll
     for (int p = 0; p < NM; ++p) {
-        MsgState& st = ms[p];
-        // The pending bytes end the data.
-        if (st.nb > 0 || st.lo != 0u) {
-            if (st.widx < NW_DATA) msg[p][st.widx] = st.lo;
-            ++st.widx;
-        }
-        nw[p] = min(st.widx, NW_DATA);
-        len[p] = st.off - 1;
+        nw[p] = tile_end<NW_DATA>(msg[p], ms[p]);  // the pending bytes
+        len[p] = ms[p].off - 1;
     }
 }
 
-// Compress a slab's message and store the state at `row` (the slab's
-// words past the data area are never written: zero).
-template <int ALGO, int HB>
-__device__ __forceinline__ void tile_hash(const Slab<uint32_t>& msg, int len,
-                                          const LaunchArgs& a,
-                                          long long row) {
-    constexpr int NW_DATA = 16 * HB - 2;
-    uint32_t mr[16 * HB];
-#pragma unroll
-    for (int j = 0; j < 16 * HB; ++j) mr[j] = j < NW_DATA ? msg[j] : 0u;
-    hash_lane<ALGO, HB>(mr, len, a, row);
-}
-
-// One phase of a CTA of the scalar K=1 or pair tier (see above).  PAIR:
-// lane r of block b owns candidate ranks 2r and 2r + 1 of a block of
-// 2 * stride ranks, rows b * 2 * stride + 2r + p; else lane r is rank r,
-// row b * stride + r.
-template <int ALGO, int KIND, int DECODE, int HB, bool PAIR>
+// One phase of a CTA of the tile tiers (see above).  PAIR: lane r of
+// block b owns candidate ranks 2r and 2r + 1 of a block of 2 * stride
+// ranks, rows b * 2 * stride + 2r + p; else lane r is rank r, row
+// b * stride + r.  CLOSED: the cascade closure (substitute-all digit
+// decode, K=1).
+template <int ALGO, int KIND, int DECODE, int HB, bool PAIR, bool CLOSED>
 __device__ __forceinline__ void tile_phase(int phase, const LaunchArgs& a,
                                            const PieceTables& t,
                                            const TileGeom& g, int32_t* s) {
@@ -1115,23 +948,20 @@ __device__ __forceinline__ void tile_phase(int phase, const LaunchArgs& a,
         }
     } else if (phase == 1) {
         if (tid == 0) {
-            int u = -1, pre = 0;
-            for (int i = 0; i < G; ++i) {
-                if (bw[i] >= 0 && (u < 0 || bw[i] != bu[u])) bu[++u] = bw[i];
-                bs[i] = u < 0 ? 0 : u;
-                bp[i] = pre;
-                const int live = PAIR ? (bc[i] + 1) >> 1 : bc[i];
-                pre += max(min(live, lane1) - lane0, 0);
-            }
-            bp[G] = pre;
-            misc[0] = u + 1;
+            misc[0] = tile_words(
+                bw, [&](int i) { return PAIR ? (bc[i] + 1) >> 1 : bc[i]; },
+                bs, bu, bp, G, lane0, lane1);
             misc[1] = 0;
         }
     } else if (phase == 2) {
         const int nu = misc[0];
         int32_t* recs = s + g.s_rec;
         if (DECODE == DECODE_DIGITS) {
-            stage_rows(recs, g.rec, g.r_radix, a.radix, a.m, bu, nu);
+            for (int k = tid; k < nu * a.m; k += nt) {
+                const int u = k / a.m, q = k - u * a.m;
+                reinterpret_cast<int4*>(recs + u * g.rec + g.r_dec)[q] =
+                    radix_row(a.radix[(size_t)bu[u] * a.m + q]);
+            }
         }
         stage_rows(recs, g.rec, g.r_gw,
                    reinterpret_cast<const int32_t*>(t.gw),
@@ -1141,6 +971,12 @@ __device__ __forceinline__ void tile_phase(int phase, const LaunchArgs& a,
         if (KIND == KIND_SUBALL) {
             stage_rows(recs, g.rec, g.r_sel, CB ? a.sel_bit : a.sel_slot,
                        a.ncols, bu, nu);
+        }
+        if (CLOSED) {
+            stage_rows(recs, g.rec, g.r_cnext, a.cnext, a.m * a.close_s, bu,
+                       nu);
+            stage_rows(recs, g.rec, g.r_cmul, a.cmul, a.m * (a.close_s + 1),
+                       bu, nu);
         }
         if (MERGE) {
             // Each merged variant: its groups' pieces' bytes in order
@@ -1220,6 +1056,24 @@ __device__ __forceinline__ void tile_phase(int phase, const LaunchArgs& a,
                     } else {
                         live = in_window(cc, a);
                     }
+                } else if (!CB && live) {
+                    // The digits' chosen count (and the pair partner's:
+                    // slot 0's digit + 1), not kept: the lane decodes
+                    // again if it is live.
+                    const int4* dec = reinterpret_cast<const int4*>(
+                        s + g.s_rec + bs[lo] * g.rec + g.r_dec);
+                    int cc = 0, d0 = 0;
+                    digits_walk(NM * r, bb + lo * g.bm, dec, a.m,
+                                [&](int q, int d) {
+                        cc += d > 0 ? 1 : 0;
+                        d0 = q == 0 ? d : d0;
+                    });
+                    live = in_window(cc, a);
+                    if (PAIR && a.m > 0 && 2 * r + 1 < bc[lo]) {
+                        const int d0p = min(d0 + 1, dec[0].x - 1);
+                        live = live || in_window(
+                            cc + (d0p > 0) - (d0 > 0), a);
+                    }
                 }
                 if (!live) {
                     const long long row = (long long)(blk0 + lo) * ranks
@@ -1228,17 +1082,7 @@ __device__ __forceinline__ void tile_phase(int phase, const LaunchArgs& a,
                     for (int p = 0; p < NM; ++p) a.emit[row + p] = 0;
                 }
             }
-            // Pack the live lanes: one shared atomic a warp, each live
-            // thread's place from the popc of the live lanes below it.
-            const unsigned mask = __ballot_sync(0xFFFFFFFFu, live);
-            if (mask != 0u) {
-                const int lane = tid & 31;
-                const int leader = __ffs(mask) - 1;
-                int at = 0;
-                if (lane == leader) at = atomicAdd(&misc[1], __popc(mask));
-                at = __shfl_sync(0xFFFFFFFFu, at, leader);
-                if (live) list[at + __popc(mask & ((1u << lane) - 1u))] = entry;
-            }
+            pack_live(live, entry, &misc[1], list);
         }
     } else {
         const int n = misc[1], nd = misc[2];
@@ -1274,45 +1118,44 @@ __device__ __forceinline__ void tile_phase(int phase, const LaunchArgs& a,
                 for (int p = 0; p < NM; ++p) {
                     e[p] = NM * r + p < count && in_window(cc + p, a);
                 }
-                tile_splice<ALGO, HB, KIND, true, NM>(
+                tile_splice<ALGO, HB, KIND, true, NM, false>(
                     msg, cb, (const int*)nullptr, 0, a.m, gd, nd, rec, sel,
-                    len, nw);
+                    nullptr, nullptr, 0, len, nw);
             } else {
-                const int32_t* radix = rec + g.r_radix;
-                tile_digits(dig, NM * r, bb + lo * g.bm, radix, a.m);
+                const int4* dec = reinterpret_cast<const int4*>(rec + g.r_dec);
                 int cc = 0;
-                for (int q = 0; q < a.m; ++q) cc += dig[q] > 0 ? 1 : 0;
+                digits_walk(NM * r, bb + lo * g.bm, dec, a.m,
+                            [&](int q, int d) {
+                    dig[q] = (uint8_t)d;
+                    cc += d > 0 ? 1 : 0;
+                });
                 const int d0 = a.m > 0 ? (int)dig[0] : 0;
-                const int d0p = a.m > 0 ? min(d0 + 1, radix[0] - 1) : 0;
+                const int d0p = a.m > 0 ? min(d0 + 1, dec[0].x - 1) : 0;
                 const int cc1 = cc + (d0p > 0 ? 1 : 0) - (d0 > 0 ? 1 : 0);
 #pragma unroll
                 for (int p = 0; p < NM; ++p) {
                     e[p] = NM * r + p < count && in_window(p ? cc1 : cc, a);
                 }
-                bool any = false;
-#pragma unroll
-                for (int p = 0; p < NM; ++p) any |= e[p];
-                if (!any) {
-#pragma unroll
-                    for (int p = 0; p < NM; ++p) a.emit[row + p] = 0;
-                    continue;
-                }
-                tile_splice<ALGO, HB, KIND, false, NM>(
-                    msg, 0u, dig, d0p, a.m, gd, nd, rec, sel, len, nw);
+                tile_splice<ALGO, HB, KIND, false, NM, CLOSED>(
+                    msg, 0u, dig, d0p, a.m, gd, nd, rec, sel,
+                    rec + g.r_cnext, rec + g.r_cmul, a.close_s, len, nw);
             }
 #pragma unroll
             for (int p = 0; p < NM; ++p) {
                 // Words past this message's end keep zero for the next.
                 for (int q = nw[p]; q < hw[p]; ++q) msg[p][q] = 0u;
                 hw[p] = nw[p];
-                if (e[p]) tile_hash<ALGO, HB>(msg[p], len[p], a, row + p);
+                if (e[p]) {
+                    hash_slab<ALGO, HB>(msg[p], len[p] * Hash<ALGO>::SCALE,
+                                        a.state, row + p);
+                }
                 a.emit[row + p] = e[p] ? 1 : 0;
             }
         }
     }
 }
 
-template <int ALGO, int KIND, int DECODE, int HB, bool PAIR>
+template <int ALGO, int KIND, int DECODE, int HB, bool PAIR, bool CLOSED>
 __global__ void __launch_bounds__(HB == 1 ? 256 : 128)
 piece_tile_kernel(LaunchArgs a, PieceTables t, TileGeom g) {
     DYN_SMEM(smem);
@@ -1320,7 +1163,7 @@ piece_tile_kernel(LaunchArgs a, PieceTables t, TileGeom g) {
 #pragma unroll
     for (int p = 0; p < TILE_PHASES; ++p) {
         if (p) __syncthreads();
-        tile_phase<ALGO, KIND, DECODE, HB, PAIR>(p, a, t, g, s);
+        tile_phase<ALGO, KIND, DECODE, HB, PAIR, CLOSED>(p, a, t, g, s);
     }
 }
 
@@ -1329,8 +1172,6 @@ piece_tile_kernel(LaunchArgs a, PieceTables t, TileGeom g) {
 #ifndef PIECE_ALGO
 #define PIECE_ALGO ALGO_MD5
 #endif
-
-static const int kThreads = 256;
 
 static int launch_checks(const LaunchArgs& a, int hash_blocks) {
     if (a.ngroups < 0 || a.ngroups > MAX_GROUPS) return 1;
@@ -1355,55 +1196,21 @@ static int kind_checks(const LaunchArgs& a, int kind, int decode, int closed) {
     return 0;
 }
 
-template <int KIND, int HB, bool CLOSED>
-static void launch_one(const LaunchArgs& a, const PieceTables& t,
-                       unsigned grid, cudaStream_t s) {
-    piece_kernel<PIECE_ALGO, KIND, HB, CLOSED><<<grid, kThreads, 0, s>>>(a, t);
-}
-
-template <int KIND, bool CLOSED>
-static void launch_hb(const LaunchArgs& a, const PieceTables& t,
-                      int hash_blocks, unsigned grid, cudaStream_t s) {
-    switch (hash_blocks) {
-        case 1: launch_one<KIND, 1, CLOSED>(a, t, grid, s); break;
-        case 2: launch_one<KIND, 2, CLOSED>(a, t, grid, s); break;
-        default: launch_one<KIND, 3, CLOSED>(a, t, grid, s); break;
-    }
-}
-
-// The digit decode, one thread a lane.
-static int launch_digits(const LaunchArgs& a, const PieceTables& t,
-                         int kind, int closed, int hash_blocks,
-                         void* stream) {
-    if (launch_checks(a, hash_blocks)
-        || kind_checks(a, kind, DECODE_DIGITS, closed)) {
-        return (int)cudaErrorInvalidValue;
-    }
-    const long long n = (long long)a.nb * a.stride;
-    if (n == 0) return (int)cudaSuccess;
-    const unsigned grid = (unsigned)((n + kThreads - 1) / kThreads);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (kind == KIND_MATCH) {
-        launch_hb<KIND_MATCH, false>(a, t, hash_blocks, grid, s);
-    } else if (closed) {
-        launch_hb<KIND_SUBALL, true>(a, t, hash_blocks, grid, s);
-    } else {
-        launch_hb<KIND_SUBALL, false>(a, t, hash_blocks, grid, s);
-    }
-    return (int)cudaGetLastError();
-}
-
-// The scalar K=1 and pair tiers (piece_tile_kernel): CTAs of TILE_LANES
-// lanes at most, 256 threads for one hash block, 128 for two or three.
-template <int KIND, int DECODE, int HB, bool PAIR>
+// The tile tiers (piece_tile_kernel): CTAs of TILE_LANES lanes at most,
+// 256 threads for one hash block, 128 for two or three.  The largest
+// record the route gate admits (64 token bytes, 24 slots of at most 8
+// options of at most 4 bytes, joint tables of 12 rows: ~5,300 words)
+// fits a CTA of one block (tests/test_torch_fused_expand.py pins it).
+template <int KIND, int DECODE, int HB, bool PAIR, bool CLOSED>
 static int launch_tile(const LaunchArgs& a, const PieceTables& t,
                        cudaStream_t s) {
     const int nt = HB == 1 ? 256 : 128;
-    const TileGeom g = tile_geometry(a, t, KIND, DECODE, PAIR ? 2 : 1, HB,
-                                     nt, TILE_MAX_G, TILE_LANES);
+    const TileGeom g = tile_geometry(a, t, KIND, DECODE, CLOSED,
+                                     PAIR ? 2 : 1, HB, nt, TILE_MAX_G,
+                                     TILE_LANES);
     // Record offsets ride 16-bit descriptor fields, columns 8-bit ones.
     if (g.rec > 0xFFFF || a.ncols > 0xFF) return (int)cudaErrorInvalidValue;
-    auto kern = piece_tile_kernel<PIECE_ALGO, KIND, DECODE, HB, PAIR>;
+    auto kern = piece_tile_kernel<PIECE_ALGO, KIND, DECODE, HB, PAIR, CLOSED>;
     if (g.smem_bytes > 48 * 1024) {
         const cudaError_t e = cudaFuncSetAttribute(
             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, g.smem_bytes);
@@ -1414,13 +1221,13 @@ static int launch_tile(const LaunchArgs& a, const PieceTables& t,
     return (int)cudaGetLastError();
 }
 
-template <int KIND>
+template <int KIND, int DECODE, bool CLOSED>
 static int launch_tile_hb(const LaunchArgs& a, const PieceTables& t,
                           int hash_blocks, cudaStream_t s) {
     switch (hash_blocks) {
-        case 1: return launch_tile<KIND, DECODE_SCALAR, 1, false>(a, t, s);
-        case 2: return launch_tile<KIND, DECODE_SCALAR, 2, false>(a, t, s);
-        default: return launch_tile<KIND, DECODE_SCALAR, 3, false>(a, t, s);
+        case 1: return launch_tile<KIND, DECODE, 1, false, CLOSED>(a, t, s);
+        case 2: return launch_tile<KIND, DECODE, 2, false, CLOSED>(a, t, s);
+        default: return launch_tile<KIND, DECODE, 3, false, CLOSED>(a, t, s);
     }
 }
 
@@ -1541,15 +1348,31 @@ int a5_piece_k1(PIECE_PARAMS) {
     if (a.nb == 0 || a.stride == 0) return (int)cudaSuccess;
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     return kind == KIND_MATCH
-        ? launch_tile_hb<KIND_MATCH>(a, t, hash_blocks, s)
-        : launch_tile_hb<KIND_SUBALL>(a, t, hash_blocks, s);
+        ? launch_tile_hb<KIND_MATCH, DECODE_SCALAR, false>(a, t, hash_blocks,
+                                                           s)
+        : launch_tile_hb<KIND_SUBALL, DECODE_SCALAR, false>(a, t,
+                                                            hash_blocks, s);
 }
 
-// K=1, digit decode (base digits [NB, M]), 1-3 hash blocks.
+// K=1, digit decode (base digits [NB, M]), the cascade closure when
+// `closed`, 1-3 hash blocks.
 int a5_piece_digits(PIECE_PARAMS) {
     PIECE_SETUP;
-    if (decode != DECODE_DIGITS) return (int)cudaErrorInvalidValue;
-    return launch_digits(a, t, kind, closed, hash_blocks, stream);
+    if (decode != DECODE_DIGITS || launch_checks(a, hash_blocks)
+        || kind_checks(a, kind, DECODE_DIGITS, closed)) {
+        return (int)cudaErrorInvalidValue;
+    }
+    if (a.nb == 0 || a.stride == 0) return (int)cudaSuccess;
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (kind == KIND_MATCH) {
+        return launch_tile_hb<KIND_MATCH, DECODE_DIGITS, false>(
+            a, t, hash_blocks, s);
+    }
+    return closed
+        ? launch_tile_hb<KIND_SUBALL, DECODE_DIGITS, true>(a, t, hash_blocks,
+                                                           s)
+        : launch_tile_hb<KIND_SUBALL, DECODE_DIGITS, false>(a, t,
+                                                            hash_blocks, s);
 }
 
 // K=1, windowed decode (scalar windowed rank [NB]), cb packing when
@@ -1589,12 +1412,12 @@ int a5_piece_pair(PIECE_PARAMS) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (kind == KIND_MATCH) {
         return decode == DECODE_SCALAR
-            ? launch_tile<KIND_MATCH, DECODE_SCALAR, 1, true>(a, t, s)
-            : launch_tile<KIND_MATCH, DECODE_DIGITS, 1, true>(a, t, s);
+            ? launch_tile<KIND_MATCH, DECODE_SCALAR, 1, true, false>(a, t, s)
+            : launch_tile<KIND_MATCH, DECODE_DIGITS, 1, true, false>(a, t, s);
     }
     return decode == DECODE_SCALAR
-        ? launch_tile<KIND_SUBALL, DECODE_SCALAR, 1, true>(a, t, s)
-        : launch_tile<KIND_SUBALL, DECODE_DIGITS, 1, true>(a, t, s);
+        ? launch_tile<KIND_SUBALL, DECODE_SCALAR, 1, true, false>(a, t, s)
+        : launch_tile<KIND_SUBALL, DECODE_DIGITS, 1, true, false>(a, t, s);
 }
 
 }  // extern "C"

@@ -190,8 +190,8 @@ class BSLaunch(Launch):
 
 def tier_launch(label, algo="md5", **kw):
     sub, words, mode, mx, _want = TIERS[label]
-    return BSLaunch(sub, words(), algo=algo, mode=mode, mx=mx,
-                    **{"stride": 16, "nb": 24, **kw})
+    return BSLaunch(sub, words(), algo=algo, mode=mode,
+                    **{"stride": 16, "nb": 24, "mx": mx, **kw})
 
 
 def tier_tuple(tier):
@@ -471,23 +471,44 @@ static std::vector<char> slurp(const char* name) {
 template <typename T> static const T* ptr(std::vector<char>& v) {
   return v.empty() ? nullptr : reinterpret_cast<const T*>(v.data()); }
 
+static int gmax = 32, nthreads = 128, lmax = 2048;
+// Every CTA's phases in order, each phase run by each of its threads
+// before the next (the barriers; a warp's ballot is the one thread's own
+// vote), shared memory filled with garbage first.
+template <int ROW, int VAR, int DECODE, bool CLOSED, int HB>
+static void cta(const ByteScanArgs& a) {
+  const ScanGeom g = scan_geometry(a, ROW, VAR, DECODE, CLOSED, HB, nthreads,
+                                   gmax, lmax);
+  std::vector<int32_t> smem(g.smem_bytes / 4 + 1);
+  blockDim.x = nthreads;
+  const long long grid = (long long)((a.nb + g.g - 1) / g.g) * g.c;
+  for (long long c = 0; c < grid; ++c) {
+    blockIdx.x = (unsigned)c;
+    std::fill(smem.begin(), smem.end(), 0x5A5A5A5A);
+    for (int p = 0; p < SCAN_PHASES; ++p)
+      for (int th = 0; th < nthreads; ++th) {
+        threadIdx.x = th;
+        scan_phase<HARNESS_ALGO, ROW, VAR, DECODE, CLOSED, HB>(p, a, g,
+                                                              smem.data());
+      }
+  }
+  blockDim.x = 1; threadIdx.x = 0; blockIdx.x = 0;
+}
 template <int ROW, int VAR, int DECODE, bool CLOSED>
 static void run(const ByteScanArgs& a, int hb) {
-  for (int b = 0; b < a.nb; ++b) {
-    blockIdx.x = (unsigned)b;
-    if (hb == 1) bytescan_kernel<HARNESS_ALGO, ROW, VAR, DECODE, CLOSED, 1>(a);
-    else if (hb == 2) bytescan_kernel<HARNESS_ALGO, ROW, VAR, DECODE, CLOSED, 2>(a);
-    else bytescan_kernel<HARNESS_ALGO, ROW, VAR, DECODE, CLOSED, 3>(a);
-  }
+  if (hb == 1) cta<ROW, VAR, DECODE, CLOSED, 1>(a);
+  else if (hb == 2) cta<ROW, VAR, DECODE, CLOSED, 2>(a);
+  else cta<ROW, VAR, DECODE, CLOSED, 3>(a);
 }
 
 int main(int argc, char** argv) {
-  if (argc != 17) return 2;
-  int v[16]; for (int i = 0; i < 16; ++i) v[i] = atoi(argv[i + 1]);
+  if (argc != 19) return 2;
+  int v[18]; for (int i = 0; i < 18; ++i) v[i] = atoi(argv[i + 1]);
   const int nb = v[0], stride = v[1], L = v[2], m = v[3], k2 = v[4],
       k_opts = v[5], close_s = v[6], row = v[7], variant = v[8],
       decode = v[9], closed = v[10], mn = v[11], mx = v[12], hb = v[13],
       words = v[14];
+  gmax = v[15]; nthreads = v[16]; lmax = v[17];
   std::vector<char> t[20];
   const char* names[20] = {"blk_word", "blk_count", "base", "tokens",
       "lengths", "radix", "win_v", "bitpos", "aj", "bj", "svl", "svw",
@@ -497,7 +518,7 @@ int main(int argc, char** argv) {
     char fn[64]; snprintf(fn, sizeof fn, "%s.bin", names[i]);
     t[i] = slurp(fn); }
   const long long n = (long long)nb * stride;
-  std::vector<int32_t> st(n * words, 0); std::vector<uint8_t> em(n, 0);
+  std::vector<int32_t> st(n * words, 0); std::vector<uint8_t> em(n, 7);
   ByteScanArgs a;
   a.blk_word = ptr<int32_t>(t[0]); a.blk_count = ptr<int32_t>(t[1]);
   a.blk_base = ptr<int32_t>(t[2]); a.nb = nb; a.stride = stride;
@@ -565,9 +586,12 @@ def bytescan_harness(tmp_path_factory):
     return out_dir
 
 
-def run_harness(harness, launch, tmp_path):
+def run_harness(harness, launch, tmp_path, gmax=32, threads=128,
+                lanes=2048):
     """The host build of the CUDA source on ``launch``'s inputs: its state
-    and emit on every lane."""
+    and emit on every lane (state written on emitted rows only), in CTAs
+    of at most ``gmax`` blocks, ``threads`` threads and ``lanes`` lanes (a
+    block wider than that cut into chunks)."""
     word, count, base, tables = launch.inputs()
     tier = launch.tier
     arrays = {"blk_word": word, "blk_count": count, "base": base, **tables}
@@ -588,7 +612,7 @@ def run_harness(harness, launch, tmp_path):
             bs.VARIANTS.index(tier.variant) if tier.row == "scalar" else 0,
             bs.DECODE_ID[tier.decode], int(tier.closed),
             launch.spec.effective_min, launch.spec.max_substitute,
-            launch.hash_blocks, words, 0]
+            launch.hash_blocks, words, gmax, threads, lanes]
     subprocess.run([str(harness / f"harness_{launch.algo}")]
                    + [str(a) for a in args], cwd=tmp_path, check=True,
                    timeout=300)
@@ -610,7 +634,8 @@ def test_cuda_source_instantiations_equal_plain_version(
         label, algo, blocks, bytescan_harness, tmp_path):
     """Every (row, variant/decode, closure, hash, hash-block)
     instantiation of the source, built for the host, against the plain
-    version on every lane (emitted or not)."""
+    version: emit on every lane, state on every emitted row (dead rows
+    get no state, as the reference's contract allows)."""
     if label == "suball-radix2":
         launch = tier_launch("scalar-suball", algo,
                              tier=bs.ByteScanTier("suball", "radix2"))
@@ -624,4 +649,75 @@ def test_cuda_source_instantiations_equal_plain_version(
     state, emit = run_harness(bytescan_harness, launch, tmp_path)
     assert want_emit.any()
     assert (emit == want_emit).all()
-    assert (state == want_state).all()
+    assert (state[want_emit] == want_state[want_emit]).all()
+
+
+#: Edge geometries of the byte-scan CTAs: (-m, -x, stride, host
+#: geometry).  "counts": blocks cut to counts 0 and 1 beside blocks of the
+#: full stride; "ctas": CTAs of 7 blocks and 32 threads, spanning words,
+#: the last one partial; "dead": a whole CTA of count-0 blocks; "chunks":
+#: CTAs of 4 lanes, each 16-lane block cut in four; "odd": blocks of 6
+#: lanes (a lane's block found by search); "window": -m 2 -x 9, so rows
+#: below the counts are dead too (not on the windowed tiers, whose window
+#: is their own).
+_SCAN_GEOMS = {
+    "counts": (None, None, 16, dict(gmax=5, threads=64)),
+    "ctas": (None, None, 16, dict(gmax=7, threads=32)),
+    "dead": (None, None, 16, dict(gmax=7, threads=32)),
+    "chunks": (None, None, 16, dict(lanes=4, threads=32)),
+    "odd": (None, None, 6, dict(gmax=5, threads=32)),
+    "window": (2, 9, 16, dict(gmax=5, threads=64)),
+}
+_EDGE_LABELS = sorted(TIERS) + ["suball-radix2"]
+_EDGE_CASES = [(label, ALGOS[i % 4], geom)
+               for i, (label, geom) in enumerate(
+                   (lb, g) for lb in _EDGE_LABELS for g in _SCAN_GEOMS)
+               if not (geom == "window" and label.endswith("win"))]
+
+
+@pytest.mark.parametrize("label,algo,geom", _EDGE_CASES,
+                         ids=[f"{t}-{a}-{g}" for t, a, g in _EDGE_CASES])
+def test_cuda_source_cta_edges_equal_plain_version(
+        label, algo, geom, bytescan_harness, tmp_path):
+    """Every byte-scan tier's CTAs at their edge geometries
+    (``_SCAN_GEOMS``), built for the host, against the plain version: emit
+    on every lane (dead rows, clash lanes included, get emit 0 and no
+    state), state on every emitted row."""
+    mn, mx, stride, geometry = _SCAN_GEOMS[geom]
+    kw = dict(stride=stride)
+    if mn is not None:
+        kw.update(mn=mn, mx=mx)
+    if label == "suball-radix2":
+        launch = tier_launch("scalar-suball", algo,
+                             tier=bs.ByteScanTier("suball", "radix2"), **kw)
+    else:
+        launch = tier_launch(label, algo, **kw)
+        assert tier_tuple(launch.tier) == TIERS[label][4]
+    _w, count, _b, _t = launch.inputs()
+    count = count.numpy()
+    full = np.flatnonzero(count == stride)
+    if geom == "counts":
+        assert len(full) >= 2
+        launch.count_edits = {int(full[0]): 0, int(full[1]): 1}
+    elif geom == "dead":
+        launch.count_edits = {b: 0 for b in range(7, 14)}
+    want_state, want_emit = launch.port()
+    state, emit = run_harness(bytescan_harness, launch, tmp_path, **geometry)
+    assert want_emit.any()
+    assert (emit == want_emit).all()
+    assert (state[want_emit] == want_state[want_emit]).all()
+    _w, count, _b, _t = launch.inputs()
+    rank = np.arange(len(want_emit)) % stride
+    below = rank < np.repeat(count.numpy(), stride)
+    # Rows of a word's rank 0 (no substitution: outside the window of a
+    # fully enumerated plan); every other masked row below the counts is
+    # an overlap clash or outside -m / -x.
+    first = (launch.batch.base_digits == 0).all(axis=1)[:launch.nb]
+    rank0 = 0 if launch.plan.windowed else int(
+        (below & (rank == 0) & np.repeat(first, stride)).sum())
+    masked = int((below & ~want_emit).sum())
+    if geom == "dead":
+        assert not want_emit[7 * stride:14 * stride].any()
+    if geom == "window" or label.startswith("scalar-bitmask") \
+            or label == "match-radix2":
+        assert masked > rank0

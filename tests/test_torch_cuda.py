@@ -131,8 +131,9 @@ class Case:
     arguments of the plan's decode tier."""
 
     def __init__(self, sub, words, device, *, algo="md5", mx=15, pair=False,
-                 stride=128, nb=256, mode="default"):
-        spec = AttackSpec(mode=mode, algo=algo, max_substitute=mx)
+                 stride=128, nb=256, mode="default", mn=0):
+        spec = AttackSpec(mode=mode, algo=algo, min_substitute=mn,
+                          max_substitute=mx)
         ct = compile_table(sub)
         plan = build_plan(spec, ct, pack_words(words))
         pieces = piece_schema_for(plan, ct)
@@ -389,8 +390,9 @@ class BSCase:
     and the plan's byte-scan tier (as the gate picks it, or forced)."""
 
     def __init__(self, sub, words, device, *, algo="md5", mx=15,
-                 mode="default", stride=128, nb=256, tier=None):
-        spec = AttackSpec(mode=mode, algo=algo, max_substitute=mx)
+                 mode="default", stride=128, nb=256, tier=None, mn=0):
+        spec = AttackSpec(mode=mode, algo=algo, min_substitute=mn,
+                          max_substitute=mx)
         ct = compile_table(sub)
         plan = build_plan(spec, ct, pack_words(words))
         assert fe.opts_for_config(spec, plan, ct) is not None
@@ -576,6 +578,17 @@ def test_windowed_cta_edges_match_plain_version(algo, cuda):
     c.check()
 
 
+def cut_edges(c, ranks):
+    """``c``'s blocks with the CTA edges: blocks 3 and 7 cut to counts 0
+    and 1 and blocks 32-63 (whole CTAs) to count 0, beside blocks of
+    their full ``ranks``."""
+    word, count, base = (t.clone() for t in c.blocks)
+    assert bool((count == ranks).any())
+    count[3], count[7] = 0, 1
+    count[32:64] = 0
+    c.blocks = (word, count, base)
+
+
 _TILE_EDGES = [(tier, algo) for tier in ("k1", "pair", "suball_k1")
                for algo in ("md5", "md4", "sha1", "ntlm")]
 
@@ -591,12 +604,118 @@ def test_tile_cta_edges_match_plain_version(tier, algo, cuda):
              pair=tier == "pair", nb=101,
              mode="suball" if tier == "suball_k1" else "default")
     assert c.decode == "scalar" and c.key == f"piece_{tier}/{algo}"
-    word, count, base = (t.clone() for t in c.blocks)
-    assert bool((count == (256 if tier == "pair" else 128)).any())
-    count[3], count[7] = 0, 1
-    count[32:64] = 0
-    c.blocks = (word, count, base)
+    cut_edges(c, 256 if tier == "pair" else 128)
     c.check()
+
+
+AZQ = get_layout("azerty-qwerty").to_substitution_map()
+#: The digit decode at K=1 on the tile tier: (entry, table, words, mode).
+_DIGIT_TILES = {
+    "digits": (CZECH, letter_words(300, 5, 9, 13), "default"),
+    "suball_digits": (CZECH, letter_words(300, 5, 9, 14), "suball"),
+    "suball_closed": (AZERTY, [b"AQq" + w for w in letter_words(
+        300, 8, 12, 15)], "suball"),
+    "suball_closed:azq": (AZQ, [b"AQq" + w for w in letter_words(
+        300, 8, 12, 16)], "suball"),
+}
+_DIGIT_EDGES = [(entry, algo) for entry in _DIGIT_TILES
+                for algo in ("md5", "md4", "sha1", "ntlm")]
+
+
+@pytest.mark.parametrize("entry,algo", _DIGIT_EDGES,
+                         ids=[f"{e}-{a}" for e, a in _DIGIT_EDGES])
+def test_digit_tile_cta_edges_match_plain_version(entry, algo, cuda):
+    """The digit decode at K=1 (match, substitute-all, cascade-closed over
+    qwerty-azerty and azerty-qwerty) on the tile tier: a launch whose
+    block count ends a CTA part-way, counts 0 and 1, a run of count-0
+    blocks; then the window cut -m 2 -x 9 and blocks of 4096 lanes cut
+    into chunks."""
+    sub, words, mode = _DIGIT_TILES[entry]
+    name = entry.split(":")[0]
+    c = Case(sub, words, cuda, algo=algo, nb=101, mode=mode)
+    assert c.key == f"piece_{name}/{algo}"
+    cut_edges(c, 128)
+    c.check()
+    for kw in (dict(mn=2, mx=9), dict(stride=4096, nb=8)):
+        c = Case(sub, words, cuda, algo=algo, mode=mode, **kw)
+        assert c.key == f"piece_{name}/{algo}"
+        c.check()
+
+
+#: A line at the route gate's limits: 64 bytes, 24 slots of a key with 8
+#: options of 4 bytes (radix 9), MD5 in 3 hash blocks.
+GATE_MAX = {b"q": [bytes([65 + k]) * 4 for k in range(8)]}
+
+
+def test_gate_max_line_matches_plain_version(cuda):
+    rng = np.random.default_rng(41)
+    words = []
+    for _ in range(4):
+        w = np.frombuffer(b"bcdfghjklm", np.uint8)[rng.integers(
+            0, 10, size=64)].copy()
+        w[rng.choice(64, size=24, replace=False)] = ord("q")
+        words.append(bytes(w))
+    spec = AttackSpec()
+    ct = compile_table(GATE_MAX)
+    plan = build_plan(spec, ct, pack_words(words))
+    pieces = piece_schema_for(plan, ct)
+    assert fe.opts_for(spec, plan, ct) == 8 and int(plan.num_slots) == 24
+    # Words of 9^24 rows take the per-launch pipeline: blocks cut on the
+    # host.
+    from hashcat_a5_table_generator_tpu_torch.models.attack import (
+        host_blocks,
+    )
+    from hashcat_a5_table_generator_tpu_torch.ops.blocks import make_blocks
+
+    assert superstep_index(plan, 128) is None
+    arrays = device_arrays(plan, pieces, build_digest_set([], "md5"), None,
+                           device=cuda)
+    batch, _w, _r = make_blocks(plan, max_variants=256 * 128,
+                                max_blocks=256, fixed_stride=128)
+    blocks = host_blocks(batch, 256, "digits",
+                         fe.scalar_units_weight(plan), device=cuda)
+    kw = dict(pieces=pieces, block_stride=128, min_substitute=1,
+              max_substitute=15, pair=False, algo="md5", decode="digits",
+              pack_cb=False, k_opts=fe.k_vals_for(plan))
+    assert fe._hash_blocks_for(plan.out_width) == 3
+    state, emit = fe.fused_expand_md5(*blocks, arrays,
+                                      out_width=int(plan.out_width), **kw)
+    want_state, want_emit = fe.piece_md5_reference(*blocks, arrays,
+                                                   hash_blocks=3, **kw)
+    torch.cuda.synchronize()
+    assert emit.any() and torch.equal(emit, want_emit)
+    assert torch.equal(state[emit], want_state[emit])
+
+
+_BYTESCAN_EDGES = sorted(k for k in _BYTESCAN_CASES
+                         if _BYTESCAN_CASES[k][4] == 1)
+
+
+@pytest.mark.parametrize("label,algo", _BYTESCAN_EDGES,
+                         ids=[f"{t}-{a}" for t, a in _BYTESCAN_EDGES])
+def test_bytescan_cta_edges_match_plain_version(label, algo, cuda):
+    """Every byte-scan tier's CTAs at their edges (16-lane blocks: a
+    launch whose block count ends a CTA part-way, counts 0 and 1, a run
+    of count-0 blocks); german's "sss" clash lanes among them."""
+    sub, words, mode, mx, _blocks, tier = _BYTESCAN_CASES[(label, algo)]
+    c = BSCase(sub, words, cuda, algo=algo, mx=mx, mode=mode, stride=16,
+               nb=101)
+    assert (c.tier.row, c.tier.decode, c.tier.variant) == tier
+    cut_edges(c, 16)
+    c.check()
+
+
+@pytest.mark.parametrize("label", ["scalar-bitmask", "match-digits",
+                                   "suball-closed"])
+@pytest.mark.parametrize("algo", ["md5", "md4", "sha1", "ntlm"])
+def test_bytescan_window_and_chunks_match_plain_version(label, algo, cuda):
+    """One tier of each byte-scan row under the window cut -m 2 -x 9, and
+    with blocks of 4096 lanes cut into chunks."""
+    sub, words, mode, _mx, _blocks, tier = _BYTESCAN_CASES[(label, algo)]
+    for kw in (dict(mn=2, mx=9), dict(stride=4096, nb=8)):
+        c = BSCase(sub, words, cuda, algo=algo, mode=mode, **kw)
+        assert (c.tier.row, c.tier.decode, c.tier.variant) == tier
+        c.check()
 
 
 @pytest.mark.parametrize("width,offset", [(55, 1), (376, 2), (56, 3),

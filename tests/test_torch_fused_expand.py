@@ -404,22 +404,15 @@ template <class T> static std::vector<T> rd(const char* p, size_t n) {
   std::vector<T> v(n ? n : 1); FILE* f = fopen(p, "rb");
   if (n && fread(v.data(), sizeof(T), n, f) != n) exit(3);
   fclose(f); return v; }
-template <int A, int K, bool C>
-static void lane_hb(const LaunchArgs& a, const PieceTables& t, int hb) {
-  switch (hb) {
-    case 1: piece_kernel<A, K, 1, C>(a, t); break;
-    case 2: piece_kernel<A, K, 2, C>(a, t); break;
-    default: piece_kernel<A, K, 3, C>(a, t); break;
-  }
-}
-// The scalar K=1 and pair tiers: every CTA's phases in order, each phase
-// run by each of its `nt` threads before the next (the barriers; a warp's
-// ballot is the one thread's own vote), shared memory filled with garbage
-// first.
-template <int A, int K, int D, int HB, bool P>
+// The tile tiers (scalar and digit decodes at K=1, the pair tier): every
+// CTA's phases in order, each phase run by each of its `nt` threads
+// before the next (the barriers; a warp's ballot is the one thread's own
+// vote), shared memory filled with garbage first.
+template <int A, int K, int D, int HB, bool P, bool C>
 static void cta_tile(const LaunchArgs& a, const PieceTables& t, int gmax,
                      int nt, int lmax) {
-  const TileGeom g = tile_geometry(a, t, K, D, P ? 2 : 1, HB, nt, gmax, lmax);
+  const TileGeom g = tile_geometry(a, t, K, D, C, P ? 2 : 1, HB, nt, gmax,
+                                   lmax);
   std::vector<int32_t> smem(g.smem_bytes / 4 + 1);
   blockDim.x = nt;
   const long long grid = (long long)((a.nb + g.g - 1) / g.g) * g.c;
@@ -429,19 +422,28 @@ static void cta_tile(const LaunchArgs& a, const PieceTables& t, int gmax,
     for (int p = 0; p < TILE_PHASES; ++p)
       for (int th = 0; th < nt; ++th) {
         threadIdx.x = th;
-        tile_phase<A, K, D, HB, P>(p, a, t, g, smem.data());
+        tile_phase<A, K, D, HB, P, C>(p, a, t, g, smem.data());
       }
   }
   blockDim.x = 1; threadIdx.x = 0; blockIdx.x = 0;
 }
+template <int A, int K, int D, bool C>
+static void tile_hb(const LaunchArgs& a, const PieceTables& t, int hb,
+                    int gmax, int nt, int lmax) {
+  if (hb == 1) cta_tile<A, K, D, 1, false, C>(a, t, gmax, nt, lmax);
+  else if (hb == 2) cta_tile<A, K, D, 2, false, C>(a, t, gmax, nt, lmax);
+  else cta_tile<A, K, D, 3, false, C>(a, t, gmax, nt, lmax);
+}
 template <int A, int K>
 static void tile(const LaunchArgs& a, const PieceTables& t, int pair,
-                 int decode, int hb, int gmax, int nt, int lmax) {
-  if (pair && decode == 0) cta_tile<A, K, 0, 1, true>(a, t, gmax, nt, lmax);
-  else if (pair) cta_tile<A, K, 1, 1, true>(a, t, gmax, nt, lmax);
-  else if (hb == 1) cta_tile<A, K, 0, 1, false>(a, t, gmax, nt, lmax);
-  else if (hb == 2) cta_tile<A, K, 0, 2, false>(a, t, gmax, nt, lmax);
-  else cta_tile<A, K, 0, 3, false>(a, t, gmax, nt, lmax);
+                 int decode, int hb, int closed, int gmax, int nt,
+                 int lmax) {
+  if (pair && decode == 0)
+    cta_tile<A, K, 0, 1, true, false>(a, t, gmax, nt, lmax);
+  else if (pair) cta_tile<A, K, 1, 1, true, false>(a, t, gmax, nt, lmax);
+  else if (decode == 0) tile_hb<A, K, 0, false>(a, t, hb, gmax, nt, lmax);
+  else if (!closed) tile_hb<A, K, 1, false>(a, t, hb, gmax, nt, lmax);
+  else if (K) tile_hb<A, 1, 1, true>(a, t, hb, gmax, nt, lmax);
 }
 // The windowed tier: every CTA's phases in order, each phase run by each
 // of its `nt` threads before the next (the barriers), shared memory
@@ -515,16 +517,10 @@ int main(int argc, char** argv) {
   if (decode == 2) {
     if (kind) windowed<HARNESS_ALGO, 1>(a, t, hb, closed, gmax, nt);
     else windowed<HARNESS_ALGO, 0>(a, t, hb, closed, gmax, nt);
-  } else if (pair || decode == 0) {
-    if (kind) tile<HARNESS_ALGO, 1>(a, t, pair, decode, hb, gmax, nt, lmax);
-    else tile<HARNESS_ALGO, 0>(a, t, pair, decode, hb, gmax, nt, lmax);
-  }
-  for (long long i = 0; decode == 1 && !pair && i < (long long)nb * stride;
-       ++i) {
-    blockIdx.x = (unsigned)i;
-    if (closed) lane_hb<HARNESS_ALGO, 1, true>(a, t, hb);
-    else if (kind) lane_hb<HARNESS_ALGO, 1, false>(a, t, hb);
-    else lane_hb<HARNESS_ALGO, 0, false>(a, t, hb);
+  } else if (kind) {
+    tile<HARNESS_ALGO, 1>(a, t, pair, decode, hb, closed, gmax, nt, lmax);
+  } else {
+    tile<HARNESS_ALGO, 0>(a, t, pair, decode, hb, closed, gmax, nt, lmax);
   }
   FILE* f = fopen("state.bin", "wb"); fwrite(st.data(), 4, n * words, f);
   fclose(f); f = fopen("emit.bin", "wb"); fwrite(em.data(), 1, n, f);
@@ -554,6 +550,8 @@ static inline uint32_t __funnelshift_l(uint32_t lo, uint32_t hi, int s) {
 static inline uint32_t __funnelshift_r(uint32_t lo, uint32_t hi, int s) {
   s &= 31; return s ? (lo >> s) | (hi << (32 - s)) : lo; }
 static inline int __popc(uint32_t x) { return __builtin_popcount(x); }
+static inline uint32_t __umulhi(uint32_t a, uint32_t b) {
+  return (uint32_t)(((uint64_t)a * b) >> 32); }
 struct uint4 { uint32_t x, y, z, w; };
 static inline uint4 make_uint4(uint32_t a, uint32_t b, uint32_t c,
                                uint32_t d) { return {a, b, c, d}; }
@@ -660,16 +658,14 @@ def live_rows(launch):
 
 
 def state_rows(launch, want_emit):
-    """The rows whose state the launch's tier writes: every row of the
-    digit decode at K=1; every live row (rank below its block's count) of
-    the windowed tier; every emitted row of the scalar K=1 and pair tiers
-    (they write no state for dead rows, as the reference's contract
+    """The rows whose state the launch's tier writes: every live row
+    (rank below its block's count) of the windowed tier; every emitted row
+    of the tile tiers — the scalar and digit decodes at K=1 and the pair
+    tier (they write no state for dead rows, as the reference's contract
     allows)."""
     if launch.decode == "windowed":
         return live_rows(launch)
-    if launch.pair or launch.decode == "scalar":
-        return want_emit
-    return np.ones(len(want_emit), bool)
+    return want_emit
 
 
 def assert_source_equals_plain(harness, launch, tmp_path, emits=True,
@@ -868,6 +864,192 @@ def test_cuda_source_tile_ctas_equal_plain_version(
         below = rank < np.repeat(count, launch.stride * (
             2 if launch.pair else 1))
         assert (below & ~want_emit).any()
+
+
+#: The digit decode at K=1 on the tile tier (match plans): its CTAs at
+#: the edge geometries of ``_TILE_GEOMS`` (the window at -m 2 -x 9), and
+#: 2 and 3 hash blocks with blocks of count 0 and 1 in CTAs of 7 blocks.
+_DIGIT_GEOMS = list(_TILE_GEOMS) + ["hb2", "hb3"]
+_DIGIT_CASES = [(algo, geom) for algo in ALGOS for geom in _DIGIT_GEOMS]
+
+
+def digit_tile_edges(launch_for, geom):
+    """``(launch, geometry)`` of one digit-decode edge case:
+    ``launch_for(blocks, count_edits, mn, mx, stride)`` builds the
+    launch."""
+    if geom.startswith("hb"):
+        return (launch_for(int(geom[2:]), {0: 0, 1: 1}, 0, None, 8),
+                dict(gmax=7, threads=32))
+    edits, mn, mx, geometry = _TILE_GEOMS[geom]
+    return (launch_for(1, edits, mn, 9 if mx else None,
+                       6 if geom == "odd" else 8), geometry)
+
+
+def assert_digit_tile_edges(harness, launch, geom, geometry, tmp_path):
+    """The digit-decode launch against the plain version at its edge
+    geometry: emit on every lane, state on every emitted row; the window
+    leaves rows below the counts dead."""
+    assert launch.decode == "digits" and not launch.pair
+    assert not launch.plan.windowed
+    _w, count, _b, _t = launch.inputs()
+    count = count.numpy()
+    if geom == "counts":
+        assert {0, 1, launch.stride} <= set(count.tolist())
+    if geom.startswith("hb"):
+        assert launch.hash_blocks == int(geom[2:])
+    assert_source_equals_plain(harness, launch, tmp_path, **geometry)
+    if geom == "window":
+        _s, want_emit = launch.port()
+        rank = np.arange(len(want_emit)) % launch.stride
+        below = rank < np.repeat(count, launch.stride)
+        assert (below & ~want_emit).any()
+
+
+@pytest.mark.parametrize("algo,geom", _DIGIT_CASES,
+                         ids=[f"digits-{a}-{g}" for a, g in _DIGIT_CASES])
+def test_cuda_source_digit_tile_ctas_equal_plain_version(
+        algo, geom, host_harness, tmp_path):
+    """The digit decode at K=1 (match plans), now on the tile tier: live
+    lanes only, the window decided before the splice."""
+    launch, geometry = digit_tile_edges(
+        lambda hb, edits, mn, mx, stride: _source_launch(
+            "digits", algo, hb, count_edits=edits, mn=mn, mx=mx,
+            stride=stride), geom)
+    assert_digit_tile_edges(host_harness, launch, geom, geometry, tmp_path)
+
+
+_GEOMETRY = r"""
+int main(int argc, char** argv) {
+  // Every tile-tier instantiation's CTA at the given table dimensions:
+  // "kind decode closed pair hb rec g smem" a line.
+  int v[11]; for (int i = 0; i < 11; ++i) v[i] = atoi(argv[i + 1]);
+  LaunchArgs a{}; PieceTables t{};
+  a.m = v[0]; a.ngroups = v[1]; a.ncols = v[2]; a.close_s = v[3];
+  a.stride = v[4]; t.ngw = v[5]; t.ng16 = v[6]; t.ngd = v[7]; t.vm = v[8];
+  t.nw = v[9]; const int lmax = v[10];
+  for (int kind = 0; kind < 2; ++kind)
+    for (int decode = 0; decode < 2; ++decode)
+      for (int closed = 0; closed < 2; ++closed)
+        for (int pair = 0; pair < 2; ++pair)
+          for (int hb = 1; hb <= 3; ++hb) {
+            if (closed && (kind == 0 || decode == 0 || pair)) continue;
+            if (pair && hb > 1) continue;
+            const TileGeom g = tile_geometry(
+                a, t, kind, decode, closed, pair ? 2 : 1, hb,
+                hb == 1 ? 256 : 128, TILE_MAX_G, lmax);
+            printf("%d %d %d %d %d %d %d %d\n", kind, decode, closed, pair,
+                   hb, g.rec, g.g, g.smem_bytes);
+          }
+  return 0; }
+"""
+
+#: The largest tables the piece kernels' launch checks admit: 256 groups
+#: (MAX_GROUPS), all in the u32 table and all of dynamic length, 13
+#: variants (a cascade-closed column's 12 joint rows + the span) of 4
+#: words each (``packing._MAX_PIECE_WORDS``), 255 selector columns, 24
+#: slots with 3 closure successors — beyond any schema the route gate
+#: admits (a line of at most 64 bytes has at most ~65 groups).
+_WORST_DIMS = dict(m=24, ngroups=256, ncols=255, close_s=3, ngw=256,
+                   ng16=256, ngd=256, vm=13, nw=4)
+
+
+@pytest.mark.parametrize("stride", [128, 4096])
+def test_cuda_source_worst_case_record_fits_a_cta(stride, tmp_path):
+    """Every tile-tier instantiation keeps the largest record its launch
+    checks admit: its offsets fit the packed descriptors' 16 bits and its
+    CTA (at least one block) fits the 227 KB of shared memory an H100
+    block can have, so no plan a fused kernel takes is refused or fails
+    to launch for its record."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    src = cuda_source(CSRC)
+    body = src[src.index("#define ALGO_MD5"):
+               src.index("// ---- host launch wrappers ----")]
+    (tmp_path / "geom.cpp").write_text(_HARNESS_STUB + body + _GEOMETRY)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-DHARNESS_ALGO=0", "-o",
+                    "geom", "geom.cpp"], cwd=tmp_path, check=True,
+                   timeout=300)
+    d = _WORST_DIMS
+    args = [d["m"], d["ngroups"], d["ncols"], d["close_s"], stride,
+            d["ngw"], d["ng16"], d["ngd"], d["vm"], d["nw"], 2048]
+    out = subprocess.run([str(tmp_path / "geom")] + [str(x) for x in args],
+                         check=True, timeout=60, capture_output=True,
+                         text=True).stdout.split("\n")
+    rows = [list(map(int, ln.split())) for ln in out if ln.strip()]
+    # Per kind and decode: K=1 at 1-3 hash blocks and the pair tier;
+    # substitute-all digits also closed at K=1.
+    assert len(rows) == 4 * 4 + 3
+    for kind, decode, closed, pair, hb, rec, g, smem in rows:
+        assert rec <= 0xFFFF and g >= 1
+        assert smem <= 232448, (kind, decode, closed, pair, hb, smem)
+    # The record grew by the closure's rows and the decode's slot rows.
+    digits_closed = [r for r in rows if r[1] == 1 and r[2] == 1]
+    assert digits_closed and all(
+        r[5] >= 4 * 24 + 24 * 3 + 24 * 4 + 256 * 13 * 6
+        for r in digits_closed)
+
+
+#: The route gate's largest digit-decode line: 64 bytes, 24 slots of a key
+#: with 8 options of 4 bytes (radix 9: the multiply-high divide), MD5 in
+#: 3 hash blocks.
+GATE_MAX = {b"q": [bytes([65 + k]) * 4 for k in range(8)]}
+
+
+def test_cuda_source_gate_max_line_equals_plain_version(host_harness,
+                                                        tmp_path):
+    """A line at the route gate's limits on the digit tier, built for the
+    host, against the plain version (CTAs of one block: its record is the
+    largest a real plan here has)."""
+    rng = np.random.default_rng(41)
+    words = []
+    for _ in range(4):
+        w = np.frombuffer(b"bcdfghjklm", np.uint8)[rng.integers(
+            0, 10, size=64)].copy()
+        w[rng.choice(64, size=24, replace=False)] = ord("q")
+        words.append(bytes(w))
+    launch = Launch(GATE_MAX, words, pair=False, stride=8, nb=24)
+    assert launch.decode == "digits" and launch.hash_blocks == 3
+    assert fe.opts_for(launch.spec, launch.plan, launch.ct) == 8
+    assert int(launch.plan.num_slots) == 24
+    assert fe.schema_refusal(launch.plan, launch.pieces) is None
+    assert_source_equals_plain(host_harness, launch, tmp_path, gmax=1)
+
+
+_RANK_DIV = r"""
+int main() {
+  // Every radix up to 4096 and a few large ones, against n / d for ranks
+  // at the ends of [0, 2^31) and between.
+  const uint32_t big[] = {65535u, 65536u, 1000003u, 0x7FFFFFFFu};
+  for (uint32_t d = 1; d < 4096 + 4; ++d) {
+    const uint32_t dd = d <= 4096 ? d : big[d - 4097];
+    const int4 rr = radix_row((int)dd);
+    uint64_t n = 0;
+    for (int k = 0; k < 4000; ++k) {
+      n = k < 64 ? (uint64_t)k : (k < 128 ? 0x7FFFFFFFull - (k - 64)
+          : (n * 2862933555777941757ull + 3037000493ull));
+      const int x = (int)(n & 0x7FFFFFFFu);
+      if (rank_div(x, rr) != (int)((uint32_t)x / dd)) {
+        printf("%u %d\n", dd, x); return 1; }
+    }
+  }
+  return 0; }
+"""
+
+
+def test_cuda_source_rank_div_is_exact(tmp_path):
+    """The digit decode's multiply-high divide (``radix_row`` /
+    ``rank_div`` in ``hash_common.cuh``) equals the integer divide for
+    every radix up to 4096 and ranks across [0, 2^31)."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed")
+    src = cuda_source(CSRC)
+    body = src[src.index("#define ALGO_MD5"):src.index("// Compressions")]
+    body += src[src.index("// Decode\n"):src.index(
+        "// The windowed rank `big_r` unranked")]
+    (tmp_path / "div.cpp").write_text(_HARNESS_STUB + body + _RANK_DIV)
+    subprocess.run(["g++", "-O1", "-std=c++17", "-o", "div", "div.cpp"],
+                   cwd=tmp_path, check=True, timeout=120)
+    subprocess.run([str(tmp_path / "div")], check=True, timeout=120)
 
 
 def test_native_build_raises_without_nvcc(monkeypatch):

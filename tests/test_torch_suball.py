@@ -27,9 +27,11 @@ from test_torch_fused_expand import (
     CZECH,
     SUB_LEET3,
     Launch,
+    assert_digit_tile_edges,
     assert_same,
     assert_source_equals_plain,
     build_host_harness,
+    digit_tile_edges,
 )
 from test_torch_host import (
     LAYOUTS,
@@ -441,6 +443,51 @@ def test_cuda_source_suball_instantiations_equal_plain_version(
     assert launch.decode == want
     assert launch.pack_cb == (tier == "windowed-cb")
     assert_source_equals_plain(host_harness, launch, tmp_path)
+
+
+AZQ = get_layout("azerty-qwerty").to_substitution_map()
+#: The substitute-all digit decodes at K=1 on the tile tier: czech (open),
+#: qwerty-azerty and azerty-qwerty (cascade-closed: joint tables of up
+#: to 12 and 6 rows).
+_DIGIT_TIERS = {"digits": _SOURCE_TIERS["digits"],
+                "closed": _SOURCE_TIERS["closed"],
+                "closed-azq": (AZQ, b"aqAQq", AZ_FILL, 4, 15)}
+_DIGIT_CASES = [(tier, algo, geom) for tier in _DIGIT_TIERS
+                for algo in ALGOS
+                for geom in ("counts", "ctas", "dead", "chunks", "odd",
+                             "window", "hb2", "hb3")]
+
+
+def _digit_launch(tier, algo, blocks, edits, mn, mx, stride):
+    sub, keys, filler, letters, mx0 = _DIGIT_TIERS[tier]
+    scale = 2 if algo == "ntlm" else 1
+    lo, hi = _SOURCE_LENGTHS[(scale, blocks)]
+    words = _keyed_words(12, max(lo, letters), hi, blocks, keys, filler,
+                         letters)
+    if tier.startswith("closed"):
+        words = [b"aq" + w[2:] for w in words]  # a hazard in every word
+    return Launch(sub, words, pair=False, stride=stride, nb=24, algo=algo,
+                  mn=mn, mx=mx or mx0, mode="suball", count_edits=edits)
+
+
+@pytest.mark.parametrize("tier,algo,geom", _DIGIT_CASES,
+                         ids=[f"{t}-{a}-{g}" for t, a, g in _DIGIT_CASES])
+def test_cuda_source_suball_digit_tile_ctas_equal_plain_version(
+        tier, algo, geom, host_harness, tmp_path):
+    """The substitute-all digit decode at K=1, open and cascade-closed,
+    on the tile tier: live lanes only, the closure's successor rows staged
+    per word, at the CTA edge geometries (counts 0, 1 and the stride,
+    CTAs spanning words, a dead CTA, chunks, an odd stride, -m 2 -x 9)
+    and 2-3 hash blocks."""
+    launch, geometry = digit_tile_edges(
+        lambda hb, edits, mn, mx, stride: _digit_launch(
+            tier, algo, hb, edits, mn, mx, stride), geom)
+    assert launch.pieces.kind == "suball"
+    assert bool(launch.pieces.closed) == tier.startswith("closed")
+    # The closed plans' joint value tables: 8 and 6 rows wide here.
+    assert launch.k_opts == {"closed": 8, "closed-azq": 6}.get(tier,
+                                                              launch.k_opts)
+    assert_digit_tile_edges(host_harness, launch, geom, geometry, tmp_path)
 
 
 def test_selector_tables_follow_the_schema():
