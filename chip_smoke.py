@@ -12,7 +12,9 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
 2. build every CUDA library from ``csrc/`` (``nvcc``, sm_90a; the piece,
    byte-scan and buffer-hash kernels once per hash, all twelve compilers
    started together) and print the ``-Xptxas -v`` register / stack /
-   spill / shared-memory lines;
+   spill / shared-memory lines; beside them the two native host libraries
+   (``native/packer.cpp``, ``native/oracle.cpp``; g++), which must build:
+   the numpy / Python fallback fails the smoke;
 3. every kernel entry point x hash against its plain PyTorch version on
    the card, at the main path's shapes (2^22 lanes, stride 128): over
    match plans the scalar K=1 and pair tiers, the digit decode (czech,
@@ -61,7 +63,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    counters above 0 and the plain version never run; german x MD5 and
    german x NTLM ``-r`` (byte-scan row 7), qwerty-cyrillic x SHA-1 ``-s``,
    and four ``A5GEN_EMIT=bytescan`` twins whose stdout must equal the
-   per-slot run's; on the XLA expand + hash route: qwerty-cyrillic x MD5
+   per-slot run's; an ``A5_NATIVE=0`` twin of azerty ``-s`` (the numpy
+   packer, the Python oracle for its fallback words) whose stdout must
+   equal the native run's, which must have taken every fallback word on
+   the native engine; on the XLA expand + hash route: qwerty-cyrillic x MD5
    ``-x 2`` at 1M words plus 2000 lines of 65-200 bytes and 1000 lines
    of 25-40 letters (cyrillic-x2-long), 5e4 words x a nine-option table
    with a 5-byte value, SHA-1 (leet9-sha1), four ``A5GEN_PALLAS=off``
@@ -72,12 +77,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    per-launch pipeline, K=1: stdout equal to pair auto's), one word of
    2^30 rows on the piece route (15 keys of three options: the per-launch
    pipeline, hits planted in its last launch, each printed once; its
-   rows, launches and drive printed), and candidates mode
-   (qwerty-cyrillic, 2e4 words, ``--output``: line count = the host
-   keyspace, the first 2000 words byte-identical to a ``--device cpu``
-   run, per word the oracle's multiset on 200 sampled words; qwerty-azerty
-   ``-s`` with oracle-fallback words interleaved); every run on the XLA
-   route within the memory budget over the whole run;
+   rows, launches and drive printed), and candidates mode on stdout
+   (``--output`` given and not written, as in the reference;
+   qwerty-cyrillic, 2e4 words: line count = the host keyspace, the first
+   2000 words byte-identical to a ``--device cpu`` run, per word the
+   oracle's multiset on 200 sampled words; qwerty-azerty ``-s`` with
+   oracle-fallback words interleaved, and ``-s -r``); every run on the
+   XLA route within the memory budget over the whole run;
 5. each entry point x hash timed with CUDA events at main-path shapes
    beside its bound, the compression floor this card measures (the
    buffer hash at width 0: one compression a row, nothing loaded) and
@@ -89,11 +95,21 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    launch among them, and the masked-row share of the czech run; the
    byte-scan kernels likewise, and the two tiers on one german plan; the
    buffer hash per hash x shape beside its bound, and one XLA-route
-   launch's stages (block cut, expansion, hash, membership, the rest).
+   launch's stages (block cut, expansion, hash, membership, the rest);
+6. the oracle backend (the CLI's default, on the host's cores), each run
+   a process of its own: the default command line over phase 4's
+   candidates words (cyrillic, azerty ``-s`` and ``-s -r``), its sorted
+   lines equal to the card's run's and its count to the host keyspace,
+   ``--threads N`` (N = min(nproc, 16)) byte-identical to ``--threads 1``,
+   ``A5_NATIVE=0`` byte-identical on the first 2000 words, lines/s of
+   each; the oracle crack (``--threads N``) over the crack cell's first
+   25,000 words and its 1M MD5 digests, its hits equal to the card's on
+   those words; ``--emit-table`` for every layout and ``--list-layouts``.
+   Host numbers name the CPU (``lscpu``, ``nproc``) beside the card.
 
-The last three lines of standard output: the card's name and power limit,
-one ``{"kernels": [...]}`` JSON object, and the ``{"ok": true, ...}``
-JSON object.
+The last four lines of standard output: one ``{"oracle": {...}}`` JSON
+object, the card's name and power limit, one ``{"kernels": [...]}`` JSON
+object, and the ``{"ok": true, ...}`` JSON object.
 """
 
 from __future__ import annotations
@@ -107,6 +123,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -871,7 +888,8 @@ def run_cli(argv) -> "tuple[bytes, str, int]":
 
 @contextlib.contextmanager
 def knobs(**env):
-    """``A5GEN_*`` variables set (or, given None, unset) for one block."""
+    """``A5GEN_*`` / ``A5_NATIVE`` variables set (or, given None, unset)
+    for one block."""
     saved = {k: os.environ.pop(k, None) for k in env}
     try:
         for k, v in env.items():
@@ -963,7 +981,7 @@ class MainPath:
         from hashcat_a5_table_generator_tpu_torch.ops.membership import (
             build_digest_set,
         )
-        from hashcat_a5_table_generator_tpu_torch.ops.packing import (
+        from hashcat_a5_table_generator_tpu_torch.native import (
             read_packed_buckets,
         )
         from hashcat_a5_table_generator_tpu_torch.tables.compile import (
@@ -1027,6 +1045,8 @@ class MainPath:
         buckets = read_packed_buckets(self.wordlist)
         self.prep["read_packed_buckets"] = time.monotonic() - t
         self.planted, self.want_emitted = {}, 0
+        #: planted digest -> the dictionary position of its one source word
+        self.planted_word: dict = {}
         self.windowed = False
         for width, packed in buckets.items():
             t = time.monotonic()
@@ -1085,6 +1105,7 @@ class MainPath:
                     else:
                         continue
                     self.planted[dig] = cand
+                    self.planted_word[dig] = int(packed.index[row])
                     self.planted_by_route[str(route[row])] = \
                         self.planted_by_route.get(str(route[row]), 0) + 1
                     got += 1
@@ -1114,13 +1135,19 @@ class MainPath:
                      f" plants in {r} words, want {n}")
 
     def run(self, arm, extra, card, emit_scheme=None, pallas=None,
-            pair=None) -> dict:
+            pair=None, native=None) -> dict:
         """One CLI run; ``emit_scheme`` sets ``A5GEN_EMIT`` for this run
         alone (``bytescan``: every plan on the byte-scan tiers), ``pallas``
         ``A5GEN_PALLAS`` (``off``: every bucket on the XLA route), ``pair``
-        ``A5GEN_PAIR`` (``off``: K=1 everywhere).  A run
+        ``A5GEN_PAIR`` (``off``: K=1 everywhere), ``native`` ``A5_NATIVE``
+        (``0``: the numpy packer and the Python oracle for fallback
+        words; None leaves the variable as it is).  The run's ``native_words`` counts the fallback words the
+        native oracle engine expanded.  A run
         with XLA-route buckets must stay within the route's memory budget
         over the whole run (its resident tables included)."""
+        from hashcat_a5_table_generator_tpu_torch.native import (
+            oracle_engine,
+        )
         from hashcat_a5_table_generator_tpu_torch.ops import (
             buffer_hash, bytescan, fused_expand,
         )
@@ -1139,13 +1166,25 @@ class MainPath:
         buffer_hash.WIDTH_LAUNCHES.clear()
         argv = [self.wordlist, "-t", self.table, "--backend", "device",
                 "--algo", self.algo, "--digests", self.digests] + extra
-        with knobs(A5GEN_EMIT=emit_scheme, A5GEN_PALLAS=pallas,
-                   A5GEN_PAIR=pair):
-            t = time.monotonic()
-            res = []
-            peak = launch_peak_bytes(lambda: res.append(run_cli(argv)))
-            out, err, rc = res[0]
-            wall = time.monotonic() - t
+        native_words = [0]
+        iter_word = oracle_engine.NativeDefaultOracle.iter_word
+
+        def counted(eng, *a, **kw):
+            native_words[0] += 1
+            return iter_word(eng, *a, **kw)
+
+        oracle_engine.NativeDefaultOracle.iter_word = counted
+        try:
+            with knobs(A5GEN_EMIT=emit_scheme, A5GEN_PALLAS=pallas,
+                       A5GEN_PAIR=pair, **({} if native is None
+                                          else {"A5_NATIVE": native})):
+                t = time.monotonic()
+                res = []
+                peak = launch_peak_bytes(lambda: res.append(run_cli(argv)))
+                out, err, rc = res[0]
+                wall = time.monotonic() - t
+        finally:
+            oracle_engine.NativeDefaultOracle.iter_word = iter_word
         launches = {k: v for mod in mods for k, v in mod.LAUNCHES.items()
                     if v}
         plain = sum(mod.PLAIN_CALLS for mod in mods)
@@ -1208,12 +1247,16 @@ class MainPath:
             f"{peak / 2**30:.3f} GiB above the run's start, CLI wall "
             f"{wall:.2f} s, "
             f"sweep {s.group(1)} s (drive {s.group(2)} s), {s.group(3)} "
-            f"candidate-hashes/s on {card}")
+            f"candidate-hashes/s on {card}"
+            + (f"; {native_words[0]} of {self.routing['oracle_fallback']} "
+               "fallback words on the native oracle engine"
+               if self.routing["oracle_fallback"] else ""))
         return dict(hits=sorted(got), launches=launches, emitted=emitted,
                     widths=dict(buffer_hash.WIDTH_LAUNCHES),
                     wall=wall, sweep_wall=float(s.group(1)),
                     drive=float(s.group(2)), rate=float(s.group(3)),
-                    stdout=out, xla_lanes=xla_lanes, peak_bytes=peak)
+                    stdout=out, xla_lanes=xla_lanes, peak_bytes=peak,
+                    native_words=native_words[0])
 
 
 # ---------------------------------------------------------------------------
@@ -1710,13 +1753,16 @@ def letter_lines(n: int, seed: int) -> list:
     return out
 
 
-def candidates_checks(work: str, dictionary, card: str) -> None:
+def candidates_checks(work: str, dictionary, card: str) -> dict:
     """Candidates mode through the CLI on the card: qwerty-cyrillic over
-    2e4 words to ``--output`` (line count = the host keyspace; the first
-    2000 words byte-identical to a ``--device cpu`` run; per word the
-    oracle's multiset on 200 sampled words), and qwerty-azerty ``-s``
-    with oracle-fallback words interleaved (byte-identical to the CPU
-    run of the same list)."""
+    2e4 words (line count = the host keyspace; the first 2000 words
+    byte-identical to a ``--device cpu`` run; per word the oracle's
+    multiset on 200 sampled words), and qwerty-azerty ``-s`` with
+    oracle-fallback words interleaved (byte-identical to the CPU run of
+    the same list) and ``-s -r``.  Every run passes ``--output``: the
+    stream stays on stdout and the file is not written, as in the
+    reference.  Returns each cell's wordlist, table and stdout for the
+    oracle backend's phase."""
     from hashcat_a5_table_generator_tpu_torch.models.attack import (
         AttackSpec, build_plan,
     )
@@ -1732,6 +1778,8 @@ def candidates_checks(work: str, dictionary, card: str) -> None:
         emit_table, get_layout,
     )
 
+    cells = {}
+
     def run(words, layout, name, extra, device="cuda"):
         wl = os.path.join(work, f"{name}.words.txt")
         with open(wl, "wb") as fh:
@@ -1740,21 +1788,24 @@ def candidates_checks(work: str, dictionary, card: str) -> None:
         emit_table(get_layout(layout), table)
         out = os.path.join(work, f"{name}.out")
         t = time.monotonic()
-        _o, err, rc = run_cli([wl, "-t", table, "--backend", "device",
-                               "--output", out, "--device", device]
-                              + extra)
+        data, err, rc = run_cli([wl, "-t", table, "--backend", "device",
+                                 "--output", out, "--device", device]
+                                + extra)
         wall = time.monotonic() - t
         if rc != 0:
             fail(f"candidates [{name}] exited {rc}: {err}")
-        with open(out, "rb") as fh:
-            data = fh.read()
+        if os.path.exists(out):
+            fail(f"candidates [{name}]: --output {out} was written; it "
+                 "names --emit-table's file only")
         n = int(re.search(r"(\d+) candidates written", err).group(1))
         s = re.search(r"([\d.]+) s wall, ([\d.]+) s launch loop, "
                       r"([\d.e+]+) candidates/s", err)
         log(f"candidates [{name}] on {device}: {n} candidates, "
-            f"{len(data)} bytes, CLI wall {wall:.2f} s, sweep {s.group(1)} "
-            f"s (launch loop {s.group(2)} s, {s.group(3)} candidates/s)"
-            + (f" on {card}" if device == "cuda" else ""))
+            f"{len(data)} bytes on stdout, CLI wall {wall:.2f} s, sweep "
+            f"{s.group(1)} s (launch loop {s.group(2)} s, {s.group(3)} "
+            "candidates/s)" + (f" on {card}" if device == "cuda" else ""))
+        cells[name] = dict(words=words, wordlist=wl, table=table,
+                           flags=extra, stdout=data)
         return data, n
 
     for k in buffer_hash.LAUNCHES:
@@ -1810,6 +1861,205 @@ def candidates_checks(work: str, dictionary, card: str) -> None:
     log(f"candidates [cand-azerty-s]: {n_gpu} candidates, "
         f"{len(fallback)} oracle-fallback words interleaved; byte-identical "
         "to the --device cpu run")
+    run(az_words, "qwerty-azerty", "cand-azerty-s-r", ["-s", "-r"])
+    return cells
+
+
+# ---------------------------------------------------------------------------
+# The oracle backend (the CLI's default): native C++ engines on the host
+# ---------------------------------------------------------------------------
+
+#: Words of the crack cell the oracle crack takes: its host lookup costs
+#: ~8 us a candidate (a binary search over the 1M digests), so the whole
+#: cell would take minutes on the host's cores.
+ORACLE_CRACK_WORDS = 25_000
+
+
+def host_cpu() -> "tuple[str, int]":
+    """The host CPU's model name (``lscpu``, else ``/proc/cpuinfo``, else
+    ``platform``) and ``nproc``; where none names it, what each said is
+    logged."""
+    import platform
+
+    model, tried = "", []
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30)
+        model = next((ln.split(":", 1)[1].strip() for ln in
+                      out.stdout.splitlines()
+                      if ln.strip().startswith("Model name")), "")
+        tried.append(f"lscpu exit {out.returncode}: {out.stdout[:300]!r} "
+                     f"{out.stderr[:200]!r}")
+    except (OSError, subprocess.SubprocessError) as e:
+        tried.append(f"lscpu: {e}")
+    if not model:
+        try:
+            with open("/proc/cpuinfo") as fh:
+                info = fh.read()
+            model = next((ln.split(":", 1)[1].strip() for ln in
+                          info.splitlines() if ln.startswith(
+                              ("model name", "Model name", "cpu model"))),
+                         "")
+            tried.append(f"/proc/cpuinfo: {info[:300]!r}")
+        except OSError as e:
+            tried.append(f"/proc/cpuinfo: {e}")
+    if not model:
+        model = platform.processor() or platform.machine()
+        log(f"host CPU model not named by lscpu or /proc/cpuinfo "
+            f"({'; '.join(tried)}); platform says {model!r}")
+    nproc = int(subprocess.run(["nproc"], capture_output=True, text=True,
+                               timeout=30, check=True).stdout)
+    return model or "unknown", nproc
+
+
+def oracle_cli(argv, native=True, timeout=600) -> "tuple[bytes, str, float]":
+    """``python -m hashcat_a5_table_generator_tpu_torch ARGV`` in a process
+    of its own (the CLI as a user starts it: ``--threads`` forks from a
+    process that never touched CUDA), ``A5_NATIVE=0`` unless ``native``;
+    (stdout, stderr, wall s).  A run past ``timeout`` is killed with its
+    worker processes and fails the smoke."""
+    env = {k: v for k, v in os.environ.items() if k != "A5_NATIVE"}
+    if not native:
+        env["A5_NATIVE"] = "0"
+    t = time.monotonic()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hashcat_a5_table_generator_tpu_torch",
+         *argv], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        fail(f"oracle CLI {argv} ran past {timeout} s")
+    wall = time.monotonic() - t
+    err = err.decode("utf-8", "replace")
+    if proc.returncode != 0:
+        fail(f"oracle CLI {argv} exited {proc.returncode}: {err[-2000:]}")
+    return out, err, wall
+
+
+def oracle_phase(work: str, cells: dict, crack, crack_run: dict,
+                 card: str) -> dict:
+    """The oracle backend on this machine: the default command line (no
+    ``--backend``) over the candidates cells' words, its sorted lines
+    equal to the card's run's and its count to the host keyspace
+    (``oracle.keyspace``), ``--threads N`` byte-identical to ``--threads
+    1``, ``A5_NATIVE=0`` byte-identical on the first 2000 words; the
+    oracle crack (``--threads N``) over the crack cell's first
+    :data:`ORACLE_CRACK_WORDS` words and its 1M digests, its hits equal
+    to the card's on those words; ``--emit-table`` for every layout and
+    ``--list-layouts``.  Returns the phase's numbers."""
+    from hashcat_a5_table_generator_tpu_torch.oracle.keyspace import (
+        count_candidates,
+    )
+    from hashcat_a5_table_generator_tpu_torch.tables.layouts import (
+        BUILTIN_LAYOUTS, DERIVED_LAYOUTS, get_layout,
+    )
+
+    t_phase = time.monotonic()
+    model, nproc = host_cpu()
+    threads = min(nproc, 16)
+    host = f"host CPU {model}, nproc {nproc}; card {card}"
+    _o, _e, startup = oracle_cli(["--list-layouts"])
+    report = {"host_cpu": model, "nproc": nproc, "threads": threads,
+              "card": card, "startup_s": startup, "candidates": {}}
+    for name in ("cand-cyrillic", "cand-azerty-s", "cand-azerty-s-r"):
+        cell = cells[name]
+        flags, words = cell["flags"], cell["words"]
+        argv = [cell["wordlist"], "-t", cell["table"], *flags]
+        t1, _e, w1 = oracle_cli(argv + ["--threads", "1"])
+        tn, _e, wn = oracle_cli(argv + ["--threads", str(threads)])
+        if tn != t1:
+            fail(f"oracle [{name}]: --threads {threads} differs from "
+                 "--threads 1")
+        head = os.path.join(work, f"{name}.head.txt")
+        with open(head, "wb") as fh:
+            fh.write(b"\n".join(words[:2000]) + b"\n")
+        py, _e, wp = oracle_cli([head, "-t", cell["table"], *flags,
+                                 "--threads", "1"], native=False)
+        if not t1.startswith(py):
+            fail(f"oracle [{name}]: A5_NATIVE=0 on the first 2000 words "
+                 "differs from the native stream")
+        sub = get_layout(os.path.basename(cell["table"])[:-6]
+                         ).to_substitution_map()
+        kw = dict(substitute_all="-s" in flags, reverse="-r" in flags)
+        keyspace = sum(count_candidates(w, sub, 0, 15, **kw) for w in words)
+        head_ks = sum(count_candidates(w, sub, 0, 15, **kw)
+                      for w in words[:2000])
+        lines = t1.split(b"\n")[:-1]
+        py_lines = py.count(b"\n")
+        if len(lines) != keyspace or py_lines != head_ks:
+            fail(f"oracle [{name}]: {len(lines)} lines (A5_NATIVE=0 "
+                 f"{py_lines}), host keyspace {keyspace} ({head_ks})")
+        if sorted(lines) != sorted(cell["stdout"].split(b"\n")[:-1]):
+            fail(f"oracle [{name}]: the sorted lines differ from the "
+                 "card's candidates run")
+        rates = {"native_t1": len(lines) / w1,
+                 f"native_t{threads}": len(lines) / wn,
+                 "python_t1": head_ks / wp}
+        report["candidates"][name] = dict(
+            words=len(words), lines=len(lines), wall_native_t1=w1,
+            **{f"wall_native_t{threads}": wn}, python_words=2000,
+            python_lines=head_ks, wall_python_t1=wp, lines_per_s=rates)
+        log(f"oracle [{name}] {' '.join(flags) or 'default'}: {len(lines)} "
+            f"lines = the host keyspace, sorted = the card's run; "
+            f"--threads {threads} byte-identical to 1; A5_NATIVE=0 "
+            f"identical on the first 2000 words ({head_ks} lines); process "
+            f"walls native t1 {w1:.3f} s, t{threads} {wn:.3f} s, Python t1 "
+            f"{wp:.3f} s (start-up {startup:.3f} s included): "
+            + ", ".join(f"{k} {v:.6g} lines/s" for k, v in rates.items())
+            + f"; {host}")
+    # The crack cell's device hits, cut to the oracle's words: every
+    # printed hit is a planted one, whose one source word is known.
+    with open(crack.wordlist, "rb") as fh:
+        all_words = fh.read().split(b"\n")[:-1]
+    cut = os.path.join(work, "oracle-crack.words.txt")
+    with open(cut, "wb") as fh:
+        fh.write(b"\n".join(all_words[:ORACLE_CRACK_WORDS]) + b"\n")
+    want = []
+    for ln in crack_run["stdout"].split(b"\n")[:-1]:
+        dig = ln.split(b":", 1)[0].decode()
+        if dig not in crack.planted_word:
+            fail(f"oracle crack: device hit {ln[:60]!r} is not planted; its "
+                 "word is unknown, so the cut cannot be held to it")
+        if crack.planted_word[dig] < ORACLE_CRACK_WORDS:
+            want.append(ln)
+    sub = get_layout("qwerty-cyrillic").to_substitution_map()
+    n_cands = sum(count_candidates(w, sub, 0, 15)
+                  for w in all_words[:ORACLE_CRACK_WORDS])
+    out, err, wall = oracle_cli(
+        [cut, "-t", crack.table, "--backend", "oracle", "--threads",
+         str(threads), "--algo", crack.algo, "--digests", crack.digests])
+    got = out.split(b"\n")[:-1]
+    m = re.search(r"(\d+) hits", err)
+    if sorted(got) != sorted(want) or not m or int(m.group(1)) != len(want):
+        fail(f"oracle crack: {len(got)} hits ({m and m.group(1)} on "
+             f"stderr), the card's run has {len(want)} on these words")
+    if len(want) < 50:
+        fail(f"oracle crack: only {len(want)} planted hits in the cut")
+    report["crack"] = dict(words=ORACLE_CRACK_WORDS,
+                           of_words=len(all_words), digests=N_DIGESTS,
+                           candidates=n_cands, hits=len(got), wall_s=wall,
+                           candidates_per_s=n_cands / wall)
+    log(f"oracle crack [{crack.name}, cut to the first "
+        f"{ORACLE_CRACK_WORDS} of {len(all_words)} words]: {len(got)} hits "
+        f"= the card's hits on those words (sorted), {n_cands} candidates "
+        f"hashed on the host, --threads {threads}, process wall {wall:.3f} "
+        f"s ({n_cands / wall:.6g} candidates/s); {host}")
+    layouts = sorted(BUILTIN_LAYOUTS) + sorted(DERIVED_LAYOUTS)
+    for name in layouts:
+        out, err, rc = run_cli(["--emit-table", name])
+        if rc != 0 or not out:
+            fail(f"--emit-table {name}: exit {rc}, {len(out)} bytes: {err}")
+    out, err, rc = run_cli(["--list-layouts"])
+    if rc != 0 or out.count(b"\n") != len(layouts):
+        fail(f"--list-layouts: exit {rc}: {out[:200]!r} {err}")
+    report["emit_table_layouts"] = len(layouts)
+    report["phase_s"] = time.monotonic() - t_phase
+    log(f"--emit-table for {len(layouts)} layouts and --list-layouts: exit "
+        f"0, non-empty; oracle phase {report['phase_s']:.1f} s")
+    return report
 
 
 def ptxas_kernels(report: str) -> list:
@@ -1986,11 +2236,34 @@ def main() -> None:
         f"SM); INT32 instructions per compression: {OPS_PER_BLOCK}")
 
     # -- phase 2: build -----------------------------------------------------
+    # The two host libraries (g++: the wordlist scanner/packer and the
+    # oracle engines) build on a thread while the nvcc builds run; the
+    # smoke needs them built, not the numpy / Python fallback.
+    from hashcat_a5_table_generator_tpu_torch import native
+    from hashcat_a5_table_generator_tpu_torch.native import oracle_engine
+
+    host_libs = {}
+
+    def build_host_libs():
+        t0 = time.monotonic()
+        host_libs["packer"] = native.available()
+        host_libs["oracle"] = oracle_engine.available()
+        host_libs["s"] = time.monotonic() - t0
+
+    host_build = threading.Thread(target=build_host_libs)
+    host_build.start()
     t = time.monotonic()
     libs = [f"piece_hash_{a}" for a in ALGOS]
     bs_libs = [f"bytescan_hash_{a}" for a in ALGOS]
     bh_libs = [f"buffer_hash_{a}" for a in ALGOS]
     reports = _native_build.build(libs + bs_libs + bh_libs)
+    host_build.join()
+    if not (host_libs.get("packer") and host_libs.get("oracle")):
+        fail(f"the native host libraries did not build with g++ "
+             f"({host_libs}): native/packer.cpp, native/oracle.cpp")
+    log(f"built the native host libraries (native/packer.cpp, "
+        f"native/oracle.cpp; g++ -O3, into {native.BUILD_DIR}) in "
+        f"{host_libs['s']:.1f} s beside the nvcc builds")
     log(f"built {len(libs + bs_libs + bh_libs)} libraries from "
         f"csrc/piece_hash.cu, csrc/bytescan_hash.cu and csrc/buffer_hash.cu "
         f"in {time.monotonic() - t:.1f} s (nvcc "
@@ -2504,6 +2777,29 @@ def main() -> None:
             fail(f"{name} ({arm}): launched fused kernels {fused}")
         log(f"main path {name} ({arm}): stdout byte-identical to the kernel "
             f"route's ({len(run['stdout'])} bytes)")
+    # A5_NATIVE=0 (this run alone): the numpy packer, and the Python
+    # oracle for the fallback words; stdout byte-identical to the native
+    # run's, which took every fallback word on the native engine.  The
+    # first -s run also warms the cell up, so the native run is repeated
+    # after the twin: the two engines' drives in turns.
+    run = paths["azerty-md5-s"].run("A5_NATIVE=0 -s", ["-s"], card,
+                                    native="0")
+    runs[("azerty-md5-s", "A5_NATIVE=0 -s")] = run
+    again = paths["azerty-md5-s"].run("-s, native again", ["-s"], card)
+    nat = runs[("azerty-md5-s", "-s")]
+    if not run["stdout"] == nat["stdout"] == again["stdout"]:
+        fail("azerty-md5-s (A5_NATIVE=0): stdout differs from the native "
+             "runs'")
+    if (nat["native_words"], again["native_words"], run["native_words"]) \
+            != (az["oracle_fallback"], az["oracle_fallback"], 0):
+        fail(f"azerty-md5-s: {nat['native_words']}, {again['native_words']}"
+             f" / {run['native_words']} fallback words on the native engine "
+             f"(native runs / A5_NATIVE=0), want {az['oracle_fallback']} / 0")
+    log(f"main path azerty-md5-s (A5_NATIVE=0): stdout byte-identical to "
+        f"the native runs' ({len(run['stdout'])} bytes); drives native "
+        f"{nat['drive']} s, A5_NATIVE=0 {run['drive']} s, native again "
+        f"{again['drive']} s; CLI walls {nat['wall']:.2f} / "
+        f"{run['wall']:.2f} / {again['wall']:.2f} s on {card}")
     # A5GEN_PAIR=off (this run alone): K=1 everywhere; stdout
     # byte-identical to the pair auto run's.
     run = paths["cyrillic-md5"].run("A5GEN_PAIR=off", [], card, pair="off")
@@ -2605,7 +2901,7 @@ def main() -> None:
         f"{czech_rows} rows: {100.0 * (1 - czech['emitted'] / czech_rows):.1f}"
         f"% of the rows masked")
     # Candidates mode (no --digests): the XLA expansion alone.
-    candidates_checks(work, dictionary, card)
+    cand_cells = candidates_checks(work, dictionary, card)
 
     # -- phase 5: timing ----------------------------------------------------
     floor = compression_floor(peak_ops)
@@ -2821,9 +3117,18 @@ def main() -> None:
                         paths["cyrillic-x2-long"].digest_set)
     xla_stage_breakdown(AttackSpec(algo="sha1"), LEET9, leet9_words,
                         paths["leet9-sha1"].digest_set)
+
+    # -- phase 6: the oracle backend ------------------------------------------
+    oracle = oracle_phase(work, cand_cells, paths["cyrillic-md5"],
+                          runs[("cyrillic-md5", "pair auto")], card)
+    oracle["azerty_s_drive_s"] = {
+        "native": runs[("azerty-md5-s", "-s")]["drive"],
+        "A5_NATIVE=0": runs[("azerty-md5-s", "A5_NATIVE=0 -s")]["drive"],
+        "native_again": again["drive"]}
     shutil.rmtree(work, ignore_errors=True)
     elapsed = time.monotonic() - T0
     log(f"done in {elapsed:.1f} s")
+    print(json.dumps({"oracle": oracle}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -12,11 +12,17 @@ kernel (``csrc/piece_hash.cu``: scalar, digit and count-windowed decodes,
 match and substitute-all selectors, the cascade closure, one or two
 candidates per thread), tests digest membership and compacts hits on the
 device; only the counters and the hit slice come back.  Substitute-all
-words no plan can splice exactly go through the host oracle.
+words no plan can splice exactly go through the host oracle.  The CLI's
+default backend is that oracle (``--backend oracle``: the byte-exact
+engines in the reference's DFS order, native C++ where eligible,
+``--threads N`` over worker processes).
 
 Layer map (same names as the reference package):
   tables/    — table parsing, merging, $HEX codec, layouts, compilation
-  oracle/    — the byte-exact CPU generation engines (fallback words)
+  oracle/    — the byte-exact CPU generation engines (the oracle backend,
+               fallback words), keyspace counts, the --threads merge
+  native/    — C++ host hot paths (wordlist scan/pack, the oracle
+               engines), built with g++ at first use, ctypes bindings
   ops/       — packing, piece schema, block index, match and substitute-all
                plans, hashes, membership, the piece-kernel wrapper and its
                plain PyTorch version
@@ -25,9 +31,26 @@ Layer map (same names as the reference package):
   runtime/   — the crack sweep loop, length buckets, hit sinks
   utils/     — host digests, $HEX encoding
 
-Every entry point takes an explicit device (``SweepConfig.device``, CLI
-``--device``) and defaults to ``cuda``; it never moves to the CPU on its
-own.
+Every entry point of the device path takes an explicit device
+(``SweepConfig.device``, CLI ``--device``) and defaults to ``cuda``; it
+never moves to the CPU on its own.  The oracle backend never touches
+CUDA.
 """
 
 __version__ = "0.1.0"
+
+from .tables.parser import (  # noqa: F401
+    HexDecodeError,
+    decode_hex_notation,
+    merge_substitution_tables,
+    parse_substitution_table,
+    read_substitution_table,
+)
+from .oracle.engines import (  # noqa: F401
+    ReferencePanic,
+    iter_candidates,
+    process_word,
+    process_word_reverse,
+    process_word_substitute_all,
+    process_word_substitute_all_reverse,
+)

@@ -1,36 +1,54 @@
-"""The command-line surface of the PyTorch/CUDA package: the device
-backend's crack and candidates modes.
+"""The command-line surface of the PyTorch/CUDA package: the oracle
+backend (the default) and the device backend's crack and candidates
+modes.
 
 Same flags and output as the reference CLI for what this package runs::
 
   a5gen DICT_FILE -t TABLE [-t TABLE ...] [-m MIN] [-x MAX] [-s] [-r]
-        --backend device [--algo md5|md4|sha1|ntlm --digests FILE]
-        [--output FILE] [--hex-unsafe] [--device cuda|cpu]
+        [--threads N] [--bug-compat]
+        [--backend oracle|device] [--algo md5|md4|sha1|ntlm --digests FILE]
+        [--hex-unsafe] [--device cuda|cpu]
+  a5gen --emit-table LAYOUT [--output FILE]
+  a5gen --list-layouts
 
-Default, reverse (``-r``), substitute-all (``-s``) and substitute-all
-reverse (``-s -r``) mode, one GPU.  Crack mode (``--digests``): every
-hash, each bucket on the route the reference's gate picks — the piece
-kernel, the byte-scan kernels (plans without a piece schema, or
-``A5GEN_EMIT=bytescan``) or the XLA expand + hash route (plans the fused
-kernels refuse, or ``A5GEN_PALLAS=off``); hits print to stdout as
-``digest:plain`` potfile lines, bucket-major in the order found.
+``--backend oracle`` (the default) streams the byte-exact CPU engines in
+the reference's ``--threads 1`` order (word order, DFS order within a
+word), through the native C++ engines (``native.oracle_engine``) where
+``default_engine_eligible`` admits the run, else the Python generators;
+``--threads N`` runs N worker processes with an in-order merge
+(``oracle.parallel``), so the stream stays byte-identical at any N.
+Crack mode (``--digests``) hashes every candidate on the host and prints
+``digest:plain`` hits, then ``N hits`` on stderr.  The oracle never
+touches CUDA; ``--device`` has no meaning there.  ``--bug-compat``
+reproduces the reference's reverse-mode offset bug (Q3) in the oracle;
+on the device backend ``-r`` without ``-s`` reroutes to the oracle.
+
+``--backend device``: default, reverse (``-r``), substitute-all (``-s``)
+and substitute-all reverse (``-s -r``) mode, one GPU, the wordlist read
+through the native scanner/packer (``native.read_packed_buckets``).
+Crack mode: every hash, each bucket on the route the reference's gate
+picks — the piece kernel, the byte-scan kernels (plans without a piece
+schema, or ``A5GEN_EMIT=bytescan``) or the XLA expand + hash route (plans
+the fused kernels refuse, or ``A5GEN_PALLAS=off``); hits print to stdout
+as ``digest:plain`` potfile lines, bucket-major in the order found.
 Candidates mode (no ``--digests``): every candidate, one line each, in
-word order (one global width unless ``--buckets`` is given), to stdout or
-``--output FILE`` (in the reference ``--output`` names ``--emit-table``'s
-file, and candidates always go to stdout), ``--hex-unsafe`` wrapping
-line-corrupting candidates in ``$HEX[]``.  The summary (word routing,
-kernel tiers, bucket routes) goes to stderr.  ``--device`` defaults to
-``cuda`` and never falls back to the CPU on its own.
+word order (one global width unless ``--buckets`` is given), to stdout,
+``--hex-unsafe`` wrapping line-corrupting candidates in ``$HEX[]``.  The
+summary (word routing, kernel tiers, bucket routes) goes to stderr.
+``--device`` defaults to ``cuda`` and never falls back to the CPU on its
+own.  ``--output`` names ``--emit-table``'s file only, as in the
+reference: both backends' candidate and hit streams go to stdout.
 
-Every other surface of the reference CLI is recognized and refused with
-exit status 2 and a message naming the ROADMAP.md port-queue item that
-carries it — it never runs a different path.
+Every other surface of the reference CLI is recognized and refused on the
+device backend with exit status 2 and a message naming the ROADMAP.md
+port-queue item that carries it — it never runs a different path.  Under
+``--backend oracle`` those flags do what the reference's do there: the
+stateless ones warn that they have no effect, the rest are ignored.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import sys
 from typing import List, Optional, Sequence
 
@@ -39,7 +57,6 @@ DIGEST_BYTES = {"md5": 16, "md4": 16, "ntlm": 16, "sha1": 20}
 
 #: ROADMAP.md port-queue items for the surfaces this package does not run.
 _ITEMS = {
-    5: "the oracle backend, --emit-table, --list-layouts and --bug-compat",
     6: "checkpoints, streaming and robustness",
     7: "multi-GPU",
     8: "the service layer",
@@ -48,9 +65,6 @@ _ITEMS = {
 
 #: Refused flags: (flags, argparse kwargs, queue item).
 _REFUSED = (
-    (("--bug-compat",), dict(action="store_true"), 5),
-    (("--emit-table",), dict(metavar="LAYOUT"), 5),
-    (("--list-layouts",), dict(action="store_true"), 5),
     (("--checkpoint",), dict(metavar="FILE"), 6),
     (("--checkpoint-every",), dict(type=float, metavar="SECONDS"), 6),
     (("--retries",), dict(type=int, metavar="N"), 6),
@@ -106,25 +120,30 @@ def build_parser() -> argparse.ArgumentParser:
                     help="reverse mode: first option per key only "
                          "(with -s: substitute-all reverse)")
     ap.add_argument("--threads", type=int, default=-1,
-                    help="oracle-backend parallelism; the device backend "
-                         "ignores it")
+                    help="oracle backend: expand words across N worker "
+                         "processes; the stream stays byte-identical to "
+                         "--threads 1 (in-order merge). <=1 or unset = "
+                         "sequential. The device backend ignores it")
     ap.add_argument("--backend", choices=("oracle", "device"),
                     default="oracle",
-                    help="'device' runs the GPU sweep (the oracle backend "
-                         "is not ported)")
+                    help="oracle (default): byte-exact CPU engines in "
+                         "deterministic DFS order; device: the GPU sweep "
+                         "(per-word multiset parity)")
     ap.add_argument("--algo", choices=sorted(DIGEST_BYTES), default="md5",
                     help="hash algorithm for --digests mode (default md5)")
     ap.add_argument("--digests", metavar="FILE",
                     help="hex digest list (one per line); crack mode: "
                          "print digest:plain hits instead of candidates")
-    ap.add_argument("--output", metavar="FILE",
-                    help="candidates mode: write the candidate stream to "
-                         "FILE instead of stdout")
     ap.add_argument("--hex-unsafe", action="store_true",
                     help="wrap line-corrupting candidates in $HEX[...]")
+    ap.add_argument("--bug-compat", action="store_true",
+                    help="reproduce the reference's reverse-mode offset bug "
+                         "(Q3) in the oracle backend")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                    help="where the sweep runs (default cuda; cpu runs "
-                         "the plain PyTorch version of the kernels)")
+                    help="where the device backend's sweep runs (default "
+                         "cuda; cpu runs the plain PyTorch version of the "
+                         "kernels); no meaning under --backend oracle, "
+                         "which never touches CUDA")
     ap.add_argument("--lanes", type=int, default=None,
                     help="hash lanes per launch (default 2^22 on cuda, "
                          "2^17 on cpu)")
@@ -155,6 +174,13 @@ def build_parser() -> argparse.ArgumentParser:
     for flags, kw, _item in _REFUSED:
         ap.add_argument(*flags, default=None if "action" not in kw
                         else False, help=argparse.SUPPRESS, **kw)
+    ap.add_argument("--emit-table", metavar="LAYOUT",
+                    help="write a built-in layout as a .table file to stdout "
+                         "(or --output) and exit")
+    ap.add_argument("--output", metavar="FILE",
+                    help="output path for --emit-table")
+    ap.add_argument("--list-layouts", action="store_true",
+                    help="list built-in and derived layouts and exit")
     return ap
 
 
@@ -286,6 +312,168 @@ def _read_digests(path: str, algo: str):
     return out
 
 
+def _run_emit_table(args) -> int:
+    from .tables.layouts import emit_table, get_layout
+
+    layout = get_layout(args.emit_table)
+    if args.output:
+        emit_table(layout, args.output)
+    else:
+        sys.stdout.buffer.write(layout.to_table_bytes())
+    return 0
+
+
+def _run_list_layouts() -> int:
+    from .tables.layouts import BUILTIN_LAYOUTS, DERIVED_LAYOUTS
+
+    for name in sorted(BUILTIN_LAYOUTS):
+        print(f"{name}\t(built-in)\t{BUILTIN_LAYOUTS[name].description}")
+    for name in sorted(DERIVED_LAYOUTS):
+        print(f"{name}\t(derived)\t{DERIVED_LAYOUTS[name].description}")
+    return 0
+
+
+def native_default_eligible(sub_map, mode: str, crack: bool,
+                            hex_unsafe: bool,
+                            max_substitute: int = 15) -> bool:
+    """Whether the C++ oracle engines can serve this run: a thin shim over
+    the ONE shared predicate, ``native.oracle_engine
+    .default_engine_eligible``, which the --threads workers and the
+    device sweep's fallback words use too."""
+    from .native.oracle_engine import default_engine_eligible
+
+    return default_engine_eligible(
+        sub_map,
+        substitute_all=mode.startswith("suball"),
+        reverse=mode in ("reverse", "suball-reverse"),
+        crack=crack,
+        hex_unsafe=hex_unsafe,
+        max_substitute=max_substitute,
+    )
+
+
+def _native_default_engine(args, sub_map, mode: str, crack: bool,
+                           hex_unsafe: "bool | None" = None):
+    """A ready NativeDefaultOracle, or None (ineligible, no toolchain or
+    ``A5_NATIVE=0``: the Python engines run).  ``hex_unsafe`` overrides
+    the flag for callers whose output never wraps (crack's potfile
+    lines)."""
+    hu = args.hex_unsafe if hex_unsafe is None else hex_unsafe
+    if not native_default_eligible(sub_map, mode, crack, hu,
+                                   args.table_max):
+        return None
+    from .native.oracle_engine import NativeDefaultOracle, available
+
+    if not available():
+        return None
+    return NativeDefaultOracle(sub_map)
+
+
+def _run_oracle(args, sub_map, words) -> int:
+    """Reference semantics, reference order (--threads 1): word order,
+    DFS order within each word (Q9).  Nothing here initializes CUDA or
+    runs a torch op, so ``--threads N`` forks a clean process."""
+    from .oracle.engines import iter_candidates
+    from .runtime.sinks import CandidateWriter, potfile_line
+
+    mode = _mode(args)
+    crack = args.digests is not None
+    iter_kw = dict(
+        min_substitute=args.table_min,
+        max_substitute=args.table_max,
+        substitute_all=mode.startswith("suball"),
+        reverse=mode in ("reverse", "suball-reverse"),
+        bug_compat=args.bug_compat,
+    )
+    if args.threads and args.threads > 1:
+        # Multi-process oracle (oracle.parallel): the same byte stream on
+        # N cores; the in-order merge keeps --threads 1 order at any N.
+        from .oracle.parallel import (
+            run_candidates_parallel,
+            run_crack_parallel,
+        )
+
+        with CandidateWriter(hex_unsafe=args.hex_unsafe) as writer:
+            if crack:
+                def on_hit(dig_hex: str, cand: bytes) -> None:
+                    writer.write_block(potfile_line(dig_hex, cand), 1)
+                    writer.flush()
+
+                n_hits = run_crack_parallel(
+                    words, sub_map,
+                    _read_digests(args.digests, args.algo), args.algo,
+                    on_hit, n_workers=args.threads, **iter_kw,
+                )
+            else:
+                run_candidates_parallel(
+                    words, sub_map, writer, n_workers=args.threads,
+                    hex_unsafe=args.hex_unsafe, **iter_kw,
+                )
+        if crack:
+            print(f"{n_hits} hits", file=sys.stderr)
+        return 0
+    native_eng = _native_default_engine(args, sub_map, mode, crack)
+    if native_eng is not None:
+        # Engines A, C and D (default / substitute-all / suball-reverse)
+        # stream from the C++ oracle: the same byte stream, an order of
+        # magnitude more lines/s than the Python engines (PERF.md §6).
+        stream = {
+            "suball": native_eng.stream_word_suball,
+            "suball-reverse": native_eng.stream_word_suball_reverse,
+        }.get(mode, native_eng.stream_word)
+        with CandidateWriter(hex_unsafe=args.hex_unsafe) as writer:
+            for word in words:
+                stream(
+                    word, args.table_min, args.table_max,
+                    lambda b: writer.write_block(b, b.count(b"\n")),
+                )
+        return 0
+    if crack:
+        from .ops.membership import HostDigestLookup
+        from .utils.digests import HOST_DIGEST
+
+        digest_set = HostDigestLookup(_read_digests(args.digests, args.algo))
+        host_digest = HOST_DIGEST[args.algo]
+    # Crack mode iterates candidates (hash + membership per candidate);
+    # generation dominates that loop, so the native engines feed it too
+    # when the mode fits (output identical; only the iterator changes).
+    crack_native = (
+        _native_default_engine(args, sub_map, mode, crack=False,
+                               hex_unsafe=False)
+        if crack and mode in ("default", "suball", "suball-reverse")
+        else None
+    )
+
+    def word_iter(word):
+        if crack_native is not None:
+            return crack_native.iter_word(
+                word, args.table_min, args.table_max,
+                substitute_all=mode.startswith("suball"),
+                reverse=mode == "suball-reverse",
+            )
+        return iter_candidates(word, sub_map, **iter_kw)
+
+    n_hits = 0
+    with CandidateWriter(hex_unsafe=args.hex_unsafe) as writer:
+        for word in words:
+            for cand in word_iter(word):
+                if crack:
+                    dig = host_digest(cand)
+                    if dig in digest_set:
+                        n_hits += 1
+                        writer.write_block(
+                            potfile_line(dig.hex(), cand), 1
+                        )
+                        # Each hit lands at once (HitRecorder's per-hit
+                        # flush).
+                        writer.flush()
+                else:
+                    writer.emit(cand)
+    if crack:
+        print(f"{n_hits} hits", file=sys.stderr)
+    return 0
+
+
 class _DedupRecorder:
     """Hit recorder wrapper that drops (word, rank) duplicates, so each
     hit prints once per process."""
@@ -406,11 +594,7 @@ def _run_device(args, sub_map, packed) -> int:
                 else "per-launch drive")
         unit = "candidate-hashes/s"
     else:
-        with contextlib.ExitStack() as stack:
-            stream = (stack.enter_context(open(args.output, "wb"))
-                      if args.output else None)
-            writer = stack.enter_context(
-                CandidateWriter(stream, hex_unsafe=args.hex_unsafe))
+        with CandidateWriter(hex_unsafe=args.hex_unsafe) as writer:
             res = sweep.run_candidates(writer)
         print(f"{res.n_emitted} candidates written", file=sys.stderr)
         what = "launch loop"
@@ -426,13 +610,19 @@ def _run_device(args, sub_map, packed) -> int:
     return 0
 
 
-def main(argv: Optional[Sequence[str]] = None) -> int:
-    if argv is None:
-        argv = sys.argv[1:]
-    ap = build_parser()
-    if argv and argv[0] in _SUBCOMMANDS:
-        ap.error(_not_ported(f"'{argv[0]}'", _SUBCOMMANDS[argv[0]]))
-    args = ap.parse_args(argv)
+#: Flags of the device backend that the reference's oracle backend takes
+#: and warns about: (dest, flag).
+_ORACLE_NO_EFFECT = (
+    ("checkpoint", "--checkpoint"), ("no_resume", "--no-resume"),
+    ("progress", "--progress"), ("devices", "--devices"),
+    ("profile", "--profile"), ("coordinator", "--coordinator"),
+    ("num_processes", "--num-processes"), ("process_id", "--process-id"),
+    ("giant_job", "--giant-job"), ("retries", "--retries"),
+)
+
+
+def _refuse_device_flags(ap, args) -> None:
+    """The device backend runs no surface of queue items 6-9: exit 2."""
     for flags, _kw, item in _REFUSED:
         dest = flags[-1].lstrip("-").replace("-", "_")
         if flags == ("--profile", "--profile-dir"):
@@ -441,31 +631,90 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             continue  # one GPU is this package's configuration
         if getattr(args, dest) not in (None, False):
             ap.error(_not_ported(flags[-1], item))
+
+
+def _warn_oracle_flags(args) -> None:
+    """The reference's oracle backend warns about its stateless flags and
+    runs on; the rest it ignores."""
+    for dest, name in _ORACLE_NO_EFFECT:
+        value = getattr(args, dest)
+        if dest == "devices":
+            value = value is not None and value != "1"
+        elif dest in ("coordinator", "num_processes", "process_id"):
+            value = value is not None
+        if value:
+            print(f"{PROG}: warning: {name} has no effect with "
+                  "--backend oracle (the oracle streams statelessly)",
+                  file=sys.stderr)
+
+
+def main(argv: Optional[Sequence[str]] = None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    ap = build_parser()
+    if argv and argv[0] in _SUBCOMMANDS:
+        ap.error(_not_ported(f"'{argv[0]}'", _SUBCOMMANDS[argv[0]]))
+    args = ap.parse_args(argv)
+    if args.list_layouts:
+        return _run_list_layouts()
+    if args.emit_table:
+        try:
+            return _run_emit_table(args)
+        except KeyError as e:
+            ap.error(str(e.args[0]) if e.args else str(e))
     if not args.dict_file:
-        ap.error("dict_file is required")
+        ap.error("dict_file is required (or use --emit-table)")
     if not args.table_files:
         ap.error("at least one -t/--table-files is required")
     if args.table_min > args.table_max:
         ap.error(
             f"--table-min {args.table_min} > --table-max {args.table_max}"
         )
-    if args.backend != "device":
-        ap.error(_not_ported("--backend oracle", 5))
-    if args.output and args.digests is not None:
-        ap.error("--output names the candidate stream's file; crack mode "
-                 "prints its hits to stdout")
-    from .ops.packing import (
-        aligned_width,
-        pack_rows,
-        read_packed_buckets,
-        read_wordlist_lines,
-    )
+    if args.giant_job and args.digests is None:
+        ap.error("--giant-job is crack mode only (requires --digests)")
+    if args.backend == "device" and args.bug_compat:
+        # The Q3 reverse-offset bug is reproduced only by the oracle
+        # engines; the device plans emit corrected bytes.
+        if args.reverse_sub and not args.substitute_all:
+            print(
+                f"{PROG}: warning: --bug-compat requires the oracle "
+                "reverse engine (the device plan emits corrected offsets); "
+                "routing this sweep through --backend oracle",
+                file=sys.stderr,
+            )
+            args.backend = "oracle"
+        else:
+            print(
+                f"{PROG}: warning: --bug-compat only affects reverse mode "
+                "(-r without -s); it has no effect on this sweep",
+                file=sys.stderr,
+            )
+    if args.backend == "oracle":
+        _warn_oracle_flags(args)
+    else:
+        _refuse_device_flags(ap, args)
     from .tables.parser import load_tables
 
     try:
         sub_map = load_tables(args.table_files)
     except OSError as e:
         raise SystemExit(f"{PROG}: cannot read table: {e}")
+    if args.backend == "oracle":
+        from .ops.packing import read_wordlist
+
+        try:
+            words = read_wordlist(
+                args.dict_file, max_word_bytes=args.max_word_bytes
+            )
+            return _run_oracle(args, sub_map, words)
+        except ValueError as e:
+            raise SystemExit(f"{PROG}: {e}")
+        except OSError as e:
+            raise SystemExit(f"{PROG}: cannot read {args.dict_file}: {e}")
+    # Device backend: the native scanner/packer reads the wordlist (its
+    # numpy version when the library is unavailable or A5_NATIVE=0).
+    from . import native
+
     try:
         if args.buckets == "auto":
             # Crack mode buckets by width (one launch geometry per
@@ -473,16 +722,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             # stream keeps dictionary order, as in the reference.
             args.buckets = (16, 32, 64) if args.digests is not None else None
         if args.buckets is None:
-            with open(args.dict_file, "rb") as fh:
-                buf, offsets, lengths = read_wordlist_lines(
-                    fh.read(), max_word_bytes=args.max_word_bytes
-                )
-            packed = pack_rows(
-                buf, offsets, lengths, None,
-                aligned_width(int(lengths.max()) if len(lengths) else 0),
+            packed = native.read_packed(
+                args.dict_file, max_word_bytes=args.max_word_bytes
             )
         else:
-            packed = read_packed_buckets(
+            packed = native.read_packed_buckets(
                 args.dict_file, buckets=args.buckets,
                 max_word_bytes=args.max_word_bytes,
             )

@@ -7,9 +7,13 @@ instead packs words into fixed-shape batches ``uint8[B, width]`` +
 waste low across rockyou-class dictionaries.
 
 Everything here is host-side numpy, shared with the reference package's
-``ops/packing.py`` (same outputs, array for array).  The file-to-batches
-path (:func:`read_packed_buckets`) is vectorized numpy end to end: one
-line scan, one bucket assignment, one gather per bucket.
+``ops/packing.py`` (same outputs, array for array).  The line scan
+(:func:`read_wordlist_lines`), the bucket assignment
+(:func:`bucket_widths`) and the gather (:func:`pack_rows`) are
+vectorized numpy: the versions the native scanner/packer
+(``native.read_packed_buckets``, which the CLI's device backend reads
+through) falls back to.  :func:`read_wordlist` is the oracle backend's
+reader.
 
 The second half is the per-slot piece schema (:class:`PieceSchema`) that
 drives the piece kernel (``ops/fused_expand.py``).
@@ -180,6 +184,36 @@ def read_wordlist_lines(
         bad = int(np.argmax(lengths > max_word_bytes))
         raise ValueError(f"line {bad} exceeds {max_word_bytes} bytes (Q8)")
     return buf, starts.astype(np.int64), lengths.astype(np.int32)
+
+
+def read_wordlist(
+    path: str,
+    *,
+    max_word_bytes: int = DEFAULT_MAX_WORD_BYTES,
+) -> List[bytes]:
+    """Read a dictionary file into a list of words (one per line): the
+    oracle backend's reader.
+
+    Mirrors ``bufio.ScanLines``: splits on ``\\n``, drops one trailing ``\\r``
+    per line, and a final line without a newline still counts. Unlike the
+    reference, an oversized line is an error, not a silent end of input (Q8).
+    """
+    with open(path, "rb") as fh:
+        data = fh.read()
+    words: List[bytes] = []
+    if not data:
+        return words
+    for line in data.split(b"\n"):
+        if line.endswith(b"\r"):
+            line = line[:-1]
+        if len(line) > max_word_bytes:
+            raise ValueError(
+                f"{path}: line {len(words)} exceeds {max_word_bytes} bytes (Q8)"
+            )
+        words.append(line)
+    if data.endswith(b"\n"):
+        words.pop()  # split() produced a trailing empty element, not a word
+    return words
 
 
 # ---------------------------------------------------------------------------
@@ -904,27 +938,3 @@ def pack_rows(
                          len(buf) - 1)
         tokens = np.where(live, buf[pos], np.uint8(0)).astype(np.uint8)
     return PackedWords(tokens=tokens, lengths=lens, index=rows)
-
-
-def read_packed_buckets(
-    path: str,
-    *,
-    buckets: Tuple[int, ...] = DEFAULT_BUCKETS,
-    max_word_bytes: int = DEFAULT_MAX_WORD_BYTES,
-) -> Dict[int, PackedWords]:
-    """File -> ``{bucket_width: PackedWords}``, equivalent to
-    ``bucket_words(read_wordlist(path))``: each batch keeps its words'
-    dictionary positions in ``index``."""
-    with open(path, "rb") as fh:
-        data = fh.read()
-    buf, offsets, lengths = read_wordlist_lines(
-        data, max_word_bytes=max_word_bytes
-    )
-    if len(lengths) == 0:
-        return {}
-    widths = bucket_widths(lengths, buckets)
-    return {
-        int(w): pack_rows(buf, offsets, lengths,
-                          np.nonzero(widths == w)[0], int(w))
-        for w in sorted(int(x) for x in np.unique(widths))
-    }

@@ -2,7 +2,7 @@
 
 A word's bucket width sets the launch's candidate ``out_width`` and hash
 block count, so one long line must not inflate every lane: the wordlist is
-partitioned by length bucket (``ops.packing.read_packed_buckets``, crack
+partitioned by length bucket (``native.read_packed_buckets``, crack
 mode's default 16/32/64) and each bucket runs as an ordinary sweep.
 Bucketing permutes words, never candidates within a word; hits stream to
 the recorder bucket-major as found, and the merged result's hit list is

@@ -1,7 +1,8 @@
 """The ``A5GEN_*`` environment knobs this package reads: one read point.
 
 A copy of the reference package's ``runtime/env.py`` reduced to what the
-port honours: :func:`read_env` (the ``A5GEN_*`` accessor),
+port honours: :func:`read_env` (the ``A5GEN_*`` accessor, which also
+reads ``A5_NATIVE``, the native libraries' switch),
 :func:`env_warn_once` (one diagnostic per knob spelling per process),
 :func:`emit_scheme` (``A5GEN_EMIT``: per-slot piece emission or the
 byte-scan tiers), :func:`env_opt_out` (the on-by-default escape hatches)
@@ -20,9 +21,15 @@ import sys
 from typing import Optional
 
 
+#: The engine's one pre-``A5GEN_`` knob, kept by name: ``A5_NATIVE=0``
+#: forces the numpy / Python versions of the native host libraries.
+_LEGACY_KNOBS = frozenset({"A5_NATIVE"})
+
+
 def read_env(name: str, default: Optional[str] = None) -> Optional[str]:
-    """``os.environ.get`` restricted to the engine's knob namespace."""
-    if not name.startswith("A5GEN_"):
+    """``os.environ.get`` restricted to the engine's knob namespace
+    (``A5GEN_*`` plus ``A5_NATIVE``)."""
+    if not name.startswith("A5GEN_") and name not in _LEGACY_KNOBS:
         raise ValueError(
             f"read_env is the A5GEN_* accessor; got {name!r} "
             "(read other variables with os.environ directly)"

@@ -46,11 +46,13 @@ Python ints.  Candidates mode cuts on the host the same way.
 Substitute-all plans route each word three ways, as the reference does:
 device-clean words and cascade-closed words run on the device; words no
 plan splices exactly (``plan.fallback``) take no blocks and are expanded on
-the host by the oracle (``oracle.engines``), hashed with ``HOST_DIGEST``
-and looked up in the digest list.  Their hits carry the oracle's DFS index
-as rank and interleave in word order: a fallback word is flushed before
-the first device hit of a later word, and at each superstep boundary
-before the boundary's word.  Candidates mode interleaves them the same
+the host by the oracle — the native C++ engine (``native.oracle_engine``)
+where ``default_engine_eligible`` admits the table, else the Python
+generators of ``oracle.engines``; the same candidates in the same order —
+hashed with ``HOST_DIGEST`` and looked up in the digest list.  Their hits
+carry the oracle's DFS index as rank and interleave in word order: a
+fallback word is flushed before the first device hit of a later word, and
+at each superstep boundary before the boundary's word.  Candidates mode interleaves them the same
 way, at their word position in the stream.
 """
 
@@ -659,6 +661,49 @@ class Sweep:
         stats["per_launch"] = stats["launches"]
         return stats, totals[0], totals[1]
 
+    def _oracle_candidates(self, row: int):
+        """A fallback word's candidates in the oracle's DFS order: from the
+        native engine when eligible (the same stream, faster to generate),
+        else from ``oracle.engines``."""
+        word = self.packed.word(row)
+        substitute_all = self.spec.mode.startswith("suball")
+        reverse = self.spec.mode in ("reverse", "suball-reverse")
+        eng = self._native_oracle(substitute_all=substitute_all,
+                                  reverse=reverse)
+        if eng is not None:
+            return eng.iter_word(
+                word, self.spec.min_substitute, self.spec.max_substitute,
+                substitute_all=substitute_all, reverse=reverse,
+            )
+        return iter_candidates(
+            word, self.sub_map, self.spec.min_substitute,
+            self.spec.max_substitute, substitute_all=substitute_all,
+            reverse=reverse,
+        )
+
+    def _native_oracle(self, *, substitute_all: bool, reverse: bool):
+        """The sweep's cached ``NativeDefaultOracle`` for its fallback
+        words, or None (ineligible, no toolchain or ``A5_NATIVE=0``: the
+        Python engines run)."""
+        cached = getattr(self, "_native_oracle_cache", ())
+        if cached != ():
+            return cached
+        from ..native.oracle_engine import (
+            NativeDefaultOracle,
+            available,
+            default_engine_eligible,
+        )
+
+        eng = None
+        if default_engine_eligible(
+            self.sub_map, substitute_all=substitute_all, reverse=reverse,
+            crack=False, hex_unsafe=False,
+            max_substitute=self.spec.max_substitute,
+        ) and available():
+            eng = NativeDefaultOracle(self.sub_map)
+        self._native_oracle_cache = eng
+        return eng
+
     def _crack_word(self, recorder):
         """Crack mode's handling of a fallback word's oracle candidates:
         hash each with ``HOST_DIGEST`` and record the ones in the digest
@@ -726,27 +771,21 @@ def _write_rows(writer: CandidateWriter, cand: np.ndarray,
 class _FallbackFlush:
     """The oracle route of a sweep's fallback words, flushed in word order:
     :meth:`until` expands every not yet expanded fallback word below a row
-    through the port's oracle and hands its candidates to ``on_word(row,
-    candidates) -> (candidates, hits)`` (crack mode: hash and look up;
-    candidates mode: write)."""
+    through the port's oracle (``Sweep._oracle_candidates``: native when
+    eligible) and hands its candidates to ``on_word(row, candidates) ->
+    (candidates, hits)`` (crack mode: hash and look up; candidates mode:
+    write)."""
 
     def __init__(self, sweep: Sweep, on_word) -> None:
         self.sweep, self.on_word = sweep, on_word
         self.done = 0
         self.n_emitted = self.n_hits = 0
-        spec = sweep.spec
-        self.substitute_all = spec.mode.startswith("suball")
-        self.reverse = spec.mode in ("reverse", "suball-reverse")
 
     def until(self, word_row: int) -> None:
         sw, rows = self.sweep, self.sweep.fallback_rows
         while self.done < len(rows) and rows[self.done] < word_row:
             row = rows[self.done]
-            n, hits = self.on_word(row, iter_candidates(
-                sw.packed.word(row), sw.sub_map, sw.spec.min_substitute,
-                sw.spec.max_substitute, substitute_all=self.substitute_all,
-                reverse=self.reverse,
-            ))
+            n, hits = self.on_word(row, sw._oracle_candidates(row))
             self.n_emitted += n
             self.n_hits += hits
             self.done += 1

@@ -23,6 +23,7 @@ import hashcat_a5_table_generator_tpu.ops.packing as j_packing
 import hashcat_a5_table_generator_tpu.ops.pallas_expand as j_pe
 import hashcat_a5_table_generator_tpu.tables.compile as j_compile
 import hashcat_a5_table_generator_tpu_torch.models.attack as t_attack
+import hashcat_a5_table_generator_tpu_torch.native as t_native
 import hashcat_a5_table_generator_tpu_torch.ops.blocks as t_blocks
 import hashcat_a5_table_generator_tpu_torch.ops.fused_expand as t_fe
 import hashcat_a5_table_generator_tpu_torch.ops.membership as t_member
@@ -143,6 +144,39 @@ def test_import_scans_cover_the_xla_route():
         not in src
 
 
+def test_library_exports_equal_reference():
+    """The package exports the reference's library surface (the table
+    parser's five names, the engines' six), and ``iter_candidates``
+    streams as the reference's does."""
+    import hashcat_a5_table_generator_tpu as j_pkg
+    import hashcat_a5_table_generator_tpu_torch as t_pkg
+
+    names = {n for n in vars(j_pkg) if not n.startswith("_")
+             and callable(getattr(j_pkg, n))}
+    assert len(names) == 11
+    assert names <= set(vars(t_pkg))
+    sub = get_layout("german").to_substitution_map()
+    for kw in ({}, {"substitute_all": True}):
+        assert list(t_pkg.iter_candidates(b"strasse", sub, 0, 15, **kw)) \
+            == list(j_pkg.iter_candidates(b"strasse", sub, 0, 15, **kw))
+
+
+def test_import_scans_cover_the_oracle_backend():
+    """The scans above take the oracle backend's modules too (the native
+    bindings, the keyspace, the ``--threads`` merge), and the port keeps
+    its own copies of the native C++ sources: no module of the port
+    reaches the reference package's ``native/``."""
+    scanned = {str(p.relative_to(REPO)) for p in PORT.rglob("*.py")}
+    for mod in ("native/__init__.py", "native/oracle_engine.py",
+                "oracle/keyspace.py", "oracle/parallel.py", "cli.py"):
+        assert f"hashcat_a5_table_generator_tpu_torch/{mod}" in scanned
+    for src in ("packer.cpp", "oracle.cpp"):
+        assert (PORT / "native" / src).is_file()
+    for path in PORT.rglob("*.py"):
+        assert "hashcat_a5_table_generator_tpu/native" not in \
+            path.read_text(), path
+
+
 @pytest.mark.parametrize("layout", LAYOUTS)
 def test_plans_schemas_and_indexes_equal(layout):
     sub = get_layout(layout).to_substitution_map()
@@ -231,14 +265,17 @@ def test_read_packed_buckets_matches_reference(tmp_path):
         + b"\nzz\nlast-line-no-newline"
     )
     want = read_packed_buckets(str(path))
-    got = t_packing.read_packed_buckets(str(path))
-    assert list(want) == list(got)
-    for w in want:
-        assert np.array_equal(want[w].tokens, got[w].tokens)
-        assert np.array_equal(want[w].lengths, got[w].lengths)
-        assert np.array_equal(want[w].index, got[w].index)
-    with pytest.raises(ValueError):
-        t_packing.read_packed_buckets(str(path), max_word_bytes=50)
+    for engine in ("1", "0"):  # the native packer, then its numpy version
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setenv("A5_NATIVE", engine)
+            got = t_native.read_packed_buckets(str(path))
+            assert list(want) == list(got)
+            for w in want:
+                assert np.array_equal(want[w].tokens, got[w].tokens)
+                assert np.array_equal(want[w].lengths, got[w].lengths)
+                assert np.array_equal(want[w].index, got[w].index)
+            with pytest.raises(ValueError):
+                t_native.read_packed_buckets(str(path), max_word_bytes=50)
 
 
 @pytest.mark.parametrize("layout", LAYOUTS)

@@ -3,7 +3,8 @@ reference, on the CPU: equal hit streams ``(word_index, rank, candidate)``
 and emitted counts with the pair tier on and off, for every decode tier
 (scalar, digits, windowed) and every hash, exact overflow re-runs,
 byte-identical CLI stdout, and refusals — exit status 2 or
-``NotImplementedError`` — for everything outside the ported slice (the
+``NotImplementedError`` — for everything outside the ported slice on the
+device backend (the
 XLA expand + hash route's own tests: ``test_torch_xla_*.py``)."""
 
 import hashlib
@@ -138,17 +139,18 @@ def test_cli_stdout_matches_reference_cli(contract, tmp_path, capsysbinary):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--list-layouts"], ["--bug-compat"], ["--devices", "2"],
+    ["--retries", "1"], ["--stream-chunk-words", "8"], ["--devices", "2"],
     ["--checkpoint", "ck.json"], ["--coordinator", "h:1"],
-    ["--backend", "oracle"], ["--fetch-chunk", "4"], ["--progress"],
-    ["--metrics-json", "m.json"], ["--emit-table", "german"],
+    ["--schema-cache", "cache"], ["--fetch-chunk", "4"], ["--progress"],
+    ["--metrics-json", "m.json"], ["--profile", "prof"],
     ["--block-layout", "packed"],
 ], ids=lambda a: a[0])
 def test_flags_outside_the_slice_exit_2(extra, tmp_path, capsys):
+    """The device backend refuses the surfaces of queue items 6-9 (the
+    oracle backend takes them as the reference's does:
+    ``test_torch_oracle_cli.py``)."""
     argv = ["words.txt", "-t", "t.table", "--backend", "device",
             "--digests", "left.txt"]
-    if extra[0] == "--backend":
-        argv = argv[:3] + argv[5:]
     with pytest.raises(SystemExit) as exc:
         t_cli.main(argv + extra)
     assert exc.value.code == 2
@@ -164,12 +166,17 @@ def test_subcommands_exit_2(sub, capsys):
 
 
 def test_candidates_mode_exits_2(capsys):
-    """Candidates mode runs on the device backend; on the oracle backend
-    (the reference's default) it is still refused."""
-    with pytest.raises(SystemExit) as exc:
-        t_cli.main(["w.txt", "-t", "t.table"])
-    assert exc.value.code == 2
-    assert "--backend oracle" in capsys.readouterr().err
+    """Candidates mode runs on both backends, the oracle (the reference's
+    default) included (``test_torch_oracle_cli.py``); it exits 2 only on
+    a usage error, with the reference's message."""
+    errs = []
+    for cli in (j_cli, t_cli):
+        with pytest.raises(SystemExit) as exc:
+            cli.main(["w.txt", "-t", "t.table", "-m", "3", "-x", "2"])
+        assert exc.value.code == 2
+        errs.append(capsys.readouterr().err.splitlines()[-1])
+    assert errs[0] == errs[1]
+    assert errs[1].endswith("--table-min 3 > --table-max 2")
 
 
 @pytest.mark.parametrize("case,reason", [

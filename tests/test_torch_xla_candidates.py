@@ -3,7 +3,8 @@ on the CPU: the CLI without ``--digests`` streams every candidate through
 the XLA expansion, byte-identical to the reference CLI's stdout in
 default, ``-r``, ``-s`` and ``-s -r`` mode (oracle-fallback words
 interleaved at their word position, ``--hex-unsafe`` wrapping), to stdout
-or ``--output``; per word the stream is the oracle's multiset; and the
+(``--output`` is ``--emit-table``'s file only, as in the reference); per
+word the stream is the oracle's multiset; and the
 entry points refuse to run on the CPU unless asked to."""
 
 import io
@@ -127,15 +128,18 @@ def test_bucketed_candidates_equal_reference(tmp_path, capsysbinary):
 
 
 def test_output_file_holds_the_stdout_stream(tmp_path, capsysbinary):
+    """``--output`` is ``--emit-table``'s file only, as in the reference
+    (F5): with it the candidate stream stays on stdout, byte-identical to
+    the reference CLI's, and the file is not written."""
     layout, flags = MODES["suball"]
-    argv = inputs(tmp_path, layout) + flags + GEOMETRY_ARGV + [
-        "--device", "cpu"]
-    assert t_cli.main(argv) == 0
-    want = capsysbinary.readouterr().out
     out = tmp_path / "cands.txt"
-    assert t_cli.main(argv + ["--output", str(out)]) == 0
-    assert capsysbinary.readouterr().out == b""
-    assert out.read_bytes() == want and want
+    argv = inputs(tmp_path, layout) + flags + GEOMETRY_ARGV + [
+        "--output", str(out)]
+    assert j_cli.main(argv) == 0
+    want = capsysbinary.readouterr().out
+    assert t_cli.main(argv + ["--device", "cpu"]) == 0
+    assert capsysbinary.readouterr().out == want and want
+    assert not out.exists()
 
 
 def test_stream_is_the_oracles_multiset_per_word():
