@@ -107,9 +107,27 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    those words; ``--emit-table`` for every layout and ``--list-layouts``.
    Host numbers name the CPU (``lscpu``, ``nproc``) beside the card.
 
-The last four lines of standard output: one ``{"oracle": {...}}`` JSON
-object, the card's name and power limit, one ``{"kernels": [...]}`` JSON
-object, and the ``{"ok": true, ...}`` JSON object.
+7. robustness: the crack cell killed by SIGKILL at a superstep fetch
+   (``A5GEN_FAULTS='superstep.fetch:kill,nth=4'``, ``--checkpoint
+   --checkpoint-every 0``) in a process of its own, then resumed — as it
+   was, and at ``--pair off`` from a copy of its checkpoint — to stdout
+   byte-identical to phase 4's; the same under ``--superstep off``, on
+   azerty ``-s`` (its checkpoint holding fallback words) and in
+   candidates mode (the resumed stream = the uninterrupted one from the
+   checkpoint's ``n_emitted``); ``--retries 2`` through an injected
+   dispatch fault and an injected ``FetchTimeout``, stdout byte-identical;
+   a real ``--fetch-timeout`` far below one superstep: typed timeouts,
+   the retries, exit 1, no hang; ``--profile``'s trace; the drive cost of
+   ``--checkpoint-every 0`` (crack, pair off, in turns; at the default
+   superstep, ``--superstep 1`` and ``--superstep off``; the cost of one
+   write) and the drive's host-span summary (``--metrics-json``: host
+   gap, ``dead_share``) for crack pair auto and off, czech-ntlm and
+   cyrillic-x2-long.
+
+The last five lines of standard output: one ``{"robustness": {...}}``
+JSON object, one ``{"oracle": {...}}`` JSON object, the card's name and
+power limit, one ``{"kernels": [...]}`` JSON object, and the
+``{"ok": true, ...}`` JSON object.
 """
 
 from __future__ import annotations
@@ -878,7 +896,12 @@ def run_cli(argv) -> "tuple[bytes, str, int]":
     err = io.StringIO()
     try:
         with contextlib.redirect_stderr(err):
-            rc = cli.main(list(argv))
+            try:
+                rc = cli.main(list(argv))
+            except SystemExit as e:  # a message exit: its text, then 1
+                rc = e.code if isinstance(e.code, int) else 1
+                if not isinstance(e.code, int):
+                    print(e.code, file=sys.stderr)
     finally:
         wrapper.flush()
         wrapper.detach()
@@ -2062,6 +2085,336 @@ def oracle_phase(work: str, cells: dict, crack, crack_run: dict,
     return report
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: robustness — kill and resume, retries, the watchdog, telemetry
+# ---------------------------------------------------------------------------
+
+
+def start_killed(name: str, argv, spec: str, work: str):
+    """The port's CLI in a process of its own with ``A5GEN_FAULTS=spec``
+    (a ``kill`` rule: it must die by SIGKILL at that seam); stdout is
+    dropped, stderr goes to a file of ``work``."""
+    err = open(os.path.join(work, f"{name}.killed.err"), "wb")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hashcat_a5_table_generator_tpu_torch",
+         *argv], cwd=HERE, stdout=subprocess.DEVNULL, stderr=err,
+        env=dict(os.environ, A5GEN_FAULTS=spec))
+    err.close()
+    return proc
+
+
+def ckpt_docs(path: str) -> dict:
+    """The checkpoint documents at ``path``: a bucket manifest's per-width
+    files by width, or ``{"sweep": doc}``."""
+    with open(path) as fh:
+        doc = json.load(fh)
+    if doc.get("kind") != "bucket-manifest":
+        return {"sweep": doc}
+    out = {}
+    for width, entry in doc["buckets"].items():
+        f = os.path.join(os.path.dirname(path), entry["file"])
+        if os.path.exists(f):
+            with open(f) as fh:
+                out[width] = json.load(fh)
+    return out
+
+
+def copy_ckpt(src: str, dst: str) -> None:
+    """A checkpoint and its per-bucket files under another name."""
+    for name in os.listdir(os.path.dirname(src)):
+        base = os.path.basename(src)
+        if name == base or name.startswith(base + ".w"):
+            shutil.copy(os.path.join(os.path.dirname(src), name),
+                        dst + name[len(base):])
+
+
+def span_totals(metrics_path: str) -> dict:
+    """The drive's span summary of a ``--metrics-json`` file, summed over
+    its buckets: spans, host gap, dead host time, their share."""
+    with open(metrics_path) as fh:
+        doc = json.load(fh)
+    spans = [s for s in doc["spans"].values() if s]
+    gap = sum(s["host_gap_s"] for s in spans)
+    dead = sum(s["dead_host_s"] for s in spans)
+    return {"spans": sum(s["spans"] for s in spans),
+            "host_gap_s": gap, "dead_host_s": dead,
+            "dead_share": dead / gap if gap > 0 else None,
+            "max_inflight": max([s["max_inflight"] for s in spans] or [0]),
+            "by_bucket": doc["spans"],
+            "checkpoint_saves": doc["metrics"].get(
+                "checkpoint.saves", {}).get("value", 0),
+            "checkpoint_bytes": doc["metrics"].get(
+                "checkpoint.bytes_written", {}).get("value", 0)}
+
+
+def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
+                     small: str, card: str) -> dict:
+    """Phase 7.  Kill and resume: the crack cell (``--fetch-chunk 2``,
+    ``superstep.fetch:kill,nth=4``) resumed as it was and at ``--pair
+    off`` from a copy of its checkpoint, ``--superstep off`` (the
+    per-launch pipeline's drain seam), azerty ``-s`` with its fallback
+    words, and candidates mode (``superstep.dispatch:kill,nth=4``) — each
+    killed run a process of its own that must die by SIGKILL and leave
+    its checkpoint; each resumed run's stdout byte-identical to phase
+    4's (candidates: to the uninterrupted stream from the checkpoint's
+    ``n_emitted``).  Retries: ``--retries 2`` with
+    ``superstep.dispatch:nth=3`` and ``superstep.fetch:error=
+    FetchTimeout``, stdout byte-identical; a real watchdog timeout far
+    below one superstep (``--fetch-timeout 0.0005``, ``--retries 1``):
+    typed FetchTimeouts, the drive's retries and the CLI's, then exit 1,
+    not a hang.  ``--profile``: a trace with ``a5.superstep.consume``
+    ranges.  Drive cost of ``--checkpoint --checkpoint-every 0`` (crack,
+    pair off, two runs each in turns, at the default superstep, at
+    ``--superstep 1`` and ``--superstep off``; the cost of one write) and
+    the drive's host-span dead share (``--metrics-json``'s
+    ``dead_share``) for crack pair auto and off, czech-ntlm and
+    cyrillic-x2-long.  Returns the phase's numbers."""
+    import torch
+
+    t_phase = time.monotonic()
+    cyr = paths["cyrillic-md5"]
+    want = runs[("cyrillic-md5", "pair auto")]["stdout"]
+
+    def crack_argv(path, extra=()):
+        return [path.wordlist, "-t", path.table, "--backend", "device",
+                "--algo", path.algo, "--digests", path.digests, *extra]
+
+    def ck(name):
+        return os.path.join(work, f"ck-{name}.json")
+
+    def ck_flags(name):
+        return ["--checkpoint", ck(name), "--checkpoint-every", "0"]
+
+    cand = cand_cells["cand-cyrillic"]
+    cand_argv = [cand["wordlist"], "-t", cand["table"], "--backend",
+                 "device", "--lanes", str(1 << 19)]
+    azerty = paths["azerty-md5-s"]
+    kills = {
+        "crack": (crack_argv(cyr, ["--fetch-chunk", "2"])
+                  + ck_flags("crack"), "superstep.fetch:kill,nth=4"),
+        "superstep-off": (crack_argv(cyr, ["--superstep", "off"])
+                          + ck_flags("superstep-off"),
+                          "superstep.fetch:kill,nth=4"),
+        "azerty-s": (crack_argv(azerty, ["-s", "--fetch-chunk", "2"])
+                     + ck_flags("azerty-s"), "superstep.fetch:kill,nth=3"),
+        "candidates": (cand_argv + ck_flags("candidates"),
+                       "superstep.dispatch:kill,nth=4"),
+    }
+    # The killed runs start together, as processes of their own; the
+    # retry checks run meanwhile (they time nothing).
+    procs = {name: start_killed(name, argv, spec, work)
+             for name, (argv, spec) in kills.items()}
+    report: dict = {"killed": {}, "resumed": {}}
+
+    def retried(label, argv, spec, expect):
+        with knobs(A5GEN_FAULTS=spec):
+            t = time.monotonic()
+            out, err, rc = run_cli(argv)
+            wall = time.monotonic() - t
+        if rc != 0 or out != expect:
+            fail(f"retries [{label}]: exit {rc}, stdout "
+                 f"{'equal' if out == expect else 'differs'}: {err}")
+        n = err.count("transient device error in the sweep drive")
+        if n < 1:
+            fail(f"retries [{label}]: the fault did not fire: {err}")
+        log(f"retries [{label}] ({spec}): {n} in-drive retries, stdout "
+            f"byte-identical to phase 4's ({len(out)} bytes), CLI wall "
+            f"{wall:.2f} s on {card}")
+        return {"in_drive_retries": n, "wall_s": wall}
+
+    # Superstep length 4: the first bucket's launches take three
+    # supersteps, so the third dispatch falls inside it.
+    retry_argv = crack_argv(cyr, ["--retries", "2", "--fetch-chunk", "4"])
+    report["retries"] = {
+        "dispatch": retried("dispatch", retry_argv,
+                            "superstep.dispatch:nth=3", want),
+        "fetch": retried("FetchTimeout", retry_argv,
+                         "superstep.fetch:error=FetchTimeout", want),
+    }
+    # A real watchdog far below one superstep's time: every fetch times
+    # out, so the drive retries twice, the CLI once, and the run exits 1.
+    small_argv = [small, "-t", cyr.table, "--backend", "device",
+                  "--algo", "md5", "--digests", cyr.digests]
+    t = time.monotonic()
+    out, err, rc = run_cli(small_argv + ["--fetch-timeout", "0.0005",
+                                         "--retries", "1"]
+                           + ck_flags("watchdog"))
+    wall = time.monotonic() - t
+    torch.cuda.synchronize()  # the abandoned supersteps drain
+    timeouts = err.count("the sweep drive (FetchTimeout: device fetch "
+                         "still pending")
+    if rc != 1 or timeouts != 4 or "crack sweep attempt failed " \
+            "(FetchTimeout" not in err or \
+            "retry 1/1 from last checkpoint" not in err or wall > 180:
+        fail(f"watchdog: exit {rc}, {timeouts} typed timeouts, wall "
+             f"{wall:.1f} s: {err}")
+    log(f"watchdog (--fetch-timeout 0.0005 s, --retries 1): {timeouts} "
+        f"typed FetchTimeouts (2 in-drive retries per attempt, then the "
+        f"CLI's retry from the last checkpoint), exit {rc} after "
+        f"{wall:.2f} s, no hang, on {card}")
+    report["watchdog"] = {"timeouts": timeouts, "exit": rc, "wall_s": wall}
+
+    for name, proc in procs.items():
+        rc = proc.wait(timeout=900)
+        with open(os.path.join(work, f"{name}.killed.err"), "rb") as fh:
+            err = fh.read().decode(errors="replace")
+        if rc != -9:
+            fail(f"killed run [{name}] exited {rc}, not by SIGKILL: {err}")
+        docs = ckpt_docs(ck(name))
+        cursors = {w: d["cursor"] for w, d in docs.items()}
+        if not docs or not any(d["n_emitted"] for d in docs.values()):
+            fail(f"killed run [{name}]: no progress in its checkpoint "
+                 f"{ck(name)}: {cursors}")
+        report["killed"][name] = {
+            "cursors": cursors,
+            "fallback_done": {w: d["fallback_done"]
+                              for w, d in docs.items()},
+            "n_emitted": {w: d["n_emitted"] for w, d in docs.items()}}
+        log(f"killed run [{name}] ({kills[name][1]}): died by SIGKILL, "
+            f"checkpoint cursors {cursors}, fallback words done "
+            f"{report['killed'][name]['fallback_done']}")
+    if not any(report["killed"]["azerty-s"]["fallback_done"].values()):
+        fail("killed run [azerty-s]: its checkpoint holds no fallback word")
+
+    def resumed(label, argv, expect, emitted):
+        t = time.monotonic()
+        out, err, rc = run_cli(argv)
+        wall = time.monotonic() - t
+        if rc != 0 or out != expect:
+            fail(f"resumed [{label}]: exit {rc}, stdout "
+                 f"{'equal' if out == expect else 'differs'}: {err}")
+        m = re.search(r"(\d+) (?:candidates hashed|candidates written)",
+                      err)
+        if emitted is not None and (not m or int(m.group(1)) != emitted):
+            fail(f"resumed [{label}]: {m and m.group(1)} candidates, want "
+                 f"{emitted}")
+        log(f"resumed [{label}]: stdout byte-identical ({len(out)} bytes), "
+            f"CLI wall {wall:.2f} s on {card}")
+        report["resumed"][label] = {"wall_s": wall, "bytes": len(out)}
+
+    copy_ckpt(ck("crack"), ck("crack-pair-off"))
+    resumed("crack", crack_argv(cyr) + ck_flags("crack"), want,
+            cyr.want_emitted)
+    resumed("crack at --pair off", crack_argv(cyr, ["--pair", "off"])
+            + ck_flags("crack-pair-off"), want, cyr.want_emitted)
+    resumed("--superstep off", crack_argv(cyr, ["--superstep", "off"])
+            + ck_flags("superstep-off"), want, cyr.want_emitted)
+    resumed("azerty -s", crack_argv(azerty, ["-s"]) + ck_flags("azerty-s"),
+            runs[("azerty-md5-s", "-s")]["stdout"], azerty.want_emitted)
+    k = report["killed"]["candidates"]["n_emitted"]["sweep"]
+    lines = cand["stdout"].split(b"\n")
+    resumed("candidates", cand_argv + ck_flags("candidates"),
+            b"".join(ln + b"\n" for ln in lines[k:-1]), None)
+
+    # --profile: a torch.profiler trace of the crack cell (pair off); its
+    # CUDA kernel events, where the profiler records them, give the
+    # device's busy time over the drive.
+    prof = os.path.join(work, "profile")
+    out, err, rc = run_cli(crack_argv(cyr, ["--pair", "off", "--profile",
+                                            prof]))
+    trace_path = os.path.join(prof, "trace.json")
+    if rc != 0 or out != runs[("cyrillic-md5", "pair off")]["stdout"] or \
+            not os.path.exists(trace_path):
+        fail(f"--profile: exit {rc}, stdout or trace at {trace_path} "
+             f"missing: {err}")
+    with open(trace_path) as fh:
+        events = json.load(fh).get("traceEvents", [])
+    consume = sum(e.get("name") == "a5.superstep.consume" for e in events)
+    if consume < 1:
+        fail("--profile: the trace holds no a5.superstep.consume range")
+    busy = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                  for e in events if e.get("cat") == "kernel")
+    union, end = 0.0, None
+    for a, b in busy:
+        if end is None or a > end:
+            union += b - a
+            end = b
+        elif b > end:
+            union += b - end
+            end = b
+    window = (busy[-1][1] - busy[0][0]) if busy else 0.0
+    idle = 1.0 - union / window if window > 0 else None
+    log(f"--profile: {os.path.getsize(trace_path)} bytes of trace, "
+        f"{consume} a5.superstep.consume ranges, {len(busy)} CUDA kernel "
+        f"events; device busy {union / 1e3:.3f} ms of the "
+        f"{window / 1e3:.3f} ms from the first kernel to the last: idle "
+        f"share {idle} (under the profiler) on {card}")
+    report["profile"] = {"consume_ranges": consume,
+                         "kernel_events": len(busy),
+                         "busy_ms": union / 1e3, "window_ms": window / 1e3,
+                         "idle_share": idle,
+                         "bytes": os.path.getsize(trace_path)}
+
+    # Drive cost of --checkpoint-every 0 (crack, pair off, in turns) at
+    # the default superstep (16 launches: a bucket of this cell is one or
+    # two supersteps, so few writes), at one launch a superstep and on the
+    # per-launch pipeline (a write at every fetch), with the cost of one
+    # write; and the drive's host-span summaries.  Every run's stdout =
+    # phase 4's.
+    from hashcat_a5_table_generator_tpu_torch.runtime import telemetry
+
+    cost = {}
+    spans = {}
+
+    def measured(label, name, arm, extra, twin):
+        metrics = os.path.join(work, f"m-{len(spans)}.json")
+        telemetry.REGISTRY.reset()  # the run's own counters
+        run = paths[name].run(f"{arm}, {label}",
+                              extra + ["--metrics-json", metrics], card)
+        if run["stdout"] != runs[(name, twin)]["stdout"]:
+            fail(f"{name} ({arm}, {label}): stdout differs from phase 4's")
+        spans[f"{name} {arm}, {label}"] = dict(span_totals(metrics),
+                                              drive_s=run["drive"])
+        return run
+
+    one = ["--superstep", "1"]
+    for setting, flags in (("default superstep", []), ("superstep 1", one),
+                           ("superstep off", ["--superstep", "off"])):
+        arms = cost[setting] = {"none": [], "every 0": [], "saves": [],
+                                "bytes": []}
+        for i, arm in enumerate(("none", "every 0", "none", "every 0")):
+            extra = ["--pair", "off", *flags] + ([] if arm == "none" else [
+                "--checkpoint", ck(f"cost-{setting}-{i}"),
+                "--checkpoint-every", "0"])
+            label = f"{setting}, checkpoint {arm} ({i + 1})"
+            run = measured(label, "cyrillic-md5", "pair off", extra,
+                           "pair off")
+            arms[arm].append(run["drive"])
+            if arm != "none":
+                arms["saves"].append(spans[f"cyrillic-md5 pair off, "
+                                           f"{label}"]["checkpoint_saves"])
+                arms["bytes"].append(spans[f"cyrillic-md5 pair off, "
+                                           f"{label}"]["checkpoint_bytes"])
+        added = (sum(arms["every 0"]) - sum(arms["none"])) / 2
+        arms["added_s"] = added
+        arms["added_share"] = added / (sum(arms["none"]) / 2)
+        arms["per_write_ms"] = 1e3 * added / (sum(arms["saves"]) / 2)
+    measured("superstep 1", "cyrillic-md5", "pair auto", one, "pair auto")
+    measured("superstep 1", "czech-ntlm", "pair auto", one, "pair auto")
+    measured("default superstep", "cyrillic-x2-long", "-x 2", ["-x", "2"],
+             "-x 2")
+    for label, s in spans.items():
+        log(f"drive spans [{label}]: {s['spans']} consumed fetches, host "
+            f"gap {s['host_gap_s']:.4f} s, dead (nothing in flight) "
+            f"{s['dead_host_s']:.4f} s, host-span dead_share "
+            f"{s['dead_share']}, "
+            f"max in flight {s['max_inflight']}, drive {s['drive_s']} s, "
+            f"checkpoint saves {s['checkpoint_saves']} "
+            f"({s['checkpoint_bytes']} bytes) on {card}")
+    for setting, arms in cost.items():
+        log(f"drive cost of --checkpoint --checkpoint-every 0 (crack, pair "
+            f"off, {setting}, in turns): none {arms['none']} s, every 0 "
+            f"{arms['every 0']} s; {arms['saves']} writes of "
+            f"{arms['bytes']} bytes; added {arms['added_s']:.4f} s "
+            f"({100 * arms['added_share']:.2f}%), "
+            f"{arms['per_write_ms']:.3f} ms a write on {card}")
+    report["drive_cost_s"] = cost
+    report["spans"] = spans
+    report["phase_s"] = time.monotonic() - t_phase
+    log(f"robustness phase {report['phase_s']:.1f} s")
+    return report
+
+
 def ptxas_kernels(report: str) -> list:
     """``(kernel, "R registers, S B stack, spill X/Y B, M B smem")`` per
     entry of an ``-Xptxas -v`` report; the kernel named by its template
@@ -3125,9 +3478,13 @@ def main() -> None:
         "native": runs[("azerty-md5-s", "-s")]["drive"],
         "A5_NATIVE=0": runs[("azerty-md5-s", "A5_NATIVE=0 -s")]["drive"],
         "native_again": again["drive"]}
+    # -- phase 7: robustness -----------------------------------------------
+    robustness = robustness_phase(work, paths, runs, cand_cells, small,
+                                  card)
     shutil.rmtree(work, ignore_errors=True)
     elapsed = time.monotonic() - T0
     log(f"done in {elapsed:.1f} s")
+    print(json.dumps({"robustness": robustness}))
     print(json.dumps({"oracle": oracle}))
     print(card)
     print(json.dumps({"kernels": kernels}))

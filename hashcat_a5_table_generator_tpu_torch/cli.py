@@ -8,6 +8,9 @@ Same flags and output as the reference CLI for what this package runs::
         [--threads N] [--bug-compat]
         [--backend oracle|device] [--algo md5|md4|sha1|ntlm --digests FILE]
         [--hex-unsafe] [--device cuda|cpu]
+        [--checkpoint FILE [--checkpoint-every S] [--no-resume]]
+        [--retries N] [--fetch-timeout S] [--fetch-chunk N]
+        [--progress] [--profile DIR] [--metrics-json FILE]
   a5gen --emit-table LAYOUT [--output FILE]
   a5gen --list-layouts
 
@@ -36,8 +39,14 @@ word order (one global width unless ``--buckets`` is given), to stdout,
 ``--hex-unsafe`` wrapping line-corrupting candidates in ``$HEX[]``.  The
 summary (word routing, kernel tiers, bucket routes) goes to stderr.
 ``--device`` defaults to ``cuda`` and never falls back to the CPU on its
-own.  ``--output`` names ``--emit-table``'s file only, as in the
-reference: both backends' candidate and hit streams go to stdout.
+own.  ``--checkpoint FILE`` makes both modes resumable (the reference's
+documents: a checkpoint written by either package resumes in the other;
+bucketed runs keep a manifest at FILE and one ``FILE.w{width}`` per
+bucket); ``--retries N`` reruns a failed sweep from its last checkpoint;
+``--fetch-timeout`` sets the fetch watchdog; ``--progress``,
+``--metrics-json`` and ``--profile`` report the sweep's telemetry.
+``--output`` names ``--emit-table``'s file only, as in the reference:
+both backends' candidate and hit streams go to stdout.
 
 Every other surface of the reference CLI is recognized and refused on the
 device backend with exit status 2 and a message naming the ROADMAP.md
@@ -57,26 +66,18 @@ DIGEST_BYTES = {"md5": 16, "md4": 16, "ntlm": 16, "sha1": 20}
 
 #: ROADMAP.md port-queue items for the surfaces this package does not run.
 _ITEMS = {
-    6: "checkpoints, streaming and robustness",
+    6: "streaming ingestion, the schema cache and the packed block layout",
     7: "multi-GPU",
     8: "the service layer",
     9: "tuning",
 }
 
-#: Refused flags: (flags, argparse kwargs, queue item).
+#: Refused flags: (flags, argparse kwargs, queue item).  ``--block-layout
+#: packed`` is refused too (item 6); ``stride`` and ``auto`` run.
 _REFUSED = (
-    (("--checkpoint",), dict(metavar="FILE"), 6),
-    (("--checkpoint-every",), dict(type=float, metavar="SECONDS"), 6),
-    (("--retries",), dict(type=int, metavar="N"), 6),
-    (("--fetch-timeout",), dict(type=float, metavar="SECONDS"), 6),
-    (("--fetch-chunk",), dict(type=int, metavar="N"), 6),
     (("--stream-chunk-words",), dict(metavar="N|auto|off"), 6),
     (("--schema-cache",), dict(metavar="DIR"), 6),
     (("--schema-cache-max-mb",), dict(type=float, metavar="MB"), 6),
-    (("--block-layout",), dict(choices=("auto", "packed", "stride")), 6),
-    (("--progress",), dict(action="store_true"), 6),
-    (("--profile", "--profile-dir"), dict(metavar="DIR"), 6),
-    (("--metrics-json",), dict(metavar="FILE"), 6),
     (("--devices",), dict(metavar="N"), 7),
     (("--coordinator",), dict(metavar="HOST:PORT"), 7),
     (("--num-processes",), dict(type=int, metavar="N"), 7),
@@ -168,9 +169,60 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--max-word-bytes", type=int, default=64 * 1024,
                     help="reject dictionary lines longer than this instead "
                          "of silently truncating input (reference Q8)")
+    ap.add_argument("--checkpoint", metavar="FILE",
+                    help="checkpoint path for resumable sweeps "
+                         "(device backend)")
+    ap.add_argument("--checkpoint-every", type=float, default=30.0,
+                    metavar="SECONDS", help="checkpoint interval")
     ap.add_argument("--no-resume", action="store_true",
-                    help="accepted for compatibility; this package keeps "
-                         "no checkpoints")
+                    help="ignore an existing checkpoint and start over")
+    ap.add_argument("--retries", type=int, default=0, metavar="N",
+                    help="re-run a failed device sweep up to N times, "
+                         "resuming from the last checkpoint. Crack mode is "
+                         "exactly-once: hits dedupe across attempts. "
+                         "Candidates mode requires --checkpoint and is "
+                         "at-least-once: candidates emitted since the last "
+                         "checkpoint repeat after a retry (bound the window "
+                         "with --checkpoint-every; a notice marks each "
+                         "retry on stderr). A real CUDA fault (illegal "
+                         "address, Xid, ECC) leaves this process's device "
+                         "context unusable: it is survived by a fresh "
+                         "process resuming the checkpoint, not by these "
+                         "in-process retries")
+    ap.add_argument("--fetch-timeout", type=float, default=None,
+                    metavar="SECONDS",
+                    help="device backend: watchdog on each consumed "
+                         "device fetch — a fetch still pending after "
+                         "SECONDS raises a typed FetchTimeout, which the "
+                         "drive's transient-retry supervisor re-dispatches "
+                         "from the last fetched boundary. Default off: "
+                         "CPU sweeps and cold builds legitimately stall "
+                         "longer than any sane timeout")
+    ap.add_argument("--fetch-chunk", type=_positive_int, default=None,
+                    metavar="N",
+                    help="crack mode: launches per superstep when "
+                         "--superstep is unset, and the most launches "
+                         "whose counts the per-launch pipeline fetches "
+                         "together (chunks grow adaptively 1..N; default "
+                         "16)")
+    ap.add_argument("--block-layout", choices=("auto", "packed", "stride"),
+                    default="auto",
+                    help="fixed-stride blocks (stride, and auto here); "
+                         "packed is not ported yet")
+    ap.add_argument("--progress", action="store_true",
+                    help="periodic JSON progress lines on stderr")
+    ap.add_argument("--profile", metavar="DIR",
+                    help="write a torch.profiler trace of the device sweep "
+                         "to DIR/trace.json (Chrome trace format; inspect "
+                         "with Perfetto); each consumed superstep is an "
+                         "a5.superstep.consume range")
+    ap.add_argument("--profile-dir", metavar="DIR", dest="profile",
+                    help="alias of --profile")
+    ap.add_argument("--metrics-json", metavar="FILE",
+                    help="after the sweep, write the final telemetry "
+                         "snapshot (metrics registry + per-sweep span "
+                         "summary) as JSON to FILE; A5GEN_TELEMETRY=off "
+                         "disables the instrumentation")
     for flags, kw, _item in _REFUSED:
         ap.add_argument(*flags, default=None if "action" not in kw
                         else False, help=argparse.SUPPRESS, **kw)
@@ -202,6 +254,18 @@ def _buckets_arg(value: str):
             f"got {value!r}"
         )
     return widths
+
+
+def _positive_int(value: str) -> int:
+    try:
+        n = int(value)
+        if n < 1:
+            raise ValueError
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"must be a positive integer, got {value!r}"
+        )
+    return n
 
 
 def _superstep_arg(value: str):
@@ -475,8 +539,13 @@ def _run_oracle(args, sub_map, words) -> int:
 
 
 class _DedupRecorder:
-    """Hit recorder wrapper that drops (word, rank) duplicates, so each
-    hit prints once per process."""
+    """Hit recorder wrapper that drops (word, rank) duplicates.
+
+    Used by the --retries loop: after an attempt dies mid-sweep, the next
+    attempt's resume replays every checkpointed hit into its recorder —
+    correct for a fresh process, duplicate output within one retrying
+    process.  The wrapper spans attempts, so each hit prints once per
+    process while a genuinely fresh resume still prints the full list."""
 
     def __init__(self, inner) -> None:
         self.inner = inner
@@ -564,41 +633,129 @@ def _print_kernels(res) -> None:
         file=sys.stderr)
 
 
+def _run_with_retries(make_attempt, retries: int, *, default_resume: bool,
+                      label: str, retry_notice: str = ""):
+    """Recovery from a lost sweep: candidate generation is pure and
+    cursors are durable, so a transient error is survived by rebuilding
+    the sweep (fresh device buffers) and resuming from the last
+    checkpoint.  A real CUDA fault poisons this process's context, so
+    every attempt fails the same way; a fresh process resumes it.
+    ``make_attempt(resume)`` runs one attempt; the first honours
+    ``default_resume`` (--no-resume), later ones always resume."""
+    import time
+
+    attempt = 0
+    resume = default_resume
+    while True:
+        try:
+            return make_attempt(resume)
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as e:  # noqa: BLE001 — a device loss is not typed
+            attempt += 1
+            if attempt > retries:
+                raise
+            print(
+                f"{PROG}: {label} attempt failed "
+                f"({type(e).__name__}: {e}); retry {attempt}/{retries} "
+                f"from last checkpoint{retry_notice}",
+                file=sys.stderr,
+            )
+            resume = True  # later attempts always resume
+            time.sleep(min(2.0 * attempt, 10.0))
+
+
+def _write_metrics_json(path, sweeps) -> None:
+    """``--metrics-json``: the process-wide telemetry registry snapshot
+    and each built sweep's span summary (a bucketed sweep reports one per
+    width), written after the sweep through the atomic writer — the
+    reference's document ``{"metrics", "spans"}``."""
+    if not path:
+        return
+    import json
+
+    from .runtime import telemetry
+    from .runtime.checkpoint import atomic_write_text
+
+    spans = {}
+    for obj in sweeps:
+        inner = getattr(obj, "sweeps", None)
+        if inner is not None:  # BucketedSweep: per-width timelines
+            for width, s in inner.items():
+                spans[f"w{width}"] = s.timeline.summary()
+        else:
+            spans["sweep"] = obj.timeline.summary()
+    doc = {"metrics": telemetry.snapshot(), "spans": spans}
+    atomic_write_text(path, json.dumps(doc, indent=2) + "\n")
+
+
 def _run_device(args, sub_map, packed) -> int:
     """``packed`` is a PackedWords batch or a ``{width: PackedWords}``
     bucket dict."""
     from .models.attack import AttackSpec
     from .runtime.bucketed import BucketedSweep
+    from .runtime.progress import ProgressReporter
     from .runtime.sinks import CandidateWriter, HitRecorder
     from .runtime.sweep import Sweep, SweepConfig
+    from .runtime.telemetry import profiler_trace
 
     spec = AttackSpec(mode=_mode(args), algo=args.algo,
                       min_substitute=args.table_min,
                       max_substitute=args.table_max)
+    bucketed = isinstance(packed, dict)
+    n_words = (sum(p.batch for p in packed.values()) if bucketed
+               else packed.batch)
+    cfg_kw = {}
+    if args.fetch_chunk is not None:
+        cfg_kw["fetch_chunk"] = args.fetch_chunk
     cfg = SweepConfig(
         device=args.device, lanes=args.lanes, num_blocks=args.blocks,
         superstep=args.superstep,
         pair={"auto": None, "on": "on", "off": 0}[args.pair],
+        fetch_timeout_s=args.fetch_timeout,
+        checkpoint_path=args.checkpoint,
+        checkpoint_every_s=args.checkpoint_every,
+        progress=ProgressReporter(n_words) if args.progress else None,
+        **cfg_kw,
     )
     crack = args.digests is not None
     digests = _read_digests(args.digests, args.algo) if crack else ()
-    sweep = (BucketedSweep if isinstance(packed, dict) else Sweep)(
-        spec, sub_map, packed, digests, config=cfg
-    )
-    if crack:
-        res = sweep.run_crack(_DedupRecorder(HitRecorder(sys.stdout.buffer)))
-        print(f"{res.n_hits} hits, {res.n_emitted} candidates hashed",
-              file=sys.stderr)
-        what = ("superstep drive" if res.superstep.get("supersteps")
-                or not res.superstep.get("per_launch")
-                else "per-launch drive")
-        unit = "candidate-hashes/s"
-    else:
-        with CandidateWriter(hex_unsafe=args.hex_unsafe) as writer:
-            res = sweep.run_candidates(writer)
-        print(f"{res.n_emitted} candidates written", file=sys.stderr)
-        what = "launch loop"
-        unit = "candidates/s"
+    built: list = []
+
+    def make_sweep():
+        sweep = (BucketedSweep if bucketed else Sweep)(
+            spec, sub_map, packed, digests, config=cfg)
+        built.append(sweep)
+        return sweep
+
+    with profiler_trace(args.profile):
+        if crack:
+            recorder = _DedupRecorder(HitRecorder(sys.stdout.buffer))
+            res = _run_with_retries(
+                lambda resume: make_sweep().run_crack(recorder,
+                                                      resume=resume),
+                args.retries, default_resume=not args.no_resume,
+                label="crack sweep",
+            )
+            print(f"{res.n_hits} hits, {res.n_emitted} candidates hashed",
+                  file=sys.stderr)
+            what = ("superstep drive" if res.superstep.get("supersteps")
+                    or not res.superstep.get("per_launch")
+                    else "per-launch drive")
+            unit = "candidate-hashes/s"
+        else:
+            with CandidateWriter(hex_unsafe=args.hex_unsafe) as writer:
+                res = _run_with_retries(
+                    lambda resume: make_sweep().run_candidates(
+                        writer, resume=resume),
+                    args.retries, default_resume=not args.no_resume,
+                    label="candidates sweep",
+                    retry_notice=("; candidates since that checkpoint "
+                                  "repeat (at-least-once stream)"),
+                )
+            print(f"{res.n_emitted} candidates written", file=sys.stderr)
+            what = "launch loop"
+            unit = "candidates/s"
     _print_routing(res)
     _print_routes(res)
     _print_kernels(res)
@@ -607,6 +764,7 @@ def _run_device(args, sub_map, packed) -> int:
     print(f"{PROG}: sweep: {res.wall_s:.3f} s wall, {res.drive_s:.3f} s "
           f"{what}, {rate:.6g} {unit} (device {args.device})",
           file=sys.stderr)
+    _write_metrics_json(args.metrics_json, built)
     return 0
 
 
@@ -622,15 +780,16 @@ _ORACLE_NO_EFFECT = (
 
 
 def _refuse_device_flags(ap, args) -> None:
-    """The device backend runs no surface of queue items 6-9: exit 2."""
+    """The device backend runs no surface of the queue items still to
+    port (the second half of item 6, items 7-9): exit 2."""
     for flags, _kw, item in _REFUSED:
         dest = flags[-1].lstrip("-").replace("-", "_")
-        if flags == ("--profile", "--profile-dir"):
-            dest = "profile"
         if dest == "devices" and args.devices == "1":
             continue  # one GPU is this package's configuration
         if getattr(args, dest) not in (None, False):
             ap.error(_not_ported(flags[-1], item))
+    if args.block_layout == "packed":
+        ap.error(_not_ported("--block-layout packed", 6))
 
 
 def _warn_oracle_flags(args) -> None:
@@ -669,6 +828,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.table_min > args.table_max:
         ap.error(
             f"--table-min {args.table_min} > --table-max {args.table_max}"
+        )
+    if (
+        args.retries
+        and args.backend == "device"
+        and args.digests is None
+        and not args.checkpoint
+    ):
+        ap.error(
+            "--retries in candidates mode requires --checkpoint (a retry "
+            "without one would re-emit the whole candidate stream)"
         )
     if args.giant_job and args.digests is None:
         ap.error("--giant-job is crack mode only (requires --digests)")
@@ -714,6 +883,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     # Device backend: the native scanner/packer reads the wordlist (its
     # numpy version when the library is unavailable or A5_NATIVE=0).
     from . import native
+    from .runtime.checkpoint import CheckpointCorrupt
 
     try:
         if args.buckets == "auto":
@@ -740,6 +910,15 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except NotImplementedError as e:
         print(f"{PROG}: not ported: {e}", file=sys.stderr)
         return 2
+    except CheckpointCorrupt as e:
+        # The typed corrupt/truncated-checkpoint error: name the file and
+        # the failure, and say what to do about it.
+        raise SystemExit(
+            f"{PROG}: {e}\n"
+            f"{PROG}: remediation: delete (or restore from backup) the "
+            "named checkpoint file, or rerun with --no-resume to start "
+            "the sweep over"
+        )
     except (ValueError, RuntimeError) as e:
         raise SystemExit(f"{PROG}: {e}")
     except OSError as e:

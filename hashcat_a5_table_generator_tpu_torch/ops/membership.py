@@ -145,11 +145,19 @@ class HostDigestLookup:
             self._width = int(a.shape[1])
             self._rows = np.sort(a.view(f"V{self._width}")[:, 0])
             self._set = None
+            self._sorted_list = None
         else:
             lst = list(digests)
             self._rows = None
             self._set = set(lst)
+            self._sorted_list = sorted(lst)
             self._width = len(lst[0]) if lst else 0
+
+    def __len__(self) -> int:
+        return (
+            int(self._rows.shape[0]) if self._rows is not None
+            else len(self._sorted_list)
+        )
 
     def __contains__(self, dig: bytes) -> bool:
         if self._set is not None:
@@ -160,6 +168,14 @@ class HostDigestLookup:
         probe = np.frombuffer(dig, dtype=rows.dtype)[0]
         i = int(np.searchsorted(rows, probe))
         return i < rows.shape[0] and bool(rows[i] == probe)
+
+    def sorted_blob(self) -> bytes:
+        """Digests concatenated in ascending byte order — the checkpoint
+        fingerprint's stream; the void-row sort equals ``sorted`` of the
+        list form, so both forms of one set give the same bytes."""
+        if self._rows is not None:
+            return self._rows.tobytes()
+        return b"".join(self._sorted_list)
 
 
 def _flip(x: torch.Tensor) -> torch.Tensor:

@@ -10,14 +10,24 @@ sorted by global ``(word_index, rank)``; candidates stream bucket-major,
 dictionary order within each bucket.  Each bucket picks its own route
 (piece kernel, byte-scan kernels or the XLA expand + hash route); a
 refusal in any bucket stops the run before the first bucket launches.
+
+Checkpoints, as in the reference: the user's ``--checkpoint FILE`` holds
+a top-level *manifest* (bucket widths → per-bucket checkpoint files and
+fingerprints, ``checkpoint.save_bucket_manifest``), written before any
+bucket runs and checked on resume; each bucket's cursor state lives in
+``{FILE}.w{width}`` and resumes on its own.  A single-sweep checkpoint at
+FILE, or a manifest written under other ``--buckets``, fails loudly
+instead of silently restarting.
 """
 
 from __future__ import annotations
 
 import time
+from dataclasses import replace
 from typing import Dict, List, Optional, Sequence
 
 from ..ops.packing import PackedWords
+from .checkpoint import check_bucket_manifest, save_bucket_manifest
 from .sweep import Sweep, SweepConfig, SweepResult
 
 
@@ -35,6 +45,59 @@ class _ForwardRecorder:
             self.sink.emit(record)
 
 
+class _BucketProgress:
+    """Adapter making per-bucket progress cumulative across buckets."""
+
+    def __init__(self, inner) -> None:
+        self.inner = inner
+        self.word_base = 0
+        self.emit_base = 0
+        self.hit_base = 0
+        self._routing: dict = {}
+
+    def advance(self, words: int, emitted: int, hits: int) -> None:
+        self.word_base += words
+        self.emit_base += emitted
+        self.hit_base += hits
+
+    def set_routing(self, routing: dict) -> None:
+        # Per-bucket routing accumulates into whole-dictionary counts.
+        for k, v in routing.items():
+            self._routing[k] = self._routing.get(k, 0) + int(v)
+        inner_set = getattr(self.inner, "set_routing", None)
+        if inner_set is not None:
+            inner_set(self._routing)
+
+    def set_geometry(self, geometry: dict, source: str) -> None:
+        # Buckets share one SweepConfig: the last bucket's stamp stands.
+        inner_set = getattr(self.inner, "set_geometry", None)
+        if inner_set is not None:
+            inner_set(geometry, source)
+
+    def seed_emitted(self, emitted: int) -> None:
+        self.inner.seed_emitted(self.emit_base + emitted)
+
+    def seed_hits(self, hits: int) -> None:
+        inner_seed = getattr(self.inner, "seed_hits", None)
+        if inner_seed is not None:
+            inner_seed(self.hit_base + hits)
+
+    def update(self, *, words_done: int, emitted: int, hits: int,
+               force: bool = False) -> None:
+        self.inner.update(
+            words_done=self.word_base + words_done,
+            emitted=self.emit_base + emitted,
+            hits=self.hit_base + hits,
+            force=force,
+        )
+
+    def final(self, *, words_done: int, emitted: int, hits: int) -> None:
+        # A bucket's "final" is a forced update; the run's final line is
+        # printed once, after the last bucket.
+        self.update(words_done=words_done, emitted=emitted, hits=hits,
+                    force=True)
+
+
 class BucketedSweep:
     """One wordlist × one table × one spec, split across length buckets.
 
@@ -49,40 +112,78 @@ class BucketedSweep:
         digests: Sequence[bytes] = (),
         config: Optional[SweepConfig] = None,
     ) -> None:
-        self.config = config or SweepConfig()
-        self.sweeps: Dict[int, Sweep] = {
-            width: Sweep(spec, sub_map, buckets[width], digests,
-                         config=self.config)
-            for width in sorted(buckets)
-            if buckets[width].batch
-        }
+        self.config = cfg = config or SweepConfig()
+        self.progress = (_BucketProgress(cfg.progress)
+                         if cfg.progress is not None else None)
+        self.sweeps: Dict[int, Sweep] = {}
+        for width in sorted(buckets):
+            if not buckets[width].batch:
+                continue
+            bucket_cfg = replace(
+                cfg,
+                checkpoint_path=(f"{cfg.checkpoint_path}.w{width}"
+                                 if cfg.checkpoint_path else None),
+                progress=self.progress,
+            )
+            self.sweeps[width] = Sweep(spec, sub_map, buckets[width],
+                                       digests, config=bucket_cfg)
 
     @property
     def n_words(self) -> int:
         return sum(s.n_words for s in self.sweeps.values())
 
-    def run_crack(self, recorder=None) -> SweepResult:
+    def _sync_manifest(self, resume: bool) -> None:
+        """Check (when resuming) and write the top-level manifest at the
+        user's checkpoint path, before any bucket runs, so FILE exists
+        even if the run dies inside the first bucket."""
+        path = self.config.checkpoint_path
+        if not path:
+            return
+        fps = {w: s.fingerprint for w, s in self.sweeps.items()}
+        if resume:
+            check_bucket_manifest(path, fps)
+        save_bucket_manifest(path, fps)
+
+    def run_crack(self, recorder=None, *, resume: bool = True
+                  ) -> SweepResult:
         """Crack every bucket in ascending width order."""
         t0 = time.monotonic()
         for sweep in self.sweeps.values():
             sweep.check("crack")
-        results = [
-            sweep.run_crack(_ForwardRecorder(recorder))
-            for sweep in self.sweeps.values()
-        ]
+        self._sync_manifest(resume)
+        results = []
+        for sweep in self.sweeps.values():
+            res = sweep.run_crack(_ForwardRecorder(recorder), resume=resume)
+            results.append(res)
+            if self.progress is not None:
+                self.progress.advance(res.words_done, res.n_emitted,
+                                      res.n_hits)
         merged = self._merge(results, t0)
         merged.hits.sort(key=lambda h: (h.word_index, h.variant_rank))
+        if self.config.progress is not None:
+            self.config.progress.final(words_done=merged.words_done,
+                                       emitted=merged.n_emitted,
+                                       hits=merged.n_hits)
         return merged
 
-    def run_candidates(self, writer) -> SweepResult:
+    def run_candidates(self, writer, *, resume: bool = True) -> SweepResult:
         """Stream every bucket's candidates (ascending width, dictionary
         order within each bucket)."""
         t0 = time.monotonic()
         for sweep in self.sweeps.values():
             sweep.check("candidates")
-        return self._merge(
-            [sweep.run_candidates(writer) for sweep in self.sweeps.values()],
-            t0)
+        self._sync_manifest(resume)
+        results = []
+        for sweep in self.sweeps.values():
+            res = sweep.run_candidates(writer, resume=resume)
+            results.append(res)
+            if self.progress is not None:
+                self.progress.advance(res.words_done, res.n_emitted, 0)
+        merged = self._merge(results, t0)
+        if self.config.progress is not None:
+            self.config.progress.final(words_done=merged.words_done,
+                                       emitted=merged.n_emitted, hits=0)
+        return merged
 
     def _merge(self, results, t0: float) -> SweepResult:
         routing: Dict[str, int] = {}
@@ -97,7 +198,7 @@ class BucketedSweep:
                     total[k] = total.get(k, 0) + v
             for k, v in r.superstep.items():
                 summed = k in ("supersteps", "launches", "replays",
-                               "per_launch")
+                               "retries", "per_launch")
                 superstep[k] = superstep.get(k, 0) + v if summed \
                     else max(superstep.get(k, 0), v)
             if r.xla:

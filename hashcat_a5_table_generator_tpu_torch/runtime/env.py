@@ -7,9 +7,11 @@ reads ``A5_NATIVE``, the native libraries' switch),
 :func:`emit_scheme` (``A5GEN_EMIT``: per-slot piece emission or the
 byte-scan tiers), :func:`env_opt_out` (the on-by-default escape hatches)
 and the hatches themselves: :func:`pair_enabled` (``A5GEN_PAIR``),
-:func:`superstep_enabled` (``A5GEN_SUPERSTEP``) and
-:func:`pipeline_enabled` (``A5GEN_PIPELINE``).  ``A5GEN_PALLAS`` keeps its
-own vocabulary at its call site, as in the reference
+:func:`superstep_enabled` (``A5GEN_SUPERSTEP``),
+:func:`pipeline_enabled` (``A5GEN_PIPELINE``) and
+:func:`telemetry_enabled` (``A5GEN_TELEMETRY``); and :func:`faults_spec`
+(``A5GEN_FAULTS``, parsed by ``runtime/faults.py``).  ``A5GEN_PALLAS``
+keeps its own vocabulary at its call site, as in the reference
 (``ops.fused_expand.enabled_by_env``), and ``A5GEN_CASCADE_CLOSE`` is read
 by ``ops.expand_suball.close_enabled``.  Standard library only.
 """
@@ -107,3 +109,21 @@ def pipeline_enabled() -> bool:
     superstep drive: each superstep's fetch is waited on before the next
     dispatch.  The candidate and hit streams are the same either way."""
     return not env_opt_out("A5GEN_PIPELINE", "pipelined superstep drive")
+
+
+def telemetry_enabled() -> bool:
+    """``A5GEN_TELEMETRY`` set to ``off``/``0``/``no`` disables the
+    hot-path instrumentation: span-timeline appends, per-fetch registry
+    updates, progress enrichment.  The hatch changes observability, never
+    results."""
+    return not env_opt_out(
+        "A5GEN_TELEMETRY", "telemetry registry + span timeline on")
+
+
+def faults_spec() -> "Optional[str]":
+    """Deterministic fault-injection arming: ``A5GEN_FAULTS`` holds a
+    fault-plan spec (grammar in ``runtime/faults.py``, e.g.
+    ``superstep.dispatch:nth=2``); empty/unset = nothing armed.  Parsed
+    at ``Sweep`` construction, never at import; a malformed spec fails
+    loudly there."""
+    return read_env("A5GEN_FAULTS") or None

@@ -7,7 +7,11 @@ seeds).
 Usage, from the root of a checkout (``ROOT``: the checkout whose
 ``chip_smoke.py`` runs; default: the current directory)::
 
-    python3 scripts/torch_smoke_digests.py [ROOT]
+    python3 scripts/torch_smoke_digests.py [--through-phase-4] [ROOT]
+
+``--through-phase-4`` stops the run where phase 5 would start (the
+timing and oracle phases and later are skipped): two trees' phase-4
+stdouts and drives compared in turns at a third of the call's time.
 
 Each CLI run adds one line ``[stdout N] sha256 <hex> <bytes> B: <argv>``
 (``N`` counts the runs; the argv's paths relative to ``ROOT``); the rest
@@ -20,7 +24,10 @@ import sys
 
 
 def main() -> None:
-    root = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else ".")
+    args = sys.argv[1:]
+    through_phase_4 = "--through-phase-4" in args
+    args = [a for a in args if a != "--through-phase-4"]
+    root = os.path.abspath(args[0] if args else ".")
     sys.path.insert(0, root)
     os.chdir(root)
     import chip_smoke
@@ -38,6 +45,12 @@ def main() -> None:
         return out, err, rc
 
     chip_smoke.run_cli = logged
+    if through_phase_4:
+        def stop(*_a, **_k):
+            chip_smoke.log("stopped after phase 4")
+            sys.exit(0)
+
+        chip_smoke.compression_floor = stop  # phase 5's first call
     sys.argv = [os.path.join(root, "chip_smoke.py")]
     chip_smoke.main()
 

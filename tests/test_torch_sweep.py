@@ -2,9 +2,9 @@
 reference, on the CPU: equal hit streams ``(word_index, rank, candidate)``
 and emitted counts with the pair tier on and off, for every decode tier
 (scalar, digits, windowed) and every hash, exact overflow re-runs,
-byte-identical CLI stdout, and refusals — exit status 2 or
-``NotImplementedError`` — for everything outside the ported slice on the
-device backend (the
+byte-identical CLI stdout (with queue item 6's first-half flags too), and
+refusals — exit status 2 or ``NotImplementedError`` — for everything
+outside the ported slice on the device backend (the
 XLA expand + hash route's own tests: ``test_torch_xla_*.py``)."""
 
 import hashlib
@@ -139,22 +139,59 @@ def test_cli_stdout_matches_reference_cli(contract, tmp_path, capsysbinary):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--retries", "1"], ["--stream-chunk-words", "8"], ["--devices", "2"],
-    ["--checkpoint", "ck.json"], ["--coordinator", "h:1"],
-    ["--schema-cache", "cache"], ["--fetch-chunk", "4"], ["--progress"],
-    ["--metrics-json", "m.json"], ["--profile", "prof"],
+    ["--stream-chunk-words", "8"], ["--devices", "2"],
+    ["--coordinator", "h:1"], ["--schema-cache", "cache"],
     ["--block-layout", "packed"],
 ], ids=lambda a: a[0])
 def test_flags_outside_the_slice_exit_2(extra, tmp_path, capsys):
-    """The device backend refuses the surfaces of queue items 6-9 (the
-    oracle backend takes them as the reference's does:
-    ``test_torch_oracle_cli.py``)."""
+    """The device backend refuses the surfaces still to port (the second
+    half of queue item 6, items 7-9; the oracle backend takes them as the
+    reference's does: ``test_torch_oracle_cli.py``)."""
     argv = ["words.txt", "-t", "t.table", "--backend", "device",
             "--digests", "left.txt"]
     with pytest.raises(SystemExit) as exc:
         t_cli.main(argv + extra)
     assert exc.value.code == 2
     assert "ROADMAP.md port queue item" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra", [
+    ["--retries", "1"], ["--checkpoint", "ck.json"], ["--fetch-chunk", "4"],
+    ["--progress"], ["--metrics-json", "m.json"], ["--profile", "prof"],
+    ["--block-layout", "stride"], ["--fetch-timeout", "30"],
+], ids=lambda a: a[0])
+def test_item_6_flags_run_as_the_reference(extra, contract, tmp_path,
+                                           capsysbinary):
+    """The first half of queue item 6 runs on the device backend: with
+    each flag a small CPU crack sweep prints the reference CLI's stdout
+    under the same flag (each package writes its own files)."""
+    words, _planted, digests = contract
+    (tmp_path / "words.txt").write_bytes(b"\n".join(words) + b"\n")
+    (tmp_path / "left.txt").write_text(
+        "".join(d.hex() + "\n" for d in digests))
+    emit_table(get_layout("qwerty-cyrillic"), str(tmp_path / "t.table"))
+    argv = [str(tmp_path / "words.txt"), "-t", str(tmp_path / "t.table"),
+            "--backend", "device", "--digests", str(tmp_path / "left.txt"),
+            *GEOMETRY_ARGV]
+
+    def flag(pkg):
+        return [extra[0]] + [str(tmp_path / f"{pkg}-{v}") for v in extra[1:]
+                             ] if extra[0] in ("--checkpoint",
+                                               "--metrics-json",
+                                               "--profile") else extra
+
+    assert j_cli.main(argv + flag("j")) == 0
+    want = capsysbinary.readouterr().out
+    assert t_cli.main(argv + flag("t") + ["--device", "cpu"]) == 0
+    got = capsysbinary.readouterr()
+    assert got.out == want and want
+    assert b"candidates hashed" in got.err
+    if extra[0] in ("--checkpoint", "--metrics-json"):
+        assert (tmp_path / f"t-{extra[1]}").is_file()
+    if extra[0] == "--profile":
+        assert (tmp_path / "t-prof" / "trace.json").is_file()
+    if extra[0] == "--progress":
+        assert b'{"progress": {' in got.err
 
 
 @pytest.mark.parametrize("sub", ["serve", "fleet", "tune"])
