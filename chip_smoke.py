@@ -83,7 +83,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    2000 words byte-identical to a ``--device cpu`` run, per word the
    oracle's multiset on 200 sampled words; qwerty-azerty ``-s`` with
    oracle-fallback words interleaved, and ``-s -r``); every run on the
-   XLA route within the memory budget over the whole run;
+   XLA route within the memory budget over the whole run.  Every cell
+   runs the CLI's defaults, so a bucket of more than one auto chunk
+   (65,536 words at width 16) streams: the 250k-word buckets in 4 chunks,
+   the 1M-word ones in 16;
 5. each entry point x hash timed with CUDA events at main-path shapes
    beside its bound, the compression floor this card measures (the
    buffer hash at width 0: one compression a row, nothing loaded) and
@@ -119,15 +122,29 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    a real ``--fetch-timeout`` far below one superstep: typed timeouts,
    the retries, exit 1, no hang; ``--profile``'s trace; the drive cost of
    ``--checkpoint-every 0`` (crack, pair off, in turns; at the default
-   superstep, ``--superstep 1`` and ``--superstep off``; the cost of one
-   write) and the drive's host-span summary (``--metrics-json``: host
+   superstep and ``--superstep off``; the cost of one write) and the drive's host-span summary (``--metrics-json``: host
    gap, ``dead_share``) for crack pair auto and off, czech-ntlm and
-   cyrillic-x2-long.
+   cyrillic-x2-long;
+8. layouts and streaming: the variable-offset block layout on the crack
+   cell (``--lanes 4194000``, which the auto block count of 1024 does
+   not divide, and ``--block-layout packed``) and on the candidates
+   cyrillic cell (``--lanes 1000000``), each stdout byte-identical to
+   phase 4's, launching ``buffer_hash`` on the XLA route and no fused
+   kernel, its drive beside the stride layout's; the crack cell (pair
+   off) at ``--stream-chunk-words off``, the default and 4096, and
+   cyrillic-x2-long at ``off`` and the default, byte-identical, each with
+   its host s (CLI wall − drive), ``ttfc_s``, ``compile_overlap_s``,
+   ``overlap_ratio``, ``peak_resident_plan_bytes`` and device peak; the
+   default crack run killed by SIGKILL inside a chunk and resumed as it
+   was and at ``--stream-chunk-words off``; and one
+   ``A5GEN_FAULTS=chunk.compile:nth=2`` run, which must recover (one
+   worker restart) with identical stdout.
 
-The last five lines of standard output: one ``{"robustness": {...}}``
-JSON object, one ``{"oracle": {...}}`` JSON object, the card's name and
-power limit, one ``{"kernels": [...]}`` JSON object, and the
-``{"ok": true, ...}`` JSON object.
+The last six lines of standard output: one ``{"layouts_streaming":
+{...}}`` JSON object, one ``{"robustness": {...}}`` JSON object, one
+``{"oracle": {...}}`` JSON object, the card's name and power limit, one
+``{"kernels": [...]}`` JSON object, and the ``{"ok": true, ...}`` JSON
+object.
 """
 
 from __future__ import annotations
@@ -2164,8 +2181,8 @@ def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
     typed FetchTimeouts, the drive's retries and the CLI's, then exit 1,
     not a hang.  ``--profile``: a trace with ``a5.superstep.consume``
     ranges.  Drive cost of ``--checkpoint --checkpoint-every 0`` (crack,
-    pair off, two runs each in turns, at the default superstep, at
-    ``--superstep 1`` and ``--superstep off``; the cost of one write) and
+    pair off, two runs each in turns, at the default superstep and
+    ``--superstep off``; the cost of one write) and
     the drive's host-span dead share (``--metrics-json``'s
     ``dead_share``) for crack pair auto and off, czech-ntlm and
     cyrillic-x2-long.  Returns the phase's numbers."""
@@ -2346,8 +2363,7 @@ def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
                          "bytes": os.path.getsize(trace_path)}
 
     # Drive cost of --checkpoint-every 0 (crack, pair off, in turns) at
-    # the default superstep (16 launches: a bucket of this cell is one or
-    # two supersteps, so few writes), at one launch a superstep and on the
+    # the default superstep (16 launches: few writes) and on the
     # per-launch pipeline (a write at every fetch), with the cost of one
     # write; and the drive's host-span summaries.  Every run's stdout =
     # phase 4's.
@@ -2368,7 +2384,7 @@ def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
         return run
 
     one = ["--superstep", "1"]
-    for setting, flags in (("default superstep", []), ("superstep 1", one),
+    for setting, flags in (("default superstep", []),
                            ("superstep off", ["--superstep", "off"])):
         arms = cost[setting] = {"none": [], "every 0": [], "saves": [],
                                 "bytes": []}
@@ -2412,6 +2428,160 @@ def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
     report["spans"] = spans
     report["phase_s"] = time.monotonic() - t_phase
     log(f"robustness phase {report['phase_s']:.1f} s")
+    return report
+
+
+def layouts_streaming_phase(work: str, paths: dict, runs: dict,
+                            cand_cells: dict, card: str) -> dict:
+    """Phase 8 (see the module docstring).  Returns the phase's
+    numbers."""
+    from hashcat_a5_table_generator_tpu_torch.runtime import (
+        faults,
+        telemetry,
+    )
+
+    t_phase = time.monotonic()
+    cyr, long = paths["cyrillic-md5"], paths["cyrillic-x2-long"]
+    crack_want = runs[("cyrillic-md5", "pair auto")]["stdout"]
+    report: dict = {"packed": {}, "stream": {}, "resumed": {}}
+
+    def crack_argv(path, extra=()):
+        return [path.wordlist, "-t", path.table, "--backend", "device",
+                "--algo", path.algo, "--digests", path.digests, *extra]
+
+    # The default (streamed) crack run killed inside its first chunk: one
+    # superstep a launch, so a 65,536-word chunk spans several fetches.
+    ck = os.path.join(work, "ck-stream.json")
+    ck_flags = ["--checkpoint", ck, "--checkpoint-every", "0"]
+    proc = start_killed("stream", crack_argv(cyr, ["--fetch-chunk", "1"])
+                        + ck_flags, "superstep.fetch:kill,nth=2", work)
+    # chunk.compile fails once (the second chunk's compile, on the ring's
+    # worker): one restart, the same stdout (meanwhile: it times nothing).
+    restarts = telemetry.counter("faults.worker_restarts").value
+    with knobs(A5GEN_FAULTS="chunk.compile:nth=2"):
+        out, err, rc = run_cli(crack_argv(cyr))
+    faults.clear()
+    restarts = telemetry.counter("faults.worker_restarts").value - restarts
+    if rc != 0 or out != crack_want or restarts != 1:
+        fail(f"chunk.compile fault: exit {rc}, stdout "
+             f"{'equal' if out == crack_want else 'differs'}, {restarts} "
+             f"worker restarts: {err}")
+    log(f"chunk.compile:nth=2: recovered after {restarts} worker restart, "
+        f"stdout byte-identical to phase 4's ({len(out)} bytes)")
+    report["chunk_compile_restarts"] = restarts
+    rc = proc.wait(timeout=900)
+    with open(os.path.join(work, "stream.killed.err"), "rb") as fh:
+        err = fh.read().decode(errors="replace")
+    docs = ckpt_docs(ck)
+    cur = docs.get("16", {}).get("cursor", {})
+    inside = bool(cur) and bool(cur["word"] % 65536 or int(cur["rank"]))
+    if rc != -9 or not inside:
+        fail(f"killed streamed run: exit {rc}, bucket 16 cursor {cur} "
+             f"(want SIGKILL inside a chunk): {err}")
+    report["killed_cursor"] = cur
+    log(f"killed streamed run (superstep.fetch:kill,nth=2): died by "
+        f"SIGKILL, bucket 16 cursor {cur} inside chunk "
+        f"{cur['word'] // 65536}, stream marker "
+        f"{docs['16'].get('stream')}")
+    copy_ckpt(ck, os.path.join(work, "ck-stream-off.json"))
+    for label, extra, path in (
+            ("as it was", [], ck),
+            ("at --stream-chunk-words off", ["--stream-chunk-words", "off"],
+             os.path.join(work, "ck-stream-off.json"))):
+        t = time.monotonic()
+        out, err, rc = run_cli(crack_argv(cyr, extra) + [
+            "--checkpoint", path, "--checkpoint-every", "0"])
+        wall = time.monotonic() - t
+        if rc != 0 or out != crack_want:
+            fail(f"resumed streamed run [{label}]: exit {rc}, stdout "
+                 f"{'equal' if out == crack_want else 'differs'}: {err}")
+        report["resumed"][label] = {"wall_s": wall}
+        log(f"resumed streamed run [{label}]: stdout byte-identical to "
+            f"phase 4's ({len(out)} bytes), CLI wall {wall:.2f} s on {card}")
+
+    # The variable-offset layout: the XLA route, per-launch pipeline.
+    stride_run = runs[("cyrillic-md5", "pair auto")]
+    for label, extra in (("--lanes 4194000", ["--lanes", "4194000"]),
+                         ("--block-layout packed",
+                          ["--block-layout", "packed"])):
+        run = cyr.run(f"packed, {label}", extra, card)
+        fused = [k for k in run["launches"]
+                 if k.startswith(("piece_", "bytescan_"))]
+        if run["stdout"] != crack_want or fused:
+            fail(f"packed layout [{label}]: stdout "
+                 f"{'equal' if run['stdout'] == crack_want else 'differs'}"
+                 f", fused launches {fused}")
+        expect_launched(run, ["buffer_hash/md5"], f"packed [{label}]")
+        report["packed"][label] = {
+            "drive_s": run["drive"], "stride_drive_s": stride_run["drive"],
+            "launches": run["launches"], "xla_lanes": run["xla_lanes"],
+            "host_s": run["wall"] - run["drive"]}
+        log(f"packed layout [{label}]: stdout byte-identical to phase 4's, "
+            f"launches {run['launches']} ({run['xla_lanes']} lanes per XLA "
+            f"launch), drive {run['drive']} s beside the stride layout's "
+            f"{stride_run['drive']} s (piece kernel) on {card}")
+    cand = cand_cells["cand-cyrillic"]
+    t = time.monotonic()
+    out, err, rc = run_cli([cand["wordlist"], "-t", cand["table"],
+                            "--backend", "device", "--lanes", "1000000"])
+    wall = time.monotonic() - t
+    loop = re.search(r"([\d.]+) s launch loop", err)
+    if rc != 0 or out != cand["stdout"] or not loop:
+        fail(f"packed layout [candidates --lanes 1000000]: exit {rc}, "
+             f"stdout {'equal' if out == cand['stdout'] else 'differs'}: "
+             f"{err}")
+    report["packed"]["candidates --lanes 1000000"] = {
+        "drive_s": float(loop.group(1)), "wall_s": wall}
+    log(f"packed layout [candidates cyrillic, --lanes 1000000]: stdout "
+        f"byte-identical to phase 4's ({len(out)} bytes), launch loop "
+        f"{loop.group(1)} s, CLI wall {wall:.2f} s on {card}")
+
+    # Streaming on and off: byte-identical, with the host and stream
+    # numbers of each run (--metrics-json gauges).
+    for name, arm, twin, extra in (
+            ("cyrillic-md5", "pair off", "pair off", ["--pair", "off"]),
+            ("cyrillic-x2-long", "-x 2", "-x 2", ["-x", "2"])):
+        chunks = (("off", "auto", "4096") if name == "cyrillic-md5"
+                  else ("off", "auto"))
+        for chunk in chunks:
+            metrics = os.path.join(work, f"m-stream-{name}-{chunk}.json")
+            telemetry.REGISTRY.reset()
+            run = paths[name].run(
+                f"{arm}, --stream-chunk-words {chunk}",
+                extra + ["--stream-chunk-words", chunk, "--metrics-json",
+                         metrics], card)
+            if run["stdout"] != runs[(name, twin)]["stdout"]:
+                fail(f"{name} ({arm}, --stream-chunk-words {chunk}): "
+                     "stdout differs from phase 4's")
+            with open(metrics) as fh:
+                m = json.load(fh)["metrics"]
+
+            def g(key):
+                return m.get(key, {}).get("value")
+
+            row = {"host_s": run["wall"] - run["drive"],
+                   "drive_s": run["drive"], "wall_s": run["wall"],
+                   "ttfc_s": g("sweep.ttfc_s"),
+                   "chunks_swept": g("stream.chunks_swept"),
+                   "compile_overlap_s": g("stream.compile_overlap_s"),
+                   "overlap_ratio": g("stream.overlap_ratio"),
+                   "peak_resident_plan_bytes": g(
+                       "stream.peak_resident_plan_bytes"),
+                   "device_peak_gib": run["peak_bytes"] / 2 ** 30}
+            if (chunk == "off") != (row["chunks_swept"] is None):
+                fail(f"{name} (--stream-chunk-words {chunk}): streamed "
+                     f"{row['chunks_swept']} chunks")
+            report["stream"][f"{name} {chunk}"] = row
+            log(f"streaming [{name} {arm}, --stream-chunk-words {chunk}]: "
+                f"stdout byte-identical to phase 4's; host "
+                f"{row['host_s']:.3f} s, drive {row['drive_s']} s, ttfc "
+                f"{row['ttfc_s']} s, chunks {row['chunks_swept']}, compile "
+                f"overlap {row['compile_overlap_s']} s (ratio "
+                f"{row['overlap_ratio']}), peak resident plan "
+                f"{row['peak_resident_plan_bytes']} B, device peak "
+                f"{row['device_peak_gib']:.3f} GiB on {card}")
+    report["phase_s"] = time.monotonic() - t_phase
+    log(f"layouts and streaming phase {report['phase_s']:.1f} s")
     return report
 
 
@@ -3481,9 +3651,12 @@ def main() -> None:
     # -- phase 7: robustness -----------------------------------------------
     robustness = robustness_phase(work, paths, runs, cand_cells, small,
                                   card)
+    # -- phase 8: layouts and streaming ---------------------------------------
+    layouts = layouts_streaming_phase(work, paths, runs, cand_cells, card)
     shutil.rmtree(work, ignore_errors=True)
     elapsed = time.monotonic() - T0
     log(f"done in {elapsed:.1f} s")
+    print(json.dumps({"layouts_streaming": layouts}))
     print(json.dumps({"robustness": robustness}))
     print(json.dumps({"oracle": oracle}))
     print(card)

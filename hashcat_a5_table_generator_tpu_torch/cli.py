@@ -10,6 +10,7 @@ Same flags and output as the reference CLI for what this package runs::
         [--hex-unsafe] [--device cuda|cpu]
         [--checkpoint FILE [--checkpoint-every S] [--no-resume]]
         [--retries N] [--fetch-timeout S] [--fetch-chunk N]
+        [--block-layout auto|packed|stride] [--stream-chunk-words N|auto|off]
         [--progress] [--profile DIR] [--metrics-json FILE]
   a5gen --emit-table LAYOUT [--output FILE]
   a5gen --list-layouts
@@ -43,6 +44,11 @@ own.  ``--checkpoint FILE`` makes both modes resumable (the reference's
 documents: a checkpoint written by either package resumes in the other;
 bucketed runs keep a manifest at FILE and one ``FILE.w{width}`` per
 bucket); ``--retries N`` reruns a failed sweep from its last checkpoint;
+``--block-layout`` picks the fixed-stride or the variable-offset block
+layout (``auto``: variable-offset when ``--blocks`` does not divide
+``--lanes``); ``--stream-chunk-words`` streams the dictionary in word
+chunks (``auto``, the default, past one ~64 MB-of-plan chunk;
+``A5GEN_STREAM=off`` or ``off`` compiles it whole);
 ``--fetch-timeout`` sets the fetch watchdog; ``--progress``,
 ``--metrics-json`` and ``--profile`` report the sweep's telemetry.
 ``--output`` names ``--emit-table``'s file only, as in the reference:
@@ -66,16 +72,14 @@ DIGEST_BYTES = {"md5": 16, "md4": 16, "ntlm": 16, "sha1": 20}
 
 #: ROADMAP.md port-queue items for the surfaces this package does not run.
 _ITEMS = {
-    6: "streaming ingestion, the schema cache and the packed block layout",
+    6: "the schema cache",
     7: "multi-GPU",
     8: "the service layer",
     9: "tuning",
 }
 
-#: Refused flags: (flags, argparse kwargs, queue item).  ``--block-layout
-#: packed`` is refused too (item 6); ``stride`` and ``auto`` run.
+#: Refused flags: (flags, argparse kwargs, queue item).
 _REFUSED = (
-    (("--stream-chunk-words",), dict(metavar="N|auto|off"), 6),
     (("--schema-cache",), dict(metavar="DIR"), 6),
     (("--schema-cache-max-mb",), dict(type=float, metavar="MB"), 6),
     (("--devices",), dict(metavar="N"), 7),
@@ -149,7 +153,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="hash lanes per launch (default 2^22 on cuda, "
                          "2^17 on cpu)")
     ap.add_argument("--blocks", type=int, default=None,
-                    help="blocks per launch (default lanes/128)")
+                    help="blocks per launch (default lanes/128, or 1024 "
+                         "when 128 does not divide --lanes)")
     ap.add_argument("--superstep", type=_superstep_arg, default=None,
                     metavar="N|auto|off",
                     help="launches per device superstep (default 16); "
@@ -207,8 +212,25 @@ def build_parser() -> argparse.ArgumentParser:
                          "16)")
     ap.add_argument("--block-layout", choices=("auto", "packed", "stride"),
                     default="auto",
-                    help="fixed-stride blocks (stride, and auto here); "
-                         "packed is not ported yet")
+                    help="stride: every block owns lanes/blocks lanes "
+                         "(the fused kernels and the superstep drive); "
+                         "packed: variable-size blocks packed back to "
+                         "back, each lane searching for its block (the "
+                         "XLA expand + hash route and the per-launch "
+                         "pipeline, as in the reference); auto (default): "
+                         "stride when --blocks divides --lanes, else "
+                         "packed. The streams are the same either way")
+    ap.add_argument("--stream-chunk-words", type=_stream_chunk_arg,
+                    default="auto", metavar="N|auto|off",
+                    help="device backend: compile the dictionary's plan "
+                         "in word chunks on a host worker thread while "
+                         "the device sweeps the previous chunk, freeing "
+                         "consumed chunks. 'auto' (default) streams a "
+                         "dictionary of more than one ~64 MB-of-plan "
+                         "chunk (65536 words at width 16); 'off' "
+                         "compiles it whole (also A5GEN_STREAM=off); N "
+                         "chunks at N words. The candidate/hit streams "
+                         "and checkpoints are the same either way")
     ap.add_argument("--progress", action="store_true",
                     help="periodic JSON progress lines on stderr")
     ap.add_argument("--profile", metavar="DIR",
@@ -234,6 +256,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--list-layouts", action="store_true",
                     help="list built-in and derived layouts and exit")
     return ap
+
+
+def _stream_chunk_arg(value: str):
+    """--stream-chunk-words: 'auto', 'off', or a positive word count."""
+    if value in ("auto", "off"):
+        return value
+    try:
+        n = int(value)
+        if n < 1:
+            raise ValueError
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"must be a positive integer, 'auto', or 'off', got {value!r}"
+        )
+    return n
 
 
 def _buckets_arg(value: str):
@@ -622,6 +659,23 @@ def _print_routes(res) -> None:
     print(line, file=sys.stderr)
 
 
+def _print_stream(res) -> None:
+    """Streaming summary (stderr): chunks swept, compile overlap, peak
+    resident plan bytes, time to the first fetch; silent on the whole
+    path."""
+    s = res.stream
+    if not s.get("chunks_swept"):
+        return
+    print(
+        f"{PROG}: stream: {s['chunks_swept']}/{s.get('chunks', 0)} chunks "
+        f"x {s.get('chunk_words', 0)} words, "
+        f"{100.0 * s.get('overlap_ratio', 0.0):.0f}% compile overlapped, "
+        f"peak plan {s.get('peak_resident_plan_bytes', 0) / 1e6:.1f} MB "
+        f"(ttfc {s.get('ttfc_s', 0.0):.2f}s)",
+        file=sys.stderr,
+    )
+
+
 def _print_kernels(res) -> None:
     """Kernel-tier summary (stderr): launches per tier, e.g. ``piece_k1``
     or the byte-scan tiers ``bytescan_scalar`` / ``bytescan_match`` /
@@ -665,17 +719,28 @@ def _run_with_retries(make_attempt, retries: int, *, default_resume: bool,
             time.sleep(min(2.0 * attempt, 10.0))
 
 
-def _write_metrics_json(path, sweeps) -> None:
+def _write_metrics_json(path, sweeps, res) -> None:
     """``--metrics-json``: the process-wide telemetry registry snapshot
     and each built sweep's span summary (a bucketed sweep reports one per
     width), written after the sweep through the atomic writer — the
-    reference's document ``{"metrics", "spans"}``."""
+    reference's document ``{"metrics", "spans"}``.  The run's time to
+    the first fetch and a streamed run's stream stats are gauges of the
+    registry (``sweep.ttfc_s``, ``stream.<stat>``)."""
     if not path:
         return
     import json
 
     from .runtime import telemetry
     from .runtime.checkpoint import atomic_write_text
+
+    if telemetry.enabled():
+        telemetry.gauge("sweep.ttfc_s").set(res.ttfc_s)
+        for k in ("ttfc_s", "compile_overlap_s", "overlap_ratio",
+                  "steady_overlap_ratio", "first_chunk_compile_s",
+                  "peak_resident_plan_bytes", "chunk_bytes_max",
+                  "chunks_swept"):
+            if k in res.stream:
+                telemetry.gauge(f"stream.{k}").set(res.stream[k])
 
     spans = {}
     for obj in sweeps:
@@ -712,6 +777,9 @@ def _run_device(args, sub_map, packed) -> int:
         device=args.device, lanes=args.lanes, num_blocks=args.blocks,
         superstep=args.superstep,
         pair={"auto": None, "on": "on", "off": 0}[args.pair],
+        packed_blocks={"auto": None, "packed": True, "stride": False}[
+            args.block_layout],
+        stream_chunk_words=args.stream_chunk_words,
         fetch_timeout_s=args.fetch_timeout,
         checkpoint_path=args.checkpoint,
         checkpoint_every_s=args.checkpoint_every,
@@ -760,11 +828,12 @@ def _run_device(args, sub_map, packed) -> int:
     _print_routes(res)
     _print_kernels(res)
     _print_superstep(res)
+    _print_stream(res)
     rate = res.n_emitted / res.drive_s if res.drive_s > 0 else 0.0
     print(f"{PROG}: sweep: {res.wall_s:.3f} s wall, {res.drive_s:.3f} s "
           f"{what}, {rate:.6g} {unit} (device {args.device})",
           file=sys.stderr)
-    _write_metrics_json(args.metrics_json, built)
+    _write_metrics_json(args.metrics_json, built, res)
     return 0
 
 
@@ -781,15 +850,13 @@ _ORACLE_NO_EFFECT = (
 
 def _refuse_device_flags(ap, args) -> None:
     """The device backend runs no surface of the queue items still to
-    port (the second half of item 6, items 7-9): exit 2."""
+    port (the schema cache of item 6, items 7-9): exit 2."""
     for flags, _kw, item in _REFUSED:
         dest = flags[-1].lstrip("-").replace("-", "_")
         if dest == "devices" and args.devices == "1":
             continue  # one GPU is this package's configuration
         if getattr(args, dest) not in (None, False):
             ap.error(_not_ported(flags[-1], item))
-    if args.block_layout == "packed":
-        ap.error(_not_ported("--block-layout packed", 6))
 
 
 def _warn_oracle_flags(args) -> None:

@@ -91,22 +91,24 @@ class AttackSpec:
         return self.min_substitute
 
 
-def build_plan(spec: AttackSpec, ct: CompiledTable,
-               packed: PackedWords) -> "MatchPlan | SubAllPlan":
+def build_plan(spec: AttackSpec, ct: CompiledTable, packed: PackedWords,
+               **kwargs: Any) -> "MatchPlan | SubAllPlan":
     """Mode-dispatched host plan with the spec's EFFECTIVE window: match
     plans for default and reverse mode (reverse applies each key's first
     option only), substitute-all plans for ``suball`` and
-    ``suball-reverse`` (first option only)."""
+    ``suball-reverse`` (first option only).  ``kwargs`` go to the plan
+    (``out_width``, ``force_windowed``: a streaming sweep's chunk plans
+    take the whole dictionary's)."""
     if spec.mode in ("default", "reverse"):
         return build_match_plan(
             ct, packed, first_option_only=spec.mode == "reverse",
             min_substitute=spec.effective_min,
-            max_substitute=spec.max_substitute,
+            max_substitute=spec.max_substitute, **kwargs
         )
     return build_suball_plan(
         ct, packed, first_option_only=spec.mode == "suball-reverse",
         min_substitute=spec.effective_min,
-        max_substitute=spec.max_substitute,
+        max_substitute=spec.max_substitute, **kwargs
     )
 
 
@@ -149,7 +151,7 @@ def piece_tables(pieces, *, device) -> Tree:
             for k, v in host.items()}
 
 
-def device_arrays(plan, pieces, digests: DigestSet, idx: tuple, *,
+def device_arrays(plan, pieces, digests: "DigestSet | None", idx: tuple, *,
                   device, ct: "CompiledTable | None" = None,
                   bytescan: "ByteScanTier | None" = None) -> Tree:
     """Everything a sweep keeps on the device, shipped once: the piece
@@ -163,7 +165,8 @@ def device_arrays(plan, pieces, digests: DigestSet, idx: tuple, *,
     windowed suffix counts ``win_v`` ``[B, P+1, K2]`` — and the block
     count ``total``); a substitute-all plan's selector and closure tables
     (``ops.fused_expand.selector_tables``); and the digest set (``rows``
-    ``[D, K]``, ``bitmap``, uint32 bits as int32).  ``radix``, ``win_v``
+    ``[D, K]``, ``bitmap``, uint32 bits as int32; none when ``digests`` is
+    None, for a sweep that ships its digest set once for all its chunks).  ``radix``, ``win_v``
     and the selector tables are the kernel's resident tables, read by
     word index.  ``idx`` is ``ops.blocks.superstep_index(plan, stride)``,
     or None for the per-launch pipeline, whose blocks are cut on the host
@@ -174,9 +177,10 @@ def device_arrays(plan, pieces, digests: DigestSet, idx: tuple, *,
     radix = np.asarray(plan.pat_radix, dtype=np.int64)
     host = {
         "radix": radix, "weight": scalar_units_weight(plan),
-        "rows": digests.rows, "bitmap": digests.bitmap,
         **selector_tables(plan, pieces), **_index_arrays(plan, radix, idx),
     }
+    if digests is not None:
+        host.update(rows=digests.rows, bitmap=digests.bitmap)
     if getattr(plan, "windowed", False):
         host["win_v"] = plan.win_v
     out: Tree = {
@@ -258,12 +262,14 @@ def xla_arrays(plan, ct: CompiledTable, pieces, digests, idx: tuple, *,
     return out
 
 
-def _expand(spec: AttackSpec, arrays: Tree, word, count, base, *,
-            num_lanes: int, out_width: int, block_stride: int,
+def _expand(spec: AttackSpec, arrays: Tree, word, count, base, offset=None,
+            *, num_lanes: int, out_width: int, block_stride: "int | None",
             radix2: bool = False, pieces=None, pair_k: "int | None" = None):
     """The XLA route's expansion of one launch's blocks (``word`` /
     ``count`` int32 ``[NB]``, ``base`` the base digits ``[NB, P]`` — slot 0
-    the scalar windowed rank for a windowed plan): ``(cand uint8[N, W],
+    the scalar windowed rank for a windowed plan; ``offset`` int32
+    ``[NB]`` each block's first lane when ``block_stride`` is None, the
+    variable-offset layout): ``(cand uint8[N, W],
     cand_len int32[N], word_row int32[N], emit bool[N])``, ``N`` =
     ``num_lanes`` (× ``pair_k``).  The twin of the reference's ``_expand``:
     match plans through ``expand_matches``, substitute-all plans through
@@ -283,11 +289,11 @@ def _expand(spec: AttackSpec, arrays: Tree, word, count, base, *,
         return expand_matches(
             a["tokens"], a["lengths"], a["match_pos"], a["match_len"],
             a["match_radix"], a["match_val_start"], a["val_bytes"],
-            a["val_len"], word, base, count, None, **common)
+            a["val_len"], word, base, count, offset, **common)
     return expand_suball(
         a["tokens"], a["lengths"], a["pat_radix"], a["pat_val_start"],
         a["seg_orig_start"], a["seg_orig_len"], a["seg_pat"],
-        a["val_bytes"], a["val_len"], word, base, count, None,
+        a["val_bytes"], a["val_len"], word, base, count, offset,
         close_next=a.get("close_next"), close_mul=a.get("close_mul"),
         **common)
 
@@ -350,26 +356,34 @@ def superstep_buffers(hit_cap: int, *, device) -> Tree:
 
 
 def _launch_expand(
-    spec: AttackSpec, *, num_lanes: int, out_width: int, block_stride: int,
+    spec: AttackSpec, *, num_lanes: int, out_width: int,
+    block_stride: "int | None",
     pieces, pair_k: "int | None" = None, decode: str = "scalar",
     pack_cb: bool = False, k_opts: int = 1,
     bytescan: "ByteScanTier | None" = None, xla: bool = False,
     windowed: bool = False, radix2: bool = False,
 ) -> "tuple[Callable[..., Any], str]":
     """``(expand, decode)``: one launch's expand + hash,
-    ``expand(word, count, base, arrays) -> (state, emit)`` over blocks
-    whose ``base`` is the block input of the decode tier ``decode`` (see
-    :func:`cut_blocks`) — the piece kernel, the byte-scan kernel of
-    ``bytescan``, or, with ``xla``, the XLA route (see
-    :func:`make_superstep_body`)."""
+    ``expand(word, count, base, arrays, offset=None) -> (state, emit)``
+    over blocks whose ``base`` is the block input of the decode tier
+    ``decode`` (see :func:`cut_blocks`) — the piece kernel, the byte-scan
+    kernel of ``bytescan``, or, with ``xla``, the XLA route (see
+    :func:`make_superstep_body`), the only one that takes the
+    variable-offset layout (``block_stride`` None: ``offset`` each block's
+    first lane), as in the reference."""
+    if block_stride is None and not xla:
+        raise ValueError("the fused kernels take the fixed-stride block "
+                         "layout; the variable-offset layout runs the XLA "
+                         "route")
     window = dict(block_stride=block_stride, out_width=out_width,
                   min_substitute=spec.effective_min,
                   max_substitute=spec.max_substitute, algo=spec.algo)
     if xla:
-        def expand(word, count, base, arrays):
+        def expand(word, count, base, arrays, offset=None):
             cand, clen, _, emit = _expand(
                 spec, arrays, word, count,
-                _xla_base(arrays, base, windowed), num_lanes=num_lanes,
+                _xla_base(arrays, base, windowed), offset,
+                num_lanes=num_lanes,
                 out_width=out_width, block_stride=block_stride,
                 radix2=radix2, pieces=pieces, pair_k=pair_k)
             return buffer_hash(cand, clen, spec.algo), emit
@@ -379,7 +393,7 @@ def _launch_expand(
             raise ValueError("the byte-scan tiers take plans without a "
                              "piece schema, at K=1")
 
-        def expand(word, count, base, arrays):
+        def expand(word, count, base, arrays, offset=None):
             return bytescan_expand(word, count, base, arrays, tier=bytescan,
                                    **window)
         return expand, ("scalar" if bytescan.decode == "scalar" else (
@@ -387,7 +401,7 @@ def _launch_expand(
     common = dict(pieces=pieces, pair=pair_k is not None, decode=decode,
                   pack_cb=pack_cb, k_opts=k_opts, **window)
 
-    def expand(word, count, base, arrays):
+    def expand(word, count, base, arrays, offset=None):
         return fused_expand_md5(word, count, base, arrays, **common)
     return expand, decode
 
@@ -463,13 +477,16 @@ def make_superstep_body(
 
 
 def host_blocks(batch: BlockBatch, num_blocks: int, decode: str,
-                weight: np.ndarray, *, device) -> "tuple[torch.Tensor, ...]":
+                weight: np.ndarray, *, device, packed: bool = False
+                ) -> "tuple[torch.Tensor, ...]":
     """One per-launch step's block inputs from a host-cut batch
     (``ops.blocks.make_blocks``), padded to ``num_blocks`` with zero-count
     blocks: ``(word, count, base)`` int32 tensors, ``base`` the decode
     tier's block input as :func:`cut_blocks` gives it — the packed chosen
     vector (``weight``: ``ops.fused_expand.scalar_units_weight`` of the
-    plan), the base digits ``[NB, P]`` or the windowed rank."""
+    plan), the base digits ``[NB, P]`` or the windowed rank — and, for the
+    variable-offset layout (``packed``), each block's first lane
+    ``offset``."""
     batch = pad_batch(batch, num_blocks)
     digits = batch.base_digits
     if decode == "scalar":
@@ -478,18 +495,20 @@ def host_blocks(batch: BlockBatch, num_blocks: int, decode: str,
         base = digits[:, 0]  # windowed blocks start at scalar ranks
     else:
         base = digits
+    fields = (batch.word, batch.count, base) + (
+        (batch.offset,) if packed else ())
     return tuple(torch.as_tensor(np.ascontiguousarray(a, np.int32),
-                                 device=device)
-                 for a in (batch.word, batch.count, base))
+                                 device=device) for a in fields)
 
 
 def make_crack_step(spec: AttackSpec, **kwargs: Any) -> Callable[..., Tree]:
     """The per-launch pipeline's crack step (the reference's
-    ``make_crack_step``): ``step(arrays, word, count, base) -> dict`` runs
-    one launch's expand + hash (:func:`_launch_expand`, the keyword
-    arguments of :func:`make_superstep_body`; never the pair tier) and
-    membership on blocks cut on the host (:func:`host_blocks` with
-    ``step.decode``), and returns ``counters`` int32 ``[2]`` =
+    ``make_crack_step``): ``step(arrays, word, count, base, offset=None)
+    -> dict`` runs one launch's expand + hash (:func:`_launch_expand`, the
+    keyword arguments of :func:`make_superstep_body`; never the pair tier;
+    ``block_stride`` None, the variable-offset layout, on the XLA route
+    only) and membership on blocks cut on the host (:func:`host_blocks`
+    with ``step.decode``), and returns ``counters`` int32 ``[2]`` =
     ``[n_emitted, n_hits]`` and the launch's ``hit`` mask (bool, one row a
     lane), left on the device."""
     if kwargs.get("pair_k") is not None:
@@ -497,8 +516,8 @@ def make_crack_step(spec: AttackSpec, **kwargs: Any) -> Callable[..., Tree]:
     kwargs.pop("num_blocks", None)
     expand, decode = _launch_expand(spec, **kwargs)
 
-    def step(arrays: Tree, word, count, base) -> Tree:
-        state, emit = expand(word, count, base, arrays)
+    def step(arrays: Tree, word, count, base, offset=None) -> Tree:
+        state, emit = expand(word, count, base, arrays, offset)
         hit = digest_member(state, arrays["rows"], arrays["bitmap"]) & emit
         return {"counters": torch.stack([emit.sum(dtype=torch.int32),
                                          hit.sum(dtype=torch.int32)]),
@@ -509,21 +528,24 @@ def make_crack_step(spec: AttackSpec, **kwargs: Any) -> Callable[..., Tree]:
 
 
 def make_candidates_step(
-    spec: AttackSpec, *, num_lanes: int, out_width: int, block_stride: int,
-    pieces=None, windowed: bool = False, radix2: bool = False,
+    spec: AttackSpec, *, num_lanes: int, out_width: int,
+    block_stride: "int | None", pieces=None, windowed: bool = False,
+    radix2: bool = False,
 ) -> Callable[..., Any]:
     """Candidates mode, one launch over given blocks: ``step(arrays,
-    word, count, base) -> (cand, cand_len, word_row)`` of the EMITTED rows
-    (:func:`xla_arrays` without digests), compacted on the device in row
+    word, count, base, offset=None) -> (cand, cand_len, word_row)`` of the
+    EMITTED rows (:func:`xla_arrays` without digests; ``offset`` for the
+    variable-offset layout, ``block_stride`` None), compacted on the
+    device in row
     order — word order, and rank order within a word.  The expansion is
     the XLA route's (:func:`_expand`), as the reference's
     ``make_candidates_body``; no pair tier.  ``step.decode`` names the
     block input ``base`` takes (:func:`cut_blocks`)."""
 
-    def step(arrays: Tree, word, count, base):
+    def step(arrays: Tree, word, count, base, offset=None):
         cand, clen, word_row, emit = _expand(
             spec, arrays, word, count, _xla_base(arrays, base, windowed),
-            num_lanes=num_lanes, out_width=out_width,
+            offset, num_lanes=num_lanes, out_width=out_width,
             block_stride=block_stride, radix2=radix2, pieces=pieces)
         keep = torch.nonzero(emit).flatten()
         return cand[keep], clen[keep], word_row[keep]

@@ -162,33 +162,75 @@ def _windowed_tables(
     return v.astype(np.int32), [int(t) for t in v[:, 0, 0]]
 
 
-def windowed_plan_fields(
+def windowed_chunk_terms(
     radix_matrix: np.ndarray,
     n_variants: List[int],
     min_substitute: "int | None",
     max_substitute: "int | None",
     zero_mask: "np.ndarray | None" = None,
-) -> "Tuple[bool, np.ndarray | None, List[int]]":
-    """Windowed-enumeration eligibility + table construction: bounds
-    check, suffix-count DP, and the 2x lane-saving vote (windowed
-    enumeration engages only when it at least halves the lane count).
-    ``zero_mask`` marks words whose totals are forced to 0 (substitute-all
-    plans' oracle-routed words).  Returns ``(windowed, win_v,
-    n_variants)`` — unchanged inputs when ineligible."""
+) -> "Tuple[bool, np.ndarray | None, List[int] | None, int, int]":
+    """The batch-additive terms of the windowed-enumeration decision:
+    ``(eligible, win_v, win_totals, sum_win, sum_full)``.  One
+    implementation serves the whole-batch vote
+    (:func:`windowed_plan_fields`) and the streaming prescan
+    (``runtime.sweep.Sweep._stream_prescan``), which sums the terms chunk
+    by chunk and votes over the totals with :func:`windowed_gate`: the
+    two paths must number ranks the same way.  ``eligible`` is False on
+    an out-of-bounds window or a word whose windowed total overflows the
+    int32 cursor budget (per-word properties, so a conjunction over
+    chunks equals the whole-batch test)."""
     if (
         min_substitute is None
         or max_substitute is None
         or not 0 <= min_substitute <= max_substitute <= WINDOWED_MAX_SUBST
         or radix_matrix.shape[0] == 0
     ):
-        return False, None, n_variants
+        return False, None, None, 0, 0
     v, totals = _windowed_tables(radix_matrix, min_substitute, max_substitute)
     if v is None:
-        return False, None, n_variants
+        return False, None, None, 0, 0
     if zero_mask is not None:
         totals = [0 if zero_mask[i] else t for i, t in enumerate(totals)]
     full = sum(min(t, 1 << 62) for t in n_variants)
-    if sum(totals) * 2 > full:
+    return True, v, totals, sum(totals), full
+
+
+def windowed_gate(sum_win: int, sum_full: int) -> bool:
+    """The 2x lane-saving vote: windowed enumeration engages only when it
+    at least halves the lane count."""
+    return sum_win * 2 <= sum_full
+
+
+def windowed_plan_fields(
+    radix_matrix: np.ndarray,
+    n_variants: List[int],
+    min_substitute: "int | None",
+    max_substitute: "int | None",
+    zero_mask: "np.ndarray | None" = None,
+    force: "bool | None" = None,
+) -> "Tuple[bool, np.ndarray | None, List[int]]":
+    """Windowed-enumeration eligibility + table construction, through
+    :func:`windowed_chunk_terms` and :func:`windowed_gate`.  ``zero_mask``
+    marks words whose totals are forced to 0 (substitute-all plans'
+    oracle-routed words).  Returns ``(windowed, win_v, n_variants)`` —
+    unchanged inputs when ineligible.  ``force`` pins the decision (a
+    streaming sweep's chunk plans take the prescan's whole-dictionary
+    vote): False = full enumeration; True = windowed without the saving
+    gate, raising when the bounds do not hold."""
+    if force is False:
+        return False, None, n_variants
+    eligible, v, totals, sum_win, sum_full = windowed_chunk_terms(
+        radix_matrix, n_variants, min_substitute, max_substitute,
+        zero_mask=zero_mask)
+    if not eligible:
+        if force:
+            raise ValueError(
+                "force_windowed=True but this batch is not windowed-"
+                f"eligible (window [{min_substitute}, {max_substitute}] "
+                "out of bounds, or a word's windowed total overflows the "
+                "int32 cursor budget)")
+        return False, None, n_variants
+    if force is None and not windowed_gate(sum_win, sum_full):
         return False, None, n_variants
     return True, v, totals
 
@@ -266,6 +308,7 @@ def build_match_plan(
     out_width: int | None = None,
     min_substitute: int | None = None,
     max_substitute: int | None = None,
+    force_windowed: bool | None = None,
 ) -> MatchPlan:
     """Host-side plan construction for default (``first_option_only=False``)
     or reverse (``True``) mode.
@@ -276,7 +319,9 @@ def build_match_plan(
     saving over full enumeration), the plan switches to count-windowed
     enumeration: ranks walk only in-window digit vectors via the ``win_v``
     DP instead of masking the full mixed-radix space (the piece kernel's
-    windowed tier walks the same DP on the device).
+    windowed tier walks the same DP on the device).  ``force_windowed``
+    pins that decision (a streaming sweep's chunk plans; see
+    :func:`windowed_plan_fields`).
     """
     b, width = packed.tokens.shape
 
@@ -323,6 +368,7 @@ def build_match_plan(
 
     windowed, win_v, n_variants = windowed_plan_fields(
         match_radix, n_variants, min_substitute, max_substitute,
+        force=force_windowed,
     )
 
     return MatchPlan(
@@ -415,10 +461,7 @@ def decode_digits(rank, base, radix, field, win_v, m, *,
     return torch.stack(digits, dim=1).to(torch.int32)
 
 
-def _lane_blocks(blk_word, num_lanes: int, block_stride: "int | None"):
-    if block_stride is None:
-        raise ValueError("the device expansion takes the fixed-stride "
-                         "block layout (block_stride)")
+def _lane_blocks(blk_word, num_lanes: int, block_stride: int):
     nb = num_lanes // block_stride
     if nb * block_stride != num_lanes or blk_word.shape[0] != nb:
         raise ValueError(
@@ -432,12 +475,21 @@ def _lane_blocks(blk_word, num_lanes: int, block_stride: "int | None"):
 
 def lane_fields(blk_word, blk_base, blk_count, blk_offset, *, num_lanes,
                 block_stride):
-    """Lane -> block resolution of a fixed-stride launch: ``(rank, lane_ok,
-    w, base, field)`` — per-lane in-block rank, validity, word row, base
-    digits and ``field(x)``, a per-word array ``x[B, ...]`` per lane
-    ``[N, ...]``.  ``blk_offset`` is implied by the stride."""
-    del blk_offset
-    rank, blk = _lane_blocks(blk_word, num_lanes, block_stride)
+    """Lane -> block resolution of a launch: ``(rank, lane_ok, w, base,
+    field)`` — per-lane in-block rank, validity, word row, base digits and
+    ``field(x)``, a per-word array ``x[B, ...]`` per lane ``[N, ...]``.
+    With ``block_stride`` the fixed-stride layout (``blk_offset`` is
+    implied); with None the variable-offset layout of
+    ``ops.blocks.make_blocks(fixed_stride=None)``: each lane
+    binary-searches ``blk_offset`` for its block, as in the reference."""
+    if block_stride is None:
+        lanes = torch.arange(num_lanes, dtype=torch.int32,
+                             device=blk_offset.device)
+        blk = torch.searchsorted(blk_offset, lanes, right=True) - 1
+        blk = blk.clamp(0, max(int(blk_offset.shape[0]) - 1, 0))
+        rank = lanes - blk_offset[blk]
+    else:
+        rank, blk = _lane_blocks(blk_word, num_lanes, block_stride)
     lane_ok = rank < blk_count[blk]
     w = blk_word[blk]
     w_idx = w.long()
@@ -448,7 +500,10 @@ def pair_lane_fields(blk_word, blk_base, blk_count, *, num_lanes,
                      block_stride):
     """Lane -> block resolution of the pair tier (K=2 candidates per
     lane, ranks ``2r`` and ``2r + 1``): ``(rank, ok0, ok1, w, base,
-    field)``."""
+    field)``.  Fixed-stride only, as in the reference."""
+    if block_stride is None:
+        raise ValueError("the pair-lane tier requires a fixed-stride "
+                         "block layout")
     rank, blk = _lane_blocks(blk_word, num_lanes, block_stride)
     count = blk_count[blk]
     w = blk_word[blk]

@@ -301,6 +301,7 @@ def _build_suball_plan_fast(
     out_width: "int | None",
     min_substitute: "int | None",
     max_substitute: "int | None",
+    force_windowed: "bool | None" = None,
 ) -> "SubAllPlan | None":
     """Vectorized plan construction for every table WITHOUT an empty key
     (the ``=x`` line routes all words to the oracle — rare and cheap, so
@@ -516,7 +517,7 @@ def _build_suball_plan_fast(
 
     windowed, win_v, n_variants = windowed_plan_fields(
         pat_radix, n_variants, min_substitute, max_substitute,
-        zero_mask=fallback_mask,
+        zero_mask=fallback_mask, force=force_windowed,
     )
     return SubAllPlan(
         tokens=packed.tokens,
@@ -549,6 +550,7 @@ def build_suball_plan(
     out_width: int | None = None,
     min_substitute: int | None = None,
     max_substitute: int | None = None,
+    force_windowed: bool | None = None,
 ) -> SubAllPlan:
     """Host-side plan construction (numpy + bytes.find).
 
@@ -556,11 +558,13 @@ def build_suball_plan(
     space: the reference enumerates every subset of present patterns with
     only ``subs[0]`` applied (Q2, ``main.go:393-398``), which is exactly this
     plan with every radix clamped to 2. Its per-word multiset equals the
-    oracle's subset lattice (each subset emitted once, size windowed)."""
+    oracle's subset lattice (each subset emitted once, size windowed).
+    ``force_windowed`` pins the count-windowed decision, as
+    ``expand_matches.build_match_plan``'s does."""
     fast = _build_suball_plan_fast(
         ct, packed, first_option_only=first_option_only,
         out_width=out_width, min_substitute=min_substitute,
-        max_substitute=max_substitute,
+        max_substitute=max_substitute, force_windowed=force_windowed,
     )
     if fast is not None:
         return fast
@@ -709,7 +713,7 @@ def build_suball_plan(
     # full-enumeration convention above.
     windowed, win_v, n_variants = windowed_plan_fields(
         pat_radix, n_variants, min_substitute, max_substitute,
-        zero_mask=fallback_mask,
+        zero_mask=fallback_mask, force=force_windowed,
     )
 
     return SubAllPlan(

@@ -19,11 +19,11 @@ pair tier, one hash block).
   (:func:`enabled_by_env`): None sends a plan to the XLA expand + hash
   route, as the reference's does.  :func:`decode_for` names the decode
   tier the reference's wrapper would pick and :func:`schema_refusal` why
-  the piece kernel's descriptors cannot hold a schema the gate admits —
-  the one refusal left, raised as ``NotImplementedError`` by the sweep
-  before any launch.  A fused kernel takes a plan iff :func:`opts_for` is
-  not None and, for a plan with a schema, :func:`schema_refusal` is None
-  (``runtime.sweep.Sweep`` routes on exactly that).
+  the piece kernel's descriptors cannot hold a schema the gate admits
+  (port-only: such a plan takes the XLA expand + hash route, which
+  splices any schema).  A fused kernel takes a plan iff :func:`opts_for`
+  is not None and, for a plan with a schema, :func:`schema_refusal` is
+  None (``runtime.sweep.Sweep`` routes on exactly that).
 * :func:`fused_expand_md5` is the wrapper.  For CUDA tensors it launches
   the hand-written kernel of ``csrc/piece_hash.cu`` (or raises); for CPU
   tensors it runs :func:`piece_md5_reference`, the plain PyTorch version
@@ -311,8 +311,9 @@ def opts_for(spec, plan, ct) -> "int | None":
 
 
 def schema_refusal(plan, pieces) -> "str | None":
-    """The port-only refusal of a plan the fused kernels take: why the
-    piece kernel's descriptors cannot hold its schema (None = they can)."""
+    """Why the piece kernel's descriptors cannot hold the schema of a plan
+    the fused kernels take (None = they can; else the plan takes the XLA
+    route)."""
     decode, pack = decode_for(plan)
     return _schema_refusal(pieces, bitfield=decode == "scalar" or pack)
 

@@ -16,7 +16,9 @@ through) falls back to.  :func:`read_wordlist` is the oracle backend's
 reader.
 
 The second half is the per-slot piece schema (:class:`PieceSchema`) that
-drives the piece kernel (``ops/fused_expand.py``).
+drives the piece kernel (``ops/fused_expand.py``); the last part, the
+streaming sweep's chunking (:func:`slice_packed`, :func:`auto_chunk_words`,
+:func:`chunk_bounds`) and its compile ring (:class:`ChunkCompiler`).
 
 Faithfulness notes (Q8): the reference's scanner silently ends input on a line
 longer than 64 KiB and never checks ``scanner.Err()``. We do NOT copy that
@@ -26,8 +28,11 @@ and I/O errors propagate.
 
 from __future__ import annotations
 
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -938,3 +943,182 @@ def pack_rows(
                          len(buf) - 1)
         tokens = np.where(live, buf[pos], np.uint8(0)).astype(np.uint8)
     return PackedWords(tokens=tokens, lengths=lens, index=rows)
+
+
+# ---------------------------------------------------------------------------
+# Streaming ingestion: chunked plan compilation
+# ---------------------------------------------------------------------------
+#
+# A dictionary larger than one chunk is not compiled whole: the sweep
+# (``runtime.sweep``) splits the packed batch into word chunks and one
+# worker thread compiles chunk N+1's plan, piece schema and device arrays
+# while the device sweeps chunk N; consumed chunks are freed, so resident
+# plan state is O(ring x chunk) at any dictionary size.  This module owns
+# the generic pieces; the sweep injects the compile function.
+
+
+def slice_packed(packed: PackedWords, lo: int, hi: int) -> PackedWords:
+    """Word rows ``[lo, hi)`` as a view batch: the slice keeps the
+    parent's width and dictionary indices, so a chunk's hits report the
+    positions the whole-batch plan would."""
+    return PackedWords(
+        tokens=packed.tokens[lo:hi],
+        lengths=packed.lengths[lo:hi],
+        index=packed.index[lo:hi],
+    )
+
+
+#: Streaming chunk sizing target: ~64 MB of compiled plan per chunk.
+DEFAULT_CHUNK_TARGET_BYTES = 64 << 20
+
+#: Conservative compiled-plan bytes per word per packed byte (plan
+#: fields, piece tables and their device copies).
+_EST_PLAN_BYTES_PER_TOKEN = 64
+
+
+def auto_chunk_words(width: int,
+                     target_bytes: int = DEFAULT_CHUNK_TARGET_BYTES) -> int:
+    """Words per chunk targeting ``target_bytes`` of compiled plan for a
+    ``uint8[B, width]`` batch (65,536 words at width 16); at least 1024,
+    since tiny chunks drown in per-chunk overhead."""
+    est = _EST_PLAN_BYTES_PER_TOKEN * max(4, int(width))
+    return max(1024, int(target_bytes) // est)
+
+
+def chunk_bounds(n_words: int, chunk_words: int) -> List[Tuple[int, int]]:
+    """Uniform ``[lo, hi)`` word ranges of ``chunk_words`` (the last one
+    ragged), so a resumed global cursor finds its chunk by arithmetic."""
+    cw = int(chunk_words)
+    if cw < 1:
+        raise ValueError(f"chunk_words must be >= 1, got {chunk_words}")
+    return [(lo, min(lo + cw, n_words)) for lo in range(0, n_words, cw)]
+
+
+@dataclass
+class PlanChunk:
+    """One compiled dictionary chunk, produced by the worker thread:
+    ``payload`` holds what the compile function attached (the sweep's
+    route, arrays and launch settings), ``host_bytes`` the chunk's
+    resident plan-array bytes.  :meth:`release` frees it exactly once,
+    through the compile function's ``releaser``."""
+
+    index: int
+    lo: int
+    hi: int
+    plan: object = None
+    pieces: object = None
+    payload: Optional[dict] = None
+    host_bytes: int = 0
+    compile_s: float = 0.0
+    t_start: float = 0.0
+    t_end: float = 0.0
+    releaser: Optional[Callable[["PlanChunk"], None]] = None
+
+    def release(self) -> None:
+        rel, self.releaser = self.releaser, None
+        if rel is not None:
+            rel(self)
+        self.plan = self.pieces = self.payload = None
+
+
+class ChunkCompiler:
+    """The bounded chunk-compile ring: one worker thread compiles chunks in
+    word order through ``compile_fn(index, lo, hi) -> PlanChunk``, at most
+    ``prefetch`` of them ahead of the chunk being swept; iteration yields
+    them in order.  A chunk whose compile raised restarts the worker once
+    (the failed chunk and those queued behind it resubmitted) before the
+    error propagates at the consuming ``next()``; a second failure
+    propagates.  The ``chunk.compile`` fault seam fires before each
+    compile.  ``windows`` and ``compile_wall_s`` time the compiles."""
+
+    def __init__(self, compile_fn: Callable[[int, int, int], PlanChunk],
+                 bounds: Sequence[Tuple[int, int]], *, start: int = 0,
+                 prefetch: int = 1) -> None:
+        self._fn = compile_fn
+        self._bounds = list(bounds)
+        self._next = start
+        self._prefetch = max(1, int(prefetch))
+        self._ex = ThreadPoolExecutor(max_workers=1,
+                                      thread_name_prefix="a5-chunk-compile")
+        self._futs: deque = deque()  # (chunk index, Future), in order
+        self._restarted = False
+        #: per-chunk compile windows ``(t_start, t_end)`` (monotonic)
+        self.windows: List[Tuple[float, float]] = []
+        self.compile_wall_s = 0.0
+        self._fill()
+
+    def _fill(self) -> None:
+        # The chunk being swept was already popped: the outstanding
+        # futures are the prefetch window.
+        while (self._next < len(self._bounds)
+               and len(self._futs) < self._prefetch):
+            ci = self._next
+            lo, hi = self._bounds[ci]
+            self._futs.append((ci, self._ex.submit(self._timed, ci, lo, hi)))
+            self._next += 1
+
+    def _timed(self, ci: int, lo: int, hi: int) -> PlanChunk:
+        from ..runtime import faults
+
+        if faults.ACTIVE is not None:
+            faults.ACTIVE.fire("chunk.compile")
+        t0 = time.monotonic()
+        chunk = self._fn(ci, lo, hi)
+        chunk.t_start = t0
+        chunk.t_end = time.monotonic()
+        chunk.compile_s = chunk.t_end - t0
+        return chunk
+
+    def _restart_worker(self, failed_ci: int) -> PlanChunk:
+        """Restart-once recovery: a fresh worker re-runs the failed chunk
+        (a second failure propagates); a compile already running finishes
+        and is kept, chunks not started are resubmitted."""
+        from ..runtime import telemetry
+
+        telemetry.counter("faults.worker_restarts").add(1)
+        self._ex.shutdown(wait=True, cancel_futures=True)
+        self._ex = ThreadPoolExecutor(max_workers=1,
+                                      thread_name_prefix="a5-chunk-compile")
+        pending = [(failed_ci, None)] + [
+            (ci, None if fut.cancelled() else fut) for ci, fut in self._futs]
+        self._futs.clear()
+        for ci, fut in pending:
+            if fut is None:
+                lo, hi = self._bounds[ci]
+                fut = self._ex.submit(self._timed, ci, lo, hi)
+            self._futs.append((ci, fut))
+        _ci, fut = self._futs.popleft()
+        return fut.result()
+
+    def __iter__(self) -> Iterator[PlanChunk]:
+        from ..runtime import telemetry
+
+        while self._futs:
+            ci, fut = self._futs.popleft()
+            try:
+                chunk = fut.result()
+            except BaseException as exc:  # noqa: BLE001 — worker death
+                if self._restarted or isinstance(
+                        exc, (KeyboardInterrupt, SystemExit)):
+                    raise
+                self._restarted = True
+                chunk = self._restart_worker(ci)
+            self.windows.append((chunk.t_start, chunk.t_end))
+            self.compile_wall_s += chunk.compile_s
+            self._fill()
+            if telemetry.enabled():
+                telemetry.counter("stream.chunks_compiled").add(1)
+                telemetry.counter("stream.compile_wall_s").add(
+                    chunk.compile_s)
+                telemetry.histogram("stream.chunk_compile_s").observe(
+                    chunk.compile_s)
+                telemetry.gauge("stream.ring_occupancy").set(len(self._futs))
+            yield chunk
+
+    def close(self) -> None:
+        """Stop compiling; safe after an aborted sweep.  Chunks already
+        handed out are the caller's to release."""
+        for _ci, fut in self._futs:
+            fut.cancel()
+        self._ex.shutdown(wait=True)
+        self._futs.clear()

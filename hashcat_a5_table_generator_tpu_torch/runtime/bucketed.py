@@ -8,8 +8,8 @@ Bucketing permutes words, never candidates within a word; hits stream to
 the recorder bucket-major as found, and the merged result's hit list is
 sorted by global ``(word_index, rank)``; candidates stream bucket-major,
 dictionary order within each bucket.  Each bucket picks its own route
-(piece kernel, byte-scan kernels or the XLA expand + hash route); a
-refusal in any bucket stops the run before the first bucket launches.
+(piece kernel, byte-scan kernels or the XLA expand + hash route), and
+streams its words in chunks or compiles them whole on its own size.
 
 Checkpoints, as in the reference: the user's ``--checkpoint FILE`` holds
 a top-level *manifest* (bucket widths → per-bucket checkpoint files and
@@ -27,6 +27,7 @@ from dataclasses import replace
 from typing import Dict, List, Optional, Sequence
 
 from ..ops.packing import PackedWords
+from . import telemetry
 from .checkpoint import check_bucket_manifest, save_bucket_manifest
 from .sweep import Sweep, SweepConfig, SweepResult
 
@@ -148,8 +149,6 @@ class BucketedSweep:
                   ) -> SweepResult:
         """Crack every bucket in ascending width order."""
         t0 = time.monotonic()
-        for sweep in self.sweeps.values():
-            sweep.check("crack")
         self._sync_manifest(resume)
         results = []
         for sweep in self.sweeps.values():
@@ -170,8 +169,6 @@ class BucketedSweep:
         """Stream every bucket's candidates (ascending width, dictionary
         order within each bucket)."""
         t0 = time.monotonic()
-        for sweep in self.sweeps.values():
-            sweep.check("candidates")
         self._sync_manifest(resume)
         results = []
         for sweep in self.sweeps.values():
@@ -186,26 +183,35 @@ class BucketedSweep:
         return merged
 
     def _merge(self, results, t0: float) -> SweepResult:
+        """One result over the buckets: counters sum; superstep and stream
+        stats merge by their ``telemetry`` specs (the stream's sweep-local
+        scalars, such as ``ttfc_s``, are the first bucket's, and its
+        overlap ratios are recomputed from the summed terms)."""
         routing: Dict[str, int] = {}
         kernels: Dict[str, int] = {}
         routes: Dict[str, int] = {}
-        superstep: Dict[str, int] = {}
         xla: Dict[str, int] = {}
         for r in results:
             for total, part in ((routing, r.routing), (kernels, r.kernels),
                                 (routes, r.routes)):
                 for k, v in part.items():
                     total[k] = total.get(k, 0) + v
-            for k, v in r.superstep.items():
-                summed = k in ("supersteps", "launches", "replays",
-                               "retries", "per_launch")
-                superstep[k] = superstep.get(k, 0) + v if summed \
-                    else max(superstep.get(k, 0), v)
             if r.xla:
                 xla = {"lanes": min(xla.get("lanes", r.xla["lanes"]),
                                     r.xla["lanes"]),
                        "budget_bytes": r.xla["budget_bytes"],
                        "rows": xla.get("rows", 0) + r.xla["rows"]}
+        superstep = telemetry.SUPERSTEP_MERGE.merge(
+            [r.superstep for r in results])
+        stream = telemetry.STREAM_MERGE.merge(
+            [r.stream for r in results if r.stream])
+        if stream.get("compile_wall_s", 0) > 0:
+            wall = stream["compile_wall_s"]
+            over = stream.get("compile_overlap_s", 0.0)
+            first = stream.get("first_chunk_compile_s", 0.0)
+            stream["overlap_ratio"] = over / wall
+            stream["steady_overlap_ratio"] = (
+                over / (wall - first) if wall - first > 0 else 0.0)
         return SweepResult(
             n_emitted=sum(r.n_emitted for r in results),
             n_hits=sum(r.n_hits for r in results),
@@ -215,9 +221,11 @@ class BucketedSweep:
                 s._schema_s for s in self.sweeps.values()
             ),
             drive_s=sum(r.drive_s for r in results),
+            ttfc_s=next((r.ttfc_s for r in results if r.ttfc_s), 0.0),
             superstep=superstep,
             routing=routing,
             kernels=kernels,
             routes=routes,
             xla=xla,
+            stream=stream,
         )

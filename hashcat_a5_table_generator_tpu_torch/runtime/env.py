@@ -8,7 +8,8 @@ reads ``A5_NATIVE``, the native libraries' switch),
 byte-scan tiers), :func:`env_opt_out` (the on-by-default escape hatches)
 and the hatches themselves: :func:`pair_enabled` (``A5GEN_PAIR``),
 :func:`superstep_enabled` (``A5GEN_SUPERSTEP``),
-:func:`pipeline_enabled` (``A5GEN_PIPELINE``) and
+:func:`pipeline_enabled` (``A5GEN_PIPELINE``),
+:func:`stream_enabled` (``A5GEN_STREAM``) and
 :func:`telemetry_enabled` (``A5GEN_TELEMETRY``); and :func:`faults_spec`
 (``A5GEN_FAULTS``, parsed by ``runtime/faults.py``).  ``A5GEN_PALLAS``
 keeps its own vocabulary at its call site, as in the reference
@@ -109,6 +110,15 @@ def pipeline_enabled() -> bool:
     superstep drive: each superstep's fetch is waited on before the next
     dispatch.  The candidate and hit streams are the same either way."""
     return not env_opt_out("A5GEN_PIPELINE", "pipelined superstep drive")
+
+
+def stream_enabled() -> bool:
+    """``A5GEN_STREAM`` set to ``off``/``0``/``no`` compiles the whole
+    dictionary's plan up front instead of streaming it in word chunks
+    (``runtime.sweep``), as ``--stream-chunk-words off`` does.  The
+    candidate and hit streams are the same either way."""
+    return not env_opt_out(
+        "A5GEN_STREAM", "streaming plan pipeline for chunked dictionaries")
 
 
 def telemetry_enabled() -> bool:

@@ -23,6 +23,9 @@ packages):
                           drive, the per-launch pipeline's drain)
 ``checkpoint.write``      before a checkpoint write (crash-before-write)
 ``device.init``           before the sweep's tables go to the device
+``chunk.compile``         before a streamed chunk's compile, on the ring's
+                          worker (``ops.packing.ChunkCompiler``: restarted
+                          once, then the error propagates)
 ========================  ===================================================
 
 Arming: ``A5GEN_FAULTS=<spec>`` (read through ``runtime/env.py``) or

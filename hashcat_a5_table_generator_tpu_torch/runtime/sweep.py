@@ -60,6 +60,27 @@ in-flight work and re-dispatches from the last consumed boundary, at most
 :data:`RETRY_ATTEMPTS` times in a row.  Every consumed fetch is a span of
 :attr:`Sweep.timeline` (``runtime/telemetry``).
 
+A geometry whose block count does not divide its lane count (or
+``SweepConfig.packed_blocks``) runs the reference's variable-offset block
+layout: blocks packed back to back, each lane finding its block by a
+binary search over their offsets (``ops.expand_matches.lane_fields``).
+The reference runs that layout on its XLA expand + hash route and the
+per-launch pipeline only, and so does this package: the fused kernels
+and the superstep drive take the fixed-stride layout.
+
+A dictionary larger than one chunk (``SweepConfig.stream_chunk_words``:
+``auto`` = ``ops.packing.auto_chunk_words`` of its width, 65,536 words at
+width 16; ``A5GEN_STREAM=off`` or ``off`` compiles it whole) streams, as
+the reference's does: one cheap prescan over the whole dictionary fixes
+the decisions every chunk must share (``out_width``, the windowed
+scheme, the oracle routing), then one worker thread
+(``ops.packing.ChunkCompiler``) compiles chunk N+1 — its plan, piece
+schema, route, launch decisions and device arrays, uploaded on a side
+CUDA stream — while the device sweeps chunk N; each consumed chunk is
+released.  The cursor, the hits and the checkpoints stay global, so the
+streams and the checkpoints do not depend on the chunking, and a
+checkpoint of either path resumes in the other.
+
 Substitute-all plans route each word three ways, as the reference does:
 device-clean words and cascade-closed words run on the device; words no
 plan splices exactly (``plan.fallback``) take no blocks and are expanded on
@@ -77,16 +98,18 @@ from __future__ import annotations
 
 import itertools
 import sys
+import threading
 import time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..models.attack import (
     AttackSpec,
+    _i32,
     build_plan,
     decode_variant,
     device_arrays,
@@ -116,8 +139,22 @@ from ..ops.fused_expand import (
     scalar_units_weight,
     schema_refusal,
 )
+from ..ops.expand_matches import (
+    variant_totals,
+    windowed_chunk_terms,
+    windowed_gate,
+)
 from ..ops.membership import HostDigestLookup, build_digest_set
-from ..ops.packing import PackedWords, pack_words, piece_schema_for
+from ..ops.packing import (
+    ChunkCompiler,
+    PackedWords,
+    PlanChunk,
+    auto_chunk_words,
+    chunk_bounds,
+    pack_words,
+    piece_schema_for,
+    slice_packed,
+)
 from ..oracle.engines import iter_candidates
 from ..tables.compile import compile_table
 from ..utils.digests import HOST_DIGEST
@@ -129,7 +166,7 @@ from .checkpoint import (
     save_checkpoint,
     sweep_fingerprint,
 )
-from .env import pipeline_enabled, superstep_enabled
+from .env import pipeline_enabled, stream_enabled, superstep_enabled
 from .progress import ProgressReporter
 from .sinks import CandidateWriter, HitRecord, HitRecorder
 
@@ -160,12 +197,16 @@ def xla_row_bytes(plan) -> int:
             + 40 * int(plan.num_slots) + 16 * segments + 256)
 
 
-def xla_lanes(plan, lanes: int, stride: int, cands_per_lane: int,
+def xla_lanes(plan, lanes: int, stride: "int | None", cands_per_lane: int,
               budget: int) -> int:
     """The XLA route's lanes per launch: the configured ``lanes``, cut to
     a multiple of ``stride`` whose candidate rows fit ``budget`` bytes (at
-    least one block).  Launch geometry never changes the stream."""
+    least one block; any count of at least one lane for the
+    variable-offset layout, ``stride`` None).  Launch geometry never
+    changes the stream."""
     fit = budget // (xla_row_bytes(plan) * cands_per_lane)
+    if stride is None:
+        return max(1, min(lanes, fit))
     return stride * max(1, min(lanes // stride, fit // stride))
 
 
@@ -193,8 +234,8 @@ class SweepConfig:
     device: str = "cuda"  # "cuda" or "cpu"; never chosen implicitly
     lanes: Optional[int] = None  # hash lanes per launch; None = 2^22 on
     #   cuda, 2^17 on cpu
-    num_blocks: Optional[int] = None  # blocks per launch; None = lanes/128
-    #   (fixed stride: every block owns lanes/num_blocks lanes)
+    num_blocks: Optional[int] = None  # blocks per launch; None = lanes/128,
+    #   or 1024 when 128 does not divide the lanes (the reference's auto)
     superstep: Optional[int] = None  # launches per superstep; None =
     #   fetch_chunk; 0 selects the per-launch pipeline
     pair: "Optional[int | str]" = None  # pair-lane tier: None/'auto'
@@ -212,17 +253,45 @@ class SweepConfig:
     fetch_timeout_s: Optional[float] = None  # watchdog on each consumed
     #   fetch: past it the drive raises a typed FetchTimeout, which the
     #   supervisor treats as transient (None = one plain wait)
+    packed_blocks: Optional[bool] = None  # True = the variable-offset
+    #   block layout (the XLA route, the per-launch pipeline); False =
+    #   fixed-stride blocks of lanes // num_blocks lanes; None = packed
+    #   exactly when num_blocks does not divide lanes.  The streams are
+    #   the same either way
+    stream_chunk_words: "Optional[int | str]" = None  # None / 'auto' =
+    #   stream the dictionary in chunks of ops.packing.auto_chunk_words
+    #   words when it holds more; 0 / 'off' = compile it whole; N = chunks
+    #   of N words (A5GEN_STREAM=off: whole).  The streams are the same
 
     def resolve(self, dev: torch.device) -> "tuple[int, int, int]":
-        """``(lanes, num_blocks, steps)`` for a device."""
+        """``(lanes, num_blocks, steps)`` for a device: the port's default
+        lanes, and the reference's auto block count."""
         lanes = self.lanes or (1 << 22 if dev.type == "cuda" else 1 << 17)
-        nb = self.num_blocks or max(1, lanes // 128)
+        nb = self.num_blocks or (lanes // 128 if lanes % 128 == 0
+                                 else 1024)
+        return lanes, nb, int(self.superstep or self.fetch_chunk)
+
+    def packed_layout(self, dev: torch.device) -> bool:
+        """Whether the sweep runs the variable-offset block layout."""
+        if self.packed_blocks is not None:
+            return bool(self.packed_blocks)
+        lanes, nb, _ = self.resolve(dev)
+        return lanes % nb != 0
+
+    def resolve_block_stride(self, dev: torch.device) -> Optional[int]:
+        """Lanes per block of the fixed-stride layout; None = the
+        variable-offset layout.  An explicit stride request
+        (``packed_blocks=False``) with blocks that do not divide the lanes
+        raises, as in the reference."""
+        if self.packed_layout(dev):
+            return None
+        lanes, nb, _ = self.resolve(dev)
         if lanes % nb:
             raise ValueError(
-                f"fixed-stride layout needs lanes ({lanes}) divisible by "
-                f"blocks ({nb})"
-            )
-        return lanes, nb, int(self.superstep or self.fetch_chunk)
+                f"fixed-stride layout needs lanes ({lanes}) divisible "
+                f"by blocks ({nb}); adjust the geometry or use the packed "
+                "layout")
+        return lanes // nb
 
     def superstep_on(self) -> bool:
         """False when the per-launch pipeline is asked for: ``superstep``
@@ -239,7 +308,10 @@ class SweepResult:
     hits: List[HitRecord] = field(default_factory=list)
     words_done: int = 0
     wall_s: float = 0.0  # the whole run: schema, uploads, drive
-    drive_s: float = 0.0  # the drive alone (superstep or per-launch)
+    drive_s: float = 0.0  # the drive alone (superstep or per-launch; a
+    #   streamed sweep's, from its first chunk's arrival to its end)
+    ttfc_s: float = 0.0  # from the Sweep's construction (plans, prescan)
+    #   to the first consumed device fetch; 0 when no launch ran
     #: supersteps / launches / replays (overflow re-runs) / retries
     #: (recoveries from transient device errors) / launches_per_fetch /
     #: pair (candidates per lane, 0 = K=1) / per_launch (launches of the
@@ -253,12 +325,19 @@ class SweepResult:
     #: on the XLA route, ``buffer_hash/<algo>`` (candidates mode: the
     #: expansion launches, ``expand``)
     kernels: Dict[str, int] = field(default_factory=dict)
-    #: sweeps (buckets) by route: ``piece``, ``bytescan``, ``xla``
+    #: sweeps (buckets) by route: ``piece``, ``bytescan``, ``xla`` (a
+    #: streamed sweep counts once on each route its chunks took)
     routes: Dict[str, int] = field(default_factory=dict)
     #: the XLA route's launch geometry: ``lanes`` per launch (the
     #: smallest over buckets), the ``budget_bytes`` it was cut to and the
     #: candidate ``rows`` its launches held
     xla: Dict[str, int] = field(default_factory=dict)
+    #: a streamed sweep's stats (empty on the whole path): chunks /
+    #: chunks_swept / chunk_words / prefetch / ring / resumed_chunk /
+    #: compile_wall_s / first_chunk_compile_s / compile_overlap_s /
+    #: overlap_ratio / steady_overlap_ratio / ttfc_s /
+    #: peak_resident_plan_bytes / chunk_bytes_max
+    stream: Dict[str, float] = field(default_factory=dict)
 
 
 class _Fetch:
@@ -295,6 +374,22 @@ class _Fetch:
         return int(ne), int(nh)
 
 
+@dataclass
+class _Region:
+    """One compiled plan region: the whole dictionary (``lo`` 0) or one
+    streamed chunk, whose plan rows are dictionary rows ``lo ..
+    lo + plan.batch``.  Cursors into it are plan-local; the sweep's state
+    is global.  ``route`` is None when every word of the region is
+    oracle-routed."""
+
+    plan: Any
+    lo: int = 0
+    pieces: Any = None
+    bytescan: Any = None
+    route: Optional[str] = None
+    schema_s: float = 0.0
+
+
 class Sweep:
     """One wordlist × one merged table × one attack spec."""
 
@@ -306,6 +401,7 @@ class Sweep:
         digests: Sequence[bytes] = (),
         config: Optional[SweepConfig] = None,
     ) -> None:
+        self._t_init = time.monotonic()
         self.spec = spec
         self.sub_map = sub_map
         self.config = config or SweepConfig()
@@ -321,13 +417,36 @@ class Sweep:
             else pack_words(list(words))
         )
         self.n_words = self.packed.batch
-        self.plan = build_plan(spec, self.ct, self.packed)
-        #: oracle-routed word rows, in word order
-        self.fallback_rows: List[int] = [
-            int(i) for i in np.nonzero(self.plan.fallback)[0]
-        ]
-        closed = getattr(self.plan, "closed", None)
-        n_closed = int(closed.sum()) if closed is not None else 0
+        #: one span per consumed fetch (``--metrics-json`` reads it)
+        self.timeline = telemetry.SpanTimeline()
+        self._fingerprint: Optional[str] = None
+        self._shared: Dict[str, torch.Tensor] = {}
+        self._ttfc: Optional[float] = None
+        self._pair_warned = False
+        self._stream_lock = threading.Lock()
+        self._stream_resident = self._stream_peak = self._chunk_max = 0
+        #: the streaming decision (chunk bounds and the prescan's global
+        #: facts), or None: the whole dictionary's plan, compiled here
+        self._stream = self._resolve_streaming()
+        #: the whole path's one region (None when streaming)
+        self._whole: Optional[_Region] = None
+        if self._stream is None:
+            self.plan = build_plan(spec, self.ct, self.packed)
+            closed = getattr(self.plan, "closed", None)
+            n_closed = int(closed.sum()) if closed is not None else 0
+            self._windowed = bool(getattr(self.plan, "windowed", False))
+            #: oracle-routed word rows, in word order
+            self.fallback_rows: List[int] = [
+                int(i) for i in np.nonzero(self.plan.fallback)[0]
+            ]
+        else:
+            # Plans are per chunk: the decisions every chunk plan, the
+            # fingerprint and the routing share come from the prescan.
+            self.plan = None
+            self._stream.update(self._stream_prescan())
+            n_closed = self._stream["n_closed"]
+            self._windowed = self._stream["windowed"]
+            self.fallback_rows = self._stream["fallback_rows"]
         self.routing = {
             "device_clean": self.n_words - n_closed - len(self.fallback_rows),
             "device_closed": n_closed,
@@ -336,76 +455,141 @@ class Sweep:
         set_routing = getattr(self.config.progress, "set_routing", None)
         if set_routing is not None:
             set_routing(self.routing)
-        #: one span per consumed fetch (``--metrics-json`` reads it)
-        self.timeline = telemetry.SpanTimeline()
-        self._fingerprint: Optional[str] = None
-        # The route: a fused kernel where the reference's gate takes the
-        # plan (the piece kernel with a per-slot schema, else the
-        # byte-scan tier), else the XLA expand + hash route, which also
-        # splices with the schema when there is one.  The refusal left (a
-        # schema the piece kernel's descriptors cannot hold) is found
-        # here, before any launch, and raised by the run (BucketedSweep
-        # checks every bucket first).  A bucket whose block index would
-        # pass 2^31 blocks runs as sub-sweeps over word ranges
-        # (word_ranges); one with a word of 2^30 rows or more, the
-        # per-launch pipeline (per_launch).
-        self.config.resolve(self.device)
         self.device_words = self.n_words > len(self.fallback_rows)
-        self.pieces = None
-        self.bytescan = None
-        self.route = None
-        #: why this package cannot run the sweep, by mode (None = it can)
-        self.refusal: Dict[str, Optional[str]] = {
-            "crack": None, "candidates": None}
-        # The schema is part of the run: SweepResult.wall_s counts it.
+        # The whole path's route, found before any launch: a fused kernel
+        # where the reference's gate takes the plan (the piece kernel with
+        # a per-slot schema the kernel's descriptors hold, else the
+        # byte-scan tier), else the XLA expand + hash route.  A bucket
+        # whose block index would pass 2^31 blocks runs as sub-sweeps
+        # over word ranges (word_ranges); one with a word of 2^30 rows or
+        # more, the per-launch pipeline (per_launch).  A streamed sweep
+        # decides all of this per chunk, in the chunk compile.
+        self.pieces = self.bytescan = self.route = None
         self._schema_s = 0.0
-        if self.device_words:
-            t0 = time.monotonic()
-            self.pieces = piece_schema_for(self.plan, self.ct)
-            self._schema_s = time.monotonic() - t0
-            if opts_for(spec, self.plan, self.ct) is None:
-                self.route = "xla"
-            elif self.pieces is None:
-                self.route = "bytescan"
-                self.bytescan = bytescan_tier(self.plan)
-            else:
-                self.route = "piece"
-                why = schema_refusal(self.plan, self.pieces)
-                if why is not None:
-                    self.refusal["crack"] = f"kernel not ported for: {why}"
+        if self._stream is None:
+            self._whole = self._region(self.plan, 0)
+            self.pieces = self._whole.pieces
+            self.bytescan = self._whole.bytescan
+            self.route = self._whole.route
+            # The schema is part of the run: SweepResult.wall_s counts it.
+            self._schema_s = self._whole.schema_s
 
-    def per_launch(self, rank_stride: int) -> bool:
-        """Whether the sweep takes the per-launch pipeline at
-        ``rank_stride``, as the reference does: when the superstep is off
-        (``SweepConfig.superstep_on``), or when no int32-safe block index
-        exists (``ops.blocks.superstep_index`` None: a word of 2^30 rows
-        or more, a huge word, an index past int64)."""
+    # ------------------------------------------------------------------
+    # Streaming decision, prescan, regions
+    # ------------------------------------------------------------------
+
+    def _resolve_streaming(self) -> Optional[dict]:
+        """Chunk bounds when the sweep streams, else None: ``auto`` (the
+        default) streams a dictionary of more than one
+        ``auto_chunk_words`` chunk, ``N`` one of more than N words,
+        ``off`` / ``A5GEN_STREAM=off`` never.  The ring compiles one chunk
+        ahead of the one being swept."""
+        requested = self.config.stream_chunk_words
+        if requested in (0, "off") or not stream_enabled():
+            return None
+        if requested in (None, "auto"):
+            cw = auto_chunk_words(self.packed.width)
+        else:
+            cw = int(requested)
+            if cw < 1:
+                raise ValueError(
+                    "SweepConfig.stream_chunk_words must be >= 1, 'auto' "
+                    f"or 'off'; got {requested!r}")
+        if self.n_words <= cw:
+            return None
+        return {"chunk_words": cw, "bounds": chunk_bounds(self.n_words, cw),
+                "prefetch": 1}
+
+    def _stream_prescan(self) -> dict:
+        """One pass over the dictionary, chunk by chunk (each chunk's plan
+        built and dropped), for the facts every chunk plan must share:
+        ``out_width`` (the widest chunk's), ``windowed`` (the count-window
+        vote summed over the whole dictionary through the same
+        ``windowed_chunk_terms`` / ``windowed_gate`` the whole-batch plan
+        votes with, so ranks do not depend on the chunking), and the
+        oracle routing (``fallback_rows``, ``n_closed``).  The piece
+        schemas and device arrays, the dominant cost, stream per chunk."""
+        spec = self.spec
+        win_ok, sum_win, sum_full = True, 0, 0
+        out_width, n_closed = 4, 0
+        fallback_rows: List[int] = []
+        for lo, hi in self._stream["bounds"]:
+            plan = build_plan(spec, self.ct, slice_packed(self.packed, lo, hi),
+                              force_windowed=False)
+            out_width = max(out_width, int(plan.out_width))
+            fb = np.asarray(plan.fallback, bool)
+            fallback_rows.extend(lo + int(i) for i in np.nonzero(fb)[0])
+            closed = getattr(plan, "closed", None)
+            if closed is not None:
+                n_closed += int(np.asarray(closed).sum())
+            if win_ok:
+                radix = np.asarray(plan.pat_radix)
+                full = variant_totals(radix)
+                n_var = [0 if fb[i] else t for i, t in enumerate(full)]
+                ok, _v, _t, sw, sf = windowed_chunk_terms(
+                    radix, n_var, spec.effective_min, spec.max_substitute,
+                    zero_mask=fb)
+                win_ok = ok
+                sum_win += sw
+                sum_full += sf
+        return {"out_width": out_width,
+                "windowed": bool(win_ok and windowed_gate(sum_win, sum_full)),
+                "fallback_rows": fallback_rows, "n_closed": n_closed}
+
+    def _region(self, plan, lo: int) -> _Region:
+        """A plan region's piece schema and route: the XLA expand + hash
+        route for the variable-offset layout, a plan the reference's gate
+        refuses (``opts_for``) or a schema the piece kernel's descriptors
+        cannot hold (``schema_refusal``: the XLA route splices any
+        schema); else the piece kernel, or the byte-scan tier for a plan
+        without a schema."""
+        r = _Region(plan=plan, lo=lo)
+        if np.asarray(plan.fallback, bool).all():
+            return r
+        t0 = time.monotonic()
+        r.pieces = piece_schema_for(plan, self.ct)
+        r.schema_s = time.monotonic() - t0
+        if (self.config.packed_layout(self.device)
+                or opts_for(self.spec, plan, self.ct) is None):
+            r.route = "xla"
+        elif r.pieces is None:
+            r.route = "bytescan"
+            r.bytescan = bytescan_tier(plan)
+        elif schema_refusal(plan, r.pieces) is not None:
+            r.route = "xla"
+        else:
+            r.route = "piece"
+        return r
+
+    def per_launch(self, rank_stride: int, plan=None) -> bool:
+        """Whether a plan (the sweep's whole plan by default) takes the
+        per-launch pipeline at ``rank_stride``, as the reference does:
+        when the superstep is off (``SweepConfig.superstep_on``), or when
+        no int32-safe block index exists (``ops.blocks.superstep_index``
+        None: a word of 2^30 rows or more, a huge word, an index past
+        int64)."""
+        plan = self.plan if plan is None else plan
         if not self.config.superstep_on():
             return True
-        ranges = self.word_ranges(rank_stride)
-        return not ranges or superstep_index(self.plan, rank_stride,
+        ranges = word_ranges(plan, rank_stride)
+        return not ranges or superstep_index(plan, rank_stride,
                                              ranges[0]) is None
 
-    def word_ranges(self, rank_stride: int) -> "List[tuple]":
-        """The sub-sweeps this bucket runs at ``rank_stride``: consecutive
-        word ranges, each with an int32-safe block index
-        (``ops.blocks.word_ranges``); one range unless the bucket's index
-        passes ``ops.blocks.SPLIT_BLOCKS``."""
-        return word_ranges(self.plan, rank_stride)
+    def word_ranges(self, rank_stride: int, plan=None) -> "List[tuple]":
+        """The sub-sweeps a plan (the sweep's whole plan by default) runs
+        at ``rank_stride``: consecutive word ranges, each with an
+        int32-safe block index (``ops.blocks.word_ranges``); one range
+        unless its index passes ``ops.blocks.SPLIT_BLOCKS``."""
+        return word_ranges(self.plan if plan is None else plan, rank_stride)
 
-    def _index_range(self, arrays: dict, rank_stride: int, words: tuple):
+    def _index_range(self, arrays: dict, plan, rank_stride: int,
+                     words: tuple):
         """Point ``arrays`` at the block index of word range ``words``
         (one sub-sweep); returns that index."""
-        idx = superstep_index(self.plan, rank_stride, words)
+        idx = superstep_index(plan, rank_stride, words)
         arrays["cum"] = torch.as_tensor(idx[0], device=self.device)
         arrays["total"] = idx[2]
         return idx
-
-    def check(self, mode: str = "crack") -> None:
-        """Raise ``NotImplementedError`` when this package cannot run the
-        sweep in ``mode`` (``crack`` or ``candidates``)."""
-        if self.refusal[mode] is not None:
-            raise NotImplementedError(self.refusal[mode])
 
     # ------------------------------------------------------------------
     # Checkpoint state, resume, supervision
@@ -420,7 +604,7 @@ class Sweep:
         if self._fingerprint is None:
             spec = self.spec
             mode_token = spec.mode + (
-                "+windowed" if getattr(self.plan, "windowed", False) else ""
+                "+windowed" if self._windowed else ""
             ) + ("+closed" if self.routing["device_closed"] else "")
             self._fingerprint = sweep_fingerprint(
                 mode_token, spec.algo, spec.min_substitute,
@@ -439,15 +623,18 @@ class Sweep:
         if resume:
             state = load_checkpoint(path, self.fingerprint)
             if state is not None:
-                # A streaming checkpoint's chunk marker means nothing to a
-                # whole-dictionary sweep: the cursor is global either way.
-                state.stream = None
+                if self._stream is None:
+                    # A streaming checkpoint's chunk marker means nothing
+                    # to a whole-dictionary sweep: the cursor is global.
+                    state.stream = None
                 return state
         return CheckpointState(fingerprint=self.fingerprint)
 
     def _start(self, state: CheckpointState, crack: bool) -> None:
-        """Seed the progress windows with a resumed run's counts: they
-        belong to an earlier process, not this one's first rates."""
+        """Seed the progress windows with a resumed run's counts (they
+        belong to an earlier process, not this one's first rates) and its
+        chunk position."""
+        self._ttfc = None
         progress = self.config.progress
         if progress is None:
             return
@@ -455,8 +642,19 @@ class Sweep:
         seed_hits = getattr(progress, "seed_hits", None)
         if crack and seed_hits is not None:
             seed_hits(state.n_hits)
+        self._report_stream_position(state)
 
-    def _set_geometry(self, lanes: int, nb: int) -> None:
+    def _report_stream_position(self, state: CheckpointState) -> None:
+        """A streamed sweep's chunk marker (``CheckpointState.stream``) in
+        the progress lines; nothing on the whole path."""
+        if self._stream is None or state.stream is None:
+            return
+        set_stream = getattr(self.config.progress, "set_stream", None)
+        if set_stream is not None:
+            set_stream(state.stream)
+
+    def _set_geometry(self, lanes: int, nb: int,
+                      stride: Optional[int]) -> None:
         """Stamp the resolved launch geometry into the progress lines (the
         reference's ``geometry`` key and its provenance: ``explicit``
         when the caller set the lanes, else ``default``)."""
@@ -465,28 +663,30 @@ class Sweep:
             return
         cfg, dev = self.config, self.device
         set_geometry({
-            "lanes": lanes, "num_blocks": nb, "block_stride": lanes // nb,
+            "lanes": lanes, "num_blocks": nb, "block_stride": stride,
             "superstep": cfg.superstep, "pair": cfg.pair,
             "device_kind": (torch.cuda.get_device_name(dev)
                             if dev.type == "cuda" else "cpu"),
             "pod": None,
         }, "explicit" if cfg.lanes else "default")
 
-    def _normalize(self, cursor: SweepCursor) -> "Tuple[int, int]":
-        """The cursor as the block cutter normalizes it: past fallback
-        words and finished words."""
-        plan, (w, rank) = self.plan, (cursor.word, cursor.rank)
+    @staticmethod
+    def _normalize(plan, cursor: "Tuple[int, int]") -> "Tuple[int, int]":
+        """A plan-local cursor as the block cutter normalizes it: past
+        fallback words and finished words."""
+        w, rank = cursor
         while w < plan.batch and (plan.fallback[w]
                                   or rank >= plan.n_variants[w]):
             w, rank = w + 1, 0
         return w, rank
 
-    def _start_block(self, cum: np.ndarray, rank_stride: int,
+    @staticmethod
+    def _start_block(plan, cum: np.ndarray, rank_stride: int,
                      w: int, rank: int) -> int:
         """The block a resumed drive starts at, ``cum[w] + rank //
         rank_stride``; it must decode back to the cursor."""
         b0 = int(cum[w]) + rank // rank_stride
-        got = block_cursor(self.plan, rank_stride, cum, b0)
+        got = block_cursor(plan, rank_stride, cum, b0)
         if got != (w, rank):
             raise RuntimeError(
                 f"resume cursor mismatch: block {b0} decodes to {got}, "
@@ -550,10 +750,30 @@ class Sweep:
                 self._retry_backoff(exc, attempts)
                 attempts += 1
 
+    def _word_plan(self, w_row: int):
+        """A streamed sweep's one-word plan of dictionary row ``w_row``,
+        with the prescan's ``out_width`` and windowed scheme: per-word
+        plan fields do not depend on the batch, so it decodes a rank as
+        the chunk plan that flagged it did, without that chunk."""
+        cache = self.__dict__.setdefault("_word_plans", {})
+        plan = cache.get(w_row)
+        if plan is None:
+            plan = cache[w_row] = build_plan(
+                self.spec, self.ct,
+                slice_packed(self.packed, w_row, w_row + 1),
+                out_width=self._stream["out_width"],
+                force_windowed=self._stream["windowed"])
+        return plan
+
     def _rederive_hit(self, w_row: int, rank: int) -> bytes:
-        """A checkpointed hit's candidate: decoded from its rank, or, for
-        a fallback word, the oracle's ``rank``-th candidate."""
-        if self.plan.fallback[w_row]:
+        """A checkpointed hit's candidate: decoded from its rank (through
+        a one-word plan when the sweep streams), or, for a fallback word,
+        the oracle's ``rank``-th candidate."""
+        if self._stream is None:
+            plan, row = self.plan, w_row
+        else:
+            plan, row = self._word_plan(w_row), 0
+        if plan.fallback[row]:
             cands = self._oracle_candidates(w_row)
             try:
                 return next(itertools.islice(cands, rank, None))
@@ -561,7 +781,7 @@ class Sweep:
                 close = getattr(cands, "close", None)
                 if close is not None:
                     close()
-        return decode_variant(self.plan, self.ct, self.spec, w_row, rank)
+        return decode_variant(plan, self.ct, self.spec, row, rank)
 
     def _replay_hits(self, state: CheckpointState, recorder) -> None:
         """Replay a checkpoint's hits into ``recorder``, so a resumed run
@@ -573,6 +793,148 @@ class Sweep:
                 word_index=int(self.packed.index[w_row]), variant_rank=rank,
                 candidate=cand, digest_hex=digest(cand).hex()))
 
+    def _note_fetch(self) -> None:
+        """Time to the first consumed device fetch (``ttfc_s``)."""
+        if self._ttfc is None:
+            self._ttfc = time.monotonic()
+
+    # ------------------------------------------------------------------
+    # Launch set-up (the whole path's, or one chunk's on the worker)
+    # ------------------------------------------------------------------
+
+    def _shared_arrays(self, crack: bool) -> Dict[str, torch.Tensor]:
+        """What a sweep uploads once for all its regions: the table's
+        values (``val_bytes``, ``val_len``) and, in crack mode, the digest
+        set (``rows``, ``bitmap``); built on first use, on the caller's
+        thread."""
+        dev, shared = self.device, self._shared
+        if not shared:
+            shared["val_bytes"] = torch.as_tensor(
+                np.ascontiguousarray(self.ct.val_bytes), device=dev)
+            shared["val_len"] = torch.as_tensor(_i32(self.ct.val_len),
+                                                device=dev)
+        if crack and "rows" not in shared:
+            ds = build_digest_set(self.digests, self.spec.algo)
+            shared["rows"] = torch.as_tensor(_i32(ds.rows), device=dev)
+            shared["bitmap"] = torch.as_tensor(_i32(ds.bitmap), device=dev)
+        return shared
+
+    def _pair_k(self, plan, pieces, stride: int) -> Optional[int]:
+        """The pair-lane decision for one plan: 2 when the config, the
+        ``A5GEN_PAIR`` hatch and the schema's pair gate admit it, else
+        None; an explicit ``--pair on`` that cannot be honoured warns
+        once."""
+        cfg_pair = str(self.config.pair).lower()
+        if self.config.pair is not None and cfg_pair in ("0", "off", "no",
+                                                         "false"):
+            return None
+        k = pair_for(self.spec, plan, pieces, block_stride=stride)
+        if k is None and cfg_pair in ("on", "1", "2", "true") \
+                and not self._pair_warned:
+            self._pair_warned = True
+            print("a5gen: warning: pair requested (--pair on) but this "
+                  "plan/config is not pair-eligible (schema gate, windowed "
+                  "decode, or hash-block count); running K=1",
+                  file=sys.stderr)
+        return k
+
+    def _setup(self, r: _Region, kind: str, start: "Tuple[int, int]",
+               *, upload: bool = False) -> dict:
+        """Everything a region's drive needs from the normalized
+        plan-local cursor ``start``: the geometry (``lanes``, ``nb``,
+        ``stride`` — None for the variable-offset layout — ``steps``,
+        ``pair_k``, ``rank_stride``), the drive (``per_launch``, the word
+        ``ranges`` of the superstep drive), the device ``arrays``, the
+        step keywords ``kw``, the launch ``tier`` and the XLA route's
+        ``xla_geom``.  With ``upload`` (a chunk compiled on the worker
+        thread, on CUDA) the region's own arrays go up from pinned memory
+        on a side stream; ``ready`` is the event the drive's stream waits
+        on before its first launch, and each tensor is recorded on the
+        drive's stream, so its memory is not reused while a launch may
+        still read it."""
+        spec, cfg, dev, plan = self.spec, self.config, self.device, r.plan
+        lanes, nb, steps = cfg.resolve(dev)
+        stride = cfg.resolve_block_stride(dev)
+        crack = kind == "crack"
+        w, rank = start
+        pair_k = rank_stride = None
+        if stride is None:
+            per_launch = True
+        else:
+            if crack:
+                pair_k = self._pair_k(plan, r.pieces, stride)
+            rank_stride = stride * (pair_k or 1)
+            if pair_k is not None and self.per_launch(rank_stride, plan):
+                # The per-launch step runs K=1, as the reference's does.
+                pair_k, rank_stride = None, stride
+            per_launch = self.per_launch(rank_stride, plan)
+            # A resumed cursor must sit on a block boundary of the
+            # superstep drive: a pair-misaligned but K=1-aligned one runs
+            # the K=1 superstep tier, any other misalignment the
+            # per-launch pipeline.
+            if not per_launch and w < plan.batch and rank % rank_stride:
+                per_launch = rank % stride != 0
+                pair_k, rank_stride = None, stride
+        ranges = [] if per_launch else word_ranges(plan, rank_stride)
+        idx = None if per_launch else superstep_index(plan, rank_stride,
+                                                      ranges[0])
+        if faults.ACTIVE is not None:
+            faults.ACTIVE.fire("device.init")
+        xla = not crack or r.route == "xla"
+        target = torch.device("cpu") if upload else dev
+        xla_geom: Dict[str, int] = {}
+        if xla:
+            budget = XLA_BUDGET_BYTES[dev.type]
+            lanes = xla_lanes(plan, lanes, stride, pair_k or 1, budget)
+            if stride is not None:
+                nb = lanes // stride
+            xla_geom = {"lanes": lanes, "budget_bytes": budget}
+            arrays = xla_arrays(plan, self.ct, r.pieces, None, idx,
+                                device=target)
+        else:
+            arrays = device_arrays(plan, r.pieces, None, idx, device=target,
+                                   ct=self.ct, bytescan=r.bytescan)
+        shared = self._shared_arrays(crack)
+        if getattr(plan, "cval_bytes", None) is None:
+            for k in ("val_bytes", "val_len"):
+                if k in arrays:
+                    arrays[k] = shared[k]
+        own = {k: v for k, v in arrays.items()
+               if torch.is_tensor(v) and v is not shared.get(k)}
+        ready = None
+        if upload and dev.type == "cuda":
+            side = torch.cuda.Stream(device=dev)
+            with torch.cuda.stream(side):
+                for k, v in own.items():
+                    own[k] = v.pin_memory().to(dev, non_blocking=True)
+                    own[k].record_stream(self._drive_stream)
+                ready = torch.cuda.Event()
+                ready.record(side)
+            arrays.update(own)
+        if crack:
+            arrays.update(rows=shared["rows"], bitmap=shared["bitmap"])
+        decode, pack_cb = decode_for(plan)
+        kw = dict(num_lanes=lanes, out_width=int(plan.out_width),
+                  block_stride=stride, pieces=r.pieces,
+                  windowed=bool(getattr(plan, "windowed", False)),
+                  radix2=k_opts_for(plan) == 1)
+        if crack:
+            kw.update(num_blocks=nb, pair_k=pair_k, decode=decode,
+                      pack_cb=pack_cb, k_opts=k_vals_for(plan),
+                      bytescan=r.bytescan, xla=xla)
+            tier = (f"buffer_hash/{spec.algo}" if xla else
+                    r.bytescan.name if r.bytescan is not None else
+                    launch_key(spec.algo, r.pieces, decode,
+                               pair_k is not None).split("/")[0])
+        else:
+            tier = "expand"
+        return dict(lanes=lanes, nb=nb, stride=stride, steps=steps,
+                    pair_k=pair_k, rank_stride=rank_stride,
+                    per_launch=per_launch, ranges=ranges, arrays=arrays,
+                    kw=kw, tier=tier, xla_geom=xla_geom, ready=ready,
+                    nbytes=sum(v.numel() * v.element_size()
+                               for v in own.values()))
+
     # ------------------------------------------------------------------
     # Crack mode
     # ------------------------------------------------------------------
@@ -583,7 +945,6 @@ class Sweep:
         return to the host.  With ``SweepConfig.checkpoint_path`` the
         sweep checkpoints and, given ``resume``, starts from the file's
         cursor, its hits replayed into ``recorder`` first."""
-        self.check()
         t0 = time.monotonic()
         cfg = self.config
         recorder = recorder if recorder is not None else HitRecorder()
@@ -592,11 +953,15 @@ class Sweep:
         self._replay_hits(state, recorder)
         last_ckpt = [t0]
         flush = _FallbackFlush(self, state, self._crack_word(recorder, state))
-        device = {}
+        device: dict = {}
+
+        def drive(setup, r, start):
+            return self._crack_region(setup, r, recorder, flush, state,
+                                      last_ckpt, start)
+
         try:
             if self.device_words:
-                device = self._crack_device(recorder, flush, state,
-                                            last_ckpt)
+                device = self._run_device("crack", state, flush, drive)
             flush.until(self.n_words)
         finally:
             state.wall_s += time.monotonic() - t0
@@ -615,98 +980,62 @@ class Sweep:
             **device,
         )
 
-    def _crack_device(self, recorder, flush, state: CheckpointState,
-                      last_ckpt: List[float]) -> dict:
-        """The device half of :meth:`run_crack`, from the state's cursor;
-        returns the result's drive fields."""
-        spec, plan, cfg, dev = self.spec, self.plan, self.config, self.device
-        lanes, nb, steps = cfg.resolve(dev)
-        stride = lanes // nb
-        pieces = self.pieces
-        pair_k = None
-        if cfg.pair is None or str(cfg.pair).lower() not in (
-            "0", "off", "no", "false"
-        ):
-            pair_k = pair_for(spec, plan, pieces, block_stride=stride)
-        if pair_k is None and str(cfg.pair).lower() in ("on", "1", "2",
-                                                        "true"):
-            print("a5gen: warning: pair requested (--pair on) but this "
-                  "plan/config is not pair-eligible (schema gate, windowed "
-                  "decode, or hash-block count); running K=1",
-                  file=sys.stderr)
-        rank_stride = stride * (pair_k or 1)
-        if pair_k is not None and self.per_launch(rank_stride):
-            # The per-launch step runs K=1, as the reference's does.
-            pair_k, rank_stride = None, stride
-        per_launch = self.per_launch(rank_stride)
-        # A resumed cursor must sit on a block boundary of the superstep
-        # drive: a pair-misaligned but K=1-aligned one runs the K=1
-        # superstep tier, any other misalignment the per-launch pipeline.
-        w, rank = self._normalize(state.cursor)
-        if not per_launch and w < plan.batch and rank % rank_stride:
-            if pair_k is not None and rank % stride == 0:
-                pair_k, rank_stride = None, stride
-            else:
-                per_launch = True
-        ranges = [] if per_launch else self.word_ranges(rank_stride)
-        idx = None if per_launch else superstep_index(plan, rank_stride,
-                                                      ranges[0])
-        digest_set = build_digest_set(self.digests, spec.algo)
-        decode, pack_cb = decode_for(plan)
-        self._set_geometry(lanes, nb)
-        if faults.ACTIVE is not None:
-            faults.ACTIVE.fire("device.init")
-        xla_geom: Dict[str, int] = {}
-        if self.route == "xla":
-            budget = XLA_BUDGET_BYTES[dev.type]
-            lanes = xla_lanes(plan, lanes, stride, pair_k or 1, budget)
-            nb = lanes // stride
-            xla_geom = {"lanes": lanes, "budget_bytes": budget}
-            arrays = xla_arrays(plan, self.ct, pieces, digest_set, idx,
-                                device=dev)
-            tier = f"buffer_hash/{spec.algo}"
-        else:
-            arrays = device_arrays(
-                plan, pieces, digest_set, idx, device=dev, ct=self.ct,
-                bytescan=self.bytescan,
-            )
-            tier = (self.bytescan.name if self.bytescan is not None else
-                    launch_key(spec.algo, pieces, decode,
-                               pair_k is not None).split("/")[0])
-        kw = dict(
-            num_lanes=lanes, out_width=int(plan.out_width),
-            block_stride=stride, num_blocks=nb, pieces=pieces,
-            pair_k=pair_k, decode=decode, pack_cb=pack_cb,
-            k_opts=k_vals_for(plan), bytescan=self.bytescan,
-            xla=self.route == "xla",
-            windowed=bool(getattr(plan, "windowed", False)),
-            radix2=k_opts_for(plan) == 1,
-        )
+    def _run_device(self, kind: str, state: CheckpointState, flush,
+                    drive: Callable[[dict, _Region, tuple], dict]) -> dict:
+        """The device half of a run from the state's cursor: the whole
+        path's one region, or the chunk ring; returns the result's drive
+        fields (the regions' own merged by :func:`_merge_parts`)."""
+        self.config.resolve_block_stride(self.device)  # an explicit
+        #   stride that does not divide raises before any launch
+        if self._stream is not None:
+            return self._run_stream(kind, state, flush, drive)
+        r = self._whole
+        start = self._normalize(r.plan, (state.cursor.word,
+                                         state.cursor.rank))
+        setup = self._setup(r, kind, start)
         t_drive = time.monotonic()
-        if per_launch:
+        out = _merge_parts([drive(setup, r, start)])
+        out["drive_s"] = time.monotonic() - t_drive
+        out["ttfc_s"] = (self._ttfc - self._t_init
+                         if self._ttfc is not None else 0.0)
+        return out
+
+    def _crack_region(self, s: dict, r: _Region, recorder, flush,
+                      state: CheckpointState, last_ckpt: List[float],
+                      start: "Tuple[int, int]") -> dict:
+        """One region's crack drive from its plan-local cursor ``start``
+        with the launch set-up ``s`` (:meth:`_setup`); returns its
+        superstep stats, kernel launches, route and XLA geometry."""
+        spec, plan = self.spec, r.plan
+        lanes, nb, pair_k = s["lanes"], s["nb"], s["pair_k"]
+        rank_stride, arrays = s["rank_stride"], s["arrays"]
+        self._set_geometry(lanes, nb, s["stride"])
+        w, rank = start
+        if s["per_launch"]:
             stats = self._drive_per_launch(
-                make_crack_step(spec, **kw), arrays, lanes, nb, stride,
-                recorder, flush, state, last_ckpt, (w, rank))
+                r, make_crack_step(spec, **s["kw"]), arrays, lanes, nb,
+                s["stride"], recorder, flush, state, last_ckpt, start)
             steps = 1
         else:
             # The superstep's emitted counter is int32: cap steps so every
             # lane emitting cannot reach 2^31.
-            steps = max(1, min(steps, ((1 << 31) - 1)
+            steps = max(1, min(s["steps"], ((1 << 31) - 1)
                                // (lanes * (pair_k or 1))))
-            body = make_superstep_body(spec, **kw)
+            body = make_superstep_body(spec, **s["kw"])
             stats = {"supersteps": 0, "launches": 0, "replays": 0,
                      "retries": 0}
-            for lo, hi in ranges:
+            for lo, hi in s["ranges"]:
                 # One sub-sweep per word range, in word order: its own
                 # block index over the same resident tables; the ranges
                 # before the cursor are done.
                 if hi <= w:
                     continue
-                cum = self._index_range(arrays, rank_stride, (lo, hi))[0]
-                b_start = (self._start_block(cum, rank_stride, w, rank)
+                cum = self._index_range(arrays, plan, rank_stride,
+                                        (lo, hi))[0]
+                b_start = (self._start_block(plan, cum, rank_stride, w, rank)
                            if lo <= w else 0)
                 part = self._drive(
-                    body, arrays, nb, steps, recorder, flush, state,
+                    r, body, arrays, nb, steps, recorder, flush, state,
                     last_ckpt, b_start,
                     lambda b, cum=cum, hi=hi: _clip(
                         block_cursor(plan, rank_stride, cum, b), hi))
@@ -714,15 +1043,11 @@ class Sweep:
                     stats[k] += part[k]
         stats["launches_per_fetch"] = steps
         stats["pair"] = pair_k or 0
+        xla_geom = dict(s["xla_geom"])
         if xla_geom:
             xla_geom["rows"] = stats["launches"] * lanes * (pair_k or 1)
-        return dict(
-            drive_s=time.monotonic() - t_drive,
-            superstep=stats,
-            kernels={tier: stats["launches"]},
-            routes={self.route: 1},
-            xla=xla_geom,
-        )
+        return dict(superstep=stats, kernels={s["tier"]: stats["launches"]},
+                    routes={r.route: 1}, xla=xla_geom)
 
     # ------------------------------------------------------------------
     # Candidates mode
@@ -737,9 +1062,8 @@ class Sweep:
         words through the oracle at their word position.  Resume is
         at-least-once, as in the reference: the candidates written after
         the last checkpoint repeat."""
-        self.check("candidates")
         t0 = time.monotonic()
-        spec, plan, cfg, dev = self.spec, self.plan, self.config, self.device
+        cfg = self.config
         state = self._load_state(resume)
         self._start(state, crack=False)
         last_ckpt = [t0]
@@ -752,88 +1076,15 @@ class Sweep:
             state.n_emitted += n
 
         flush = _FallbackFlush(self, state, on_word)
-        n_launches = 0
-        drive_s = 0.0
-        xla_geom: Dict[str, int] = {}
+
+        def drive(setup, r, start):
+            return self._candidates_region(setup, r, writer, flush, state,
+                                           last_ckpt, start)
+
+        device: dict = {}
         try:
             if self.device_words:
-                lanes, nb, _ = cfg.resolve(dev)
-                stride = lanes // nb
-                w, rank = self._normalize(state.cursor)
-                per_launch = self.per_launch(stride) or (
-                    w < plan.batch and rank % stride != 0)
-                ranges = [] if per_launch else self.word_ranges(stride)
-                idx = None if per_launch else superstep_index(
-                    plan, stride, ranges[0])
-                budget = XLA_BUDGET_BYTES[dev.type]
-                lanes = xla_lanes(plan, lanes, stride, 1, budget)
-                nb = lanes // stride
-                self._set_geometry(lanes, nb)
-                if faults.ACTIVE is not None:
-                    faults.ACTIVE.fire("device.init")
-                arrays = xla_arrays(plan, self.ct, self.pieces, None, idx,
-                                    device=dev)
-                kw = dict(num_lanes=lanes, out_width=int(plan.out_width),
-                          block_stride=stride, pieces=self.pieces,
-                          windowed=bool(getattr(plan, "windowed", False)),
-                          radix2=k_opts_for(plan) == 1)
-
-                def launches():
-                    """Each launch's emitted rows and the cursor it
-                    leaves: blocks cut on the host (per-launch pipeline)
-                    or on the device, one word range after the other."""
-                    if per_launch:
-                        step = make_candidates_step(spec, **kw)
-                        for _batch, blocks, w2, r2 in self._host_cuts(
-                                lanes, nb, stride, step.decode, (w, rank)):
-                            yield self._dispatch(
-                                lambda: step(arrays, *blocks)), (w2, r2)
-                        return
-                    body = make_candidates_body(spec, num_blocks=nb, **kw)
-                    for w_lo, w_hi in ranges:
-                        # One sub-sweep per word range, in word order.
-                        if w_hi <= w:
-                            continue
-                        cum = self._index_range(arrays, stride,
-                                                (w_lo, w_hi))[0]
-                        total = arrays["total"]
-                        b_start = (self._start_block(cum, stride, w, rank)
-                                   if w_lo <= w else 0)
-                        for b0 in range(b_start, total, nb):
-                            yield self._dispatch(
-                                lambda: body(arrays, b0)), _clip(
-                                block_cursor(plan, stride, cum,
-                                             min(b0 + nb, total)), w_hi)
-
-                t_drive = time.monotonic()
-                for out, (w_end, r_end) in launches():
-                    cand, clen, wrow = (t.cpu().numpy() for t in out)
-                    n_launches += 1
-                    lo = 0
-                    rows = self.fallback_rows
-                    # Fallback words inside this launch's word range go
-                    # between the rows of the words around them.
-                    while state.fallback_done < len(rows) and len(wrow) \
-                            and rows[state.fallback_done] < int(wrow[-1]):
-                        cut = int(np.searchsorted(
-                            wrow, rows[state.fallback_done]))
-                        state.n_emitted += _write_rows(writer, cand, clen,
-                                                       lo, cut)
-                        lo = cut
-                        flush.until(rows[state.fallback_done] + 1)
-                    state.n_emitted += _write_rows(writer, cand, clen, lo,
-                                                   len(clen))
-                    flush.until(w_end)
-                    state.cursor = SweepCursor(w_end, r_end)
-                    self.timeline.record_fetch(kind="launch", launches=1)
-                    self._maybe_checkpoint(state, last_ckpt,
-                                           before_save=writer.flush)
-                    if cfg.progress:
-                        cfg.progress.update(words_done=w_end,
-                                            emitted=state.n_emitted, hits=0)
-                drive_s = time.monotonic() - t_drive
-                xla_geom = {"lanes": lanes, "budget_bytes": budget,
-                            "rows": n_launches * lanes}
+                device = self._run_device("candidates", state, flush, drive)
             flush.until(self.n_words)
         finally:
             state.wall_s += time.monotonic() - t0
@@ -843,37 +1094,215 @@ class Sweep:
         if cfg.progress:
             cfg.progress.final(words_done=self.n_words,
                                emitted=state.n_emitted, hits=0)
-        if not self.device_words:
-            return SweepResult(
-                n_emitted=state.n_emitted, words_done=self.n_words,
-                wall_s=time.monotonic() - t0,
-                routing=dict(self.routing))
         return SweepResult(
             n_emitted=state.n_emitted,
             words_done=self.n_words,
             wall_s=time.monotonic() - t0 + self._schema_s,
-            drive_s=drive_s,
             routing=dict(self.routing),
-            kernels={"expand": n_launches},
-            routes={"xla": 1},
-            xla=xla_geom,
+            **device,
         )
+
+    def _candidates_region(self, s: dict, r: _Region,
+                           writer: CandidateWriter, flush,
+                           state: CheckpointState, last_ckpt: List[float],
+                           start: "Tuple[int, int]") -> dict:
+        """One region's candidates drive from its plan-local cursor
+        ``start`` (:meth:`_setup`'s ``s``): each launch's emitted rows
+        written in row order, the fallback words inside its word range
+        between the rows of the words around them."""
+        spec, cfg, plan = self.spec, self.config, r.plan
+        lanes, nb, stride = s["lanes"], s["nb"], s["stride"]
+        arrays, kw = s["arrays"], s["kw"]
+        self._set_geometry(lanes, nb, stride)
+        w, rank = start
+
+        def launches():
+            """Each launch's emitted rows and the plan-local cursor it
+            leaves: blocks cut on the host (per-launch pipeline) or on the
+            device, one word range after the other."""
+            if s["per_launch"]:
+                step = make_candidates_step(spec, **kw)
+                for _batch, blocks, w2, r2 in self._host_cuts(
+                        plan, lanes, nb, stride, step.decode, start):
+                    yield self._dispatch(
+                        lambda: step(arrays, *blocks)), (w2, r2)
+                return
+            body = make_candidates_body(spec, num_blocks=nb, **kw)
+            for w_lo, w_hi in s["ranges"]:
+                # One sub-sweep per word range, in word order.
+                if w_hi <= w:
+                    continue
+                cum = self._index_range(arrays, plan, stride,
+                                        (w_lo, w_hi))[0]
+                total = arrays["total"]
+                b_start = (self._start_block(plan, cum, stride, w, rank)
+                           if w_lo <= w else 0)
+                for b0 in range(b_start, total, nb):
+                    yield self._dispatch(
+                        lambda: body(arrays, b0)), _clip(
+                        block_cursor(plan, stride, cum,
+                                     min(b0 + nb, total)), w_hi)
+
+        n_launches = 0
+        rows = self.fallback_rows
+        for out, (w_end, r_end) in launches():
+            cand, clen, wrow = (t.cpu().numpy() for t in out)
+            self._note_fetch()
+            n_launches += 1
+            w_end += r.lo
+            lo = 0
+            # Fallback words inside this launch's word range go between
+            # the rows of the words around them.
+            while state.fallback_done < len(rows) and len(wrow) \
+                    and rows[state.fallback_done] < r.lo + int(wrow[-1]):
+                cut = int(np.searchsorted(
+                    wrow, rows[state.fallback_done] - r.lo))
+                state.n_emitted += _write_rows(writer, cand, clen, lo, cut)
+                lo = cut
+                flush.until(rows[state.fallback_done] + 1)
+            state.n_emitted += _write_rows(writer, cand, clen, lo, len(clen))
+            flush.until(w_end)
+            state.cursor = SweepCursor(w_end, r_end)
+            self.timeline.record_fetch(kind="launch", launches=1)
+            self._maybe_checkpoint(state, last_ckpt,
+                                   before_save=writer.flush)
+            if cfg.progress:
+                cfg.progress.update(words_done=w_end,
+                                    emitted=state.n_emitted, hits=0)
+        return dict(kernels={"expand": n_launches}, routes={"xla": 1},
+                    xla=dict(s["xla_geom"], rows=n_launches * lanes))
+
+    # ------------------------------------------------------------------
+    # Streaming: the chunk ring
+    # ------------------------------------------------------------------
+
+    def _compile_chunk(self, kind: str, ci: int, lo: int, hi: int,
+                       resume: "Tuple[int, int]") -> PlanChunk:
+        """One chunk's compile, on the ring's worker thread: its plan
+        (the prescan's ``out_width`` and windowed scheme forced), piece
+        schema and route (:meth:`_region`), and its launch set-up and
+        device arrays (:meth:`_setup`, uploaded on a side stream) from
+        the run's resume cursor ``resume`` when it falls in the chunk,
+        else from the chunk's start."""
+        plan = build_plan(self.spec, self.ct,
+                          slice_packed(self.packed, lo, hi),
+                          out_width=self._stream["out_width"],
+                          force_windowed=self._stream["windowed"])
+        r = self._region(plan, lo)
+        w0, rank0 = resume
+        start = self._normalize(
+            plan, (w0 - lo, rank0) if lo <= w0 < hi else (0, 0))
+        setup = (self._setup(r, kind, start, upload=True)
+                 if r.route is not None else None)
+        nbytes = setup["nbytes"] if setup is not None else 0
+        with self._stream_lock:
+            self._stream_resident += nbytes
+            self._stream_peak = max(self._stream_peak, self._stream_resident)
+            self._chunk_max = max(self._chunk_max, nbytes)
+        return PlanChunk(index=ci, lo=lo, hi=hi, plan=plan, pieces=r.pieces,
+                         payload={"region": r, "setup": setup,
+                                  "start": start},
+                         host_bytes=nbytes, releaser=self._release_chunk)
+
+    def _release_chunk(self, chunk: PlanChunk) -> None:
+        """Drop a consumed chunk's arrays (the shared digest set and table
+        stay).  Its CUDA tensors were recorded on the drive's stream, so
+        the allocator reuses their memory only once the launches that
+        read them have run."""
+        with self._stream_lock:
+            self._stream_resident -= chunk.host_bytes
+
+    def _run_stream(self, kind: str, state: CheckpointState, flush,
+                    drive: Callable[[dict, _Region, tuple], dict]) -> dict:
+        """The streamed drive: from the chunk holding the state's cursor
+        (chunks before it are never compiled), the ring sweeps chunk N
+        while its worker compiles chunk N+1; after each chunk its fallback
+        words are flushed, the cursor moves to the next chunk's first word
+        and the checkpoint state carries the chunk marker.  Returns the
+        regions' merged drive fields with the stream stats."""
+        bounds = self._stream["bounds"]
+        cw = self._stream["chunk_words"]
+        w0, rank0 = state.cursor.word, state.cursor.rank
+        start_ci = next((ci for ci, (_lo, hi) in enumerate(bounds)
+                         if w0 < hi), len(bounds))
+        stream: Dict[str, float] = {
+            "chunks": len(bounds), "chunks_swept": 0, "chunk_words": cw,
+            "prefetch": self._stream["prefetch"],
+            # The chunk being swept, the prefetch window and one compile
+            # the worker may start before the consumer releases.
+            "ring": self._stream["prefetch"] + 2,
+            "resumed_chunk": start_ci,
+        }
+        with self._stream_lock:
+            self._stream_resident = self._stream_peak = self._chunk_max = 0
+        if start_ci >= len(bounds):
+            return {"stream": stream}
+        self._shared_arrays(kind == "crack")  # once, on the drive's thread
+        self._drive_stream = (torch.cuda.current_stream(self.device)
+                              if self.device.type == "cuda" else None)
+        compiler = ChunkCompiler(
+            lambda ci, lo, hi: self._compile_chunk(kind, ci, lo, hi,
+                                                   (w0, rank0)),
+            bounds, start=start_ci, prefetch=self._stream["prefetch"])
+        parts: List[dict] = []
+        t_drive0: Optional[float] = None
+        try:
+            for chunk in compiler:
+                if t_drive0 is None:
+                    t_drive0 = time.monotonic()
+                pay = chunk.payload
+                setup = pay["setup"]
+                if setup is not None:
+                    if setup["ready"] is not None:
+                        self._drive_stream.wait_event(setup["ready"])
+                    parts.append(drive(setup, pay["region"], pay["start"]))
+                flush.until(chunk.hi)
+                state.cursor = SweepCursor(chunk.hi, 0)
+                state.stream = {"chunk": chunk.index, "chunk_words": cw}
+                self._report_stream_position(state)
+                stream["chunks_swept"] += 1
+                chunk.release()
+        finally:
+            compiler.close()
+        t_end = time.monotonic()
+        overlap = sum(max(0.0, min(b, t_end) - max(a, t_drive0))
+                      for a, b in compiler.windows)
+        wall = compiler.compile_wall_s
+        first = (compiler.windows[0][1] - compiler.windows[0][0]
+                 if compiler.windows else 0.0)
+        ttfc = self._ttfc - self._t_init if self._ttfc is not None else 0.0
+        stream.update({
+            "compile_wall_s": wall,
+            "first_chunk_compile_s": first,
+            "compile_overlap_s": overlap,
+            # Chunk 0 compiles before anything can overlap it; the steady
+            # ratio leaves it out.
+            "overlap_ratio": overlap / wall if wall > 0 else 0.0,
+            "steady_overlap_ratio": (overlap / (wall - first)
+                                     if wall - first > 0 else 0.0),
+            "ttfc_s": ttfc,
+            "peak_resident_plan_bytes": self._stream_peak,
+            "chunk_bytes_max": self._chunk_max,
+        })
+        out = _merge_parts(parts)
+        out.update(drive_s=t_end - t_drive0, ttfc_s=ttfc, stream=stream)
+        return out
 
     # ------------------------------------------------------------------
     # The drives
     # ------------------------------------------------------------------
 
-    def _drive(self, body, arrays, nb: int, steps: int, recorder, flush,
-               state: CheckpointState, last_ckpt: List[float],
-               b_start: int, cursor_at) -> dict:
-        """The double-buffered superstep loop from block ``b_start``;
-        returns its stats.  At each consumed (lagged) boundary: the
-        superstep's hits (re-run first when they overflowed the buffer),
-        ``flush`` to the boundary's word, the state's cursor
-        (``cursor_at(end block)``) and counts, a span, the checkpoint and
-        progress.  A transient error at dispatch or fetch drops the
-        in-flight supersteps, rebuilds the buffer sets and re-dispatches
-        from the last consumed boundary."""
+    def _drive(self, r: _Region, body, arrays, nb: int, steps: int,
+               recorder, flush, state: CheckpointState,
+               last_ckpt: List[float], b_start: int, cursor_at) -> dict:
+        """The double-buffered superstep loop over region ``r`` from block
+        ``b_start``; returns its stats.  At each consumed (lagged)
+        boundary: the superstep's hits (re-run first when they overflowed
+        the buffer), ``flush`` to the boundary's word, the state's cursor
+        (``cursor_at(end block)``, plan-local) and counts, a span, the
+        checkpoint and progress.  A transient error at dispatch or fetch
+        drops the in-flight supersteps, rebuilds the buffer sets and
+        re-dispatches from the last consumed boundary."""
         cfg, dev = self.config, self.device
         total = arrays["total"]
         hit_cap = int(cfg.superstep_hit_cap)
@@ -915,6 +1344,7 @@ class Sweep:
                 b0 = consumed
                 continue
             attempts = 0
+            self._note_fetch()
             end = min(sb0 + n_steps * nb, total)
             consumed = end
             hits_src = fetch.host
@@ -935,9 +1365,11 @@ class Sweep:
                 hw = hits_src["hit_word"][:nh].tolist()
                 hr = hits_src["hit_rank"][:nh].tolist()
                 for w_row, rank in sorted(zip(hw, hr)):
-                    flush.until(int(w_row))
-                    self._device_hit(int(w_row), int(rank), recorder, state)
+                    flush.until(r.lo + int(w_row))
+                    self._device_hit(r, int(w_row), int(rank), recorder,
+                                     state)
             w_end, r_end = cursor_at(end)
+            w_end += r.lo
             flush.until(w_end)
             state.n_emitted += ne
             state.cursor = SweepCursor(w_end, r_end)
@@ -959,32 +1391,34 @@ class Sweep:
                                     hits=state.n_hits)
         return stats
 
-    def _host_cuts(self, lanes: int, nb: int, stride: int, decode: str,
-                   start: "Tuple[int, int]"):
-        """The per-launch pipeline's launches from cursor ``start``, in
-        cursor order: each launch's blocks cut on the host
-        (``ops.blocks.make_blocks``, Python-int cursors) — ``(batch,
-        (word, count, base), next word, next rank)``, the tensors on the
-        sweep's device as ``decode`` takes them
-        (``models.attack.host_blocks``)."""
-        weight = scalar_units_weight(self.plan)
+    def _host_cuts(self, plan, lanes: int, nb: int, stride: Optional[int],
+                   decode: str, start: "Tuple[int, int]"):
+        """The per-launch pipeline's launches over ``plan`` from its
+        plan-local cursor ``start``, in cursor order: each launch's blocks
+        cut on the host (``ops.blocks.make_blocks``, Python-int cursors;
+        ``stride`` None packs them back to back, the variable-offset
+        layout) — ``(batch, (word, count, base[, offset]), next word, next
+        rank)``, the tensors on the sweep's device as ``decode`` takes
+        them (``models.attack.host_blocks``)."""
+        weight = scalar_units_weight(plan)
         w, rank = start
         while True:
             batch, w, rank = make_blocks(
-                self.plan, start_word=w, start_rank=rank, max_variants=lanes,
+                plan, start_word=w, start_rank=rank, max_variants=lanes,
                 max_blocks=nb, fixed_stride=stride)
             if batch.total == 0:
                 return
             yield batch, host_blocks(batch, nb, decode, weight,
-                                     device=self.device), w, rank
+                                     device=self.device,
+                                     packed=stride is None), w, rank
 
-    def _launch_stream(self, step, arrays, lanes: int, nb: int, stride: int,
-                       start: "Tuple[int, int]"):
+    def _launch_stream(self, plan, step, arrays, lanes: int, nb: int,
+                       stride: Optional[int], start: "Tuple[int, int]"):
         """The per-launch pipeline's dispatched launches from ``start``:
         ``((batch, out, cursor after it), launches still in flight)``, the
         next launch dispatched before one is handed on."""
         pending: deque = deque()
-        for batch, blocks, w2, r2 in self._host_cuts(lanes, nb, stride,
+        for batch, blocks, w2, r2 in self._host_cuts(plan, lanes, nb, stride,
                                                     step.decode, start):
             # No retry here: the drive's re-cut loop is the only
             # supervisor of the per-launch pipeline.
@@ -997,23 +1431,23 @@ class Sweep:
         while pending:
             yield pending.popleft(), len(pending)
 
-    def _drive_per_launch(self, step, arrays, lanes: int, nb: int,
-                          stride: int, recorder, flush,
+    def _drive_per_launch(self, r: _Region, step, arrays, lanes: int,
+                          nb: int, stride: Optional[int], recorder, flush,
                           state: CheckpointState, last_ckpt: List[float],
                           start: "Tuple[int, int]") -> dict:
-        """The per-launch pipeline's crack drive from cursor ``start``:
-        each launch of :meth:`_host_cuts` run by ``step``
-        (``models.attack.make_crack_step``), the next dispatched before
-        one is consumed.  Launches are consumed in chunks (the
-        reference's ``fetch_chunk``: 1 launch, doubling while a chunk
-        takes under 1 s, halving past 4 s): one fetch of the chunk's
-        counters, then the hit lanes of the launches with hits, mapped to
-        ``(word, rank)`` through ``ops.blocks.lane_cursor``.  ``flush``
-        expands the fallback words due before each hit's word and, at the
-        chunk's end, those before its cursor; then the state, a span, the
-        checkpoint and progress.  A transient error re-cuts from the last
-        consumed cursor."""
-        cfg, plan = self.config, self.plan
+        """The per-launch pipeline's crack drive over region ``r`` from
+        its plan-local cursor ``start``: each launch of :meth:`_host_cuts`
+        run by ``step`` (``models.attack.make_crack_step``), the next
+        dispatched before one is consumed.  Launches are consumed in
+        chunks (the reference's ``fetch_chunk``: 1 launch, doubling while
+        a chunk takes under 1 s, halving past 4 s): one fetch of the
+        chunk's counters, then the hit lanes of the launches with hits,
+        mapped to ``(word, rank)`` through ``ops.blocks.lane_cursor``.
+        ``flush`` expands the fallback words due before each hit's word
+        and, at the chunk's end, those before its cursor; then the state,
+        a span, the checkpoint and progress.  A transient error re-cuts
+        from the last consumed cursor."""
+        cfg, plan = self.config, r.plan
         stats = {"supersteps": 0, "launches": 0, "replays": 0, "retries": 0}
         chunk_cap = max(1, min(int(cfg.fetch_chunk),
                                ((1 << 31) - 1) // lanes))
@@ -1029,6 +1463,7 @@ class Sweep:
                 ready.record()
                 faults.await_ready(ready, cfg.fetch_timeout_s)
             counts = counts.tolist()
+            self._note_fetch()
             hit_lanes = [
                 torch.nonzero(out["hit"]).flatten().tolist() if nh else []
                 for (_b, out, _c), (_ne, nh) in zip(chunk, counts)
@@ -1037,20 +1472,20 @@ class Sweep:
             # retry from the last consumed cursor counts nothing twice.
             for (batch, _out, _c), lanes_hit in zip(chunk, hit_lanes):
                 for w_row, rank in lane_cursor(plan, batch, lanes_hit):
-                    flush.until(w_row)
-                    self._device_hit(w_row, rank, recorder, state)
+                    flush.until(r.lo + w_row)
+                    self._device_hit(r, w_row, rank, recorder, state)
             w_end, r_end = chunk[-1][2]
-            flush.until(w_end)
+            flush.until(r.lo + w_end)
             ne = sum(c[0] for c in counts)
             state.n_emitted += ne
-            state.cursor = SweepCursor(w_end, r_end)
+            state.cursor = SweepCursor(r.lo + w_end, r_end)
             stats["launches"] += len(chunk)
             self.timeline.record_fetch(
                 kind="drain", launches=len(chunk), emitted=ne,
                 hits=sum(c[1] for c in counts), inflight=inflight)
             self._maybe_checkpoint(state, last_ckpt)
             if cfg.progress:
-                cfg.progress.update(words_done=w_end,
+                cfg.progress.update(words_done=r.lo + w_end,
                                     emitted=state.n_emitted,
                                     hits=state.n_hits)
             return w_end, r_end
@@ -1061,7 +1496,7 @@ class Sweep:
             chunk: list = []
             try:
                 for item, inflight in self._launch_stream(
-                        step, arrays, lanes, nb, stride, cursor):
+                        plan, step, arrays, lanes, nb, stride, cursor):
                     chunk.append(item)
                     if len(chunk) < chunk_len:
                         continue
@@ -1152,12 +1587,14 @@ class Sweep:
 
         return on_word
 
-    def _device_hit(self, w_row: int, rank: int, recorder,
+    def _device_hit(self, r: _Region, w_local: int, rank: int, recorder,
                     state: CheckpointState) -> None:
-        """Re-derive a device-flagged hit's candidate, re-verify its
-        digest on the host, record it."""
-        cand = decode_variant(self.plan, self.ct, self.spec, w_row, rank)
+        """Re-derive a device-flagged hit's candidate from its region's
+        plan, re-verify its digest on the host, record it under its
+        dictionary row."""
+        cand = decode_variant(r.plan, self.ct, self.spec, w_local, rank)
         dig = HOST_DIGEST[self.spec.algo](cand)
+        w_row = r.lo + w_local
         if dig not in self._digest_lookup:
             raise RuntimeError(
                 f"device hit failed host re-verification: word {w_row} "
@@ -1173,6 +1610,28 @@ class Sweep:
                 digest_hex=dig.hex(),
             )
         )
+
+
+def _merge_parts(parts: List[dict]) -> dict:
+    """The result's drive fields over a sweep's regions: superstep stats
+    by :data:`telemetry.SUPERSTEP_MERGE`, kernel launches summed, each
+    route taken once, the XLA geometry's smallest lanes and summed
+    rows."""
+    out: dict = {"superstep": telemetry.SUPERSTEP_MERGE.merge(
+        [p["superstep"] for p in parts if "superstep" in p]),
+        "kernels": {}, "routes": {}, "xla": {}}
+    for p in parts:
+        for k, v in p["kernels"].items():
+            out["kernels"][k] = out["kernels"].get(k, 0) + v
+        out["routes"].update({k: 1 for k in p["routes"]})
+        x = p["xla"]
+        if x:
+            prev = out["xla"]
+            out["xla"] = {
+                "lanes": min(prev.get("lanes", x["lanes"]), x["lanes"]),
+                "budget_bytes": x["budget_bytes"],
+                "rows": prev.get("rows", 0) + x["rows"]}
+    return out
 
 
 def _clip(cursor: "Tuple[int, int]", hi: int) -> "Tuple[int, int]":

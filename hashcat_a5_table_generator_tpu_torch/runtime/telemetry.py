@@ -10,6 +10,9 @@ import ``torch.profiler`` when called).
   barrier), never inside the in-flight window.  Its summary carries the
   drive's host-gap total and the share of it with no superstep in flight
   (``dead_share``).
+* :class:`MergeSpec` — what each key of a per-sweep stat dict means when
+  length buckets' results merge (:data:`SUPERSTEP_MERGE`,
+  :data:`STREAM_MERGE`).
 * :func:`profiler_span` / :func:`profiler_trace` —
   ``torch.profiler.record_function`` and a ``torch.profiler.profile``
   whose Chrome trace lands in ``--profile DIR``.
@@ -381,6 +384,62 @@ class SpanTimeline:
         if gap_s > 0:
             out["dead_share"] = round(dead_s / gap_s, 4)
         return out
+
+
+# ---------------------------------------------------------------------------
+# Stat-dict merge semantics
+# ---------------------------------------------------------------------------
+
+
+class MergeSpec:
+    """Key semantics of one per-sweep stat dict: which keys sum (the
+    default for anything undeclared), which take the max, which belong to
+    the first contributor only (sweep-local scalars such as ``ttfc_s``),
+    and which are derived ratios the merger recomputes."""
+
+    def __init__(self, *, sum_keys: Sequence[str] = (),
+                 max_keys: Sequence[str] = (),
+                 first_keys: Sequence[str] = (),
+                 derived_keys: Sequence[str] = ()) -> None:
+        self.sum_keys = tuple(sum_keys)
+        self.max_keys = tuple(max_keys)
+        self.first_keys = tuple(first_keys)
+        self.derived_keys = tuple(derived_keys)
+
+    def merge(self, dicts: Sequence[Dict]) -> Dict:
+        out: Dict = {}
+        for i, d in enumerate(dicts):
+            for k, v in d.items():
+                if k in self.derived_keys:
+                    continue
+                if k in self.max_keys:
+                    out[k] = max(out.get(k, 0), v)
+                elif k in self.first_keys:
+                    if i == 0:
+                        out[k] = v
+                else:
+                    out[k] = out.get(k, 0) + v
+        return out
+
+
+#: ``SweepResult.superstep``: counters sum; the steps-per-fetch ratio and
+#: the pair flag describe one shared config, so they max.
+SUPERSTEP_MERGE = MergeSpec(
+    sum_keys=("supersteps", "launches", "replays", "retries"),
+    max_keys=("launches_per_fetch", "pipelined", "pair"),
+)
+
+#: ``SweepResult.stream``: walls and counters sum, peaks and bounds max,
+#: sweep-local scalars belong to the first streaming contributor, the
+#: overlap ratios are derived from the summed terms.
+STREAM_MERGE = MergeSpec(
+    sum_keys=("chunks", "chunks_swept", "compile_wall_s",
+              "compile_overlap_s"),
+    max_keys=("peak_resident_plan_bytes", "chunk_bytes_max",
+              "chunk_words", "prefetch", "ring"),
+    first_keys=("ttfc_s", "resumed_chunk", "first_chunk_compile_s"),
+    derived_keys=("overlap_ratio", "steady_overlap_ratio"),
+)
 
 
 # ---------------------------------------------------------------------------

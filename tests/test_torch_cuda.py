@@ -841,3 +841,105 @@ def test_candidates_on_the_gpu_equal_the_cpu(table, mode, mx, cuda):
                     ).run_candidates(CandidateWriter(buf))
         streams.append((buf.getvalue(), res.n_emitted))
     assert streams[0] == streams[1] and streams[0][1] > 0
+
+
+@pytest.mark.parametrize("mode", ["default", "suball"])
+def test_streamed_crack_on_the_gpu_equals_the_whole_path(mode, cuda,
+                                                         monkeypatch):
+    """A crack sweep streamed in chunks of 37 words on the GPU: the same
+    hits and counts as its whole-path twin on the GPU and on the CPU, each
+    chunk's arrays uploaded by the ring's worker on a side stream (the
+    drive's stream waits on the chunk's event), every chunk released."""
+    sub = AZERTY if mode == "suball" else SUB
+    words = letter_words(300, 2, 9, 51)
+    words[40:40] = [b"m,;", b"aqua", b"AQq", b"am,;q"]
+    spec = AttackSpec(mode=mode)
+    cfg = dict(lanes=4096, num_blocks=32)
+    probe = Sweep(spec, sub, words, [], SweepConfig(device="cpu", **cfg))
+    digests = [HOST_DIGEST["md5"](decode_variant(
+        probe.plan, probe.ct, spec, row, probe.plan.n_variants[row] // 2))
+        for row in range(0, len(words), 7)
+        if probe.plan.n_variants[row] >= 2 and not probe.plan.fallback[row]]
+    events, released = [], []
+    compile_chunk, release = Sweep._compile_chunk, Sweep._release_chunk
+
+    def watched(self, *a, **kw):
+        chunk = compile_chunk(self, *a, **kw)
+        setup = chunk.payload["setup"]
+        if setup is not None:
+            events.append(setup["ready"])
+            assert all(v.is_cuda for v in setup["arrays"].values()
+                       if torch.is_tensor(v))
+        return chunk
+
+    def counted(self, chunk):
+        released.append(chunk.index)
+        release(self, chunk)
+
+    monkeypatch.setattr(Sweep, "_compile_chunk", watched)
+    monkeypatch.setattr(Sweep, "_release_chunk", counted)
+    results = [Sweep(spec, sub, words, digests,
+                     SweepConfig(device=dev, stream_chunk_words=chunk,
+                                 **cfg)).run_crack()
+               for dev, chunk in (("cuda", 37), ("cuda", "off"),
+                                  ("cpu", "off"))]
+    got = [[(h.word_index, h.variant_rank, h.candidate) for h in r.hits]
+           for r in results]
+    assert got[0] == got[1] == got[2] and got[0]
+    assert results[0].n_emitted == results[1].n_emitted == \
+        results[2].n_emitted
+    s = results[0].stream
+    assert s["chunks_swept"] == s["chunks"] == 9 and not results[1].stream
+    assert released == list(range(9))
+    assert events and all(isinstance(e, torch.cuda.Event) for e in events)
+
+
+@pytest.mark.parametrize("kind", ["crack", "candidates"])
+def test_packed_layout_xla_launch_equals_plain_version(kind, cuda):
+    """One per-launch step on the variable-offset layout (``--lanes
+    1000``: 1024 blocks that do not divide it), the XLA route: its
+    ``buffer_hash`` launch and expansion on the GPU equal the plain
+    version of the same blocks on the CPU (counters and hit mask, or the
+    emitted candidate rows)."""
+    from hashcat_a5_table_generator_tpu_torch.models.attack import (
+        host_blocks,
+        make_candidates_step,
+        make_crack_step,
+        xla_arrays,
+    )
+    from hashcat_a5_table_generator_tpu_torch.ops.blocks import make_blocks
+
+    words = letter_words(60, 3, 9, 52)
+    spec, ct = AttackSpec(), compile_table(SUB)
+    plan = build_plan(spec, ct, pack_words(words))
+    pieces = piece_schema_for(plan, ct)
+    batch, _w, _r = make_blocks(plan, start_word=3, start_rank=5,
+                                max_variants=1000, max_blocks=1024)
+    digests = build_digest_set(
+        [hashlib.md5(decode_variant(plan, ct, spec, 3, 6)).digest()], "md5")
+    kw = dict(num_lanes=1000, out_width=int(plan.out_width),
+              block_stride=None, pieces=pieces)
+    launches = bh.LAUNCHES["buffer_hash/md5"] if kind == "crack" \
+        else None
+    outs = []
+    for dev in ("cuda", "cpu"):
+        arrays = xla_arrays(plan, ct, pieces,
+                            digests if kind == "crack" else None, None,
+                            device=dev)
+        if kind == "crack":
+            step = make_crack_step(spec, xla=True, decode="digits", **kw)
+        else:
+            step = make_candidates_step(spec, **kw)
+        blocks = host_blocks(batch, 1024, step.decode,
+                             fe.scalar_units_weight(plan), device=dev,
+                             packed=True)
+        out = step(arrays, *blocks)
+        outs.append([t.cpu() for t in (out.values() if kind == "crack"
+                                       else out)])
+    for g, w in zip(*outs):
+        assert torch.equal(g, w)
+    if kind == "crack":
+        assert int(outs[0][0][0]) > 0 and bool(outs[0][1].any())
+        assert bh.LAUNCHES["buffer_hash/md5"] > launches
+    else:
+        assert outs[0][0].shape[0] > 0

@@ -79,11 +79,12 @@ def test_cli_stdout_matches_reference_cli(case, tmp_path, capsysbinary):
 def test_cli_refuses_off_kernel_suball_plans(flags, tmp_path, capsys,
                                              monkeypatch):
     """A substitute-all plan the piece kernel takes but whose schema its
-    descriptor table cannot hold (``MAX_GROUPS`` lowered to 0 here) exits
-    2 with nothing on stdout, before any launch; in ``-s -r`` the same
-    table's first options leave one per key, and the run cracks.  (Nine
-    options per key, which this test refused before, now take the XLA
-    route: ``test_torch_xla_sweep.py``.)"""
+    descriptor table cannot hold (``MAX_GROUPS`` lowered to 0 here) is no
+    longer refused: it takes the XLA expand + hash route (no piece kernel,
+    plain or not) and hashes the reference's 4 candidates; in ``-s -r``
+    the same table's first options leave one per key, and the run cracks
+    on the piece kernel.  (Nine options per key, which this test refused
+    before, take the XLA route too: ``test_torch_xla_sweep.py``.)"""
     (tmp_path / "t.table").write_bytes(
         b"".join(b"a=" + bytes([c]) + b"\n" for c in b"123456789"))
     (tmp_path / "words.txt").write_bytes(b"banana\nsesame\n")
@@ -98,8 +99,9 @@ def test_cli_refuses_off_kernel_suball_plans(flags, tmp_path, capsys,
                      "cpu", *GEOMETRY_ARGV, *flags])
     out = capsys.readouterr()
     if flags == ["-s"]:
-        assert rc == 2 and out.out == ""
-        assert "emission groups" in out.err
+        assert rc == 0 and out.out == ""
+        assert "0 hits, 4 candidates hashed" in out.err
+        assert "1 on the XLA expand + hash route" in out.err
         assert fe.LAUNCHES == launches and fe.PLAIN_CALLS == plain
     else:
         assert rc == 0 and fe.PLAIN_CALLS > plain

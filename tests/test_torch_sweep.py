@@ -2,9 +2,9 @@
 reference, on the CPU: equal hit streams ``(word_index, rank, candidate)``
 and emitted counts with the pair tier on and off, for every decode tier
 (scalar, digits, windowed) and every hash, exact overflow re-runs,
-byte-identical CLI stdout (with queue item 6's first-half flags too), and
-refusals — exit status 2 or ``NotImplementedError`` — for everything
-outside the ported slice on the device backend (the
+byte-identical CLI stdout (with queue item 6's flags too), plans past
+the piece kernel's descriptor table on the XLA route, and exit status 2
+for the flags outside the ported slice on the device backend (the
 XLA expand + hash route's own tests: ``test_torch_xla_*.py``)."""
 
 import hashlib
@@ -139,9 +139,9 @@ def test_cli_stdout_matches_reference_cli(contract, tmp_path, capsysbinary):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--stream-chunk-words", "8"], ["--devices", "2"],
+    ["--schema-cache-max-mb", "8"], ["--devices", "2"],
     ["--coordinator", "h:1"], ["--schema-cache", "cache"],
-    ["--block-layout", "packed"],
+    ["--num-processes", "2"],
 ], ids=lambda a: a[0])
 def test_flags_outside_the_slice_exit_2(extra, tmp_path, capsys):
     """The device backend refuses the surfaces still to port (the second
@@ -159,6 +159,7 @@ def test_flags_outside_the_slice_exit_2(extra, tmp_path, capsys):
     ["--retries", "1"], ["--checkpoint", "ck.json"], ["--fetch-chunk", "4"],
     ["--progress"], ["--metrics-json", "m.json"], ["--profile", "prof"],
     ["--block-layout", "stride"], ["--fetch-timeout", "30"],
+    ["--block-layout", "packed"], ["--stream-chunk-words", "8"],
 ], ids=lambda a: a[0])
 def test_item_6_flags_run_as_the_reference(extra, contract, tmp_path,
                                            capsysbinary):
@@ -221,23 +222,42 @@ def test_candidates_mode_exits_2(capsys):
     ("schema-groups-suball", "emission groups"),
 ])
 def test_unported_plans_raise_before_any_launch(case, reason, monkeypatch):
-    """What this package still refuses raises before any launch — in
-    default and substitute-all mode: a piece schema the kernel's
-    descriptor table cannot hold.  (Plans the reference sends to its XLA
-    expand + hash route run there: ``test_torch_xla_sweep.py``; words of
-    2^30 rows or more and ``superstep=0`` run the per-launch pipeline:
-    ``test_torch_perlaunch.py``.)"""
+    """A piece schema the kernel's descriptor table cannot hold
+    (``MAX_GROUPS`` lowered here), in default and substitute-all mode, is
+    no longer refused: the sweep takes the XLA expand + hash route, which
+    splices any schema, launches no piece kernel, and finds the hits the
+    piece kernel finds on the same plan."""
     words = [b"password", b"sesame"]
     sub, spec, cfg = SUB, AttackSpec(), SweepConfig(device="cpu",
                                                     **GEOMETRY)
-    monkeypatch.setattr(fe, "MAX_GROUPS", 2)
     if case.endswith("suball"):
         spec = AttackSpec(mode="suball")
+    cands = list(iter_candidates(words[0], sub, 1, 15,
+                                 substitute_all=case.endswith("suball")))
+    digests = [hashlib.md5(cands[len(cands) // 2]).digest(), bytes(16)]
+    want = Sweep(spec, sub, words, digests, cfg)
+    assert want.route == "piece"
+    want = want.run_crack()
+    monkeypatch.setattr(fe, "MAX_GROUPS", 2)
     launches = dict(fe.LAUNCHES)
-    plain = fe.PLAIN_CALLS
-    with pytest.raises(NotImplementedError, match=reason):
-        Sweep(spec, sub, words, [bytes(16)], cfg).run_crack()
-    assert fe.LAUNCHES == launches and fe.PLAIN_CALLS == plain
+    sweep = Sweep(spec, sub, words, digests, cfg)
+    assert reason in fe.schema_refusal(sweep.plan, sweep.pieces)
+    assert sweep.route == "xla"
+    got = sweep.run_crack()
+    assert fe.LAUNCHES == launches
+    assert hit_tuples(got) == hit_tuples(want) and got.n_hits == 1
+    assert got.n_emitted == want.n_emitted
+    assert got.kernels == {"buffer_hash/md5": got.kernels["buffer_hash/md5"]}
+
+
+def cli_pair(argv, capsys):
+    """The reference CLI's and this package's stdout on ``argv``."""
+    outs = []
+    for cli, extra in ((j_cli, []), (t_cli, ["--device", "cpu"])):
+        rc = cli.main(argv + extra)
+        assert rc == 0
+        outs.append(capsys.readouterr())
+    return outs
 
 
 @pytest.mark.parametrize("case,reason", [
@@ -246,11 +266,11 @@ def test_unported_plans_raise_before_any_launch(case, reason, monkeypatch):
 def test_bucketed_cli_refuses_before_any_bucket_launches(
     case, reason, contract, tmp_path, capsys, monkeypatch
 ):
-    """The short buckets hold planted hits and sort first, but a wide
-    bucket this package refuses (a schema past the piece kernel's
-    descriptor table) refuses the whole run up front.  (A 40-letter line,
-    2^40 variants, is no longer refused: it runs the per-launch pipeline,
-    ``test_torch_perlaunch.py``.)"""
+    """A wide bucket whose schema the piece kernel's descriptor table
+    cannot hold (``MAX_GROUPS`` lowered) no longer refuses the run: that
+    bucket takes the XLA expand + hash route and the CLI's stdout is the
+    reference's, byte for byte.  (A 40-letter line, 2^40 variants, runs
+    the per-launch pipeline: ``test_torch_perlaunch.py``.)"""
     words, _planted, digests = contract
     tables = ["-t", str(tmp_path / "t.table")]
     emit_table(get_layout("qwerty-cyrillic"), tables[1])
@@ -262,16 +282,12 @@ def test_bucketed_cli_refuses_before_any_bucket_launches(
     (tmp_path / "left.txt").write_text(
         "".join(d.hex() + "\n" for d in digests)
     )
-    launches = dict(fe.LAUNCHES)
-    plain = fe.PLAIN_CALLS
-    rc = t_cli.main([str(tmp_path / "words.txt"), *tables, "--backend",
-                     "device", "--digests", str(tmp_path / "left.txt"),
-                     "--device", "cpu", *GEOMETRY_ARGV])
-    out = capsys.readouterr()
-    assert rc == 2
-    assert out.out == ""
-    assert reason in out.err
-    assert fe.LAUNCHES == launches and fe.PLAIN_CALLS == plain
+    ref, got = cli_pair([str(tmp_path / "words.txt"), *tables, "--backend",
+                         "device", "--digests", str(tmp_path / "left.txt"),
+                         *GEOMETRY_ARGV], capsys)
+    assert got.out == ref.out and got.out
+    assert "1 on the XLA expand + hash route" in got.err
+    assert reason not in got.err
 
 
 @pytest.mark.parametrize("case,reason", [
@@ -279,12 +295,10 @@ def test_bucketed_cli_refuses_before_any_bucket_launches(
 ])
 def test_cli_refuses_off_kernel_plans_before_any_launch(
         case, reason, contract, tmp_path, capsys, monkeypatch):
-    """A plan this package refuses exits 2 with empty stdout: a piece
-    schema with more selector columns per group than the kernel's
-    descriptor holds (``MAX_SEL`` lowered to 0 here).  (The 25-letter
-    line and the 11-column windowed plan this test refused before now
-    take the XLA route: ``test_torch_xla_sweep.py``; the 31-letter line,
-    the per-launch pipeline: ``test_torch_perlaunch.py``.)"""
+    """A piece schema with more selector columns per group than the
+    kernel's descriptor holds (``MAX_SEL`` lowered to 0) no longer exits
+    2: every bucket takes the XLA expand + hash route, no piece kernel
+    launches, and the stdout is the reference CLI's."""
     words, _planted, digests = contract
     monkeypatch.setattr(fe, "MAX_SEL", 0)
     (tmp_path / "words.txt").write_bytes(b"\n".join(words) + b"\n")
@@ -292,16 +306,13 @@ def test_cli_refuses_off_kernel_plans_before_any_launch(
         "".join(d.hex() + "\n" for d in digests))
     emit_table(get_layout("qwerty-cyrillic"), str(tmp_path / "t.table"))
     launches = dict(fe.LAUNCHES)
-    plain = fe.PLAIN_CALLS
-    rc = t_cli.main([str(tmp_path / "words.txt"), "-t",
-                     str(tmp_path / "t.table"), "--backend", "device",
-                     "--digests", str(tmp_path / "left.txt"), "--device",
-                     "cpu", *GEOMETRY_ARGV])
-    out = capsys.readouterr()
-    assert rc == 2
-    assert out.out == ""
-    assert reason in out.err
-    assert fe.LAUNCHES == launches and fe.PLAIN_CALLS == plain
+    ref, got = cli_pair([str(tmp_path / "words.txt"), "-t",
+                         str(tmp_path / "t.table"), "--backend", "device",
+                         "--digests", str(tmp_path / "left.txt"),
+                         *GEOMETRY_ARGV], capsys)
+    assert got.out == ref.out and got.out
+    assert fe.LAUNCHES == launches
+    assert "piece kernel" not in got.err and reason not in got.err
 
 
 def test_default_device_is_cuda_and_never_falls_back():
