@@ -121,18 +121,18 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    dispatch fault and an injected ``FetchTimeout``, stdout byte-identical;
    a real ``--fetch-timeout`` far below one superstep: typed timeouts,
    the retries, exit 1, no hang; ``--profile``'s trace; the drive cost of
-   ``--checkpoint-every 0`` (crack, pair off, in turns; at the default
-   superstep and ``--superstep off``; the cost of one write) and the drive's host-span summary (``--metrics-json``: host
-   gap, ``dead_share``) for crack pair auto and off, czech-ntlm and
-   cyrillic-x2-long;
+   ``--checkpoint-every 0`` (crack, pair off, in turns, at the default
+   superstep; the cost of one write) and the drive's host-span summary (``--metrics-json``: host
+   gap, ``dead_share``) for crack pair auto and off and czech-ntlm
+   (cyrillic-x2-long's: phase 9);
 8. layouts and streaming: the variable-offset block layout on the crack
-   cell (``--lanes 4194000``, which the auto block count of 1024 does
-   not divide, and ``--block-layout packed``) and on the candidates
-   cyrillic cell (``--lanes 1000000``), each stdout byte-identical to
+   cell (``--block-layout packed``) and on the candidates cyrillic cell
+   (``--lanes 1000000``, which the auto block count of 1024 does not
+   divide), each stdout byte-identical to
    phase 4's, launching ``buffer_hash`` on the XLA route and no fused
    kernel, its drive beside the stride layout's; the crack cell (pair
-   off) at ``--stream-chunk-words off``, the default and 4096, and
-   cyrillic-x2-long at ``off`` and the default, byte-identical, each with
+   off) at ``--stream-chunk-words off`` and the default, and
+   cyrillic-x2-long at ``off`` (its default: phase 9), byte-identical, each with
    its host s (CLI wall − drive), ``ttfc_s``, ``compile_overlap_s``,
    ``overlap_ratio``, ``peak_resident_plan_bytes`` and device peak; the
    default crack run killed by SIGKILL inside a chunk and resumed as it
@@ -140,8 +140,30 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ``A5GEN_FAULTS=chunk.compile:nth=2`` run, which must recover (one
    worker restart) with identical stdout.
 
-The last six lines of standard output: one ``{"layouts_streaming":
-{...}}`` JSON object, one ``{"robustness": {...}}`` JSON object, one
+9. the schema cache, the prefetcher, devices and the pod: the crack cell
+   (pair auto) and cyrillic-x2-long each run twice with ``--schema-cache
+   DIR`` (run 1: no hit, an entry a chunk written; run 2: hits = run 1's
+   misses, no miss), and the crack cell once more at
+   ``--schema-cache-max-mb 1`` (evictions), each stdout byte-identical to
+   phase 4's, with host s, ``ttfc_s`` and the cache counters; azerty
+   ``-s`` (phase 4's runs went through the fallback prefetcher) once more
+   through an injected dispatch fault with ``--retries 1``: identical,
+   no producer thread left alive; ``--devices auto`` and ``--devices 1``
+   on the crack cell identical, ``--devices 2`` on this one card exiting
+   non-zero with the device-count message; ``Sweep(devices=[cuda:0,
+   cuda:0])`` (two cursor stripes on one card) on the crack cell and on
+   candidates cyrillic, byte-identical; and the pod, two processes on this
+   card over gloo (``--coordinator 127.0.0.1:<port>``): the crack cell
+   gathered (process 0's stdout byte-identical to phase 4's) and
+   ``--pod-hits local`` (the union of the stdouts), candidates cyrillic
+   (the stdouts concatenated), ``--giant-job`` on the huge word (each
+   hit once; each process's launches and wall), and one process
+   SIGKILLed at a fetch under ``A5GEN_DCN_TIMEOUT=10`` (the survivor
+   exits 3 with the ``PeerLossError`` text within 30 s; the pod
+   relaunched on the same ``--checkpoint`` resumes to phase 4's stdout).
+
+The last seven lines of standard output: one ``{"pod": {...}}`` JSON
+object, one ``{"layouts_streaming": {...}}`` JSON object, one ``{"robustness": {...}}`` JSON object, one
 ``{"oracle": {...}}`` JSON object, the card's name and power limit, one
 ``{"kernels": [...]}`` JSON object, and the ``{"ok": true, ...}`` JSON
 object.
@@ -2181,11 +2203,11 @@ def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
     typed FetchTimeouts, the drive's retries and the CLI's, then exit 1,
     not a hang.  ``--profile``: a trace with ``a5.superstep.consume``
     ranges.  Drive cost of ``--checkpoint --checkpoint-every 0`` (crack,
-    pair off, two runs each in turns, at the default superstep and
-    ``--superstep off``; the cost of one write) and
+    pair off, two runs each in turns, at the default superstep; the cost
+    of one write) and
     the drive's host-span dead share (``--metrics-json``'s
-    ``dead_share``) for crack pair auto and off, czech-ntlm and
-    cyrillic-x2-long.  Returns the phase's numbers."""
+    ``dead_share``) for crack pair auto and off and czech-ntlm.  Returns
+    the phase's numbers."""
     import torch
 
     t_phase = time.monotonic()
@@ -2384,8 +2406,9 @@ def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
         return run
 
     one = ["--superstep", "1"]
-    for setting, flags in (("default superstep", []),
-                           ("superstep off", ["--superstep", "off"])):
+    # (No --superstep off arm: dropped for the script's time when phase 9
+    # came.)
+    for setting, flags in (("default superstep", []),):
         arms = cost[setting] = {"none": [], "every 0": [], "saves": [],
                                 "bytes": []}
         for i, arm in enumerate(("none", "every 0", "none", "every 0")):
@@ -2407,8 +2430,9 @@ def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
         arms["per_write_ms"] = 1e3 * added / (sum(arms["saves"]) / 2)
     measured("superstep 1", "cyrillic-md5", "pair auto", one, "pair auto")
     measured("superstep 1", "czech-ntlm", "pair auto", one, "pair auto")
-    measured("default superstep", "cyrillic-x2-long", "-x 2", ["-x", "2"],
-             "-x 2")
+    # (cyrillic-x2-long's spans: phase 9's first cached run, which runs
+    # the same command; its own run here was dropped for the script's
+    # time when phase 9 came.)
     for label, s in spans.items():
         log(f"drive spans [{label}]: {s['spans']} consumed fetches, host "
             f"gap {s['host_gap_s']:.4f} s, dead (nothing in flight) "
@@ -2501,9 +2525,11 @@ def layouts_streaming_phase(work: str, paths: dict, runs: dict,
 
     # The variable-offset layout: the XLA route, per-launch pipeline.
     stride_run = runs[("cyrillic-md5", "pair auto")]
-    for label, extra in (("--lanes 4194000", ["--lanes", "4194000"]),
-                         ("--block-layout packed",
-                          ["--block-layout", "packed"])):
+    # (No --lanes 4194000 arm: dropped for the script's time when phase 9
+    # came; --lanes 1000000 below keeps a geometry the auto block count
+    # does not divide.)
+    for label, extra in (("--block-layout packed",
+                          ["--block-layout", "packed"]),):
         run = cyr.run(f"packed, {label}", extra, card)
         fused = [k for k in run["launches"]
                  if k.startswith(("piece_", "bytescan_"))]
@@ -2541,8 +2567,10 @@ def layouts_streaming_phase(work: str, paths: dict, runs: dict,
     for name, arm, twin, extra in (
             ("cyrillic-md5", "pair off", "pair off", ["--pair", "off"]),
             ("cyrillic-x2-long", "-x 2", "-x 2", ["-x", "2"])):
-        chunks = (("off", "auto", "4096") if name == "cyrillic-md5"
-                  else ("off", "auto"))
+        # cyrillic-x2-long at the default chunking: phase 9's cached runs
+        # (the 4096-word crack arm and this one were dropped for the
+        # script's time when phase 9 came).
+        chunks = ("off", "auto") if name == "cyrillic-md5" else ("off",)
         for chunk in chunks:
             metrics = os.path.join(work, f"m-stream-{name}-{chunk}.json")
             telemetry.REGISTRY.reset()
@@ -2582,6 +2610,319 @@ def layouts_streaming_phase(work: str, paths: dict, runs: dict,
                 f"{row['device_peak_gib']:.3f} GiB on {card}")
     report["phase_s"] = time.monotonic() - t_phase
     log(f"layouts and streaming phase {report['phase_s']:.1f} s")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the schema cache, the prefetcher, devices and the pod
+# ---------------------------------------------------------------------------
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def pod_run(name: str, work: str, argv, extra=(), envs=None,
+            timeout: int = 600) -> list:
+    """``argv`` in two processes of one pod on this card (the port's CLI,
+    ``--coordinator 127.0.0.1:<free port>``, gloo); stdout and stderr to
+    files of ``work``.  ``[(exit code, stdout, stderr, wall s, exit
+    time)]`` in process order."""
+    port = free_port()
+    procs, files = [], []
+    t0 = time.monotonic()
+    for p in range(2):
+        out = open(os.path.join(work, f"pod-{name}.{p}.out"), "wb")
+        err = open(os.path.join(work, f"pod-{name}.{p}.err"), "wb")
+        files.append((out, err))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-m", "hashcat_a5_table_generator_tpu_torch",
+             *argv, "--coordinator", f"127.0.0.1:{port}",
+             "--num-processes", "2", "--process-id", str(p), *extra],
+            cwd=HERE, stdout=out, stderr=err,
+            env=(envs or {}).get(p, dict(os.environ))))
+    ended = [None, None]
+    while None in ended:
+        for p, proc in enumerate(procs):
+            if ended[p] is None and proc.poll() is not None:
+                ended[p] = time.monotonic()
+        if time.monotonic() - t0 > timeout:
+            for proc in procs:
+                proc.kill()
+            fail(f"pod [{name}]: no exit within {timeout} s")
+        time.sleep(0.05)
+    res = []
+    for p, (proc, (out, err)) in enumerate(zip(procs, files)):
+        out.close()
+        err.close()
+        with open(out.name, "rb") as fh:
+            data = fh.read()
+        with open(err.name, "rb") as fh:
+            text = fh.read().decode(errors="replace")
+        res.append((proc.returncode, data, text, ended[p] - t0, ended[p]))
+    return res
+
+
+def stderr_launches(err: str) -> dict:
+    """The ``kernels:`` line of a CLI run's stderr as ``{tier: n}``."""
+    m = re.search(r"kernels: ([^\n]*)", err)
+    return {k: int(n) for k, n in re.findall(r"(\S+) (\d+) launches",
+                                             m.group(1))} if m else {}
+
+
+def pod_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
+              card: str) -> dict:
+    """Phase 9 (see the module docstring).  Returns the phase's
+    numbers."""
+    import torch
+
+    from hashcat_a5_table_generator_tpu_torch.cli import _read_digests
+    from hashcat_a5_table_generator_tpu_torch.models.attack import (
+        AttackSpec,
+    )
+    from hashcat_a5_table_generator_tpu_torch.native import (
+        read_packed, read_packed_buckets,
+    )
+    from hashcat_a5_table_generator_tpu_torch.ops import fused_expand
+    from hashcat_a5_table_generator_tpu_torch.runtime import (
+        faults,
+        telemetry,
+    )
+    from hashcat_a5_table_generator_tpu_torch.runtime.bucketed import (
+        BucketedSweep,
+    )
+    from hashcat_a5_table_generator_tpu_torch.runtime.sinks import (
+        CandidateWriter, HitRecorder,
+    )
+    from hashcat_a5_table_generator_tpu_torch.runtime.sweep import (
+        Sweep, SweepConfig,
+    )
+    from hashcat_a5_table_generator_tpu_torch.tables.parser import (
+        load_tables,
+    )
+
+    t_phase = time.monotonic()
+    cyr = paths["cyrillic-md5"]
+    crack_want = runs[("cyrillic-md5", "pair auto")]["stdout"]
+    report: dict = {"schema_cache": {}, "prefetch": {}, "devices": {},
+                    "pod": {}}
+
+    def crack_argv(path, extra=()):
+        return [path.wordlist, "-t", path.table, "--backend", "device",
+                "--algo", path.algo, "--digests", path.digests, *extra]
+
+    # -- the schema cache: run 1 fills it, run 2 reads it only.
+    def cached(label, path, arm, extra, twin, cache, max_mb=None):
+        metrics = os.path.join(work, f"m-cache-{label}.json")
+        flags = ["--schema-cache", cache, "--metrics-json", metrics] + (
+            ["--schema-cache-max-mb", str(max_mb)] if max_mb else [])
+        telemetry.REGISTRY.reset()
+        run = path.run(f"{arm}, schema cache {label}", extra + flags, card)
+        if run["stdout"] != runs[twin]["stdout"]:
+            fail(f"schema cache [{label}]: stdout differs from phase 4's")
+        with open(metrics) as fh:
+            m = json.load(fh)["metrics"]
+
+        def g(key):
+            return m.get(key, {}).get("value", 0)
+
+        row = {k: g(f"schema_cache.{k}") for k in (
+            "hits", "misses", "bytes_read", "bytes_written", "evictions")}
+        row.update(host_s=run["wall"] - run["drive"], drive_s=run["drive"],
+                   wall_s=run["wall"], ttfc_s=g("sweep.ttfc_s"),
+                   entries=len([n for n in os.listdir(cache)
+                                if n.endswith(".npz")]),
+                   dead_share=span_totals(metrics)["dead_share"])
+        report["schema_cache"][label] = row
+        log(f"schema cache [{label}]: stdout byte-identical to phase 4's; "
+            f"{row['hits']} hits, {row['misses']} misses, "
+            f"{row['bytes_read']} B read, {row['bytes_written']} B written, "
+            f"{row['evictions']} evictions, {row['entries']} entries; host "
+            f"{row['host_s']:.3f} s, drive {row['drive_s']} s, ttfc "
+            f"{row['ttfc_s']:.3f} s, host-span dead_share "
+            f"{row['dead_share']}, CLI wall {row['wall_s']:.2f} s on "
+            f"{card}")
+        return row
+
+    for name, arm, extra in (("cyrillic-md5", "pair auto", []),
+                             ("cyrillic-x2-long", "-x 2", ["-x", "2"])):
+        cache = os.path.join(work, f"schema-{name}")
+        one = cached(f"{name} run 1", paths[name], arm, extra, (name, arm),
+                     cache)
+        two = cached(f"{name} run 2", paths[name], arm, extra, (name, arm),
+                     cache)
+        if one["hits"] or not one["misses"] or two["misses"] or \
+                two["hits"] != one["misses"]:
+            fail(f"schema cache [{name}]: run 1 {one['hits']} hits / "
+                 f"{one['misses']} misses, run 2 {two['hits']} / "
+                 f"{two['misses']}")
+    capped = cached("cyrillic-md5 --schema-cache-max-mb 1", cyr, "pair auto",
+                    [], ("cyrillic-md5", "pair auto"),
+                    os.path.join(work, "schema-capped"), max_mb=1)
+    if not capped["evictions"]:
+        fail("schema cache [--schema-cache-max-mb 1]: nothing evicted")
+
+    # -- the prefetcher: phase 4's azerty -s runs went through it; one
+    # injected dispatch fault (an in-drive retry restarts its producer).
+    az = paths["azerty-md5-s"]
+    report["prefetch"]["azerty-s"] = {
+        arm: {"drive_s": runs[("azerty-md5-s", arm)]["drive"],
+              "wall_s": runs[("azerty-md5-s", arm)]["wall"]}
+        for arm in ("-s", "A5_NATIVE=0 -s", "-s, native again")}
+    with knobs(A5GEN_FAULTS="superstep.dispatch:nth=2"):
+        t = time.monotonic()
+        out, err, rc = run_cli(crack_argv(az, ["-s", "--retries", "1"]))
+        wall = time.monotonic() - t
+    faults.clear()
+    left = [th.name for th in threading.enumerate()
+            if th.name == "a5-fallback-oracle" and th.is_alive()]
+    if rc != 0 or out != runs[("azerty-md5-s", "-s")]["stdout"] or left \
+            or "transient device error in the sweep drive" not in err:
+        fail(f"prefetcher [azerty-s, dispatch fault, --retries 1]: exit "
+             f"{rc}, stdout "
+             f"{'equal' if out == runs[('azerty-md5-s', '-s')]['stdout'] else 'differs'}"
+             f", producer threads alive {left}: {err}")
+    report["prefetch"]["retry_wall_s"] = wall
+    log(f"prefetcher [azerty-s, superstep.dispatch:nth=2, --retries 1]: "
+        f"stdout byte-identical to phase 4's, no producer thread left, CLI "
+        f"wall {wall:.2f} s on {card}")
+
+    # -- devices: auto and 1 on this card, 2 refused; two stripes on it.
+    for arm in ("auto", "1"):
+        run = cyr.run(f"--devices {arm}", ["--devices", arm], card)
+        if run["stdout"] != crack_want:
+            fail(f"--devices {arm}: stdout differs from phase 4's")
+        expect_launched(run, ["piece_pair/md5"], f"--devices {arm}")
+        report["devices"][arm] = {"drive_s": run["drive"],
+                                  "wall_s": run["wall"]}
+    out, err, rc = run_cli(crack_argv(cyr, ["--devices", "2"]))
+    want_msg = f"requested 2 devices, have {torch.cuda.device_count()}"
+    if rc == 0 or want_msg not in err or out:
+        fail(f"--devices 2 on one card: exit {rc}: {err}")
+    log(f"--devices 2 on one card: exit {rc}, {want_msg!r}")
+    cuda0 = torch.device("cuda", 0)
+    two = SweepConfig(devices=[cuda0, cuda0])
+    for mod in (fused_expand,):
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+    plain = fused_expand.PLAIN_CALLS
+    buf = io.BytesIO()
+    t = time.monotonic()
+    res = BucketedSweep(AttackSpec(), load_tables([cyr.table]),
+                        read_packed_buckets(cyr.wordlist, buckets=(16, 32,
+                                                                   64)),
+                        _read_digests(cyr.digests, "md5"),
+                        config=two).run_crack(HitRecorder(buf))
+    wall = time.monotonic() - t
+    launched = {k: v for k, v in fused_expand.LAUNCHES.items() if v}
+    if buf.getvalue() != crack_want or fused_expand.PLAIN_CALLS != plain \
+            or not launched.get("piece_pair/md5"):
+        fail(f"two stripes on one card [crack]: hits "
+             f"{'equal' if buf.getvalue() == crack_want else 'differ'}, "
+             f"launches {launched}")
+    report["devices"]["two stripes, crack"] = {
+        "wall_s": wall, "drive_s": res.drive_s, "launches": launched,
+        "supersteps": res.superstep.get("supersteps")}
+    log(f"two stripes on one card [crack cell, Sweep(devices=[cuda:0, "
+        f"cuda:0])]: hits byte-identical to phase 4's, launches "
+        f"{launched}, drive {res.drive_s:.3f} s, wall {wall:.2f} s on "
+        f"{card}")
+    cand = cand_cells["cand-cyrillic"]
+    buf = io.BytesIO()
+    t = time.monotonic()
+    with CandidateWriter(buf) as writer:
+        res = Sweep(AttackSpec(), load_tables([cand["table"]]),
+                    read_packed(cand["wordlist"]),
+                    config=two).run_candidates(writer)
+    wall = time.monotonic() - t
+    if buf.getvalue() != cand["stdout"]:
+        fail("two stripes on one card [candidates cyrillic]: the stream "
+             "differs from phase 4's")
+    report["devices"]["two stripes, candidates"] = {
+        "wall_s": wall, "drive_s": res.drive_s}
+    log(f"two stripes on one card [candidates cyrillic]: stream "
+        f"byte-identical to phase 4's ({len(cand['stdout'])} bytes), "
+        f"launch loop {res.drive_s:.3f} s, wall {wall:.2f} s on {card}")
+
+    # -- the pod: two processes on this card, gloo.
+    def pod_report(label, res):
+        report["pod"][label] = [
+            {"rc": rc, "wall_s": wall, "launches": stderr_launches(err)}
+            for rc, _o, err, wall, _t in res]
+        log(f"pod [{label}]: " + "; ".join(
+            f"process {p}: exit {rc}, wall {wall:.2f} s, launches "
+            f"{stderr_launches(err)}"
+            for p, (rc, _o, err, wall, _t) in enumerate(res))
+            + f" on {card}")
+
+    def pod_ok(label, res):
+        if any(r[0] != 0 for r in res):
+            fail(f"pod [{label}]: exits {[r[0] for r in res]}: "
+                 + " | ".join(r[2][-2000:] for r in res))
+
+    res = pod_run("gathered", work, crack_argv(cyr))
+    pod_ok("gathered", res)
+    if res[0][1] != crack_want or res[1][1]:
+        fail("pod [crack, gathered]: process 0's stdout differs from "
+             "phase 4's, or process 1 printed hits")
+    pod_report("crack, gathered", res)
+    res = pod_run("local", work, crack_argv(cyr, ["--pod-hits", "local"]))
+    pod_ok("local", res)
+    lines = res[0][1].splitlines() + res[1][1].splitlines()
+    if sorted(lines) != sorted(crack_want.splitlines()) or \
+            not (res[0][1] and res[1][1]):
+        fail("pod [crack, local]: the union of the two stdouts differs "
+             "from phase 4's")
+    pod_report("crack, local", res)
+    res = pod_run("candidates", work, [cand["wordlist"], "-t",
+                                       cand["table"], "--backend",
+                                       "device"])
+    pod_ok("candidates", res)
+    if res[0][1] + res[1][1] != cand["stdout"]:
+        fail("pod [candidates cyrillic, gathered]: the two stdouts "
+             "concatenated differ from phase 4's")
+    pod_report("candidates cyrillic, gathered", res)
+    huge = runs[("huge-word", "per-launch")]
+    res = pod_run("giant", work, huge["argv"], extra=["--giant-job"])
+    pod_ok("giant", res)
+    if res[0][1] != huge["stdout"] or res[1][1]:
+        fail("pod [--giant-job, huge word]: process 0's stdout differs "
+             "from phase 4's")
+    pod_report("--giant-job, huge word", res)
+    # One process SIGKILLed at its third fetch: the survivor leaves with
+    # the PeerLossError text; the pod relaunched resumes from the
+    # checkpoints to phase 4's stdout.
+    ck = os.path.join(work, "ck-pod.json")
+    argv = crack_argv(cyr, ["--fetch-chunk", "2", "--checkpoint", ck,
+                            "--checkpoint-every", "0"])
+    envs = {0: dict(os.environ, A5GEN_DCN_TIMEOUT="10"),
+            1: dict(os.environ, A5GEN_DCN_TIMEOUT="10",
+                    A5GEN_FAULTS="superstep.fetch:kill,nth=3")}
+    res = pod_run("peer-loss", work, argv, envs=envs)
+    (rc0, out0, err0, wall0, end0), (rc1, _o1, err1, _w1, end1) = res
+    if rc1 != -9 or rc0 != 3 or "FATAL" not in err0 or \
+            "died or stalled" not in err0 or end0 - end1 > 30:
+        fail(f"pod [peer loss]: process 1 exit {rc1}, process 0 exit {rc0}"
+             f" {end0 - end1:.1f} s after it: {err0[-3000:]}")
+    report["pod"]["peer loss"] = {"survivor_exit": rc0,
+                                  "survivor_after_s": end0 - end1}
+    log(f"pod [peer loss]: process 1 SIGKILLed at its third fetch, "
+        f"process 0 exited {rc0} with the PeerLossError text "
+        f"{end0 - end1:.2f} s later")
+    envs = {p: dict(os.environ, A5GEN_DCN_TIMEOUT="10") for p in range(2)}
+    res = pod_run("resume", work, argv, envs=envs)
+    pod_ok("resume", res)
+    if res[0][1] != crack_want:
+        fail("pod [relaunch after peer loss]: process 0's stdout differs "
+             "from phase 4's")
+    pod_report("relaunch after peer loss", res)
+    report["phase_s"] = time.monotonic() - t_phase
+    log(f"schema cache, prefetcher, devices and pod phase "
+        f"{report['phase_s']:.1f} s")
     return report
 
 
@@ -2637,7 +2978,7 @@ def huge_word_run(work: str, card: str, min_rows: int = 1 << 30) -> dict:
     ``candidates hashed`` is every row but rank 0 (no substitution: -m
     1).  Prints the rows, the launches and the drive seconds; returns the
     run's kernel launches (``launches``, ``widths``: none on the XLA
-    route), as ``MainPath.run`` does."""
+    route), as ``MainPath.run`` does, with its ``stdout`` and ``argv``."""
     from hashcat_a5_table_generator_tpu_torch.models.attack import (
         AttackSpec, build_plan, decode_variant,
     )
@@ -2714,7 +3055,9 @@ def huge_word_run(work: str, card: str, min_rows: int = 1 << 30) -> dict:
         f"({HUGE_PLANTS} planted in the last launch, each printed once), "
         f"drive {d.group(1)} s ({d.group(2)} candidate-hashes/s), CLI wall "
         f"{wall:.2f} s on {card}")
-    return {"launches": launches, "widths": {}}
+    return {"launches": launches, "widths": {}, "stdout": out,
+            "argv": [wordlist, "-t", table, "--backend", "device",
+                     "--digests", digests]}
 
 
 def expect_launched(run, keys, what) -> None:
@@ -3653,9 +3996,13 @@ def main() -> None:
                                   card)
     # -- phase 8: layouts and streaming ---------------------------------------
     layouts = layouts_streaming_phase(work, paths, runs, cand_cells, card)
+    # -- phase 9: the schema cache, the prefetcher, devices and the pod -----
+    runs[("azerty-md5-s", "-s, native again")] = again
+    pod = pod_phase(work, paths, runs, cand_cells, card)
     shutil.rmtree(work, ignore_errors=True)
     elapsed = time.monotonic() - T0
     log(f"done in {elapsed:.1f} s")
+    print(json.dumps({"pod": pod}))
     print(json.dumps({"layouts_streaming": layouts}))
     print(json.dumps({"robustness": robustness}))
     print(json.dumps({"oracle": oracle}))

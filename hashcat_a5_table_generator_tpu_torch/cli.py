@@ -7,10 +7,13 @@ Same flags and output as the reference CLI for what this package runs::
   a5gen DICT_FILE -t TABLE [-t TABLE ...] [-m MIN] [-x MAX] [-s] [-r]
         [--threads N] [--bug-compat]
         [--backend oracle|device] [--algo md5|md4|sha1|ntlm --digests FILE]
-        [--hex-unsafe] [--device cuda|cpu]
+        [--hex-unsafe] [--device cuda|cpu] [--devices N|auto]
         [--checkpoint FILE [--checkpoint-every S] [--no-resume]]
         [--retries N] [--fetch-timeout S] [--fetch-chunk N]
         [--block-layout auto|packed|stride] [--stream-chunk-words N|auto|off]
+        [--schema-cache DIR [--schema-cache-max-mb MB]]
+        [--coordinator HOST:PORT --num-processes N --process-id I
+         [--pod-hits gathered|local] [--giant-job]]
         [--progress] [--profile DIR] [--metrics-json FILE]
   a5gen --emit-table LAYOUT [--output FILE]
   a5gen --list-layouts
@@ -51,14 +54,27 @@ chunks (``auto``, the default, past one ~64 MB-of-plan chunk;
 ``A5GEN_STREAM=off`` or ``off`` compiles it whole);
 ``--fetch-timeout`` sets the fetch watchdog; ``--progress``,
 ``--metrics-json`` and ``--profile`` report the sweep's telemetry.
+``--schema-cache DIR`` keeps the compiled piece schemas on disk (the
+reference's entries: one directory serves both packages;
+``--schema-cache-max-mb`` caps it).  ``--devices N`` sweeps N cursor
+stripes (the first N GPUs; with ``--device cpu``, N stripes over the
+CPU); more GPUs than the machine has is an error, never fewer stripes.
+``--coordinator`` / ``--num-processes`` / ``--process-id`` run a pod of
+processes over ``torch.distributed`` (gloo; ``parallel.multihost``): each
+sweeps a stripe of the dictionary, or with ``--giant-job`` every process
+sweeps it whole and owns its stripes of every launch; ``--pod-hits
+gathered`` (the default) prints the combined hits on process 0,
+``local`` each process's own, with no collective.  Each process
+checkpoints at ``FILE.p<id>``; a peer that dies makes a process waiting
+for it exit 3 with the recovery text.
 ``--output`` names ``--emit-table``'s file only, as in the reference:
 both backends' candidate and hit streams go to stdout.
 
-Every other surface of the reference CLI is recognized and refused on the
-device backend with exit status 2 and a message naming the ROADMAP.md
-port-queue item that carries it — it never runs a different path.  Under
-``--backend oracle`` those flags do what the reference's do there: the
-stateless ones warn that they have no effect, the rest are ignored.
+The service layer (``serve``, ``fleet``: ROADMAP.md port-queue item 8)
+and tuning (``tune``: item 9) exit 2 with a message naming their item —
+they never run a different path.  Under ``--backend oracle`` the device
+backend's flags do what the reference's do there: the stateless ones
+warn that they have no effect, the rest are ignored.
 """
 
 from __future__ import annotations
@@ -72,23 +88,9 @@ DIGEST_BYTES = {"md5": 16, "md4": 16, "ntlm": 16, "sha1": 20}
 
 #: ROADMAP.md port-queue items for the surfaces this package does not run.
 _ITEMS = {
-    6: "the schema cache",
-    7: "multi-GPU",
     8: "the service layer",
     9: "tuning",
 }
-
-#: Refused flags: (flags, argparse kwargs, queue item).
-_REFUSED = (
-    (("--schema-cache",), dict(metavar="DIR"), 6),
-    (("--schema-cache-max-mb",), dict(type=float, metavar="MB"), 6),
-    (("--devices",), dict(metavar="N"), 7),
-    (("--coordinator",), dict(metavar="HOST:PORT"), 7),
-    (("--num-processes",), dict(type=int, metavar="N"), 7),
-    (("--process-id",), dict(type=int, metavar="I"), 7),
-    (("--giant-job",), dict(action="store_true"), 7),
-    (("--pod-hits",), dict(choices=("gathered", "local")), 7),
-)
 
 _SUBCOMMANDS = {"serve": 8, "fleet": 8, "tune": 9}
 
@@ -245,9 +247,54 @@ def build_parser() -> argparse.ArgumentParser:
                          "snapshot (metrics registry + per-sweep span "
                          "summary) as JSON to FILE; A5GEN_TELEMETRY=off "
                          "disables the instrumentation")
-    for flags, kw, _item in _REFUSED:
-        ap.add_argument(*flags, default=None if "action" not in kw
-                        else False, help=argparse.SUPPRESS, **kw)
+    ap.add_argument("--schema-cache", metavar="DIR",
+                    help="on-disk PieceSchema cache directory: repeat "
+                         "sweeps of the same inputs skip schema "
+                         "compilation (A5GEN_SCHEMA_CACHE is the env "
+                         "equivalent); one directory serves this package "
+                         "and the reference")
+    ap.add_argument("--schema-cache-max-mb", type=float, default=None,
+                    metavar="MB",
+                    help="LRU size cap on the --schema-cache directory: "
+                         "after each write, oldest-atime entries are "
+                         "evicted until the cache fits "
+                         "(A5GEN_SCHEMA_CACHE_MAX_MB is the env "
+                         "equivalent; default unbounded)")
+    ap.add_argument("--devices", type=_devices_arg, default=1, metavar="N",
+                    help="sweep over N cursor stripes: the first N CUDA "
+                         "devices (or, with --device cpu, N stripes over "
+                         "the CPU); 'auto' = every visible CUDA device; "
+                         "default 1.  More devices than the machine has "
+                         "is an error")
+    ap.add_argument("--coordinator", metavar="HOST:PORT",
+                    help="pod sweep: the rendezvous address (process 0 "
+                         "hosts it; run the same command in every process "
+                         "with its own --process-id); each process sweeps "
+                         "a contiguous stripe of the dictionary on its "
+                         "devices, and hit records are all-gathered over "
+                         "torch.distributed (gloo)")
+    ap.add_argument("--num-processes", type=int, default=None, metavar="N",
+                    help="pod sweep: total participating processes")
+    ap.add_argument("--process-id", type=int, default=None, metavar="I",
+                    help="pod sweep: this process's rank in [0, N)")
+    ap.add_argument("--giant-job", action="store_true",
+                    help="pod giant-job mode (crack only): instead of "
+                         "striping the DICTIONARY across processes, every "
+                         "process sweeps the SAME full wordlist and each "
+                         "launch's blocks are striped across all the "
+                         "pod's devices — one job whose (word, rank) "
+                         "cursor is interchangeable with a single-device "
+                         "sweep's; needs --coordinator; combine with "
+                         "--pod-hits local for the elastic variant")
+    ap.add_argument("--pod-hits", choices=("gathered", "local"),
+                    default="gathered",
+                    help="pod hit reporting: 'gathered' (default) "
+                         "all-gathers hit records and process 0 prints "
+                         "them in the single-process order; 'local' "
+                         "prints each process's own stripe's hits on its "
+                         "own stdout with NO collectives — a dead peer "
+                         "cannot block the others (relaunch only its "
+                         "stripe)")
     ap.add_argument("--emit-table", metavar="LAYOUT",
                     help="write a built-in layout as a .table file to stdout "
                          "(or --output) and exit")
@@ -301,6 +348,22 @@ def _positive_int(value: str) -> int:
     except ValueError:
         raise argparse.ArgumentTypeError(
             f"must be a positive integer, got {value!r}"
+        )
+    return n
+
+
+def _devices_arg(value: str):
+    """--devices: a positive int, or 'auto' (None) = every visible CUDA
+    device."""
+    if value == "auto":
+        return None
+    try:
+        n = int(value)
+        if n < 1:
+            raise ValueError
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"must be a positive integer or 'auto', got {value!r}"
         )
     return n
 
@@ -719,13 +782,45 @@ def _run_with_retries(make_attempt, retries: int, *, default_resume: bool,
             time.sleep(min(2.0 * attempt, 10.0))
 
 
-def _write_metrics_json(path, sweeps, res) -> None:
+def _maybe_exit_pod_local(args, nprocs: int) -> None:
+    """``--pod-hits local`` promises that a dead peer never blocks a
+    survivor, so no closing barrier runs: ``multihost.pod_local_done_exit``
+    (process 0 stays as the store's host until every peer is done or
+    dead) leaves through ``os._exit``."""
+    if nprocs > 1 and args.pod_hits == "local" and not args.profile:
+        from .parallel.multihost import pod_local_done_exit
+
+        pod_local_done_exit()
+
+
+def _die_peer_loss(e) -> None:
+    """A peer died while this process waited in a collective: say so and
+    how to recover, then leave through ``os._exit(3)`` (the stuck
+    collective's thread cannot be joined).  This process's stripe
+    checkpoint is on disk already."""
+    import os
+
+    print(f"{PROG}: FATAL: {e}", file=sys.stderr)
+    print(f"{PROG}: recovery: relaunch the pod (same command on every "
+          "host); each host resumes its own stripe from --checkpoint and "
+          "already-reported hits are deduped", file=sys.stderr)
+    sys.stderr.flush()
+    sys.stdout.flush()
+    os._exit(3)
+
+
+def _write_metrics_json(path, sweeps, res, *, pod_gather: bool = False
+                        ) -> None:
     """``--metrics-json``: the process-wide telemetry registry snapshot
     and each built sweep's span summary (a bucketed sweep reports one per
     width), written after the sweep through the atomic writer — the
     reference's document ``{"metrics", "spans"}``.  The run's time to
     the first fetch and a streamed run's stream stats are gauges of the
-    registry (``sweep.ttfc_s``, ``stream.<stat>``)."""
+    registry (``sweep.ttfc_s``, ``stream.<stat>``).  ``pod_gather``: a
+    gathered pod all-gathers every process's snapshot through
+    ``telemetry.merge`` and marks the document ``pod_merged`` (every
+    process takes part; the pod builds its sweeps inside, so ``spans``
+    is empty)."""
     if not path:
         return
     import json
@@ -750,7 +845,13 @@ def _write_metrics_json(path, sweeps, res) -> None:
                 spans[f"w{width}"] = s.timeline.summary()
         else:
             spans["sweep"] = obj.timeline.summary()
-    doc = {"metrics": telemetry.snapshot(), "spans": spans}
+    if pod_gather:
+        from .parallel.multihost import allgather_metrics
+
+        doc = {"metrics": allgather_metrics(), "spans": spans,
+               "pod_merged": True}
+    else:
+        doc = {"metrics": telemetry.snapshot(), "spans": spans}
     atomic_write_text(path, json.dumps(doc, indent=2) + "\n")
 
 
@@ -767,19 +868,43 @@ def _run_device(args, sub_map, packed) -> int:
     spec = AttackSpec(mode=_mode(args), algo=args.algo,
                       min_substitute=args.table_min,
                       max_substitute=args.table_max)
+    # The pod comes up first: the rendezvous before any device work.
+    pid, nprocs = 0, 1
+    if (args.coordinator is not None or args.num_processes is not None
+            or args.process_id is not None):
+        from .parallel import multihost
+
+        pid, nprocs = multihost.initialize(
+            args.coordinator, args.num_processes, args.process_id)
+        print(f"{PROG}: distributed process {pid}/{nprocs}",
+              file=sys.stderr)
+        if nprocs > 1 and args.retries:
+            # A lone retrying process would desync the pod's
+            # collectives; the pod's recovery is a relaunch.
+            print(f"{PROG}: warning: --retries is single-process only; "
+                  "ignored under --coordinator (relaunch the pod to "
+                  "resume)", file=sys.stderr)
+            args.retries = 0
     bucketed = isinstance(packed, dict)
-    n_words = (sum(p.batch for p in packed.values()) if bucketed
-               else packed.batch)
+    if nprocs > 1 and not args.giant_job:
+        from .parallel.multihost import stripe_n_words
+
+        n_words = stripe_n_words(packed, nprocs, pid)
+    else:
+        n_words = (sum(p.batch for p in packed.values()) if bucketed
+                   else packed.batch)
     cfg_kw = {}
     if args.fetch_chunk is not None:
         cfg_kw["fetch_chunk"] = args.fetch_chunk
     cfg = SweepConfig(
         device=args.device, lanes=args.lanes, num_blocks=args.blocks,
-        superstep=args.superstep,
+        devices=args.devices, superstep=args.superstep,
         pair={"auto": None, "on": "on", "off": 0}[args.pair],
         packed_blocks={"auto": None, "packed": True, "stride": False}[
             args.block_layout],
         stream_chunk_words=args.stream_chunk_words,
+        schema_cache=args.schema_cache,
+        schema_cache_max_mb=args.schema_cache_max_mb,
         fetch_timeout_s=args.fetch_timeout,
         checkpoint_path=args.checkpoint,
         checkpoint_every_s=args.checkpoint_every,
@@ -788,6 +913,7 @@ def _run_device(args, sub_map, packed) -> int:
     )
     crack = args.digests is not None
     digests = _read_digests(args.digests, args.algo) if crack else ()
+    gather = args.pod_hits == "gathered"
     built: list = []
 
     def make_sweep():
@@ -798,29 +924,69 @@ def _run_device(args, sub_map, packed) -> int:
 
     with profiler_trace(args.profile):
         if crack:
-            recorder = _DedupRecorder(HitRecorder(sys.stdout.buffer))
-            res = _run_with_retries(
-                lambda resume: make_sweep().run_crack(recorder,
-                                                      resume=resume),
-                args.retries, default_resume=not args.no_resume,
-                label="crack sweep",
-            )
-            print(f"{res.n_hits} hits, {res.n_emitted} candidates hashed",
-                  file=sys.stderr)
+            if nprocs > 1:
+                from .parallel.multihost import (
+                    PeerLossError,
+                    run_crack_giant,
+                    run_crack_multihost,
+                )
+
+                # Gathered: process 0 prints the combined stream; local:
+                # every process prints its own stripe's hits.
+                recorder = (HitRecorder(sys.stdout.buffer)
+                            if pid == 0 or not gather else None)
+                runner = (run_crack_giant if args.giant_job
+                          else run_crack_multihost)
+                try:
+                    res = runner(spec, sub_map, packed, digests, cfg,
+                                 recorder=recorder,
+                                 resume=not args.no_resume, gather=gather)
+                except PeerLossError as e:
+                    _die_peer_loss(e)
+            else:
+                recorder = _DedupRecorder(HitRecorder(sys.stdout.buffer))
+                res = _run_with_retries(
+                    lambda resume: make_sweep().run_crack(recorder,
+                                                          resume=resume),
+                    args.retries, default_resume=not args.no_resume,
+                    label="crack sweep",
+                )
+            if nprocs > 1 and not gather:
+                print(f"{PROG}: process {pid}/{nprocs} stripe: "
+                      f"{res.n_hits} hits, {res.n_emitted} candidates "
+                      "hashed", file=sys.stderr)
+            elif pid == 0:
+                print(f"{res.n_hits} hits, {res.n_emitted} candidates "
+                      "hashed", file=sys.stderr)
             what = ("superstep drive" if res.superstep.get("supersteps")
                     or not res.superstep.get("per_launch")
                     else "per-launch drive")
             unit = "candidate-hashes/s"
         else:
             with CandidateWriter(hex_unsafe=args.hex_unsafe) as writer:
-                res = _run_with_retries(
-                    lambda resume: make_sweep().run_candidates(
-                        writer, resume=resume),
-                    args.retries, default_resume=not args.no_resume,
-                    label="candidates sweep",
-                    retry_notice=("; candidates since that checkpoint "
-                                  "repeat (at-least-once stream)"),
-                )
+                if nprocs > 1:
+                    from .parallel.multihost import (
+                        PeerLossError,
+                        run_candidates_multihost,
+                    )
+
+                    # Each process writes its own stripe: concatenated in
+                    # process order, the single-process stream.
+                    try:
+                        res = run_candidates_multihost(
+                            spec, sub_map, packed, writer, cfg,
+                            resume=not args.no_resume, gather=gather)
+                    except PeerLossError as e:
+                        _die_peer_loss(e)
+                else:
+                    res = _run_with_retries(
+                        lambda resume: make_sweep().run_candidates(
+                            writer, resume=resume),
+                        args.retries, default_resume=not args.no_resume,
+                        label="candidates sweep",
+                        retry_notice=("; candidates since that checkpoint "
+                                      "repeat (at-least-once stream)"),
+                    )
             print(f"{res.n_emitted} candidates written", file=sys.stderr)
             what = "launch loop"
             unit = "candidates/s"
@@ -833,7 +999,9 @@ def _run_device(args, sub_map, packed) -> int:
     print(f"{PROG}: sweep: {res.wall_s:.3f} s wall, {res.drive_s:.3f} s "
           f"{what}, {rate:.6g} {unit} (device {args.device})",
           file=sys.stderr)
-    _write_metrics_json(args.metrics_json, built, res)
+    _write_metrics_json(args.metrics_json, built, res,
+                        pod_gather=nprocs > 1 and gather)
+    _maybe_exit_pod_local(args, nprocs)
     return 0
 
 
@@ -848,24 +1016,13 @@ _ORACLE_NO_EFFECT = (
 )
 
 
-def _refuse_device_flags(ap, args) -> None:
-    """The device backend runs no surface of the queue items still to
-    port (the schema cache of item 6, items 7-9): exit 2."""
-    for flags, _kw, item in _REFUSED:
-        dest = flags[-1].lstrip("-").replace("-", "_")
-        if dest == "devices" and args.devices == "1":
-            continue  # one GPU is this package's configuration
-        if getattr(args, dest) not in (None, False):
-            ap.error(_not_ported(flags[-1], item))
-
-
 def _warn_oracle_flags(args) -> None:
     """The reference's oracle backend warns about its stateless flags and
     runs on; the rest it ignores."""
     for dest, name in _ORACLE_NO_EFFECT:
         value = getattr(args, dest)
         if dest == "devices":
-            value = value is not None and value != "1"
+            value = value != 1
         elif dest in ("coordinator", "num_processes", "process_id"):
             value = value is not None
         if value:
@@ -927,8 +1084,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             )
     if args.backend == "oracle":
         _warn_oracle_flags(args)
-    else:
-        _refuse_device_flags(ap, args)
     from .tables.parser import load_tables
 
     try:

@@ -412,10 +412,14 @@ def make_superstep_body(
     decode: str = "scalar", pack_cb: bool = False, k_opts: int = 1,
     bytescan: "ByteScanTier | None" = None, xla: bool = False,
     windowed: bool = False, radix2: bool = False,
+    step_advance: "int | None" = None,
 ) -> Callable[..., Tree]:
     """The superstep executor: ``body(arrays, b0, steps, bufs) -> dict``
     runs ``steps`` fused launches starting at global block ``b0``, with no
-    host sync inside.  Each step cuts ``num_blocks`` blocks, runs the
+    host sync inside.  Each step cuts ``num_blocks`` blocks (step ``s``
+    from block ``b0 + s * step_advance``; ``step_advance`` defaults to
+    ``num_blocks``, and a cursor stripe of ``parallel.devices`` passes
+    ``num_blocks`` times the stripes), runs the
     piece kernel of ``spec.algo`` with the plan's decode tier (``decode``,
     ``pack_cb``, ``k_opts``: ``ops.fused_expand.decode_for`` and
     ``k_vals_for``) — K=1, or the pair tier with ``pair_k`` = 2: blocks
@@ -433,6 +437,7 @@ def make_superstep_body(
     in ``n_hits`` and re-runs the superstep with a larger buffer."""
     rank_stride = block_stride * (pair_k or 1)
     num_cands = num_lanes * (pair_k or 1)
+    advance = num_blocks if step_advance is None else int(step_advance)
     expand, decode = _launch_expand(
         spec, num_lanes=num_lanes, out_width=out_width,
         block_stride=block_stride, pieces=pieces, pair_k=pair_k,
@@ -451,7 +456,7 @@ def make_superstep_body(
         nh = torch.zeros((), dtype=torch.int32, device=dev)
         for s in range(steps):
             word, count, base, rank0 = cut_blocks(
-                arrays, b0 + s * num_blocks, num_blocks, rank_stride, decode
+                arrays, b0 + s * advance, num_blocks, rank_stride, decode
             )
             state, emit = expand(word, count, base, arrays)
             hit = digest_member(state, arrays["rows"], arrays["bitmap"])

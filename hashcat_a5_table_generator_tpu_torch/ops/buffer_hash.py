@@ -70,11 +70,12 @@ def _launch_cuda(msg: torch.Tensor, length: torch.Tensor, algo: str
                         device=msg.device)
     fn = lib.a5_buffer_hash
     fn.restype = ctypes.c_int
-    err = fn(ctypes.c_void_p(msg.data_ptr()),
-             ctypes.c_void_p(length.data_ptr()), ctypes.c_longlong(n),
-             ctypes.c_int(width), ctypes.c_void_p(state.data_ptr()),
-             ctypes.c_void_p(torch.cuda.current_stream(msg.device)
-                             .cuda_stream))
+    with torch.cuda.device(msg.device):  # the rows' card
+        err = fn(ctypes.c_void_p(msg.data_ptr()),
+                 ctypes.c_void_p(length.data_ptr()), ctypes.c_longlong(n),
+                 ctypes.c_int(width), ctypes.c_void_p(state.data_ptr()),
+                 ctypes.c_void_p(torch.cuda.current_stream(msg.device)
+                                 .cuda_stream))
     if err != 0:
         raise RuntimeError(f"buffer_hash/{algo} launch failed: CUDA error "
                            f"{err}")

@@ -513,7 +513,8 @@ def _launch_cuda(blk_word, blk_count, base, tables, *, tier, block_stride,
     key = tier.launch_key(algo)
     fn = getattr(lib, f"a5_bytescan_{tier.row}")
     fn.restype = ctypes.c_int
-    err = fn(*call)
+    with torch.cuda.device(dev):  # the tensors' card: another stripe's
+        err = fn(*call)
     if err != 0:
         raise RuntimeError(f"{key} launch failed: CUDA error {err}")
     LAUNCHES[key] += 1

@@ -587,7 +587,8 @@ def _launch_cuda(blk_word, blk_count, base, tables, *, pieces, block_stride,
     key = launch_key(algo, pieces, decode, pair)
     fn = getattr(lib, f"a5_piece_{'pair' if pair else _ENTRY[decode]}")
     fn.restype = ctypes.c_int
-    err = fn(*call)
+    with torch.cuda.device(dev):  # the tensors' card: another stripe's
+        err = fn(*call)
     if err != 0:
         raise RuntimeError(f"{key} launch failed: CUDA error {err}")
     LAUNCHES[key] += 1

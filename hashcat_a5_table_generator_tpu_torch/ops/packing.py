@@ -16,7 +16,9 @@ through) falls back to.  :func:`read_wordlist` is the oracle backend's
 reader.
 
 The second half is the per-slot piece schema (:class:`PieceSchema`) that
-drives the piece kernel (``ops/fused_expand.py``); the last part, the
+drives the piece kernel (``ops/fused_expand.py``), with its on-disk cache
+(:func:`piece_schema_for`'s ``cache_dir``: the reference's entries and
+keys); the last part, the
 streaming sweep's chunking (:func:`slice_packed`, :func:`auto_chunk_words`,
 :func:`chunk_bounds`) and its compile ring (:class:`ChunkCompiler`).
 
@@ -839,7 +841,9 @@ def _suball_piece_cols(plan) -> tuple:
     return pos, ln, opts, vstart, slot, sel_bit, closed
 
 
-def piece_schema_for(plan, ct) -> "PieceSchema | None":
+def piece_schema_for(plan, ct, cache_dir: "str | None" = None,
+                     max_mb: "float | None" = None
+                     ) -> "PieceSchema | None":
     """The per-slot emission gate: a :class:`PieceSchema` when the plan's
     static geometry supports piece emission (and ``A5GEN_EMIT`` does not
     opt out: ``runtime.env.emit_scheme``), else None — the plan then takes
@@ -851,7 +855,17 @@ def piece_schema_for(plan, ct) -> "PieceSchema | None":
     ``sel_slot int32 [B, C]`` / ``sel_bit uint8 [B, C]`` selector
     columns; a cascade-closed plan's value rows come from its own
     ``cval_bytes``/``cval_len``).  Cached on the plan object (plans are
-    frozen, keyed by table identity)."""
+    frozen, keyed by table identity).
+
+    ``cache_dir`` (or ``A5GEN_SCHEMA_CACHE``) also keeps the compiled
+    schema on disk, as the reference does: keyed by a digest of the exact
+    build inputs and the format version (:func:`_schema_cache_key`), so
+    repeat sweeps of one wordlist × table skip the build, and one cache
+    directory serves both packages.  ``max_mb`` caps the directory:
+    after a write the oldest-atime entries are evicted until it fits
+    (:func:`enforce_schema_cache_cap`)."""
+    from ..runtime.env import schema_cache_dir
+
     if emit_scheme() != "perslot":
         return None
     cache = getattr(plan, "_piece_schema_cache", None)
@@ -862,7 +876,7 @@ def piece_schema_for(plan, ct) -> "PieceSchema | None":
     launched = ~np.asarray(plan.fallback, bool)
     if getattr(plan, "match_pos", None) is not None:
         radix = np.asarray(plan.match_radix)
-        schema = build_piece_schema(
+        build_kw = dict(
             tokens=tokens, lengths=lengths,
             col_pos=np.asarray(plan.match_pos),
             col_len=np.asarray(plan.match_len),
@@ -879,15 +893,226 @@ def piece_schema_for(plan, ct) -> "PieceSchema | None":
         vl = getattr(plan, "cval_len", None)
         if vb is None:
             vb, vl = np.asarray(ct.val_bytes), np.asarray(ct.val_len)
-        schema = build_piece_schema(
+        build_kw = dict(
             tokens=tokens, lengths=lengths,
             col_pos=pos, col_len=ln, col_opts=opts, col_vstart=vstart,
             val_bytes=np.asarray(vb), val_len=np.asarray(vl),
             kind="suball", sel_slot=slot, sel_bit=sel_bit,
             closed=closed, launched=launched,
         )
+    if cache_dir is None:
+        cache_dir = schema_cache_dir()
+    if cache_dir:
+        key = _schema_cache_key(build_kw)
+        hit, schema = load_piece_schema(cache_dir, key)
+        if not hit:
+            schema = build_piece_schema(**build_kw)
+            save_piece_schema(cache_dir, key, schema)
+            if max_mb is not None:
+                enforce_schema_cache_cap(cache_dir, max_mb)
+    else:
+        schema = build_piece_schema(**build_kw)
     object.__setattr__(plan, "_piece_schema_cache", (ct, schema))
     return schema
+
+
+# ---------------------------------------------------------------------------
+# On-disk PieceSchema cache (the reference's format: one cache directory
+# serves both packages)
+# ---------------------------------------------------------------------------
+
+#: Part of every cache key: bumped on any change to the PieceSchema layout
+#: or the grouping rules, so stale entries are never looked up again.
+#: v2: the pair-lane gate fields.
+SCHEMA_CACHE_VERSION = 2
+
+#: The ``schema_cache.*`` telemetry counters: hits / misses / bytes read /
+#: bytes written / evictions, process-wide.
+_SCHEMA_CACHE_KEYS = (
+    "hits", "misses", "bytes_read", "bytes_written", "evictions",
+)
+
+#: PieceGroup fields serialized into a cache entry's JSON header, in
+#: constructor order.
+_GROUP_FIELDS = ("sel_cols", "n_variants", "n_words", "off_cap", "has_term",
+                 "off_floor", "len_fixed", "packed16", "tab_idx", "gl_idx")
+
+_SCHEMA_ARRAYS = ("gw", "gl", "gw16", "sel_bit", "sel_slot")
+
+
+def schema_cache_stats() -> dict:
+    """The process's schema-cache counters, one int each (the
+    ``schema_cache.*`` telemetry counters): hits / misses / bytes read /
+    bytes written / evictions."""
+    from ..runtime.telemetry import counter
+
+    return {k: int(counter(f"schema_cache.{k}").value)
+            for k in _SCHEMA_CACHE_KEYS}
+
+
+def _count_cache(**deltas: int) -> None:
+    from ..runtime.telemetry import counter
+
+    for key, d in deltas.items():
+        counter(f"schema_cache.{key}").add(int(d))
+
+
+def enforce_schema_cache_cap(cache_dir: str, max_mb: float) -> int:
+    """Evict the oldest-atime ``*.npz`` entries of ``cache_dir`` until
+    their bytes fit ``max_mb`` (a read touches an entry's atime, so
+    recently hit entries stay); returns the entries evicted.  An entry
+    another process removed meanwhile is skipped."""
+    import os
+
+    cap = int(max_mb * (1 << 20))
+    try:
+        names = os.listdir(cache_dir)
+    except OSError:
+        return 0
+    entries = []
+    for name in names:
+        if not name.endswith(".npz"):
+            continue
+        path = os.path.join(cache_dir, name)
+        try:
+            st = os.stat(path)
+        except OSError:  # evicted by another process
+            continue
+        entries.append((st.st_atime, st.st_size, path))
+    total = sum(size for _, size, _ in entries)
+    if total <= cap:
+        return 0
+    evicted = 0
+    for _atime, size, path in sorted(entries):
+        if total <= cap:
+            break
+        try:
+            os.unlink(path)
+        except OSError:  # evicted by another process
+            continue
+        total -= size
+        evicted += 1
+    if evicted:
+        _count_cache(evictions=evicted)
+    return evicted
+
+
+def _schema_cache_key(build_kw: dict) -> str:
+    """SHA-256 of the exact :func:`build_piece_schema` inputs and the
+    format version: dtype, shape and bytes of every array, the kind and
+    closed flags, and the grouping caps — the reference's key, byte for
+    byte, so the packages share cache entries."""
+    import hashlib
+
+    h = hashlib.sha256()
+    h.update(
+        f"a5gen-piece-schema|v{SCHEMA_CACHE_VERSION}"
+        f"|{build_kw['kind']}|{int(bool(build_kw.get('closed')))}"
+        f"|{_MAX_GROUP_BYTES},{_MAX_GROUP_VARIANTS}"
+        f",{_MAX_PIECE_WORDS},{_MAX_COL_VARIANTS}|".encode()
+    )
+    for name in ("tokens", "lengths", "col_pos", "col_len", "col_opts",
+                 "col_vstart", "val_bytes", "val_len", "sel_slot",
+                 "sel_bit", "launched"):
+        arr = build_kw.get(name)
+        if arr is None:
+            h.update(b"|-|")
+            continue
+        arr = np.ascontiguousarray(arr)
+        h.update(f"|{name}:{arr.dtype}:{arr.shape}|".encode())
+        h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+def save_piece_schema(cache_dir: str, key: str,
+                      schema: "PieceSchema | None") -> None:
+    """Write one cache entry through ``checkpoint.atomic_write_bytes``
+    (temporary file, fsync, rename, directory fsync: a reader sees a
+    whole entry or none): the schema's arrays as npz members and a JSON
+    header with its static group structure.  ``None`` (the plan's
+    geometry refuses piece emission) is cached too.  A failed write only
+    means the next run rebuilds."""
+    import io
+    import json
+    import os
+
+    from ..runtime.checkpoint import atomic_write_bytes
+
+    os.makedirs(cache_dir, exist_ok=True)
+    path = os.path.join(cache_dir, f"{key}.npz")
+    if schema is None:
+        header = {"version": SCHEMA_CACHE_VERSION, "schema": None}
+        arrays = {}
+    else:
+        header = {
+            "version": SCHEMA_CACHE_VERSION,
+            "schema": {
+                "kind": schema.kind,
+                "closed": bool(schema.closed),
+                "max_out": int(schema.max_out),
+                "n_cols": int(schema.n_cols),
+                "pair_ok": bool(schema.pair_ok),
+                "pair_g0": int(schema.pair_g0),
+                "pair_dmin": int(schema.pair_dmin),
+                "pair_dmax": int(schema.pair_dmax),
+                "groups": [{f: getattr(g, f) for f in _GROUP_FIELDS}
+                           for g in schema.groups],
+            },
+        }
+        arrays = {name: getattr(schema, name) for name in _SCHEMA_ARRAYS
+                  if getattr(schema, name) is not None}
+    buf = io.BytesIO()
+    np.savez(buf, header=np.frombuffer(json.dumps(header).encode(),
+                                       dtype=np.uint8), **arrays)
+    blob = buf.getvalue()
+    try:
+        atomic_write_bytes(path, blob)
+        _count_cache(bytes_written=len(blob))
+    except OSError:  # a full disk or a racing writer: rebuild next time
+        pass
+
+
+def load_piece_schema(cache_dir: str, key: str
+                      ) -> "Tuple[bool, PieceSchema | None]":
+    """One cache entry: ``(hit, schema)``.  A missing, corrupt or
+    version-mismatched entry is a miss (the caller rebuilds and
+    overwrites it), never an error — a truncated file included, which
+    the reference's reader raises on (``zipfile.BadZipFile``)."""
+    import json
+    import os
+    import zipfile
+
+    path = os.path.join(cache_dir, f"{key}.npz")
+    if not os.path.exists(path):
+        _count_cache(misses=1)
+        return False, None
+    try:
+        nbytes = os.stat(path).st_size
+        with np.load(path, allow_pickle=False) as data:
+            header = json.loads(bytes(data["header"]).decode())
+            if header.get("version") != SCHEMA_CACHE_VERSION:
+                _count_cache(misses=1)
+                return False, None
+            meta = header["schema"]
+            if meta is None:
+                _count_cache(hits=1, bytes_read=nbytes)
+                return True, None
+            groups = tuple(PieceGroup(**{**g, "sel_cols": tuple(
+                g["sel_cols"])}) for g in meta["groups"])
+            arrays = {name: (np.asarray(data[name]) if name in data
+                             else None) for name in _SCHEMA_ARRAYS}
+            _count_cache(hits=1, bytes_read=nbytes)
+            return True, PieceSchema(
+                kind=meta["kind"], groups=groups,
+                closed=bool(meta["closed"]), max_out=int(meta["max_out"]),
+                n_cols=int(meta["n_cols"]), pair_ok=bool(meta["pair_ok"]),
+                pair_g0=int(meta["pair_g0"]),
+                pair_dmin=int(meta["pair_dmin"]),
+                pair_dmax=int(meta["pair_dmax"]), **arrays)
+    except (OSError, KeyError, ValueError, TypeError,
+            zipfile.BadZipFile):
+        _count_cache(misses=1)
+        return False, None
 
 
 # ---------------------------------------------------------------------------

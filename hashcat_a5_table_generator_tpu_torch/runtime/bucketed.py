@@ -183,8 +183,8 @@ class BucketedSweep:
         return merged
 
     def _merge(self, results, t0: float) -> SweepResult:
-        """One result over the buckets: counters sum; superstep and stream
-        stats merge by their ``telemetry`` specs (the stream's sweep-local
+        """One result over the buckets: counters sum; superstep, stream
+        and schema-cache stats merge by their ``telemetry`` specs (the stream's sweep-local
         scalars, such as ``ttfc_s``, are the first bucket's, and its
         overlap ratios are recomputed from the summed terms)."""
         routing: Dict[str, int] = {}
@@ -205,6 +205,8 @@ class BucketedSweep:
             [r.superstep for r in results])
         stream = telemetry.STREAM_MERGE.merge(
             [r.stream for r in results if r.stream])
+        schema_cache = telemetry.SCHEMA_CACHE_MERGE.merge(
+            [r.schema_cache for r in results])
         if stream.get("compile_wall_s", 0) > 0:
             wall = stream["compile_wall_s"]
             over = stream.get("compile_overlap_s", 0.0)
@@ -228,4 +230,5 @@ class BucketedSweep:
             routes=routes,
             xla=xla,
             stream=stream,
+            schema_cache=schema_cache,
         )

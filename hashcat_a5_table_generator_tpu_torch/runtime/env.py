@@ -10,8 +10,11 @@ and the hatches themselves: :func:`pair_enabled` (``A5GEN_PAIR``),
 :func:`superstep_enabled` (``A5GEN_SUPERSTEP``),
 :func:`pipeline_enabled` (``A5GEN_PIPELINE``),
 :func:`stream_enabled` (``A5GEN_STREAM``) and
-:func:`telemetry_enabled` (``A5GEN_TELEMETRY``); and :func:`faults_spec`
-(``A5GEN_FAULTS``, parsed by ``runtime/faults.py``).  ``A5GEN_PALLAS``
+:func:`telemetry_enabled` (``A5GEN_TELEMETRY``); :func:`faults_spec`
+(``A5GEN_FAULTS``, parsed by ``runtime/faults.py``); and the on-disk
+piece-schema cache's :func:`schema_cache_dir` (``A5GEN_SCHEMA_CACHE``)
+and :func:`schema_cache_max_mb` (``A5GEN_SCHEMA_CACHE_MAX_MB``).
+``A5GEN_DCN_TIMEOUT`` is read by ``parallel/multihost.py``.  ``A5GEN_PALLAS``
 keeps its own vocabulary at its call site, as in the reference
 (``ops.fused_expand.enabled_by_env``), and ``A5GEN_CASCADE_CLOSE`` is read
 by ``ops.expand_suball.close_enabled``.  Standard library only.
@@ -137,3 +140,34 @@ def faults_spec() -> "Optional[str]":
     at ``Sweep`` construction, never at import; a malformed spec fails
     loudly there."""
     return read_env("A5GEN_FAULTS") or None
+
+
+def schema_cache_dir() -> "Optional[str]":
+    """On-disk PieceSchema cache directory (``A5GEN_SCHEMA_CACHE``;
+    empty/unset = no persistent cache).  ``SweepConfig.schema_cache`` /
+    ``--schema-cache`` override this per run."""
+    return read_env("A5GEN_SCHEMA_CACHE") or None
+
+
+def schema_cache_max_mb() -> "Optional[float]":
+    """LRU size cap (MB) on the on-disk PieceSchema cache
+    (``A5GEN_SCHEMA_CACHE_MAX_MB``; empty/unset = unbounded).
+    ``SweepConfig.schema_cache_max_mb`` / ``--schema-cache-max-mb``
+    override this per run; an unparseable value warns once and keeps
+    the cache unbounded — a typo must not start evicting."""
+    val = read_env("A5GEN_SCHEMA_CACHE_MAX_MB")
+    if val in (None, ""):
+        return None
+    try:
+        mb = float(val)
+        if mb <= 0:
+            raise ValueError
+    except ValueError:
+        env_warn_once(
+            "A5GEN_SCHEMA_CACHE_MAX_MB", val,
+            f"unrecognized A5GEN_SCHEMA_CACHE_MAX_MB={val!r} (want a "
+            "positive number of megabytes); keeping the cache "
+            "unbounded",
+        )
+        return None
+    return mb

@@ -81,6 +81,20 @@ released.  The cursor, the hits and the checkpoints stay global, so the
 streams and the checkpoints do not depend on the chunking, and a
 checkpoint of either path resumes in the other.
 
+A sweep runs on one or several cursor stripes (``SweepConfig.devices``,
+``parallel.devices``): stripe ``d`` sweeps blocks ``b0 + d * NB`` of
+every launch on its own device (or a device it shares) with the region's
+arrays replicated there; the superstep drive dispatches every stripe on
+its own CUDA stream and buffer sets and, at the consumed fetch, sums the
+stripes' counters and merges their hits in ``(word, rank)`` order; the
+per-launch pipeline cuts one launch a stripe per round on the host;
+candidates mode concatenates the stripes' rows in stripe order.  A giant
+job's shard (``SweepConfig.pod``) owns its stripes of a pod-wide lattice
+(``parallel.multihost.run_crack_giant``).  The cursor and the streams are
+one device's either way.  Piece schemas come from the on-disk cache
+(``SweepConfig.schema_cache``, ``ops.packing.piece_schema_for``) when it
+holds them.
+
 Substitute-all plans route each word three ways, as the reference does:
 device-clean words and cascade-closed words run on the device; words no
 plan splices exactly (``plan.fallback``) take no blocks and are expanded on
@@ -90,8 +104,11 @@ generators of ``oracle.engines``; the same candidates in the same order —
 hashed with ``HOST_DIGEST`` and looked up in the digest list.  Their hits
 carry the oracle's DFS index as rank and interleave in word order: a
 fallback word is flushed before the first device hit of a later word, and
-at each superstep boundary before the boundary's word.  Candidates mode interleaves them the same
-way, at their word position in the stream.
+at each superstep boundary before the boundary's word.  A producer thread
+(:class:`_FallbackPrefetcher`) expands them ahead, in row order, into a
+bounded queue while the device runs; a row counts as flushed
+(``fallback_done``) only once consumed.  Candidates mode interleaves
+them the same way, at their word position in the stream.
 """
 
 from __future__ import annotations
@@ -101,7 +118,8 @@ import sys
 import threading
 import time
 from collections import deque
-from dataclasses import dataclass, field
+from contextlib import nullcontext
+from dataclasses import dataclass, field, replace
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -153,9 +171,11 @@ from ..ops.packing import (
     chunk_bounds,
     pack_words,
     piece_schema_for,
+    schema_cache_stats,
     slice_packed,
 )
 from ..oracle.engines import iter_candidates
+from ..parallel.devices import Stripes, resolve_devices, resolve_stripes
 from ..tables.compile import compile_table
 from ..utils.digests import HOST_DIGEST
 from . import faults, telemetry
@@ -166,7 +186,13 @@ from .checkpoint import (
     save_checkpoint,
     sweep_fingerprint,
 )
-from .env import pipeline_enabled, stream_enabled, superstep_enabled
+from .env import (
+    pipeline_enabled,
+    schema_cache_dir,
+    schema_cache_max_mb,
+    stream_enabled,
+    superstep_enabled,
+)
 from .progress import ProgressReporter
 from .sinks import CandidateWriter, HitRecord, HitRecorder
 
@@ -262,6 +288,25 @@ class SweepConfig:
     #   stream the dictionary in chunks of ops.packing.auto_chunk_words
     #   words when it holds more; 0 / 'off' = compile it whole; N = chunks
     #   of N words (A5GEN_STREAM=off: whole).  The streams are the same
+    schema_cache: Optional[str] = None  # on-disk PieceSchema cache
+    #   directory (None = A5GEN_SCHEMA_CACHE; unset = no cache): repeat
+    #   sweeps of one wordlist x table load their schemas instead of
+    #   building them (ops.packing: the reference's entries)
+    schema_cache_max_mb: Optional[float] = None  # size cap on that
+    #   directory (None = A5GEN_SCHEMA_CACHE_MAX_MB; unset = unbounded):
+    #   after a write, the oldest-atime entries are evicted until it fits
+    devices: "Optional[int | Sequence]" = 1  # cursor stripes of one
+    #   sweep (parallel.devices): N = the first N CUDA devices on cuda,
+    #   N stripes over the CPU on cpu; None = every visible CUDA device;
+    #   or explicit torch devices (stripes may share one).  More CUDA
+    #   devices than are visible raise.  The streams are the same
+    pod: "Optional[Tuple[int, int]]" = None  # a giant job's shard
+    #   (process index, process count): every process sweeps the whole
+    #   dictionary and owns the global stripes index * D .. index * D +
+    #   D - 1 of each launch (D = its devices), so the shards' hit
+    #   streams are a disjoint union equal to one sweep's; the cursor
+    #   stays global (a shard checkpoint resumes unsharded and the other
+    #   way round).  Oracle-fallback words run on shard 0 only
 
     def resolve(self, dev: torch.device) -> "tuple[int, int, int]":
         """``(lanes, num_blocks, steps)`` for a device: the port's default
@@ -338,6 +383,11 @@ class SweepResult:
     #: overlap_ratio / steady_overlap_ratio / ttfc_s /
     #: peak_resident_plan_bytes / chunk_bytes_max
     stream: Dict[str, float] = field(default_factory=dict)
+    #: a crack run's share of the process's on-disk schema-cache activity
+    #: (``ops.packing.schema_cache_stats``: hits / misses / bytes_read /
+    #: bytes_written / evictions, nonzero deltas only; empty without a
+    #: cache), as the reference reports it
+    schema_cache: Dict[str, int] = field(default_factory=dict)
 
 
 class _Fetch:
@@ -420,7 +470,9 @@ class Sweep:
         #: one span per consumed fetch (``--metrics-json`` reads it)
         self.timeline = telemetry.SpanTimeline()
         self._fingerprint: Optional[str] = None
-        self._shared: Dict[str, torch.Tensor] = {}
+        #: per device: the table values and digest set every region reads
+        self._shared: Dict[torch.device, Dict[str, torch.Tensor]] = {}
+        self._digest_set = None
         self._ttfc: Optional[float] = None
         self._pair_warned = False
         self._stream_lock = threading.Lock()
@@ -456,6 +508,23 @@ class Sweep:
         if set_routing is not None:
             set_routing(self.routing)
         self.device_words = self.n_words > len(self.fallback_rows)
+        if self.config.pod is not None:
+            pidx, pcnt = (int(x) for x in self.config.pod)
+            if pcnt < 1 or not 0 <= pidx < pcnt:
+                raise ValueError(
+                    f"SweepConfig.pod must be (index, count) with "
+                    f"0 <= index < count, got {self.config.pod!r}")
+            self.config = replace(self.config, pod=(pidx, pcnt))
+            # The oracle's whole-word host work is not repeated on every
+            # shard: shard 0 expands the fallback words.  The routing
+            # counts stay global; another shard's checkpoint leaves
+            # fallback_done at 0, so an unsharded resume of it expands
+            # them itself.
+            if pidx != 0:
+                self.fallback_rows = []
+        #: the cursor stripes (parallel.devices), resolved at the first
+        #: run: too many devices raise there, before any launch
+        self._stripes: Optional[Stripes] = None
         # The whole path's route, found before any launch: a fused kernel
         # where the reference's gate takes the plan (the piece kernel with
         # a per-slot schema the kernel's descriptors hold, else the
@@ -547,7 +616,9 @@ class Sweep:
         if np.asarray(plan.fallback, bool).all():
             return r
         t0 = time.monotonic()
-        r.pieces = piece_schema_for(plan, self.ct)
+        r.pieces = piece_schema_for(plan, self.ct,
+                                    cache_dir=self._schema_cache_dir(),
+                                    max_mb=self._schema_cache_max_mb())
         r.schema_s = time.monotonic() - t0
         if (self.config.packed_layout(self.device)
                 or opts_for(self.spec, plan, self.ct) is None):
@@ -560,6 +631,24 @@ class Sweep:
         else:
             r.route = "piece"
         return r
+
+    def _schema_cache_dir(self) -> Optional[str]:
+        return self.config.schema_cache or schema_cache_dir()
+
+    def _schema_cache_max_mb(self) -> Optional[float]:
+        if self.config.schema_cache_max_mb is not None:
+            return self.config.schema_cache_max_mb
+        return schema_cache_max_mb()
+
+    def stripes(self) -> Stripes:
+        """This run's cursor stripes (``SweepConfig.devices`` and
+        ``pod``); a device count the machine does not have raises."""
+        if self._stripes is None:
+            devs = resolve_devices(self.config.devices, self.device)
+            if devs[0] != self.device:
+                self.device = devs[0]
+            self._stripes = resolve_stripes(devs, self.config.pod)
+        return self._stripes
 
     def per_launch(self, rank_stride: int, plan=None) -> bool:
         """Whether a plan (the sweep's whole plan by default) takes the
@@ -582,13 +671,14 @@ class Sweep:
         unless its index passes ``ops.blocks.SPLIT_BLOCKS``."""
         return word_ranges(self.plan if plan is None else plan, rank_stride)
 
-    def _index_range(self, arrays: dict, plan, rank_stride: int,
+    def _index_range(self, arrs: List[dict], plan, rank_stride: int,
                      words: tuple):
-        """Point ``arrays`` at the block index of word range ``words``
-        (one sub-sweep); returns that index."""
+        """Point each stripe's ``arrays`` at the block index of word range
+        ``words`` (one sub-sweep); returns that index."""
         idx = superstep_index(plan, rank_stride, words)
-        arrays["cum"] = torch.as_tensor(idx[0], device=self.device)
-        arrays["total"] = idx[2]
+        for a in _distinct(arrs):
+            a["cum"] = torch.as_tensor(idx[0], device=a["totals"].device)
+            a["total"] = idx[2]
         return idx
 
     # ------------------------------------------------------------------
@@ -667,7 +757,7 @@ class Sweep:
             "superstep": cfg.superstep, "pair": cfg.pair,
             "device_kind": (torch.cuda.get_device_name(dev)
                             if dev.type == "cuda" else "cpu"),
-            "pod": None,
+            "pod": list(cfg.pod) if cfg.pod is not None else None,
         }, "explicit" if cfg.lanes else "default")
 
     @staticmethod
@@ -802,19 +892,23 @@ class Sweep:
     # Launch set-up (the whole path's, or one chunk's on the worker)
     # ------------------------------------------------------------------
 
-    def _shared_arrays(self, crack: bool) -> Dict[str, torch.Tensor]:
-        """What a sweep uploads once for all its regions: the table's
-        values (``val_bytes``, ``val_len``) and, in crack mode, the digest
-        set (``rows``, ``bitmap``); built on first use, on the caller's
-        thread."""
-        dev, shared = self.device, self._shared
+    def _shared_arrays(self, crack: bool, dev: torch.device
+                       ) -> Dict[str, torch.Tensor]:
+        """What a sweep uploads once for all its regions, on each device
+        of its stripes: the table's values (``val_bytes``, ``val_len``)
+        and, in crack mode, the digest set (``rows``, ``bitmap``); built
+        on first use, on the caller's thread."""
+        shared = self._shared.setdefault(dev, {})
         if not shared:
             shared["val_bytes"] = torch.as_tensor(
                 np.ascontiguousarray(self.ct.val_bytes), device=dev)
             shared["val_len"] = torch.as_tensor(_i32(self.ct.val_len),
                                                 device=dev)
         if crack and "rows" not in shared:
-            ds = build_digest_set(self.digests, self.spec.algo)
+            if self._digest_set is None:
+                self._digest_set = build_digest_set(self.digests,
+                                                    self.spec.algo)
+            ds = self._digest_set
             shared["rows"] = torch.as_tensor(_i32(ds.rows), device=dev)
             shared["bitmap"] = torch.as_tensor(_i32(ds.bitmap), device=dev)
         return shared
@@ -894,13 +988,18 @@ class Sweep:
         else:
             arrays = device_arrays(plan, r.pieces, None, idx, device=target,
                                    ct=self.ct, bytescan=r.bytescan)
-        shared = self._shared_arrays(crack)
+        shared = self._shared_arrays(crack, dev)
         if getattr(plan, "cval_bytes", None) is None:
             for k in ("val_bytes", "val_len"):
                 if k in arrays:
                     arrays[k] = shared[k]
         own = {k: v for k, v in arrays.items()
                if torch.is_tensor(v) and v is not shared.get(k)}
+        # The stripes on other devices get their own copies (tensors as
+        # built, before any upload below, and those devices' shared sets).
+        devs = self.stripes().distinct()
+        copies = {d: {k: v.to(d) for k, v in own.items()}
+                  for d in devs[1:]}
         ready = None
         if upload and dev.type == "cuda":
             side = torch.cuda.Stream(device=dev)
@@ -913,6 +1012,12 @@ class Sweep:
             arrays.update(own)
         if crack:
             arrays.update(rows=shared["rows"], bitmap=shared["bitmap"])
+        per_dev = {dev: arrays}
+        for d, own_d in copies.items():
+            shared_d = self._shared_arrays(crack, d)
+            per_dev[d] = {**arrays, **own_d, **{
+                k: shared_d[k] for k, v in arrays.items()
+                if torch.is_tensor(v) and v is shared.get(k)}}
         decode, pack_cb = decode_for(plan)
         kw = dict(num_lanes=lanes, out_width=int(plan.out_width),
                   block_stride=stride, pieces=r.pieces,
@@ -930,10 +1035,11 @@ class Sweep:
             tier = "expand"
         return dict(lanes=lanes, nb=nb, stride=stride, steps=steps,
                     pair_k=pair_k, rank_stride=rank_stride,
-                    per_launch=per_launch, ranges=ranges, arrays=arrays,
+                    per_launch=per_launch, ranges=ranges,
+                    arrays=[per_dev[d] for d in self.stripes().devices],
                     kw=kw, tier=tier, xla_geom=xla_geom, ready=ready,
-                    nbytes=sum(v.numel() * v.element_size()
-                               for v in own.values()))
+                    nbytes=len(per_dev) * sum(v.numel() * v.element_size()
+                                              for v in own.values()))
 
     # ------------------------------------------------------------------
     # Crack mode
@@ -948,6 +1054,7 @@ class Sweep:
         t0 = time.monotonic()
         cfg = self.config
         recorder = recorder if recorder is not None else HitRecorder()
+        sc0 = schema_cache_stats()
         state = self._load_state(resume)
         self._start(state, crack=True)
         self._replay_hits(state, recorder)
@@ -964,6 +1071,7 @@ class Sweep:
                 device = self._run_device("crack", state, flush, drive)
             flush.until(self.n_words)
         finally:
+            flush.close()
             state.wall_s += time.monotonic() - t0
         state.cursor = SweepCursor(word=self.n_words, rank=0)
         self._maybe_checkpoint(state, last_ckpt, force=True)
@@ -977,6 +1085,7 @@ class Sweep:
             words_done=self.n_words,
             wall_s=time.monotonic() - t0 + self._schema_s,
             routing=dict(self.routing),
+            schema_cache=_stats_delta(sc0, schema_cache_stats()),
             **device,
         )
 
@@ -986,7 +1095,9 @@ class Sweep:
         path's one region, or the chunk ring; returns the result's drive
         fields (the regions' own merged by :func:`_merge_parts`)."""
         self.config.resolve_block_stride(self.device)  # an explicit
-        #   stride that does not divide raises before any launch
+        #   stride that does not divide raises before any launch, and so
+        #   does a device count the machine does not have
+        self.stripes()
         if self._stream is not None:
             return self._run_stream(kind, state, flush, drive)
         r = self._whole
@@ -1008,12 +1119,12 @@ class Sweep:
         superstep stats, kernel launches, route and XLA geometry."""
         spec, plan = self.spec, r.plan
         lanes, nb, pair_k = s["lanes"], s["nb"], s["pair_k"]
-        rank_stride, arrays = s["rank_stride"], s["arrays"]
+        rank_stride, arrs = s["rank_stride"], s["arrays"]
         self._set_geometry(lanes, nb, s["stride"])
         w, rank = start
         if s["per_launch"]:
             stats = self._drive_per_launch(
-                r, make_crack_step(spec, **s["kw"]), arrays, lanes, nb,
+                r, make_crack_step(spec, **s["kw"]), arrs, lanes, nb,
                 s["stride"], recorder, flush, state, last_ckpt, start)
             steps = 1
         else:
@@ -1021,7 +1132,9 @@ class Sweep:
             # lane emitting cannot reach 2^31.
             steps = max(1, min(s["steps"], ((1 << 31) - 1)
                                // (lanes * (pair_k or 1))))
-            body = make_superstep_body(spec, **s["kw"])
+            # Each step of a stripe advances past every stripe's blocks.
+            body = make_superstep_body(
+                spec, step_advance=nb * self.stripes().total, **s["kw"])
             stats = {"supersteps": 0, "launches": 0, "replays": 0,
                      "retries": 0}
             for lo, hi in s["ranges"]:
@@ -1030,12 +1143,12 @@ class Sweep:
                 # before the cursor are done.
                 if hi <= w:
                     continue
-                cum = self._index_range(arrays, plan, rank_stride,
+                cum = self._index_range(arrs, plan, rank_stride,
                                         (lo, hi))[0]
                 b_start = (self._start_block(plan, cum, rank_stride, w, rank)
                            if lo <= w else 0)
                 part = self._drive(
-                    r, body, arrays, nb, steps, recorder, flush, state,
+                    r, body, arrs, nb, steps, recorder, flush, state,
                     last_ckpt, b_start,
                     lambda b, cum=cum, hi=hi: _clip(
                         block_cursor(plan, rank_stride, cum, b), hi))
@@ -1064,6 +1177,9 @@ class Sweep:
         the last checkpoint repeat."""
         t0 = time.monotonic()
         cfg = self.config
+        if cfg.pod is not None:
+            raise ValueError("SweepConfig.pod (the giant job) shards crack "
+                             "sweeps only")
         state = self._load_state(resume)
         self._start(state, crack=False)
         last_ckpt = [t0]
@@ -1087,6 +1203,7 @@ class Sweep:
                 device = self._run_device("candidates", state, flush, drive)
             flush.until(self.n_words)
         finally:
+            flush.close()
             state.wall_s += time.monotonic() - t0
         state.cursor = SweepCursor(word=self.n_words, rank=0)
         self._maybe_checkpoint(state, last_ckpt, force=True,
@@ -1108,47 +1225,54 @@ class Sweep:
                            start: "Tuple[int, int]") -> dict:
         """One region's candidates drive from its plan-local cursor
         ``start`` (:meth:`_setup`'s ``s``): each launch's emitted rows
-        written in row order, the fallback words inside its word range
-        between the rows of the words around them."""
+        written in row order (several stripes: their rows concatenated in
+        stripe order, which is cursor order), the fallback words inside
+        its word range between the rows of the words around them."""
         spec, cfg, plan = self.spec, self.config, r.plan
         lanes, nb, stride = s["lanes"], s["nb"], s["stride"]
-        arrays, kw = s["arrays"], s["kw"]
+        arrs, kw = s["arrays"], s["kw"]
         self._set_geometry(lanes, nb, stride)
         w, rank = start
 
         def launches():
-            """Each launch's emitted rows and the plan-local cursor it
-            leaves: blocks cut on the host (per-launch pipeline) or on the
+            """Each launch's emitted rows, one ``(cand, cand_len,
+            word_row)`` per stripe, and the plan-local cursor it leaves:
+            blocks cut on the host (per-launch pipeline) or on the
             device, one word range after the other."""
             if s["per_launch"]:
                 step = make_candidates_step(spec, **kw)
-                for _batch, blocks, w2, r2 in self._host_cuts(
+                for parts, w2, r2 in self._host_rounds(
                         plan, lanes, nb, stride, step.decode, start):
-                    yield self._dispatch(
-                        lambda: step(arrays, *blocks)), (w2, r2)
+                    yield self._dispatch(lambda: [
+                        step(arrs[i], *blocks)
+                        for i, _batch, blocks in parts]), (w2, r2)
                 return
             body = make_candidates_body(spec, num_blocks=nb, **kw)
+            n = len(arrs)
             for w_lo, w_hi in s["ranges"]:
                 # One sub-sweep per word range, in word order.
                 if w_hi <= w:
                     continue
-                cum = self._index_range(arrays, plan, stride,
+                cum = self._index_range(arrs, plan, stride,
                                         (w_lo, w_hi))[0]
-                total = arrays["total"]
+                total = arrs[0]["total"]
                 b_start = (self._start_block(plan, cum, stride, w, rank)
                            if w_lo <= w else 0)
-                for b0 in range(b_start, total, nb):
-                    yield self._dispatch(
-                        lambda: body(arrays, b0)), _clip(
+                for b0 in range(b_start, total, nb * n):
+                    yield self._dispatch(lambda: [
+                        body(arrs[i], b0 + i * nb) for i in range(n)
+                        if b0 + i * nb < total]), _clip(
                         block_cursor(plan, stride, cum,
-                                     min(b0 + nb, total)), w_hi)
+                                     min(b0 + nb * n, total)), w_hi)
 
         n_launches = 0
         rows = self.fallback_rows
-        for out, (w_end, r_end) in launches():
-            cand, clen, wrow = (t.cpu().numpy() for t in out)
+        for outs, (w_end, r_end) in launches():
+            cand, clen, wrow = (
+                np.concatenate([o[j].cpu().numpy() for o in outs])
+                for j in range(3))
             self._note_fetch()
-            n_launches += 1
+            n_launches += len(outs)
             w_end += r.lo
             lo = 0
             # Fallback words inside this launch's word range go between
@@ -1163,7 +1287,7 @@ class Sweep:
             state.n_emitted += _write_rows(writer, cand, clen, lo, len(clen))
             flush.until(w_end)
             state.cursor = SweepCursor(w_end, r_end)
-            self.timeline.record_fetch(kind="launch", launches=1)
+            self.timeline.record_fetch(kind="launch", launches=len(outs))
             self._maybe_checkpoint(state, last_ckpt,
                                    before_save=writer.flush)
             if cfg.progress:
@@ -1237,7 +1361,8 @@ class Sweep:
             self._stream_resident = self._stream_peak = self._chunk_max = 0
         if start_ci >= len(bounds):
             return {"stream": stream}
-        self._shared_arrays(kind == "crack")  # once, on the drive's thread
+        for dev in self.stripes().distinct():  # once, on the drive's thread
+            self._shared_arrays(kind == "crack", dev)
         self._drive_stream = (torch.cuda.current_stream(self.device)
                               if self.device.type == "cuda" else None)
         compiler = ChunkCompiler(
@@ -1292,154 +1417,207 @@ class Sweep:
     # The drives
     # ------------------------------------------------------------------
 
-    def _drive(self, r: _Region, body, arrays, nb: int, steps: int,
-               recorder, flush, state: CheckpointState,
+    def _drive(self, r: _Region, body, arrs: List[dict], nb: int,
+               steps: int, recorder, flush, state: CheckpointState,
                last_ckpt: List[float], b_start: int, cursor_at) -> dict:
         """The double-buffered superstep loop over region ``r`` from block
-        ``b_start``; returns its stats.  At each consumed (lagged)
-        boundary: the superstep's hits (re-run first when they overflowed
-        the buffer), ``flush`` to the boundary's word, the state's cursor
+        ``b_start``; returns its stats.  Each superstep runs every stripe
+        of :meth:`stripes` (stripe ``i`` from block ``b0 + (offset + i) *
+        nb``, on its own CUDA stream with its own buffer sets; one stripe
+        runs on the current stream).  At each consumed (lagged) boundary:
+        the stripes' counters summed, their hits (a stripe's re-run first
+        when they overflowed its buffer) merged in ``(word, rank)``
+        order, ``flush`` to the boundary's word, the state's cursor
         (``cursor_at(end block)``, plan-local) and counts, a span, the
         checkpoint and progress.  A transient error at dispatch or fetch
         drops the in-flight supersteps, rebuilds the buffer sets and
         re-dispatches from the last consumed boundary."""
-        cfg, dev = self.config, self.device
-        total = arrays["total"]
+        cfg = self.config
+        st = self.stripes()
+        streams = st.streams()
+        total = arrs[0]["total"]
         hit_cap = int(cfg.superstep_hit_cap)
+        span = nb * st.total  # the blocks one step of every stripe covers
         # A5GEN_PIPELINE=off: one superstep in flight, its fetch waited on
         # before the next dispatch.
         depth = _DEPTH if pipeline_enabled() else 1
 
         def buffer_sets() -> list:
-            return [(superstep_buffers(hit_cap, device=dev),
-                     _Fetch(hit_cap, dev)) for _ in range(depth)]
+            out = []
+            for _ in range(depth):
+                sets = []
+                for dev, strm in zip(st.devices, streams):
+                    with _on(strm):
+                        sets.append((superstep_buffers(hit_cap, device=dev),
+                                     _Fetch(hit_cap, dev)))
+                out.append(sets)
+            return out
 
+        def stripe_b0(b0: int, i: int) -> int:
+            return b0 + (st.offset + i) * nb
+
+        _join_streams(streams, into_stripes=True)
         free = buffer_sets()
         inflight: deque = deque()
         stats = {"supersteps": 0, "launches": 0, "replays": 0, "retries": 0}
         b0 = consumed = b_start
         attempts = 0
-        while b0 < total or inflight:
-            try:
-                while b0 < total and len(inflight) < depth:
+        try:
+            while b0 < total or inflight:
+                try:
+                    while b0 < total and len(inflight) < depth:
+                        if faults.ACTIVE is not None:
+                            faults.ACTIVE.fire("superstep.dispatch")
+                        # The tail superstep runs only the steps it needs.
+                        n_steps = min(steps, -(-(total - b0) // span))
+                        sets = free.pop()
+                        for i, ((bufs, fetch), strm) in enumerate(
+                                zip(sets, streams)):
+                            with _on(strm):
+                                fetch.start(body(arrs[i], stripe_b0(b0, i),
+                                                 n_steps, bufs))
+                        inflight.append((b0, n_steps, sets,
+                                         time.monotonic()))
+                        b0 += n_steps * span
+                    sb0, n_steps, sets, disp_t = inflight.popleft()
                     if faults.ACTIVE is not None:
-                        faults.ACTIVE.fire("superstep.dispatch")
-                    # The tail superstep runs only the launches it needs.
-                    n_steps = min(steps, -(-(total - b0) // nb))
-                    bufs, fetch = free.pop()
-                    fetch.start(body(arrays, b0, n_steps, bufs))
-                    inflight.append((b0, n_steps, bufs, fetch,
-                                     time.monotonic()))
-                    b0 += n_steps * nb
-                sb0, n_steps, bufs, fetch, disp_t = inflight.popleft()
-                if faults.ACTIVE is not None:
-                    faults.ACTIVE.fire("superstep.fetch")
-                ne, nh = fetch.wait(cfg.fetch_timeout_s)
-            except Exception as exc:  # noqa: BLE001 — typed check inside
-                self._retry_backoff(exc, attempts)
-                attempts += 1
-                stats["retries"] += 1
-                inflight.clear()
-                free = buffer_sets()
-                b0 = consumed
-                continue
-            attempts = 0
-            self._note_fetch()
-            end = min(sb0 + n_steps * nb, total)
-            consumed = end
-            hits_src = fetch.host
-            replayed = nh > hit_cap
-            if replayed:
-                # Overflow: the capped buffer dropped entries.  Re-run the
-                # same blocks into a buffer that holds them all (the
-                # superstep is a pure function of its cursor), before the
-                # boundary is checkpointed.
-                stats["replays"] += 1
-                big = superstep_buffers(nh, device=dev)
-                replay = body(arrays, sb0, n_steps, big)
-                hits_src = {k: v.cpu() for k, v in replay.items()}
-                if int(hits_src["counters"][1]) != nh:
-                    raise RuntimeError("superstep replay disagrees with "
-                                       "its first run")
-            if nh:
-                hw = hits_src["hit_word"][:nh].tolist()
-                hr = hits_src["hit_rank"][:nh].tolist()
-                for w_row, rank in sorted(zip(hw, hr)):
+                        faults.ACTIVE.fire("superstep.fetch")
+                    counts = [fetch.wait(cfg.fetch_timeout_s)
+                              for _bufs, fetch in sets]
+                except Exception as exc:  # noqa: BLE001 — typed inside
+                    self._retry_backoff(exc, attempts)
+                    attempts += 1
+                    stats["retries"] += 1
+                    inflight.clear()
+                    free = buffer_sets()
+                    b0 = consumed
+                    flush.restart()
+                    continue
+                attempts = 0
+                self._note_fetch()
+                end = min(sb0 + n_steps * span, total)
+                consumed = end
+                ne = sum(c[0] for c in counts)
+                nh = sum(c[1] for c in counts)
+                entries: List[Tuple[int, int]] = []
+                replayed = False
+                for i, ((_bufs, fetch), (_ne, nh_i)) in enumerate(
+                        zip(sets, counts)):
+                    src = fetch.host
+                    if nh_i > hit_cap:
+                        # Overflow: the capped buffer dropped entries.
+                        # Re-run the stripe's blocks into a buffer that
+                        # holds them all (a pure function of its cursor),
+                        # before the boundary is checkpointed.
+                        replayed = True
+                        with _on(streams[i]):
+                            big = superstep_buffers(nh_i,
+                                                    device=st.devices[i])
+                            src = {k: v.cpu() for k, v in body(
+                                arrs[i], stripe_b0(sb0, i), n_steps,
+                                big).items()}
+                        if int(src["counters"][1]) != nh_i:
+                            raise RuntimeError("superstep replay disagrees "
+                                               "with its first run")
+                    if nh_i:
+                        entries.extend(zip(src["hit_word"][:nh_i].tolist(),
+                                           src["hit_rank"][:nh_i].tolist()))
+                stats["replays"] += int(replayed)
+                # Stripes interleave by step: (word, rank) is cursor order.
+                for w_row, rank in sorted(entries):
                     flush.until(r.lo + int(w_row))
                     self._device_hit(r, int(w_row), int(rank), recorder,
                                      state)
-            w_end, r_end = cursor_at(end)
-            w_end += r.lo
-            flush.until(w_end)
-            state.n_emitted += ne
-            state.cursor = SweepCursor(w_end, r_end)
-            stats["supersteps"] += 1
-            stats["launches"] += n_steps
-            free.append((bufs, fetch))
-            with telemetry.profiler_span("a5.superstep.consume"):
-                self.timeline.record_fetch(
-                    kind="superstep", index=stats["supersteps"],
-                    dispatched_at=disp_t, inflight=len(inflight),
-                    launches=n_steps, emitted=ne, hits=nh,
-                    hit_occupancy=min(nh, hit_cap) / max(hit_cap, 1),
-                    replayed=replayed,
-                )
-            self._maybe_checkpoint(state, last_ckpt)
-            if cfg.progress:
-                cfg.progress.update(words_done=w_end,
-                                    emitted=state.n_emitted,
-                                    hits=state.n_hits)
+                w_end, r_end = cursor_at(end)
+                w_end += r.lo
+                flush.until(w_end)
+                state.n_emitted += ne
+                state.cursor = SweepCursor(w_end, r_end)
+                stats["supersteps"] += 1
+                stats["launches"] += n_steps * st.n
+                free.append(sets)
+                with telemetry.profiler_span("a5.superstep.consume"):
+                    self.timeline.record_fetch(
+                        kind="superstep", index=stats["supersteps"],
+                        dispatched_at=disp_t, inflight=len(inflight),
+                        launches=n_steps * st.n, emitted=ne, hits=nh,
+                        hit_occupancy=max(min(c[1], hit_cap)
+                                          for c in counts) / max(hit_cap, 1),
+                        replayed=replayed,
+                    )
+                self._maybe_checkpoint(state, last_ckpt)
+                if cfg.progress:
+                    cfg.progress.update(words_done=w_end,
+                                        emitted=state.n_emitted,
+                                        hits=state.n_hits)
+        finally:
+            _join_streams(streams, into_stripes=False)
         return stats
 
-    def _host_cuts(self, plan, lanes: int, nb: int, stride: Optional[int],
-                   decode: str, start: "Tuple[int, int]"):
-        """The per-launch pipeline's launches over ``plan`` from its
-        plan-local cursor ``start``, in cursor order: each launch's blocks
-        cut on the host (``ops.blocks.make_blocks``, Python-int cursors;
-        ``stride`` None packs them back to back, the variable-offset
-        layout) — ``(batch, (word, count, base[, offset]), next word, next
-        rank)``, the tensors on the sweep's device as ``decode`` takes
-        them (``models.attack.host_blocks``)."""
+    def _host_rounds(self, plan, lanes: int, nb: int, stride: Optional[int],
+                     decode: str, start: "Tuple[int, int]"):
+        """The per-launch pipeline's launch rounds over ``plan`` from its
+        plan-local cursor ``start``, in cursor order: each round cuts one
+        launch of blocks on the host for every global stripe
+        (``ops.blocks.make_blocks``, Python-int cursors, consecutive
+        ranges; ``stride`` None packs them back to back, the
+        variable-offset layout) and yields ``(parts, next word, next
+        rank)``, ``parts`` this process's non-empty stripes as ``(stripe,
+        batch, (word, count, base[, offset]))``, the tensors on the
+        stripe's device as ``decode`` takes them
+        (``models.attack.host_blocks``)."""
+        st = self.stripes()
         weight = scalar_units_weight(plan)
         w, rank = start
         while True:
-            batch, w, rank = make_blocks(
-                plan, start_word=w, start_rank=rank, max_variants=lanes,
-                max_blocks=nb, fixed_stride=stride)
-            if batch.total == 0:
-                return
-            yield batch, host_blocks(batch, nb, decode, weight,
-                                     device=self.device,
-                                     packed=stride is None), w, rank
+            parts = []
+            for g in range(st.total):
+                batch, w, rank = make_blocks(
+                    plan, start_word=w, start_rank=rank, max_variants=lanes,
+                    max_blocks=nb, fixed_stride=stride)
+                if batch.total == 0:
+                    if g == 0:
+                        return
+                    break
+                if st.owned(g):
+                    i = g - st.offset
+                    parts.append((i, batch, host_blocks(
+                        batch, nb, decode, weight, device=st.devices[i],
+                        packed=stride is None)))
+            yield parts, w, rank
 
-    def _launch_stream(self, plan, step, arrays, lanes: int, nb: int,
-                       stride: Optional[int], start: "Tuple[int, int]"):
-        """The per-launch pipeline's dispatched launches from ``start``:
-        ``((batch, out, cursor after it), launches still in flight)``, the
-        next launch dispatched before one is handed on."""
+    def _launch_stream(self, plan, step, arrs: List[dict], lanes: int,
+                       nb: int, stride: Optional[int],
+                       start: "Tuple[int, int]"):
+        """The per-launch pipeline's dispatched rounds from ``start``:
+        ``(([(batch, out), ...], cursor after it), rounds still in
+        flight)``, the next round dispatched before one is handed on."""
         pending: deque = deque()
-        for batch, blocks, w2, r2 in self._host_cuts(plan, lanes, nb, stride,
-                                                    step.decode, start):
+        for parts, w2, r2 in self._host_rounds(plan, lanes, nb, stride,
+                                               step.decode, start):
             # No retry here: the drive's re-cut loop is the only
             # supervisor of the per-launch pipeline.
             if faults.ACTIVE is not None:
                 faults.ACTIVE.fire("superstep.dispatch")
-            out = step(arrays, *blocks)
-            pending.append((batch, out, (w2, r2)))
+            outs = [(batch, step(arrs[i], *blocks))
+                    for i, batch, blocks in parts]
+            pending.append((outs, (w2, r2)))
             if len(pending) >= _DEPTH:
                 yield pending.popleft(), len(pending)
         while pending:
             yield pending.popleft(), len(pending)
 
-    def _drive_per_launch(self, r: _Region, step, arrays, lanes: int,
-                          nb: int, stride: Optional[int], recorder, flush,
-                          state: CheckpointState, last_ckpt: List[float],
+    def _drive_per_launch(self, r: _Region, step, arrs: List[dict],
+                          lanes: int, nb: int, stride: Optional[int],
+                          recorder, flush, state: CheckpointState,
+                          last_ckpt: List[float],
                           start: "Tuple[int, int]") -> dict:
         """The per-launch pipeline's crack drive over region ``r`` from
-        its plan-local cursor ``start``: each launch of :meth:`_host_cuts`
-        run by ``step`` (``models.attack.make_crack_step``), the next
-        dispatched before one is consumed.  Launches are consumed in
-        chunks (the reference's ``fetch_chunk``: 1 launch, doubling while
+        its plan-local cursor ``start``: each round of
+        :meth:`_host_rounds` run by ``step``
+        (``models.attack.make_crack_step``) on its stripes, the next
+        dispatched before one is consumed.  Rounds are consumed in
+        chunks (the reference's ``fetch_chunk``: 1 round, doubling while
         a chunk takes under 1 s, halving past 4 s): one fetch of the
         chunk's counters, then the hit lanes of the launches with hits,
         mapped to ``(word, rank)`` through ``ops.blocks.lane_cursor``.
@@ -1447,7 +1625,7 @@ class Sweep:
         and, at the chunk's end, those before its cursor; then the state,
         a span, the checkpoint and progress.  A transient error re-cuts
         from the last consumed cursor."""
-        cfg, plan = self.config, r.plan
+        cfg, plan, dev = self.config, r.plan, self.device
         stats = {"supersteps": 0, "launches": 0, "replays": 0, "retries": 0}
         chunk_cap = max(1, min(int(cfg.fetch_chunk),
                                ((1 << 31) - 1) // lanes))
@@ -1457,31 +1635,34 @@ class Sweep:
         def drain(chunk, inflight: int) -> "Tuple[int, int]":
             if faults.ACTIVE is not None:
                 faults.ACTIVE.fire("superstep.fetch")
-            counts = torch.stack([out["counters"] for _b, out, _c in chunk])
-            if self.device.type == "cuda" and cfg.fetch_timeout_s:
+            launched = [item for outs, _c in chunk for item in outs]
+            counts = (torch.stack([out["counters"].to(dev)
+                                   for _b, out in launched])
+                      if launched else None)
+            if dev.type == "cuda" and cfg.fetch_timeout_s:
                 ready = torch.cuda.Event()
                 ready.record()
                 faults.await_ready(ready, cfg.fetch_timeout_s)
-            counts = counts.tolist()
+            counts = counts.tolist() if counts is not None else []
             self._note_fetch()
             hit_lanes = [
                 torch.nonzero(out["hit"]).flatten().tolist() if nh else []
-                for (_b, out, _c), (_ne, nh) in zip(chunk, counts)
+                for (_b, out), (_ne, nh) in zip(launched, counts)
             ]
             # Everything is on the host: the state moves only now, so a
             # retry from the last consumed cursor counts nothing twice.
-            for (batch, _out, _c), lanes_hit in zip(chunk, hit_lanes):
+            for (batch, _out), lanes_hit in zip(launched, hit_lanes):
                 for w_row, rank in lane_cursor(plan, batch, lanes_hit):
                     flush.until(r.lo + w_row)
                     self._device_hit(r, w_row, rank, recorder, state)
-            w_end, r_end = chunk[-1][2]
+            w_end, r_end = chunk[-1][1]
             flush.until(r.lo + w_end)
             ne = sum(c[0] for c in counts)
             state.n_emitted += ne
             state.cursor = SweepCursor(r.lo + w_end, r_end)
-            stats["launches"] += len(chunk)
+            stats["launches"] += len(launched)
             self.timeline.record_fetch(
-                kind="drain", launches=len(chunk), emitted=ne,
+                kind="drain", launches=len(launched), emitted=ne,
                 hits=sum(c[1] for c in counts), inflight=inflight)
             self._maybe_checkpoint(state, last_ckpt)
             if cfg.progress:
@@ -1496,7 +1677,7 @@ class Sweep:
             chunk: list = []
             try:
                 for item, inflight in self._launch_stream(
-                        plan, step, arrays, lanes, nb, stride, cursor):
+                        plan, step, arrs, lanes, nb, stride, cursor):
                     chunk.append(item)
                     if len(chunk) < chunk_len:
                         continue
@@ -1518,6 +1699,7 @@ class Sweep:
                 self._retry_backoff(exc, attempts)
                 attempts += 1
                 stats["retries"] += 1
+                flush.restart()
         stats["per_launch"] = stats["launches"]
         return stats
 
@@ -1634,6 +1816,45 @@ def _merge_parts(parts: List[dict]) -> dict:
     return out
 
 
+def _stats_delta(before: Dict[str, int], after: Dict[str, int]
+                 ) -> Dict[str, int]:
+    """Nonzero counter deltas between two stats snapshots (a run's share
+    of the process-wide schema-cache activity)."""
+    return {k: after[k] - before.get(k, 0) for k in after
+            if after[k] - before.get(k, 0)}
+
+
+def _distinct(arrs: List[dict]) -> List[dict]:
+    """The stripes' array dicts, each once (stripes on one device share
+    theirs)."""
+    out: List[dict] = []
+    for a in arrs:
+        if not any(a is b for b in out):
+            out.append(a)
+    return out
+
+
+def _on(stream):
+    """Run on a stripe's CUDA stream (None: the current stream)."""
+    return nullcontext() if stream is None else torch.cuda.stream(stream)
+
+
+def _join_streams(streams, *, into_stripes: bool) -> None:
+    """Order the stripes' streams after the current streams of their
+    devices (``into_stripes``: before a drive, so its launches see the
+    arrays uploaded there), or the current streams after the stripes'
+    (after it, so memory freed on the current streams is not reused while
+    a stripe still reads it)."""
+    for strm in streams:
+        if strm is None:
+            continue
+        cur = torch.cuda.current_stream(strm.device)
+        if into_stripes:
+            strm.wait_stream(cur)
+        else:
+            cur.wait_stream(strm)
+
+
 def _clip(cursor: "Tuple[int, int]", hi: int) -> "Tuple[int, int]":
     """A sub-sweep's cursor: past its last word (``block_cursor``'s end
     of the range) it is ``(hi, 0)``, the next range's first word."""
@@ -1662,22 +1883,121 @@ def _write_rows(writer: CandidateWriter, cand: np.ndarray,
     return n
 
 
+class _FallbackPrefetcher:
+    """The oracle's expansion of the fallback words on a producer thread
+    (the reference's ``_FallbackPrefetcher``): while the drive's thread
+    waits on device fetches, one worker expands the fallback rows from
+    ``fallback_rows[start]`` on, in row order, into a bounded queue —
+    candidates in chunks of :attr:`CHUNK`, at most :attr:`MAXSIZE`
+    candidates queued (backpressure), an end marker after each row.  An
+    exception of the producer crosses the queue and is raised again in
+    :meth:`iter_row`; :meth:`close` stops the producer even when it waits
+    on a full queue."""
+
+    MAXSIZE = 8192
+    CHUNK = 256
+    _END = object()
+
+    def __init__(self, sweep: "Sweep", start: int) -> None:
+        import queue
+
+        self._queue: "queue.Queue" = queue.Queue(
+            maxsize=self.MAXSIZE // self.CHUNK)
+        self._sweep = sweep
+        self._start = start
+        self._stop = False
+        self._thread = threading.Thread(
+            target=self._produce, name="a5-fallback-oracle", daemon=True)
+        self._thread.start()
+
+    def _put(self, item) -> bool:
+        """Queue ``item`` unless :meth:`close` was called (False)."""
+        import queue
+
+        while not self._stop:
+            try:
+                self._queue.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _produce(self) -> None:
+        rows = self._sweep.fallback_rows
+        try:
+            for idx in range(self._start, len(rows)):
+                cands = self._sweep._oracle_candidates(rows[idx])
+                try:
+                    while True:
+                        chunk = list(itertools.islice(cands, self.CHUNK))
+                        if chunk and not self._put(chunk):
+                            return
+                        if len(chunk) < self.CHUNK:
+                            break
+                finally:
+                    close = getattr(cands, "close", None)
+                    if close is not None:
+                        close()
+                if not self._put(self._END):
+                    return
+        except BaseException as e:  # noqa: BLE001 — raised in iter_row
+            self._put(e)
+
+    def iter_row(self):
+        """The next fallback row's candidates, in the oracle's DFS order;
+        called once per row, in row order.  Raises what the producer
+        raised."""
+        while True:
+            item = self._queue.get()
+            if item is self._END:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield from item
+
+    def close(self) -> None:
+        """Stop the producer and wait for its thread to end."""
+        self._stop = True
+        self._thread.join()
+
+
 class _FallbackFlush:
     """The oracle route of a sweep's fallback words, flushed in word order:
-    :meth:`until` expands every not yet expanded fallback word below a row
-    through the port's oracle (``Sweep._oracle_candidates``: native when
-    eligible) and hands its candidates to ``on_word(row, candidates)``
-    (crack mode: hash and look up; candidates mode: write), which counts
-    them into the state; ``state.fallback_done`` is the words flushed."""
+    :meth:`until` hands every not yet flushed fallback word below a row to
+    ``on_word(row, candidates)`` (crack mode: hash and look up; candidates
+    mode: write), which counts them into the state.  The candidates come
+    from a :class:`_FallbackPrefetcher` started at ``state.fallback_done``
+    (the port's oracle, ``Sweep._oracle_candidates``: native when
+    eligible), which expands the next rows while the device runs;
+    ``state.fallback_done`` moves only when a row is consumed, so
+    checkpoints stay at consumed boundaries.  :meth:`restart` (a drive's
+    retry) starts a new producer at ``fallback_done``; :meth:`close` ends
+    the producer's thread."""
 
     def __init__(self, sweep: Sweep, state: CheckpointState,
                  on_word) -> None:
         self.sweep, self.state, self.on_word = sweep, state, on_word
+        self._prefetch: Optional[_FallbackPrefetcher] = None
+
+    def _rows(self) -> _FallbackPrefetcher:
+        if self._prefetch is None:
+            self._prefetch = _FallbackPrefetcher(self.sweep,
+                                                 self.state.fallback_done)
+        return self._prefetch
 
     def until(self, word_row: int) -> None:
-        sw, st, rows = self.sweep, self.state, self.sweep.fallback_rows
+        st, rows = self.state, self.sweep.fallback_rows
         while st.fallback_done < len(rows) and \
                 rows[st.fallback_done] < word_row:
-            row = rows[st.fallback_done]
-            self.on_word(row, sw._oracle_candidates(row))
+            self.on_word(rows[st.fallback_done], self._rows().iter_row())
             st.fallback_done += 1
+
+    def restart(self) -> None:
+        """Drop the producer and what it queued; the next :meth:`until`
+        starts a new one at ``state.fallback_done``."""
+        self.close()
+
+    def close(self) -> None:
+        if self._prefetch is not None:
+            self._prefetch.close()
+            self._prefetch = None

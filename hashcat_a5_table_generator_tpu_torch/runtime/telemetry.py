@@ -4,7 +4,9 @@ a sweep uses; standard library only, but for the profiler hooks, which
 import ``torch.profiler`` when called).
 
 * :class:`MetricsRegistry` — thread-safe counters, gauges and
-  fixed-bucket histograms with plain-dict ``snapshot()`` / :func:`delta`.
+  fixed-bucket histograms with plain-dict ``snapshot()`` / :func:`delta`,
+  and :func:`merge`, which a pod's gathered ``--metrics-json`` reduces
+  its processes' snapshots through.
 * :class:`SpanTimeline` — a bounded per-sweep ring of span records,
   appended only at consumed fetch boundaries (the drive's lagged counters
   barrier), never inside the in-flight window.  Its summary carries the
@@ -12,7 +14,7 @@ import ``torch.profiler`` when called).
   (``dead_share``).
 * :class:`MergeSpec` — what each key of a per-sweep stat dict means when
   length buckets' results merge (:data:`SUPERSTEP_MERGE`,
-  :data:`STREAM_MERGE`).
+  :data:`STREAM_MERGE`, :data:`SCHEMA_CACHE_MERGE`).
 * :func:`profiler_span` / :func:`profiler_trace` —
   ``torch.profiler.record_function`` and a ``torch.profiler.profile``
   whose Chrome trace lands in ``--profile DIR``.
@@ -26,12 +28,13 @@ the hatch never changes what a sweep reports, only what it instruments.
 from __future__ import annotations
 
 import contextlib
+import json
 import threading
 import time
 from bisect import bisect_left
 from collections import deque
-from typing import (Any, Callable, ContextManager, Dict, List, Optional,
-                    Sequence, Tuple, Type, TypeVar)
+from typing import (Any, Callable, ContextManager, Dict, Iterable, List,
+                    Optional, Sequence, Tuple, Type, TypeVar)
 
 
 def enabled() -> bool:
@@ -275,6 +278,69 @@ def delta(before: Dict[str, dict], after: Dict[str, dict]
     return out
 
 
+def _series_key(name: str, engine_id: Optional[str]) -> str:
+    """Merged-output key of a per-engine series (the Prometheus label
+    spelling)."""
+    return f'{name}{{engine="{engine_id or ""}"}}'
+
+
+def merge(snapshots: Iterable[Dict[str, dict]]) -> Dict[str, dict]:
+    """Combine snapshots from several sources (a pod's processes), as the
+    reference's ``merge``: counters and histogram buckets sum (histogram
+    edge layouts must match), gauges follow their declared ``agg`` among
+    entries of one engine (gauges of conflicting ``engine`` labels are
+    kept as per-engine series).  Keys go in sorted order, so every
+    process of a pod reduces the same sequence."""
+    out: Dict[str, dict] = {}
+    split: set = set()  # gauge names kept per engine
+    for snap in snapshots:
+        for name in sorted(snap):
+            entry = snap[name]
+            key = name
+            if entry["type"] == "gauge":
+                if name in split:
+                    key = _series_key(name, entry.get("engine"))
+                else:
+                    cur = out.get(name)
+                    if cur is not None and \
+                            cur.get("engine") != entry.get("engine"):
+                        out[_series_key(name, cur.get("engine"))] = \
+                            out.pop(name)
+                        split.add(name)
+                        key = _series_key(name, entry.get("engine"))
+            cur = out.get(key)
+            if cur is None:
+                out[key] = json.loads(json.dumps(entry))  # deep copy
+                continue
+            if cur["type"] != entry["type"]:
+                raise ValueError(f"metric {name!r} merges a {cur['type']} "
+                                 f"with a {entry['type']}")
+            if cur.get("engine") != entry.get("engine"):
+                cur.pop("engine", None)
+            if entry["type"] == "counter":
+                cur["value"] += entry["value"]
+            elif entry["type"] == "histogram":
+                if cur["edges"] != entry["edges"]:
+                    raise ValueError(
+                        f"histogram {name!r} edge layouts differ: "
+                        f"{cur['edges']} vs {entry['edges']}")
+                cur["counts"] = [a + b for a, b in
+                                 zip(cur["counts"], entry["counts"])]
+                cur["sum"] += entry["sum"]
+                cur["count"] += entry["count"]
+            else:
+                agg = cur.get("agg", "last")
+                if agg == "sum":
+                    cur["value"] += entry["value"]
+                elif agg == "max":
+                    cur["value"] = max(cur["value"], entry["value"])
+                elif agg == "min":
+                    cur["value"] = min(cur["value"], entry["value"])
+                else:
+                    cur["value"] = entry["value"]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Superstep span timeline
 # ---------------------------------------------------------------------------
@@ -440,6 +506,10 @@ STREAM_MERGE = MergeSpec(
     first_keys=("ttfc_s", "resumed_chunk", "first_chunk_compile_s"),
     derived_keys=("overlap_ratio", "steady_overlap_ratio"),
 )
+
+
+#: ``SweepResult.schema_cache``: every counter sums.
+SCHEMA_CACHE_MERGE = MergeSpec()
 
 
 # ---------------------------------------------------------------------------

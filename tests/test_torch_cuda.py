@@ -943,3 +943,29 @@ def test_packed_layout_xla_launch_equals_plain_version(kind, cuda):
         assert bh.LAUNCHES["buffer_hash/md5"] > launches
     else:
         assert outs[0][0].shape[0] > 0
+
+
+@pytest.mark.parametrize("superstep", [None, 0], ids=["superstep",
+                                                      "per-launch"])
+def test_two_stripes_on_one_gpu_equal_the_single_device_sweep(superstep,
+                                                              cuda):
+    """``devices=[cuda:0, cuda:0]``: two cursor stripes on one card, each
+    on its own CUDA stream (the superstep drive), print the single
+    device's hits and count its candidates."""
+    words = words_for("k1", seed=3) + words_for("2-hash-blocks", seed=4)[:5]
+    spec, ct = AttackSpec(), compile_table(SUB)
+    plan = build_plan(spec, ct, pack_words(words))
+    digests = [hashlib.md5(decode_variant(
+        plan, ct, spec, row, plan.n_variants[row] // 2)).digest()
+        for row in range(0, len(words), 3) if plan.n_variants[row] >= 2]
+    results = [
+        Sweep(spec, SUB, words, digests,
+              SweepConfig(device="cuda", lanes=4096, num_blocks=32,
+                          superstep=superstep, superstep_hit_cap=3,
+                          devices=devices)).run_crack()
+        for devices in (1, [cuda, cuda])
+    ]
+    got, want = ([(h.word_index, h.variant_rank, h.candidate)
+                  for h in r.hits] for r in reversed(results))
+    assert got == want and len(got) >= len(digests)
+    assert results[0].n_emitted == results[1].n_emitted

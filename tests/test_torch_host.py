@@ -393,3 +393,30 @@ def test_plain_compressions_equal_reference_hashes(algo):
                                            dtype=torch.int32))
     assert (int(lo) & 0xFFFFFFFF, int(hi) & 0xFFFFFFFF) == \
         (0x00220011, 0x00C40033)
+
+
+def test_import_scans_cover_the_pod():
+    """The scans above take the multi-device and pod modules and the
+    schema cache's: they import with jax absent and import nothing of the
+    reference package (its ``parallel/`` included); the pod's collectives
+    ride torch.distributed, imported only when a pod starts."""
+    scanned = {str(p.relative_to(REPO)) for p in PORT.rglob("*.py")}
+    for mod in ("parallel/__init__.py", "parallel/devices.py",
+                "parallel/multihost.py", "runtime/env.py",
+                "ops/packing.py"):
+        assert f"hashcat_a5_table_generator_tpu_torch/{mod}" in scanned
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['hashcat_a5_table_generator_tpu'] = None\n"
+            "import hashcat_a5_table_generator_tpu_torch.parallel."
+            "multihost as m\n"
+            "import hashcat_a5_table_generator_tpu_torch.parallel."
+            "devices as d\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n"
+            "assert m.initialize(num_processes=1) == (0, 1)\n"
+            "assert len(d.resolve_devices(2, 'cpu')) == 2\n"
+            "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr

@@ -2,12 +2,13 @@
 reference, on the CPU: equal hit streams ``(word_index, rank, candidate)``
 and emitted counts with the pair tier on and off, for every decode tier
 (scalar, digits, windowed) and every hash, exact overflow re-runs,
-byte-identical CLI stdout (with queue item 6's flags too), plans past
-the piece kernel's descriptor table on the XLA route, and exit status 2
-for the flags outside the ported slice on the device backend (the
+byte-identical CLI stdout (with queue items 6's and 7's flags too),
+plans past the piece kernel's descriptor table on the XLA route, and
+exit status 2 for the subcommands outside the ported slice (the
 XLA expand + hash route's own tests: ``test_torch_xla_*.py``)."""
 
 import hashlib
+import os
 
 import numpy as np
 import pytest
@@ -140,19 +141,50 @@ def test_cli_stdout_matches_reference_cli(contract, tmp_path, capsysbinary):
 
 @pytest.mark.parametrize("extra", [
     ["--schema-cache-max-mb", "8"], ["--devices", "2"],
-    ["--coordinator", "h:1"], ["--schema-cache", "cache"],
-    ["--num-processes", "2"],
+    ["--devices", "1"], ["--schema-cache", "cache"],
+    ["--num-processes", "1"],
 ], ids=lambda a: a[0])
-def test_flags_outside_the_slice_exit_2(extra, tmp_path, capsys):
-    """The device backend refuses the surfaces still to port (the second
-    half of queue item 6, items 7-9; the oracle backend takes them as the
-    reference's does: ``test_torch_oracle_cli.py``)."""
-    argv = ["words.txt", "-t", "t.table", "--backend", "device",
-            "--digests", "left.txt"]
+def test_item_6_and_7_flags_run_as_the_reference(extra, contract, tmp_path,
+                                                 capsysbinary):
+    """Queue items 6 (the schema cache) and 7 (multi-GPU) run on the
+    device backend: with each flag a small CPU crack sweep prints the
+    reference CLI's stdout under the same flag (``--devices 2``: two
+    cursor stripes over the CPU here, the reference's two-device virtual
+    mesh there; each package its own cache directory)."""
+    words, _planted, digests = contract
+    (tmp_path / "words.txt").write_bytes(b"\n".join(words) + b"\n")
+    (tmp_path / "left.txt").write_text(
+        "".join(d.hex() + "\n" for d in digests))
+    emit_table(get_layout("qwerty-cyrillic"), str(tmp_path / "t.table"))
+    argv = [str(tmp_path / "words.txt"), "-t", str(tmp_path / "t.table"),
+            "--backend", "device", "--digests", str(tmp_path / "left.txt"),
+            *GEOMETRY_ARGV]
+
+    def flag(pkg):
+        return ([extra[0], str(tmp_path / f"{pkg}-{extra[1]}")]
+                if extra[0] == "--schema-cache" else extra)
+
+    assert j_cli.main(argv + flag("j")) == 0
+    want = capsysbinary.readouterr().out
+    assert t_cli.main(argv + flag("t") + ["--device", "cpu"]) == 0
+    got = capsysbinary.readouterr()
+    assert got.out == want and want
+    assert b"candidates hashed" in got.err
+    if extra[0] == "--schema-cache":
+        assert sorted(os.listdir(tmp_path / "t-cache")) == sorted(
+            os.listdir(tmp_path / "j-cache"))
+
+
+@pytest.mark.parametrize("sub", ["serve", "fleet", "tune"])
+def test_flags_outside_the_slice_exit_2(sub, capsys):
+    """The surfaces still to port — the service layer (queue item 8) and
+    tuning (item 9) — exit 2 on the device backend, naming their item."""
     with pytest.raises(SystemExit) as exc:
-        t_cli.main(argv + extra)
+        t_cli.main([sub, "--backend", "device", "--digests", "left.txt"])
     assert exc.value.code == 2
-    assert "ROADMAP.md port queue item" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "ROADMAP.md port queue item" in err
+    assert f"item {8 if sub != 'tune' else 9}" in err
 
 
 @pytest.mark.parametrize("extra", [
