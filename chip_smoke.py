@@ -14,7 +14,8 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    started together) and print the ``-Xptxas -v`` register / stack /
    spill / shared-memory lines; beside them the two native host libraries
    (``native/packer.cpp``, ``native/oracle.cpp``; g++), which must build:
-   the numpy / Python fallback fails the smoke;
+   the numpy / Python fallback fails the smoke (the nvcc builds go on
+   while phase 3 prepares its inputs);
 3. every kernel entry point x hash against its plain PyTorch version on
    the card, at the main path's shapes (2^22 lanes, stride 128): over
    match plans the scalar K=1 and pair tiers, the digit decode (czech,
@@ -49,12 +50,13 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    (``torch.cuda.max_memory_allocated``), its bytes per row beside the
    sweep's estimate;
 4. the main path through the CLI at full width, each run with 1M digests
-   of its hash (1000 planted hits + decoys): the default-mode runs at
-   250k dictionary words (qwerty-cyrillic x MD5 with the pair tier auto
-   and off, czech x NTLM, greek words x greek-hebrew x SHA-1 (pair auto
-   and off), qwerty-cyrillic x MD5 ``-x 2``) and, at 1M words,
-   qwerty-cyrillic x MD5 ``-s`` (pair auto), qwerty-azerty x MD5 ``-s``
-   with cascade-closed and oracle-fallback words, qwerty-cyrillic x SHA-1
+   of its hash (1000 planted hits + decoys): the crack cell
+   (qwerty-cyrillic x MD5 with the pair tier auto and off) and
+   qwerty-azerty x MD5 ``-s`` (cascade-closed and oracle-fallback words)
+   at 250k dictionary words, the other cells at 100k: czech x NTLM,
+   greek words x greek-hebrew x SHA-1 (pair auto and off),
+   qwerty-cyrillic x MD5 ``-x 2``, qwerty-cyrillic x MD5 ``-s`` (pair
+   auto), qwerty-cyrillic x SHA-1
    ``-s -x 2``, czech x NTLM ``-s -r`` and qwerty-cyrillic x MD5 ``-r``
    (pair auto); every planted plaintext printed exactly once, every
    printed hit re-hashing to its digest, ``candidates hashed`` equal to
@@ -67,7 +69,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    packer, the Python oracle for its fallback words) whose stdout must
    equal the native run's, which must have taken every fallback word on
    the native engine; on the XLA expand + hash route: qwerty-cyrillic x MD5
-   ``-x 2`` at 1M words plus 2000 lines of 65-200 bytes and 1000 lines
+   ``-x 2`` at 247k words plus 2000 lines of 65-200 bytes and 1000 lines
    of 25-40 letters (cyrillic-x2-long), 5e4 words x a nine-option table
    with a 5-byte value, SHA-1 (leet9-sha1), four ``A5GEN_PALLAS=off``
    twins (czech-ntlm, greek-hebrew-sha1, german-md5, azerty-s) whose
@@ -86,7 +88,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    XLA route within the memory budget over the whole run.  Every cell
    runs the CLI's defaults, so a bucket of more than one auto chunk
    (65,536 words at width 16) streams: the 250k-word buckets in 4 chunks,
-   the 1M-word ones in 16;
+   the 100k-word ones in 2;
 5. each entry point x hash timed with CUDA events at main-path shapes
    beside its bound, the compression floor this card measures (the
    buffer hash at width 0: one compression a row, nothing loaded) and
@@ -121,10 +123,10 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    dispatch fault and an injected ``FetchTimeout``, stdout byte-identical;
    a real ``--fetch-timeout`` far below one superstep: typed timeouts,
    the retries, exit 1, no hang; ``--profile``'s trace; the drive cost of
-   ``--checkpoint-every 0`` (crack, pair off, in turns, at the default
-   superstep; the cost of one write) and the drive's host-span summary (``--metrics-json``: host
-   gap, ``dead_share``) for crack pair auto and off and czech-ntlm
-   (cyrillic-x2-long's: phase 9);
+   ``--checkpoint-every 0`` (crack, pair off, at the default superstep,
+   beside phase 4's run; the cost of one write) and the drive's
+   host-span summary (``--metrics-json``: host gap, ``dead_share``) for
+   that run and crack pair auto at ``--superstep 1``;
 8. layouts and streaming: the variable-offset block layout on the crack
    cell (``--block-layout packed``) and on the candidates cyrillic cell
    (``--lanes 1000000``, which the auto block count of 1024 does not
@@ -141,15 +143,16 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    worker restart) with identical stdout.
 
 9. the schema cache, the prefetcher, devices and the pod: the crack cell
-   (pair auto) and cyrillic-x2-long each run twice with ``--schema-cache
+   (pair auto) run twice with ``--schema-cache
    DIR`` (run 1: no hit, an entry a chunk written; run 2: hits = run 1's
    misses, no miss), and the crack cell once more at
    ``--schema-cache-max-mb 1`` (evictions), each stdout byte-identical to
    phase 4's, with host s, ``ttfc_s`` and the cache counters; azerty
    ``-s`` (phase 4's runs went through the fallback prefetcher) once more
    through an injected dispatch fault with ``--retries 1``: identical,
-   no producer thread left alive; ``--devices auto`` and ``--devices 1``
-   on the crack cell identical, ``--devices 2`` on this one card exiting
+   no producer thread left alive; ``--devices auto`` on the crack cell
+   and ``--devices 1`` on the warm-up run's 2000 words identical to
+   their runs without it, ``--devices 2`` on this one card exiting
    non-zero with the device-count message; ``Sweep(devices=[cuda:0,
    cuda:0])`` (two cursor stripes on one card) on the crack cell and on
    candidates cyrillic, byte-identical; and the pod, two processes on this
@@ -162,7 +165,30 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    exits 3 with the ``PeerLossError`` text within 30 s; the pod
    relaunched on the same ``--checkpoint`` resumes to phase 4's stdout).
 
-The last seven lines of standard output: one ``{"pod": {...}}`` JSON
+10. the resident engine: one ``a5gen serve`` process on stdin (``--pack
+   auto``) takes 8 small tenants — 6 distinct 20,000-word slices of the
+   crack recipe x qwerty-cyrillic x MD5, 2 of czech x NTLM, each with its
+   own 100,000-digest list and about 100 planted hits — and phase 4's
+   crack cell whole (it streams: per-job dispatch beside the groups);
+   every tenant's ``hit`` events equal its solo ``Sweep.run_crack`` on
+   the card and its ``done`` totals its solo run's, the crack cell's
+   hits phase 4's stdout; the stats (``fused_groups``,
+   ``packed_dispatches``, ``packed_fill``, ``programs_compiled``), the
+   serve process's kernel launches (the fused groups' packed supersteps
+   on ``piece_k1`` / ``piece_pair``, at least once a packed dispatch;
+   nothing on the XLA route), each job's wall and the
+   process's; the same submission at ``--pack off`` (no packed
+   dispatch, the same streams); churn: the 6 cyrillic tenants at 2^16
+   lanes, one launch a superstep, 4 cancelled on their first hits, the
+   survivors re-fused (``refused`` events), one paused and resumed with
+   the ``resume`` op, one paused and its checkpoint submitted as a new
+   job — each survivor's hits the solo run's; a unix-socket session
+   (``--socket``): one tenant, ``stats``, ``metrics`` (Prometheus text
+   that parses), ``shutdown`` -> ``bye``.
+
+A run still going 1180 s after its start fails, printing every
+thread's stack.  The last eight lines of standard output: one ``{"serve": {...}}`` JSON
+object, one ``{"pod": {...}}`` JSON
 object, one ``{"layouts_streaming": {...}}`` JSON object, one ``{"robustness": {...}}`` JSON object, one
 ``{"oracle": {...}}`` JSON object, the card's name and power limit, one
 ``{"kernels": [...]}`` JSON object, and the ``{"ok": true, ...}`` JSON
@@ -189,8 +215,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 T0 = time.monotonic()
 LANES = 1 << 22
 STRIDE = 128
-N_WORDS = 1_000_000
-N_WORDS_DEFAULT = 250_000  # the default-mode runs, cut to keep time
+N_WORDS_DEFAULT = 250_000  # the crack cell's words (and azerty -s's)
+N_WORDS_CELL = 100_000  # the other phase-4 cells', cut to keep time
 N_DIGESTS = 1_000_000
 N_PLANTED = 1000
 CASE_WORDS = 60_000  # words per phase-3 workload
@@ -260,9 +286,57 @@ def log(msg: str) -> None:
     print(f"[{time.monotonic() - T0:7.1f}s] {msg}", flush=True)
 
 
+#: Every process the smoke starts (:func:`spawn`): a failure kills those
+#: still running.
+CHILDREN: list = []
+#: Seconds after start at which a smoke still running fails, with every
+#: thread's stack on stderr (a hang fails inside the 1200 s a caller
+#: gives the script, and says where it hung).
+DEADLINE_S = 1180
+
+
+def stop_children() -> None:
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            try:
+                if getattr(proc, "a5_session", False):
+                    os.killpg(proc.pid, 9)
+                else:
+                    proc.kill()
+            except OSError:
+                pass
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    stop_children()
     sys.exit(1)
+
+
+def spawn(args, **kw) -> "subprocess.Popen":
+    """``subprocess.Popen(args, **kw)``, the process kept in
+    :data:`CHILDREN`."""
+    proc = subprocess.Popen(args, **kw)
+    proc.a5_session = bool(kw.get("start_new_session"))
+    CHILDREN.append(proc)
+    return proc
+
+
+def arm_deadline(seconds: float = DEADLINE_S) -> None:
+    """A daemon thread that, ``seconds`` after start, prints every
+    thread's stack, kills the children and exits 1."""
+    import faulthandler
+
+    def watch():
+        time.sleep(max(0.0, seconds - (time.monotonic() - T0)))
+        print(f"chip_smoke: FAIL: still running {seconds:.0f} s after "
+              "start; the stacks:", file=sys.stderr, flush=True)
+        faulthandler.dump_traceback(sys.stderr, all_threads=True)
+        stop_children()
+        os._exit(1)
+
+    threading.Thread(target=watch, name="chip-smoke-deadline",
+                     daemon=True).start()
 
 
 def nvidia_smi(query: str) -> str:
@@ -1581,9 +1655,11 @@ def check_xla_expansion() -> dict:
     )
 
     kinds = xla_kinds()
-    lanes = 1 << 16
     out = {}
     for kind, (sub, ws, kw, pair) in kinds.items():
+        # 2^16 lanes; 2^14 for the long lines (376 bytes a row: the CPU's
+        # expansion took ~20 s at 2^16).
+        lanes = 1 << (14 if "long lines" in kind else 16)
         spec = AttackSpec(**kw)
         res = []
         for dev in (torch.device("cuda"), torch.device("cpu")):
@@ -1782,6 +1858,22 @@ def xla_stage_breakdown(spec, sub, words, digest_set) -> None:
         f"membership {t_member:.3f} ms + the rest {rest:.3f} ms")
 
 
+def dictionary(n: int, seed: int, long_lines: bool = True) -> list:
+    """Phase 4's word lists: ``n`` unique recipe words (qwerty-cyrillic
+    and czech map letters one-to-one, so distinct words never share a
+    candidate; greek-hebrew and qwerty-azerty do not, and
+    :class:`MainPath` plants only plaintexts with one source), with 120
+    long words at seeded places unless ``long_lines`` is false."""
+    out = list(dict.fromkeys(synth_words(n + 1000, seed=seed)))
+    out = out[: n - (120 if long_lines else 0)]
+    if long_lines:
+        rng = np.random.default_rng(4)
+        for w in long_words(100, 33, 64, (4, 10), seed=5) + \
+                long_words(20, 50, 64, (3, 8), seed=6):
+            out.insert(int(rng.integers(0, len(out))), w)
+    return out
+
+
 def long_lines(n: int, seed: int) -> list:
     """Rockyou's long lines: lowercase words of 3-9 letters joined by
     spaces, 65-200 bytes (a token width over 64: the XLA route)."""
@@ -1974,7 +2066,7 @@ def host_cpu() -> "tuple[str, int]":
     return model or "unknown", nproc
 
 
-def oracle_cli(argv, native=True, timeout=600) -> "tuple[bytes, str, float]":
+def oracle_cli(argv, native=True, timeout=300) -> "tuple[bytes, str, float]":
     """``python -m hashcat_a5_table_generator_tpu_torch ARGV`` in a process
     of its own (the CLI as a user starts it: ``--threads`` forks from a
     process that never touched CUDA), ``A5_NATIVE=0`` unless ``native``;
@@ -1984,7 +2076,7 @@ def oracle_cli(argv, native=True, timeout=600) -> "tuple[bytes, str, float]":
     if not native:
         env["A5_NATIVE"] = "0"
     t = time.monotonic()
-    proc = subprocess.Popen(
+    proc = spawn(
         [sys.executable, "-m", "hashcat_a5_table_generator_tpu_torch",
          *argv], cwd=HERE, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, start_new_session=True)
@@ -2134,7 +2226,7 @@ def start_killed(name: str, argv, spec: str, work: str):
     (a ``kill`` rule: it must die by SIGKILL at that seam); stdout is
     dropped, stderr goes to a file of ``work``."""
     err = open(os.path.join(work, f"{name}.killed.err"), "wb")
-    proc = subprocess.Popen(
+    proc = spawn(
         [sys.executable, "-m", "hashcat_a5_table_generator_tpu_torch",
          *argv], cwd=HERE, stdout=subprocess.DEVNULL, stderr=err,
         env=dict(os.environ, A5GEN_FAULTS=spec))
@@ -2203,11 +2295,10 @@ def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
     typed FetchTimeouts, the drive's retries and the CLI's, then exit 1,
     not a hang.  ``--profile``: a trace with ``a5.superstep.consume``
     ranges.  Drive cost of ``--checkpoint --checkpoint-every 0`` (crack,
-    pair off, two runs each in turns, at the default superstep; the cost
-    of one write) and
-    the drive's host-span dead share (``--metrics-json``'s
-    ``dead_share``) for crack pair auto and off and czech-ntlm.  Returns
-    the phase's numbers."""
+    pair off, at the default superstep, beside phase 4's run without a
+    checkpoint; the cost of one write) and the drive's host-span dead
+    share (``--metrics-json``'s ``dead_share``) for crack pair off and
+    pair auto at ``--superstep 1``.  Returns the phase's numbers."""
     import torch
 
     t_phase = time.monotonic()
@@ -2294,7 +2385,7 @@ def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
     report["watchdog"] = {"timeouts": timeouts, "exit": rc, "wall_s": wall}
 
     for name, proc in procs.items():
-        rc = proc.wait(timeout=900)
+        rc = proc.wait(timeout=300)
         with open(os.path.join(work, f"{name}.killed.err"), "rb") as fh:
             err = fh.read().decode(errors="replace")
         if rc != -9:
@@ -2384,11 +2475,10 @@ def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
                          "idle_share": idle,
                          "bytes": os.path.getsize(trace_path)}
 
-    # Drive cost of --checkpoint-every 0 (crack, pair off, in turns) at
-    # the default superstep (16 launches: few writes) and on the
-    # per-launch pipeline (a write at every fetch), with the cost of one
-    # write; and the drive's host-span summaries.  Every run's stdout =
-    # phase 4's.
+    # Drive cost of --checkpoint-every 0 (crack, pair off, one turn) at
+    # the default superstep (16 launches: few writes), with the cost of
+    # one write; and the drive's host-span summaries.  Every run's stdout
+    # = phase 4's.
     from hashcat_a5_table_generator_tpu_torch.runtime import telemetry
 
     cost = {}
@@ -2407,32 +2497,32 @@ def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
 
     one = ["--superstep", "1"]
     # (No --superstep off arm: dropped for the script's time when phase 9
-    # came.)
+    # came; the second turn of none / every 0, when phase 10 came, and
+    # then the none run itself: the arm without a checkpoint is phase 4's
+    # pair off run, the same command line without --metrics-json.)
+    base = runs[("cyrillic-md5", "pair off")]
+    spans["cyrillic-md5 pair off, default superstep, checkpoint none "
+          "(phase 4's run)"] = dict(span_totals(base["metrics"]),
+                                    drive_s=base["drive"])
     for setting, flags in (("default superstep", []),):
-        arms = cost[setting] = {"none": [], "every 0": [], "saves": [],
-                                "bytes": []}
-        for i, arm in enumerate(("none", "every 0", "none", "every 0")):
-            extra = ["--pair", "off", *flags] + ([] if arm == "none" else [
-                "--checkpoint", ck(f"cost-{setting}-{i}"),
-                "--checkpoint-every", "0"])
-            label = f"{setting}, checkpoint {arm} ({i + 1})"
-            run = measured(label, "cyrillic-md5", "pair off", extra,
-                           "pair off")
-            arms[arm].append(run["drive"])
-            if arm != "none":
-                arms["saves"].append(spans[f"cyrillic-md5 pair off, "
-                                           f"{label}"]["checkpoint_saves"])
-                arms["bytes"].append(spans[f"cyrillic-md5 pair off, "
-                                           f"{label}"]["checkpoint_bytes"])
-        added = (sum(arms["every 0"]) - sum(arms["none"])) / 2
+        arms = cost[setting] = {"none": [base["drive"]], "every 0": [],
+                                "saves": [], "bytes": []}
+        extra = ["--pair", "off", *flags, "--checkpoint",
+                 ck(f"cost-{setting}"), "--checkpoint-every", "0"]
+        label = f"{setting}, checkpoint every 0"
+        run = measured(label, "cyrillic-md5", "pair off", extra, "pair off")
+        arms["every 0"].append(run["drive"])
+        arms["saves"].append(spans[f"cyrillic-md5 pair off, "
+                                   f"{label}"]["checkpoint_saves"])
+        arms["bytes"].append(spans[f"cyrillic-md5 pair off, "
+                                   f"{label}"]["checkpoint_bytes"])
+        added = arms["every 0"][0] - arms["none"][0]
         arms["added_s"] = added
-        arms["added_share"] = added / (sum(arms["none"]) / 2)
-        arms["per_write_ms"] = 1e3 * added / (sum(arms["saves"]) / 2)
+        arms["added_share"] = added / arms["none"][0]
+        arms["per_write_ms"] = 1e3 * added / arms["saves"][0]
     measured("superstep 1", "cyrillic-md5", "pair auto", one, "pair auto")
-    measured("superstep 1", "czech-ntlm", "pair auto", one, "pair auto")
-    # (cyrillic-x2-long's spans: phase 9's first cached run, which runs
-    # the same command; its own run here was dropped for the script's
-    # time when phase 9 came.)
+    # (czech-ntlm's and cyrillic-x2-long's spans: dropped for the script's
+    # time when phase 10 and phase 9 came.)
     for label, s in spans.items():
         log(f"drive spans [{label}]: {s['spans']} consumed fetches, host "
             f"gap {s['host_gap_s']:.4f} s, dead (nothing in flight) "
@@ -2443,7 +2533,8 @@ def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
             f"({s['checkpoint_bytes']} bytes) on {card}")
     for setting, arms in cost.items():
         log(f"drive cost of --checkpoint --checkpoint-every 0 (crack, pair "
-            f"off, {setting}, in turns): none {arms['none']} s, every 0 "
+            f"off, {setting}, one turn): none (phase 4's run) "
+            f"{arms['none']} s, every 0 "
             f"{arms['every 0']} s; {arms['saves']} writes of "
             f"{arms['bytes']} bytes; added {arms['added_s']:.4f} s "
             f"({100 * arms['added_share']:.2f}%), "
@@ -2493,7 +2584,7 @@ def layouts_streaming_phase(work: str, paths: dict, runs: dict,
     log(f"chunk.compile:nth=2: recovered after {restarts} worker restart, "
         f"stdout byte-identical to phase 4's ({len(out)} bytes)")
     report["chunk_compile_restarts"] = restarts
-    rc = proc.wait(timeout=900)
+    rc = proc.wait(timeout=300)
     with open(os.path.join(work, "stream.killed.err"), "rb") as fh:
         err = fh.read().decode(errors="replace")
     docs = ckpt_docs(ck)
@@ -2567,17 +2658,23 @@ def layouts_streaming_phase(work: str, paths: dict, runs: dict,
     for name, arm, twin, extra in (
             ("cyrillic-md5", "pair off", "pair off", ["--pair", "off"]),
             ("cyrillic-x2-long", "-x 2", "-x 2", ["-x", "2"])):
-        # cyrillic-x2-long at the default chunking: phase 9's cached runs
-        # (the 4096-word crack arm and this one were dropped for the
-        # script's time when phase 9 came).
+        # cyrillic-x2-long at the default chunking: phase 4's run (the
+        # 4096-word crack arm and this one were dropped for the script's
+        # time when phase 9 came).
         chunks = ("off", "auto") if name == "cyrillic-md5" else ("off",)
         for chunk in chunks:
-            metrics = os.path.join(work, f"m-stream-{name}-{chunk}.json")
-            telemetry.REGISTRY.reset()
-            run = paths[name].run(
-                f"{arm}, --stream-chunk-words {chunk}",
-                extra + ["--stream-chunk-words", chunk, "--metrics-json",
-                         metrics], card)
+            if chunk == "auto":
+                # Phase 4's run, at the default chunking, with its
+                # --metrics-json (a run of its own here before phase 10).
+                run = runs[(name, twin)]
+                metrics = run["metrics"]
+            else:
+                metrics = os.path.join(work, f"m-stream-{name}-{chunk}.json")
+                telemetry.REGISTRY.reset()
+                run = paths[name].run(
+                    f"{arm}, --stream-chunk-words {chunk}",
+                    extra + ["--stream-chunk-words", chunk, "--metrics-json",
+                             metrics], card)
             if run["stdout"] != runs[(name, twin)]["stdout"]:
                 fail(f"{name} ({arm}, --stream-chunk-words {chunk}): "
                      "stdout differs from phase 4's")
@@ -2627,7 +2724,7 @@ def free_port() -> int:
 
 
 def pod_run(name: str, work: str, argv, extra=(), envs=None,
-            timeout: int = 600) -> list:
+            timeout: int = 180) -> list:
     """``argv`` in two processes of one pod on this card (the port's CLI,
     ``--coordinator 127.0.0.1:<free port>``, gloo); stdout and stderr to
     files of ``work``.  ``[(exit code, stdout, stderr, wall s, exit
@@ -2639,7 +2736,7 @@ def pod_run(name: str, work: str, argv, extra=(), envs=None,
         out = open(os.path.join(work, f"pod-{name}.{p}.out"), "wb")
         err = open(os.path.join(work, f"pod-{name}.{p}.err"), "wb")
         files.append((out, err))
-        procs.append(subprocess.Popen(
+        procs.append(spawn(
             [sys.executable, "-m", "hashcat_a5_table_generator_tpu_torch",
              *argv, "--coordinator", f"127.0.0.1:{port}",
              "--num-processes", "2", "--process-id", str(p), *extra],
@@ -2748,8 +2845,9 @@ def pod_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
             f"{card}")
         return row
 
-    for name, arm, extra in (("cyrillic-md5", "pair auto", []),
-                             ("cyrillic-x2-long", "-x 2", ["-x", "2"])):
+    # (cyrillic-x2-long's two cached runs were dropped for the script's
+    # time when phase 10 came.)
+    for name, arm, extra in (("cyrillic-md5", "pair auto", []),):
         cache = os.path.join(work, f"schema-{name}")
         one = cached(f"{name} run 1", paths[name], arm, extra, (name, arm),
                      cache)
@@ -2772,7 +2870,7 @@ def pod_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
     report["prefetch"]["azerty-s"] = {
         arm: {"drive_s": runs[("azerty-md5-s", arm)]["drive"],
               "wall_s": runs[("azerty-md5-s", arm)]["wall"]}
-        for arm in ("-s", "A5_NATIVE=0 -s", "-s, native again")}
+        for arm in ("-s", "A5_NATIVE=0 -s")}
     with knobs(A5GEN_FAULTS="superstep.dispatch:nth=2"):
         t = time.monotonic()
         out, err, rc = run_cli(crack_argv(az, ["-s", "--retries", "1"]))
@@ -2792,13 +2890,28 @@ def pod_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
         f"wall {wall:.2f} s on {card}")
 
     # -- devices: auto and 1 on this card, 2 refused; two stripes on it.
-    for arm in ("auto", "1"):
-        run = cyr.run(f"--devices {arm}", ["--devices", arm], card)
-        if run["stdout"] != crack_want:
-            fail(f"--devices {arm}: stdout differs from phase 4's")
-        expect_launched(run, ["piece_pair/md5"], f"--devices {arm}")
-        report["devices"][arm] = {"drive_s": run["drive"],
-                                  "wall_s": run["wall"]}
+    # (--devices 1 runs on the warm-up's 2000 words since phase 10 came.)
+    run = cyr.run("--devices auto", ["--devices", "auto"], card)
+    if run["stdout"] != crack_want:
+        fail("--devices auto: stdout differs from phase 4's")
+    expect_launched(run, ["piece_pair/md5"], "--devices auto")
+    report["devices"]["auto"] = {"drive_s": run["drive"],
+                                 "wall_s": run["wall"]}
+    warm = runs[("small", "warm-up")]
+    for k in fused_expand.LAUNCHES:
+        fused_expand.LAUNCHES[k] = 0
+    t = time.monotonic()
+    out, err, rc = run_cli(warm["argv"] + ["--devices", "1"])
+    wall = time.monotonic() - t
+    launched = {k: v for k, v in fused_expand.LAUNCHES.items() if v}
+    if rc != 0 or out != warm["stdout"] or \
+            not launched.get("piece_pair/md5"):
+        fail(f"--devices 1 [warm-up words]: exit {rc}, stdout "
+             f"{'equal' if out == warm['stdout'] else 'differs'}, launches "
+             f"{launched}: {err}")
+    report["devices"]["1, warm-up words"] = {"wall_s": wall}
+    log(f"--devices 1 [the warm-up run's 2000 words]: stdout byte-identical"
+        f" to the warm-up run's, CLI wall {wall:.2f} s on {card}")
     out, err, rc = run_cli(crack_argv(cyr, ["--devices", "2"]))
     want_msg = f"requested 2 devices, have {torch.cuda.device_count()}"
     if rc == 0 or want_msg not in err or out:
@@ -3060,6 +3173,512 @@ def huge_word_run(work: str, card: str, min_rows: int = 1 << 30) -> dict:
                      "--digests", digests]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the resident engine (a5gen serve) on the card
+# ---------------------------------------------------------------------------
+
+#: Phase 10's small tenants: words and digests a tenant, planted hits.
+SERVE_WORDS = 20_000
+SERVE_DIGESTS = 100_000
+SERVE_PLANTED = 100
+#: Extra ``a5gen serve`` flags (a CPU rehearsal passes ``--device cpu``)
+#: and the solo sweeps' device.
+SERVE_ARGS: list = []
+SERVE_DEVICE = "cuda"
+#: The churn session's job geometry: small launches, one a superstep, so
+#: every tenant spans hundreds of rounds and a cancel sent on its first
+#: hit lands mid-sweep.
+CHURN_CONFIG = {"lanes": 1 << 16, "superstep": 1}
+#: ``a5gen serve`` through the CLI's entry point, its kernel launch
+#: counts on stderr at exit (a fresh process: they start at 0), and the
+#: part of them that fused groups' packed supersteps made.
+SERVE_WRAPPER = (
+    "import json, sys\n"
+    "from hashcat_a5_table_generator_tpu_torch import cli\n"
+    "from hashcat_a5_table_generator_tpu_torch.ops import buffer_hash, "
+    "bytescan, fused_expand\n"
+    "from hashcat_a5_table_generator_tpu_torch.runtime import fuse\n"
+    "rc = cli.main(sys.argv[1:])\n"
+    "print(json.dumps({'launches': {k: v for m in (fused_expand, bytescan, "
+    "buffer_hash) for k, v in m.LAUNCHES.items() if v}, "
+    "'group_launches': fuse.GROUP_LAUNCHES}), file=sys.stderr)\n"
+    "sys.exit(rc)\n")
+SETTLE = ("done", "paused", "cancelled", "failed")
+
+
+class ServeProcess:
+    """One ``a5gen serve`` process (the port's CLI, :data:`SERVE_WRAPPER`):
+    JSONL requests on its stdin (or a unix socket), its events read on a
+    thread into a list; :meth:`wait_for` polls it."""
+
+    def __init__(self, work: str, name: str, args=(), env=None) -> None:
+        self.name = name
+        self.err_path = os.path.join(work, f"serve-{name}.err")
+        self.err = open(self.err_path, "w")
+        self.t0 = time.monotonic()
+        self.proc = spawn(
+            [sys.executable, "-c", SERVE_WRAPPER, "serve", *SERVE_ARGS,
+             *args], stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=self.err, text=True, cwd=HERE,
+            env={**os.environ, **(env or {})})
+        self.events: list = []
+        self.lock = threading.Lock()
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            if line.strip():
+                with self.lock:
+                    self.events.append(json.loads(line))
+
+    def send(self, *docs) -> None:
+        self.proc.stdin.write("".join(json.dumps(d) + "\n" for d in docs))
+        self.proc.stdin.flush()
+
+    def wait_for(self, pred, what: str, timeout: float = 180) -> list:
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self.lock:
+                evs = list(self.events)
+            if pred(evs):
+                return evs
+            if self.proc.poll() is not None and not self.reader.is_alive():
+                break
+            time.sleep(0.002)
+        fail(f"serve {self.name}: timed out waiting for {what}; last "
+             f"events {self.events[-3:]}; stderr "
+             f"{open(self.err_path).read()[-2000:]}")
+
+    def close(self, timeout: float = 120) -> dict:
+        """EOF on stdin; the process's exit code, wall and launches."""
+        self.proc.stdin.close()
+        rc = self.proc.wait(timeout)
+        self.reader.join(30)
+        wall = time.monotonic() - self.t0
+        self.err.close()
+        err = open(self.err_path).read()
+        if rc != 0:
+            fail(f"serve {self.name} exited {rc}: {err[-3000:]}")
+        last = json.loads(err.strip().splitlines()[-1])
+        return {"rc": rc, "wall_s": wall, "launches": last["launches"],
+                "group_launches": last["group_launches"]}
+
+
+def per_job(events: list) -> dict:
+    out: dict = {}
+    for e in events:
+        if "id" in e and e.get("event") != "accepted":
+            out.setdefault(e["id"], []).append(e)
+    return out
+
+
+def hit_tuples(evs: list) -> list:
+    return [(e["word_index"], int(e["rank"]), e["plain_hex"], e["digest"])
+            for e in evs if e["event"] == "hit"]
+
+
+def serve_tenants(work: str, paths: dict) -> list:
+    """Phase 10's 8 small tenants: 6 distinct slices of the crack recipe x
+    qwerty-cyrillic x MD5 and 2 of czech x NTLM, each with its own
+    :data:`SERVE_DIGESTS`-digest list of which about
+    :data:`SERVE_PLANTED` are its candidates; written as files, with each
+    tenant's solo ``Sweep.run_crack`` on the card."""
+    from hashcat_a5_table_generator_tpu_torch.cli import _read_digests
+    from hashcat_a5_table_generator_tpu_torch.models.attack import (
+        AttackSpec, build_plan, decode_variant,
+    )
+    from hashcat_a5_table_generator_tpu_torch.ops.packing import (
+        pack_words, read_wordlist,
+    )
+    from hashcat_a5_table_generator_tpu_torch.runtime.sweep import (
+        Sweep, SweepConfig,
+    )
+    from hashcat_a5_table_generator_tpu_torch.tables.compile import (
+        compile_table,
+    )
+    from hashcat_a5_table_generator_tpu_torch.tables.parser import (
+        load_tables,
+    )
+    from hashcat_a5_table_generator_tpu_torch.utils.digests import (
+        HOST_DIGEST,
+    )
+
+    def recipe(path):
+        # The recipe's 6-10 letter words (not phase 4's long lines).
+        return [w for w in read_wordlist(path) if len(w) <= 10]
+
+    pools = {"md5": (paths["cyrillic-md5"], recipe(
+        paths["cyrillic-md5"].wordlist), 6),
+        "ntlm": (paths["czech-ntlm"], recipe(paths["czech-ntlm"].wordlist),
+                 2)}
+    tenants = []
+    for algo, (path, pool, n) in pools.items():
+        sub = load_tables([path.table])
+        ct = compile_table(sub)
+        spec = AttackSpec(algo=algo)
+        for i in range(n):
+            words = pool[i * SERVE_WORDS:(i + 1) * SERVE_WORDS]
+            plan = build_plan(spec, ct, pack_words(words))
+            rng = np.random.default_rng(1000 + 10 * i + (algo == "ntlm"))
+            rows = [r for r in rng.permutation(len(words))
+                    if plan.n_variants[r] >= 2][:SERVE_PLANTED]
+            # The first word hits too: every tenant's first hit comes in
+            # its first superstep (the churn session cancels on it).
+            rows = [next(r for r in range(len(words))
+                         if plan.n_variants[r] >= 2)] + rows[1:]
+            planted = [HOST_DIGEST[algo](decode_variant(
+                plan, ct, spec, int(r),
+                1 + int(rng.integers(0, plan.n_variants[r] - 1))))
+                for r in rows]
+            decoys = rng.integers(0, 256, size=(SERVE_DIGESTS - len(planted),
+                                                len(planted[0])),
+                                  dtype=np.uint8)
+            name = f"{algo}-{i}"
+            wl = os.path.join(work, f"serve-{name}.words.txt")
+            dg = os.path.join(work, f"serve-{name}.digests.txt")
+            with open(wl, "wb") as fh:
+                fh.write(b"\n".join(words) + b"\n")
+            with open(dg, "w") as fh:
+                fh.write("".join(d.hex() + "\n" for d in planted))
+                fh.write("".join(bytes(d).hex() + "\n" for d in decoys))
+            t = time.monotonic()
+            res = Sweep(spec, sub, read_wordlist(wl), _read_digests(dg, algo),
+                        SweepConfig(device=SERVE_DEVICE)).run_crack()
+            tenants.append({
+                "id": name, "algo": algo, "table": path.table,
+                "wordlist": wl, "digests": dg, "solo_s": time.monotonic() - t,
+                "solo": [(h.word_index, h.variant_rank, h.candidate.hex(),
+                          h.digest_hex) for h in res.hits],
+                "solo_emitted": res.n_emitted})
+    return tenants
+
+
+def submit_doc(t: dict, jid=None, **extra) -> dict:
+    return {"op": "submit", "id": jid or t["id"], "tables": [t["table"]],
+            "dict": t["wordlist"], "digests": t["digests"],
+            "algo": t["algo"], **extra}
+
+
+def serve_session(work: str, name: str, tenants: list, crack: dict,
+                  args) -> dict:
+    """One ``a5gen serve`` session over every tenant and phase 4's crack
+    cell; each job's events checked against its solo run; the stats,
+    launches and walls."""
+    sp = ServeProcess(work, name, args)
+    sent = {}
+    for t in tenants + [crack]:
+        sent[t["id"]] = time.monotonic()
+        sp.send(submit_doc(t))
+    ids = [t["id"] for t in tenants + [crack]]
+    # A stats reply while the tenants run: the fused groups dispatching.
+    sp.wait_for(lambda e: any(x["event"] == "hit" for x in e), "a hit")
+    sp.send({"op": "stats"})
+    evs = sp.wait_for(lambda e: sum(x["event"] in SETTLE and x.get("id")
+                                    in ids for x in e) >= len(ids),
+                      f"{len(ids)} jobs", timeout=300)
+    sp.send({"op": "stats"})
+    evs = sp.wait_for(lambda e: sum(x["event"] == "stats" for x in e) >= 2,
+                      "stats")
+    mid, stats = [x for x in evs if x["event"] == "stats"]
+    out = sp.close()
+    jobs = per_job(evs)
+    walls = {}
+    for t in tenants:
+        got = hit_tuples(jobs[t["id"]])
+        done = jobs[t["id"]][-1]
+        if done["event"] != "done":
+            fail(f"serve {name}: {t['id']} settled {done}")
+        if got != t["solo"]:
+            fail(f"serve {name}: {t['id']}'s hit events differ from its solo "
+                 f"run ({len(got)} vs {len(t['solo'])} hits)")
+        if (done["n_hits"], done["n_emitted"]) != (len(t["solo"]),
+                                                   t["solo_emitted"]):
+            fail(f"serve {name}: {t['id']} done {done}, solo "
+                 f"{len(t['solo'])} hits {t['solo_emitted']} hashed")
+        walls[t["id"]] = done["wall_s"]
+    cj = jobs[crack["id"]]
+    done = cj[-1]
+    got = hit_tuples(cj)
+    if done["event"] != "done" or got != sorted(got):
+        fail(f"serve {name}: the crack cell settled {done['event']} or its "
+             "hits are not in (word, rank) order")
+    lines = sorted(f"{d}:{bytes.fromhex(p).decode('utf-8', 'surrogateescape')}"
+                   .encode("utf-8", "surrogateescape") for _w, _r, p, d in got)
+    want = sorted(crack["stdout"].splitlines())
+    if lines != want or done["n_emitted"] != crack["emitted"] \
+            or done["n_hits"] != len(want):
+        fail(f"serve {name}: the crack cell's {len(lines)} hit events / "
+             f"{done['n_emitted']} hashed differ from phase 4's stdout "
+             f"({len(want)} lines, {crack['emitted']} hashed)")
+    walls[crack["id"]] = done["wall_s"]
+    keys = ("fused_groups", "packed_dispatches", "packed_fill",
+            "programs_compiled", "program_cache_hits", "jobs_done")
+    report = {"stats": {k: stats[k] for k in keys},
+              "fused_groups_running": mid["fused_groups"],
+              "jobs_active_running": mid["jobs_active"],
+              "launches": out["launches"],
+              "group_launches": out["group_launches"], "job_wall_s": walls,
+              "serve_wall_s": out["wall_s"]}
+    log(f"serve {name}: {len(ids)} jobs, every stream identical to its solo "
+        f"run (the crack cell's to phase 4's stdout: {len(want)} hits, "
+        f"{done['n_emitted']} hashed); {mid['fused_groups']} fused groups "
+        f"and {mid['jobs_active']} jobs active at the first hit; stats at "
+        f"the end {report['stats']}; launches "
+        f"{out['launches']}, of them in fused groups' packed supersteps "
+        f"{out['group_launches']}; job walls {walls}; serve process wall "
+        f"{out['wall_s']:.2f} s")
+    return report
+
+
+def churn_session(work: str, tenants: list) -> dict:
+    """The 6 cyrillic tenants in one session (:data:`CHURN_CONFIG`): 4
+    cancelled on their first hit; the survivors, re-fused, paused — one
+    resumed with the ``resume`` op, one resubmitted from its ``paused``
+    checkpoint as a migrating job — each ending with its solo hits."""
+    cyr = [t for t in tenants if t["algo"] == "md5"]
+    # Staging puts tenants 0-3 in one group of 4 and 4-5 in a group of 2:
+    # cancelling 0, 1, 2 and 4 thins both (fill 1/4 and 1/2, below the
+    # 0.6 threshold), so the survivors 3 and 5 re-fuse across groups.
+    victims = [cyr[i]["id"] for i in (0, 1, 2, 4)]
+    a, b = cyr[3], cyr[5]
+    sp = ServeProcess(work, "churn", ["--pack", "auto"],
+                      env={"A5GEN_REFUSE": "0.6"})
+    sp.send(*[submit_doc(t, config=CHURN_CONFIG) for t in cyr])
+    cancelled_at = {}
+    pending = set(victims)
+    while pending:
+        evs = sp.wait_for(lambda e: any(x["event"] == "hit" and x["id"]
+                                        in pending for x in e),
+                          "a victim's first hit")
+        for x in evs:
+            if x["event"] == "hit" and x["id"] in pending:
+                pending.discard(x["id"])
+                sp.send({"op": "cancel", "id": x["id"]})
+                cancelled_at[x["id"]] = time.monotonic()
+    evs = sp.wait_for(lambda e: sum(x["event"] == "refused" and x["id"]
+                                    in (a["id"], b["id"]) for x in e) >= 2,
+                      "refused events for both survivors", timeout=120)
+    refused = [x for x in evs if x["event"] == "refused"]
+    # Survivor a: paused, then resumed on this engine.
+    sp.send({"op": "pause", "id": a["id"]})
+    sp.wait_for(lambda e: any(x["event"] in ("paused", "done") and
+                              x["id"] == a["id"] for x in e), "a's pause")
+    sp.send({"op": "resume", "id": a["id"]})
+    # Survivor b: paused, its checkpoint submitted as a new job.
+    sp.send({"op": "pause", "id": b["id"]})
+    evs = sp.wait_for(lambda e: any(x["event"] in ("paused", "done") and
+                                    x["id"] == b["id"] for x in e),
+                      "b's pause")
+    pb = next(x for x in evs if x["id"] == b["id"] and x["event"] in
+              ("paused", "done"))
+    moved = b["id"] + "-migrated"
+    if pb["event"] == "paused":
+        sp.send(submit_doc(b, moved, checkpoint=pb["checkpoint"],
+                           config=CHURN_CONFIG))
+    want_settled = [a["id"]] + ([moved] if pb["event"] == "paused" else [])
+    evs = sp.wait_for(lambda e: all(
+        any(x["event"] == "done" and x["id"] == j for x in e)
+        for j in want_settled) and sum(x["event"] == "cancelled"
+                                       for x in e) >= 4,
+        "the survivors' done events")
+    sp.send({"op": "stats"})
+    evs = sp.wait_for(lambda e: any(x["event"] == "stats" for x in e),
+                      "stats")
+    stats = next(x for x in evs if x["event"] == "stats")
+    out = sp.close()
+    jobs = per_job(evs)
+    for v in victims:
+        if jobs[v][-1]["event"] != "cancelled":
+            fail(f"churn: victim {v} settled {jobs[v][-1]['event']} (its "
+                 "sweep ended before the cancel landed)")
+    a_hits = set(hit_tuples(jobs[a["id"]]))
+    b_hits = set(hit_tuples(jobs[b["id"]]) + hit_tuples(jobs.get(moved, [])))
+    paused = {j: [x["event"] for x in jobs[j]].count("paused")
+              for j in (a["id"], b["id"])}
+    for t, got in ((a, a_hits), (b, b_hits)):
+        if got != set(t["solo"]):
+            fail(f"churn: survivor {t['id']}'s hits before and after the "
+                 f"pause ({len(got)}) differ from its solo run "
+                 f"({len(t['solo'])})")
+        if not any(x["event"] == "refused" for x in jobs[t["id"]]):
+            fail(f"churn: survivor {t['id']} got no refused event")
+    report = {"cancelled": victims, "refused": refused,
+              "paused": paused, "migrated": moved in jobs,
+              "refuse_total": stats["refuse_total"],
+              "refuse_cross": stats["refuse_cross"],
+              "packed_fill_min": stats["packed_fill_min"],
+              "serve_wall_s": out["wall_s"], "launches": out["launches"],
+              "group_launches": out["group_launches"]}
+    log(f"serve churn: {victims} cancelled on their first hits, survivors "
+        f"refused ({refused}), paused ({paused}), one resumed, one "
+        f"resubmitted from its checkpoint; union of each survivor's hits "
+        f"= its solo run; refuse_total {stats['refuse_total']}, "
+        f"refuse_cross {stats['refuse_cross']}; launches {out['launches']}, "
+        f"of them in fused groups {out['group_launches']}; wall "
+        f"{out['wall_s']:.2f} s")
+    return report
+
+
+def prometheus_ok(text: str) -> int:
+    """The sample lines of a Prometheus text exposition, checked; their
+    count."""
+    sample = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? "
+                        r"[-+]?([0-9.]+(e[-+]?[0-9]+)?|inf|nan)$")
+    n = 0
+    for line in text.splitlines():
+        if line.startswith("# TYPE ") or not line:
+            continue
+        if not sample.match(line):
+            fail(f"metrics: not a Prometheus sample line: {line!r}")
+        n += 1
+    return n
+
+
+def socket_server(work: str) -> "tuple[ServeProcess, str]":
+    """``a5gen serve --socket`` started; its process and the socket's
+    path as the process sees it (relative to the checkout: a unix socket's
+    path must stay under ~108 bytes, whatever the checkout's)."""
+    path = os.path.relpath(os.path.join(work, "serve.sock"), HERE)
+    sp = ServeProcess(work, "socket", ["--socket", path,
+                                       "--client-timeout", "60"])
+    return sp, path
+
+
+def socket_session(t: dict, server) -> dict:
+    """``a5gen serve --socket`` (:func:`socket_server`): one tenant,
+    ``stats``, ``metrics``, ``shutdown`` → ``bye``; every read bounded."""
+    import socket
+
+    sp, rel = server
+    path = os.path.join(HERE, rel)
+    deadline = time.monotonic() + 120
+    while not os.path.exists(path):
+        if time.monotonic() > deadline or sp.proc.poll() is not None:
+            fail("serve --socket: the socket never appeared")
+        time.sleep(0.05)
+    short = os.path.relpath(path)
+    with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+        s.settimeout(180)
+        s.connect(short if len(short) < len(path) else path)
+        fin, fout = s.makefile("r"), s.makefile("w")
+
+        def ask(doc):
+            fout.write(json.dumps(doc) + "\n")
+            fout.flush()
+
+        def reply():
+            try:
+                line = fin.readline()
+            except OSError as e:  # the socket's timeout
+                fail(f"serve --socket: no reply within 180 s ({e})")
+            if not line:
+                fail("serve --socket: the server closed the connection")
+            return json.loads(line)
+
+        ask(submit_doc(t))
+        evs = []
+        while not evs or evs[-1]["event"] not in SETTLE:
+            evs.append(reply())
+        ask({"op": "stats"})
+        stats = reply()
+        ask({"op": "metrics"})
+        metrics = reply()
+        ask({"op": "shutdown"})
+        bye = reply()
+    out = sp.close()
+    if hit_tuples(evs) != t["solo"] or evs[-1]["event"] != "done":
+        fail("serve --socket: the tenant's events differ from its solo run")
+    if stats["event"] != "stats" or bye != {"event": "bye"}:
+        fail(f"serve --socket: stats {stats.get('event')}, last {bye}")
+    n = prometheus_ok(metrics["prometheus"])
+    log(f"serve --socket: {len(evs)} events, stats, metrics ({n} "
+        f"Prometheus samples, engine-labelled), shutdown -> bye; wall "
+        f"{out['wall_s']:.2f} s")
+    return {"events": len(evs), "prometheus_samples": n, "bye": True,
+            "serve_wall_s": out["wall_s"]}
+
+
+def serve_phase(work: str, paths: dict, runs: dict, card: str) -> dict:
+    """Phase 10 (see the module docstring).  Returns the phase's
+    numbers."""
+    t_phase = time.monotonic()
+    work = os.path.join(work, "serve")
+    os.makedirs(work, exist_ok=True)
+    tenants = serve_tenants(work, paths)
+    log(f"serve: {len(tenants)} tenants, solo runs {[round(t['solo_s'], 2) for t in tenants]} s, "
+        f"{[len(t['solo']) for t in tenants]} hits")
+    # Do the two czech tenants share a packed key?
+    from hashcat_a5_table_generator_tpu_torch.ops.packing import (
+        read_wordlist,
+    )
+    from hashcat_a5_table_generator_tpu_torch.models.attack import AttackSpec
+    from hashcat_a5_table_generator_tpu_torch.runtime.fuse import (
+        pack_candidate,
+    )
+    from hashcat_a5_table_generator_tpu_torch.runtime.sweep import (
+        Sweep, SweepConfig,
+    )
+    from hashcat_a5_table_generator_tpu_torch.tables.parser import (
+        load_tables,
+    )
+
+    keys = []
+    czech = [t for t in tenants if t["algo"] == "ntlm"]
+    for t in czech:
+        sw = Sweep(AttackSpec(algo="ntlm"), load_tables([t["table"]]),
+                   read_wordlist(t["wordlist"]), [bytes(16)],
+                   SweepConfig(device=SERVE_DEVICE))
+        c = pack_candidate(sw)
+        keys.append(None if c is None else c["key"])
+    names = ("route", "tier", "spec", "lanes", "blocks", "stride", "steps",
+             "hit_cap", "out_width", "windowed", "devices", "pipeline",
+             "array shapes", "group descriptors", "schema structure",
+             "radix2", "pair", "decode", "pack_cb", "k_vals", "retries",
+             "fetch timeout")
+    czech_key = ("equal" if keys[0] == keys[1] else "differ in " + ", ".join(
+        n for n, x, y in zip(names, keys[0] or (), keys[1] or ()) if x != y))
+    log(f"serve: the two czech x NTLM tenants' packed keys {czech_key}")
+    crack = {"id": "crack-cell", "algo": "md5",
+             "table": paths["cyrillic-md5"].table,
+             "wordlist": paths["cyrillic-md5"].wordlist,
+             "digests": paths["cyrillic-md5"].digests,
+             "stdout": runs[("cyrillic-md5", "pair auto")]["stdout"],
+             "emitted": runs[("cyrillic-md5", "pair auto")]["emitted"]}
+    report = {"czech_keys": czech_key}
+    report["pack_auto"] = serve_session(work, "pack-auto", tenants, crack,
+                                        ["--pack", "auto"])
+    st = report["pack_auto"]
+    # The fused groups' own launches: every packed dispatch launched the
+    # piece kernel (one launch a step), and nothing else.
+    grouped = st["group_launches"]
+    piece = sum(grouped.get(k, 0) for k in ("piece_k1/md5",
+                                             "piece_pair/md5"))
+    if st["stats"]["packed_dispatches"] <= 0 or \
+            piece < st["stats"]["packed_dispatches"] or \
+            set(grouped) - {"piece_k1/md5", "piece_pair/md5"}:
+        fail(f"serve --pack auto: the fused groups' packed supersteps "
+             f"launched {grouped}, not piece_k1 / piece_pair at least once "
+             f"a packed dispatch ({st['stats']})")
+    if any(k.startswith("buffer_hash") for k in st["launches"]):
+        fail(f"serve --pack auto: launches on the XLA route "
+             f"{st['launches']}")
+    report["pack_off"] = serve_session(work, "pack-off", tenants, crack,
+                                       ["--pack", "off"])
+    if report["pack_off"]["stats"]["packed_dispatches"] != 0 or \
+            report["pack_off"]["group_launches"]:
+        fail(f"serve --pack off: packed dispatches ran "
+             f"({report['pack_off']['group_launches']})")
+    # The socket server starts beside the churn session (it idles until
+    # its client connects: only the two start-ups overlap).
+    server = socket_server(work)
+    report["churn"] = churn_session(work, tenants)
+    report["socket"] = socket_session(tenants[0], server)
+    report["phase_s"] = time.monotonic() - t_phase
+    log(f"serve phase {report['phase_s']:.1f} s on {card}")
+    return report
+
+
 def expect_launched(run, keys, what) -> None:
     for key in keys:
         if run["launches"].get(key, 0) <= 0:
@@ -3072,6 +3691,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs "
              "a CUDA device")
+    arm_deadline()
     sys.path.insert(0, HERE)
     try:
         from hashcat_a5_table_generator_tpu_torch.models.attack import (
@@ -3104,7 +3724,9 @@ def main() -> None:
     # -- phase 2: build -----------------------------------------------------
     # The two host libraries (g++: the wordlist scanner/packer and the
     # oracle engines) build on a thread while the nvcc builds run; the
-    # smoke needs them built, not the numpy / Python fallback.
+    # smoke needs them built, not the numpy / Python fallback.  The nvcc
+    # builds run on a thread of their own until phase 3's first launch:
+    # its inputs (host plans, device tables) are made meanwhile.
     from hashcat_a5_table_generator_tpu_torch import native
     from hashcat_a5_table_generator_tpu_torch.native import oracle_engine
 
@@ -3118,11 +3740,21 @@ def main() -> None:
 
     host_build = threading.Thread(target=build_host_libs)
     host_build.start()
-    t = time.monotonic()
     libs = [f"piece_hash_{a}" for a in ALGOS]
     bs_libs = [f"bytescan_hash_{a}" for a in ALGOS]
     bh_libs = [f"buffer_hash_{a}" for a in ALGOS]
-    reports = _native_build.build(libs + bs_libs + bh_libs)
+    built: dict = {}
+
+    def build_kernels():
+        t0 = time.monotonic()
+        try:
+            built["reports"] = _native_build.build(libs + bs_libs + bh_libs)
+        except Exception as e:  # reported where phase 3 waits for it
+            built["error"] = e
+        built["s"] = time.monotonic() - t0
+
+    kernel_build = threading.Thread(target=build_kernels)
+    kernel_build.start()
     host_build.join()
     if not (host_libs.get("packer") and host_libs.get("oracle")):
         fail(f"the native host libraries did not build with g++ "
@@ -3130,19 +3762,26 @@ def main() -> None:
     log(f"built the native host libraries (native/packer.cpp, "
         f"native/oracle.cpp; g++ -O3, into {native.BUILD_DIR}) in "
         f"{host_libs['s']:.1f} s beside the nvcc builds")
-    log(f"built {len(libs + bs_libs + bh_libs)} libraries from "
-        f"csrc/piece_hash.cu, csrc/bytescan_hash.cu and csrc/buffer_hash.cu "
-        f"in {time.monotonic() - t:.1f} s (nvcc "
-        f"{' '.join(_native_build.NVCC_FLAGS)} -DPIECE_ALGO=n, all in "
-        f"parallel)")
-    frames = []
-    for lib in bh_libs + libs + bs_libs:
-        for kernel, info in ptxas_kernels(reports[lib]):
-            print(f"  ptxas [{lib}]: {kernel}: {info}")
-            if not info.split(", ")[1].startswith("0 B stack"):
-                frames.append(f"{lib} {kernel}")
-    log(f"instantiations with a stack frame: {len(frames)}"
-        + (f" ({'; '.join(frames)})" if frames else ""))
+
+    def kernels_built() -> None:
+        """Wait for the nvcc builds; their ptxas lines."""
+        kernel_build.join()
+        if "error" in built:
+            fail(f"the CUDA libraries did not build: {built['error']}")
+        reports = built["reports"]
+        log(f"built {len(libs + bs_libs + bh_libs)} libraries from "
+            f"csrc/piece_hash.cu, csrc/bytescan_hash.cu and "
+            f"csrc/buffer_hash.cu in {built['s']:.1f} s (nvcc "
+            f"{' '.join(_native_build.NVCC_FLAGS)} -DPIECE_ALGO=n, all in "
+            f"parallel, beside phase 3's input preparation)")
+        frames = []
+        for lib in bh_libs + libs + bs_libs:
+            for kernel, info in ptxas_kernels(reports[lib]):
+                print(f"  ptxas [{lib}]: {kernel}: {info}")
+                if not info.split(", ")[1].startswith("0 B stack"):
+                    frames.append(f"{lib} {kernel}")
+        log(f"instantiations with a stack frame: {len(frames)}"
+            + (f" ({'; '.join(frames)})" if frames else ""))
 
     cyr = get_layout("qwerty-cyrillic").to_substitution_map()
     czech = get_layout("czech").to_substitution_map()
@@ -3275,6 +3914,7 @@ def main() -> None:
         if case.key != want_key or case.hash_blocks != want_hb:
             fail(f"{case.name}: runs {case.key} with {case.hash_blocks} "
                  f"hash blocks, expected {want_key} with {want_hb}")
+    kernels_built()
     checks = {key: compare(case) for key, case in cases.items()}
     # The windowed tier's CTA edges: lines of 16-20 bytes with 16 letters
     # (137 ranks at -x 2, so blocks of the full stride), a partial last
@@ -3489,29 +4129,19 @@ def main() -> None:
     work = os.path.join(HERE, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
-    # Unique words: qwerty-cyrillic and czech map letters one-to-one, so
-    # distinct words never share a candidate; greek-hebrew and
-    # qwerty-azerty do not (MainPath plants only plaintexts with one
-    # source).  The default-mode runs take 250k words, the
-    # substitute-all and reverse runs 1M.
-    def dictionary(n, seed, long_lines=True):
-        out = list(dict.fromkeys(synth_words(n + 1000, seed=seed)))
-        out = out[: n - (120 if long_lines else 0)]
-        if long_lines:
-            rng = np.random.default_rng(4)
-            for w in long_words(100, 33, 64, (4, 10), seed=5) + \
-                    long_words(20, 50, 64, (3, 8), seed=6):
-                out.insert(int(rng.integers(0, len(out))), w)
-        return out
-
+    # The crack cell (and azerty -s, whose killed runs need its fetches)
+    # takes 250k words; every other cell N_WORDS_CELL (100k): cut from
+    # 250k to keep the script inside its time limit.
     words = dictionary(N_WORDS_DEFAULT, seed=0)
-    czech_1m = dictionary(N_WORDS, seed=11, long_lines=False)
-    # cyrillic-x2-long: 1M recipe words, 2000 lines of 65-200 bytes and
-    # 1000 of 25-40 letters (both on the XLA route) at seeded places.
-    long_1m = dictionary(N_WORDS - 3000, seed=0, long_lines=False)
+    cell_words = dictionary(N_WORDS_CELL, seed=0)
+    czech_words = dictionary(N_WORDS_CELL, seed=11, long_lines=False)
+    # cyrillic-x2-long: 247k recipe words, 2000 lines of 65-200 bytes and
+    # 1000 of 25-40 letters (both on the XLA route) at seeded places (1M
+    # recipe words before it was cut for time).
+    x2_long = dictionary(N_WORDS_DEFAULT - 3000, seed=0, long_lines=False)
     rng = np.random.default_rng(81)
     for w in long_lines(2000, seed=82) + letter_lines(1000, seed=83):
-        long_1m.insert(int(rng.integers(0, len(long_1m))), w)
+        x2_long.insert(int(rng.integers(0, len(x2_long))), w)
     # qwerty-azerty -s: 250k words (1M cost most of the script's time in
     # host prep), with the same 2000 seeded hazard lines.
     azerty_words = dictionary(N_WORDS_DEFAULT - 2000, seed=21,
@@ -3521,26 +4151,25 @@ def main() -> None:
         azerty_words.insert(int(rng.integers(0, len(azerty_words))), w)
     # german x MD5: the bench recipe with ss (~5%) and sss (~1%), unique,
     # plus the 120 long lines (bucket 64, no "sss": the piece kernel).
-    german_1m = list(dict.fromkeys(german_words(N_WORDS + 1000, seed=41)))
-    german_1m = german_1m[: N_WORDS_DEFAULT - 120]
+    german = list(dict.fromkeys(german_words(N_WORDS_CELL + 1000, seed=41)))
+    german = german[: N_WORDS_CELL - 120]
     rng = np.random.default_rng(4)
     for w in long_words(100, 33, 64, (4, 10), seed=5) + \
             long_words(20, 50, 64, (3, 8), seed=6):
-        german_1m.insert(int(rng.integers(0, len(german_1m))), w)
+        german.insert(int(rng.integers(0, len(german))), w)
     paths = {
         "cyrillic-md5": MainPath("cyrillic-md5", work, words,
                                  "qwerty-cyrillic", "md5", {}, seed=10),
-        "czech-ntlm": MainPath(
-            "czech-ntlm", work, czech_1m[:N_WORDS_DEFAULT], "czech", "ntlm",
-            {}, seed=12),
+        "czech-ntlm": MainPath("czech-ntlm", work, czech_words, "czech",
+                               "ntlm", {}, seed=12),
         "greek-hebrew-sha1": MainPath(
             "greek-hebrew-sha1", work, greek_words(dictionary(
-                N_WORDS_DEFAULT, seed=13, long_lines=False)),
+                N_WORDS_CELL, seed=13, long_lines=False)),
             "greek-hebrew", "sha1", {}, seed=14),
-        "cyrillic-md5-x2": MainPath("cyrillic-md5-x2", work, words,
+        "cyrillic-md5-x2": MainPath("cyrillic-md5-x2", work, cell_words,
                                     "qwerty-cyrillic", "md5",
                                     {"max_substitute": 2}, seed=15),
-        "cyrillic-md5-s": MainPath("cyrillic-md5-s", work, words,
+        "cyrillic-md5-s": MainPath("cyrillic-md5-s", work, cell_words,
                                    "qwerty-cyrillic", "md5",
                                    {"mode": "suball"}, seed=24),
         "azerty-md5-s": MainPath(
@@ -3548,24 +4177,24 @@ def main() -> None:
             {"mode": "suball"}, seed=25,
             quota={"device_closed": 120, "oracle_fallback": 60}),
         "cyrillic-sha1-s-x2": MainPath(
-            "cyrillic-sha1-s-x2", work, words, "qwerty-cyrillic", "sha1",
-            {"mode": "suball", "max_substitute": 2}, seed=26),
+            "cyrillic-sha1-s-x2", work, cell_words, "qwerty-cyrillic",
+            "sha1", {"mode": "suball", "max_substitute": 2}, seed=26),
         "czech-ntlm-s-r": MainPath(
-            "czech-ntlm-s-r", work, czech_1m[:N_WORDS_DEFAULT], "czech",
-            "ntlm", {"mode": "suball-reverse"}, seed=27),
-        "cyrillic-md5-r": MainPath("cyrillic-md5-r", work, words,
+            "czech-ntlm-s-r", work, czech_words, "czech", "ntlm",
+            {"mode": "suball-reverse"}, seed=27),
+        "cyrillic-md5-r": MainPath("cyrillic-md5-r", work, cell_words,
                                    "qwerty-cyrillic", "md5",
                                    {"mode": "reverse"}, seed=28),
-        "german-md5": MainPath("german-md5", work, german_1m, "german",
+        "german-md5": MainPath("german-md5", work, german, "german",
                                "md5", {}, seed=42),
         "german-r-ntlm": MainPath(
-            "german-r-ntlm", work, german_1m[:N_WORDS_DEFAULT], "german",
-            "ntlm", {"mode": "reverse"}, seed=43),
-        "cyrillic-sha1-s": MainPath("cyrillic-sha1-s", work, words,
+            "german-r-ntlm", work, german, "german", "ntlm",
+            {"mode": "reverse"}, seed=43),
+        "cyrillic-sha1-s": MainPath("cyrillic-sha1-s", work, cell_words,
                                     "qwerty-cyrillic", "sha1",
                                     {"mode": "suball"}, seed=44),
         "cyrillic-x2-long": MainPath(
-            "cyrillic-x2-long", work, long_1m, "qwerty-cyrillic", "md5",
+            "cyrillic-x2-long", work, x2_long, "qwerty-cyrillic", "md5",
             {"max_substitute": 2}, seed=84),
         "leet9-sha1": MainPath(
             "leet9-sha1", work, dictionary(50000, seed=85, long_lines=False),
@@ -3584,14 +4213,23 @@ def main() -> None:
         fh.write(b"\n".join(words[:2000]) + b"\n")
     base = ["-t", paths["cyrillic-md5"].table, "--backend", "device",
             "--algo", "md5", "--digests", paths["cyrillic-md5"].digests]
-    _out, err, rc = run_cli([small] + base)
+    out, err, rc = run_cli([small] + base)
     if rc != 0:
         fail(f"warm-up run exited {rc}: {err}")
 
+    # The warm-up run: the reference of phase 9's --devices 1 run.
+    warm_up = {"argv": [small] + base, "stdout": out}
     runs = {}
+    # The crack cell at pair off writes --metrics-json (its counters
+    # alone): phase 7's arm without a checkpoint and phase 8's arm at the
+    # default chunking read it.
+    from hashcat_a5_table_generator_tpu_torch.runtime import telemetry
+
+    crack_metrics = os.path.join(work, "m-crack-pair-off.json")
     for name, arm, extra in (
         ("cyrillic-md5", "pair auto", []),
-        ("cyrillic-md5", "pair off", ["--pair", "off"]),
+        ("cyrillic-md5", "pair off", ["--pair", "off", "--metrics-json",
+                                      crack_metrics]),
         ("czech-ntlm", "pair auto", []),
         ("greek-hebrew-sha1", "pair auto", []),
         ("greek-hebrew-sha1", "pair off", ["--pair", "off"]),
@@ -3607,7 +4245,10 @@ def main() -> None:
         ("cyrillic-x2-long", "-x 2", ["-x", "2"]),
         ("leet9-sha1", "nine options", []),
     ):
+        if "--metrics-json" in extra:
+            telemetry.REGISTRY.reset()
         runs[(name, arm)] = paths[name].run(arm, extra, card)
+    runs[("cyrillic-md5", "pair off")]["metrics"] = crack_metrics
     # A5GEN_EMIT=bytescan (this run alone): every plan on the byte-scan
     # tiers; stdout byte-identical to the per-slot run of the same input.
     for name, arm, extra, twin in (
@@ -3645,27 +4286,25 @@ def main() -> None:
             f"route's ({len(run['stdout'])} bytes)")
     # A5_NATIVE=0 (this run alone): the numpy packer, and the Python
     # oracle for the fallback words; stdout byte-identical to the native
-    # run's, which took every fallback word on the native engine.  The
-    # first -s run also warms the cell up, so the native run is repeated
-    # after the twin: the two engines' drives in turns.
+    # run's, which took every fallback word on the native engine.  (The
+    # native run's repeat after the twin, the two engines' drives in
+    # turns, was dropped for the script's time when phase 10 came.)
     run = paths["azerty-md5-s"].run("A5_NATIVE=0 -s", ["-s"], card,
                                     native="0")
     runs[("azerty-md5-s", "A5_NATIVE=0 -s")] = run
-    again = paths["azerty-md5-s"].run("-s, native again", ["-s"], card)
     nat = runs[("azerty-md5-s", "-s")]
-    if not run["stdout"] == nat["stdout"] == again["stdout"]:
+    if run["stdout"] != nat["stdout"]:
         fail("azerty-md5-s (A5_NATIVE=0): stdout differs from the native "
-             "runs'")
-    if (nat["native_words"], again["native_words"], run["native_words"]) \
-            != (az["oracle_fallback"], az["oracle_fallback"], 0):
-        fail(f"azerty-md5-s: {nat['native_words']}, {again['native_words']}"
-             f" / {run['native_words']} fallback words on the native engine "
-             f"(native runs / A5_NATIVE=0), want {az['oracle_fallback']} / 0")
+             "run's")
+    if (nat["native_words"], run["native_words"]) \
+            != (az["oracle_fallback"], 0):
+        fail(f"azerty-md5-s: {nat['native_words']} / {run['native_words']} "
+             f"fallback words on the native engine (native run / "
+             f"A5_NATIVE=0), want {az['oracle_fallback']} / 0")
     log(f"main path azerty-md5-s (A5_NATIVE=0): stdout byte-identical to "
-        f"the native runs' ({len(run['stdout'])} bytes); drives native "
-        f"{nat['drive']} s, A5_NATIVE=0 {run['drive']} s, native again "
-        f"{again['drive']} s; CLI walls {nat['wall']:.2f} / "
-        f"{run['wall']:.2f} / {again['wall']:.2f} s on {card}")
+        f"the native run's ({len(run['stdout'])} bytes); drives native "
+        f"{nat['drive']} s, A5_NATIVE=0 {run['drive']} s; CLI walls "
+        f"{nat['wall']:.2f} / {run['wall']:.2f} s on {card}")
     # A5GEN_PAIR=off (this run alone): K=1 everywhere; stdout
     # byte-identical to the pair auto run's.
     run = paths["cyrillic-md5"].run("A5GEN_PAIR=off", [], card, pair="off")
@@ -3971,7 +4610,7 @@ def main() -> None:
             "edge_mismatches": {label: bh_checks[(algo, label)]["mismatches"]
                                 for label, *_ in BUFFER_EDGES},
         })
-    cyr_long = [w for w in long_1m if len(w) > 64]
+    cyr_long = [w for w in x2_long if len(w) > 64]
     leet9_words = dictionary(50000, seed=85, long_lines=False)
     check_xla_memory({
         "main path cyrillic-x2-long, lines over 64 bytes": (
@@ -3989,19 +4628,21 @@ def main() -> None:
                           runs[("cyrillic-md5", "pair auto")], card)
     oracle["azerty_s_drive_s"] = {
         "native": runs[("azerty-md5-s", "-s")]["drive"],
-        "A5_NATIVE=0": runs[("azerty-md5-s", "A5_NATIVE=0 -s")]["drive"],
-        "native_again": again["drive"]}
+        "A5_NATIVE=0": runs[("azerty-md5-s", "A5_NATIVE=0 -s")]["drive"]}
     # -- phase 7: robustness -----------------------------------------------
     robustness = robustness_phase(work, paths, runs, cand_cells, small,
                                   card)
     # -- phase 8: layouts and streaming ---------------------------------------
     layouts = layouts_streaming_phase(work, paths, runs, cand_cells, card)
     # -- phase 9: the schema cache, the prefetcher, devices and the pod -----
-    runs[("azerty-md5-s", "-s, native again")] = again
+    runs[("small", "warm-up")] = warm_up
     pod = pod_phase(work, paths, runs, cand_cells, card)
+    # -- phase 10: the resident engine (a5gen serve) ------------------------
+    serve = serve_phase(work, paths, runs, card)
     shutil.rmtree(work, ignore_errors=True)
     elapsed = time.monotonic() - T0
     log(f"done in {elapsed:.1f} s")
+    print(json.dumps({"serve": serve}))
     print(json.dumps({"pod": pod}))
     print(json.dumps({"layouts_streaming": layouts}))
     print(json.dumps({"robustness": robustness}))

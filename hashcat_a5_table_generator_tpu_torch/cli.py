@@ -17,6 +17,8 @@ Same flags and output as the reference CLI for what this package runs::
         [--progress] [--profile DIR] [--metrics-json FILE]
   a5gen --emit-table LAYOUT [--output FILE]
   a5gen --list-layouts
+  a5gen serve [--socket PATH] [--device cuda|cpu] [--pack auto|on|off]
+        [--lanes N] [--blocks N] [...]
 
 ``--backend oracle`` (the default) streams the byte-exact CPU engines in
 the reference's ``--threads 1`` order (word order, DFS order within a
@@ -70,9 +72,16 @@ for it exit 3 with the recovery text.
 ``--output`` names ``--emit-table``'s file only, as in the reference:
 both backends' candidate and hit streams go to stdout.
 
-The service layer (``serve``, ``fleet``: ROADMAP.md port-queue item 8)
-and tuning (``tune``: item 9) exit 2 with a message naming their item —
-they never run a different path.  Under ``--backend oracle`` the device
+``a5gen serve`` runs the resident engine (``runtime/engine.py``): jobs
+arrive as JSONL (the wire of ``runtime/protocol.py``, ``PROTOCOL.json``)
+on stdin or a unix socket (``--socket``), events stream back as JSONL;
+compatible crack jobs fuse into packed dispatches (``--pack``).  It runs
+on the GPU unless ``--device cpu`` is given, and without a GPU it exits
+non-zero instead of serving on the CPU.  Its launch geometry defaults
+are the sweep's (2^22 lanes on cuda, 2^17 on cpu; blocks lanes/128).
+The fleet router (``fleet``: ROADMAP.md port-queue item 8) and tuning
+(``tune``: item 9) exit 2 with a message naming their item — they never
+run a different path.  Under ``--backend oracle`` the device
 backend's flags do what the reference's do there: the stateless ones
 warn that they have no effect, the rest are ignored.
 """
@@ -92,7 +101,7 @@ _ITEMS = {
     9: "tuning",
 }
 
-_SUBCOMMANDS = {"serve": 8, "fleet": 8, "tune": 9}
+_SUBCOMMANDS = {"fleet": 8, "tune": 9}
 
 
 def _not_ported(what: str, item: int) -> str:
@@ -1031,9 +1040,137 @@ def _warn_oracle_flags(args) -> None:
                   file=sys.stderr)
 
 
+def _build_serve_parser() -> argparse.ArgumentParser:
+    """``a5gen serve``'s flags: the reference's, and ``--device``."""
+    ap = argparse.ArgumentParser(
+        prog=f"{PROG} serve",
+        description=(
+            "Resident engine service mode: serve many sweeps from one "
+            "process. Jobs arrive as JSONL on stdin (or a unix socket), "
+            "interleave at superstep boundaries on one device, and share "
+            "step closures and the schema cache; events (hit/done/"
+            "paused/...) stream back as JSONL on stdout."
+        ),
+    )
+    ap.add_argument("--socket", metavar="PATH",
+                    help="listen on a unix socket instead of stdin "
+                         "(one JSONL session per connection, all "
+                         "sharing the engine)")
+    ap.add_argument("--engine-id", metavar="ID", default=None,
+                    help="identity label on this engine's telemetry "
+                         "series; default pid@host")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the jobs' sweeps run (default cuda; cpu "
+                         "runs the plain PyTorch version of the kernels)")
+    ap.add_argument("--lanes", type=int, default=None,
+                    help="default hash lanes per launch for jobs that "
+                         "don't override it (same default as the sweep "
+                         "CLI: 2^22 on cuda, 2^17 on cpu)")
+    ap.add_argument("--blocks", type=int, default=None,
+                    help="default blocks per launch (lanes/128, or 1024 "
+                         "when 128 does not divide the lanes)")
+    ap.add_argument("--devices", type=_devices_arg, default=1, metavar="N",
+                    help="default device count per job")
+    ap.add_argument("--superstep", type=_superstep_arg, default=None,
+                    metavar="N|auto|off", help="default superstep knob")
+    ap.add_argument("--pair", choices=("auto", "on", "off"),
+                    default="auto", help="default pair-lane knob")
+    ap.add_argument("--stream-chunk-words", type=_stream_chunk_arg,
+                    default="auto", metavar="N|auto|off",
+                    help="default streaming-ingestion knob")
+    ap.add_argument("--schema-cache", metavar="DIR",
+                    help="on-disk PieceSchema cache shared by every job")
+    ap.add_argument("--schema-cache-max-mb", type=float, default=None,
+                    metavar="MB",
+                    help="size cap on the schema cache (default "
+                         "unbounded)")
+    ap.add_argument("--max-word-bytes", type=int, default=64 * 1024,
+                    help="reject job dictionary lines longer than this")
+    ap.add_argument("--client-timeout", type=float, default=None,
+                    metavar="SECONDS",
+                    help="--socket only: close a connection whose client "
+                         "has sent nothing for SECONDS while no events "
+                         "flowed out either; its jobs keep running and a "
+                         "reconnecting session can pause/cancel/resume "
+                         "them by id. Default off")
+    ap.add_argument("--pack", choices=("auto", "on", "off"),
+                    default="auto",
+                    help="cross-job packed superstep dispatch: fuse "
+                         "compatible tenants' block ranges into one "
+                         "dispatch. auto = on unless A5GEN_PACK=off; "
+                         "off = per-job dispatch")
+    ap.add_argument("--admission-worker", choices=("on", "off"),
+                    default="on",
+                    help="build admitted jobs' plans on a worker thread "
+                         "instead of the serve round; off = synchronous "
+                         "admission")
+    return ap
+
+
+def _run_serve(argv: Sequence[str]) -> int:
+    """``a5gen serve``: one resident engine, jobs over JSONL."""
+    args = _build_serve_parser().parse_args(argv)
+    from .runtime import telemetry
+    from .runtime.engine import Engine, serve_socket, serve_stdio
+    from .runtime.sweep import SweepConfig, resolve_device
+
+    try:
+        dev = resolve_device(args.device)
+    except RuntimeError as e:
+        print(f"{PROG}: error: {e}", file=sys.stderr)
+        return 2
+    # Serve mode always runs labeled: a merged scrape of several engines
+    # must tell them apart, and a lone engine's label is harmless.
+    telemetry.set_engine_id(args.engine_id or telemetry.default_engine_id())
+    # The engine's defaults are concrete (affinity tokens and the stats'
+    # config_defaults hash them): the sweep's built-in geometry.
+    probe = SweepConfig(device=args.device, lanes=args.lanes,
+                        num_blocks=args.blocks)
+    lanes, blocks, _ = probe.resolve(dev)
+    defaults = SweepConfig(
+        device=args.device,
+        lanes=lanes,
+        num_blocks=blocks,
+        devices=args.devices,
+        superstep=args.superstep,
+        pair={"auto": None, "on": "on", "off": 0}[args.pair],
+        stream_chunk_words=args.stream_chunk_words,
+        schema_cache=args.schema_cache,
+        schema_cache_max_mb=args.schema_cache_max_mb,
+    )
+    engine = Engine(
+        defaults,
+        pack={"auto": None, "on": True, "off": False}[args.pack],
+        admission_worker=args.admission_worker == "on",
+    )
+    print(f"{PROG}: serving on "
+          f"{args.socket or 'stdin'} (JSONL; op=shutdown or EOF ends)",
+          file=sys.stderr)
+    try:
+        if args.socket:
+            serve_socket(engine, args.socket,
+                         max_word_bytes=args.max_word_bytes,
+                         client_timeout=args.client_timeout)
+        else:
+            serve_stdio(engine, sys.stdin, sys.stdout,
+                        max_word_bytes=args.max_word_bytes)
+    finally:
+        engine.close()
+        # The jobs are settled; their event pumps write the last hits and
+        # the settling events before the process exits.
+        import threading
+
+        for th in threading.enumerate():
+            if th.name.startswith("a5-serve-pump-"):
+                th.join(30)
+    return 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
+    if argv and argv[0] == "serve":
+        return _run_serve(argv[1:])
     ap = build_parser()
     if argv and argv[0] in _SUBCOMMANDS:
         ap.error(_not_ported(f"'{argv[0]}'", _SUBCOMMANDS[argv[0]]))

@@ -29,12 +29,18 @@ materializes each candidate's bytes (``ops.expand_matches`` /
 (TPU kernel row 10's counterpart); :func:`xla_arrays` ships that route's
 per-word tables.  Candidates mode (:func:`make_candidates_body`) runs the
 expansion alone, as in the reference.
+
+The resident engine's packed dispatch (``runtime/fuse.py``) runs the same
+superstep body over several jobs at once (``n_seg``): each job's blocks
+cut from its own region of one packed index
+(:func:`packed_superstep_arrays`), each lane tested against its own job's
+digests (``ops.membership.digest_member_seg``), one counter row a job.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Sequence
 
 import numpy as np
 import torch
@@ -55,8 +61,8 @@ from ..ops.fused_expand import (
     scalar_units_weight,
     selector_tables,
 )
-from ..ops.blocks import BlockBatch, pad_batch
-from ..ops.membership import DigestSet, digest_member
+from ..ops.blocks import BlockBatch, packed_block_index, pad_batch
+from ..ops.membership import DigestSet, digest_member, digest_member_seg
 from ..ops.packing import PackedWords
 from ..tables.compile import CompiledTable
 
@@ -310,8 +316,9 @@ def _xla_base(arrays: Tree, base: torch.Tensor, windowed: bool
     return full
 
 
-def cut_blocks(arrays: Tree, b0: int, num_blocks: int, rank_stride: int,
-               decode: str = "scalar"):
+def cut_blocks(arrays: Tree, b0: "int | torch.Tensor", num_blocks: int,
+               rank_stride: int, decode: str = "scalar",
+               n_seg: "int | None" = None):
     """One launch's blocks from the device-resident index: global
     fixed-stride blocks ``b0 .. b0 + num_blocks``, each ``rank_stride``
     candidate ranks of one word.  Returns ``(word, count, base, rank0)``,
@@ -320,13 +327,25 @@ def cut_blocks(arrays: Tree, b0: int, num_blocks: int, rank_stride: int,
     base digits ``[NB, P]`` (``"digits"``), or the scalar windowed rank
     ``[NB]`` (``"windowed"``: ``rank0`` itself — ``totals`` are windowed
     totals there).  Blocks past the sweep's end keep count 0 (their lanes
-    are masked)."""
+    are masked).  Packed (``n_seg``): the blocks split into ``n_seg``
+    equal contiguous segments, segment ``j`` cut from its own cursor
+    ``b0[j]`` (an int64 tensor ``[n_seg]``) and bounded by its own job's
+    end ``arrays["seg_end"][j]``."""
     cum, totals = arrays["cum"], arrays["totals"]
     dev = cum.device
-    b = b0 + torch.arange(num_blocks, dtype=torch.int64, device=dev)
+    off = torch.arange(num_blocks, dtype=torch.int64, device=dev)
+    if n_seg is None:
+        b = b0 + off
+    else:
+        nbs = num_blocks // n_seg
+        seg_of_block = off // nbs
+        b = b0[seg_of_block] + (off - seg_of_block * nbs)
     w = torch.searchsorted(cum, b.to(torch.int32), right=True).long() - 1
     w = torch.clamp(w, 0, max(int(totals.shape[0]) - 1, 0))
-    valid = b < arrays["total"]
+    if n_seg is None:
+        valid = b < arrays["total"]
+    else:
+        valid = b < arrays["seg_end"][seg_of_block]
     rank0 = torch.where(valid, (b - cum[w]) * rank_stride, 0)
     count = torch.where(
         valid, torch.clamp(totals[w] - rank0, 0, rank_stride), 0
@@ -412,7 +431,7 @@ def make_superstep_body(
     decode: str = "scalar", pack_cb: bool = False, k_opts: int = 1,
     bytescan: "ByteScanTier | None" = None, xla: bool = False,
     windowed: bool = False, radix2: bool = False,
-    step_advance: "int | None" = None,
+    step_advance: "int | None" = None, n_seg: "int | None" = None,
 ) -> Callable[..., Tree]:
     """The superstep executor: ``body(arrays, b0, steps, bufs) -> dict``
     runs ``steps`` fused launches starting at global block ``b0``, with no
@@ -434,17 +453,35 @@ def make_superstep_body(
     buffers and ``counters`` int32 ``[2]`` = ``[n_emitted, n_hits]``
     (callers keep ``steps * num_lanes * pair_k`` below 2^31).  Hits past
     the cap are dropped into the trash slot; the host sees the overflow
-    in ``n_hits`` and re-runs the superstep with a larger buffer."""
+    in ``n_hits`` and re-runs the superstep with a larger buffer.
+
+    ``n_seg``: the cross-job packed dispatch (``runtime/fuse.py``).  The
+    blocks of every step split into ``n_seg`` equal contiguous job
+    segments (``num_blocks // n_seg`` blocks each); ``b0`` is then a row
+    of ``n_seg`` per-job cursors into :func:`packed_superstep_arrays`'
+    index (each advancing ``step_advance // n_seg`` blocks a step),
+    ``arrays`` carries per-segment end bounds ``seg_end`` and the
+    segmented digest set (``rows``, ``bitmap`` ``[S, W]``, ``row_lo``,
+    ``row_hi``: ``ops.membership.digest_member_seg``, so no lane is tested
+    against another job's digests), ``counters`` is int32 ``[2, n_seg]``
+    (per-job emitted and hit rows, summed in the same pass that compacts
+    the hits) and the hit buffer's words are packed plan rows."""
     rank_stride = block_stride * (pair_k or 1)
     num_cands = num_lanes * (pair_k or 1)
     advance = num_blocks if step_advance is None else int(step_advance)
+    if n_seg is not None:
+        if num_blocks % n_seg:
+            raise ValueError(
+                f"packed dispatch needs num_blocks ({num_blocks}) "
+                f"divisible by n_seg ({n_seg})")
+        advance //= n_seg
     expand, decode = _launch_expand(
         spec, num_lanes=num_lanes, out_width=out_width,
         block_stride=block_stride, pieces=pieces, pair_k=pair_k,
         decode=decode, pack_cb=pack_cb, k_opts=k_opts, bytescan=bytescan,
         xla=xla, windowed=windowed, radix2=radix2)
 
-    def body(arrays: Tree, b0: int, steps: int, bufs: Tree) -> Tree:
+    def body(arrays: Tree, b0, steps: int, bufs: Tree) -> Tree:
         hw, hr = bufs["hit_word"], bufs["hit_rank"]
         hit_cap = int(hw.shape[0]) - 1
         dev = hw.device
@@ -452,16 +489,30 @@ def make_superstep_body(
         blk = (lane // rank_stride).long()
         lane_in = lane - blk.to(torch.int32) * rank_stride
         kk = torch.arange(hit_cap, dtype=torch.int32, device=dev)
-        ne = torch.zeros((), dtype=torch.int32, device=dev)
-        nh = torch.zeros((), dtype=torch.int32, device=dev)
+        shape = () if n_seg is None else (n_seg,)
+        ne = torch.zeros(shape, dtype=torch.int32, device=dev)
+        nh = torch.zeros(shape, dtype=torch.int32, device=dev)
+        nh_tot = torch.zeros((), dtype=torch.int32, device=dev)
+        if n_seg is not None:
+            seg = blk // (num_blocks // n_seg)
+            b0 = _device_row(b0, dev)
         for s in range(steps):
             word, count, base, rank0 = cut_blocks(
-                arrays, b0 + s * advance, num_blocks, rank_stride, decode
-            )
+                arrays, b0 + s * advance, num_blocks, rank_stride, decode,
+                n_seg=n_seg)
             state, emit = expand(word, count, base, arrays)
-            hit = digest_member(state, arrays["rows"], arrays["bitmap"])
-            hit &= emit
-            ne += emit.sum(dtype=torch.int32)
+            if n_seg is None:
+                hit = digest_member(state, arrays["rows"], arrays["bitmap"])
+                hit &= emit
+                ne += emit.sum(dtype=torch.int32)
+            else:
+                hit = digest_member_seg(
+                    state, arrays["rows"], arrays["bitmap"],
+                    arrays["row_lo"], arrays["row_hi"], seg) & emit
+                # Each job's lanes are one contiguous span: its counter
+                # row is a sum over a reshape.
+                ne += emit.view(n_seg, -1).sum(dim=1, dtype=torch.int32)
+                nh += hit.view(n_seg, -1).sum(dim=1, dtype=torch.int32)
             csum = torch.cumsum(hit, dim=0, dtype=torch.int32)
             nh_step = csum[-1]
             # Compacting scatter without a host sync: the k-th hit of this
@@ -469,16 +520,48 @@ def make_superstep_body(
             # slots past the cap (and k past this step's hits) land in the
             # trash slot.
             at = torch.clamp(torch.searchsorted(csum, kk + 1), max=num_cands - 1)
-            slot = nh + kk
+            slot = nh_tot + kk
             dest = torch.where((kk < nh_step) & (slot < hit_cap), slot,
                                hit_cap).long()
             hw.scatter_(0, dest, word[blk[at]])
             hr.scatter_(0, dest, rank0[blk[at]] + lane_in[at])
-            nh += nh_step
+            nh_tot += nh_step
+        if n_seg is None:
+            nh = nh_tot
         return {"counters": torch.stack([ne, nh]), "hit_word": hw,
                 "hit_rank": hr}
 
     return body
+
+
+def _device_row(row, dev: torch.device) -> torch.Tensor:
+    """A host row of block cursors as an int64 tensor on ``dev``: through
+    pinned memory and a non-blocking copy on CUDA, so a dispatch never
+    waits on the device."""
+    host = torch.as_tensor(np.asarray(row, dtype=np.int64))
+    if dev.type != "cuda":
+        return host
+    return host.pin_memory().to(dev, non_blocking=True)
+
+
+def packed_superstep_arrays(plans: Sequence[Any], idxs: Sequence[tuple]
+                            ) -> "tuple[Dict[str, np.ndarray], np.ndarray, np.ndarray] | None":
+    """Several plans' block indexes fused into one packed superstep index
+    (the reference's ``packed_superstep_arrays``), as host arrays:
+    ``(ss, blk_base int64[S+1], row_base int64[S+1])`` with ``ss`` the
+    packed ``cum`` / ``totals`` (``ops.blocks.packed_block_index``), the
+    concatenated ``radix`` and the per-segment end bounds ``seg_end`` that
+    replace the solo ``total``; None when the packed index would pass
+    int32.  ``idxs`` are the plans' ``ops.blocks.superstep_index``
+    results at one stride."""
+    packed = packed_block_index(idxs)
+    if packed is None:
+        return None
+    cum, totals, blk_base, row_base, seg_end = packed
+    radix = np.concatenate([np.asarray(p.pat_radix, dtype=np.int32)
+                            for p in plans])
+    ss = {"cum": cum, "totals": totals, "radix": radix, "seg_end": seg_end}
+    return ss, blk_base, row_base
 
 
 def host_blocks(batch: BlockBatch, num_blocks: int, decode: str,

@@ -131,4 +131,9 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         if name not in _LIBS:
             _LIBS[name] = ctypes.CDLL(str(_target(name)[1]))
+            # A library's first load in the process is a program build
+            # for the engine's stats (``runtime.sweep.step_cache_stats``).
+            from ..runtime import telemetry
+
+            telemetry.counter("step_cache.misses").add(1)
         return _LIBS[name]

@@ -142,6 +142,47 @@ def word_ranges(plan, stride: int) -> "list[Tuple[int, int]]":
     return out
 
 
+def packed_block_index(
+    idxs: Sequence[Tuple[np.ndarray, np.ndarray, int]],
+) -> "Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray] | None":
+    """Concatenate several plans' fixed-stride block indexes (each a
+    :func:`superstep_index` result) into ONE packed int32 index for the
+    cross-job packed superstep dispatch (``runtime/fuse.py``).
+
+    Job ``j``'s blocks occupy the contiguous global range
+    ``[blk_base[j], blk_base[j] + total_j)`` and its plan rows the range
+    ``[row_base[j], row_base[j] + B_j)``; the packed cumulative index is
+    each job's ``cum`` shifted by its block base, so the device cutter's
+    ``searchsorted`` maps a packed block index straight to a packed plan
+    row — zero-width rows (fallback/finished words) can never cover a
+    block, exactly as in the solo index.
+
+    Returns ``(cum int32[B_total+1], totals int32[B_total],
+    blk_base int64[S+1], row_base int64[S+1], seg_end int32[S])`` or
+    ``None`` when the packed cumulative index would overflow int32
+    (callers then keep per-job dispatch).
+    """
+    blk_base = np.zeros(len(idxs) + 1, dtype=np.int64)
+    row_base = np.zeros(len(idxs) + 1, dtype=np.int64)
+    for j, (cum_j, totals_j, total_j) in enumerate(idxs):
+        blk_base[j + 1] = blk_base[j] + total_j
+        row_base[j + 1] = row_base[j] + totals_j.shape[0]
+    if blk_base[-1] >= (1 << 31):
+        return None
+    cum = np.concatenate(
+        [
+            np.asarray(cum_j[:-1], dtype=np.int64) + blk_base[j]
+            for j, (cum_j, _t, _n) in enumerate(idxs)
+        ]
+        + [blk_base[-1:]]
+    ).astype(np.int32)
+    totals = np.concatenate(
+        [np.asarray(t, dtype=np.int32) for _c, t, _n in idxs]
+    )
+    seg_end = blk_base[1:].astype(np.int32)
+    return cum, totals, blk_base, row_base, seg_end
+
+
 def block_cursor(plan, stride: int, cum: np.ndarray, b: int
                  ) -> Tuple[int, int]:
     """Host (word, rank) cursor of global fixed-stride block index ``b``

@@ -14,7 +14,9 @@ The host half (:func:`build_digest_set`, :class:`HostDigestLookup`) is the
 reference package's, array for array.  The device half runs as PyTorch ops
 on int32 tensors (the uint32 state words reinterpreted): unsigned order is
 restored by flipping the sign bit before each compare, so the search walks
-the host's uint32 sort order exactly.
+the host's uint32 sort order exactly.  :func:`digest_member_seg` is the
+cross-job packed dispatch's variant: each lane searches its own job's
+rows only.
 """
 
 from __future__ import annotations
@@ -235,4 +237,46 @@ def digest_member(
         lo, hi = torch.where(le, mid + 1, lo), torch.where(le, hi, mid)
     found = torch.clamp(lo - 1, 0, d - 1)
     exact = (rows[found.long()] == digest).all(dim=-1) & (lo > 0)
+    return pre & exact
+
+
+def digest_member_seg(
+    digest: torch.Tensor,  # int32 [N, K] (uint32 state words)
+    rows: torch.Tensor,  # int32 [D_total, K]: per-segment sorted runs
+    bitmap: torch.Tensor,  # int32 [S, 2^bits/32]: one bitmap a segment
+    row_lo: torch.Tensor,  # int32 [S]: segment row range start
+    row_hi: torch.Tensor,  # int32 [S]: segment row range end (exclusive)
+    seg: torch.Tensor,  # int [N]: each lane's segment
+) -> torch.Tensor:
+    """Per-segment exact membership, ``bool[N]`` (the reference's
+    ``digest_member_seg``): each lane of a cross-job packed dispatch is
+    tested against its own job's digest set, never the union.  ``rows``
+    holds the jobs' sorted digest rows back to back (segment ``s`` owns
+    ``[row_lo[s], row_hi[s])``), ``bitmap`` the per-segment prefilters at
+    one common width (the prefilter is ANDed with the exact search, so
+    its width never changes a verdict).  :func:`digest_member`'s search,
+    with each lane's ``(lo, hi)`` started at its segment's bounds; an
+    empty segment never matches."""
+    n = digest.shape[0]
+    d = rows.shape[0]
+    if d == 0:
+        return torch.zeros((n,), dtype=torch.bool, device=digest.device)
+    seg = seg.long()
+    bitmap_bits = int(np.log2(bitmap.shape[1])) + 5
+    idx = digest[:, 0] & ((1 << bitmap_bits) - 1)
+    word = bitmap[seg, (idx >> 5).long()]
+    pre = ((word >> (idx & 31)) & 1) != 0
+    # log2 of the total row count bounds every segment's run; converged
+    # lanes stay put under the (lo < hi) guard.
+    steps = int(np.ceil(np.log2(max(d, 2)))) + 1
+    lo0 = row_lo[seg].to(torch.int32)
+    lo, hi = lo0, row_hi[seg].to(torch.int32)
+    for _ in range(steps):
+        mid = (lo + hi) >> 1
+        row = rows[torch.clamp(mid, max=d - 1).long()]
+        le = _row_cmp_le(digest, row) & (lo < hi)
+        lo, hi = torch.where(le, mid + 1, lo), torch.where(le, hi, mid)
+    found = torch.clamp(lo - 1, 0, d - 1)
+    # Found means lo moved past the segment's own virtual -1 row.
+    exact = (rows[found.long()] == digest).all(dim=-1) & (lo > lo0)
     return pre & exact

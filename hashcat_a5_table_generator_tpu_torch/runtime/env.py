@@ -9,8 +9,11 @@ byte-scan tiers), :func:`env_opt_out` (the on-by-default escape hatches)
 and the hatches themselves: :func:`pair_enabled` (``A5GEN_PAIR``),
 :func:`superstep_enabled` (``A5GEN_SUPERSTEP``),
 :func:`pipeline_enabled` (``A5GEN_PIPELINE``),
-:func:`stream_enabled` (``A5GEN_STREAM``) and
-:func:`telemetry_enabled` (``A5GEN_TELEMETRY``); :func:`faults_spec`
+:func:`stream_enabled` (``A5GEN_STREAM``),
+:func:`telemetry_enabled` (``A5GEN_TELEMETRY``) and the resident
+engine's :func:`pack_enabled` (``A5GEN_PACK``); the re-fuse knob
+``A5GEN_REFUSE`` (:func:`refuse_threshold`, :func:`refuse_scope`);
+:func:`faults_spec`
 (``A5GEN_FAULTS``, parsed by ``runtime/faults.py``); and the on-disk
 piece-schema cache's :func:`schema_cache_dir` (``A5GEN_SCHEMA_CACHE``)
 and :func:`schema_cache_max_mb` (``A5GEN_SCHEMA_CACHE_MAX_MB``).
@@ -131,6 +134,59 @@ def telemetry_enabled() -> bool:
     results."""
     return not env_opt_out(
         "A5GEN_TELEMETRY", "telemetry registry + span timeline on")
+
+
+def pack_enabled() -> bool:
+    """``A5GEN_PACK`` set to ``off``/``0``/``no`` gives the resident
+    engine per-job superstep dispatch instead of fusing compatible
+    tenants' block ranges into one dispatch (``runtime/fuse.py``).  The
+    streams are the same either way."""
+    return not env_opt_out(
+        "A5GEN_PACK", "cross-job packed superstep dispatch")
+
+
+def refuse_threshold() -> "Optional[float]":
+    """The engine's re-fuse fill threshold: when a fused group's
+    per-round fill drops below it after a tenant departs, the survivors
+    are re-fused into a tighter group.  ``A5GEN_REFUSE`` holds the ratio
+    (0 < r <= 1); ``off``/``0``/``no`` disables re-fuse; empty/unset
+    keeps the default (0.5); ``within``/``within:<ratio>`` keep re-fuse
+    on with the within-group scope (:func:`refuse_scope`).  An
+    unparseable value warns once and keeps the default."""
+    val = read_env("A5GEN_REFUSE")
+    if val in (None, ""):
+        return 0.5
+    low = val.lower()
+    if low in ("off", "0", "no"):
+        return None
+    if low == "within":
+        return 0.5
+    if low.startswith("within:"):
+        val = val.split(":", 1)[1]
+    try:
+        r = float(val)
+        if not 0.0 < r <= 1.0:
+            raise ValueError
+    except ValueError:
+        env_warn_once(
+            "A5GEN_REFUSE", val,
+            f"unrecognized A5GEN_REFUSE={val!r} (want a fill ratio "
+            "in (0, 1], within[:ratio], or off|0|no); keeping the "
+            "default (0.5)",
+        )
+        return 0.5
+    return r
+
+
+def refuse_scope() -> str:
+    """The re-fuse merge scope: ``cross`` (the default: thin survivors
+    merge across compatible fused groups) or ``within`` (each thin group
+    re-fuses only its own survivors), spelled inside ``A5GEN_REFUSE``
+    (``within`` / ``within:<ratio>``)."""
+    val = (read_env("A5GEN_REFUSE") or "").lower()
+    if val == "within" or val.startswith("within:"):
+        return "within"
+    return "cross"
 
 
 def faults_spec() -> "Optional[str]":

@@ -109,10 +109,25 @@ at each superstep boundary before the boundary's word.  A producer thread
 bounded queue while the device runs; a row counts as flushed
 (``fallback_done``) only once consumed.  Candidates mode interleaves
 them the same way, at their word position in the stream.
+
+Each sweep is also a resumable state machine, as in the reference
+(:meth:`Sweep.crack_machine`, :meth:`Sweep.candidates_machine`): a
+generator that yields once at every consumed fetch boundary — a
+superstep, a per-launch chunk drain, a candidates launch — with its
+:class:`CheckpointState` (``Sweep.active_state``) consistent there.
+:meth:`Sweep.run_crack` and :meth:`Sweep.run_candidates` exhaust it
+(:func:`_exhaust`); the resident engine (``runtime/engine.py``) ticks
+many machines in turn, and closing one mid-sweep stops its chunk-compile
+worker and fallback producer and leaves its state at the last consumed
+boundary.  A sweep the engine fused into a packed group
+(``runtime/fuse.py``) has its superstep drive replaced by
+:meth:`Sweep._drive_packed`, which consumes the group's per-job results
+through the same bookkeeping.
 """
 
 from __future__ import annotations
 
+import copy
 import itertools
 import sys
 import threading
@@ -120,7 +135,8 @@ import time
 from collections import deque
 from contextlib import nullcontext
 from dataclasses import dataclass, field, replace
-from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, Generator, Iterator, List,
+                    Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -212,6 +228,77 @@ RETRY_BACKOFF_S = 0.05
 XLA_BUDGET_BYTES = {"cuda": 8 << 30, "cpu": 1 << 30}
 
 
+#: The process's step closures (``make_superstep_body`` & co.), keyed by
+#: every static input the closure depends on plus the kernel-selection
+#: knobs read when it is built: repeat sweeps of one geometry (the
+#: resident engine's warm jobs) reuse one closure.
+_STEP_CACHE: Dict[tuple, Any] = {}
+_STEP_CACHE_LOCK = threading.Lock()
+_STEP_ENV_KNOBS = ("A5GEN_PALLAS", "A5GEN_EMIT", "A5GEN_PAIR",
+                   "A5GEN_CASCADE_CLOSE")
+
+
+def step_cache_stats() -> Dict[str, int]:
+    """The process's step-cache counters, as the reference names them
+    (``step_cache.hits`` / ``step_cache.misses``): a miss is a step
+    closure built, or a kernel library loaded for the first time in the
+    process (``ops._native_build.load``); a hit is a sweep riding an
+    existing closure.  The engine's ``programs_compiled`` /
+    ``program_cache_hits``."""
+    return {k: int(telemetry.counter(f"step_cache.{k}").value)
+            for k in ("hits", "misses")}
+
+
+def _step_env_key() -> tuple:
+    from .env import read_env
+
+    return tuple(read_env(k) or "" for k in _STEP_ENV_KNOBS)
+
+
+def _get_step(key: tuple, build: Callable[[], Any]):
+    """The cached step closure for ``key`` (with the env knobs), built by
+    ``build`` on a miss."""
+    key = key + _step_env_key()
+    with _STEP_CACHE_LOCK:
+        step = _STEP_CACHE.get(key)
+        if step is not None:
+            telemetry.counter("step_cache.hits").add(1)
+            return step
+    step = build()
+    with _STEP_CACHE_LOCK:
+        if key in _STEP_CACHE:
+            telemetry.counter("step_cache.hits").add(1)
+            return _STEP_CACHE[key]
+        _STEP_CACHE[key] = step
+    telemetry.counter("step_cache.misses").add(1)
+    return step
+
+
+def _pieces_static(pieces) -> "Optional[tuple]":
+    """The hashable static structure of a ``packing.PieceSchema`` (the
+    reference's ``_pieces_static``): what a step closure bakes in; the
+    data tables ride the arrays."""
+    if pieces is None:
+        return None
+    return (
+        pieces.kind, pieces.groups, pieces.closed, pieces.n_cols,
+        pieces.max_out, pieces.gw is None, pieces.gw16 is None,
+        pieces.gl is None, pieces.sel_bit is None,
+        pieces.sel_slot is None, pieces.pair_ok, pieces.pair_g0,
+        pieces.pair_dmin, pieces.pair_dmax,
+    )
+
+
+def _exhaust(machine: "Iterator") -> "SweepResult":
+    """Run a sweep machine to its end and return its result — the solo
+    drive ``run_crack`` / ``run_candidates`` wrap around the machine."""
+    while True:
+        try:
+            next(machine)
+        except StopIteration as done:
+            return done.value
+
+
 def xla_row_bytes(plan) -> int:
     """Estimated device bytes one candidate row of the XLA route holds at
     its peak: the schema-less splice's int32 ``[L]`` unit fields and
@@ -279,6 +366,17 @@ class SweepConfig:
     fetch_timeout_s: Optional[float] = None  # watchdog on each consumed
     #   fetch: past it the drive raises a typed FetchTimeout, which the
     #   supervisor treats as transient (None = one plain wait)
+    retry_attempts: Optional[int] = None  # consecutive recoveries from
+    #   a transient device error in one drive (None = RETRY_ATTEMPTS)
+    retry_backoff_s: Optional[float] = None  # base of the exponential
+    #   backoff between them (None = RETRY_BACKOFF_S)
+
+    def retry_policy(self) -> "Tuple[int, float]":
+        """``(attempts, backoff_s)`` of the drive's retry supervisor."""
+        return (RETRY_ATTEMPTS if self.retry_attempts is None
+                else int(self.retry_attempts),
+                RETRY_BACKOFF_S if self.retry_backoff_s is None
+                else float(self.retry_backoff_s))
     packed_blocks: Optional[bool] = None  # True = the variable-offset
     #   block layout (the XLA route, the per-launch pipeline); False =
     #   fixed-stride blocks of lanes // num_blocks lanes; None = packed
@@ -352,6 +450,7 @@ class SweepResult:
     n_hits: int = 0
     hits: List[HitRecord] = field(default_factory=list)
     words_done: int = 0
+    resumed: bool = False  # started from a checkpoint (file or state)
     wall_s: float = 0.0  # the whole run: schema, uploads, drive
     drive_s: float = 0.0  # the drive alone (superstep or per-launch; a
     #   streamed sweep's, from its first chunk's arrival to its end)
@@ -474,6 +573,13 @@ class Sweep:
         self._shared: Dict[torch.device, Dict[str, torch.Tensor]] = {}
         self._digest_set = None
         self._ttfc: Optional[float] = None
+        self._run_t0 = self._t_init
+        #: the running machine's CheckpointState (None before the first
+        #: machine starts); consistent at every yield
+        self.active_state: Optional[CheckpointState] = None
+        #: the engine's ``runtime.fuse.FusedGroup`` this sweep rides, or
+        #: None: its superstep drive is then the group's (_drive_packed)
+        self._packed_source = None
         self._pair_warned = False
         self._stream_lock = threading.Lock()
         self._stream_resident = self._stream_peak = self._chunk_max = 0
@@ -703,22 +809,35 @@ class Sweep:
             )
         return self._fingerprint
 
-    def _load_state(self, resume: bool) -> CheckpointState:
-        """The run's starting state: the checkpoint at
-        ``SweepConfig.checkpoint_path`` when ``resume`` and the file exists
-        (its fingerprint must be this sweep's), else a fresh state."""
+    def _load_state(self, resume: bool,
+                    state: Optional[CheckpointState] = None
+                    ) -> CheckpointState:
+        """The run's starting state (:attr:`_resumed` says whether it
+        resumes a checkpoint): an injected
+        ``state`` (the engine's pause / migrate handoff; a deep copy, so
+        the caller's token stays as it was) wins over the checkpoint at
+        ``SweepConfig.checkpoint_path`` (read when ``resume`` and the file
+        exists); either must carry this sweep's fingerprint.  Else a
+        fresh state."""
         path = self.config.checkpoint_path
-        if not path:
-            return CheckpointState(fingerprint="")
-        if resume:
+        if state is not None:
+            if state.fingerprint != self.fingerprint:
+                raise ValueError(
+                    "checkpoint state was written by a different sweep "
+                    "(mode/window/table/wordlist/digests changed); it "
+                    "cannot resume this one")
+            state = copy.deepcopy(state)
+        elif resume and path:
             state = load_checkpoint(path, self.fingerprint)
-            if state is not None:
-                if self._stream is None:
-                    # A streaming checkpoint's chunk marker means nothing
-                    # to a whole-dictionary sweep: the cursor is global.
-                    state.stream = None
-                return state
-        return CheckpointState(fingerprint=self.fingerprint)
+        self._resumed = state is not None
+        if state is not None:
+            if self._stream is None:
+                # A streaming checkpoint's chunk marker means nothing to
+                # a whole-dictionary sweep: the cursor is global.
+                state.stream = None
+            return state
+        return CheckpointState(fingerprint=self.fingerprint if path
+                               else "")
 
     def _start(self, state: CheckpointState, crack: bool) -> None:
         """Seed the progress windows with a resumed run's counts (they
@@ -818,11 +937,13 @@ class Sweep:
 
     def _retry_backoff(self, exc: BaseException, attempts: int) -> None:
         """Re-raise ``exc`` or count a retry and back off
-        (``faults.supervise_retry``: :data:`RETRY_ATTEMPTS`,
-        :data:`RETRY_BACKOFF_S`).  Called from an ``except`` block."""
+        (``faults.supervise_retry``: ``SweepConfig.retry_policy``, by
+        default :data:`RETRY_ATTEMPTS`, :data:`RETRY_BACKOFF_S`).  Called
+        from an ``except`` block."""
+        budget, backoff = self.config.retry_policy()
         faults.supervise_retry(
-            exc, attempts, attempts_budget=RETRY_ATTEMPTS,
-            backoff_s=RETRY_BACKOFF_S, label="the sweep drive",
+            exc, attempts, attempts_budget=budget,
+            backoff_s=backoff, label="the sweep drive",
         )
 
     def _dispatch(self, launch: Callable[[], object]):
@@ -946,43 +1067,14 @@ class Sweep:
         on before its first launch, and each tensor is recorded on the
         drive's stream, so its memory is not reused while a launch may
         still read it."""
-        spec, cfg, dev, plan = self.spec, self.config, self.device, r.plan
-        lanes, nb, steps = cfg.resolve(dev)
-        stride = cfg.resolve_block_stride(dev)
-        crack = kind == "crack"
-        w, rank = start
-        pair_k = rank_stride = None
-        if stride is None:
-            per_launch = True
-        else:
-            if crack:
-                pair_k = self._pair_k(plan, r.pieces, stride)
-            rank_stride = stride * (pair_k or 1)
-            if pair_k is not None and self.per_launch(rank_stride, plan):
-                # The per-launch step runs K=1, as the reference's does.
-                pair_k, rank_stride = None, stride
-            per_launch = self.per_launch(rank_stride, plan)
-            # A resumed cursor must sit on a block boundary of the
-            # superstep drive: a pair-misaligned but K=1-aligned one runs
-            # the K=1 superstep tier, any other misalignment the
-            # per-launch pipeline.
-            if not per_launch and w < plan.batch and rank % rank_stride:
-                per_launch = rank % stride != 0
-                pair_k, rank_stride = None, stride
-        ranges = [] if per_launch else word_ranges(plan, rank_stride)
-        idx = None if per_launch else superstep_index(plan, rank_stride,
-                                                      ranges[0])
+        g = self._geometry(r, kind, start)
+        plan, dev, crack = r.plan, self.device, kind == "crack"
+        idx = (None if g["per_launch"] else
+               superstep_index(plan, g["rank_stride"], g["ranges"][0]))
         if faults.ACTIVE is not None:
             faults.ACTIVE.fire("device.init")
-        xla = not crack or r.route == "xla"
         target = torch.device("cpu") if upload else dev
-        xla_geom: Dict[str, int] = {}
-        if xla:
-            budget = XLA_BUDGET_BYTES[dev.type]
-            lanes = xla_lanes(plan, lanes, stride, pair_k or 1, budget)
-            if stride is not None:
-                nb = lanes // stride
-            xla_geom = {"lanes": lanes, "budget_bytes": budget}
+        if g["xla"]:
             arrays = xla_arrays(plan, self.ct, r.pieces, None, idx,
                                 device=target)
         else:
@@ -1018,6 +1110,52 @@ class Sweep:
             per_dev[d] = {**arrays, **own_d, **{
                 k: shared_d[k] for k, v in arrays.items()
                 if torch.is_tensor(v) and v is shared.get(k)}}
+        return dict(g, arrays=[per_dev[d] for d in self.stripes().devices],
+                    ready=ready,
+                    nbytes=len(per_dev) * sum(v.numel() * v.element_size()
+                                              for v in own.values()))
+
+    def _geometry(self, r: _Region, kind: str,
+                  start: "Tuple[int, int]") -> dict:
+        """A region's launch decisions from the normalized plan-local
+        cursor ``start``, without touching the device: the geometry
+        (``lanes``, ``nb``, ``stride`` — None for the variable-offset
+        layout — ``steps``, ``pair_k``, ``rank_stride``; the XLA route's
+        lanes cut to its budget, ``xla_geom``), the drive (``per_launch``,
+        the superstep drive's word ``ranges``), the step keywords ``kw``
+        and the launch ``tier``."""
+        spec, cfg, dev, plan = self.spec, self.config, self.device, r.plan
+        lanes, nb, steps = cfg.resolve(dev)
+        stride = cfg.resolve_block_stride(dev)
+        crack = kind == "crack"
+        w, rank = start
+        pair_k = rank_stride = None
+        if stride is None:
+            per_launch = True
+        else:
+            if crack:
+                pair_k = self._pair_k(plan, r.pieces, stride)
+            rank_stride = stride * (pair_k or 1)
+            if pair_k is not None and self.per_launch(rank_stride, plan):
+                # The per-launch step runs K=1, as the reference's does.
+                pair_k, rank_stride = None, stride
+            per_launch = self.per_launch(rank_stride, plan)
+            # A resumed cursor must sit on a block boundary of the
+            # superstep drive: a pair-misaligned but K=1-aligned one runs
+            # the K=1 superstep tier, any other misalignment the
+            # per-launch pipeline.
+            if not per_launch and w < plan.batch and rank % rank_stride:
+                per_launch = rank % stride != 0
+                pair_k, rank_stride = None, stride
+        ranges = [] if per_launch else word_ranges(plan, rank_stride)
+        xla = not crack or r.route == "xla"
+        xla_geom: Dict[str, int] = {}
+        if xla:
+            budget = XLA_BUDGET_BYTES[dev.type]
+            lanes = xla_lanes(plan, lanes, stride, pair_k or 1, budget)
+            if stride is not None:
+                nb = lanes // stride
+            xla_geom = {"lanes": lanes, "budget_bytes": budget}
         decode, pack_cb = decode_for(plan)
         kw = dict(num_lanes=lanes, out_width=int(plan.out_width),
                   block_stride=stride, pieces=r.pieces,
@@ -1035,27 +1173,45 @@ class Sweep:
             tier = "expand"
         return dict(lanes=lanes, nb=nb, stride=stride, steps=steps,
                     pair_k=pair_k, rank_stride=rank_stride,
-                    per_launch=per_launch, ranges=ranges,
-                    arrays=[per_dev[d] for d in self.stripes().devices],
-                    kw=kw, tier=tier, xla_geom=xla_geom, ready=ready,
-                    nbytes=len(per_dev) * sum(v.numel() * v.element_size()
-                                              for v in own.values()))
+                    per_launch=per_launch, ranges=ranges, xla=xla,
+                    kw=kw, tier=tier, xla_geom=xla_geom)
 
     # ------------------------------------------------------------------
     # Crack mode
     # ------------------------------------------------------------------
 
     def run_crack(self, recorder: Optional[HitRecorder] = None, *,
-                  resume: bool = True) -> SweepResult:
+                  resume: bool = True,
+                  state: Optional[CheckpointState] = None) -> SweepResult:
         """Fused expand → hash → membership on the device; only hits
         return to the host.  With ``SweepConfig.checkpoint_path`` the
         sweep checkpoints and, given ``resume``, starts from the file's
-        cursor, its hits replayed into ``recorder`` first."""
+        cursor, its hits replayed into ``recorder`` first; an injected
+        ``state`` resumes the same way.  :meth:`crack_machine`,
+        exhausted."""
+        return _exhaust(self.crack_machine(recorder, resume=resume,
+                                           state=state))
+
+    def crack_machine(
+        self, recorder: Optional[HitRecorder] = None, *,
+        resume: bool = True, state: Optional[CheckpointState] = None,
+    ) -> "Generator[None, None, SweepResult]":
+        """The crack sweep as a resumable state machine: a generator that
+        yields at every consumed fetch boundary (a superstep or a
+        per-launch chunk drain) with its state — :attr:`active_state` —
+        consistent at each yield.  ``next()`` advances one boundary;
+        closing it abandons the sweep (the chunk-compile worker and the
+        fallback producer stopped, the wall time added, the state at the
+        last consumed boundary); exhausting it returns the
+        :class:`SweepResult` as ``StopIteration.value``."""
         t0 = time.monotonic()
+        self._run_t0 = t0
         cfg = self.config
         recorder = recorder if recorder is not None else HitRecorder()
         sc0 = schema_cache_stats()
-        state = self._load_state(resume)
+        state = self._load_state(resume, state)
+        resumed = self._resumed
+        self.active_state = state
         self._start(state, crack=True)
         self._replay_hits(state, recorder)
         last_ckpt = [t0]
@@ -1068,10 +1224,13 @@ class Sweep:
 
         try:
             if self.device_words:
-                device = self._run_device("crack", state, flush, drive)
+                device = yield from self._run_device("crack", state, flush,
+                                                     drive)
             flush.until(self.n_words)
         finally:
             flush.close()
+            # In the finally, so an abandoned machine (the engine's pause
+            # or cancel) still adds its run time to the state.
             state.wall_s += time.monotonic() - t0
         state.cursor = SweepCursor(word=self.n_words, rank=0)
         self._maybe_checkpoint(state, last_ckpt, force=True)
@@ -1083,6 +1242,7 @@ class Sweep:
             n_hits=state.n_hits,
             hits=recorder.hits,
             words_done=self.n_words,
+            resumed=resumed,
             wall_s=time.monotonic() - t0 + self._schema_s,
             routing=dict(self.routing),
             schema_cache=_stats_delta(sc0, schema_cache_stats()),
@@ -1090,41 +1250,61 @@ class Sweep:
         )
 
     def _run_device(self, kind: str, state: CheckpointState, flush,
-                    drive: Callable[[dict, _Region, tuple], dict]) -> dict:
+                    drive: Callable[[dict, _Region, tuple], Iterator]
+                    ) -> "Generator[None, None, dict]":
         """The device half of a run from the state's cursor: the whole
         path's one region, or the chunk ring; returns the result's drive
-        fields (the regions' own merged by :func:`_merge_parts`)."""
+        fields (the regions' own merged by :func:`_merge_parts`).  A
+        machine generator, as ``drive`` is."""
         self.config.resolve_block_stride(self.device)  # an explicit
         #   stride that does not divide raises before any launch, and so
         #   does a device count the machine does not have
         self.stripes()
         if self._stream is not None:
-            return self._run_stream(kind, state, flush, drive)
+            return (yield from self._run_stream(kind, state, flush, drive))
         r = self._whole
         start = self._normalize(r.plan, (state.cursor.word,
                                          state.cursor.rank))
-        setup = self._setup(r, kind, start)
+        # A packed member's arrays are its group's: nothing of its own
+        # goes up to the device.
+        setup = (None if self._packed_source is not None
+                 else self._setup(r, kind, start))
         t_drive = time.monotonic()
-        out = _merge_parts([drive(setup, r, start)])
+        out = _merge_parts([(yield from drive(setup, r, start))])
         out["drive_s"] = time.monotonic() - t_drive
         out["ttfc_s"] = (self._ttfc - self._t_init
                          if self._ttfc is not None else 0.0)
         return out
 
-    def _crack_region(self, s: dict, r: _Region, recorder, flush,
+    def _crack_region(self, s: Optional[dict], r: _Region, recorder, flush,
                       state: CheckpointState, last_ckpt: List[float],
-                      start: "Tuple[int, int]") -> dict:
+                      start: "Tuple[int, int]"
+                      ) -> "Generator[None, None, dict]":
         """One region's crack drive from its plan-local cursor ``start``
-        with the launch set-up ``s`` (:meth:`_setup`); returns its
-        superstep stats, kernel launches, route and XLA geometry."""
+        with the launch set-up ``s`` (:meth:`_setup`; None for a packed
+        member, whose group holds its arrays); returns its superstep
+        stats, kernel launches, route and XLA geometry.  A machine
+        generator: yields at every consumed fetch."""
         spec, plan = self.spec, r.plan
+        src = self._packed_source
+        if src is not None and r.lo == 0 and self._stream is None:
+            if self.config.pod is not None:
+                raise RuntimeError(
+                    "pod giant-job mode cannot ride a cross-job packed "
+                    "dispatch (the FusedGroup owns the block cursors); "
+                    "run giant jobs solo")
+            stats = yield from self._drive_packed(src, r, recorder, flush,
+                                                  state, last_ckpt)
+            return dict(superstep=stats, kernels={src.tier: stats[
+                "launches"]}, routes={src.route: 1}, xla={})
         lanes, nb, pair_k = s["lanes"], s["nb"], s["pair_k"]
         rank_stride, arrs = s["rank_stride"], s["arrays"]
         self._set_geometry(lanes, nb, s["stride"])
         w, rank = start
         if s["per_launch"]:
-            stats = self._drive_per_launch(
-                r, make_crack_step(spec, **s["kw"]), arrs, lanes, nb,
+            stats = yield from self._drive_per_launch(
+                r, self._step("crack-step", s["kw"], lambda: make_crack_step(
+                    spec, **s["kw"])), arrs, lanes, nb,
                 s["stride"], recorder, flush, state, last_ckpt, start)
             steps = 1
         else:
@@ -1133,8 +1313,11 @@ class Sweep:
             steps = max(1, min(s["steps"], ((1 << 31) - 1)
                                // (lanes * (pair_k or 1))))
             # Each step of a stripe advances past every stripe's blocks.
-            body = make_superstep_body(
-                spec, step_advance=nb * self.stripes().total, **s["kw"])
+            advance = nb * self.stripes().total
+            body = self._step(
+                ("superstep", advance), s["kw"],
+                lambda: make_superstep_body(spec, step_advance=advance,
+                                            **s["kw"]))
             stats = {"supersteps": 0, "launches": 0, "replays": 0,
                      "retries": 0}
             for lo, hi in s["ranges"]:
@@ -1147,7 +1330,7 @@ class Sweep:
                                         (lo, hi))[0]
                 b_start = (self._start_block(plan, cum, rank_stride, w, rank)
                            if lo <= w else 0)
-                part = self._drive(
+                part = yield from self._drive(
                     r, body, arrs, nb, steps, recorder, flush, state,
                     last_ckpt, b_start,
                     lambda b, cum=cum, hi=hi: _clip(
@@ -1162,25 +1345,49 @@ class Sweep:
         return dict(superstep=stats, kernels={s["tier"]: stats["launches"]},
                     routes={r.route: 1}, xla=xla_geom)
 
+    def _step(self, name, kw: dict, build: Callable[[], Any]):
+        """The cached step closure of one drive (:func:`_get_step`), keyed
+        by the spec and every static keyword the closure takes."""
+        statics = tuple(sorted(
+            (k, _pieces_static(v) if k == "pieces" else v)
+            for k, v in kw.items()))
+        return _get_step((name, self.spec, statics), build)
+
     # ------------------------------------------------------------------
     # Candidates mode
     # ------------------------------------------------------------------
 
     def run_candidates(self, writer: CandidateWriter, *,
-                       resume: bool = True) -> SweepResult:
+                       resume: bool = True,
+                       state: Optional[CheckpointState] = None
+                       ) -> SweepResult:
         """Stream every candidate to ``writer`` in word order, rank order
         within a word (per-word multiset parity with the oracle): the XLA
         expansion on the device, one launch at a time, its emitted rows
         compacted on the device before the copy to the host; fallback
         words through the oracle at their word position.  Resume is
         at-least-once, as in the reference: the candidates written after
-        the last checkpoint repeat."""
+        the last checkpoint repeat.  :meth:`candidates_machine`,
+        exhausted."""
+        return _exhaust(self.candidates_machine(writer, resume=resume,
+                                                state=state))
+
+    def candidates_machine(
+        self, writer: CandidateWriter, *, resume: bool = True,
+        state: Optional[CheckpointState] = None,
+    ) -> "Generator[None, None, SweepResult]":
+        """Candidates mode as a resumable state machine, the crack
+        machine's twin (:meth:`crack_machine`): yields at every consumed
+        launch."""
         t0 = time.monotonic()
+        self._run_t0 = t0
         cfg = self.config
         if cfg.pod is not None:
             raise ValueError("SweepConfig.pod (the giant job) shards crack "
                              "sweeps only")
-        state = self._load_state(resume)
+        state = self._load_state(resume, state)
+        resumed = self._resumed
+        self.active_state = state
         self._start(state, crack=False)
         last_ckpt = [t0]
 
@@ -1200,7 +1407,8 @@ class Sweep:
         device: dict = {}
         try:
             if self.device_words:
-                device = self._run_device("candidates", state, flush, drive)
+                device = yield from self._run_device("candidates", state,
+                                                     flush, drive)
             flush.until(self.n_words)
         finally:
             flush.close()
@@ -1214,6 +1422,7 @@ class Sweep:
         return SweepResult(
             n_emitted=state.n_emitted,
             words_done=self.n_words,
+            resumed=resumed,
             wall_s=time.monotonic() - t0 + self._schema_s,
             routing=dict(self.routing),
             **device,
@@ -1222,12 +1431,14 @@ class Sweep:
     def _candidates_region(self, s: dict, r: _Region,
                            writer: CandidateWriter, flush,
                            state: CheckpointState, last_ckpt: List[float],
-                           start: "Tuple[int, int]") -> dict:
+                           start: "Tuple[int, int]"
+                           ) -> "Generator[None, None, dict]":
         """One region's candidates drive from its plan-local cursor
         ``start`` (:meth:`_setup`'s ``s``): each launch's emitted rows
         written in row order (several stripes: their rows concatenated in
         stripe order, which is cursor order), the fallback words inside
-        its word range between the rows of the words around them."""
+        its word range between the rows of the words around them.  A
+        machine generator: yields after each consumed launch."""
         spec, cfg, plan = self.spec, self.config, r.plan
         lanes, nb, stride = s["lanes"], s["nb"], s["stride"]
         arrs, kw = s["arrays"], s["kw"]
@@ -1240,14 +1451,17 @@ class Sweep:
             blocks cut on the host (per-launch pipeline) or on the
             device, one word range after the other."""
             if s["per_launch"]:
-                step = make_candidates_step(spec, **kw)
+                step = self._step("candidates-step", kw,
+                                  lambda: make_candidates_step(spec, **kw))
                 for parts, w2, r2 in self._host_rounds(
                         plan, lanes, nb, stride, step.decode, start):
                     yield self._dispatch(lambda: [
                         step(arrs[i], *blocks)
                         for i, _batch, blocks in parts]), (w2, r2)
                 return
-            body = make_candidates_body(spec, num_blocks=nb, **kw)
+            body = self._step(("candidates", nb), kw,
+                              lambda: make_candidates_body(
+                                  spec, num_blocks=nb, **kw))
             n = len(arrs)
             for w_lo, w_hi in s["ranges"]:
                 # One sub-sweep per word range, in word order.
@@ -1293,6 +1507,7 @@ class Sweep:
             if cfg.progress:
                 cfg.progress.update(words_done=w_end,
                                     emitted=state.n_emitted, hits=0)
+            yield
         return dict(kernels={"expand": n_launches}, routes={"xla": 1},
                     xla=dict(s["xla_geom"], rows=n_launches * lanes))
 
@@ -1337,13 +1552,15 @@ class Sweep:
             self._stream_resident -= chunk.host_bytes
 
     def _run_stream(self, kind: str, state: CheckpointState, flush,
-                    drive: Callable[[dict, _Region, tuple], dict]) -> dict:
+                    drive: Callable[[dict, _Region, tuple], Iterator]
+                    ) -> "Generator[None, None, dict]":
         """The streamed drive: from the chunk holding the state's cursor
         (chunks before it are never compiled), the ring sweeps chunk N
         while its worker compiles chunk N+1; after each chunk its fallback
         words are flushed, the cursor moves to the next chunk's first word
         and the checkpoint state carries the chunk marker.  Returns the
-        regions' merged drive fields with the stream stats."""
+        regions' merged drive fields with the stream stats.  A machine
+        generator (``drive`` is one too): closing it stops the worker."""
         bounds = self._stream["bounds"]
         cw = self._stream["chunk_words"]
         w0, rank0 = state.cursor.word, state.cursor.rank
@@ -1380,7 +1597,8 @@ class Sweep:
                 if setup is not None:
                     if setup["ready"] is not None:
                         self._drive_stream.wait_event(setup["ready"])
-                    parts.append(drive(setup, pay["region"], pay["start"]))
+                    parts.append((yield from drive(setup, pay["region"],
+                                                   pay["start"])))
                 flush.until(chunk.hi)
                 state.cursor = SweepCursor(chunk.hi, 0)
                 state.stream = {"chunk": chunk.index, "chunk_words": cw}
@@ -1390,6 +1608,8 @@ class Sweep:
         finally:
             compiler.close()
         t_end = time.monotonic()
+        if t_drive0 is None:
+            t_drive0 = t_end
         overlap = sum(max(0.0, min(b, t_end) - max(a, t_drive0))
                       for a, b in compiler.windows)
         wall = compiler.compile_wall_s
@@ -1419,7 +1639,8 @@ class Sweep:
 
     def _drive(self, r: _Region, body, arrs: List[dict], nb: int,
                steps: int, recorder, flush, state: CheckpointState,
-               last_ckpt: List[float], b_start: int, cursor_at) -> dict:
+               last_ckpt: List[float], b_start: int, cursor_at
+               ) -> "Generator[None, None, dict]":
         """The double-buffered superstep loop over region ``r`` from block
         ``b_start``; returns its stats.  Each superstep runs every stripe
         of :meth:`stripes` (stripe ``i`` from block ``b0 + (offset + i) *
@@ -1429,9 +1650,10 @@ class Sweep:
         when they overflowed its buffer) merged in ``(word, rank)``
         order, ``flush`` to the boundary's word, the state's cursor
         (``cursor_at(end block)``, plan-local) and counts, a span, the
-        checkpoint and progress.  A transient error at dispatch or fetch
-        drops the in-flight supersteps, rebuilds the buffer sets and
-        re-dispatches from the last consumed boundary."""
+        checkpoint and progress; then the machine yields.  A transient
+        error at dispatch or fetch drops the in-flight supersteps,
+        rebuilds the buffer sets and re-dispatches from the last consumed
+        boundary."""
         cfg = self.config
         st = self.stripes()
         streams = st.streams()
@@ -1550,8 +1772,67 @@ class Sweep:
                     cfg.progress.update(words_done=w_end,
                                         emitted=state.n_emitted,
                                         hits=state.n_hits)
+                yield
         finally:
             _join_streams(streams, into_stripes=False)
+        return stats
+
+    def _drive_packed(self, src, r: _Region, recorder, flush,
+                      state: CheckpointState, last_ckpt: List[float]
+                      ) -> "Generator[None, None, dict]":
+        """The consume half of the cross-job packed drive (the reference's
+        ``_drive_packed``).  ``src`` is the engine's
+        ``runtime.fuse.FusedGroup``: it owns dispatch and the one counters
+        fetch a round for every fused tenant; this machine pulls its own
+        share each tick — its emitted and hit counts from the packed
+        counter rows, its hits already mapped to job-local ``(word,
+        rank)`` — and runs the consume sequence of :meth:`_drive`: the
+        fallback words flushed in word order, each hit re-derived and
+        re-verified on the host, the state, a span, the checkpoint and
+        progress, then a yield.  A superstep whose hits overflowed the
+        capped buffer was re-run by the group into a larger one
+        (``overflow``).  Leaves the group in the finally, so completion,
+        pause, cancel and failure all park the job's segment."""
+        cfg, plan = self.config, r.plan
+        stride, cum = src.stride, src.member_cum(self)
+        stats = {"supersteps": 0, "launches": 0, "replays": 0,
+                 "retries": 0, "launches_per_fetch": src.steps,
+                 "pair": src.pair_k, "packed": src.n_seg}
+        try:
+            while True:
+                res = src.next_result(self)
+                if res is None:
+                    break
+                self._note_fetch()
+                w_end, r_end = block_cursor(plan, stride, cum, res["b_hi"])
+                stats["replays"] += int(res["overflow"])
+                for w_row, rank in res["entries"]:
+                    flush.until(r.lo + int(w_row))
+                    self._device_hit(r, int(w_row), int(rank), recorder,
+                                     state)
+                flush.until(r.lo + w_end)
+                state.n_emitted += res["ne"]
+                state.cursor = SweepCursor(r.lo + w_end, r_end)
+                stats["supersteps"] += 1
+                stats["launches"] += src.launches_per_round
+                with telemetry.profiler_span("a5.superstep.consume"):
+                    self.timeline.record_fetch(
+                        kind="superstep", index=stats["supersteps"],
+                        dispatched_at=res["disp_t"],
+                        inflight=res["inflight"],
+                        launches=src.launches_per_round, emitted=res["ne"],
+                        hits=res["nh"],
+                        hit_occupancy=res["hit_occupancy"],
+                        replayed=res["overflow"],
+                    )
+                self._maybe_checkpoint(state, last_ckpt)
+                if cfg.progress:
+                    cfg.progress.update(words_done=r.lo + w_end,
+                                        emitted=state.n_emitted,
+                                        hits=state.n_hits)
+                yield
+        finally:
+            src.leave(self)
         return stats
 
     def _host_rounds(self, plan, lanes: int, nb: int, stride: Optional[int],
@@ -1611,7 +1892,8 @@ class Sweep:
                           lanes: int, nb: int, stride: Optional[int],
                           recorder, flush, state: CheckpointState,
                           last_ckpt: List[float],
-                          start: "Tuple[int, int]") -> dict:
+                          start: "Tuple[int, int]"
+                          ) -> "Generator[None, None, dict]":
         """The per-launch pipeline's crack drive over region ``r`` from
         its plan-local cursor ``start``: each round of
         :meth:`_host_rounds` run by ``step``
@@ -1623,8 +1905,9 @@ class Sweep:
         mapped to ``(word, rank)`` through ``ops.blocks.lane_cursor``.
         ``flush`` expands the fallback words due before each hit's word
         and, at the chunk's end, those before its cursor; then the state,
-        a span, the checkpoint and progress.  A transient error re-cuts
-        from the last consumed cursor."""
+        a span, the checkpoint and progress, and the machine yields (not
+        after the last chunk, as in the reference).  A transient error
+        re-cuts from the last consumed cursor."""
         cfg, plan, dev = self.config, r.plan, self.device
         stats = {"supersteps": 0, "launches": 0, "replays": 0, "retries": 0}
         chunk_cap = max(1, min(int(cfg.fetch_chunk),
@@ -1692,6 +1975,7 @@ class Sweep:
                     elif now - last_drain > 4.0:
                         chunk_len = max(1, chunk_len // 2)
                     last_drain = now
+                    yield
                 if chunk:
                     cursor = drain(chunk, 0)
                 break

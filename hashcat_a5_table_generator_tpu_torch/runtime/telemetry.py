@@ -15,6 +15,10 @@ import ``torch.profiler`` when called).
 * :class:`MergeSpec` — what each key of a per-sweep stat dict means when
   length buckets' results merge (:data:`SUPERSTEP_MERGE`,
   :data:`STREAM_MERGE`, :data:`SCHEMA_CACHE_MERGE`).
+* The fleet half: :func:`set_engine_id` labels every snapshot with the
+  serving engine's identity (``a5gen serve --engine-id``), and
+  :func:`to_prometheus` renders a snapshot as Prometheus text, as the
+  reference does (the serve ``metrics`` op).
 * :func:`profiler_span` / :func:`profiler_trace` —
   ``torch.profiler.record_function`` and a ``torch.profiler.profile``
   whose Chrome trace lands in ``--profile DIR``.
@@ -241,8 +245,39 @@ def stopwatch(name: str,
     return Stopwatch(REGISTRY.histogram(name, edges))
 
 
+#: Engine identity label: set by ``a5gen serve --engine-id`` (default
+#: ``pid@host`` in serve mode), None outside service mode — standalone
+#: runs keep unlabeled series.
+_ENGINE_ID: Optional[str] = None
+
+
+def set_engine_id(engine_id: Optional[str]) -> None:
+    """Label every subsequent :func:`snapshot` with this engine's
+    identity, so a merged scrape of several engines keeps them apart.
+    ``None`` clears the label."""
+    global _ENGINE_ID
+    _ENGINE_ID = engine_id
+
+
+def default_engine_id() -> str:
+    """``pid@host`` — the ``--engine-id`` default: unique per process
+    on one host, stable for the process lifetime."""
+    import os
+    import socket as socket_mod
+
+    return f"{os.getpid()}@{socket_mod.gethostname()}"
+
+
+def engine_id() -> Optional[str]:
+    return _ENGINE_ID
+
+
 def snapshot() -> Dict[str, dict]:
-    return REGISTRY.snapshot()
+    snap = REGISTRY.snapshot()
+    if _ENGINE_ID is not None:
+        for entry in snap.values():
+            entry["engine"] = _ENGINE_ID
+    return snap
 
 
 def delta(before: Dict[str, dict], after: Dict[str, dict]
@@ -254,10 +289,11 @@ def delta(before: Dict[str, dict], after: Dict[str, dict]
     out: Dict[str, dict] = {}
     for name, snap in after.items():
         prev = before.get(name)
+        label = {"engine": snap["engine"]} if "engine" in snap else {}
         if snap["type"] == "counter":
             d = snap["value"] - (prev["value"] if prev else 0)
             if d:
-                out[name] = {"type": "counter", "value": d}
+                out[name] = {"type": "counter", "value": d, **label}
         elif snap["type"] == "histogram":
             if prev and prev.get("edges") != snap["edges"]:
                 prev = None  # re-created with new edges: delta from zero
@@ -271,7 +307,7 @@ def delta(before: Dict[str, dict], after: Dict[str, dict]
                     "type": "histogram", "edges": list(snap["edges"]),
                     "counts": counts,
                     "sum": snap["sum"] - (prev["sum"] if prev else 0.0),
-                    "count": count,
+                    "count": count, **label,
                 }
         elif prev is None or snap["value"] != prev["value"]:
             out[name] = dict(snap)
@@ -339,6 +375,58 @@ def merge(snapshots: Iterable[Dict[str, dict]]) -> Dict[str, dict]:
                 else:
                     cur["value"] = entry["value"]
     return out
+
+
+def _prom_name(name: str, prefix: str) -> str:
+    out = "".join(c if c.isalnum() or c == "_" else "_" for c in name)
+    return f"{prefix}_{out}"
+
+
+def _prom_labels(entry: dict, extra: str = "") -> str:
+    """Label block for one series: the optional ``le`` bucket label plus
+    the ``engine`` identity label when the snapshot carries one."""
+    parts = [extra] if extra else []
+    if "engine" in entry:
+        parts.append(f'engine="{entry["engine"]}"')
+    return "{" + ",".join(parts) + "}" if parts else ""
+
+
+def to_prometheus(snap: Dict[str, dict], prefix: str = "a5gen") -> str:
+    """Prometheus text exposition (v0.0.4) of a snapshot, as the
+    reference renders it: counters, gauges, and cumulative
+    ``le``-bucketed histograms with ``+Inf``, ``_sum`` and ``_count``
+    series; an engine identity renders as an ``engine="..."`` label, and
+    :func:`merge`'s per-engine series render under their base name."""
+    lines: List[str] = []
+    typed: set = set()  # one # TYPE line per metric name
+    for name in sorted(snap):
+        entry = snap[name]
+        base = name.split("{", 1)[0]
+        pname = _prom_name(base, prefix)
+        label = _prom_labels(entry)
+        if entry["type"] == "histogram":
+            if pname not in typed:
+                typed.add(pname)
+                lines.append(f"# TYPE {pname} histogram")
+            cum = 0
+            for edge, c in zip(entry["edges"], entry["counts"]):
+                cum += c
+                le = 'le="%g"' % edge
+                lines.append(
+                    f"{pname}_bucket{_prom_labels(entry, le)} {cum}")
+            inf = 'le="+Inf"'
+            lines.append(f'{pname}_bucket{_prom_labels(entry, inf)} '
+                         f'{entry["count"]}')
+            lines.append(f"{pname}_sum{label} {entry['sum']:g}")
+            lines.append(f"{pname}_count{label} {entry['count']}")
+        else:
+            if pname not in typed:
+                typed.add(pname)
+                lines.append(f"# TYPE {pname} {entry['type']}")
+            v = entry["value"]
+            lines.append(f"{pname}{label} {v:g}" if isinstance(v, float)
+                         else f"{pname}{label} {v}")
+    return "\n".join(lines) + "\n"
 
 
 # ---------------------------------------------------------------------------

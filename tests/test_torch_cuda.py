@@ -969,3 +969,40 @@ def test_two_stripes_on_one_gpu_equal_the_single_device_sweep(superstep,
                   for h in r.hits] for r in reversed(results))
     assert got == want and len(got) >= len(digests)
     assert results[0].n_emitted == results[1].n_emitted
+
+
+@pytest.mark.parametrize("pair", [None, "off"], ids=["pair-auto", "k1"])
+def test_packed_group_on_the_gpu_equals_the_solo_runs(pair, cuda):
+    """Two tenants (one dictionary shape, their own digest lists) fused
+    into one packed group by the resident engine on the card: the group
+    launches the piece kernel, and each job's hits and candidate count
+    equal its solo sweep's on the card."""
+    from hashcat_a5_table_generator_tpu_torch.runtime.engine import Engine
+
+    words = words_for("k1", seed=5)
+    spec, ct = AttackSpec(), compile_table(SUB)
+    plan = build_plan(spec, ct, pack_words(words))
+    jobs = []
+    for j, ws in enumerate((words, words[7:] + words[:7])):
+        digests = [hashlib.md5(decode_variant(
+            plan, ct, spec, row, plan.n_variants[row] // (2 + j))).digest()
+            for row in range(j, len(words), 4) if plan.n_variants[row] >= 3]
+        jobs.append((ws, digests + [bytes([j]) * 16]))
+    c = SweepConfig(device="cuda", lanes=4096, num_blocks=32, superstep=2,
+                    pair=pair, superstep_hit_cap=8)
+    want = [Sweep(spec, SUB, w, d, c).run_crack() for w, d in jobs]
+    before = dict(fe.LAUNCHES)
+    eng = Engine(c, auto=False)
+    handles = [eng.submit(spec, SUB, w, d) for w, d in jobs]
+    eng.run_until_idle()
+    stats = eng.stats()
+    got = [h.result(timeout=0) for h in handles]
+    eng.close()
+    assert stats["packed_dispatches"] > 0
+    assert any(fe.LAUNCHES[k] > before.get(k, 0) for k in fe.LAUNCHES)
+    for g, w in zip(got, want):
+        assert [(h.word_index, h.variant_rank, h.candidate)
+                for h in g.hits] == [(h.word_index, h.variant_rank,
+                                      h.candidate) for h in w.hits]
+        assert g.n_emitted == w.n_emitted and g.n_hits > 0
+        assert g.superstep.get("packed") == 2

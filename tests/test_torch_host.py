@@ -420,3 +420,40 @@ def test_import_scans_cover_the_pod():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+def test_import_scans_cover_the_engine():
+    """The scans above take the service layer's modules (the engine, the
+    fuse layer, the wire protocol): with jax and the reference package
+    blocked they import, and an engine on the CPU serves a JSONL job with
+    a packed pair end to end."""
+    scanned = {str(p.relative_to(REPO)) for p in PORT.rglob("*.py")}
+    for mod in ("runtime/engine.py", "runtime/fuse.py",
+                "runtime/protocol.py", "runtime/telemetry.py"):
+        assert f"hashcat_a5_table_generator_tpu_torch/{mod}" in scanned
+    code = (
+        "import io, json, sys, time\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['hashcat_a5_table_generator_tpu'] = None\n"
+        "from hashcat_a5_table_generator_tpu_torch.runtime import "
+        "engine, fuse, protocol\n"
+        "from hashcat_a5_table_generator_tpu_torch.runtime.sweep import "
+        "SweepConfig\n"
+        "eng = engine.Engine(SweepConfig(device='cpu', lanes=64, "
+        "num_blocks=16, superstep=1))\n"
+        "doc = {'op': 'submit', 'table_map': {'a': ['4', '@']}, "
+        "'digest_list': ['d41d8cd98f00b204e9800998ecf8427e']}\n"
+        "lines = [json.dumps(dict(doc, id=f'j{i}', words=['banana', "
+        "'papaya'][i:] + ['banana', 'papaya'][:i])) for i in range(2)]\n"
+        "out = io.StringIO()\n"
+        "engine.serve_stdio(eng, io.StringIO('\\n'.join(lines) + '\\n'), "
+        "out)\n"
+        "eng.close()\n"
+        "time.sleep(0.5)\n"
+        "events = [json.loads(x) for x in out.getvalue().splitlines()]\n"
+        "assert sum(e['event'] == 'done' for e in events) == 2, events\n"
+        "assert eng.stats()['packed_dispatches'] > 0\n"
+        "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr

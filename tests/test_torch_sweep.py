@@ -177,12 +177,23 @@ def test_item_6_and_7_flags_run_as_the_reference(extra, contract, tmp_path,
 
 @pytest.mark.parametrize("sub", ["serve", "fleet", "tune"])
 def test_flags_outside_the_slice_exit_2(sub, capsys):
-    """The surfaces still to port — the service layer (queue item 8) and
-    tuning (item 9) — exit 2 on the device backend, naming their item."""
+    """The surfaces still to port — the fleet router (queue item 8's
+    second half) and tuning (item 9) — exit 2 on the device backend,
+    naming their item; ``serve`` (ported) refuses the sweep's flags with
+    its own parser's usage error, as the reference's serve does."""
+    argv = [sub, "--backend", "device", "--digests", "left.txt"]
     with pytest.raises(SystemExit) as exc:
-        t_cli.main([sub, "--backend", "device", "--digests", "left.txt"])
+        t_cli.main(argv)
     assert exc.value.code == 2
     err = capsys.readouterr().err
+    if sub == "serve":
+        with pytest.raises(SystemExit) as j_exc:
+            j_cli.main(argv)
+        assert j_exc.value.code == 2
+        j_err = capsys.readouterr().err
+        want = "unrecognized arguments: --backend device --digests left.txt"
+        assert want in err and want in j_err
+        return
     assert "ROADMAP.md port queue item" in err
     assert f"item {8 if sub != 'tune' else 9}" in err
 
@@ -229,6 +240,15 @@ def test_item_6_flags_run_as_the_reference(extra, contract, tmp_path,
 
 @pytest.mark.parametrize("sub", ["serve", "fleet", "tune"])
 def test_subcommands_exit_2(sub, capsys):
+    """``fleet`` and ``tune`` exit 2 naming their queue items; ``serve``
+    (ported) exits 2 on a machine without a GPU rather than serving on
+    the CPU (``--device cpu`` asks for the CPU)."""
+    if sub == "serve":
+        if torch.cuda.is_available():
+            return
+        assert t_cli.main([sub]) == 2
+        assert "no CUDA device is available" in capsys.readouterr().err
+        return
     with pytest.raises(SystemExit) as exc:
         t_cli.main([sub])
     assert exc.value.code == 2

@@ -130,11 +130,10 @@ def test_progress_lines_have_the_reference_keys(tmp_path, capsysbinary):
     assert set(last_t) == set(last_j)
     for key in ("words", "candidates", "hits", "routing"):
         assert last_t[key] == last_j[key], key
-    # The enrichment's fields appear only with signal: the port has no
-    # compiled-step cache, so its step_cache_hit_rate never does.
+    # The enrichment's fields appear only with signal; the port's step
+    # cache (runtime.sweep.step_cache_stats) gives its step_cache_hit_rate.
     assert "dead_share" in last_t["telemetry"]
-    assert set(last_t["telemetry"]) == set(last_j["telemetry"]) - {
-        "step_cache_hit_rate"}
+    assert set(last_t["telemetry"]) == set(last_j["telemetry"])
 
 
 def test_telemetry_off_is_honoured(tmp_path, capsysbinary, monkeypatch):
@@ -157,3 +156,29 @@ def test_profile_trace_holds_the_consumed_supersteps(tmp_path,
     trace = json.loads((tmp_path / "prof" / "trace.json").read_text())
     names = [e.get("name") for e in trace["traceEvents"]]
     assert names.count("a5.superstep.consume") >= 2
+
+
+def test_sweep_registry_exposition_equals_reference(tmp_path, capsysbinary):
+    """The fleet half: after a port CLI run, its registry snapshot (engine
+    labelled, as ``a5gen serve`` labels it) renders as the reference's
+    ``to_prometheus`` renders the same snapshot, and a merge of two
+    engines' snapshots keeps one series per engine for gauges."""
+    argv = write_inputs(tmp_path, "default") + GEOMETRY_ARGV + [
+        "--digests", str(tmp_path / "d.txt")]
+    rc, _out, err = run("t", argv, capsysbinary)
+    assert rc == 0, err
+    try:
+        t_tel.set_engine_id("engine-a")
+        snap = t_tel.snapshot()
+    finally:
+        t_tel.set_engine_id(None)
+    assert snap and all(e["engine"] == "engine-a" for e in snap.values())
+    text = t_tel.to_prometheus(snap)
+    assert text == j_tel.to_prometheus(snap)
+    assert 'engine="engine-a"' in text
+    other = json.loads(json.dumps(snap))
+    for e in other.values():
+        e["engine"] = "engine-b"
+    merged = t_tel.merge([snap, other])
+    assert merged == j_tel.merge([json.loads(json.dumps(snap)), other])
+    assert t_tel.to_prometheus(merged) == j_tel.to_prometheus(merged)
