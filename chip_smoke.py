@@ -53,7 +53,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    of its hash (1000 planted hits + decoys): the crack cell
    (qwerty-cyrillic x MD5 with the pair tier auto and off) and
    qwerty-azerty x MD5 ``-s`` (cascade-closed and oracle-fallback words)
-   at 250k dictionary words, the other cells at 100k: czech x NTLM,
+   at 150k dictionary words, the other cells at 100k: czech x NTLM,
    greek words x greek-hebrew x SHA-1 (pair auto and off),
    qwerty-cyrillic x MD5 ``-x 2``, qwerty-cyrillic x MD5 ``-s`` (pair
    auto), qwerty-cyrillic x SHA-1
@@ -87,7 +87,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    oracle-fallback words interleaved, and ``-s -r``); every run on the
    XLA route within the memory budget over the whole run.  Every cell
    runs the CLI's defaults, so a bucket of more than one auto chunk
-   (65,536 words at width 16) streams: the 250k-word buckets in 4 chunks,
+   (65,536 words at width 16) streams: the 150k-word buckets in 3 chunks,
    the 100k-word ones in 2;
 5. each entry point x hash timed with CUDA events at main-path shapes
    beside its bound, the compression floor this card measures (the
@@ -186,8 +186,27 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    (``--socket``): one tenant, ``stats``, ``metrics`` (Prometheus text
    that parses), ``shutdown`` -> ``bye``.
 
+11. the fleet router: ``a5gen fleet --engines 2 --split on`` on stdin,
+   both engines on this card (the router's spawned commands recorded:
+   ``python -m hashcat_a5_table_generator_tpu_torch serve --device cuda``,
+   each engine reporting its kernel launches at exit), over phase 10's
+   tenants and solo runs: the 8 tenants and phase 4's crack cell routed
+   by affinity (the cyrillic tenants and the crack cell on one engine,
+   the czech tenants on the other), each stream its solo run's, the crack
+   cell's phase 4's stdout; the crack cell with its words inline, split
+   into two pod stripes on the two engines and merged back into phase
+   4's stdout; the 6 cyrillic tenants at 2^18 lanes, one launch a
+   superstep, their engine drained on the first hit (the jobs migrate,
+   each stream its solo run's, the engine left routing none; the
+   ``stats`` fleet section).  A second fleet (started beside the first)
+   takes the 8 tenants at that geometry and loses the engine carrying
+   the cyrillic ones to SIGKILL after its first hit event: its running
+   jobs crash-replay onto the survivor, each stream its solo run's, no
+   hit twice.
+
 A run still going 1180 s after its start fails, printing every
-thread's stack.  The last eight lines of standard output: one ``{"serve": {...}}`` JSON
+thread's stack.  The last nine lines of standard output: one
+``{"fleet": {...}}`` JSON object, one ``{"serve": {...}}`` JSON
 object, one ``{"pod": {...}}`` JSON
 object, one ``{"layouts_streaming": {...}}`` JSON object, one ``{"robustness": {...}}`` JSON object, one
 ``{"oracle": {...}}`` JSON object, the card's name and power limit, one
@@ -215,7 +234,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 T0 = time.monotonic()
 LANES = 1 << 22
 STRIDE = 128
-N_WORDS_DEFAULT = 250_000  # the crack cell's words (and azerty -s's)
+N_WORDS_DEFAULT = 150_000  # the crack cell's words (and azerty -s's)
 N_WORDS_CELL = 100_000  # the other phase-4 cells', cut to keep time
 N_DIGESTS = 1_000_000
 N_PLANTED = 1000
@@ -1560,7 +1579,7 @@ def time_buffer_hash(peak_ops: float, floor: dict) -> dict:
         for label, width in buffer_shapes(algo):
             msg, ln = buffer_rows(width, seed=width)
             ms = time_call(lambda: bh.buffer_hash(msg, ln, algo), 20)
-            plain_ms = time_call(lambda: bh.HASH_FNS[algo](msg, ln), 2)
+            plain_ms = time_call(lambda: bh.HASH_FNS[algo](msg, ln), 1)
             comp = int(torch.div(ln.long() * scale + 72, 64,
                                  rounding_mode="floor").sum())
             ops = float(comp) * OPS_PER_BLOCK[algo]
@@ -2280,7 +2299,7 @@ def span_totals(metrics_path: str) -> dict:
 
 def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
                      small: str, card: str) -> dict:
-    """Phase 7.  Kill and resume: the crack cell (``--fetch-chunk 2``,
+    """Phase 7.  Kill and resume: the crack cell (``--fetch-chunk 1``,
     ``superstep.fetch:kill,nth=4``) resumed as it was and at ``--pair
     off`` from a copy of its checkpoint, ``--superstep off`` (the
     per-launch pipeline's drain seam), azerty ``-s`` with its fallback
@@ -2320,12 +2339,12 @@ def robustness_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
                  "device", "--lanes", str(1 << 19)]
     azerty = paths["azerty-md5-s"]
     kills = {
-        "crack": (crack_argv(cyr, ["--fetch-chunk", "2"])
+        "crack": (crack_argv(cyr, ["--fetch-chunk", "1"])
                   + ck_flags("crack"), "superstep.fetch:kill,nth=4"),
         "superstep-off": (crack_argv(cyr, ["--superstep", "off"])
                           + ck_flags("superstep-off"),
                           "superstep.fetch:kill,nth=4"),
-        "azerty-s": (crack_argv(azerty, ["-s", "--fetch-chunk", "2"])
+        "azerty-s": (crack_argv(azerty, ["-s", "--fetch-chunk", "1"])
                      + ck_flags("azerty-s"), "superstep.fetch:kill,nth=3"),
         "candidates": (cand_argv + ck_flags("candidates"),
                        "superstep.dispatch:kill,nth=4"),
@@ -3010,7 +3029,7 @@ def pod_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
     # the PeerLossError text; the pod relaunched resumes from the
     # checkpoints to phase 4's stdout.
     ck = os.path.join(work, "ck-pod.json")
-    argv = crack_argv(cyr, ["--fetch-chunk", "2", "--checkpoint", ck,
+    argv = crack_argv(cyr, ["--fetch-chunk", "1", "--checkpoint", ck,
                             "--checkpoint-every", "0"])
     envs = {0: dict(os.environ, A5GEN_DCN_TIMEOUT="10"),
             1: dict(os.environ, A5GEN_DCN_TIMEOUT="10",
@@ -3599,15 +3618,31 @@ def socket_session(t: dict, server) -> dict:
             "serve_wall_s": out["wall_s"]}
 
 
-def serve_phase(work: str, paths: dict, runs: dict, card: str) -> dict:
-    """Phase 10 (see the module docstring).  Returns the phase's
-    numbers."""
-    t_phase = time.monotonic()
+def serve_inputs(work: str, paths: dict, runs: dict) -> tuple:
+    """Phase 10's inputs, which phase 11 reuses: its directory, the 8
+    tenants with their solo runs (:func:`serve_tenants`) and phase 4's
+    crack cell (its files, stdout and candidates hashed)."""
     work = os.path.join(work, "serve")
     os.makedirs(work, exist_ok=True)
     tenants = serve_tenants(work, paths)
     log(f"serve: {len(tenants)} tenants, solo runs {[round(t['solo_s'], 2) for t in tenants]} s, "
         f"{[len(t['solo']) for t in tenants]} hits")
+    crack = {"id": "crack-cell", "algo": "md5",
+             "table": paths["cyrillic-md5"].table,
+             "wordlist": paths["cyrillic-md5"].wordlist,
+             "digests": paths["cyrillic-md5"].digests,
+             "stdout": runs[("cyrillic-md5", "pair auto")]["stdout"],
+             "emitted": runs[("cyrillic-md5", "pair auto")]["emitted"]}
+    return work, tenants, crack
+
+
+def serve_phase(work: str, paths: dict, runs: dict, card: str
+                ) -> "tuple[dict, tuple]":
+    """Phase 10 (see the module docstring).  Returns the phase's numbers
+    and its inputs (:func:`serve_inputs`), which phase 11 reuses."""
+    t_phase = time.monotonic()
+    inputs = serve_inputs(work, paths, runs)
+    work, tenants, crack = inputs
     # Do the two czech tenants share a packed key?
     from hashcat_a5_table_generator_tpu_torch.ops.packing import (
         read_wordlist,
@@ -3639,12 +3674,6 @@ def serve_phase(work: str, paths: dict, runs: dict, card: str) -> dict:
     czech_key = ("equal" if keys[0] == keys[1] else "differ in " + ", ".join(
         n for n, x, y in zip(names, keys[0] or (), keys[1] or ()) if x != y))
     log(f"serve: the two czech x NTLM tenants' packed keys {czech_key}")
-    crack = {"id": "crack-cell", "algo": "md5",
-             "table": paths["cyrillic-md5"].table,
-             "wordlist": paths["cyrillic-md5"].wordlist,
-             "digests": paths["cyrillic-md5"].digests,
-             "stdout": runs[("cyrillic-md5", "pair auto")]["stdout"],
-             "emitted": runs[("cyrillic-md5", "pair auto")]["emitted"]}
     report = {"czech_keys": czech_key}
     report["pack_auto"] = serve_session(work, "pack-auto", tenants, crack,
                                         ["--pack", "auto"])
@@ -3676,6 +3705,362 @@ def serve_phase(work: str, paths: dict, runs: dict, card: str) -> dict:
     report["socket"] = socket_session(tenants[0], server)
     report["phase_s"] = time.monotonic() - t_phase
     log(f"serve phase {report['phase_s']:.1f} s on {card}")
+    return report, inputs
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: the fleet router (a5gen fleet) over two engines on the card
+# ---------------------------------------------------------------------------
+
+#: Extra ``a5gen fleet`` flags (a CPU rehearsal passes ``--device cpu``).
+FLEET_ARGS: list = []
+#: The drain and kill sessions' job geometry: 16 launches of 2^18 lanes a
+#: 20,000-word tenant, one launch a superstep, so a drain or a SIGKILL
+#: sent on a first hit finds the jobs mid-sweep.
+FLEET_CONFIG = {"lanes": 1 << 18, "superstep": 1}
+#: ``a5gen fleet`` through the CLI's entry point.  Its spawned engines
+#: (``python -m hashcat_a5_table_generator_tpu_torch serve ...``, the
+#: command recorded) run the same ``serve`` through
+#: :data:`SERVE_WRAPPER` (read from the file argv[2]), so each engine
+#: prints its kernel launches at exit to a stderr file of its own; each
+#: engine's pid goes to the log (argv[1]), one JSON line an engine.
+FLEET_WRAPPER = (
+    "import json, subprocess, sys\n"
+    "from hashcat_a5_table_generator_tpu_torch import cli\n"
+    "from hashcat_a5_table_generator_tpu_torch.runtime import fleet\n"
+    "log, wrapper = sys.argv[1], open(sys.argv[2]).read()\n"
+    "class Popen(subprocess.Popen):\n"
+    "    def __init__(self, args, **kw):\n"
+    "        args = list(args)\n"
+    "        eid = args[args.index('--engine-id') + 1]\n"
+    "        kw['stderr'] = open(f'{log}.{eid}.err', 'w')\n"
+    "        super().__init__([args[0], '-c', wrapper] + args[3:], **kw)\n"
+    "        with open(log, 'a') as fh:\n"
+    "            fh.write(json.dumps({'engine': eid, 'pid': self.pid,\n"
+    "                                 'cmd': args}) + '\\n')\n"
+    "fleet.subprocess = type(sys)('subprocess')\n"
+    "fleet.subprocess.__dict__.update(subprocess.__dict__, Popen=Popen)\n"
+    "sys.exit(cli.main(sys.argv[3:]))\n")
+
+
+class FleetProcess(ServeProcess):
+    """One ``a5gen fleet --engines 2`` process (:data:`FLEET_WRAPPER`),
+    JSONL on its stdin, its events read on a thread; a session of its
+    own, so a failure kills its engines with it."""
+
+    def __init__(self, work: str, name: str, args=()) -> None:
+        self.name = name
+        self.err_path = os.path.join(work, f"fleet-{name}.err")
+        self.err = open(self.err_path, "w")
+        self.log = os.path.join(work, f"fleet-{name}.engines")
+        wrapper = os.path.join(work, "serve_wrapper.py")
+        with open(wrapper, "w") as fh:
+            fh.write(SERVE_WRAPPER)
+        # Unix socket paths stay short: relative to the checkout.
+        eng_dir = os.path.relpath(os.path.join(work, f"eng-{name}"), HERE)
+        self.t0 = time.monotonic()
+        self.proc = spawn(
+            [sys.executable, "-c", FLEET_WRAPPER, self.log, wrapper,
+             "fleet", "--engines", "2", "--engine-dir", eng_dir,
+             *FLEET_ARGS, *args], stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self.err, text=True, cwd=HERE,
+            start_new_session=True)
+        self.events: list = []
+        #: each event's arrival (monotonic s), beside :attr:`events`
+        self.stamps: list = []
+        self.lock = threading.Lock()
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            if line.strip():
+                ev = json.loads(line)
+                with self.lock:
+                    self.events.append(ev)
+                    self.stamps.append(time.monotonic())
+
+    def engines(self) -> dict:
+        """Engine id -> ``{"pid", "cmd"}`` as spawned."""
+        if not os.path.exists(self.log):
+            return {}
+        with open(self.log) as fh:
+            return {d["engine"]: d for d in map(json.loads, fh)}
+
+    def wait_ready(self) -> float:
+        """Seconds from start until the router serves (its stderr says so
+        once both engines are attached)."""
+        deadline = time.monotonic() + 180
+        while time.monotonic() < deadline:
+            if "fleet of 2 engine(s)" in open(self.err_path).read():
+                return time.monotonic() - self.t0
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        fail(f"fleet {self.name}: not serving; stderr "
+             f"{open(self.err_path).read()[-2000:]}")
+
+    def close(self, timeout: float = 120) -> dict:
+        """``shutdown`` -> ``bye``; the router shuts its engines down.
+        The exit code, the wall and each engine's kernel launches (a
+        killed engine has none)."""
+        self.send({"op": "shutdown"})
+        self.wait_for(lambda e: any(x["event"] == "bye" for x in e), "bye")
+        self.proc.stdin.close()
+        rc = self.proc.wait(timeout)
+        self.reader.join(30)
+        wall = time.monotonic() - self.t0
+        self.err.close()
+        if rc != 0:
+            fail(f"fleet {self.name} exited {rc}: "
+                 f"{open(self.err_path).read()[-3000:]}")
+        launches = {}
+        for eid in self.engines():
+            lines = open(f"{self.log}.{eid}.err").read().strip().splitlines()
+            last = json.loads(lines[-1]) if lines and \
+                lines[-1].startswith("{") else None
+            launches[eid] = last["launches"] if last else "killed"
+        return {"rc": rc, "wall_s": wall, "launches": launches}
+
+
+def fleet_acks(evs: list) -> dict:
+    return {e["id"]: e for e in evs if e["event"] == "accepted"}
+
+
+def check_tenant(name: str, t: dict, evs: list) -> float:
+    """A tenant's events through the fleet equal its solo run's: the hit
+    events (each once), the ``done`` totals.  Its ``done`` wall."""
+    got = hit_tuples(evs)
+    done = evs[-1]
+    if done["event"] != "done" or got != t["solo"] or \
+            (done["n_hits"], done["n_emitted"]) != (len(t["solo"]),
+                                                    t["solo_emitted"]):
+        fail(f"fleet {name}: {t['id']} settled {done['event']} with "
+             f"{len(got)} hits ({len(set(got))} distinct), solo "
+             f"{len(t['solo'])}; done {done}")
+    return done["wall_s"]
+
+
+def check_crack(name: str, crack: dict, evs: list) -> None:
+    """The crack cell's hit events through the fleet in (word, rank)
+    order, each once, and equal as lines to phase 4's stdout."""
+    got = hit_tuples(evs)
+    done = evs[-1]
+    lines = sorted(f"{d}:{bytes.fromhex(p).decode('utf-8', 'surrogateescape')}"
+                   .encode("utf-8", "surrogateescape") for _w, _r, p, d in got)
+    want = sorted(crack["stdout"].splitlines())
+    if done["event"] != "done" or got != sorted(set(got)) or \
+            lines != want or done["n_emitted"] != crack["emitted"] or \
+            done["n_hits"] != len(want):
+        fail(f"fleet {name}: the crack cell settled {done['event']}, "
+             f"{len(got)} hit events ({len(set(got))} distinct), "
+             f"{done.get('n_emitted')} hashed; phase 4: {len(want)} lines, "
+             f"{crack['emitted']} hashed")
+
+
+def fleet_routed(fp: FleetProcess, tenants: list, crack: dict) -> dict:
+    """The 8 tenants and the crack cell (by path: never split) routed by
+    affinity: the cyrillic tenants and the crack cell on one engine, the
+    czech ones together on the other; each stream its solo run's."""
+    t0 = time.monotonic()
+    for t in tenants + [crack]:
+        fp.send(submit_doc(t))
+    ids = [t["id"] for t in tenants + [crack]]
+    evs = fp.wait_for(lambda e: sum(x["event"] in SETTLE and x.get("id")
+                                    in ids for x in e) >= len(ids),
+                      f"{len(ids)} routed jobs", timeout=300)
+    wall = time.monotonic() - t0
+    acks, jobs = fleet_acks(evs), per_job(evs)
+    place = {j: acks[j]["engine"] for j in ids}
+    cyr = {place[t["id"]] for t in tenants if t["algo"] == "md5"}
+    cz = {place[t["id"]] for t in tenants if t["algo"] == "ntlm"}
+    if len(cyr) != 1 or len(cz) != 1 or cyr == cz or \
+            place[crack["id"]] not in cyr:
+        fail(f"fleet routed: placement {place}: the cyrillic tenants and "
+             "the crack cell must share one engine, the czech tenants the "
+             "other")
+    walls = {t["id"]: check_tenant("routed", t, jobs[t["id"]])
+             for t in tenants}
+    check_crack("routed", crack, jobs[crack["id"]])
+    walls[crack["id"]] = jobs[crack["id"]][-1]["wall_s"]
+    log(f"fleet routed: placement {place}; every stream equal to its solo "
+        f"run, the crack cell's to phase 4's stdout; job walls {walls}; "
+        f"session {wall:.2f} s")
+    return {"placement": place, "job_wall_s": walls, "wall_s": wall}
+
+
+def fleet_split(fp: FleetProcess, crack: dict) -> dict:
+    """The crack cell with its words inline under ``--split on``: scattered
+    as two pod stripes, one an engine, merged back into phase 4's
+    stdout."""
+    from hashcat_a5_table_generator_tpu_torch.ops.packing import (
+        read_wordlist,
+    )
+
+    words = [w.decode("ascii") for w in read_wordlist(crack["wordlist"])]
+    jid = "crack-split"
+    t0 = time.monotonic()
+    fp.send({"op": "submit", "id": jid, "tables": [crack["table"]],
+             "words": words, "digests": crack["digests"], "algo": "md5"})
+    evs = fp.wait_for(lambda e: any(x["event"] in SETTLE and
+                                    x.get("id") == jid for x in e),
+                      "the split crack cell", timeout=300)
+    wall = time.monotonic() - t0
+    ack = fleet_acks(evs)[jid]
+    jobs = per_job(evs)
+    shard_done = [x for x in jobs[jid] if x["event"] == "shard_done"]
+    if ack.get("shards") != 2 or len(shard_done) != 2 or \
+            len({x["engine"] for x in shard_done}) != 2:
+        fail(f"fleet split: ack {ack}, shard_done {shard_done}: not two "
+             "stripes on two engines")
+    check_crack("split", crack, [x for x in jobs[jid]
+                                 if x["event"] != "shard_done"])
+    with fp.lock:
+        at = {id(x): t - t0 for x, t in zip(fp.events, fp.stamps)}
+    stripes = [{"shard": x["shard"], "engine": x["engine"],
+                "n_hits": x["n_hits"], "done_at_s": at[id(x)]}
+               for x in shard_done]
+    done = jobs[jid][-1]
+    log(f"fleet split: the crack cell merged from {stripes}, equal to "
+        f"phase 4's stdout; stripe wall (max) {done['wall_s']:.2f} s, "
+        f"session {wall:.2f} s")
+    return {"stripes": stripes, "stripe_wall_s": done["wall_s"],
+            "wall_s": wall}
+
+
+def fleet_drain(fp: FleetProcess, tenants: list) -> dict:
+    """The 6 cyrillic tenants (:data:`FLEET_CONFIG`), all on one engine by
+    affinity; on the first hit that engine drains: its jobs migrate to
+    the other (pause -> checkpoint -> resubmit) and each ends with its
+    solo stream; the drained engine holds no job."""
+    cyr = [t for t in tenants if t["algo"] == "md5"]
+    ids = {f"{t['id']}@drain": t for t in cyr}
+    t0 = time.monotonic()
+    fp.send(*[submit_doc(t, jid, config=FLEET_CONFIG)
+              for jid, t in ids.items()])
+    evs = fp.wait_for(lambda e: any(x["event"] == "hit" and x.get("id")
+                                    in ids for x in e), "a first hit")
+    src = {fleet_acks(evs)[j]["engine"] for j in ids}
+    if len(src) != 1:
+        fail(f"fleet drain: the cyrillic tenants on engines {src}")
+    src = src.pop()
+    n_before = len([x for x in evs if x["event"] == "draining"])
+    fp.send({"op": "drain", "engine": src})
+    evs = fp.wait_for(lambda e: len([x for x in e if x["event"] ==
+                                     "draining"]) > n_before and
+                      sum(x["event"] in SETTLE and x.get("id") in ids
+                          for x in e) >= len(ids),
+                      "the drained jobs", timeout=300)
+    wall = time.monotonic() - t0
+    drained = [x for x in evs if x["event"] == "draining"][-1]
+    jobs = per_job(evs)
+    walls = {j: check_tenant("drain", t, jobs[j]) for j, t in ids.items()}
+    fp.send({"op": "stats"})
+    evs = fp.wait_for(lambda e: any(x["event"] == "stats" for x in e),
+                      "stats")
+    stats = [x for x in evs if x["event"] == "stats"][-1]["fleet"]
+    member = {m["engine"]: m for m in stats["engines"]}[src]
+    if drained["jobs"] < 1 or member["jobs_routed"] != 0 or \
+            not member["draining"] or stats["migrations"] < drained["jobs"]:
+        fail(f"fleet drain: draining {drained}, engine {member}, "
+             f"migrations {stats['migrations']}")
+    log(f"fleet drain: {src} drained with {drained['jobs']} jobs running; "
+        f"each migrated job's stream equal to its solo run; the engine "
+        f"now routes {member['jobs_routed']}; session {wall:.2f} s")
+    return {"engine": src, "jobs_migrated": drained["jobs"],
+            "migrations": stats["migrations"], "job_wall_s": walls,
+            "wall_s": wall, "engines": stats["engines"]}
+
+
+def fleet_kill(fp: FleetProcess, tenants: list) -> dict:
+    """The 8 tenants (:data:`FLEET_CONFIG`): the engine carrying the
+    cyrillic ones is SIGKILLed after its first hit event; its jobs
+    crash-replay onto the survivor, each stream its solo run's, no hit
+    delivered twice."""
+    import signal
+
+    ids = {f"{t['id']}@kill": t for t in tenants}
+    t0 = time.monotonic()
+    fp.send(*[submit_doc(t, jid, config=FLEET_CONFIG)
+              for jid, t in ids.items()])
+    cyr = [j for j, t in ids.items() if t["algo"] == "md5"]
+    evs = fp.wait_for(lambda e: all(j in fleet_acks(e) for j in ids) and
+                      any(x["event"] == "hit" and x.get("id") in cyr
+                          for x in e), "a cyrillic tenant's first hit")
+    acks = fleet_acks(evs)
+    victim = acks[cyr[0]]["engine"]
+    on_victim = [j for j in ids if acks[j]["engine"] == victim]
+    unsettled = [j for j in on_victim
+                 if not any(x["event"] in SETTLE and x.get("id") == j
+                            for x in evs)]
+    pid = fp.engines()[victim]["pid"]
+    os.kill(pid, signal.SIGKILL)
+    t_kill = time.monotonic()
+    evs = fp.wait_for(lambda e: sum(x["event"] in SETTLE and x.get("id")
+                                    in ids for x in e) >= len(ids),
+                      "the replayed jobs", timeout=300)
+    after = time.monotonic() - t_kill
+    jobs = per_job(evs)
+    walls = {j: check_tenant("kill", t, jobs[j]) for j, t in ids.items()}
+    fp.send({"op": "stats"})
+    evs = fp.wait_for(lambda e: any(x["event"] == "stats" for x in e),
+                      "stats")
+    stats = [x for x in evs if x["event"] == "stats"][-1]["fleet"]
+    if stats["engine_deaths"] != 1 or stats["engines_alive"] != 1 or \
+            stats["jobs_replayed"] < len(unsettled) or not unsettled:
+        fail(f"fleet kill: {victim} killed with {unsettled} running; "
+             f"deaths {stats['engine_deaths']}, alive "
+             f"{stats['engines_alive']}, replayed {stats['jobs_replayed']}")
+    log(f"fleet kill: {victim} SIGKILLed with {len(unsettled)} of its "
+        f"{len(on_victim)} jobs running; {stats['jobs_replayed']} replayed "
+        f"onto the survivor, every stream equal to its solo run, no hit "
+        f"twice; last done {after:.2f} s after the kill; session "
+        f"{time.monotonic() - t0:.2f} s")
+    return {"engine": victim, "jobs_on_engine": len(on_victim),
+            "jobs_running_at_kill": len(unsettled),
+            "jobs_replayed": stats["jobs_replayed"],
+            "engine_deaths": stats["engine_deaths"],
+            "after_kill_s": after, "job_wall_s": walls,
+            "wall_s": time.monotonic() - t0}
+
+
+def fleet_phase(work: str, inputs: tuple, card: str) -> dict:
+    """Phase 11 (see the module docstring).  Returns the phase's
+    numbers."""
+    t_phase = time.monotonic()
+    _serve_work, tenants, crack = inputs
+    work = os.path.join(work, "fleet")
+    os.makedirs(work, exist_ok=True)
+    # The kill session's fleet starts first: its engines come up while
+    # the first fleet works.
+    fk = FleetProcess(work, "kill")
+    fa = FleetProcess(work, "routed", ["--split", "on"])
+    report = {"ready_s": fa.wait_ready()}
+    device = (FLEET_ARGS[FLEET_ARGS.index("--device") + 1]
+              if "--device" in FLEET_ARGS else "cuda")
+    for eid, e in fa.engines().items():
+        cmd = e["cmd"]
+        if cmd[1:4] != ["-m", "hashcat_a5_table_generator_tpu_torch",
+                        "serve"] or cmd[cmd.index("--device") + 1] != device:
+            fail(f"fleet: engine {eid} spawned as {cmd}")
+    report["engine_cmd"] = fa.engines()["eng0"]["cmd"][1:4]
+    report["routed"] = fleet_routed(fa, tenants, crack)
+    report["split"] = fleet_split(fa, crack)
+    report["drain"] = fleet_drain(fa, tenants)
+    out = fa.close()
+    for eid, launched in out["launches"].items():
+        if not launched or any(k.startswith("buffer_hash")
+                               for k in launched):
+            fail(f"fleet: engine {eid} launched {launched}")
+    report["launches"] = out["launches"]
+    report["routed_fleet_wall_s"] = out["wall_s"]
+    fk.wait_ready()
+    report["kill"] = fleet_kill(fk, tenants)
+    out = fk.close()
+    report["kill"]["launches"] = out["launches"]
+    report["phase_s"] = time.monotonic() - t_phase
+    log(f"fleet: engine launches {report['launches']} (kill session "
+        f"{out['launches']}); phase {report['phase_s']:.1f} s on {card}")
     return report
 
 
@@ -4130,20 +4515,20 @@ def main() -> None:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     # The crack cell (and azerty -s, whose killed runs need its fetches)
-    # takes 250k words; every other cell N_WORDS_CELL (100k): cut from
-    # 250k to keep the script inside its time limit.
+    # takes N_WORDS_DEFAULT (150k) words; every other cell N_WORDS_CELL
+    # (100k): cut from 250k to keep the script inside its time limit.
     words = dictionary(N_WORDS_DEFAULT, seed=0)
     cell_words = dictionary(N_WORDS_CELL, seed=0)
     czech_words = dictionary(N_WORDS_CELL, seed=11, long_lines=False)
-    # cyrillic-x2-long: 247k recipe words, 2000 lines of 65-200 bytes and
-    # 1000 of 25-40 letters (both on the XLA route) at seeded places (1M
-    # recipe words before it was cut for time).
+    # cyrillic-x2-long: 147k recipe words, 2000 lines of 65-200 bytes and
+    # 1000 of 25-40 letters (both on the XLA route) at seeded places (1M,
+    # then 247k recipe words before it was cut for time).
     x2_long = dictionary(N_WORDS_DEFAULT - 3000, seed=0, long_lines=False)
     rng = np.random.default_rng(81)
     for w in long_lines(2000, seed=82) + letter_lines(1000, seed=83):
         x2_long.insert(int(rng.integers(0, len(x2_long))), w)
-    # qwerty-azerty -s: 250k words (1M cost most of the script's time in
-    # host prep), with the same 2000 seeded hazard lines.
+    # qwerty-azerty -s: 150k words (1M, then 250k cost most of the
+    # script's time in host prep), with the same 2000 seeded hazard lines.
     azerty_words = dictionary(N_WORDS_DEFAULT - 2000, seed=21,
                               long_lines=False)
     rng = np.random.default_rng(22)
@@ -4415,7 +4800,7 @@ def main() -> None:
         if (entry, algo) in multi or (entry, algo) in others:
             continue
         ms = time_call(case.kernel, 20)
-        plain_ms = time_call(case.plain, 2)
+        plain_ms = time_call(case.plain, 1)
         emit = checks[(entry, algo)]["emit"]
         bound_ms, bound_by = case.bound(emit, peak_ops)
         rows = int(emit.shape[0])
@@ -4451,7 +4836,7 @@ def main() -> None:
             huge = cases[("digits:huge", "md5")]
             h_emit = checks[("digits:huge", "md5")]["emit"]
             h_ms = time_call(huge.kernel, 20)
-            h_plain = time_call(huge.plain, 2)
+            h_plain = time_call(huge.plain, 1)
             h_bound, h_by = huge.bound(h_emit, peak_ops)
             h_masked = 1 - int(h_emit.sum()) / int(h_emit.shape[0])
             log(f"{huge.key} [{huge.name}, its per-launch pipeline's first "
@@ -4505,7 +4890,7 @@ def main() -> None:
         if (label, algo) in bs_multi:
             continue
         ms = time_call(case.kernel, 20)
-        plain_ms = time_call(case.plain, 2)
+        plain_ms = time_call(case.plain, 1)
         emit = bs_checks[(label, algo)]["emit"]
         bound_ms, bound_by = case.bound(emit, peak_ops)
         rows = int(emit.shape[0])
@@ -4638,10 +5023,13 @@ def main() -> None:
     runs[("small", "warm-up")] = warm_up
     pod = pod_phase(work, paths, runs, cand_cells, card)
     # -- phase 10: the resident engine (a5gen serve) ------------------------
-    serve = serve_phase(work, paths, runs, card)
+    serve, serve_inputs = serve_phase(work, paths, runs, card)
+    # -- phase 11: the fleet router (a5gen fleet) ------------------------
+    fleet = fleet_phase(work, serve_inputs, card)
     shutil.rmtree(work, ignore_errors=True)
     elapsed = time.monotonic() - T0
     log(f"done in {elapsed:.1f} s")
+    print(json.dumps({"fleet": fleet}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"pod": pod}))
     print(json.dumps({"layouts_streaming": layouts}))

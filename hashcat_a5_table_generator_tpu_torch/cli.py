@@ -19,6 +19,8 @@ Same flags and output as the reference CLI for what this package runs::
   a5gen --list-layouts
   a5gen serve [--socket PATH] [--device cuda|cpu] [--pack auto|on|off]
         [--lanes N] [--blocks N] [...]
+  a5gen fleet --engines N|SOCK,... [--device cuda|cpu] [--socket PATH]
+        [--place affinity|round-robin] [--split auto|on|off] [...]
 
 ``--backend oracle`` (the default) streams the byte-exact CPU engines in
 the reference's ``--threads 1`` order (word order, DFS order within a
@@ -79,11 +81,18 @@ compatible crack jobs fuse into packed dispatches (``--pack``).  It runs
 on the GPU unless ``--device cpu`` is given, and without a GPU it exits
 non-zero instead of serving on the CPU.  Its launch geometry defaults
 are the sweep's (2^22 lanes on cuda, 2^17 on cpu; blocks lanes/128).
-The fleet router (``fleet``: ROADMAP.md port-queue item 8) and tuning
-(``tune``: item 9) exit 2 with a message naming their item — they never
-run a different path.  Under ``--backend oracle`` the device
-backend's flags do what the reference's do there: the stateless ones
-warn that they have no effect, the rest are ignored.
+``a5gen fleet`` (``runtime/fleet.py``) routes the same JSONL wire over a
+pool of engines: ``--engines N`` spawns N ``a5gen serve`` processes of
+this package (on the GPU unless ``--device cpu`` is given, which is
+forwarded to them), ``--engines SOCK,...`` attaches to running engines of
+either package; it places jobs by affinity under admission control,
+drains, migrates, crash-replays and splits giant jobs, and itself
+touches no device.  Its autoscaler (``--autoscale``: ROADMAP.md
+port-queue item 8) and tuning (``tune``: item 9) exit 2 with a message
+naming their item — they never run a different path.  Under
+``--backend oracle`` the device backend's flags do what the reference's
+do there: the stateless ones warn that they have no effect, the rest are
+ignored.
 """
 
 from __future__ import annotations
@@ -97,11 +106,11 @@ DIGEST_BYTES = {"md5": 16, "md4": 16, "ntlm": 16, "sha1": 20}
 
 #: ROADMAP.md port-queue items for the surfaces this package does not run.
 _ITEMS = {
-    8: "the service layer",
+    8: "the service layer: the fleet's autoscaler",
     9: "tuning",
 }
 
-_SUBCOMMANDS = {"fleet": 8, "tune": 9}
+_SUBCOMMANDS = {"tune": 9}
 
 
 def _not_ported(what: str, item: int) -> str:
@@ -868,11 +877,6 @@ def _run_device(args, sub_map, packed) -> int:
     """``packed`` is a PackedWords batch or a ``{width: PackedWords}``
     bucket dict."""
     from .models.attack import AttackSpec
-    from .runtime.bucketed import BucketedSweep
-    from .runtime.progress import ProgressReporter
-    from .runtime.sinks import CandidateWriter, HitRecorder
-    from .runtime.sweep import Sweep, SweepConfig
-    from .runtime.telemetry import profiler_trace
 
     spec = AttackSpec(mode=_mode(args), algo=args.algo,
                       min_substitute=args.table_min,
@@ -894,6 +898,32 @@ def _run_device(args, sub_map, packed) -> int:
                   "ignored under --coordinator (relaunch the pod to "
                   "resume)", file=sys.stderr)
             args.retries = 0
+    if nprocs == 1:
+        return _sweep_device(args, sub_map, packed, spec, pid, nprocs)
+    # A pod that ends normally leaves it (F8): process 0 waits for its
+    # peers' done marks, then every process stops its heartbeat and
+    # destroys its process group; a run that failed does not wait.
+    from .parallel.multihost import shutdown
+
+    ended = False
+    try:
+        rc = _sweep_device(args, sub_map, packed, spec, pid, nprocs)
+        ended = True
+        return rc
+    finally:
+        shutdown(wait_peers=ended)
+
+
+def _sweep_device(args, sub_map, packed, spec, pid: int, nprocs: int
+                  ) -> int:
+    """The device backend's sweep, this process's part of a pod when
+    ``nprocs > 1``."""
+    from .runtime.bucketed import BucketedSweep
+    from .runtime.progress import ProgressReporter
+    from .runtime.sinks import CandidateWriter, HitRecorder
+    from .runtime.sweep import Sweep, SweepConfig
+    from .runtime.telemetry import profiler_trace
+
     bucketed = isinstance(packed, dict)
     if nprocs > 1 and not args.giant_job:
         from .parallel.multihost import stripe_n_words
@@ -1166,11 +1196,216 @@ def _run_serve(argv: Sequence[str]) -> int:
     return 0
 
 
+def _build_fleet_parser() -> argparse.ArgumentParser:
+    """``a5gen fleet``'s flags: the reference's, and ``--device``."""
+    ap = argparse.ArgumentParser(
+        prog=f"{PROG} fleet",
+        description=(
+            "Fleet mode: a front-end router over a pool of engine "
+            "processes.  Speaks the same JSONL serve protocol upstream "
+            "(submit/pause/resume/cancel/stats/metrics/shutdown pass "
+            "through; drain/migrate/split added), places jobs by "
+            "static-config affinity to maximize fuse/compile reuse, "
+            "rebalances via pause→checkpoint→resubmit, and survives "
+            "engine death by crash-replaying routed jobs from their last "
+            "router-held checkpoints with exactly-once hit redelivery."
+        ),
+    )
+    ap.add_argument("--engines", required=True, metavar="N|SOCK,...",
+                    help="an integer spawns N local engine processes "
+                         "(sharing this command's geometry flags, "
+                         "--device and one schema cache); a "
+                         "comma-separated list of unix-socket paths "
+                         "attaches to engines already running")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="spawn mode: where the spawned engines run "
+                         "(default cuda; cpu runs the plain PyTorch "
+                         "version of the kernels); the router itself "
+                         "touches no device")
+    ap.add_argument("--socket", metavar="PATH",
+                    help="listen for clients on a unix socket instead "
+                         "of stdin")
+    ap.add_argument("--place", choices=("affinity", "round-robin"),
+                    default="affinity",
+                    help="job placement: static-config affinity "
+                         "(default; co-locate compatible jobs for "
+                         "fuse/compile reuse) or round-robin (the "
+                         "control arm)")
+    ap.add_argument("--poll", type=float, default=2.0, metavar="S",
+                    help="engine health-scrape cadence (stats op + "
+                         "liveness; 0 disables)")
+    ap.add_argument("--replay-budget", type=int, default=1, metavar="N",
+                    help="checkpoint-bearing engine failures "
+                         "(quarantine) are resubmitted to another "
+                         "engine up to N times per job")
+    ap.add_argument("--split", choices=("auto", "on", "off"),
+                    default=None,
+                    help="giant-job striping: scatter one oversized "
+                         "crack job across every free engine as "
+                         "disjoint rank-stride shard ranges and merge "
+                         "the hit streams back into one (word,rank)-"
+                         "ordered client stream (auto: only jobs with "
+                         "at least --split-threshold words; on: any "
+                         "crack job when 2+ engines are free; off: "
+                         "never; default: $A5GEN_SPLIT or auto)")
+    ap.add_argument("--split-threshold", type=int, default=4096,
+                    metavar="N",
+                    help="auto split mode: minimum wordlist size (in "
+                         "words) before a submit is scattered")
+    ap.add_argument("--autoscale", metavar="MIN:MAX", default=None,
+                    help="the autoscaler: "
+                         + _not_ported("'fleet --autoscale'", 8))
+    ap.add_argument("--scale-up-at", type=float, default=2.0,
+                    metavar="F",
+                    help="autoscale: backlog per engine that spawns an "
+                         "engine (inert without --autoscale)")
+    ap.add_argument("--scale-down-at", type=float, default=0.25,
+                    metavar="F",
+                    help="autoscale: backlog per engine below which the "
+                         "idlest engine drains and reaps (inert without "
+                         "--autoscale)")
+    ap.add_argument("--scale-window", type=int, default=2, metavar="N",
+                    help="autoscale hysteresis window (inert without "
+                         "--autoscale)")
+    ap.add_argument("--scale-cooldown", type=float, default=10.0,
+                    metavar="S",
+                    help="autoscale: seconds between scale actions "
+                         "(inert without --autoscale)")
+    ap.add_argument("--engine-capacity", type=int, default=32,
+                    metavar="N",
+                    help="admission control: routed jobs one engine "
+                         "accepts before new submits queue on the "
+                         "router (0 = unbounded)")
+    ap.add_argument("--max-pending", type=int, default=256, metavar="N",
+                    help="admission control: the BOUNDED router-side "
+                         "pending queue; past it, submits are "
+                         "rejected typed ({\"error\": \"overloaded\", "
+                         "\"retry_after_s\": ...}) per --shed-policy")
+    ap.add_argument("--per-tenant", type=int, default=0, metavar="N",
+                    help="admission control: max unsettled jobs per "
+                         "submit-doc 'tenant' (0 = off; docs without "
+                         "a tenant are exempt)")
+    ap.add_argument("--shed-policy",
+                    choices=("reject", "queue", "oldest"),
+                    default="reject",
+                    help="what a full pending queue does to a new "
+                         "submit: reject it typed (default), shed the "
+                         "oldest pending job (deadline-carrying jobs "
+                         "first) to admit it, or queue unboundedly")
+    ap.add_argument("--engine-dir", metavar="DIR", default=None,
+                    help="spawn mode: directory for engine sockets "
+                         "(default: a temp dir)")
+    # Spawn-mode engine flags (as `a5gen serve` takes them); they also
+    # seed the router's affinity-token defaults in both modes.
+    ap.add_argument("--lanes", type=int, default=None)
+    ap.add_argument("--blocks", type=int, default=None)
+    ap.add_argument("--superstep", type=_superstep_arg, default=None,
+                    metavar="N|auto|off")
+    ap.add_argument("--pair", choices=("auto", "on", "off"),
+                    default="auto")
+    ap.add_argument("--schema-cache", metavar="DIR", default=None,
+                    help="one on-disk PieceSchema cache directory shared "
+                         "by every spawned engine, so each plan x table "
+                         "compiles once fleet-wide (spawn mode default: "
+                         "a shared temp dir)")
+    ap.add_argument("--schema-cache-max-mb", type=float, default=None,
+                    metavar="MB")
+    return ap
+
+
+def _run_fleet(argv: Sequence[str]) -> int:
+    """``a5gen fleet``: router + engine pool, serve protocol upstream.
+    The router process imports no torch: it is JSON, sockets and
+    tables."""
+    import os
+    import tempfile
+    from types import SimpleNamespace
+
+    ap = _build_fleet_parser()
+    args = ap.parse_args(argv)
+    if args.autoscale is not None:
+        ap.error(_not_ported("'fleet --autoscale'", 8))
+    from .runtime.fleet import (
+        FleetError,
+        FleetRouter,
+        serve_fleet_socket,
+        serve_fleet_stdio,
+        spawn_engines,
+    )
+
+    # The engines' static config as far as this command knows it (the
+    # fields of SweepConfig the affinity token reads); scraped engine
+    # defaults take precedence in the router.
+    pair = {"auto": None, "on": "on", "off": 0}[args.pair]
+    defaults = SimpleNamespace(lanes=args.lanes, num_blocks=args.blocks,
+                               superstep=args.superstep, devices=1,
+                               pair=pair)
+    router = FleetRouter(place=args.place, poll_s=args.poll,
+                         replay_budget=args.replay_budget,
+                         defaults=defaults,
+                         engine_capacity=args.engine_capacity,
+                         max_pending=args.max_pending,
+                         per_tenant=args.per_tenant,
+                         shed_policy=args.shed_policy,
+                         split=args.split,
+                         split_threshold=args.split_threshold)
+    spawned = False
+    try:
+        try:
+            if args.engines.isdigit():
+                spawned = True
+                eng_dir = args.engine_dir or tempfile.mkdtemp(
+                    prefix="a5-fleet-")
+                cache = args.schema_cache or os.path.join(
+                    eng_dir, "schema-cache")
+                eng_args = ["--device", args.device, "--schema-cache",
+                            cache]
+                if args.lanes is not None:
+                    eng_args += ["--lanes", str(args.lanes)]
+                if args.blocks is not None:
+                    eng_args += ["--blocks", str(args.blocks)]
+                if args.superstep is not None:
+                    eng_args += ["--superstep",
+                                 "off" if args.superstep == 0
+                                 else str(args.superstep)]
+                if args.pair != "auto":
+                    eng_args += ["--pair", args.pair]
+                if args.schema_cache_max_mb is not None:
+                    eng_args += ["--schema-cache-max-mb",
+                                 str(args.schema_cache_max_mb)]
+                specs = spawn_engines(int(args.engines), eng_dir,
+                                      engine_args=eng_args)
+                for sock_path, eid, proc in specs:
+                    router.attach(sock_path, eid, proc=proc)
+            else:
+                for ep in args.engines.split(","):
+                    ep = ep.strip()
+                    if ep:
+                        router.attach(ep)
+        except FleetError as e:
+            print(f"{PROG}: error: {e}", file=sys.stderr)
+            return 2
+        print(f"{PROG}: fleet of {len(router.engines())} engine(s), "
+              f"routing on {args.socket or 'stdin'} (JSONL; op=shutdown "
+              "ends)", file=sys.stderr)
+        if args.socket:
+            serve_fleet_socket(router, args.socket)
+        else:
+            serve_fleet_stdio(router, sys.stdin, sys.stdout)
+    finally:
+        # Spawn mode owns its engines' lifetimes; attach mode leaves
+        # them serving for their other clients.
+        router.close(shutdown_engines=spawned)
+    return 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     if argv and argv[0] == "serve":
         return _run_serve(argv[1:])
+    if argv and argv[0] == "fleet":
+        return _run_fleet(argv[1:])
     ap = build_parser()
     if argv and argv[0] in _SUBCOMMANDS:
         ap.error(_not_ported(f"'{argv[0]}'", _SUBCOMMANDS[argv[0]]))

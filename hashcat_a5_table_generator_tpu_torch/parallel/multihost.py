@@ -32,6 +32,14 @@ collective that fails because a peer's connection closed — raises
 :class:`PeerLossError` with the reference's recovery text.  A straggler
 still sweeping keeps beating and never trips it.  Recovery is a
 relaunch: each stripe resumes from its own checkpoint.
+
+Leaving: a pod that ends normally calls :func:`shutdown`, which marks
+the process done in the store, has process 0 (the store's host) wait for
+its peers' marks, stops the heartbeat thread and destroys the process
+group, so no pod thread or gloo context is left for the interpreter's
+exit to tear down.  ``--pod-hits local`` leaves through
+:func:`pod_local_done_exit` (``os._exit(0)``) and a lost peer through
+``os._exit(3)``: neither waits on a peer that may be dead.
 """
 
 from __future__ import annotations
@@ -54,6 +62,7 @@ __all__ = [
     "PeerLossError",
     "pod_local_done_exit",
     "initialize",
+    "shutdown",
     "host_stripe",
     "stripe_packed",
     "stripe_n_words",
@@ -108,6 +117,9 @@ class _Pod:
     port: Optional[int] = None
     store = None  # the rendezvous TCPStore (process 0 hosts it)
     hb_thread: Optional[threading.Thread] = None
+    hb_stop: Optional[threading.Event] = None
+    #: the last all-gather's collective thread (joined by :func:`shutdown`)
+    gather_thread: Optional[threading.Thread] = None
 
 
 def _client():
@@ -129,11 +141,12 @@ def _try_get(store, key: str) -> Optional[bytes]:
 
 
 def _start_heartbeat() -> None:
-    """Publish this process's liveness counter for the rest of its life
-    (a daemon thread: a frozen counter is a dead process)."""
+    """Publish this process's liveness counter until :func:`shutdown`
+    stops it (a daemon thread: a frozen counter is a dead process)."""
     if _Pod.hb_thread is not None and _Pod.hb_thread.is_alive():
         return
     key = f"{_HB_PREFIX}{_Pod.pid}"
+    stop = threading.Event()
 
     def _beat() -> None:
         try:
@@ -141,14 +154,15 @@ def _start_heartbeat() -> None:
         except Exception:  # noqa: BLE001 — the pod is already gone
             return
         n = 0
-        while True:
+        while not stop.is_set():
             try:
                 store.set(key, str(n))
             except Exception:  # noqa: BLE001 — the store's host exited
                 return
             n += 1
-            time.sleep(_HB_INTERVAL)
+            stop.wait(_HB_INTERVAL)
 
+    _Pod.hb_stop = stop
     _Pod.hb_thread = threading.Thread(target=_beat, daemon=True,
                                       name="a5gen-heartbeat")
     _Pod.hb_thread.start()
@@ -225,49 +239,90 @@ def initialize(
     return pid, n
 
 
+def _mark_done() -> None:
+    """This process's done mark in the store (a write, not a barrier)."""
+    if _Pod.store is not None:
+        try:
+            _Pod.store.set(f"{_DONE_PREFIX}{_Pod.pid}", "1")
+        except Exception:  # noqa: BLE001 — the store's host is gone
+            pass
+
+
+def _await_peers() -> None:
+    """Process 0, which hosts the store, stays until every peer has
+    marked itself done or is dead (heartbeat frozen past
+    ``A5GEN_DCN_TIMEOUT``; ``0`` waits on done marks only).  Other
+    processes return at once."""
+    pid, nprocs, store = _Pod.pid, _Pod.nprocs, _Pod.store
+    if pid != 0 or nprocs <= 1 or store is None:
+        return
+    threshold = _dcn_timeout()
+    seen: dict = {}
+    pending = set(range(1, nprocs))
+    notified = False
+    while pending:
+        for p in list(pending):
+            if _try_get(store, f"{_DONE_PREFIX}{p}") is not None:
+                pending.discard(p)
+        if not pending:
+            break
+        if threshold > 0:
+            dead = _stale_peer(store, seen, nprocs, pid, threshold,
+                               only=pending)
+            if dead is not None:
+                pending.discard(dead)
+                print(f"a5gen: process 0: peer {dead} died mid-sweep; "
+                      "its stripe needs a relaunch (resumes from its "
+                      "own --checkpoint)", file=sys.stderr)
+                continue
+        if not notified:
+            notified = True
+            print(f"a5gen: process 0: stripe done; staying up as "
+                  f"coordination host for {len(pending)} working "
+                  "peer(s)", file=sys.stderr)
+        time.sleep(0.2)
+
+
 def pod_local_done_exit() -> None:
     """``--pod-hits local``'s exit: a dead peer must never block a
     survivor, so no closing barrier runs.  Every process marks itself
     done in the store (a write, not a barrier); process 0, which hosts
-    the store, stays until every peer is done or dead (heartbeat frozen
-    past ``A5GEN_DCN_TIMEOUT``; ``0`` waits on done marks only), then
-    every process leaves through ``os._exit(0)``."""
-    pid, nprocs = _Pod.pid, _Pod.nprocs
-    store = _Pod.store
-    if store is not None:
-        try:
-            store.set(f"{_DONE_PREFIX}{pid}", "1")
-        except Exception:  # noqa: BLE001 — the store's host is gone
-            pass
-    if pid == 0 and nprocs > 1 and store is not None:
-        threshold = _dcn_timeout()
-        seen: dict = {}
-        pending = set(range(1, nprocs))
-        notified = False
-        while pending:
-            for p in list(pending):
-                if _try_get(store, f"{_DONE_PREFIX}{p}") is not None:
-                    pending.discard(p)
-            if not pending:
-                break
-            if threshold > 0:
-                dead = _stale_peer(store, seen, nprocs, pid, threshold,
-                                   only=pending)
-                if dead is not None:
-                    pending.discard(dead)
-                    print(f"a5gen: process 0: peer {dead} died mid-sweep; "
-                          "its stripe needs a relaunch (resumes from its "
-                          "own --checkpoint)", file=sys.stderr)
-                    continue
-            if not notified:
-                notified = True
-                print(f"a5gen: process 0: stripe done; staying up as "
-                      f"coordination host for {len(pending)} working "
-                      "peer(s)", file=sys.stderr)
-            time.sleep(1.0)
+    the store, stays until every peer is done or dead
+    (:func:`_await_peers`), then every process leaves through
+    ``os._exit(0)``."""
+    _mark_done()
+    _await_peers()
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(0)
+
+
+def shutdown(wait_peers: bool = True) -> None:
+    """Leave the pod at the end of a run: mark this process done, let
+    process 0 (the store's host) wait for its peers' marks
+    (``wait_peers``; a run that failed does not wait), stop the
+    heartbeat thread, join the last all-gather's thread and destroy the
+    gloo process group.  Afterwards the process is a single process
+    again.  A no-op outside a pod."""
+    if _Pod.nprocs <= 1:
+        return
+    import torch.distributed as dist
+
+    _mark_done()
+    if wait_peers:
+        _await_peers()
+    if _Pod.hb_stop is not None:
+        _Pod.hb_stop.set()
+    for th in (_Pod.hb_thread, _Pod.gather_thread):
+        # The heartbeat wakes at once; a store write in flight ends
+        # within the client's 30 s timeout.
+        if th is not None:
+            th.join(35.0)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _Pod.pid, _Pod.nprocs = 0, 1
+    _Pod.host = _Pod.port = _Pod.store = None
+    _Pod.hb_thread = _Pod.hb_stop = _Pod.gather_thread = None
 
 
 def _stale_peer(store, seen: dict, nprocs: int, self_pid: int,
@@ -348,6 +403,7 @@ def _allgather(x: np.ndarray, timeout: Optional[float] = None
             error.append(e)
 
     th = threading.Thread(target=_run, daemon=True, name="a5gen-allgather")
+    _Pod.gather_thread = th
     th.start()
     if timeout > 0:
         store = _client()

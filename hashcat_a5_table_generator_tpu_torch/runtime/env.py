@@ -14,9 +14,11 @@ and the hatches themselves: :func:`pair_enabled` (``A5GEN_PAIR``),
 engine's :func:`pack_enabled` (``A5GEN_PACK``); the re-fuse knob
 ``A5GEN_REFUSE`` (:func:`refuse_threshold`, :func:`refuse_scope`);
 :func:`faults_spec`
-(``A5GEN_FAULTS``, parsed by ``runtime/faults.py``); and the on-disk
+(``A5GEN_FAULTS``, parsed by ``runtime/faults.py``); the on-disk
 piece-schema cache's :func:`schema_cache_dir` (``A5GEN_SCHEMA_CACHE``)
-and :func:`schema_cache_max_mb` (``A5GEN_SCHEMA_CACHE_MAX_MB``).
+and :func:`schema_cache_max_mb` (``A5GEN_SCHEMA_CACHE_MAX_MB``); and the
+fleet router's giant-job split mode :func:`split_setting`
+(``A5GEN_SPLIT``).
 ``A5GEN_DCN_TIMEOUT`` is read by ``parallel/multihost.py``.  ``A5GEN_PALLAS``
 keeps its own vocabulary at its call site, as in the reference
 (``ops.fused_expand.enabled_by_env``), and ``A5GEN_CASCADE_CLOSE`` is read
@@ -227,3 +229,28 @@ def schema_cache_max_mb() -> "Optional[float]":
         )
         return None
     return mb
+
+
+def split_setting() -> str:
+    """Fleet giant-job splitting (``A5GEN_SPLIT``): ``auto`` (empty/unset
+    default — the router scatters an oversized crack job across engines
+    when its word count crosses the split threshold and >= 2 engines can
+    take a stripe), ``on``/``1`` (split every eligible crack job
+    regardless of size), ``off``/``0``/``no`` (never auto-split; the
+    explicit ``split`` op still works).  The router's ``--split`` flag
+    overrides this per process; an unrecognized value warns once and
+    keeps ``auto`` — a typo must not silently change placement."""
+    val = read_env("A5GEN_SPLIT") or ""
+    low = val.lower()
+    if low in ("", "auto"):
+        return "auto"
+    if low in ("on", "1"):
+        return "on"
+    if low in ("off", "0", "no"):
+        return "off"
+    env_warn_once(
+        "A5GEN_SPLIT", val,
+        f"unrecognized A5GEN_SPLIT={val!r} (want auto|on|off); "
+        "keeping the default (auto)",
+    )
+    return "auto"

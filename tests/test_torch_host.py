@@ -424,19 +424,23 @@ def test_import_scans_cover_the_pod():
 
 def test_import_scans_cover_the_engine():
     """The scans above take the service layer's modules (the engine, the
-    fuse layer, the wire protocol): with jax and the reference package
-    blocked they import, and an engine on the CPU serves a JSONL job with
-    a packed pair end to end."""
+    fuse layer, the wire protocol, the fleet router): with jax and the
+    reference package blocked they import, an engine on the CPU serves a
+    JSONL job with a packed pair end to end, and the router spawns this
+    package's engines."""
     scanned = {str(p.relative_to(REPO)) for p in PORT.rglob("*.py")}
     for mod in ("runtime/engine.py", "runtime/fuse.py",
-                "runtime/protocol.py", "runtime/telemetry.py"):
+                "runtime/protocol.py", "runtime/telemetry.py",
+                "runtime/fleet.py"):
         assert f"hashcat_a5_table_generator_tpu_torch/{mod}" in scanned
     code = (
         "import io, json, sys, time\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['hashcat_a5_table_generator_tpu'] = None\n"
         "from hashcat_a5_table_generator_tpu_torch.runtime import "
-        "engine, fuse, protocol\n"
+        "engine, fleet, fuse, protocol\n"
+        "assert fleet._PACKAGE == 'hashcat_a5_table_generator_tpu_torch'\n"
+        "fleet.FleetRouter(poll_s=0).close(shutdown_engines=False)\n"
         "from hashcat_a5_table_generator_tpu_torch.runtime.sweep import "
         "SweepConfig\n"
         "eng = engine.Engine(SweepConfig(device='cpu', lanes=64, "

@@ -16,6 +16,7 @@ cluster flags is one process.  The stripe arithmetic equals the
 reference's.
 """
 
+import json
 import os
 import pathlib
 import socket
@@ -104,6 +105,58 @@ def test_gathered_stdout_of_process_0_equals_single_process(
     assert "distributed process 0/2" in err0
     n = len(want.splitlines())
     assert f"{n} hits" in err0
+
+
+#: The port's CLI in a process that reports, after ``main`` returns, the
+#: pod threads still alive, how many times ``destroy_process_group`` ran
+#: and whether a process group is still up (fault F8: a gathered pod's
+#: process 0 once aborted at interpreter exit, rc -6).
+EXIT_PROBE = (
+    "import json, sys, threading\n"
+    "import torch.distributed as dist\n"
+    "calls = []\n"
+    "_destroy = dist.destroy_process_group\n"
+    "def destroy(*a, **k):\n"
+    "    calls.append(1)\n"
+    "    return _destroy(*a, **k)\n"
+    "dist.destroy_process_group = destroy\n"
+    "from hashcat_a5_table_generator_tpu_torch.cli import main\n"
+    "rc = main(sys.argv[1:])\n"
+    "print(json.dumps({'threads': sorted(t.name for t in "
+    "threading.enumerate() if t.name.startswith('a5gen-')), "
+    "'destroyed': len(calls), 'initialized': dist.is_initialized()}), "
+    "file=sys.stderr)\n"
+    "sys.exit(rc)\n")
+
+
+def test_a_gathered_pod_ends_with_its_threads_and_group_gone(
+        tmp_path, capsysbinary):
+    """F8: both processes of a gathered pod exit 0; when ``main``
+    returns, the heartbeat and all-gather threads have stopped and the
+    gloo process group was destroyed once."""
+    argv = crack_argv(tmp_path, "default")
+    want = reference(("crack", "default"), argv, capsysbinary)
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", EXIT_PROBE, *argv, "--device", "cpu",
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(p)], cwd=REPO, env=env(),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE) for p in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=LIMIT))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            raise
+    for p, (_o, e) in zip(procs, outs):
+        err = e.decode(errors="replace")
+        assert p.returncode == 0, err
+        probe = json.loads(err.strip().splitlines()[-1])
+        assert probe == {"threads": [], "destroyed": 1,
+                         "initialized": False}, err
+    assert outs[0][0] == want and hit_lines(outs[1][0]) == []
 
 
 def test_local_hits_union_equals_single_process(tmp_path, capsysbinary):

@@ -177,25 +177,27 @@ def test_item_6_and_7_flags_run_as_the_reference(extra, contract, tmp_path,
 
 @pytest.mark.parametrize("sub", ["serve", "fleet", "tune"])
 def test_flags_outside_the_slice_exit_2(sub, capsys):
-    """The surfaces still to port — the fleet router (queue item 8's
-    second half) and tuning (item 9) — exit 2 on the device backend,
-    naming their item; ``serve`` (ported) refuses the sweep's flags with
-    its own parser's usage error, as the reference's serve does."""
+    """The surface still to port — tuning (item 9) — exits 2 on the
+    device backend, naming its item; ``serve`` and ``fleet`` (ported)
+    refuse the sweep's flags with their own parsers' usage errors, as the
+    reference's do (``fleet`` first misses its required ``--engines``)."""
     argv = [sub, "--backend", "device", "--digests", "left.txt"]
     with pytest.raises(SystemExit) as exc:
         t_cli.main(argv)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    if sub == "serve":
+    if sub in ("serve", "fleet"):
         with pytest.raises(SystemExit) as j_exc:
             j_cli.main(argv)
         assert j_exc.value.code == 2
         j_err = capsys.readouterr().err
-        want = "unrecognized arguments: --backend device --digests left.txt"
+        want = ("unrecognized arguments: --backend device --digests "
+                "left.txt" if sub == "serve" else
+                "the following arguments are required: --engines")
         assert want in err and want in j_err
         return
     assert "ROADMAP.md port queue item" in err
-    assert f"item {8 if sub != 'tune' else 9}" in err
+    assert "item 9" in err
 
 
 @pytest.mark.parametrize("extra", [
@@ -240,14 +242,24 @@ def test_item_6_flags_run_as_the_reference(extra, contract, tmp_path,
 
 @pytest.mark.parametrize("sub", ["serve", "fleet", "tune"])
 def test_subcommands_exit_2(sub, capsys):
-    """``fleet`` and ``tune`` exit 2 naming their queue items; ``serve``
-    (ported) exits 2 on a machine without a GPU rather than serving on
-    the CPU (``--device cpu`` asks for the CPU)."""
+    """``tune`` exits 2 naming its queue item; ``serve`` (ported) exits 2
+    on a machine without a GPU rather than serving on the CPU
+    (``--device cpu`` asks for the CPU); ``fleet`` (ported) exits 2
+    without ``--engines``, and ``--autoscale`` exits 2 naming item 8."""
     if sub == "serve":
         if torch.cuda.is_available():
             return
         assert t_cli.main([sub]) == 2
         assert "no CUDA device is available" in capsys.readouterr().err
+        return
+    if sub == "fleet":
+        for argv in ([sub], [sub, "--engines", "2", "--autoscale", "1:3"]):
+            with pytest.raises(SystemExit) as exc:
+                t_cli.main(argv)
+            assert exc.value.code == 2
+        err = capsys.readouterr().err
+        assert "the following arguments are required: --engines" in err
+        assert "ROADMAP.md port queue item 8" in err
         return
     with pytest.raises(SystemExit) as exc:
         t_cli.main([sub])
@@ -326,7 +338,11 @@ def test_bucketed_cli_refuses_before_any_bucket_launches(
     words, _planted, digests = contract
     tables = ["-t", str(tmp_path / "t.table")]
     emit_table(get_layout("qwerty-cyrillic"), tables[1])
-    long_line = b"qwertyuiop" * 2  # 20 letters: the 32-wide bucket
+    # 17 bytes, the 32-wide bucket: 7 letters qwerty-cyrillic maps (one
+    # option each) and 10 digits it does not, 128 variants, and a piece
+    # schema of 11 emission groups, past the lowered limit of 10 (the
+    # 16-wide bucket's schema has 5).
+    long_line = b"qwertyu1234567890"
     monkeypatch.setattr(fe, "MAX_GROUPS", 10)
     (tmp_path / "words.txt").write_bytes(
         b"\n".join(words + [long_line]) + b"\n"
