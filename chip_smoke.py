@@ -15,7 +15,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    spill / shared-memory lines; beside them the two native host libraries
    (``native/packer.cpp``, ``native/oracle.cpp``; g++), which must build:
    the numpy / Python fallback fails the smoke (the nvcc builds go on
-   while phase 3 prepares its inputs);
+   while phases 3 and 4 prepare their inputs);
 3. every kernel entry point x hash against its plain PyTorch version on
    the card, at the main path's shapes (2^22 lanes, stride 128): over
    match plans the scalar K=1 and pair tiers, the digit decode (czech,
@@ -69,7 +69,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    packer, the Python oracle for its fallback words) whose stdout must
    equal the native run's, which must have taken every fallback word on
    the native engine; on the XLA expand + hash route: qwerty-cyrillic x MD5
-   ``-x 2`` at 247k words plus 2000 lines of 65-200 bytes and 1000 lines
+   ``-x 2`` at 148.5k words plus 1000 lines of 65-200 bytes and 500 lines
    of 25-40 letters (cyrillic-x2-long), 5e4 words x a nine-option table
    with a 5-byte value, SHA-1 (leet9-sha1), four ``A5GEN_PALLAS=off``
    twins (czech-ntlm, greek-hebrew-sha1, german-md5, azerty-s) whose
@@ -108,7 +108,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    ``--threads N`` (N = min(nproc, 16)) byte-identical to ``--threads 1``,
    ``A5_NATIVE=0`` byte-identical on the first 2000 words, lines/s of
    each; the oracle crack (``--threads N``) over the crack cell's first
-   25,000 words and its 1M MD5 digests, its hits equal to the card's on
+   10,000 words and its 1M MD5 digests, its hits equal to the card's on
    those words; ``--emit-table`` for every layout and ``--list-layouts``.
    Host numbers name the CPU (``lscpu``, ``nproc``) beside the card.
 
@@ -164,6 +164,7 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    SIGKILLed at a fetch under ``A5GEN_DCN_TIMEOUT=10`` (the survivor
    exits 3 with the ``PeerLossError`` text within 30 s; the pod
    relaunched on the same ``--checkpoint`` resumes to phase 4's stdout).
+   The five pods before the relaunch run at once (ten processes).
 
 10. the resident engine: one ``a5gen serve`` process on stdin (``--pack
    auto``) takes 8 small tenants — 6 distinct 20,000-word slices of the
@@ -202,10 +203,35 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    takes the 8 tenants at that geometry and loses the engine carrying
    the cyrillic ones to SIGKILL after its first hit event: its running
    jobs crash-replay onto the survivor, each stream its solo run's, no
-   hit twice.
+   hit twice.  A third, elastic fleet (``--engines 1 --autoscale 1:2``,
+   one routed job an engine, a tick every 0.5 s: ``ELASTIC_ARGS``)
+   takes the crack cell and the 8 tenants (at 2^18 lanes, one launch a
+   superstep) at once: the burst queues on
+   the router, the autoscaler spawns a second engine, which attaches and
+   takes placements (its kernel launches at exit), every stream equals
+   its solo run's; the idle fleet then drains and reaps the spawned
+   engine (its process gone): one scale-up and one scale-down in the
+   ``stats`` op's ``fleet.autoscale``; the time from the submit to the
+   second engine's attach and the session wall beside the routed
+   fleet's.
+
+12. the geometry tuner: ``a5gen tune --smoke --no-write --json`` on the
+   card in a process of its own (the four arms agree on
+   ``emitted_per_sweep``; its launches), beside it a process that reads
+   the device's name and builds a ``Sweep`` with no lanes (no CUDA
+   context after either, one after its run: ``CONTEXT_PROBE``); a bounded matrix through
+   ``runtime.tune.run_autotune`` (2^20 and 2^22 lanes x pair auto / off
+   at stride 128 and superstep 16, over ``TUNE_WORDS`` tune-contract
+   words, ``TUNE_SECONDS`` an arm), each arm's rate beside its drive's
+   share of the arm's wall, its winner written as this card's profile;
+   then the crack cell through the CLI with no ``--lanes``: its progress
+   geometry says ``profile`` with the winner's numbers and its stdout is
+   phase 4's.  ``A5GEN_TUNE_PROFILE`` points at a directory of the
+   script's own from its start, so no earlier run reads a profile.
 
 A run still going 1180 s after its start fails, printing every
-thread's stack.  The last nine lines of standard output: one
+thread's stack.  The last ten lines of standard output: one
+``{"tune": {...}}`` JSON object, one
 ``{"fleet": {...}}`` JSON object, one ``{"serve": {...}}`` JSON
 object, one ``{"pod": {...}}`` JSON
 object, one ``{"layouts_streaming": {...}}`` JSON object, one ``{"robustness": {...}}`` JSON object, one
@@ -1018,6 +1044,22 @@ def stage_breakdown(case, digest_set, pair_k) -> None:
 # ---------------------------------------------------------------------------
 
 
+def reset_launches() -> tuple:
+    """Every kernel wrapper's launch counters (and plain-version calls,
+    and the buffer hash's launches by width) set to 0; the modules."""
+    from hashcat_a5_table_generator_tpu_torch.ops import (
+        buffer_hash, bytescan, fused_expand,
+    )
+
+    mods = (fused_expand, bytescan, buffer_hash)
+    for mod in mods:
+        for k in mod.LAUNCHES:
+            mod.LAUNCHES[k] = 0
+        mod.PLAIN_CALLS = 0
+    buffer_hash.WIDTH_LAUNCHES.clear()
+    return mods
+
+
 def run_cli(argv) -> "tuple[bytes, str, int]":
     """``cli.main(argv)`` with stdout/stderr captured."""
     from hashcat_a5_table_generator_tpu_torch import cli
@@ -1313,12 +1355,7 @@ class MainPath:
             HOST_DIGEST,
         )
 
-        mods = (fused_expand, bytescan, buffer_hash)
-        for mod in mods:
-            for k in mod.LAUNCHES:
-                mod.LAUNCHES[k] = 0
-            mod.PLAIN_CALLS = 0
-        buffer_hash.WIDTH_LAUNCHES.clear()
+        mods = reset_launches()
         argv = [self.wordlist, "-t", self.table, "--backend", "device",
                 "--algo", self.algo, "--digests", self.digests] + extra
         native_words = [0]
@@ -1411,7 +1448,39 @@ class MainPath:
                     wall=wall, sweep_wall=float(s.group(1)),
                     drive=float(s.group(2)), rate=float(s.group(3)),
                     stdout=out, xla_lanes=xla_lanes, peak_bytes=peak,
-                    native_words=native_words[0])
+                    native_words=native_words[0], stderr=err)
+
+
+def host_sorts(path: "MainPath") -> None:
+    """The two host sorts every crack sweep runs per bucket over its
+    digests, on one cell's 1M: the device set's unique rows
+    (``membership._unique_rows``) and the host lookup's void rows
+    (``membership._sorted_void_rows``), each timed beside the numpy call
+    it stands for (``np.unique(axis=0)``, ``np.sort``) and equal to it."""
+    from hashcat_a5_table_generator_tpu_torch.cli import _read_digests
+    from hashcat_a5_table_generator_tpu_torch.ops import membership
+
+    raw = _read_digests(path.digests, path.algo)
+    rows = path.digest_set.rows[
+        np.random.default_rng(0).permutation(path.digest_set.size)]
+    t = {}
+    for name, fn in (
+            ("np.unique(axis=0)", lambda: np.unique(rows, axis=0)),
+            ("_unique_rows", lambda: membership._unique_rows(rows)),
+            ("np.sort(void)", lambda: np.sort(
+                raw.view(f"V{raw.shape[1]}")[:, 0])),
+            ("_sorted_void_rows", lambda: membership._sorted_void_rows(
+                raw))):
+        t0 = time.monotonic()
+        t[name] = (fn(), time.monotonic() - t0)
+    if not np.array_equal(t["np.unique(axis=0)"][0], t["_unique_rows"][0]) \
+            or t["np.sort(void)"][0].tobytes() \
+            != t["_sorted_void_rows"][0].tobytes():
+        fail(f"host sorts [{path.name}]: differ from numpy's")
+    secs = {k: v[1] for k, v in t.items()}
+    log(f"host sorts [{path.name}, {rows.shape[0]} digests]: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in secs.items())
+        + " on this machine's CPU; each pair equal")
 
 
 # ---------------------------------------------------------------------------
@@ -2044,8 +2113,9 @@ def candidates_checks(work: str, dictionary, card: str) -> dict:
 
 #: Words of the crack cell the oracle crack takes: its host lookup costs
 #: ~8 us a candidate (a binary search over the 1M digests), so the whole
-#: cell would take minutes on the host's cores.
-ORACLE_CRACK_WORDS = 25_000
+#: cell would take minutes on the host's cores (25,000 until phase 12
+#: came: cut for the script's time).
+ORACLE_CRACK_WORDS = 10_000
 
 
 def host_cpu() -> "tuple[str, int]":
@@ -2742,12 +2812,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def pod_run(name: str, work: str, argv, extra=(), envs=None,
-            timeout: int = 180) -> list:
-    """``argv`` in two processes of one pod on this card (the port's CLI,
-    ``--coordinator 127.0.0.1:<free port>``, gloo); stdout and stderr to
-    files of ``work``.  ``[(exit code, stdout, stderr, wall s, exit
-    time)]`` in process order."""
+def pod_start(name: str, work: str, argv, extra=(), envs=None) -> dict:
+    """``argv`` started in two processes of one pod on this card (the
+    port's CLI, ``--coordinator 127.0.0.1:<free port>``, gloo); stdout and
+    stderr to files of ``work``.  :func:`pod_wait` collects them."""
     port = free_port()
     procs, files = [], []
     t0 = time.monotonic()
@@ -2761,26 +2829,40 @@ def pod_run(name: str, work: str, argv, extra=(), envs=None,
              "--num-processes", "2", "--process-id", str(p), *extra],
             cwd=HERE, stdout=out, stderr=err,
             env=(envs or {}).get(p, dict(os.environ))))
-    ended = [None, None]
-    while None in ended:
-        for p, proc in enumerate(procs):
-            if ended[p] is None and proc.poll() is not None:
-                ended[p] = time.monotonic()
-        if time.monotonic() - t0 > timeout:
-            for proc in procs:
-                proc.kill()
-            fail(f"pod [{name}]: no exit within {timeout} s")
+    return {"name": name, "procs": procs, "files": files, "t0": t0}
+
+
+def pod_wait(pods: list, timeout: int = 180) -> list:
+    """Each pod of ``pods`` (:func:`pod_start`) waited for: per pod,
+    ``[(exit code, stdout, stderr, wall s, exit time)]`` in process
+    order."""
+    ended = {id(pod): [None, None] for pod in pods}
+    while any(None in v for v in ended.values()):
+        for pod in pods:
+            for p, proc in enumerate(pod["procs"]):
+                if ended[id(pod)][p] is None and proc.poll() is not None:
+                    ended[id(pod)][p] = time.monotonic()
+            if None in ended[id(pod)] and \
+                    time.monotonic() - pod["t0"] > timeout:
+                for proc in pod["procs"]:
+                    proc.kill()
+                fail(f"pod [{pod['name']}]: no exit within {timeout} s")
         time.sleep(0.05)
-    res = []
-    for p, (proc, (out, err)) in enumerate(zip(procs, files)):
-        out.close()
-        err.close()
-        with open(out.name, "rb") as fh:
-            data = fh.read()
-        with open(err.name, "rb") as fh:
-            text = fh.read().decode(errors="replace")
-        res.append((proc.returncode, data, text, ended[p] - t0, ended[p]))
-    return res
+    out = []
+    for pod in pods:
+        res = []
+        for p, (proc, (fo, fe)) in enumerate(zip(pod["procs"],
+                                                 pod["files"])):
+            fo.close()
+            fe.close()
+            with open(fo.name, "rb") as fh:
+                data = fh.read()
+            with open(fe.name, "rb") as fh:
+                text = fh.read().decode(errors="replace")
+            end = ended[id(pod)][p]
+            res.append((proc.returncode, data, text, end - pod["t0"], end))
+        out.append(res)
+    return out
 
 
 def stderr_launches(err: str) -> dict:
@@ -2996,35 +3078,10 @@ def pod_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
             fail(f"pod [{label}]: exits {[r[0] for r in res]}: "
                  + " | ".join(r[2][-2000:] for r in res))
 
-    res = pod_run("gathered", work, crack_argv(cyr))
-    pod_ok("gathered", res)
-    if res[0][1] != crack_want or res[1][1]:
-        fail("pod [crack, gathered]: process 0's stdout differs from "
-             "phase 4's, or process 1 printed hits")
-    pod_report("crack, gathered", res)
-    res = pod_run("local", work, crack_argv(cyr, ["--pod-hits", "local"]))
-    pod_ok("local", res)
-    lines = res[0][1].splitlines() + res[1][1].splitlines()
-    if sorted(lines) != sorted(crack_want.splitlines()) or \
-            not (res[0][1] and res[1][1]):
-        fail("pod [crack, local]: the union of the two stdouts differs "
-             "from phase 4's")
-    pod_report("crack, local", res)
-    res = pod_run("candidates", work, [cand["wordlist"], "-t",
-                                       cand["table"], "--backend",
-                                       "device"])
-    pod_ok("candidates", res)
-    if res[0][1] + res[1][1] != cand["stdout"]:
-        fail("pod [candidates cyrillic, gathered]: the two stdouts "
-             "concatenated differ from phase 4's")
-    pod_report("candidates cyrillic, gathered", res)
+    # The crack, candidates, giant-job and peer-loss pods run at once (ten
+    # processes on this card and host: each pod's walls are taken beside
+    # the others'); the relaunch after the peer loss follows.
     huge = runs[("huge-word", "per-launch")]
-    res = pod_run("giant", work, huge["argv"], extra=["--giant-job"])
-    pod_ok("giant", res)
-    if res[0][1] != huge["stdout"] or res[1][1]:
-        fail("pod [--giant-job, huge word]: process 0's stdout differs "
-             "from phase 4's")
-    pod_report("--giant-job, huge word", res)
     # One process SIGKILLed at its third fetch: the survivor leaves with
     # the PeerLossError text; the pod relaunched resumes from the
     # checkpoints to phase 4's stdout.
@@ -3034,8 +3091,41 @@ def pod_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
     envs = {0: dict(os.environ, A5GEN_DCN_TIMEOUT="10"),
             1: dict(os.environ, A5GEN_DCN_TIMEOUT="10",
                     A5GEN_FAULTS="superstep.fetch:kill,nth=3")}
-    res = pod_run("peer-loss", work, argv, envs=envs)
-    (rc0, out0, err0, wall0, end0), (rc1, _o1, err1, _w1, end1) = res
+    gathered, local, cands, giant, lost = pod_wait([
+        pod_start("gathered", work, crack_argv(cyr)),
+        pod_start("local", work, crack_argv(cyr, ["--pod-hits", "local"])),
+        pod_start("candidates", work, [cand["wordlist"], "-t",
+                                       cand["table"], "--backend",
+                                       "device"]),
+        pod_start("giant", work, huge["argv"], extra=["--giant-job"]),
+        pod_start("peer-loss", work, argv, envs=envs)])
+    res = gathered
+    pod_ok("gathered", res)
+    if res[0][1] != crack_want or res[1][1]:
+        fail("pod [crack, gathered]: process 0's stdout differs from "
+             "phase 4's, or process 1 printed hits")
+    pod_report("crack, gathered", res)
+    res = local
+    pod_ok("local", res)
+    lines = res[0][1].splitlines() + res[1][1].splitlines()
+    if sorted(lines) != sorted(crack_want.splitlines()) or \
+            not (res[0][1] and res[1][1]):
+        fail("pod [crack, local]: the union of the two stdouts differs "
+             "from phase 4's")
+    pod_report("crack, local", res)
+    res = cands
+    pod_ok("candidates", res)
+    if res[0][1] + res[1][1] != cand["stdout"]:
+        fail("pod [candidates cyrillic, gathered]: the two stdouts "
+             "concatenated differ from phase 4's")
+    pod_report("candidates cyrillic, gathered", res)
+    res = giant
+    pod_ok("giant", res)
+    if res[0][1] != huge["stdout"] or res[1][1]:
+        fail("pod [--giant-job, huge word]: process 0's stdout differs "
+             "from phase 4's")
+    pod_report("--giant-job, huge word", res)
+    (rc0, out0, err0, wall0, end0), (rc1, _o1, err1, _w1, end1) = lost
     if rc1 != -9 or rc0 != 3 or "FATAL" not in err0 or \
             "died or stalled" not in err0 or end0 - end1 > 30:
         fail(f"pod [peer loss]: process 1 exit {rc1}, process 0 exit {rc0}"
@@ -3046,7 +3136,7 @@ def pod_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
         f"process 0 exited {rc0} with the PeerLossError text "
         f"{end0 - end1:.2f} s later")
     envs = {p: dict(os.environ, A5GEN_DCN_TIMEOUT="10") for p in range(2)}
-    res = pod_run("resume", work, argv, envs=envs)
+    res, = pod_wait([pod_start("resume", work, argv, envs=envs)])
     pod_ok("resume", res)
     if res[0][1] != crack_want:
         fail("pod [relaunch after peer loss]: process 0's stdout differs "
@@ -3744,12 +3834,15 @@ FLEET_WRAPPER = (
 
 
 class FleetProcess(ServeProcess):
-    """One ``a5gen fleet --engines 2`` process (:data:`FLEET_WRAPPER`),
-    JSONL on its stdin, its events read on a thread; a session of its
-    own, so a failure kills its engines with it."""
+    """One ``a5gen fleet --engines N`` process (:data:`FLEET_WRAPPER`;
+    N = ``engines``, 2 by default), JSONL on its stdin, its events read
+    on a thread; a session of its own, so a failure kills its engines
+    with it."""
 
-    def __init__(self, work: str, name: str, args=()) -> None:
+    def __init__(self, work: str, name: str, args=(),
+                 engines: int = 2) -> None:
         self.name = name
+        self.n_engines = engines
         self.err_path = os.path.join(work, f"fleet-{name}.err")
         self.err = open(self.err_path, "w")
         self.log = os.path.join(work, f"fleet-{name}.engines")
@@ -3761,7 +3854,7 @@ class FleetProcess(ServeProcess):
         self.t0 = time.monotonic()
         self.proc = spawn(
             [sys.executable, "-c", FLEET_WRAPPER, self.log, wrapper,
-             "fleet", "--engines", "2", "--engine-dir", eng_dir,
+             "fleet", "--engines", str(engines), "--engine-dir", eng_dir,
              *FLEET_ARGS, *args], stdin=subprocess.PIPE,
             stdout=subprocess.PIPE, stderr=self.err, text=True, cwd=HERE,
             start_new_session=True)
@@ -3789,10 +3882,11 @@ class FleetProcess(ServeProcess):
 
     def wait_ready(self) -> float:
         """Seconds from start until the router serves (its stderr says so
-        once both engines are attached)."""
+        once its engines are attached)."""
         deadline = time.monotonic() + 180
         while time.monotonic() < deadline:
-            if "fleet of 2 engine(s)" in open(self.err_path).read():
+            if f"fleet of {self.n_engines} engine(s)" in \
+                    open(self.err_path).read():
                 return time.monotonic() - self.t0
             if self.proc.poll() is not None:
                 break
@@ -4024,6 +4118,121 @@ def fleet_kill(fp: FleetProcess, tenants: list) -> dict:
             "wall_s": time.monotonic() - t0}
 
 
+#: The elastic fleet's flags: one engine to start, at most two; one
+#: routed job an engine, so a burst queues on the router; one tick over
+#: 1.5 queued-or-routed jobs an engine spawns, two ticks (the scale-down
+#: window is twice the up window) under 0.25 drain the idlest engine; a
+#: tick every 0.5 s, 1 s between actions.
+ELASTIC_ARGS = ["--autoscale", "1:2", "--engine-capacity", "1",
+                "--scale-up-at", "1.5", "--scale-down-at", "0.25",
+                "--scale-window", "1", "--scale-cooldown", "1",
+                "--poll", "0.5"]
+
+
+def fleet_stats(fp: FleetProcess) -> dict:
+    """One ``stats`` op's ``fleet`` section."""
+    with fp.lock:
+        n = sum(1 for x in fp.events if x["event"] == "stats")
+    fp.send({"op": "stats"})
+    evs = fp.wait_for(lambda e: sum(1 for x in e if x["event"] == "stats")
+                      > n, "stats")
+    return [x for x in evs if x["event"] == "stats"][-1]["fleet"]
+
+
+def fleet_elastic(fp: FleetProcess, tenants: list, crack: dict,
+                  routed_wall: float) -> dict:
+    """The autoscaler (:data:`ELASTIC_ARGS`): the crack cell and the 8
+    tenants (:data:`FLEET_CONFIG`) submitted together to a fleet of one
+    engine queue on the router; the autoscaler spawns a second engine, which attaches and
+    takes placements (its kernel launches at exit); every stream equals
+    its solo run's (the crack cell's phase 4's stdout); once the burst
+    is done the idlest engine, the spawned one, is drained and reaped
+    and its process is gone: one scale-up and one scale-down in the
+    ``stats`` op's ``fleet.autoscale``."""
+    jobs = [crack] + tenants
+    ids = [t["id"] for t in jobs]
+    # The tenants at the drain and kill sessions' geometry (one launch a
+    # superstep): the burst outlasts the spawned engine's start-up, so it
+    # takes placements.
+    docs = [submit_doc(crack)] + [submit_doc(t, config=FLEET_CONFIG)
+                                  for t in tenants]
+    attached: dict = {}
+    stop = threading.Event()
+
+    def watch():
+        # The router's stderr says when the spawned engine attached.
+        while not stop.is_set():
+            if "scaled UP" in open(fp.err_path).read():
+                attached["at"] = time.monotonic()
+                return
+            time.sleep(0.02)
+
+    watcher = threading.Thread(target=watch, daemon=True)
+    t0 = time.monotonic()
+    watcher.start()
+    fp.send(*docs)
+    evs = fp.wait_for(lambda e: sum(x["event"] in SETTLE and x.get("id")
+                                    in ids for x in e) >= len(ids),
+                      f"{len(ids)} jobs through the elastic fleet",
+                      timeout=300)
+    wall = time.monotonic() - t0
+    stop.set()
+    watcher.join(5)
+    jobs_ev = per_job(evs)
+    walls = {t["id"]: check_tenant("elastic", t, jobs_ev[t["id"]])
+             for t in tenants}
+    check_crack("elastic", crack, jobs_ev[crack["id"]])
+    walls[crack["id"]] = jobs_ev[crack["id"]][-1]["wall_s"]
+    if "at" not in attached:
+        fail(f"fleet elastic: no engine attached during the burst; router "
+             f"stderr {open(fp.err_path).read()[-2000:]}")
+    # The scale-down: the idle fleet drains and reaps back to one engine.
+    t_idle = time.monotonic()
+    deadline = t_idle + 60
+    while True:
+        stats = fleet_stats(fp)
+        scale = stats["autoscale"]
+        if scale["scale_downs"] >= 1 and len(stats["engines"]) == 1 and \
+                not scale["reaping"]:
+            break
+        if time.monotonic() > deadline:
+            fail(f"fleet elastic: no scale-down 60 s after the burst: "
+                 f"{stats}")
+        time.sleep(0.25)
+    reaped_after = time.monotonic() - t_idle
+    spawned = fp.engines()
+    kept = [m["engine"] for m in stats["engines"]]
+    if (scale["scale_ups"], scale["scale_downs"], scale["spawn_failures"]) \
+            != (1, 1, 0) or sorted(spawned) != ["eng0", "eng1"] or \
+            kept != ["eng0"] or stats["engines_detached"] != 1:
+        fail(f"fleet elastic: autoscale {scale}, spawned {sorted(spawned)}, "
+             f"engines left {kept}, detached {stats['engines_detached']}")
+    try:
+        os.kill(spawned["eng1"]["pid"], 0)
+        fail(f"fleet elastic: the reaped engine eng1 (pid "
+             f"{spawned['eng1']['pid']}) is still running")
+    except ProcessLookupError:
+        pass
+    lines = open(f"{fp.log}.eng1.err").read().strip().splitlines()
+    launched = json.loads(lines[-1])["launches"] if lines and \
+        lines[-1].startswith("{") else {}
+    if not any(k.startswith("piece_") for k in launched):
+        fail(f"fleet elastic: the spawned engine took no placements "
+             f"(launches {launched})")
+    attach_s = attached["at"] - t0
+    log(f"fleet elastic: 1 scale-up, the second engine attached "
+        f"{attach_s:.2f} s after the submit and launched {launched}; every "
+        f"stream equal to its solo run, the crack cell's to phase 4's "
+        f"stdout; job walls {walls}; session {wall:.2f} s (the routed "
+        f"fleet of two engines: {routed_wall:.2f} s); 1 scale-down: eng1 "
+        f"drained, reaped and its process gone {reaped_after:.2f} s after "
+        "the burst")
+    return {"attach_s": attach_s, "wall_s": wall,
+            "routed_wall_s": routed_wall, "job_wall_s": walls,
+            "reaped_after_s": reaped_after, "autoscale": scale,
+            "spawned_engine_launches": launched}
+
+
 def fleet_phase(work: str, inputs: tuple, card: str) -> dict:
     """Phase 11 (see the module docstring).  Returns the phase's
     numbers."""
@@ -4031,9 +4240,10 @@ def fleet_phase(work: str, inputs: tuple, card: str) -> dict:
     _serve_work, tenants, crack = inputs
     work = os.path.join(work, "fleet")
     os.makedirs(work, exist_ok=True)
-    # The kill session's fleet starts first: its engines come up while
-    # the first fleet works.
+    # The kill session's fleet and the elastic one start first: their
+    # engines come up while the first fleet works.
     fk = FleetProcess(work, "kill")
+    fe = FleetProcess(work, "elastic", ELASTIC_ARGS, engines=1)
     fa = FleetProcess(work, "routed", ["--split", "on"])
     report = {"ready_s": fa.wait_ready()}
     device = (FLEET_ARGS[FLEET_ARGS.index("--device") + 1]
@@ -4058,9 +4268,204 @@ def fleet_phase(work: str, inputs: tuple, card: str) -> dict:
     report["kill"] = fleet_kill(fk, tenants)
     out = fk.close()
     report["kill"]["launches"] = out["launches"]
+    fe.wait_ready()
+    report["elastic"] = fleet_elastic(fe, tenants, crack,
+                                      report["routed"]["wall_s"])
+    out_e = fe.close()
+    report["elastic"]["launches"] = out_e["launches"]
     report["phase_s"] = time.monotonic() - t_phase
     log(f"fleet: engine launches {report['launches']} (kill session "
-        f"{out['launches']}); phase {report['phase_s']:.1f} s on {card}")
+        f"{out['launches']}; elastic session {out_e['launches']}); phase "
+        f"{report['phase_s']:.1f} s on {card}")
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the geometry tuner (a5gen tune) and a profile-resolved sweep
+# ---------------------------------------------------------------------------
+
+#: The tune contract's words in the bounded matrix (the reference's
+#: default is 512: ~1 ms of drive on this card), each arm's timed wall and
+#: the matrix's lane counts.
+TUNE_WORDS = 20_000
+TUNE_SECONDS = 1.0
+TUNE_LANES = [1 << 20, 1 << 22]
+#: Whether resolving a sweep's geometry creates a CUDA context: a process
+#: of its own reads the device's name (``runtime.tune.current_device_kind``)
+#: and builds a ``Sweep`` with its geometry left to the runtime (no
+#: context may exist after either), then runs it (one exists after).
+CONTEXT_PROBE = (
+    "import json, torch\n"
+    "from hashcat_a5_table_generator_tpu_torch.models.attack import "
+    "AttackSpec\n"
+    "from hashcat_a5_table_generator_tpu_torch.runtime.sweep import Sweep, "
+    "SweepConfig\n"
+    "from hashcat_a5_table_generator_tpu_torch.runtime.tune import "
+    "current_device_kind\n"
+    "ctx = lambda: bool(torch._C._cuda_hasPrimaryContext(0))\n"
+    "kind = current_device_kind('cuda')\n"
+    "named = ctx()\n"
+    "s = Sweep(AttackSpec(), {b'a': [b'4']}, [b'password'], [bytes(16)], "
+    "SweepConfig())\n"
+    "built, lanes, source = ctx(), s.config.lanes, s.geometry_source\n"
+    "r = s.run_crack()\n"
+    "print(json.dumps({'kind': kind, 'after_name': named, 'after_sweep': "
+    "built, 'lanes': lanes, 'source': source, 'after_run': ctx(), "
+    "'run_geometry': r.geometry}))\n")
+
+
+def tune_phase(work: str, path: "MainPath", crack_run: dict, kind: str,
+               card: str) -> dict:
+    """Phase 12 (see the module docstring).  Returns the phase's
+    numbers."""
+    from hashcat_a5_table_generator_tpu_torch.runtime import sweep as sw
+    from hashcat_a5_table_generator_tpu_torch.runtime import tune
+
+    t_phase = time.monotonic()
+    report: dict = {}
+    # (a) a5gen tune --smoke on the card, a process of its own (its
+    # launches counted from 0, printed at its exit); beside it, on the
+    # card, the context probe (no profile exists yet: the smoke writes
+    # none).
+    on_card = SERVE_DEVICE == "cuda"
+    probe = spawn([sys.executable, "-c", CONTEXT_PROBE],
+                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                  text=True, cwd=HERE) if on_card else None
+    err_path = os.path.join(work, "tune-smoke.err")
+    with open(err_path, "w") as err:
+        proc = spawn([sys.executable, "-c", SERVE_WRAPPER, "tune", "--smoke",
+                      "--no-write", "--json", "--seconds", "0.25",
+                      *([] if on_card else ["--device", SERVE_DEVICE])],
+                     stdout=subprocess.PIPE, stderr=err, text=True, cwd=HERE)
+        out, _ = proc.communicate(timeout=180)
+    err = open(err_path).read()
+    if probe is not None:
+        said, _ = probe.communicate(timeout=180)
+        try:
+            ctx = json.loads(said.strip().splitlines()[-1])
+        except (ValueError, IndexError):
+            ctx = {}
+        if probe.returncode != 0 or ctx.get("kind") != kind or \
+                ctx.get("after_name") is not False or \
+                ctx.get("after_sweep") is not False or \
+                ctx.get("after_run") is not True or \
+                (ctx.get("lanes"), ctx.get("source")) != (LANES, "default"):
+            fail(f"context probe: exit {probe.returncode}: {said[-2000:]}")
+        report["context_probe"] = ctx
+        log(f"context probe: no CUDA context after the device's name is "
+            f"read ({ctx['kind']}) or a Sweep with no lanes is built "
+            f"({ctx['lanes']} lanes, source {ctx['source']}); one after its "
+            f"run")
+    if proc.returncode != 0:
+        fail(f"a5gen tune --smoke exited {proc.returncode}: {err[-3000:]}")
+    doc = json.loads(out)
+    launched = json.loads(err.strip().splitlines()[-1])["launches"]
+    counts = {a["emitted_per_sweep"] for a in doc["arms"]}
+    if len(doc["arms"]) != 4 or len(counts) != 1 or \
+            doc["device_kind"] != kind or doc["profile_path"] is not None \
+            or not any(k.startswith("piece_") for k in launched):
+        fail(f"a5gen tune --smoke: {len(doc['arms'])} arms, emitted per "
+             f"sweep {sorted(counts)}, device {doc['device_kind']}, profile "
+             f"{doc['profile_path']}, launches {launched}")
+    report["smoke"] = {
+        "arms": {a["arm"]: a["hashes_per_s"] for a in doc["arms"]},
+        "emitted_per_sweep": counts.pop(), "launches": launched,
+        "wall_s": time.monotonic() - t_phase}
+    log(f"tune --smoke: 4 arms agree on {report['smoke']['emitted_per_sweep']}"
+        f" candidates a sweep; hashes/s {report['smoke']['arms']}; launches "
+        f"{launched}; process wall {report['smoke']['wall_s']:.2f} s")
+    # (b) a bounded matrix through run_autotune, each sweep's drive and
+    # wall recorded (the arm's first sweep is its untimed warm-up).
+    matrix = tune.default_matrix(lanes=TUNE_LANES, strides=[STRIDE],
+                                 supersteps=[16], pairs=["auto", "off"])
+    calls: list = []
+    per_arm: dict = {}
+    run_crack = sw.Sweep.run_crack
+
+    def timed(self, *a, **kw):
+        t = time.monotonic()
+        res = run_crack(self, *a, **kw)
+        calls.append((time.monotonic() - t, res.drive_s))
+        return res
+
+    def on_arm(rec):
+        timed_calls = calls[1:]
+        calls.clear()
+        drive = sum(d for _w, d in timed_calls)
+        per_arm[rec["arm"]] = {
+            "hashes_per_s": rec["hashes_per_s"], "sweeps": rec["sweeps"],
+            "seconds": rec["seconds"],
+            "emitted_per_sweep": rec["emitted_per_sweep"],
+            "hits_per_sweep": rec["hits_per_sweep"],
+            "drive_s": drive, "drive_share": drive / rec["seconds"],
+            "drive_rate": (rec["emitted_per_sweep"] * rec["sweeps"] / drive
+                           if drive > 0 else 0.0)}
+        log(f"tune arm {rec['arm']}: {rec['hashes_per_s']:.4g} hashes/s "
+            f"over {rec['sweeps']} sweeps of {rec['emitted_per_sweep']} "
+            f"candidates ({rec['hits_per_sweep']} hits); drive "
+            f"{drive:.3f} s of {rec['seconds']:.3f} s "
+            f"({100 * drive / rec['seconds']:.1f}%, "
+            f"{per_arm[rec['arm']]['drive_rate']:.4g} candidate-hashes/s "
+            "over the drive)")
+
+    mods = reset_launches()
+    t = time.monotonic()
+    sw.Sweep.run_crack = timed
+    try:
+        res = tune.run_autotune(words=TUNE_WORDS, seconds=TUNE_SECONDS,
+                                matrix=matrix, on_arm=on_arm,
+                                device=SERVE_DEVICE)
+    finally:
+        sw.Sweep.run_crack = run_crack
+    launched = {k: v for mod in mods for k, v in mod.LAUNCHES.items() if v}
+    if res["device_kind"] != kind or len(per_arm) != len(matrix) or \
+            not res["profile_path"] or not any(k.startswith("piece_")
+                                               for k in launched):
+        fail(f"tune matrix: {res['device_kind']}, {len(per_arm)} arms, "
+             f"profile {res['profile_path']}, launches {launched}")
+    big = {a: r for a, r in per_arm.items()
+           if a.startswith(f"lanes{max(TUNE_LANES)}-")}
+    best_big = max(big, key=lambda a: big[a]["hashes_per_s"])
+    report["matrix"] = {
+        "words": TUNE_WORDS, "seconds_per_arm": TUNE_SECONDS,
+        "arms": per_arm, "winner": res["winner"],
+        "geometry": res["geometry"], "profile": res["profile_path"],
+        "winner_at_most_lanes": best_big, "launches": launched,
+        "wall_s": time.monotonic() - t}
+    log(f"tune matrix ({len(matrix)} arms, {TUNE_WORDS} words, "
+        f"{TUNE_SECONDS} s an arm): winner {res['winner']} at "
+        f"{res['hashes_per_s']:.4g} hashes/s, at {max(TUNE_LANES)} lanes "
+        f"{best_big}; "
+        f"profile {os.path.relpath(res['profile_path'], HERE)}; launches "
+        f"{launched}; {report['matrix']['wall_s']:.1f} s")
+    # (c) the crack cell with no --lanes: the geometry is the profile's,
+    # the stdout phase 4's.
+    run = path.run("tune profile", ["--progress"], card)
+    g = res["geometry"]
+    lines = [json.loads(ln) for ln in run["stderr"].splitlines()
+             if ln.startswith('{"progress"')]
+    geom = lines[-1]["progress"].get("geometry", {}) if lines else {}
+    said = (f"geometry: lanes={g['lanes']} blocks={g['num_blocks']} "
+            f"superstep={g['superstep']}")
+    if run["stdout"] != crack_run["stdout"] or \
+            geom.get("source") != "profile" or \
+            (geom.get("lanes"), geom.get("num_blocks")) != (
+                g["lanes"], g["num_blocks"]) or \
+            f"{said} pair=" not in run["stderr"] or \
+            f"from autotune profile ({kind})" not in run["stderr"]:
+        fail(f"crack cell from the profile: stdout equal "
+             f"{run['stdout'] == crack_run['stdout']}, progress geometry "
+             f"{geom}, profile {g}; stderr {run['stderr'][-1500:]}")
+    report["crack"] = {"geometry": geom, "wall_s": run["wall"],
+                       "drive_s": run["drive"], "launches": run["launches"],
+                       "phase4_wall_s": crack_run["wall"],
+                       "phase4_drive_s": crack_run["drive"]}
+    log(f"crack cell from the profile: progress geometry {geom}; stdout "
+        f"byte-identical to phase 4's; launches {run['launches']}; CLI wall "
+        f"{run['wall']:.2f} s, drive {run['drive']} s (phase 4: "
+        f"{crack_run['wall']:.2f} s, {crack_run['drive']} s) on {card}")
+    report["phase_s"] = time.monotonic() - t_phase
+    log(f"tune phase {report['phase_s']:.1f} s on {card}")
     return report
 
 
@@ -4077,6 +4482,11 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this smoke test needs "
              "a CUDA device")
     arm_deadline()
+    # Autotune profiles: a directory of the script's own, for it and every
+    # process it starts; no run reads one from the home directory, and
+    # every phase before 12 (which writes one) runs the built-in geometry.
+    os.environ["A5GEN_TUNE_PROFILE"] = os.path.join(
+        HERE, "build", "chip_smoke", "tune-profiles")
     sys.path.insert(0, HERE)
     try:
         from hashcat_a5_table_generator_tpu_torch.models.attack import (
@@ -4111,7 +4521,8 @@ def main() -> None:
     # oracle engines) build on a thread while the nvcc builds run; the
     # smoke needs them built, not the numpy / Python fallback.  The nvcc
     # builds run on a thread of their own until phase 3's first launch:
-    # its inputs (host plans, device tables) are made meanwhile.
+    # its inputs (host plans, device tables) and phase 4's are made
+    # meanwhile.
     from hashcat_a5_table_generator_tpu_torch import native
     from hashcat_a5_table_generator_tpu_torch.native import oracle_engine
 
@@ -4150,7 +4561,9 @@ def main() -> None:
 
     def kernels_built() -> None:
         """Wait for the nvcc builds; their ptxas lines."""
+        t_wait = time.monotonic()
         kernel_build.join()
+        waited = time.monotonic() - t_wait
         if "error" in built:
             fail(f"the CUDA libraries did not build: {built['error']}")
         reports = built["reports"]
@@ -4158,7 +4571,8 @@ def main() -> None:
             f"csrc/piece_hash.cu, csrc/bytescan_hash.cu and "
             f"csrc/buffer_hash.cu in {built['s']:.1f} s (nvcc "
             f"{' '.join(_native_build.NVCC_FLAGS)} -DPIECE_ALGO=n, all in "
-            f"parallel, beside phase 3's input preparation)")
+            f"parallel, beside phases 3 and 4's input preparation, which "
+            f"then waited {waited:.1f} s for them)")
         frames = []
         for lib in bh_libs + libs + bs_libs:
             for kernel, info in ptxas_kernels(reports[lib]):
@@ -4299,6 +4713,92 @@ def main() -> None:
         if case.key != want_key or case.hash_blocks != want_hb:
             fail(f"{case.name}: runs {case.key} with {case.hash_blocks} "
                  f"hash blocks, expected {want_key} with {want_hb}")
+    # Phase 4's inputs (wordlists, digest files, host plans: no device
+    # work) are made here too, while the nvcc builds run.
+    work = os.path.join(HERE, "build", "chip_smoke")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    # The crack cell (and azerty -s, whose killed runs need its fetches)
+    # takes N_WORDS_DEFAULT (150k) words; every other cell N_WORDS_CELL
+    # (100k): cut from 250k to keep the script inside its time limit.
+    crack_words = dictionary(N_WORDS_DEFAULT, seed=0)
+    cell_words = dictionary(N_WORDS_CELL, seed=0)
+    czech_words = dictionary(N_WORDS_CELL, seed=11, long_lines=False)
+    # cyrillic-x2-long: 148.5k recipe words, 1000 lines of 65-200 bytes
+    # and 500 of 25-40 letters (both on the XLA route) at seeded places
+    # (1M, then 247k recipe words before it was cut for time; 2000 and
+    # 1000 such lines until phase 12 came).
+    x2_long = dictionary(N_WORDS_DEFAULT - 1500, seed=0, long_lines=False)
+    rng = np.random.default_rng(81)
+    for w in long_lines(1000, seed=82) + letter_lines(500, seed=83):
+        x2_long.insert(int(rng.integers(0, len(x2_long))), w)
+    # qwerty-azerty -s: 150k words (1M, then 250k cost most of the
+    # script's time in host prep), with the same 2000 seeded hazard lines.
+    azerty_words = dictionary(N_WORDS_DEFAULT - 2000, seed=21,
+                              long_lines=False)
+    rng = np.random.default_rng(22)
+    for w in dict.fromkeys(azerty_lines(2000, seed=23)):
+        azerty_words.insert(int(rng.integers(0, len(azerty_words))), w)
+    # german x MD5: the bench recipe with ss (~5%) and sss (~1%), unique,
+    # plus the 120 long lines (bucket 64, no "sss": the piece kernel).
+    german_dict = list(dict.fromkeys(german_words(N_WORDS_CELL + 1000,
+                                                  seed=41)))
+    german_dict = german_dict[: N_WORDS_CELL - 120]
+    rng = np.random.default_rng(4)
+    for w in long_words(100, 33, 64, (4, 10), seed=5) + \
+            long_words(20, 50, 64, (3, 8), seed=6):
+        german_dict.insert(int(rng.integers(0, len(german_dict))), w)
+    paths = {
+        "cyrillic-md5": MainPath("cyrillic-md5", work, crack_words,
+                                 "qwerty-cyrillic", "md5", {}, seed=10),
+        "czech-ntlm": MainPath("czech-ntlm", work, czech_words, "czech",
+                               "ntlm", {}, seed=12),
+        "greek-hebrew-sha1": MainPath(
+            "greek-hebrew-sha1", work, greek_words(dictionary(
+                N_WORDS_CELL, seed=13, long_lines=False)),
+            "greek-hebrew", "sha1", {}, seed=14),
+        "cyrillic-md5-x2": MainPath("cyrillic-md5-x2", work, cell_words,
+                                    "qwerty-cyrillic", "md5",
+                                    {"max_substitute": 2}, seed=15),
+        "cyrillic-md5-s": MainPath("cyrillic-md5-s", work, cell_words,
+                                   "qwerty-cyrillic", "md5",
+                                   {"mode": "suball"}, seed=24),
+        "azerty-md5-s": MainPath(
+            "azerty-md5-s", work, azerty_words, "qwerty-azerty", "md5",
+            {"mode": "suball"}, seed=25,
+            quota={"device_closed": 120, "oracle_fallback": 60}),
+        "cyrillic-sha1-s-x2": MainPath(
+            "cyrillic-sha1-s-x2", work, cell_words, "qwerty-cyrillic",
+            "sha1", {"mode": "suball", "max_substitute": 2}, seed=26),
+        "czech-ntlm-s-r": MainPath(
+            "czech-ntlm-s-r", work, czech_words, "czech", "ntlm",
+            {"mode": "suball-reverse"}, seed=27),
+        "cyrillic-md5-r": MainPath("cyrillic-md5-r", work, cell_words,
+                                   "qwerty-cyrillic", "md5",
+                                   {"mode": "reverse"}, seed=28),
+        "german-md5": MainPath("german-md5", work, german_dict, "german",
+                               "md5", {}, seed=42),
+        "german-r-ntlm": MainPath(
+            "german-r-ntlm", work, german_dict, "german", "ntlm",
+            {"mode": "reverse"}, seed=43),
+        "cyrillic-sha1-s": MainPath("cyrillic-sha1-s", work, cell_words,
+                                    "qwerty-cyrillic", "sha1",
+                                    {"mode": "suball"}, seed=44),
+        "cyrillic-x2-long": MainPath(
+            "cyrillic-x2-long", work, x2_long, "qwerty-cyrillic", "md5",
+            {"max_substitute": 2}, seed=84),
+        "leet9-sha1": MainPath(
+            "leet9-sha1", work, dictionary(50000, seed=85, long_lines=False),
+            LEET9, "sha1", {}, seed=86),
+    }
+    az = paths["azerty-md5-s"].routing
+    if az["device_closed"] < 100 or az["oracle_fallback"] < 100:
+        fail(f"azerty-md5-s routing {az}: want closed words and at least "
+             "100 oracle-fallback words")
+    if not paths["cyrillic-sha1-s-x2"].windowed:
+        fail("the -s -x 2 run's plans are not count-windowed")
+    if not paths["cyrillic-md5-x2"].windowed:
+        fail("the -x 2 run's plans are not count-windowed")
     kernels_built()
     checks = {key: compare(case) for key, case in cases.items()}
     # The windowed tier's CTA edges: lines of 16-20 bytes with 16 letters
@@ -4511,91 +5011,10 @@ def main() -> None:
     check_xla_expansion()
 
     # -- phase 4: the main path at full width -------------------------------
-    work = os.path.join(HERE, "build", "chip_smoke")
-    shutil.rmtree(work, ignore_errors=True)
-    os.makedirs(work)
-    # The crack cell (and azerty -s, whose killed runs need its fetches)
-    # takes N_WORDS_DEFAULT (150k) words; every other cell N_WORDS_CELL
-    # (100k): cut from 250k to keep the script inside its time limit.
-    words = dictionary(N_WORDS_DEFAULT, seed=0)
-    cell_words = dictionary(N_WORDS_CELL, seed=0)
-    czech_words = dictionary(N_WORDS_CELL, seed=11, long_lines=False)
-    # cyrillic-x2-long: 147k recipe words, 2000 lines of 65-200 bytes and
-    # 1000 of 25-40 letters (both on the XLA route) at seeded places (1M,
-    # then 247k recipe words before it was cut for time).
-    x2_long = dictionary(N_WORDS_DEFAULT - 3000, seed=0, long_lines=False)
-    rng = np.random.default_rng(81)
-    for w in long_lines(2000, seed=82) + letter_lines(1000, seed=83):
-        x2_long.insert(int(rng.integers(0, len(x2_long))), w)
-    # qwerty-azerty -s: 150k words (1M, then 250k cost most of the
-    # script's time in host prep), with the same 2000 seeded hazard lines.
-    azerty_words = dictionary(N_WORDS_DEFAULT - 2000, seed=21,
-                              long_lines=False)
-    rng = np.random.default_rng(22)
-    for w in dict.fromkeys(azerty_lines(2000, seed=23)):
-        azerty_words.insert(int(rng.integers(0, len(azerty_words))), w)
-    # german x MD5: the bench recipe with ss (~5%) and sss (~1%), unique,
-    # plus the 120 long lines (bucket 64, no "sss": the piece kernel).
-    german = list(dict.fromkeys(german_words(N_WORDS_CELL + 1000, seed=41)))
-    german = german[: N_WORDS_CELL - 120]
-    rng = np.random.default_rng(4)
-    for w in long_words(100, 33, 64, (4, 10), seed=5) + \
-            long_words(20, 50, 64, (3, 8), seed=6):
-        german.insert(int(rng.integers(0, len(german))), w)
-    paths = {
-        "cyrillic-md5": MainPath("cyrillic-md5", work, words,
-                                 "qwerty-cyrillic", "md5", {}, seed=10),
-        "czech-ntlm": MainPath("czech-ntlm", work, czech_words, "czech",
-                               "ntlm", {}, seed=12),
-        "greek-hebrew-sha1": MainPath(
-            "greek-hebrew-sha1", work, greek_words(dictionary(
-                N_WORDS_CELL, seed=13, long_lines=False)),
-            "greek-hebrew", "sha1", {}, seed=14),
-        "cyrillic-md5-x2": MainPath("cyrillic-md5-x2", work, cell_words,
-                                    "qwerty-cyrillic", "md5",
-                                    {"max_substitute": 2}, seed=15),
-        "cyrillic-md5-s": MainPath("cyrillic-md5-s", work, cell_words,
-                                   "qwerty-cyrillic", "md5",
-                                   {"mode": "suball"}, seed=24),
-        "azerty-md5-s": MainPath(
-            "azerty-md5-s", work, azerty_words, "qwerty-azerty", "md5",
-            {"mode": "suball"}, seed=25,
-            quota={"device_closed": 120, "oracle_fallback": 60}),
-        "cyrillic-sha1-s-x2": MainPath(
-            "cyrillic-sha1-s-x2", work, cell_words, "qwerty-cyrillic",
-            "sha1", {"mode": "suball", "max_substitute": 2}, seed=26),
-        "czech-ntlm-s-r": MainPath(
-            "czech-ntlm-s-r", work, czech_words, "czech", "ntlm",
-            {"mode": "suball-reverse"}, seed=27),
-        "cyrillic-md5-r": MainPath("cyrillic-md5-r", work, cell_words,
-                                   "qwerty-cyrillic", "md5",
-                                   {"mode": "reverse"}, seed=28),
-        "german-md5": MainPath("german-md5", work, german, "german",
-                               "md5", {}, seed=42),
-        "german-r-ntlm": MainPath(
-            "german-r-ntlm", work, german, "german", "ntlm",
-            {"mode": "reverse"}, seed=43),
-        "cyrillic-sha1-s": MainPath("cyrillic-sha1-s", work, cell_words,
-                                    "qwerty-cyrillic", "sha1",
-                                    {"mode": "suball"}, seed=44),
-        "cyrillic-x2-long": MainPath(
-            "cyrillic-x2-long", work, x2_long, "qwerty-cyrillic", "md5",
-            {"max_substitute": 2}, seed=84),
-        "leet9-sha1": MainPath(
-            "leet9-sha1", work, dictionary(50000, seed=85, long_lines=False),
-            LEET9, "sha1", {}, seed=86),
-    }
-    az = paths["azerty-md5-s"].routing
-    if az["device_closed"] < 100 or az["oracle_fallback"] < 100:
-        fail(f"azerty-md5-s routing {az}: want closed words and at least "
-             "100 oracle-fallback words")
-    if not paths["cyrillic-sha1-s-x2"].windowed:
-        fail("the -s -x 2 run's plans are not count-windowed")
-    if not paths["cyrillic-md5-x2"].windowed:
-        fail("the -x 2 run's plans are not count-windowed")
+    host_sorts(paths["cyrillic-md5"])
     small = os.path.join(work, "small.txt")
     with open(small, "wb") as fh:
-        fh.write(b"\n".join(words[:2000]) + b"\n")
+        fh.write(b"\n".join(crack_words[:2000]) + b"\n")
     base = ["-t", paths["cyrillic-md5"].table, "--backend", "device",
             "--algo", "md5", "--digests", paths["cyrillic-md5"].digests]
     out, err, rc = run_cli([small] + base)
@@ -5026,9 +5445,13 @@ def main() -> None:
     serve, serve_inputs = serve_phase(work, paths, runs, card)
     # -- phase 11: the fleet router (a5gen fleet) ------------------------
     fleet = fleet_phase(work, serve_inputs, card)
+    # -- phase 12: the geometry tuner (a5gen tune) ------------------------
+    tuned = tune_phase(work, paths["cyrillic-md5"],
+                       runs[("cyrillic-md5", "pair auto")], kind, card)
     shutil.rmtree(work, ignore_errors=True)
     elapsed = time.monotonic() - T0
     log(f"done in {elapsed:.1f} s")
+    print(json.dumps({"tune": tuned}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"serve": serve}))
     print(json.dumps({"pod": pod}))

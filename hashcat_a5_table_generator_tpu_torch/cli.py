@@ -20,7 +20,11 @@ Same flags and output as the reference CLI for what this package runs::
   a5gen serve [--socket PATH] [--device cuda|cpu] [--pack auto|on|off]
         [--lanes N] [--blocks N] [...]
   a5gen fleet --engines N|SOCK,... [--device cuda|cpu] [--socket PATH]
-        [--place affinity|round-robin] [--split auto|on|off] [...]
+        [--place affinity|round-robin] [--split auto|on|off]
+        [--autoscale MIN:MAX [--scale-up-at F] [--scale-down-at F]
+         [--scale-window N] [--scale-cooldown S]] [...]
+  a5gen tune [--device cuda|cpu] [--words N] [--seconds S] [--smoke]
+        [--state FILE] [--profile-dir DIR] [--no-write] [--json]
 
 ``--backend oracle`` (the default) streams the byte-exact CPU engines in
 the reference's ``--threads 1`` order (word order, DFS order within a
@@ -80,16 +84,24 @@ on stdin or a unix socket (``--socket``), events stream back as JSONL;
 compatible crack jobs fuse into packed dispatches (``--pack``).  It runs
 on the GPU unless ``--device cpu`` is given, and without a GPU it exits
 non-zero instead of serving on the CPU.  Its launch geometry defaults
-are the sweep's (2^22 lanes on cuda, 2^17 on cpu; blocks lanes/128).
+resolve at startup as the sweep's do: an explicit flag, else the
+device's autotune profile, else 2^22 lanes on cuda, 2^17 on cpu (blocks
+lanes/128).
 ``a5gen fleet`` (``runtime/fleet.py``) routes the same JSONL wire over a
 pool of engines: ``--engines N`` spawns N ``a5gen serve`` processes of
 this package (on the GPU unless ``--device cpu`` is given, which is
 forwarded to them), ``--engines SOCK,...`` attaches to running engines of
 either package; it places jobs by affinity under admission control,
 drains, migrates, crash-replays and splits giant jobs, and itself
-touches no device.  Its autoscaler (``--autoscale``: ROADMAP.md
-port-queue item 8) and tuning (``tune``: item 9) exit 2 with a message
-naming their item — they never run a different path.  Under
+touches no device; with ``--autoscale MIN:MAX`` (spawn mode) it spawns
+engines on sustained backlog and drains and reaps idle or quarantined
+ones (``runtime/autoscale.py``).  ``a5gen tune`` (``runtime/tune.py``)
+times a matrix of launch geometries over a synthetic crack contract on
+the GPU (``--device cpu``: the CPU), checks that every arm emits the
+same stream, and writes the winner as the device's profile
+(``~/.cache/a5gen/tune/<device>.json``; ``A5GEN_TUNE_PROFILE``
+overrides the directory or, ``off``, disables loading): sweeps and
+``serve`` without ``--lanes`` then take their geometry from it.  Under
 ``--backend oracle`` the device backend's flags do what the reference's
 do there: the stateless ones warn that they have no effect, the rest are
 ignored.
@@ -103,20 +115,6 @@ from typing import List, Optional, Sequence
 
 PROG = "a5gen"
 DIGEST_BYTES = {"md5": 16, "md4": 16, "ntlm": 16, "sha1": 20}
-
-#: ROADMAP.md port-queue items for the surfaces this package does not run.
-_ITEMS = {
-    8: "the service layer: the fleet's autoscaler",
-    9: "tuning",
-}
-
-_SUBCOMMANDS = {"tune": 9}
-
-
-def _not_ported(what: str, item: int) -> str:
-    return (f"{what} is not ported to the PyTorch/CUDA package yet "
-            f"(ROADMAP.md port queue item {item}: {_ITEMS[item]})")
-
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
@@ -740,6 +738,21 @@ def _print_routes(res) -> None:
     print(line, file=sys.stderr)
 
 
+def _print_geometry(res) -> None:
+    """The resolved geometry's provenance on stderr, as the reference
+    prints it: when the sweep filled the geometry (an autotune profile or
+    the built-in defaults); silent for explicit flags."""
+    src = getattr(res, "geometry_source", "explicit")
+    g = getattr(res, "geometry", None) or {}
+    if src == "explicit" or not g:
+        return
+    origin = (f"autotune profile ({g.get('device_kind')})"
+              if src == "profile" else "built-in defaults")
+    print(f"{PROG}: geometry: lanes={g.get('lanes')} "
+          f"blocks={g.get('num_blocks')} superstep={g.get('superstep')} "
+          f"pair={g.get('pair')} — from {origin}", file=sys.stderr)
+
+
 def _print_stream(res) -> None:
     """Streaming summary (stderr): chunks swept, compile overlap, peak
     resident plan bytes, time to the first fetch; silent on the whole
@@ -1030,6 +1043,8 @@ def _sweep_device(args, sub_map, packed, spec, pid: int, nprocs: int
             what = "launch loop"
             unit = "candidates/s"
     _print_routing(res)
+    if crack:
+        _print_geometry(res)
     _print_routes(res)
     _print_kernels(res)
     _print_superstep(res)
@@ -1094,11 +1109,13 @@ def _build_serve_parser() -> argparse.ArgumentParser:
                          "runs the plain PyTorch version of the kernels)")
     ap.add_argument("--lanes", type=int, default=None,
                     help="default hash lanes per launch for jobs that "
-                         "don't override it (same default as the sweep "
-                         "CLI: 2^22 on cuda, 2^17 on cpu)")
+                         "don't override it (default: the device's "
+                         "autotune profile, else the sweep CLI's: 2^22 "
+                         "on cuda, 2^17 on cpu)")
     ap.add_argument("--blocks", type=int, default=None,
-                    help="default blocks per launch (lanes/128, or 1024 "
-                         "when 128 does not divide the lanes)")
+                    help="default blocks per launch (default: the "
+                         "profile's, else lanes/128, or 1024 when 128 "
+                         "does not divide the lanes)")
     ap.add_argument("--devices", type=_devices_arg, default=1, metavar="N",
                     help="default device count per job")
     ap.add_argument("--superstep", type=_superstep_arg, default=None,
@@ -1153,10 +1170,34 @@ def _run_serve(argv: Sequence[str]) -> int:
     # must tell them apart, and a lone engine's label is harmless.
     telemetry.set_engine_id(args.engine_id or telemetry.default_engine_id())
     # The engine's defaults are concrete (affinity tokens and the stats'
-    # config_defaults hash them): the sweep's built-in geometry.
-    probe = SweepConfig(device=args.device, lanes=args.lanes,
-                        num_blocks=args.blocks)
-    lanes, blocks, _ = probe.resolve(dev)
+    # config_defaults hash them), so serve resolves the geometry at
+    # startup: explicit flag > the device's autotune profile > built-ins
+    # (the lanes / blocks knobs only; per-job superstep / pair stay with
+    # the job docs).
+    if args.lanes is None or args.blocks is None:
+        from .runtime.tune import current_device_kind, resolve_config
+
+        kind = current_device_kind(dev)
+        # lanes=None engages the resolution even when --lanes was given;
+        # the per-knob merge keeps any explicit flag.
+        resolved, source = resolve_config(
+            SweepConfig(device=args.device, lanes=None,
+                        num_blocks=args.blocks), kind)
+        # With --lanes given and no profile, --blocks stays to the auto
+        # rule below, as before profiles existed.
+        if args.blocks is None and (args.lanes is None
+                                    or source == "profile"):
+            args.blocks = resolved.num_blocks
+        if args.lanes is None:
+            args.lanes = resolved.lanes
+        if source == "profile":
+            print(f"{PROG}: geometry defaults from autotune profile "
+                  f"({kind}): lanes={args.lanes} blocks={args.blocks}",
+                  file=sys.stderr)
+    # Blocks left to the auto rule (a GPU without a profile): the
+    # sweep's lanes/128, or 1024 when 128 does not divide the lanes.
+    lanes, blocks, _ = SweepConfig(device=args.device, lanes=args.lanes,
+                                   num_blocks=args.blocks).resolve(dev)
     defaults = SweepConfig(
         device=args.device,
         lanes=lanes,
@@ -1253,24 +1294,30 @@ def _build_fleet_parser() -> argparse.ArgumentParser:
                     help="auto split mode: minimum wordlist size (in "
                          "words) before a submit is scattered")
     ap.add_argument("--autoscale", metavar="MIN:MAX", default=None,
-                    help="the autoscaler: "
-                         + _not_ported("'fleet --autoscale'", 8))
+                    help="enable the autoscaler (spawn mode only): "
+                         "keep between MIN and MAX engines, spawning "
+                         "on sustained backlog and draining+reaping "
+                         "idle or quarantined ones (--engines N is "
+                         "the initial size, clamped into [MIN,MAX])")
     ap.add_argument("--scale-up-at", type=float, default=2.0,
                     metavar="F",
-                    help="autoscale: backlog per engine that spawns an "
-                         "engine (inert without --autoscale)")
+                    help="autoscale: backlog per engine (routed + "
+                         "queued + building + router-pending) that, "
+                         "sustained over the hysteresis window, "
+                         "spawns an engine")
     ap.add_argument("--scale-down-at", type=float, default=0.25,
                     metavar="F",
-                    help="autoscale: backlog per engine below which the "
-                         "idlest engine drains and reaps (inert without "
-                         "--autoscale)")
+                    help="autoscale: backlog per engine below which "
+                         "(sustained) the idlest engine drains and "
+                         "reaps")
     ap.add_argument("--scale-window", type=int, default=2, metavar="N",
-                    help="autoscale hysteresis window (inert without "
-                         "--autoscale)")
+                    help="autoscale hysteresis: consecutive "
+                         "observations over/under threshold before "
+                         "acting (scale-down uses 2N)")
     ap.add_argument("--scale-cooldown", type=float, default=10.0,
                     metavar="S",
                     help="autoscale: seconds between scale actions "
-                         "(inert without --autoscale)")
+                         "(failed spawns retry after this too)")
     ap.add_argument("--engine-capacity", type=int, default=32,
                     metavar="N",
                     help="admission control: routed jobs one engine "
@@ -1323,8 +1370,37 @@ def _run_fleet(argv: Sequence[str]) -> int:
 
     ap = _build_fleet_parser()
     args = ap.parse_args(argv)
+    scale_cfg = None
     if args.autoscale is not None:
-        ap.error(_not_ported("'fleet --autoscale'", 8))
+        if not args.engines.isdigit():
+            raise SystemExit(
+                f"{PROG}: --autoscale needs spawn mode (--engines N); "
+                "attached engines' lifetimes belong to their owners")
+        lo, _, hi = args.autoscale.partition(":")
+        try:
+            bounds = (int(lo), int(hi))
+        except ValueError:
+            raise SystemExit(
+                f"{PROG}: --autoscale wants MIN:MAX integers, got "
+                f"{args.autoscale!r}") from None
+        from .runtime.autoscale import AutoscaleConfig
+
+        # The whole elastic config is validated before any engine
+        # spawns: a bad bound or threshold pair fails the command
+        # cleanly.
+        try:
+            scale_cfg = AutoscaleConfig(
+                min_engines=bounds[0],
+                max_engines=bounds[1],
+                scale_up_at=args.scale_up_at,
+                scale_down_at=args.scale_down_at,
+                up_window=args.scale_window,
+                down_window=2 * args.scale_window,
+                cooldown_s=args.scale_cooldown,
+                interval_s=max(args.poll, 0.5) if args.poll > 0 else 1.0,
+            )
+        except ValueError as exc:
+            raise SystemExit(f"{PROG}: --autoscale: {exc}") from None
     from .runtime.fleet import (
         FleetError,
         FleetRouter,
@@ -1373,10 +1449,29 @@ def _run_fleet(argv: Sequence[str]) -> int:
                 if args.schema_cache_max_mb is not None:
                     eng_args += ["--schema-cache-max-mb",
                                  str(args.schema_cache_max_mb)]
-                specs = spawn_engines(int(args.engines), eng_dir,
-                                      engine_args=eng_args)
+                n0 = int(args.engines)
+                if scale_cfg is not None:
+                    n0 = max(scale_cfg.min_engines,
+                             min(n0, scale_cfg.max_engines))
+                specs = spawn_engines(n0, eng_dir, engine_args=eng_args)
                 for sock_path, eid, proc in specs:
                     router.attach(sock_path, eid, proc=proc)
+                if scale_cfg is not None:
+                    import itertools
+
+                    from .runtime.autoscale import Autoscaler
+
+                    counter = itertools.count(n0)
+
+                    def spawn_one():
+                        (spec,) = spawn_engines(
+                            1, eng_dir, engine_args=eng_args,
+                            start_index=next(counter))
+                        return spec
+
+                    # Binds itself as router.autoscaler; the router's
+                    # close() stops it.
+                    Autoscaler(router, spawn_one, scale_cfg)
             else:
                 for ep in args.engines.split(","):
                     ep = ep.strip()
@@ -1385,9 +1480,12 @@ def _run_fleet(argv: Sequence[str]) -> int:
         except FleetError as e:
             print(f"{PROG}: error: {e}", file=sys.stderr)
             return 2
-        print(f"{PROG}: fleet of {len(router.engines())} engine(s), "
-              f"routing on {args.socket or 'stdin'} (JSONL; op=shutdown "
-              "ends)", file=sys.stderr)
+        elastic = (f", elastic {scale_cfg.min_engines}:"
+                   f"{scale_cfg.max_engines}" if scale_cfg is not None
+                   else "")
+        print(f"{PROG}: fleet of {len(router.engines())} engine(s)"
+              f"{elastic}, routing on {args.socket or 'stdin'} (JSONL; "
+              "op=shutdown ends)", file=sys.stderr)
         if args.socket:
             serve_fleet_socket(router, args.socket)
         else:
@@ -1399,6 +1497,96 @@ def _run_fleet(argv: Sequence[str]) -> int:
     return 0
 
 
+def _build_tune_parser() -> argparse.ArgumentParser:
+    """``a5gen tune``'s flags: the reference's, and ``--device``."""
+    ap = argparse.ArgumentParser(
+        prog=f"{PROG} tune",
+        description=(
+            "Geometry autotuner: sweep lanes x stride (block batch) x "
+            "superstep depth x pair x emit arm over a synthetic crack "
+            "contract on the device, assert per-arm stream parity, and "
+            "write the winner as this device kind's profile "
+            "(~/.cache/a5gen/tune/<device_kind>.json; A5GEN_TUNE_PROFILE "
+            "overrides the directory or disables loading). Sweeps and "
+            "serve with no explicit --lanes then load the profile by "
+            "default."
+        ),
+    )
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where the arms run (default cuda; without a GPU "
+                         "the command fails instead of tuning the CPU; "
+                         "cpu tunes the plain PyTorch version)")
+    ap.add_argument("--words", type=int, default=512, metavar="N",
+                    help="synthetic tune-contract dictionary size "
+                         "(deterministic; default 512)")
+    ap.add_argument("--seconds", type=float, default=1.0, metavar="S",
+                    help="timed wall per arm after the warm-up sweep "
+                         "(default 1.0)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the 2x2 matrix (lanes x stride only): seconds "
+                         "on the CPU")
+    ap.add_argument("--state", metavar="FILE",
+                    help="partial-matrix resume state: each completed "
+                         "arm's record is written atomically, and a rerun "
+                         "skips past completed arms")
+    ap.add_argument("--profile-dir", metavar="DIR", default=None,
+                    help="write the profile under DIR instead of the "
+                         "A5GEN_TUNE_PROFILE / ~/.cache default")
+    ap.add_argument("--no-write", action="store_true",
+                    help="measure and report only; do not persist a "
+                         "profile")
+    ap.add_argument("--json", action="store_true",
+                    help="print the full result document as JSON on "
+                         "stdout (arm records included) instead of the "
+                         "summary")
+    return ap
+
+
+def _run_tune(argv: Sequence[str]) -> int:
+    """``a5gen tune``: run the autotune matrix and persist the winner."""
+    import json
+
+    args = _build_tune_parser().parse_args(argv)
+    from .runtime.tune import TuneProfileCorrupt, run_autotune
+
+    def on_arm(rec) -> None:
+        note = " (resumed)" if rec.get("resumed") else ""
+        print(f"{PROG}: tune: {rec['arm']}: "
+              f"{rec['hashes_per_s']:.3e} hashes/s "
+              f"({rec['sweeps']} sweeps x {rec['emitted_per_sweep']} "
+              f"candidates){note}", file=sys.stderr)
+
+    try:
+        result = run_autotune(
+            words=args.words,
+            seconds=args.seconds,
+            smoke=args.smoke,
+            state_path=args.state,
+            on_arm=on_arm,
+            write=not args.no_write,
+            directory=args.profile_dir,
+            device=args.device,
+        )
+    except (TuneProfileCorrupt, RuntimeError, ValueError) as exc:
+        print(f"{PROG}: tune failed: {exc}", file=sys.stderr)
+        return 1
+    if args.json:
+        print(json.dumps(result, indent=2, sort_keys=True))
+    else:
+        g = result["geometry"]
+        print(f"{PROG}: tune winner on {result['device_kind']}: "
+              f"{result['winner']} — lanes={g['lanes']} "
+              f"blocks={g['num_blocks']} stride={g.get('stride')} "
+              f"superstep={g.get('superstep')} pair={g.get('pair')} "
+              f"at {result['hashes_per_s']:.3e} hashes/s", file=sys.stderr)
+        if result.get("profile_path"):
+            print(f"{PROG}: profile written: {result['profile_path']} "
+                  "(loaded by default for sweeps with no explicit "
+                  "--lanes; A5GEN_TUNE_PROFILE=off disables)",
+                  file=sys.stderr)
+    return 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     if argv is None:
         argv = sys.argv[1:]
@@ -1406,9 +1594,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         return _run_serve(argv[1:])
     if argv and argv[0] == "fleet":
         return _run_fleet(argv[1:])
+    if argv and argv[0] == "tune":
+        return _run_tune(argv[1:])
     ap = build_parser()
-    if argv and argv[0] in _SUBCOMMANDS:
-        ap.error(_not_ported(f"'{argv[0]}'", _SUBCOMMANDS[argv[0]]))
     args = ap.parse_args(argv)
     if args.list_layouts:
         return _run_list_layouts()

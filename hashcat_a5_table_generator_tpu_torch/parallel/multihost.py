@@ -504,12 +504,15 @@ def _reduce_port_fields(res) -> dict:
     """The result fields the reference's pod does not have: the drive's
     times max over the pod; the kernel launches, routes, XLA geometry,
     stream and schema-cache stats stay the process's own (its stderr
-    summary says what its stripe ran)."""
+    summary says what its stripe ran), and so do the launch geometry and
+    its source, as in the reference."""
     return dict(drive_s=allgather_max(res.drive_s),
                 ttfc_s=allgather_max(res.ttfc_s),
                 kernels=dict(res.kernels), routes=dict(res.routes),
                 xla=dict(res.xla), stream=dict(res.stream),
-                schema_cache=dict(res.schema_cache))
+                schema_cache=dict(res.schema_cache),
+                geometry=dict(res.geometry),
+                geometry_source=res.geometry_source)
 
 
 def _host_config(config, process_id: int):

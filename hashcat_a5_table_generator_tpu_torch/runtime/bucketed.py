@@ -214,6 +214,10 @@ class BucketedSweep:
             stream["overlap_ratio"] = over / wall
             stream["steady_overlap_ratio"] = (
                 over / (wall - first) if wall - first > 0 else 0.0)
+        # Every bucket's sweep resolves the same geometry from the same
+        # config and profile; a bucket that launched nothing stamps none.
+        geometry = next((dict(r.geometry) for r in results if r.geometry),
+                        {})
         return SweepResult(
             n_emitted=sum(r.n_emitted for r in results),
             n_hits=sum(r.n_hits for r in results),
@@ -231,4 +235,7 @@ class BucketedSweep:
             xla=xla,
             stream=stream,
             schema_cache=schema_cache,
+            geometry=geometry,
+            geometry_source=(results[0].geometry_source if results
+                             else "explicit"),
         )

@@ -18,7 +18,8 @@ engine's :func:`pack_enabled` (``A5GEN_PACK``); the re-fuse knob
 piece-schema cache's :func:`schema_cache_dir` (``A5GEN_SCHEMA_CACHE``)
 and :func:`schema_cache_max_mb` (``A5GEN_SCHEMA_CACHE_MAX_MB``); and the
 fleet router's giant-job split mode :func:`split_setting`
-(``A5GEN_SPLIT``).
+(``A5GEN_SPLIT``); and the geometry tuner's profile loading
+:func:`tune_profile_setting` (``A5GEN_TUNE_PROFILE``).
 ``A5GEN_DCN_TIMEOUT`` is read by ``parallel/multihost.py``.  ``A5GEN_PALLAS``
 keeps its own vocabulary at its call site, as in the reference
 (``ops.fused_expand.enabled_by_env``), and ``A5GEN_CASCADE_CLOSE`` is read
@@ -254,3 +255,16 @@ def split_setting() -> str:
         "keeping the default (auto)",
     )
     return "auto"
+
+
+def tune_profile_setting() -> "Optional[str]":
+    """Autotuned-geometry profile loading (``A5GEN_TUNE_PROFILE``):
+    ``off``/``0``/``no`` disables profile loading (built-in defaults
+    only); empty/unset enables it at the default directory
+    (``~/.cache/a5gen/tune``); any other value is a directory override.
+    Returns ``None`` for disabled, else the directory string (empty =
+    the default)."""
+    val = read_env("A5GEN_TUNE_PROFILE") or ""
+    if val.lower() in ("off", "0", "no"):
+        return None
+    return val

@@ -211,6 +211,7 @@ from .env import (
 )
 from .progress import ProgressReporter
 from .sinks import CandidateWriter, HitRecord, HitRecorder
+from .tune import builtin_geometry, current_device_kind, resolve_config
 
 #: Supersteps in flight: two alternating buffer sets, so superstep N+1 is
 #: queued before superstep N's fetch is waited on.
@@ -345,8 +346,9 @@ class SweepConfig:
     taken at one geometry resumes at any other)."""
 
     device: str = "cuda"  # "cuda" or "cpu"; never chosen implicitly
-    lanes: Optional[int] = None  # hash lanes per launch; None = 2^22 on
-    #   cuda, 2^17 on cpu
+    lanes: Optional[int] = None  # hash lanes per launch; None = the
+    #   device's autotune profile, else 2^22 on cuda, 2^17 on cpu
+    #   (runtime/tune.py; resolved once by the Sweep)
     num_blocks: Optional[int] = None  # blocks per launch; None = lanes/128,
     #   or 1024 when 128 does not divide the lanes (the reference's auto)
     superstep: Optional[int] = None  # launches per superstep; None =
@@ -407,9 +409,10 @@ class SweepConfig:
     #   way round).  Oracle-fallback words run on shard 0 only
 
     def resolve(self, dev: torch.device) -> "tuple[int, int, int]":
-        """``(lanes, num_blocks, steps)`` for a device: the port's default
-        lanes, and the reference's auto block count."""
-        lanes = self.lanes or (1 << 22 if dev.type == "cuda" else 1 << 17)
+        """``(lanes, num_blocks, steps)`` for a device: the built-in lanes
+        (``tune.builtin_geometry``) when none are set, and the reference's
+        auto block count."""
+        lanes = self.lanes or builtin_geometry(dev.type)["lanes"]
         nb = self.num_blocks or (lanes // 128 if lanes % 128 == 0
                                  else 1024)
         return lanes, nb, int(self.superstep or self.fetch_chunk)
@@ -487,6 +490,14 @@ class SweepResult:
     #: bytes_written / evictions, nonzero deltas only; empty without a
     #: cache), as the reference reports it
     schema_cache: Dict[str, int] = field(default_factory=dict)
+    #: the launch geometry the run used (lanes / num_blocks /
+    #: block_stride / superstep / pair / device_kind / pod), as its
+    #: progress lines carry it; empty when no launch ran
+    geometry: Dict[str, Any] = field(default_factory=dict)
+    #: where that geometry came from: ``explicit`` (the caller set the
+    #: lanes), ``profile`` (an autotune profile, ``runtime/tune.py``) or
+    #: ``default`` (the built-in geometry)
+    geometry_source: str = "explicit"
 
 
 class _Fetch:
@@ -556,6 +567,18 @@ class Sweep:
         self.config = config or SweepConfig()
         faults.ensure_env()  # A5GEN_FAULTS (unset = nothing armed)
         self.device = resolve_device(self.config.device)
+        #: where the launch geometry came from (``runtime/tune.py``):
+        #: ``explicit`` when the caller set the lanes; else it resolves
+        #: here, once, before any reader (the route decision below reads
+        #: the block layout), from this device's autotune profile or the
+        #: built-in geometry, and is frozen into the config.  Reading the
+        #: device's name creates no CUDA context.
+        self.geometry_source = "explicit"
+        if self.config.lanes is None:
+            self.config, self.geometry_source = resolve_config(
+                self.config, current_device_kind(self.device))
+        #: the geometry stamp of the run's launches (SweepResult.geometry)
+        self._geometry_stamp: Dict[str, Any] = {}
         self.digests = (
             digests if isinstance(digests, np.ndarray) else list(digests)
         )
@@ -864,20 +887,19 @@ class Sweep:
 
     def _set_geometry(self, lanes: int, nb: int,
                       stride: Optional[int]) -> None:
-        """Stamp the resolved launch geometry into the progress lines (the
-        reference's ``geometry`` key and its provenance: ``explicit``
-        when the caller set the lanes, else ``default``)."""
-        set_geometry = getattr(self.config.progress, "set_geometry", None)
-        if set_geometry is None:
-            return
-        cfg, dev = self.config, self.device
-        set_geometry({
+        """Stamp the launch geometry into the result and the progress
+        lines (the reference's ``geometry`` key and its provenance,
+        :attr:`geometry_source`)."""
+        cfg = self.config
+        self._geometry_stamp = {
             "lanes": lanes, "num_blocks": nb, "block_stride": stride,
             "superstep": cfg.superstep, "pair": cfg.pair,
-            "device_kind": (torch.cuda.get_device_name(dev)
-                            if dev.type == "cuda" else "cpu"),
+            "device_kind": current_device_kind(self.device),
             "pod": list(cfg.pod) if cfg.pod is not None else None,
-        }, "explicit" if cfg.lanes else "default")
+        }
+        set_geometry = getattr(cfg.progress, "set_geometry", None)
+        if set_geometry is not None:
+            set_geometry(dict(self._geometry_stamp), self.geometry_source)
 
     @staticmethod
     def _normalize(plan, cursor: "Tuple[int, int]") -> "Tuple[int, int]":
@@ -1246,6 +1268,8 @@ class Sweep:
             wall_s=time.monotonic() - t0 + self._schema_s,
             routing=dict(self.routing),
             schema_cache=_stats_delta(sc0, schema_cache_stats()),
+            geometry=dict(self._geometry_stamp),
+            geometry_source=self.geometry_source,
             **device,
         )
 
@@ -1425,6 +1449,8 @@ class Sweep:
             resumed=resumed,
             wall_s=time.monotonic() - t0 + self._schema_s,
             routing=dict(self.routing),
+            geometry=dict(self._geometry_stamp),
+            geometry_source=self.geometry_source,
             **device,
         )
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Phase 11 of ``chip_smoke.py`` alone (the fleet router, ``a5gen fleet
---engines 2`` on one GPU), with the inputs it takes from phases 4 and 10:
+--engines 2`` on one GPU, and the elastic fleet, ``--engines 1
+--autoscale 1:2``), with the inputs it takes from phases 4 and 10:
 the phase-4 crack cell run and phase 10's tenants with their solo runs
 (``chip_smoke.serve_inputs``), but none of phase 10's sessions.  Run from
 the root of a checkout, on a GPU::

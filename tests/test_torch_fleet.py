@@ -629,20 +629,6 @@ def test_a5gen_fleet_over_stdin_spawns_port_engines(tmp_path):
     assert events[-1] == {"event": "bye"}
 
 
-def test_autoscale_exits_2_naming_item_8(capsys):
-    """``--autoscale`` is the next slice's: it exits 2 naming item 8 before
-    any engine spawns; the ``--scale-*`` flags alone are inert."""
-    with pytest.raises(SystemExit) as exc:
-        t_cli.main(["fleet", "--engines", "2", "--autoscale", "1:2"])
-    assert exc.value.code == 2
-    err = capsys.readouterr().err
-    assert "'fleet --autoscale' is not ported" in err
-    assert "ROADMAP.md port queue item 8" in err
-    args = t_cli._build_fleet_parser().parse_args(
-        ["--engines", "2", "--scale-up-at", "3", "--scale-cooldown", "1"])
-    assert args.autoscale is None and args.device == "cuda"
-
-
 def test_attach_failure_exits_2(tmp_path, capsys):
     """An engine that never listens fails the command with exit 2."""
     missing = str(tmp_path / "nobody.sock")

@@ -10,9 +10,10 @@ overload), the health ladder, capture-time checkpoint validation, the
 ``router.place`` / ``link.send`` fault seams, the health poller's
 watchdog and the ``stats`` fleet section.  Each body runs on the port's
 router and on the reference's (``pkg``), with scripted links: no engine,
-no socket, no device.  The autoscaler is the next slice's: where a case
-needs one bound (quarantine is only reachable with a replacer), a stub
-with the two methods the router calls stands in, for both packages.
+no socket, no device.  Where a case needs an autoscaler bound
+(quarantine is only reachable with a replacer), the package's own
+``Autoscaler`` binds with manual ticks (``interval_s=0``); its scenarios
+are ``tests/test_torch_autoscale.py``'s.
 """
 
 import sys
@@ -22,11 +23,13 @@ import types
 
 import pytest
 
+import hashcat_a5_table_generator_tpu.runtime.autoscale as j_autoscale
 import hashcat_a5_table_generator_tpu.runtime.checkpoint as j_ck
 import hashcat_a5_table_generator_tpu.runtime.faults as j_faults
 import hashcat_a5_table_generator_tpu.runtime.fleet as j_fleet
 import hashcat_a5_table_generator_tpu.runtime.fuse as j_fuse
 import hashcat_a5_table_generator_tpu.runtime.telemetry as j_tel
+import hashcat_a5_table_generator_tpu_torch.runtime.autoscale as t_autoscale
 import hashcat_a5_table_generator_tpu_torch.runtime.checkpoint as t_ck
 import hashcat_a5_table_generator_tpu_torch.runtime.faults as t_faults
 import hashcat_a5_table_generator_tpu_torch.runtime.fleet as t_fleet
@@ -35,9 +38,10 @@ import hashcat_a5_table_generator_tpu_torch.runtime.telemetry as t_tel
 
 PKGS = {
     "port": types.SimpleNamespace(fleet=t_fleet, ck=t_ck, faults=t_faults,
-                                  telemetry=t_tel),
+                                  telemetry=t_tel, autoscale=t_autoscale),
     "reference": types.SimpleNamespace(fleet=j_fleet, ck=j_ck,
-                                       faults=j_faults, telemetry=j_tel),
+                                       faults=j_faults, telemetry=j_tel,
+                                       autoscale=j_autoscale),
 }
 
 
@@ -99,15 +103,16 @@ class FakeLink:
         self.alive = False
 
 
-class StubScaler:
-    """What the router reads of a bound autoscaler: its presence (the
-    ladder's replacer), ``describe()`` and ``close()``."""
+def bind_scaler(pkg, router):
+    """The package's real autoscaler bound to ``router`` (the ladder's
+    replacer), ticked by hand: here it never ticks."""
+    a = pkg.autoscale
 
-    def describe(self):
-        return {"min": 1, "max": 4}
+    def spawner():
+        raise AssertionError("no spawn expected")
 
-    def close(self):
-        pass
+    return a.Autoscaler(router, spawner, a.AutoscaleConfig(
+        min_engines=1, max_engines=4, interval_s=0))
 
 
 def make_router(pkg, n_links=1, **kw):
@@ -453,14 +458,14 @@ def test_rising_demotions_degrade_then_recover(routed):
 
 @pytest.mark.parametrize("scaler", [True, False],
                          ids=["autoscaled", "fixed-pool"])
-def test_sustained_strain_quarantines_and_excludes(scaler, routed):
+def test_sustained_strain_quarantines_and_excludes(scaler, pkg, routed):
     """With a replacer bound, sustained strain quarantines the engine:
     no placements land on it, and a pool of only quarantined engines
     queues (overload, not absence).  A fixed pool tops out at degraded
     and keeps the engine as the last resort."""
     router, (a, b) = ladder(routed, quarantine_after=2)
     if scaler:
-        router.autoscaler = StubScaler()
+        bind_scaler(pkg, router)
     a.stats_reply = {"event": "stats", "group_demotions": 0}
     router._scrape(a, observe=True)
     for i in (1, 2, 3, 4):
@@ -483,7 +488,7 @@ def test_sustained_strain_quarantines_and_excludes(scaler, routed):
 
 def test_repeated_crash_replays_quarantine(pkg, routed):
     router, (a, b) = ladder(routed, quarantine_replays=2, replay_budget=5)
-    router.autoscaler = StubScaler()
+    bind_scaler(pkg, router)
     doc = ckdoc(pkg, rank=10, emitted=5)
     for i in range(2):
         # Distinct static configs: affinity would follow r0 to its
@@ -501,7 +506,7 @@ def test_repeated_crash_replays_quarantine(pkg, routed):
 
 def test_replay_fails_decay_on_clean_poll_tick(pkg, routed):
     router, (a, b) = ladder(routed, quarantine_replays=2, replay_budget=5)
-    router.autoscaler = StubScaler()
+    bind_scaler(pkg, router)
     router.submit({"id": "r0", "digest_list": []})
     link = router.job("r0").link
     router._on_job_event(link, {"id": "r0", "event": "failed",
@@ -526,7 +531,7 @@ def test_client_stats_scrapes_do_not_feed_ladder(routed):
 
 def test_failed_scrape_strikes_ladder(pkg, routed):
     router, (a, b) = ladder(routed, quarantine_after=1)
-    router.autoscaler = StubScaler()
+    bind_scaler(pkg, router)
 
     def boom(doc, timeout=None):
         raise pkg.fleet.FleetError("scrape torn")
@@ -664,10 +669,10 @@ def test_link_send_fault_fails_op_typed(op, pkg):
 # ---------------------------------------------------------------------------
 
 
-def test_fleet_section_carries_elastic_signals(routed):
+def test_fleet_section_carries_elastic_signals(pkg, routed):
     router, (link,) = routed(engine_capacity=2, max_pending=8,
                              shed_policy="oldest")
-    router.autoscaler = StubScaler()
+    scaler = bind_scaler(pkg, router)
     link.stats_reply = {"event": "stats", "jobs_done": 3,
                         "packed_fill": 0.5, "groups": {"g": 2}}
     stats = router.stats()
@@ -677,7 +682,8 @@ def test_fleet_section_carries_elastic_signals(routed):
         (0, 8, 2, "oldest")
     assert fleet["engines"][0]["health"] == "healthy"
     assert fleet["engines"][0]["packed_fill"] == 0.5
-    assert fleet["autoscale"] == {"min": 1, "max": 4}
+    assert fleet["autoscale"] == scaler.describe()
+    assert (fleet["autoscale"]["min"], fleet["autoscale"]["max"]) == (1, 4)
     for key in ("jobs_rejected", "jobs_shed", "scrape_retries",
                 "engines_quarantined", "engines_detached", "jobs_split",
                 "shards_reassigned", "engine_deaths", "jobs_replayed"):
@@ -695,15 +701,25 @@ def test_fleet_counters_are_deltas_since_this_router(pkg, routed):
 
 def test_router_imports_no_torch(tmp_path):
     """The router process is JSON, sockets and tables: importing the
-    fleet module and routing on a stub link imports no torch, so it
+    fleet module, binding an autoscaler (whose tick spawns through a
+    failing spawner) and the stats op import no torch, so the router
     cannot create a CUDA context."""
     import subprocess
 
     code = ("import sys\n"
             "from hashcat_a5_table_generator_tpu_torch.runtime import fleet\n"
+            "from hashcat_a5_table_generator_tpu_torch.runtime import "
+            "autoscale\n"
             "from hashcat_a5_table_generator_tpu_torch import cli\n"
             "r = fleet.FleetRouter(poll_s=0)\n"
-            "r.stats(); r.close(shutdown_engines=False)\n"
+            "def spawner():\n"
+            "    raise OSError('no engine here')\n"
+            "a = autoscale.Autoscaler(r, spawner, autoscale.AutoscaleConfig("
+            "interval_s=0, cooldown_s=0))\n"
+            "a.tick()\n"
+            "assert r.autoscaler is a\n"
+            "assert r.stats()['fleet']['autoscale']['spawn_failures'] == 1\n"
+            "r.close(shutdown_engines=False)\n"
             "cli._build_fleet_parser()\n"
             "print('torch' in sys.modules)\n")
     import pathlib

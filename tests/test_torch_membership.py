@@ -117,3 +117,22 @@ def test_sha1_rows_and_verdicts_match_reference(n_digests):
     got = _port_member(ds, probes)
     assert (got == want).all()
     assert got[:100].all() and not got[100:].any()
+
+
+@pytest.mark.parametrize("algo,width,shared", [
+    ("md5", 16, 0), ("md5", 16, 8), ("md5", 16, 16),
+    ("sha1", 20, 0), ("sha1", 20, 8), ("sha1", 20, 20)])
+def test_host_sorts_match_reference(algo, width, shared):
+    """The digest set's rows and the host lookup's sorted stream equal the
+    reference's (``np.unique`` / ``np.sort`` of the void view), also when
+    digests share their first ``shared`` bytes, where the sort key ties."""
+    rng = np.random.default_rng(width + shared)
+    digests = rng.integers(0, 256, size=(3000, width), dtype=np.uint8)
+    digests[:1500, 0] |= 0x80
+    digests[1:200, :shared] = digests[0, :shared]
+    got = t_member.build_digest_set(digests, algo)
+    want = j_member.build_digest_set(digests, algo)
+    assert np.array_equal(got.rows, want.rows)
+    assert np.array_equal(got.bitmap, want.bitmap)
+    assert t_member.HostDigestLookup(digests).sorted_blob() \
+        == j_member.HostDigestLookup(digests).sorted_blob()

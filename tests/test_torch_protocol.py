@@ -10,7 +10,7 @@ malformed documents; ``to_prometheus`` of one snapshot, and of an
 engine-labelled ``merge``, is byte-equal; the ``A5GEN_PACK`` /
 ``A5GEN_REFUSE`` knobs parse as the reference's; the fuse layer's
 affinity tokens equal the reference's; ``a5gen fleet`` and ``a5gen tune``
-still exit 2 naming their queue items.
+run (queue items 8 and 9).
 """
 
 import ast
@@ -27,6 +27,7 @@ import hashcat_a5_table_generator_tpu_torch.runtime.env as t_env
 import hashcat_a5_table_generator_tpu_torch.runtime.fuse as t_fuse
 import hashcat_a5_table_generator_tpu_torch.runtime.protocol as tp
 import hashcat_a5_table_generator_tpu_torch.runtime.telemetry as t_tel
+from hashcat_a5_table_generator_tpu import cli as j_cli
 from hashcat_a5_table_generator_tpu.models.attack import AttackSpec as JSpec
 from hashcat_a5_table_generator_tpu.runtime import SweepConfig as JConfig
 from hashcat_a5_table_generator_tpu_torch import cli as t_cli
@@ -283,14 +284,24 @@ def test_affinity_tokens_equal_reference(kw, mode, algo):
 
 @pytest.mark.parametrize("sub,item", [("fleet", 8), ("tune", 9)])
 def test_fleet_and_tune_still_exit_2_naming_their_items(sub, item, capsys):
-    """``tune`` is not ported; of ``fleet`` only the autoscaler
-    (``--autoscale``) is not."""
-    argv = [sub] if sub == "tune" else [sub, "--engines", "2",
-                                        "--autoscale", "1:2"]
-    with pytest.raises(SystemExit) as e:
-        t_cli.main(argv)
-    assert e.value.code == 2
-    err = capsys.readouterr().err
-    what = "'tune'" if sub == "tune" else "'fleet --autoscale'"
-    assert f"{what} is not ported" in err
-    assert f"ROADMAP.md port queue item {item}" in err
+    """Queue items 8 (``fleet --autoscale``) and 9 (``tune``) are ported:
+    neither refuses naming its item any more.  ``tune --device cpu`` runs
+    its smoke matrix; ``fleet --autoscale`` validates its whole elastic
+    config before any engine spawns, with the reference's message."""
+    if sub == "tune":
+        assert t_cli.main([sub, "--device", "cpu", "--smoke", "--no-write",
+                           "--words", "16", "--seconds", "0"]) == 0
+        err = capsys.readouterr().err
+        assert "tune winner on cpu" in err
+    else:
+        argv = [sub, "--engines", "1", "--autoscale", "1:2",
+                "--scale-up-at", "1", "--scale-down-at", "1"]
+        codes = []
+        for cli in (t_cli, j_cli):
+            with pytest.raises(SystemExit) as e:
+                cli.main(argv)
+            codes.append(e.value.code)
+        assert codes[0] == codes[1]
+        assert "overlapping thresholds flap" in codes[0]
+        err = capsys.readouterr().err
+    assert f"ROADMAP.md port queue item {item}" not in err

@@ -177,27 +177,23 @@ def test_item_6_and_7_flags_run_as_the_reference(extra, contract, tmp_path,
 
 @pytest.mark.parametrize("sub", ["serve", "fleet", "tune"])
 def test_flags_outside_the_slice_exit_2(sub, capsys):
-    """The surface still to port — tuning (item 9) — exits 2 on the
-    device backend, naming its item; ``serve`` and ``fleet`` (ported)
-    refuse the sweep's flags with their own parsers' usage errors, as the
-    reference's do (``fleet`` first misses its required ``--engines``)."""
+    """The subcommands refuse the sweep's flags with their own parsers'
+    usage errors, as the reference's do (``fleet`` first misses its
+    required ``--engines``)."""
     argv = [sub, "--backend", "device", "--digests", "left.txt"]
     with pytest.raises(SystemExit) as exc:
         t_cli.main(argv)
     assert exc.value.code == 2
     err = capsys.readouterr().err
-    if sub in ("serve", "fleet"):
-        with pytest.raises(SystemExit) as j_exc:
-            j_cli.main(argv)
-        assert j_exc.value.code == 2
-        j_err = capsys.readouterr().err
-        want = ("unrecognized arguments: --backend device --digests "
-                "left.txt" if sub == "serve" else
-                "the following arguments are required: --engines")
-        assert want in err and want in j_err
-        return
-    assert "ROADMAP.md port queue item" in err
-    assert "item 9" in err
+    with pytest.raises(SystemExit) as j_exc:
+        j_cli.main(argv)
+    assert j_exc.value.code == 2
+    j_err = capsys.readouterr().err
+    want = ("the following arguments are required: --engines"
+            if sub == "fleet" else
+            "unrecognized arguments: --backend device --digests left.txt")
+    assert want in err and want in j_err
+    assert "ROADMAP.md port queue item" not in err
 
 
 @pytest.mark.parametrize("extra", [
@@ -242,29 +238,32 @@ def test_item_6_flags_run_as_the_reference(extra, contract, tmp_path,
 
 @pytest.mark.parametrize("sub", ["serve", "fleet", "tune"])
 def test_subcommands_exit_2(sub, capsys):
-    """``tune`` exits 2 naming its queue item; ``serve`` (ported) exits 2
-    on a machine without a GPU rather than serving on the CPU
-    (``--device cpu`` asks for the CPU); ``fleet`` (ported) exits 2
-    without ``--engines``, and ``--autoscale`` exits 2 naming item 8."""
+    """On a machine without a GPU the subcommands that would run on it
+    refuse instead of running on the CPU (``--device cpu`` asks for the
+    CPU): ``serve`` exits 2; ``tune`` fails (exit 1, the reference's
+    ``tune failed`` line) naming the missing device; ``fleet`` exits 2
+    without ``--engines``, and an autoscaled fleet whose engine cannot
+    start on the GPU exits 2 with the engine's failure."""
+    if sub == "fleet":
+        with pytest.raises(SystemExit) as exc:
+            t_cli.main([sub])
+        assert exc.value.code == 2
+        assert "the following arguments are required: --engines" in \
+            capsys.readouterr().err
+    if torch.cuda.is_available():
+        return
     if sub == "serve":
-        if torch.cuda.is_available():
-            return
         assert t_cli.main([sub]) == 2
         assert "no CUDA device is available" in capsys.readouterr().err
         return
     if sub == "fleet":
-        for argv in ([sub], [sub, "--engines", "2", "--autoscale", "1:3"]):
-            with pytest.raises(SystemExit) as exc:
-                t_cli.main(argv)
-            assert exc.value.code == 2
-        err = capsys.readouterr().err
-        assert "the following arguments are required: --engines" in err
-        assert "ROADMAP.md port queue item 8" in err
+        assert t_cli.main([sub, "--engines", "1", "--autoscale", "1:2",
+                           "--poll", "0"]) == 2
+        assert "before listening" in capsys.readouterr().err
         return
-    with pytest.raises(SystemExit) as exc:
-        t_cli.main([sub])
-    assert exc.value.code == 2
-    assert "ROADMAP.md port queue item" in capsys.readouterr().err
+    assert t_cli.main([sub, "--smoke", "--no-write"]) == 1
+    err = capsys.readouterr().err
+    assert "tune failed" in err and "no CUDA device is available" in err
 
 
 def test_candidates_mode_exits_2(capsys):
