@@ -1213,6 +1213,7 @@ class MainPath:
             fh.write(b"\n".join(words) + b"\n")
         spec = AttackSpec(algo=algo, **spec_kw)
         self.mode = spec.mode
+        self.spec, self.sub = spec, sub
         ct = compile_table(sub)
         self.prep = {}
         t = time.monotonic()
@@ -1314,6 +1315,7 @@ class MainPath:
                           np.uint8).reshape(-1, width), decoys])
         t = time.monotonic()
         self.digest_set = build_digest_set(digest_rows, algo)
+        self.digest_rows = digest_rows
         self.prep["build_digest_set (1M)"] = time.monotonic() - t
         self.digests = os.path.join(work, f"{name}.digests.txt")
         with open(self.digests, "w") as fh:
@@ -3148,6 +3150,19 @@ def pod_phase(work: str, paths: dict, runs: dict, cand_cells: dict,
     return report
 
 
+def german_cell_words() -> list:
+    """The german cells' dictionary: the bench recipe with ss (~5%) and
+    sss (~1%), unique, plus 120 long lines (bucket 64, no "sss": the
+    piece kernel)."""
+    words = list(dict.fromkeys(german_words(N_WORDS_CELL + 1000, seed=41)))
+    words = words[: N_WORDS_CELL - 120]
+    rng = np.random.default_rng(4)
+    for w in long_words(100, 33, 64, (4, 10), seed=5) + \
+            long_words(20, 50, 64, (3, 8), seed=6):
+        words.insert(int(rng.integers(0, len(words))), w)
+    return words
+
+
 def ptxas_kernels(report: str) -> list:
     """``(kernel, "R registers, S B stack, spill X/Y B, M B smem")`` per
     entry of an ``-Xptxas -v`` report; the kernel named by its template
@@ -4307,7 +4322,8 @@ CONTEXT_PROBE = (
     "named = ctx()\n"
     "s = Sweep(AttackSpec(), {b'a': [b'4']}, [b'password'], [bytes(16)], "
     "SweepConfig())\n"
-    "built, lanes, source = ctx(), s.config.lanes, s.geometry_source\n"
+    "built, lanes = ctx(), s.config.lanes\n"
+    "source = s.config.geometry_source\n"
     "r = s.run_crack()\n"
     "print(json.dumps({'kind': kind, 'after_name': named, 'after_sweep': "
     "built, 'lanes': lanes, 'source': source, 'after_run': ctx(), "
@@ -4467,6 +4483,161 @@ def tune_phase(work: str, path: "MainPath", crack_run: dict, kind: str,
     report["phase_s"] = time.monotonic() - t_phase
     log(f"tune phase {report['phase_s']:.1f} s on {card}")
     return report
+
+
+#: Phase 13 (the audit) must end within this many seconds, by its timer.
+AUDIT_LIMIT_S = 30.0
+KERNEL_BUDGETS = os.path.join(HERE, "hashcat_a5_table_generator_tpu_torch",
+                              "csrc", "kernel_budgets.json")
+
+
+def ptxas_resources(report: str) -> dict:
+    """``kernel -> [registers, stack bytes, spill stores, spill loads]``
+    of an ``-Xptxas -v`` report, the kernel named as
+    :func:`ptxas_kernels` names it."""
+    out = {}
+    for kernel, info in ptxas_kernels(report):
+        m = re.match(r"(\d+) registers, (\d+) B stack, spill (\d+)/(\d+) B",
+                     info)
+        out[kernel] = [int(g) for g in m.groups()]
+    return out
+
+
+def check_kernel_pins(reports: dict) -> dict:
+    """Every instantiation in phase 2's ptxas reports (``library ->
+    report``; no new build) held to its pin in ``csrc/kernel_budgets.json``:
+    registers, stack bytes and spill stores / loads not above it.  An
+    instantiation with no pin, a pin with no instantiation, or pins other
+    than the registered ``budget_keys`` fail."""
+    from hashcat_a5_table_generator_tpu_torch import audit
+    from hashcat_a5_table_generator_tpu_torch.models import attack  # noqa
+
+    with open(KERNEL_BUDGETS) as fh:
+        pins = json.load(fh)["kernels"]
+    got = {f"{lib}:{k}": v for lib, rep in reports.items()
+           for k, v in ptxas_resources(rep).items()}
+    registered = {k for e in audit.registered_entries().values()
+                  for k in e.budget_keys}
+    if set(pins) != registered:
+        fail(f"phase 13: csrc/kernel_budgets.json names "
+             f"{len(set(pins) ^ registered)} instantiations the registered "
+             "budget_keys do not, or the other way round")
+    unpinned = sorted(set(got) - set(pins))
+    if unpinned:
+        fail(f"phase 13: {len(unpinned)} kernel instantiations have no pin "
+             f"in csrc/kernel_budgets.json: {unpinned[:8]}")
+    unbuilt = sorted(set(pins) - set(got))
+    if unbuilt:
+        fail(f"phase 13: {len(unbuilt)} pinned instantiations are not in "
+             f"the ptxas reports: {unbuilt[:8]}")
+    over = {k: (v, pins[k]) for k, v in sorted(got.items())
+            if any(a > b for a, b in zip(v, pins[k]))}
+    for k, (v, pin) in over.items():
+        print(f"  over its pin: {k}: {v} > {pin} (registers, stack, spill "
+              "stores, spill loads)")
+    if over:
+        fail(f"phase 13: {len(over)} kernel instantiations went above their "
+             "pins (registers, stack or spills)")
+    below = sum(v != pins[k] for k, v in got.items())
+    return {"instantiations": len(got), "above_pin": 0,
+            "below_pin": below,
+            "max_registers": max(v[0] for v in got.values()),
+            "with_stack": sum(v[1] > 0 for v in got.values()),
+            "with_spills": sum(v[2] + v[3] > 0 for v in got.values()),
+            "measured": got}
+
+
+def audit_bodies(cells: dict) -> list:
+    """Each registered fused body called once on the card at full width
+    (2^22 lanes) on the first bucket of each route a cell takes, under
+    ``torch.cuda.set_sync_debug_mode("error")``: a body that synchronises
+    with the host fails the run.  ``cells``: name -> MainPath.  Every
+    input of a call is on the card before it; its counters are read
+    after the mode is off."""
+    import torch
+
+    from hashcat_a5_table_generator_tpu_torch import audit
+    from hashcat_a5_table_generator_tpu_torch.audit_harness import (
+        body_calls,
+    )
+    from hashcat_a5_table_generator_tpu_torch.native import (
+        read_packed_buckets,
+    )
+    from hashcat_a5_table_generator_tpu_torch.runtime.sweep import (
+        Sweep, SweepConfig,
+    )
+
+    bodies = {n for n, e in audit.registered_entries().items()
+              if e.kind == "fused_body"}
+    out = []
+    for cell, path in cells.items():
+        seen = set()
+        for width, packed in sorted(read_packed_buckets(
+                path.wordlist).items()):
+            t0 = time.monotonic()
+            sweep = Sweep(path.spec, path.sub, packed, path.digest_rows,
+                          SweepConfig(device="cuda", lanes=LANES,
+                                      num_blocks=LANES // STRIDE,
+                                      stream_chunk_words="off"))
+            route = sweep._whole.route
+            if route is None or route in seen:
+                continue
+            seen.add(route)
+            calls = body_calls(sweep)
+            built_s = time.monotonic() - t0
+            for name, call in sorted(calls.items()):
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                t = time.monotonic()
+                try:
+                    res = call()
+                except RuntimeError as e:
+                    torch.cuda.set_sync_debug_mode(0)
+                    fail(f"phase 13: {name} synchronised with the host "
+                         f"inside the body ({cell} cell, bucket {width}, "
+                         f"{route} route): {e}")
+                torch.cuda.set_sync_debug_mode(0)
+                dispatch_s = time.monotonic() - t
+                torch.cuda.synchronize()
+                ne, nh = (int(x) for x in res["counters"].tolist())
+                row = {"cell": cell, "bucket": width, "route": route,
+                       "body": name, "syncs": 0, "lanes": LANES,
+                       "emitted": ne, "hits": nh,
+                       "dispatch_ms": 1e3 * dispatch_s,
+                       "set_up_s": built_s}
+                out.append(row)
+                log(f"phase 13: {name} on {cell} bucket {width} ({route} "
+                    f"route, {LANES} lanes): no host sync inside, "
+                    f"dispatched in {1e3 * dispatch_s:.2f} ms, {ne} emitted,"
+                    f" {nh} hits (set-up {built_s:.1f} s)")
+            if cell == "crack":
+                break  # the crack cell: its first bucket
+    missing = bodies - {r["body"] for r in out}
+    if missing:
+        fail(f"phase 13: fused bodies never called: {sorted(missing)}")
+    return out
+
+
+def audit_phase(reports: dict, paths: dict, card: str) -> dict:
+    """Phase 13, the port's audit on the card (``audit.py``): the kernel
+    pins (:func:`check_kernel_pins`) and the fused bodies without a host
+    sync (:func:`audit_bodies`) on the crack and german cells; fails past
+    :data:`AUDIT_LIMIT_S` seconds."""
+    t0 = time.monotonic()
+    pins = check_kernel_pins(reports)
+    log(f"phase 13: {pins['instantiations']} kernel instantiations within "
+        f"their pins ({pins['below_pin']} below; at most "
+        f"{pins['max_registers']} registers, {pins['with_stack']} with a "
+        f"stack frame, {pins['with_spills']} with spills)")
+    bodies = audit_bodies({"crack": paths["cyrillic-md5"],
+                           "german": paths["german-md5"]})
+    wall = time.monotonic() - t0
+    log(f"phase 13 (audit) {wall:.1f} s on {card}")
+    if wall > AUDIT_LIMIT_S:
+        fail(f"phase 13 took {wall:.1f} s, over its {AUDIT_LIMIT_S:.0f} s")
+    return {"phase_s": wall, "pins": {k: v for k, v in pins.items()
+                                      if k != "measured"},
+            "bodies": bodies}
 
 
 def expect_launched(run, keys, what) -> None:
@@ -4739,15 +4910,7 @@ def main() -> None:
     rng = np.random.default_rng(22)
     for w in dict.fromkeys(azerty_lines(2000, seed=23)):
         azerty_words.insert(int(rng.integers(0, len(azerty_words))), w)
-    # german x MD5: the bench recipe with ss (~5%) and sss (~1%), unique,
-    # plus the 120 long lines (bucket 64, no "sss": the piece kernel).
-    german_dict = list(dict.fromkeys(german_words(N_WORDS_CELL + 1000,
-                                                  seed=41)))
-    german_dict = german_dict[: N_WORDS_CELL - 120]
-    rng = np.random.default_rng(4)
-    for w in long_words(100, 33, 64, (4, 10), seed=5) + \
-            long_words(20, 50, 64, (3, 8), seed=6):
-        german_dict.insert(int(rng.integers(0, len(german_dict))), w)
+    german_dict = german_cell_words()
     paths = {
         "cyrillic-md5": MainPath("cyrillic-md5", work, crack_words,
                                  "qwerty-cyrillic", "md5", {}, seed=10),
@@ -5448,9 +5611,12 @@ def main() -> None:
     # -- phase 12: the geometry tuner (a5gen tune) ------------------------
     tuned = tune_phase(work, paths["cyrillic-md5"],
                        runs[("cyrillic-md5", "pair auto")], kind, card)
+    # -- phase 13: the audit (kernel pins, host syncs in the bodies) -------
+    audited = audit_phase(built["reports"], paths, card)
     shutil.rmtree(work, ignore_errors=True)
     elapsed = time.monotonic() - T0
     log(f"done in {elapsed:.1f} s")
+    print(json.dumps({"audit": audited}))
     print(json.dumps({"tune": tuned}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"serve": serve}))

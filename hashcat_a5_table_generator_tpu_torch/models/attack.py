@@ -45,6 +45,7 @@ from typing import Any, Callable, Dict, Sequence
 import numpy as np
 import torch
 
+from ..audit import audited_entry
 from ..ops.buffer_hash import buffer_hash
 from ..ops.bytescan import ByteScanTier, bytescan_expand, bytescan_host_tables
 from ..ops.expand_matches import (
@@ -425,6 +426,8 @@ def _launch_expand(
     return expand, decode
 
 
+@audited_entry("models.make_superstep_body", kind="fused_body",
+               stages=("expand", "hash", "membership"))
 def make_superstep_body(
     spec: AttackSpec, *, num_lanes: int, out_width: int, block_stride: int,
     num_blocks: int, pieces, pair_k: "int | None" = None,
@@ -589,6 +592,8 @@ def host_blocks(batch: BlockBatch, num_blocks: int, decode: str,
                                  device=device) for a in fields)
 
 
+@audited_entry("models.make_fused_body", kind="fused_body",
+               stages=("expand", "hash", "membership"))
 def make_crack_step(spec: AttackSpec, **kwargs: Any) -> Callable[..., Tree]:
     """The per-launch pipeline's crack step (the reference's
     ``make_crack_step``): ``step(arrays, word, count, base, offset=None)

@@ -45,6 +45,54 @@ LIBRARIES: Dict[str, "tuple[str, tuple[str, ...]]"] = {
     for i, algo in enumerate(("md5", "md4", "sha1", "ntlm"))
 }
 
+_HB = (1, 2, 3)  # hash blocks: each entry point's switch over 1-3
+
+#: The kernel instantiations each source's entry points launch, named as
+#: ``nvcc``'s ``-Xptxas -v`` report names them: the kernel and its
+#: template arguments after the hash (piece_tile_kernel: KIND, DECODE, HB,
+#: PAIR, CLOSED; piece_windowed_kernel: KIND, HB, CLOSED, PACK;
+#: bytescan_kernel: ROW, VAR, DECODE, CLOSED, HB; buffer_hash_kernel:
+#: ALIGNED).  Every library of a source (one per hash) builds them all.
+#: ``tests/test_torch_audit.py`` holds this equal to the sources'
+#: dispatch and to ``csrc/kernel_budgets.json``'s pins.
+KERNELS: Dict[str, "tuple[str, ...]"] = {
+    "piece_hash": tuple(
+        # a5_piece_k1: scalar decode, match / substitute-all
+        [f"piece_tile_kernel<{k},0,{hb},0,0>" for k in (0, 1) for hb in _HB]
+        # a5_piece_digits: digit decode, substitute-all closed or open
+        + [f"piece_tile_kernel<{k},1,{hb},0,{c}>"
+           for k, c in ((0, 0), (1, 1), (1, 0)) for hb in _HB]
+        # a5_piece_pair: one hash block, scalar or digit decode
+        + [f"piece_tile_kernel<{k},{d},1,1,0>" for k in (0, 1) for d in (0, 1)]
+        # a5_piece_windowed: cb packing or not, substitute-all closed
+        + [f"piece_windowed_kernel<{k},{hb},{c},{pk}>"
+           for k, c, pk in ((0, 0, 1), (0, 0, 0), (1, 1, 0), (1, 0, 1),
+                            (1, 0, 0)) for hb in _HB]),
+    "bytescan_hash": tuple(
+        # a5_bytescan_scalar: three variants x full / windowed enumeration
+        [f"bytescan_kernel<0,{v},{d},0,{hb}>"
+         for v in (0, 1, 2) for d in (0, 2) for hb in _HB]
+        # a5_bytescan_match: radix-2, digit and windowed decodes
+        + [f"bytescan_kernel<1,0,{d},0,{hb}>" for d in (3, 1, 2) for hb in _HB]
+        # a5_bytescan_suball: the same decodes, closed or open
+        + [f"bytescan_kernel<2,0,{d},{c},{hb}>"
+           for d in (1, 2, 3) for c in (0, 1) for hb in _HB]),
+    "buffer_hash": ("buffer_hash_kernel<1>", "buffer_hash_kernel<0>"),
+}
+
+
+def instantiation_keys(stem: str, kind: "int | None" = None
+                       ) -> "tuple[str, ...]":
+    """``library:kernel<...>`` of every instantiation of source ``stem``
+    (:data:`KERNELS`) in each of its libraries (:data:`LIBRARIES`);
+    ``kind`` keeps the piece kernels of one plan kind (their first
+    template argument: 0 match, 1 substitute-all)."""
+    return tuple(
+        f"{lib}:{k}" for lib, (src, _flags) in LIBRARIES.items()
+        if src == stem for k in KERNELS[stem]
+        if kind is None or k.split("<")[1].split(",")[0] == str(kind))
+
+
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -24,6 +24,8 @@ import ctypes
 
 import torch
 
+from ..audit import audited_entry
+from . import _native_build
 from .hashes import DIGEST_WORDS, HASH_FNS
 
 ALGOS = ("md5", "md4", "sha1", "ntlm")
@@ -35,6 +37,9 @@ WIDTH_LAUNCHES: "dict[tuple[str, int], int]" = {}
 PLAIN_CALLS = 0
 
 
+@audited_entry("ops.buffer_hash", kind="cuda_kernel",
+               budget_keys=_native_build.instantiation_keys(
+                   "buffer_hash"))
 def buffer_hash(msg: torch.Tensor, length: torch.Tensor,
                 algo: str = "md5") -> torch.Tensor:
     """``algo``'s state words of each row's first ``length`` bytes."""
@@ -62,8 +67,6 @@ def buffer_hash(msg: torch.Tensor, length: torch.Tensor,
 
 def _launch_cuda(msg: torch.Tensor, length: torch.Tensor, algo: str
                  ) -> torch.Tensor:
-    from . import _native_build
-
     lib = _native_build.load(f"buffer_hash_{algo}")
     n, width = (int(x) for x in msg.shape)
     state = torch.empty((n, DIGEST_WORDS[algo]), dtype=torch.int32,

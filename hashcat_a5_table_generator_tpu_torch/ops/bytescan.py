@@ -45,6 +45,8 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..audit import audited_entry
+from . import _native_build
 from .fused_expand import (
     ALGOS,
     _decode_digits,
@@ -383,6 +385,9 @@ def needed_tables(tier: ByteScanTier) -> "tuple[str, ...]":
 # ---------------------------------------------------------------------------
 
 
+@audited_entry("ops.bytescan_expand", kind="cuda_kernel",
+               budget_keys=_native_build.instantiation_keys(
+                   "bytescan_hash"))
 def bytescan_expand(
     blk_word: torch.Tensor,  # int32 [NB] — plan row of each block
     blk_count: torch.Tensor,  # int32 [NB] — candidates in each block
@@ -463,8 +468,6 @@ _DTYPES = {"tokens": torch.uint8, "bj": torch.uint8, "svl": torch.uint8}
 
 def _launch_cuda(blk_word, blk_count, base, tables, *, tier, block_stride,
                  hash_blocks, min_substitute, max_substitute, algo):
-    from . import _native_build
-
     lib = _native_build.load(f"bytescan_hash_{algo}")
     dev = blk_word.device
     used = needed_tables(tier)

@@ -45,7 +45,9 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..audit import audited_entry
 from ..runtime.env import env_warn_once, read_env
+from . import _native_build
 from .hashes import (
     DIGEST_WORDS,
     hash_words,
@@ -417,6 +419,12 @@ def _needed_tables(pieces, decode: str, pack_cb: bool) -> "tuple[str, ...]":
     return names
 
 
+@audited_entry("ops.fused_expand_md5", kind="cuda_kernel",
+               budget_keys=_native_build.instantiation_keys(
+                   "piece_hash", kind=0))
+@audited_entry("ops.fused_expand_suball_md5", kind="cuda_kernel",
+               budget_keys=_native_build.instantiation_keys(
+                   "piece_hash", kind=1))
 def fused_expand_md5(
     blk_word: torch.Tensor,  # int32 [NB] — plan row of each block
     blk_count: torch.Tensor,  # int32 [NB] — candidates in each block
@@ -527,8 +535,6 @@ def _table_dims(tables: dict) -> "tuple[int, int, int, int, int]":
 def _launch_cuda(blk_word, blk_count, base, tables, *, pieces, block_stride,
                  hash_blocks, min_substitute, max_substitute, algo, decode,
                  pack_cb, k_opts, pair):
-    from . import _native_build
-
     lib = _native_build.load(f"piece_hash_{algo}")
     dev = blk_word.device
     desc = tables["desc"]

@@ -34,6 +34,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..audit import audited_entry
+
 _MD5_S = (
     [7, 12, 17, 22] * 4 + [5, 9, 14, 20] * 4 + [4, 11, 16, 23] * 4
     + [6, 10, 15, 21] * 4
@@ -266,18 +268,21 @@ def _run_blocks(algo: str, words: torch.Tensor, n_blocks: torch.Tensor
     return torch.stack(state, dim=1)
 
 
+@audited_entry("ops.hashes.md5", kind="integer_stage")
 def md5(msg: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
     """MD5 of each row: ``uint8[N, W], int32[N] -> int32[N, 4]``."""
     words, n_blocks = pad_message(msg, length, big_endian_length=False)
     return _run_blocks("md5", words, n_blocks)
 
 
+@audited_entry("ops.hashes.md4", kind="integer_stage")
 def md4(msg: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
     """MD4 of each row: ``uint8[N, W], int32[N] -> int32[N, 4]``."""
     words, n_blocks = pad_message(msg, length, big_endian_length=False)
     return _run_blocks("md4", words, n_blocks)
 
 
+@audited_entry("ops.hashes.sha1", kind="integer_stage")
 def sha1(msg: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
     """SHA-1 of each row: ``uint8[N, W], int32[N] -> int32[N, 5]``."""
     words, n_blocks = pad_message(msg, length, big_endian_length=True)
@@ -294,6 +299,7 @@ def utf16le_expand(msg: torch.Tensor, length: torch.Tensor
     return out, length.to(torch.int32) * 2
 
 
+@audited_entry("ops.hashes.ntlm", kind="integer_stage")
 def ntlm(msg: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
     """NTLM: MD4 over the UTF-16LE expansion; ``int32[N, 4]``."""
     wide, wide_len = utf16le_expand(msg, length)

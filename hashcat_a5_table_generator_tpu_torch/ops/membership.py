@@ -27,6 +27,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from ..audit import audited_entry
 from .hashes import BIG_ENDIAN_DIGEST, DIGEST_WORDS, digest_to_words
 
 
@@ -249,6 +250,7 @@ def bitmap_probe(digest: torch.Tensor, bitmap: torch.Tensor) -> torch.Tensor:
     return ((word >> (idx & 31)) & 1) != 0
 
 
+@audited_entry("ops.digest_member", kind="integer_stage")
 def digest_member(
     digest: torch.Tensor,  # int32 [N, K] (uint32 state words)
     rows: torch.Tensor,  # int32 [D, K] row-sorted as uint32

@@ -61,7 +61,6 @@ from ..models.attack import (
 from ..ops.blocks import superstep_index
 from ..ops.fused_expand import k_vals_for
 from . import faults, telemetry
-from .env import pipeline_enabled
 from .sweep import _get_step, _join_streams, _on, _pieces_static
 
 
@@ -182,7 +181,7 @@ def pack_candidate(sweep, resume_state=None) -> "Optional[dict]":
     key = (
         r.route, g["tier"], sweep.spec, lanes, nb, stride, steps,
         int(cfg.superstep_hit_cap), int(plan.out_width), kw["windowed"],
-        tuple(stripes.devices), pipeline_enabled(), sig,
+        tuple(stripes.devices), sweep._pipeline_depth(), sig,
         None if desc is None else desc.numpy().tobytes(),
         _pieces_static(r.pieces), kw["radix2"], pair_k, kw["decode"],
         kw["pack_cb"], k_vals_for(plan),
@@ -365,8 +364,9 @@ class FusedGroup:
         self._adv = self.steps * self._nbs * n_dev
         #: launches one round dispatches (every stripe's steps)
         self.launches_per_round = self.steps * n_dev
-        #: supersteps in flight (the members' shared pipeline depth)
-        self.depth = 2 if pipeline_enabled() else 1
+        #: supersteps in flight: the members' one pipeline depth (the
+        #: compatibility key holds it equal)
+        self.depth = sweep0._pipeline_depth()
         self._inflight: deque = deque()
         self.dispatches = 0
         #: the last consumed round's fill: occupied candidate lanes over

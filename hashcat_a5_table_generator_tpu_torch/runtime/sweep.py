@@ -213,10 +213,6 @@ from .progress import ProgressReporter
 from .sinks import CandidateWriter, HitRecord, HitRecorder
 from .tune import builtin_geometry, current_device_kind, resolve_config
 
-#: Supersteps in flight: two alternating buffer sets, so superstep N+1 is
-#: queued before superstep N's fetch is waited on.
-_DEPTH = 2
-
 #: The most consecutive recoveries from a transient device error inside one
 #: drive (the count resets at every consumed fetch), and the base of the
 #: exponential backoff between them (base * 2^attempt seconds).
@@ -356,6 +352,15 @@ class SweepConfig:
     pair: "Optional[int | str]" = None  # pair-lane tier: None/'auto'
     #   engages when the schema allows; 0/'off' keeps K=1
     superstep_hit_cap: int = 4096  # device hit-buffer slots per superstep
+    max_in_flight: int = 2  # supersteps in flight in the superstep
+    #   drive while the pipeline is on (one buffer set each;
+    #   ``Sweep._pipeline_depth``), and the most launches in flight in
+    #   the per-launch pipeline
+    pipeline: Optional[bool] = None  # None / True = the pipelined
+    #   superstep drive (``max_in_flight`` supersteps in flight, the next
+    #   dispatched before a fetch is waited on); False = the barriered
+    #   drive, one superstep in flight (A5GEN_PIPELINE=off: the same).
+    #   The streams are the same either way
     fetch_chunk: int = 16  # the superstep length when ``superstep`` is
     #   unset; in the per-launch pipeline, the most launches whose counts
     #   are fetched together (growing 1 -> fetch_chunk while a chunk
@@ -372,6 +377,9 @@ class SweepConfig:
     #   a transient device error in one drive (None = RETRY_ATTEMPTS)
     retry_backoff_s: Optional[float] = None  # base of the exponential
     #   backoff between them (None = RETRY_BACKOFF_S)
+    faults: "Optional[object]" = None  # a fault plan (a runtime/faults.py
+    #   spec string or FaultPlan) installed process-wide when the Sweep is
+    #   built; None = A5GEN_FAULTS decides (unset = nothing armed)
 
     def retry_policy(self) -> "Tuple[int, float]":
         """``(attempts, backoff_s)`` of the drive's retry supervisor."""
@@ -407,6 +415,10 @@ class SweepConfig:
     #   streams are a disjoint union equal to one sweep's; the cursor
     #   stays global (a shard checkpoint resumes unsharded and the other
     #   way round).  Oracle-fallback words run on shard 0 only
+    geometry_source: str = "explicit"  # where the launch geometry came
+    #   from: "explicit" (the caller set the lanes), "profile" (an
+    #   autotune profile) or "default" (the built-ins); stamped by the
+    #   Sweep's resolution seam, never a cache key or fingerprint input
 
     def resolve(self, dev: torch.device) -> "tuple[int, int, int]":
         """``(lanes, num_blocks, steps)`` for a device: the built-in lanes
@@ -565,18 +577,22 @@ class Sweep:
         self.spec = spec
         self.sub_map = sub_map
         self.config = config or SweepConfig()
-        faults.ensure_env()  # A5GEN_FAULTS (unset = nothing armed)
+        # An explicit plan wins; else A5GEN_FAULTS (unset = nothing armed).
+        if self.config.faults is not None:
+            faults.install(self.config.faults)
+        else:
+            faults.ensure_env()
         self.device = resolve_device(self.config.device)
-        #: where the launch geometry came from (``runtime/tune.py``):
-        #: ``explicit`` when the caller set the lanes; else it resolves
-        #: here, once, before any reader (the route decision below reads
-        #: the block layout), from this device's autotune profile or the
-        #: built-in geometry, and is frozen into the config.  Reading the
-        #: device's name creates no CUDA context.
-        self.geometry_source = "explicit"
+        # The geometry-resolution seam (``runtime/tune.py``): with the lanes
+        # left to the runtime, the geometry resolves here, once, before
+        # any reader (the route decision below reads the block layout),
+        # from this device's autotune profile or the built-in geometry,
+        # and is frozen into the config with its ``geometry_source``.
+        # Reading the device's name creates no CUDA context.
         if self.config.lanes is None:
-            self.config, self.geometry_source = resolve_config(
+            resolved, source = resolve_config(
                 self.config, current_device_kind(self.device))
+            self.config = replace(resolved, geometry_source=source)
         #: the geometry stamp of the run's launches (SweepResult.geometry)
         self._geometry_stamp: Dict[str, Any] = {}
         self.digests = (
@@ -889,7 +905,7 @@ class Sweep:
                       stride: Optional[int]) -> None:
         """Stamp the launch geometry into the result and the progress
         lines (the reference's ``geometry`` key and its provenance,
-        :attr:`geometry_source`)."""
+        ``SweepConfig.geometry_source``)."""
         cfg = self.config
         self._geometry_stamp = {
             "lanes": lanes, "num_blocks": nb, "block_stride": stride,
@@ -899,7 +915,8 @@ class Sweep:
         }
         set_geometry = getattr(cfg.progress, "set_geometry", None)
         if set_geometry is not None:
-            set_geometry(dict(self._geometry_stamp), self.geometry_source)
+            set_geometry(dict(self._geometry_stamp),
+                         self.config.geometry_source)
 
     @staticmethod
     def _normalize(plan, cursor: "Tuple[int, int]") -> "Tuple[int, int]":
@@ -1055,6 +1072,21 @@ class Sweep:
             shared["rows"] = torch.as_tensor(_i32(ds.rows), device=dev)
             shared["bitmap"] = torch.as_tensor(_i32(ds.bitmap), device=dev)
         return shared
+
+    def _pipeline_depth(self) -> int:
+        """Supersteps in flight in the superstep drive, one buffer set
+        each: ``max_in_flight`` (default 2: superstep N+1 dispatched
+        before superstep N's fetch is waited on), or 1 — the barriered
+        drive — when ``SweepConfig.pipeline`` is False or
+        ``A5GEN_PIPELINE=off``.  The solo drive, its retry's rebuild of
+        the buffer sets and a fused group (``runtime/fuse.py``) all read
+        this one value."""
+        cfg = self.config
+        if not pipeline_enabled():
+            return 1
+        if not (cfg.pipeline is None or cfg.pipeline):
+            return 1
+        return max(1, int(cfg.max_in_flight))
 
     def _pair_k(self, plan, pieces, stride: int) -> Optional[int]:
         """The pair-lane decision for one plan: 2 when the config, the
@@ -1269,7 +1301,7 @@ class Sweep:
             routing=dict(self.routing),
             schema_cache=_stats_delta(sc0, schema_cache_stats()),
             geometry=dict(self._geometry_stamp),
-            geometry_source=self.geometry_source,
+            geometry_source=self.config.geometry_source,
             **device,
         )
 
@@ -1450,7 +1482,7 @@ class Sweep:
             wall_s=time.monotonic() - t0 + self._schema_s,
             routing=dict(self.routing),
             geometry=dict(self._geometry_stamp),
-            geometry_source=self.geometry_source,
+            geometry_source=self.config.geometry_source,
             **device,
         )
 
@@ -1667,9 +1699,10 @@ class Sweep:
                steps: int, recorder, flush, state: CheckpointState,
                last_ckpt: List[float], b_start: int, cursor_at
                ) -> "Generator[None, None, dict]":
-        """The double-buffered superstep loop over region ``r`` from block
-        ``b_start``; returns its stats.  Each superstep runs every stripe
-        of :meth:`stripes` (stripe ``i`` from block ``b0 + (offset + i) *
+        """The pipelined superstep loop over region ``r`` from block
+        ``b_start`` (:meth:`_pipeline_depth` supersteps in flight);
+        returns its stats.  Each superstep runs every stripe of
+        :meth:`stripes` (stripe ``i`` from block ``b0 + (offset + i) *
         nb``, on its own CUDA stream with its own buffer sets; one stripe
         runs on the current stream).  At each consumed (lagged) boundary:
         the stripes' counters summed, their hits (a stripe's re-run first
@@ -1686,9 +1719,9 @@ class Sweep:
         total = arrs[0]["total"]
         hit_cap = int(cfg.superstep_hit_cap)
         span = nb * st.total  # the blocks one step of every stripe covers
-        # A5GEN_PIPELINE=off: one superstep in flight, its fetch waited on
-        # before the next dispatch.
-        depth = _DEPTH if pipeline_enabled() else 1
+        # Supersteps in flight, one buffer set each (1: the barriered
+        # drive, each fetch waited on before the next dispatch).
+        depth = self._pipeline_depth()
 
         def buffer_sets() -> list:
             out = []
@@ -1898,7 +1931,8 @@ class Sweep:
                        start: "Tuple[int, int]"):
         """The per-launch pipeline's dispatched rounds from ``start``:
         ``(([(batch, out), ...], cursor after it), rounds still in
-        flight)``, the next round dispatched before one is handed on."""
+        flight)``, up to ``max_in_flight`` rounds dispatched before one
+        is handed on."""
         pending: deque = deque()
         for parts, w2, r2 in self._host_rounds(plan, lanes, nb, stride,
                                                step.decode, start):
@@ -1909,7 +1943,7 @@ class Sweep:
             outs = [(batch, step(arrs[i], *blocks))
                     for i, batch, blocks in parts]
             pending.append((outs, (w2, r2)))
-            if len(pending) >= _DEPTH:
+            if len(pending) >= self.config.max_in_flight:
                 yield pending.popleft(), len(pending)
         while pending:
             yield pending.popleft(), len(pending)

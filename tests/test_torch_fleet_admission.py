@@ -701,9 +701,9 @@ def test_fleet_counters_are_deltas_since_this_router(pkg, routed):
 
 def test_router_imports_no_torch(tmp_path):
     """The router process is JSON, sockets and tables: importing the
-    fleet module, binding an autoscaler (whose tick spawns through a
-    failing spawner) and the stats op import no torch, so the router
-    cannot create a CUDA context."""
+    fleet module and the knob registry, binding an autoscaler (whose tick
+    spawns through a failing spawner) and the stats op import no torch,
+    so the router cannot create a CUDA context."""
     import subprocess
 
     code = ("import sys\n"
@@ -711,6 +711,9 @@ def test_router_imports_no_torch(tmp_path):
             "from hashcat_a5_table_generator_tpu_torch.runtime import "
             "autoscale\n"
             "from hashcat_a5_table_generator_tpu_torch import cli\n"
+            "from hashcat_a5_table_generator_tpu_torch.runtime import knobs\n"
+            "assert knobs.KNOBS['device']['layers']['cli']['default'] "
+            "== 'cuda'\n"
             "r = fleet.FleetRouter(poll_s=0)\n"
             "def spawner():\n"
             "    raise OSError('no engine here')\n"

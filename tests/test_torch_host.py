@@ -128,6 +128,7 @@ def test_no_jax_or_reference_imports(path):
         assert top != "hashcat_a5_table_generator_tpu", (
             f"{path} imports the reference package ({mod})"
         )
+        assert top != "tools", f"{path} imports the repo's tools ({mod})"
 
 
 def test_import_scans_cover_the_xla_route():
@@ -393,6 +394,37 @@ def test_plain_compressions_equal_reference_hashes(algo):
                                            dtype=torch.int32))
     assert (int(lo) & 0xFFFFFFFF, int(hi) & 0xFFFFFFFF) == \
         (0x00220011, 0x00C40033)
+
+
+def test_import_scans_cover_the_registries():
+    """The scans above take the knob registry (``runtime/knobs.py``) and
+    the audit registry (``audit.py``), and both are stdlib-only: they
+    import with torch, jax, the reference package and ``tools/`` all
+    blocked, and the audited modules populate the registry with jax and
+    the reference blocked."""
+    scanned = {str(p.relative_to(REPO)) for p in PORT.rglob("*.py")}
+    for mod in ("runtime/knobs.py", "audit.py", "audit_harness.py"):
+        assert f"hashcat_a5_table_generator_tpu_torch/{mod}" in scanned
+    blocked = ("torch", "numpy", "jax", "hashcat_a5_table_generator_tpu",
+               "tools")
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n" for m in blocked)
+            + "from hashcat_a5_table_generator_tpu_torch.runtime import "
+            "knobs\n"
+            "from hashcat_a5_table_generator_tpu_torch import audit\n"
+            "assert 'device' in knobs.KNOBS and not audit.AUDIT_REGISTRY\n"
+            "print('ok')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+    code = ("import sys\n"
+            + "".join(f"sys.modules[{m!r}] = None\n" for m in blocked[2:])
+            + "import hashcat_a5_table_generator_tpu_torch.models.attack\n"
+            "from hashcat_a5_table_generator_tpu_torch import audit\n"
+            "print(len(audit.registered_entries()))\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "11", r.stderr
 
 
 def test_import_scans_cover_the_pod():
