@@ -167,17 +167,22 @@ Phases (any failure exits non-zero and prints no ``ok`` line):
    The five pods before the relaunch run at once (ten processes).
 
 10. the resident engine: one ``a5gen serve`` process on stdin (``--pack
-   auto``) takes 8 small tenants — 6 distinct 20,000-word slices of the
-   crack recipe x qwerty-cyrillic x MD5, 2 of czech x NTLM, each with its
-   own 100,000-digest list and about 100 planted hits — and phase 4's
-   crack cell whole (it streams: per-job dispatch beside the groups);
-   every tenant's ``hit`` events equal its solo ``Sweep.run_crack`` on
-   the card and its ``done`` totals its solo run's, the crack cell's
-   hits phase 4's stdout; the stats (``fused_groups``,
-   ``packed_dispatches``, ``packed_fill``, ``programs_compiled``), the
-   serve process's kernel launches (the fused groups' packed supersteps
-   on ``piece_k1`` / ``piece_pair``, at least once a packed dispatch;
-   nothing on the XLA route), each job's wall and the
+   auto``) takes 10 small tenants — 6 distinct 20,000-word slices of the
+   crack recipe x qwerty-cyrillic x MD5, 2 of czech x NTLM and 2 of the
+   german recipe (ss and sss kept, words of more than 6 match slots left
+   out) x german x MD5, whose plans have no piece schema (the byte-scan
+   route, asserted before the session, with their packed keys equal),
+   each with its own 100,000-digest list and about 100 planted hits — and
+   phase 4's crack cell whole (it streams: per-job dispatch beside the
+   groups); every tenant's ``hit`` events equal its solo
+   ``Sweep.run_crack`` on the card and its ``done`` totals its solo
+   run's, the crack cell's hits phase 4's stdout; the stats
+   (``fused_groups``, ``packed_dispatches``, ``packed_fill``,
+   ``programs_compiled``), the serve process's kernel launches (the fused
+   groups' packed supersteps on ``piece_k1`` / ``piece_pair`` and, for
+   the german group, ``bytescan_*/md5``, which must be there, at least
+   once a packed dispatch; nothing on the XLA route), the german group's
+   own fill (its occupied over total lanes), each job's wall and the
    process's; the same submission at ``--pack off`` (no packed
    dispatch, the same streams); churn: the 6 cyrillic tenants at 2^16
    lanes, one launch a superstep, 4 cancelled on their first hits, the
@@ -3314,8 +3319,9 @@ SERVE_DEVICE = "cuda"
 #: hit lands mid-sweep.
 CHURN_CONFIG = {"lanes": 1 << 16, "superstep": 1}
 #: ``a5gen serve`` through the CLI's entry point, its kernel launch
-#: counts on stderr at exit (a fresh process: they start at 0), and the
-#: part of them that fused groups' packed supersteps made.
+#: counts on stderr at exit (a fresh process: they start at 0), the part
+#: of them that fused groups' packed supersteps made, and those groups'
+#: occupied and total candidate lanes by launch tier.
 SERVE_WRAPPER = (
     "import json, sys\n"
     "from hashcat_a5_table_generator_tpu_torch import cli\n"
@@ -3325,7 +3331,8 @@ SERVE_WRAPPER = (
     "rc = cli.main(sys.argv[1:])\n"
     "print(json.dumps({'launches': {k: v for m in (fused_expand, bytescan, "
     "buffer_hash) for k, v in m.LAUNCHES.items() if v}, "
-    "'group_launches': fuse.GROUP_LAUNCHES}), file=sys.stderr)\n"
+    "'group_launches': fuse.GROUP_LAUNCHES, "
+    "'group_lanes': fuse.GROUP_LANES}), file=sys.stderr)\n"
     "sys.exit(rc)\n")
 SETTLE = ("done", "paused", "cancelled", "failed")
 
@@ -3386,7 +3393,8 @@ class ServeProcess:
             fail(f"serve {self.name} exited {rc}: {err[-3000:]}")
         last = json.loads(err.strip().splitlines()[-1])
         return {"rc": rc, "wall_s": wall, "launches": last["launches"],
-                "group_launches": last["group_launches"]}
+                "group_launches": last["group_launches"],
+                "group_lanes": last["group_lanes"]}
 
 
 def per_job(events: list) -> dict:
@@ -3402,15 +3410,47 @@ def hit_tuples(evs: list) -> list:
             for e in evs if e["event"] == "hit"]
 
 
-def serve_tenants(work: str, paths: dict) -> list:
-    """Phase 10's 8 small tenants: 6 distinct slices of the crack recipe x
-    qwerty-cyrillic x MD5 and 2 of czech x NTLM, each with its own
-    :data:`SERVE_DIGESTS`-digest list of which about
+#: Phase 10's german tenants: word slices cut to plans of at most this
+#: many match slots (the slot count is a trailing shape of the packed
+#: tables, so two tenants fuse only at one count).
+GERMAN_SERVE_SLOTS = 6
+
+
+def german_serve_words(n: int) -> list:
+    """``n`` slices of :data:`SERVE_WORDS` words each for the german
+    tenants: the bench recipe with ss and sss (:func:`german_words`),
+    words of more than :data:`GERMAN_SERVE_SLOTS` match slots left out, so
+    every slice's plan has that slot count (checked by the tenants'
+    packed keys); the "sss" words stay, and no plan has a piece schema."""
+    from hashcat_a5_table_generator_tpu_torch.models.attack import (
+        AttackSpec, build_plan,
+    )
+    from hashcat_a5_table_generator_tpu_torch.ops.packing import pack_words
+    from hashcat_a5_table_generator_tpu_torch.tables.compile import (
+        compile_table,
+    )
+    from hashcat_a5_table_generator_tpu_torch.tables.layouts import (
+        get_layout,
+    )
+
+    pool = german_words((n + 1) * SERVE_WORDS, seed=51)
+    plan = build_plan(AttackSpec(), compile_table(
+        get_layout("german").to_substitution_map()), pack_words(pool))
+    slots = (np.asarray(plan.match_radix) > 1).sum(axis=1)
+    pool = [w for w, k in zip(pool, slots) if k <= GERMAN_SERVE_SLOTS]
+    return [pool[i * SERVE_WORDS:(i + 1) * SERVE_WORDS] for i in range(n)]
+
+
+def serve_tenants(work: str, paths: dict, german: bool = False) -> list:
+    """Phase 10's small tenants: 6 distinct slices of the crack recipe x
+    qwerty-cyrillic x MD5, 2 of czech x NTLM and, with ``german``, 2 of
+    german x MD5 (:func:`german_serve_words`: the byte-scan route), each
+    with its own :data:`SERVE_DIGESTS`-digest list of which about
     :data:`SERVE_PLANTED` are its candidates; written as files, with each
-    tenant's solo ``Sweep.run_crack`` on the card."""
+    tenant's solo ``Sweep.run_crack`` on the card and its route."""
     from hashcat_a5_table_generator_tpu_torch.cli import _read_digests
     from hashcat_a5_table_generator_tpu_torch.models.attack import (
-        AttackSpec, build_plan, decode_variant,
+        AttackSpec, build_plan,
     )
     from hashcat_a5_table_generator_tpu_torch.ops.packing import (
         pack_words, read_wordlist,
@@ -3420,6 +3460,9 @@ def serve_tenants(work: str, paths: dict) -> list:
     )
     from hashcat_a5_table_generator_tpu_torch.tables.compile import (
         compile_table,
+    )
+    from hashcat_a5_table_generator_tpu_torch.tables.layouts import (
+        emit_table, get_layout,
     )
     from hashcat_a5_table_generator_tpu_torch.tables.parser import (
         load_tables,
@@ -3432,33 +3475,41 @@ def serve_tenants(work: str, paths: dict) -> list:
         # The recipe's 6-10 letter words (not phase 4's long lines).
         return [w for w in read_wordlist(path) if len(w) <= 10]
 
-    pools = {"md5": (paths["cyrillic-md5"], recipe(
-        paths["cyrillic-md5"].wordlist), 6),
-        "ntlm": (paths["czech-ntlm"], recipe(paths["czech-ntlm"].wordlist),
-                 2)}
+    def slices(pool, n):
+        return [pool[i * SERVE_WORDS:(i + 1) * SERVE_WORDS]
+                for i in range(n)]
+
+    # (id prefix, algo, layout, table, word slices); the family's index
+    # seeds its planted digests.
+    pools = [("", "md5", "qwerty-cyrillic", paths["cyrillic-md5"].table,
+              slices(recipe(paths["cyrillic-md5"].wordlist), 6)),
+             ("", "ntlm", "czech", paths["czech-ntlm"].table,
+              slices(recipe(paths["czech-ntlm"].wordlist), 2))]
+    if german:
+        table = os.path.join(work, "serve-german.table")
+        emit_table(get_layout("german"), table)
+        pools.append(("german-", "md5", "german", table,
+                      german_serve_words(2)))
     tenants = []
-    for algo, (path, pool, n) in pools.items():
-        sub = load_tables([path.table])
+    for fam, (prefix, algo, layout, table, word_sets) in enumerate(pools):
+        sub = load_tables([table])
         ct = compile_table(sub)
         spec = AttackSpec(algo=algo)
-        for i in range(n):
-            words = pool[i * SERVE_WORDS:(i + 1) * SERVE_WORDS]
+        for i, words in enumerate(word_sets):
             plan = build_plan(spec, ct, pack_words(words))
-            rng = np.random.default_rng(1000 + 10 * i + (algo == "ntlm"))
+            rng = np.random.default_rng(1000 + 10 * i + fam)
             rows = [r for r in rng.permutation(len(words))
                     if plan.n_variants[r] >= 2][:SERVE_PLANTED]
             # The first word hits too: every tenant's first hit comes in
             # its first superstep (the churn session cancels on it).
             rows = [next(r for r in range(len(words))
                          if plan.n_variants[r] >= 2)] + rows[1:]
-            planted = [HOST_DIGEST[algo](decode_variant(
-                plan, ct, spec, int(r),
-                1 + int(rng.integers(0, plan.n_variants[r] - 1))))
-                for r in rows]
+            planted = [HOST_DIGEST[algo](planted_variant(
+                plan, ct, spec, int(r), rng)) for r in rows]
             decoys = rng.integers(0, 256, size=(SERVE_DIGESTS - len(planted),
                                                 len(planted[0])),
                                   dtype=np.uint8)
-            name = f"{algo}-{i}"
+            name = f"{prefix}{algo}-{i}"
             wl = os.path.join(work, f"serve-{name}.words.txt")
             dg = os.path.join(work, f"serve-{name}.digests.txt")
             with open(wl, "wb") as fh:
@@ -3467,15 +3518,35 @@ def serve_tenants(work: str, paths: dict) -> list:
                 fh.write("".join(d.hex() + "\n" for d in planted))
                 fh.write("".join(bytes(d).hex() + "\n" for d in decoys))
             t = time.monotonic()
-            res = Sweep(spec, sub, read_wordlist(wl), _read_digests(dg, algo),
-                        SweepConfig(device=SERVE_DEVICE)).run_crack()
+            sweep = Sweep(spec, sub, read_wordlist(wl),
+                          _read_digests(dg, algo),
+                          SweepConfig(device=SERVE_DEVICE))
+            res = sweep.run_crack()
             tenants.append({
-                "id": name, "algo": algo, "table": path.table,
+                "id": name, "algo": algo, "layout": layout, "table": table,
                 "wordlist": wl, "digests": dg, "solo_s": time.monotonic() - t,
                 "solo": [(h.word_index, h.variant_rank, h.candidate.hex(),
                           h.digest_hex) for h in res.hits],
-                "solo_emitted": res.n_emitted})
+                "solo_emitted": res.n_emitted, "route": sweep.route,
+                "solo_kernels": res.kernels})
     return tenants
+
+
+def planted_variant(plan, ct, spec, row: int, rng) -> bytes:
+    """A random emitted candidate of plan row ``row`` (rank >= 1): ranks
+    the device does not emit (an overlap clash of german's ``ss`` in
+    "sss") are drawn again."""
+    from hashcat_a5_table_generator_tpu_torch.models.attack import (
+        decode_variant,
+    )
+
+    for _ in range(64):
+        rank = 1 + int(rng.integers(0, plan.n_variants[row] - 1))
+        try:
+            return decode_variant(plan, ct, spec, row, rank)
+        except ValueError:
+            continue
+    fail(f"serve: no emitted candidate found for plan row {row}")
 
 
 def submit_doc(t: dict, jid=None, **extra) -> dict:
@@ -3542,7 +3613,8 @@ def serve_session(work: str, name: str, tenants: list, crack: dict,
               "fused_groups_running": mid["fused_groups"],
               "jobs_active_running": mid["jobs_active"],
               "launches": out["launches"],
-              "group_launches": out["group_launches"], "job_wall_s": walls,
+              "group_launches": out["group_launches"],
+              "group_lanes": out["group_lanes"], "job_wall_s": walls,
               "serve_wall_s": out["wall_s"]}
     log(f"serve {name}: {len(ids)} jobs, every stream identical to its solo "
         f"run (the crack cell's to phase 4's stdout: {len(want)} hits, "
@@ -3560,7 +3632,7 @@ def churn_session(work: str, tenants: list) -> dict:
     cancelled on their first hit; the survivors, re-fused, paused — one
     resumed with the ``resume`` op, one resubmitted from its ``paused``
     checkpoint as a migrating job — each ending with its solo hits."""
-    cyr = [t for t in tenants if t["algo"] == "md5"]
+    cyr = [t for t in tenants if t["layout"] == "qwerty-cyrillic"]
     # Staging puts tenants 0-3 in one group of 4 and 4-5 in a group of 2:
     # cancelling 0, 1, 2 and 4 thins both (fill 1/4 and 1/2, below the
     # 0.6 threshold), so the survivors 3 and 5 re-fuse across groups.
@@ -3723,13 +3795,15 @@ def socket_session(t: dict, server) -> dict:
             "serve_wall_s": out["wall_s"]}
 
 
-def serve_inputs(work: str, paths: dict, runs: dict) -> tuple:
+def serve_inputs(work: str, paths: dict, runs: dict,
+                 german: bool = False) -> tuple:
     """Phase 10's inputs, which phase 11 reuses: its directory, the 8
-    tenants with their solo runs (:func:`serve_tenants`) and phase 4's
-    crack cell (its files, stdout and candidates hashed)."""
+    tenants (and, with ``german``, phase 10's 2 german ones) with their
+    solo runs (:func:`serve_tenants`) and phase 4's crack cell (its
+    files, stdout and candidates hashed)."""
     work = os.path.join(work, "serve")
     os.makedirs(work, exist_ok=True)
-    tenants = serve_tenants(work, paths)
+    tenants = serve_tenants(work, paths, german)
     log(f"serve: {len(tenants)} tenants, solo runs {[round(t['solo_s'], 2) for t in tenants]} s, "
         f"{[len(t['solo']) for t in tenants]} hits")
     crack = {"id": "crack-cell", "algo": "md5",
@@ -3746,8 +3820,9 @@ def serve_phase(work: str, paths: dict, runs: dict, card: str
     """Phase 10 (see the module docstring).  Returns the phase's numbers
     and its inputs (:func:`serve_inputs`), which phase 11 reuses."""
     t_phase = time.monotonic()
-    inputs = serve_inputs(work, paths, runs)
-    work, tenants, crack = inputs
+    work, tenants, crack = serve_inputs(work, paths, runs, german=True)
+    # Phase 11 takes the 8 tenants it always took.
+    inputs = (work, [t for t in tenants if t["layout"] != "german"], crack)
     # Do the two czech tenants share a packed key?
     from hashcat_a5_table_generator_tpu_torch.ops.packing import (
         read_wordlist,
@@ -3763,40 +3838,71 @@ def serve_phase(work: str, paths: dict, runs: dict, card: str
         load_tables,
     )
 
-    keys = []
-    czech = [t for t in tenants if t["algo"] == "ntlm"]
-    for t in czech:
-        sw = Sweep(AttackSpec(algo="ntlm"), load_tables([t["table"]]),
-                   read_wordlist(t["wordlist"]), [bytes(16)],
-                   SweepConfig(device=SERVE_DEVICE))
-        c = pack_candidate(sw)
-        keys.append(None if c is None else c["key"])
-    names = ("route", "tier", "spec", "lanes", "blocks", "stride", "steps",
-             "hit_cap", "out_width", "windowed", "devices", "pipeline",
-             "array shapes", "group descriptors", "schema structure",
-             "radix2", "pair", "decode", "pack_cb", "k_vals", "retries",
-             "fetch timeout")
-    czech_key = ("equal" if keys[0] == keys[1] else "differ in " + ", ".join(
-        n for n, x, y in zip(names, keys[0] or (), keys[1] or ()) if x != y))
+    def key_diff(layout: str, algo: str) -> str:
+        keys = []
+        for t in [t for t in tenants if t["layout"] == layout]:
+            sw = Sweep(AttackSpec(algo=algo), load_tables([t["table"]]),
+                       read_wordlist(t["wordlist"]), [bytes(16)],
+                       SweepConfig(device=SERVE_DEVICE))
+            c = pack_candidate(sw)
+            keys.append(None if c is None else c["key"])
+        names = ("route", "tier", "byte-scan tier", "spec", "lanes",
+                 "blocks", "stride", "steps", "hit_cap", "out_width",
+                 "windowed", "devices", "pipeline", "array shapes",
+                 "group descriptors", "schema structure", "radix2", "pair",
+                 "decode", "pack_cb", "k_vals", "retries", "fetch timeout")
+        return ("equal" if keys[0] == keys[1] else "differ in " + ", ".join(
+            n for n, x, y in zip(names, keys[0] or (), keys[1] or ())
+            if x != y))
+
+    czech_key = key_diff("czech", "ntlm")
     log(f"serve: the two czech x NTLM tenants' packed keys {czech_key}")
+    # The german tenants: the byte-scan route (no piece schema) and one
+    # packed key, so they fuse into one byte-scan group.
+    german = [t for t in tenants if t["layout"] == "german"]
+    german_key = key_diff("german", "md5")
+    if any(t["route"] != "bytescan" for t in german) or \
+            german_key != "equal":
+        fail(f"serve: the german tenants' routes "
+             f"{[t['route'] for t in german]} (byte-scan expected), packed "
+             f"keys {german_key} (equal expected)")
+    log(f"serve: the two german x MD5 tenants take the byte-scan route "
+        f"({[t['solo_kernels'] for t in german]} solo) and their packed "
+        f"keys are equal")
     report = {"czech_keys": czech_key}
     report["pack_auto"] = serve_session(work, "pack-auto", tenants, crack,
                                         ["--pack", "auto"])
     st = report["pack_auto"]
     # The fused groups' own launches: every packed dispatch launched the
-    # piece kernel (one launch a step), and nothing else.
+    # piece kernel or the byte-scan kernel (one launch a step), and
+    # nothing else; the german group launched the byte-scan kernel.
     grouped = st["group_launches"]
+    scan = {k: v for k, v in grouped.items()
+            if k.startswith("bytescan_") and k.endswith("/md5")}
     piece = sum(grouped.get(k, 0) for k in ("piece_k1/md5",
                                              "piece_pair/md5"))
-    if st["stats"]["packed_dispatches"] <= 0 or \
-            piece < st["stats"]["packed_dispatches"] or \
-            set(grouped) - {"piece_k1/md5", "piece_pair/md5"}:
+    if st["stats"]["packed_dispatches"] <= 0 or not scan or \
+            piece + sum(scan.values()) < st["stats"]["packed_dispatches"] \
+            or set(grouped) - {"piece_k1/md5", "piece_pair/md5"} - set(scan):
         fail(f"serve --pack auto: the fused groups' packed supersteps "
-             f"launched {grouped}, not piece_k1 / piece_pair at least once "
-             f"a packed dispatch ({st['stats']})")
+             f"launched {grouped}: not piece_k1 / piece_pair / bytescan_* "
+             f"at least once a packed dispatch, or no bytescan_*/md5 "
+             f"({st['stats']})")
     if any(k.startswith("buffer_hash") for k in st["launches"]):
         fail(f"serve --pack auto: launches on the XLA route "
              f"{st['launches']}")
+    lanes = {k: v for k, v in st["group_lanes"].items()
+             if k.startswith("bytescan_")}
+    report["german"] = {
+        "group_launches": scan,
+        "packed_fill": {k: occ / tot for k, (occ, tot) in lanes.items()},
+        "job_wall_s": {t["id"]: st["job_wall_s"][t["id"]] for t in german},
+        "solo_s": {t["id"]: t["solo_s"] for t in german}}
+    log(f"serve --pack auto: the german tenants' byte-scan group launched "
+        f"{scan}, packed_fill {report['german']['packed_fill']} "
+        f"(occupied / total lanes {lanes}); their walls "
+        f"{report['german']['job_wall_s']} s in the session, "
+        f"{report['german']['solo_s']} s solo")
     report["pack_off"] = serve_session(work, "pack-off", tenants, crack,
                                        ["--pack", "off"])
     if report["pack_off"]["stats"]["packed_dispatches"] != 0 or \

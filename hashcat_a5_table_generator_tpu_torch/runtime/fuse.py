@@ -16,10 +16,13 @@ runnable jobs' block ranges into one dispatch:
   (``ops.membership.digest_member_seg``), never the union, so packed hit
   counts equal solo ones by construction;
 * the members' per-word tables (plan fields, the piece tables, the decode
-  tables) are stacked row-wise and the packed launches run the same
-  kernel tier the members' solo sweeps run — the piece kernel
-  (``csrc/piece_hash.cu``) or the XLA expand + hash route, whose value
-  table pointers shift by each job's value-table base;
+  tables, the byte-scan tables) are stacked row-wise and the packed
+  launches run the same kernel tier the members' solo sweeps run — the
+  piece kernel (``csrc/piece_hash.cu``), the byte-scan kernel of one
+  ``ops.bytescan.ByteScanTier`` (``csrc/bytescan_hash.cu``; its option
+  words are copied per word, so nothing needs shifting) or the XLA
+  expand + hash route, whose value table pointers shift by each job's
+  value-table base;
 * hits land in one capped buffer tagged by packed plan row; the host maps
   rows back to jobs and hands each job the ``(word, rank)`` entries its
   solo sweep would have fetched.
@@ -31,9 +34,9 @@ through the solo drive's bookkeeping, so per-job streams and checkpoints
 are the solo ones.
 
 Eligibility is strict (:func:`pack_candidate`): streaming jobs, closed
-plans, pod jobs, a cursor off the stride, jobs the superstep drive does
-not take and byte-scan plans keep per-job dispatch; a K=2 job whose
-doubled stride overflows packs as K=1.  ``A5GEN_PACK=off`` (or
+plans, pod jobs, a cursor off the stride and jobs the superstep drive
+does not take keep per-job dispatch; a K=2 job whose doubled stride
+overflows packs as K=1.  ``A5GEN_PACK=off`` (or
 ``Engine(pack=False)``) gives every job per-job dispatch.
 
 Dynamic re-fuse: a departed tenant's segment parks as masked lanes, so
@@ -68,12 +71,18 @@ from .sweep import _get_step, _join_streams, _on, _pieces_static
 #: re-runs included), by the kernel wrappers' ``LAUNCHES`` keys: the part
 #: of those process-wide counts that ran packed.
 GROUP_LAUNCHES: Dict[str, int] = {}
+#: Candidate lanes of fused groups' packed dispatches by the groups'
+#: launch tier (``FusedGroup.tier``: ``piece_k1``, ``bytescan_scalar``,
+#: ...): ``[occupied, total]``, the per-tier share of the engine's
+#: ``packed_fill``.
+GROUP_LANES: Dict[str, List[int]] = {}
 
 
 def _launch_totals() -> Dict[str, int]:
-    from ..ops import buffer_hash, fused_expand
+    from ..ops import buffer_hash, bytescan, fused_expand
 
-    return {**fused_expand.LAUNCHES, **buffer_hash.LAUNCHES}
+    return {**fused_expand.LAUNCHES, **bytescan.LAUNCHES,
+            **buffer_hash.LAUNCHES}
 
 
 def _count_group_launches(before: Dict[str, int]) -> None:
@@ -118,7 +127,9 @@ def pack_candidate(sweep, resume_state=None) -> "Optional[dict]":
     route's value rows, zero-padded to the widest).  Every per-launch
     value the kernel takes from the schema is in it, through
     ``runtime.sweep._pieces_static``, the descriptor table and the
-    trailing shapes of every stacked array."""
+    trailing shapes of every stacked array; a byte-scan plan's whole
+    ``ByteScanTier`` (row, decode, variant, option count) is in it, so
+    two tiers never share a step."""
     cfg = sweep.config
     if sweep._stream is not None or sweep.plan is None:
         return None
@@ -132,7 +143,7 @@ def pack_candidate(sweep, resume_state=None) -> "Optional[dict]":
         # re-index the joint-closure rows.
         return None
     r = sweep._whole
-    if r is None or r.route not in ("piece", "xla"):
+    if r is None or r.route not in ("piece", "bytescan", "xla"):
         return None
     dev = sweep.device
     try:
@@ -170,7 +181,7 @@ def pack_candidate(sweep, resume_state=None) -> "Optional[dict]":
         arrays = xla_arrays(plan, sweep.ct, r.pieces, None, idx, device=cpu)
     else:
         arrays = device_arrays(plan, r.pieces, None, idx, device=cpu,
-                               ct=sweep.ct)
+                               ct=sweep.ct, bytescan=r.bytescan)
     for k in ("cum", "totals", "total"):
         arrays.pop(k, None)
     sig = tuple(
@@ -179,8 +190,8 @@ def pack_candidate(sweep, resume_state=None) -> "Optional[dict]":
     desc = arrays.get("desc")
     kw = g["kw"]
     key = (
-        r.route, g["tier"], sweep.spec, lanes, nb, stride, steps,
-        int(cfg.superstep_hit_cap), int(plan.out_width), kw["windowed"],
+        r.route, g["tier"], r.bytescan, sweep.spec, lanes, nb, stride,
+        steps, int(cfg.superstep_hit_cap), int(plan.out_width), kw["windowed"],
         tuple(stripes.devices), sweep._pipeline_depth(), sig,
         None if desc is None else desc.numpy().tobytes(),
         _pieces_static(r.pieces), kw["radix2"], pair_k, kw["decode"],
@@ -230,12 +241,15 @@ def _packed_digest_arrays(members: Sequence[dict]) -> Dict[str, np.ndarray]:
 
 def _packed_plan_tree(members: Sequence[dict]) -> Dict[str, torch.Tensor]:
     """The members' per-word tables stacked row-wise (host tensors): every
-    batch-leading array concatenates; the schema's descriptor table is
-    one for the group (the compatibility key pins it equal).  On the XLA
-    route the jobs' value tables concatenate too, each per-word value-row
-    pointer (``match_val_start`` / ``pat_val_start``) shifted by its job's
-    value-table base, narrow value rows zero-padded to the widest (rows
-    are read under ``val_len``, so the padding is never read)."""
+    batch-leading array concatenates — the byte-scan tables too, whose
+    option words are copied per word (``ops.bytescan.option_words``), so
+    members with different tables stack as they are; the schema's
+    descriptor table is one for the group (the compatibility key pins it
+    equal).  On the XLA route the jobs' value tables concatenate too,
+    each per-word value-row pointer (``match_val_start`` /
+    ``pat_val_start``) shifted by its job's value-table base, narrow
+    value rows zero-padded to the widest (rows are read under
+    ``val_len``, so the padding is never read)."""
     trees = [dict(m["arrays"]) for m in members]
     out: Dict[str, torch.Tensor] = {}
     if "val_bytes" in trees[0]:
@@ -582,6 +596,9 @@ class FusedGroup:
         total = (self.steps * self._lanes * len(self._devices)
                  * max(1, self.pair_k))
         self.last_fill = occupied / max(1, total)
+        tier_lanes = GROUP_LANES.setdefault(self.tier, [0, 0])
+        tier_lanes[0] += occupied
+        tier_lanes[1] += total
         telemetry.counter("engine.packed_dispatches").add(1)
         telemetry.counter("engine.packed_lanes_occupied").add(occupied)
         telemetry.counter("engine.packed_lanes_total").add(total)

@@ -1006,3 +1006,54 @@ def test_packed_group_on_the_gpu_equals_the_solo_runs(pair, cuda):
                                       h.candidate) for h in w.hits]
         assert g.n_emitted == w.n_emitted and g.n_hits > 0
         assert g.superstep.get("packed") == 2
+
+
+@pytest.mark.parametrize("table,env", [("german", ""), ("czech", "bytescan")])
+def test_packed_bytescan_group_on_the_gpu_equals_the_solo_runs(
+        table, env, cuda, monkeypatch):
+    """Two byte-scan tenants (german's "sss" words: row 7; czech under
+    ``A5GEN_EMIT=bytescan``: row 8) fused into one packed group on the
+    card: the group's packed supersteps launch the byte-scan kernel only
+    (overflow re-runs included: a hit cap of 8), and each job's hits and
+    candidate count equal its solo sweep's on the card."""
+    from hashcat_a5_table_generator_tpu_torch.runtime import fuse
+    from hashcat_a5_table_generator_tpu_torch.runtime.engine import Engine
+
+    monkeypatch.setenv("A5GEN_EMIT", env)
+    monkeypatch.setattr(fuse, "GROUP_LAUNCHES", {})
+    sub = get_layout(table).to_substitution_map()
+    words = (german_words(200, 3, 8, 62) if table == "german"
+             else letter_words(200, 2, 8, 63))
+    spec = AttackSpec()
+    c = SweepConfig(device="cuda", lanes=4096, num_blocks=32, superstep=2,
+                    superstep_hit_cap=8)
+    probe = Sweep(spec, sub, words, [], c)
+    assert probe.route == "bytescan"
+    jobs = []
+    for j, ws in enumerate((words, words[7:] + words[:7])):
+        digests = []
+        for row in range(j, len(words), 4):
+            try:
+                digests.append(hashlib.md5(decode_variant(
+                    probe.plan, probe.ct, spec, row,
+                    probe.plan.n_variants[row] // (2 + j))).digest())
+            except ValueError:  # a clash rank: not emitted
+                pass
+        jobs.append((ws, digests + [bytes([j]) * 16]))
+    want = [Sweep(spec, sub, w, d, c).run_crack() for w, d in jobs]
+    eng = Engine(c, auto=False)
+    handles = [eng.submit(spec, sub, w, d) for w, d in jobs]
+    eng.run_until_idle()
+    stats = eng.stats()
+    got = [h.result(timeout=0) for h in handles]
+    eng.close()
+    assert stats["packed_dispatches"] > 0
+    assert set(fuse.GROUP_LAUNCHES) == {probe.bytescan.launch_key("md5")}
+    assert fuse.GROUP_LAUNCHES[probe.bytescan.launch_key("md5")] >= \
+        2 * stats["packed_dispatches"]
+    for g, w in zip(got, want):
+        assert [(h.word_index, h.variant_rank, h.candidate)
+                for h in g.hits] == [(h.word_index, h.variant_rank,
+                                      h.candidate) for h in w.hits]
+        assert g.n_emitted == w.n_emitted and g.n_hits > 0
+        assert g.superstep.get("packed") == 2

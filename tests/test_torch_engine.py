@@ -9,14 +9,17 @@ step closure; pause, resume and cancel ride the checkpoint state; the
 JSONL service over stdin and a unix socket.  Then across packages: for
 the same JSONL job documents, each job's ``hit`` / ``done`` / ``error``
 events from the port's ``serve_stdio`` equal the reference's, per job id
-(the interleaving across jobs is not compared), in 4 modes with packing
-on and off; a job paused in one package's engine resumes in the other's
-from its ``paused`` checkpoint to the solo stream; ``a5gen serve`` run as
-a subprocess of each package gives the same per-job events; without a
-GPU, the port's ``a5gen serve`` exits non-zero instead of serving on the
-CPU.
+(the interleaving across jobs is not compared), in 4 modes and a
+byte-scan session (german's ``ss=ß`` on "sss" words) with packing on and
+off; the byte-scan tenants' packing numbers (fused groups, packed
+dispatches, fill) equal the reference engine's; a job paused in one
+package's engine resumes in the other's from its ``paused`` checkpoint
+to the solo stream; ``a5gen serve`` run as a subprocess of each package
+gives the same per-job events; without a GPU, the port's ``a5gen serve``
+exits non-zero instead of serving on the CPU.
 """
 
+import hashlib
 import io
 import json
 import os
@@ -51,6 +54,9 @@ from hashcat_a5_table_generator_tpu.runtime.engine import (
     serve_stdio as j_serve_stdio,
 )
 from hashcat_a5_table_generator_tpu_torch.models.attack import AttackSpec
+from hashcat_a5_table_generator_tpu_torch.oracle.engines import (
+    iter_candidates,
+)
 from hashcat_a5_table_generator_tpu_torch.runtime.checkpoint import (
     CheckpointState,
     SweepCursor,
@@ -65,11 +71,21 @@ from hashcat_a5_table_generator_tpu_torch.runtime.engine import (
 )
 from hashcat_a5_table_generator_tpu_torch.runtime.sinks import CandidateWriter
 from hashcat_a5_table_generator_tpu_torch.runtime.sweep import Sweep
+from hashcat_a5_table_generator_tpu_torch.tables.layouts import get_layout
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 LONG_WORDS = WORDS * 4
 MODES = ("default", "reverse", "suball", "suball-reverse")
 TABLE_MAP = {k.decode(): [v.decode() for v in vs] for k, vs in LEET.items()}
+#: The byte-scan session: german's ``ss=ß`` on words with "sss" (no piece
+#: schema: byte-scan row 7), default mode; the tenants are rotations of
+#: one list, so whichever two of them fuse, the group's fill is the same.
+GERMAN = get_layout("german").to_substitution_map()
+GERMAN_MAP = {k.decode(): [v.decode() for v in vs]
+              for k, vs in GERMAN.items()}
+GERMAN_WORDS = [b"schlosssee", b"strasse", b"mutter", b"flussstrand",
+                b"messstation", b"fitnessstudio", b"passstrasse", b"ausgang",
+                b"grosssegel", b"zuckertuete"] * 2
 
 
 def jcfg(**kw):
@@ -410,21 +426,42 @@ def _per_job(events):
     return out
 
 
+def _german_digests(words, i):
+    """Every third word's middle candidate and a tenant decoy."""
+    digests = []
+    for w in words[i::3]:
+        cands = list(iter_candidates(w, GERMAN, 1, 15))
+        digests.append(hashlib.md5(cands[len(cands) // 2]).digest())
+    return digests + [hashlib.md5(b"german-%d" % i).digest()]
+
+
 def _jobs_for(mode):
-    spec = AttackSpec(mode=mode)
-    words = LONG_WORDS
+    """Three tenants and a malformed submit; ``mode`` ``"german"`` is the
+    byte-scan session (:data:`GERMAN_WORDS`)."""
     docs = []
-    for i, ws in enumerate((words, words[::-1], words[2:] + words[:2])):
-        _p, dig = planted_digests(spec, ws, (0, 3 + i, -1), decoys=3)
-        docs.append(_submit_doc(f"{mode}-{i}", ws, dig, mode=mode))
+    if mode == "german":
+        for i in range(3):
+            ws = GERMAN_WORDS[3 * i:] + GERMAN_WORDS[:3 * i]
+            docs.append(_submit_doc(f"german-{i}", ws,
+                                    _german_digests(ws, i),
+                                    table_map=GERMAN_MAP))
+    else:
+        spec = AttackSpec(mode=mode)
+        words = LONG_WORDS
+        for i, ws in enumerate((words, words[::-1], words[2:] + words[:2])):
+            _p, dig = planted_digests(spec, ws, (0, 3 + i, -1), decoys=3)
+            docs.append(_submit_doc(f"{mode}-{i}", ws, dig, mode=mode))
     docs.append({"op": "submit", "id": f"{mode}-bad", "words": ["a"]})
     return docs
 
 
 @pytest.mark.parametrize("pack", [True, False])
-@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("mode", MODES + ("german",))
 def test_serve_stdio_events_equal_reference(mode, pack):
     docs = _jobs_for(mode)
+    if mode == "german":
+        assert Sweep(AttackSpec(), GERMAN, GERMAN_WORDS, [bytes(16)],
+                     config=cfg(superstep=1)).route == "bytescan"
     got = {}
     for name, mk, c, serve in (("t", Engine, cfg(superstep=1), serve_stdio),
                                ("j", JEngine, jcfg(superstep=1),
@@ -438,6 +475,34 @@ def test_serve_stdio_events_equal_reference(mode, pack):
     assert len(got["t"]) == 4
     assert all(any(e["event"] == "hit" for e in got["t"][d["id"]])
                for d in docs[:3])
+
+
+def test_bytescan_packing_stats_equal_reference():
+    """Byte-scan tenants pack as the reference's do: the german session's
+    three tenants admitted together into each package's engine give the
+    same ``fused_groups`` (two of them fused: 16 blocks do not split in
+    three), ``packed_dispatches`` and ``packed_fill``, and the same
+    per-job streams."""
+    docs = _jobs_for("german")[:3]
+    stats, hits = {}, {}
+    for name, mk, c, spec in (("t", Engine, cfg(superstep=1), AttackSpec()),
+                              ("j", JEngine, jcfg(superstep=1), JSpec())):
+        eng = mk(c, auto=False)
+        handles = [eng.submit(spec, GERMAN, [w.encode() for w in
+                                             d["words"]],
+                              [bytes.fromhex(x) for x in d["digest_list"]])
+                   for d in docs]
+        eng._admit()
+        fused = eng.stats()["fused_groups"]
+        eng.run_until_idle()
+        st = eng.stats()
+        stats[name] = (fused, st["packed_dispatches"], st["packed_fill"])
+        hits[name] = [full_hits(h.result(timeout=0)) for h in handles]
+        eng.close()
+    assert stats["t"] == stats["j"]
+    assert stats["t"][0] == 1 and stats["t"][1] > 0
+    assert hits["t"] == hits["j"]
+    assert all(hits["t"])
 
 
 @pytest.mark.parametrize("first", ["t", "j"])
